@@ -1,0 +1,56 @@
+"""Device dispatch timing and transfer accounting, slim.
+
+Port of tempo_tpu/util/devicetiming.py (timed_dispatch, count_transfer).
+A dispatch's wall clock closes only when its work is done: on CUDA the
+seam calls torch.cuda.synchronize() where the JAX package called
+jax.block_until_ready. Totals accumulate in a DeviceStats object
+(`STATS`); the Prometheus families arrive with the single
+binary slice.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import torch
+
+
+@dataclass
+class DeviceStats:
+    """Per-kernel dispatch counts, seconds and bytes moved."""
+
+    dispatches: dict = field(default_factory=dict)
+    seconds: dict = field(default_factory=dict)
+    h2d: dict = field(default_factory=dict)
+    d2h: dict = field(default_factory=dict)
+
+
+STATS = DeviceStats()
+
+
+def _add(d: dict, key: str, v) -> None:
+    d[key] = d.get(key, 0) + v
+
+
+def count_transfer(kernel: str, h2d: int = 0, d2h: int = 0) -> None:
+    """Account the bytes one dispatch moved host->device and back."""
+    if h2d:
+        _add(STATS.h2d, kernel, int(h2d))
+    if d2h:
+        _add(STATS.d2h, kernel, int(d2h))
+
+
+def timed_dispatch(kernel: str, fn, *args, device: torch.device, **kwargs):
+    """Run fn(*args, **kwargs) as one device dispatch and record its wall
+    clock, synchronising `device` first when it is a CUDA device so that
+    the time includes the work, not just its launch."""
+    t0 = time.perf_counter()
+    try:
+        out = fn(*args, **kwargs)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return out
+    finally:
+        _add(STATS.seconds, kernel, time.perf_counter() - t0)
+        _add(STATS.dispatches, kernel, 1)

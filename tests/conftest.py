@@ -30,3 +30,4 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running multi-process e2e tests")
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU; skips without one")
