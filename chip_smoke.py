@@ -7,18 +7,26 @@ Phases, one line each (any failure exits non-zero):
 
 0. device: card name, count, torch/CUDA versions, nvidia-smi name and
    power limit;
-1. build: nvcc builds csrc/kernels.cu (the three hand-written kernels);
+1. build: nvcc builds csrc/kernels.cu (the three hand-written kernels)
+   and ptxas reports each kernel's registers, static shared memory and
+   spills;
 2. kernels: each CUDA kernel against its plain PyTorch version on the
-   card, bit for bit, and timed (CUDA events, median of 25 launches)
-   beside its plain version, one PyTorch library call where there is
-   one, and its memory bound;
+   card, bit for bit, at the main path's shapes and at edge shapes, and
+   timed two ways: kernel time (device time alone: a CUDA graph of K
+   back-to-back launches of the C entry point into outputs allocated
+   and zeroed before the capture, replay time / K, median of 7 replays)
+   and path time (CUDA events around one whole wrapper call as the main
+   path makes it, median of 25), beside its plain version and one
+   PyTorch library call where there is one (both timed as path time),
+   and its bound;
 3. compaction: the flagship step (entry.entry) at 2**22 rows, bit-equal
    between the card and the CPU;
 4. metrics: three TraceQL query_range queries over 2**22 synthetic spans
    through the port's plan -> eval_batch -> accumulator -> wire ->
-   matrix pipeline, equal between the card and the CPU;
+   matrix pipeline, equal between the card and the CPU, with each
+   query's kernel launches and device-to-host bytes;
 5. scan: in_set_scan and u64_range_scan over the same 2**22 spans'
-   columns, against a numpy oracle.
+   columns, against a numpy oracle, then timed as in phase 2.
 
 Phases 3-4 are the main path and phase 5 the scan path: each is run
 with the kernels' launch counts set to 0 just before it, and every
@@ -31,6 +39,7 @@ prints no result. It imports nothing of JAX or of tempo_tpu.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import statistics
@@ -52,8 +61,9 @@ def check(cond, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def cuda_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median per-call device time of fn() in ms, by CUDA events."""
+def path_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
+    """Median time of one whole call of fn() in ms: CUDA events around
+    the call, so the host's dispatch, allocations and memsets count."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -66,6 +76,40 @@ def cuda_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def kernel_ms(torch, launches, k: int = 48, reps: int = 7) -> float:
+    """Device time of one launch in ms: each of `launches` enqueues the
+    kernel alone on its own inputs (its outputs exist already), a CUDA
+    graph holds k launches back to back taking them in turn, and the
+    median of reps replays is divided by k. The host's enqueue, slower
+    than a short kernel, stays out of the time. One launch finds its
+    inputs in L2 from the launch before; several copies of inputs larger
+    than L2 make every launch read them from HBM."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for launch in launches:
+            launch()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for i in range(k):
+            launches[i % len(launches)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / k)
+    del graph
     return statistics.median(times)
 
 
@@ -94,6 +138,7 @@ def main() -> int:
     from tempo_tpu_torch.model import synth
     from tempo_tpu_torch.ops import _build
     from tempo_tpu_torch.ops import pallas_kernels as pk
+    from tempo_tpu_torch.util.devicetiming import STATS
 
     dev = torch.device("cuda")
     seed = args.seed
@@ -110,8 +155,19 @@ def main() -> int:
     # ---------------------------------------------------------------- 1
     t0 = time.perf_counter()
     so = _build.build()
-    _build.lib()
+    lib = _build.lib()
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s ({os.path.basename(so)})", flush=True)
+    ptxas = _build.ptxas_report()
+    for kname, r in sorted(ptxas.items()):
+        print(f"phase 1 ptxas {kname}: {r.get('registers')} registers, "
+              f"{r.get('smem_static')} B static smem, spills {r.get('spill_stores')} B stored / "
+              f"{r.get('spill_loads')} B loaded", flush=True)
+    print("phase 1 dynamic smem: seg_bincount_kernel<weighted,0> (dense) 4 B a slot "
+          "(n_slots <= 49,152: up to 196,608 B, opted in above 48 KiB), <weighted,1> (hashed) "
+          "65,536 B; in_set_scan_kernel 4 B a code of its columns", flush=True)
+
+    def stream() -> int:
+        return torch.cuda.current_stream().cuda_stream
 
     # data shared by phases 2, 4 and 5: 64 batches of 8192 traces x 8 spans,
     # one minute apart (2**22 spans)
@@ -133,30 +189,53 @@ def main() -> int:
     # ---------------------------------------------------------------- 2
     rng = np.random.default_rng(seed)
 
-    def seg_case(label, slots_np, n_slots, w_np, record=False):
+    def seg_launch(s_d, w_d, n_slots, out):
+        """The C entry point alone, adding into `out`."""
+        w_ptr = None if w_d is None else w_d.data_ptr()
+
+        def go():
+            _build.check(lib.tt_seg_bincount(s_d.data_ptr(), w_ptr, s_d.numel(), n_slots,
+                                             out.data_ptr(), stream()), "seg_bincount")
+        return go
+
+    def seg_equal(label, s_d, n_slots, w_d):
+        want = pk._seg_bincount_plain(s_d, n_slots, w_d)
+        got = pk.seg_bincount(s_d, n_slots, weights=w_d)
+        check(torch.equal(got, want), f"seg_bincount {label}: kernel != plain")
+        pk.seg_bincount_into(got, s_d, n_slots, w_d)  # accumulates onto the first counts
+        check(torch.equal(got, 2 * want), f"seg_bincount_into {label}: kernel != 2 x plain")
+        return want
+
+    seg_times = {}
+
+    def seg_case(label, slots_np, n_slots, w_np):
         s_d = torch.from_numpy(slots_np).to(dev)
         w_d = None if w_np is None else torch.from_numpy(w_np).to(dev)
-        got = pk.seg_bincount(s_d, n_slots, weights=w_d)
-        want = pk._seg_bincount_plain(s_d, n_slots, w_d)
-        check(torch.equal(got, want), f"seg_bincount {label}: kernel != plain")
+        seg_equal(label, s_d, n_slots, w_d)
         n = len(slots_np)
-        if n == 0:
-            print(f"phase 2 seg_bincount {label}: equal (no launch)", flush=True)
-            return
-        ms = cuda_ms(torch, lambda: pk._seg_bincount_cuda(s_d, n_slots, w_d))
-        plain = cuda_ms(torch, lambda: pk._seg_bincount_plain(s_d, n_slots, w_d))
+        out = torch.zeros(n_slots, dtype=torch.int64, device=dev)
+        ms = kernel_ms(torch, [seg_launch(s_d, w_d, n_slots, out)])
+        # the main path's call: the accumulator's vector already exists
+        path = path_ms(torch, lambda: pk.seg_bincount_into(out, s_d, n_slots, w_d))
+        plain = path_ms(torch, lambda: pk._seg_bincount_plain(s_d, n_slots, w_d))
         live = (s_d >= 0) & (s_d < n_slots)
         s_live = s_d[live].to(torch.int64)
         w_live = None if w_d is None else w_d[live].to(torch.float64)
-        lib = cuda_ms(torch, lambda: torch.bincount(s_live, weights=w_live, minlength=n_slots))
-        nbytes = n * 4 * (1 if w_np is None else 2) + n_slots * 8
+        libms = path_ms(torch, lambda: torch.bincount(s_live, weights=w_live, minlength=n_slots))
+        # the work this input needs: every row read once, and each counter
+        # it touches read and written once (the kernel adds into `out`)
+        touched = int(torch.unique(s_live).numel())
+        nbytes = n * 4 * (1 if w_np is None else 2) + touched * 16
         bnd, by = bound_ms(nbytes, n)
-        print(f"phase 2 seg_bincount {label}: equal | kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"torch.bincount {lib:.4f} ms, bound {bnd:.4f} ms ({by})", flush=True)
-        if record:
-            kernels["seg_bincount"] = dict(
-                shape=f"N={n} n_slots={n_slots} weights={'yes' if w_np is not None else 'no'}",
-                max_abs_err=0, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib)
+        seg_times[label] = dict(
+            shape=f"N={n} n_slots={n_slots} weights={'yes' if w_np is not None else 'no'} "
+                  f"touched={touched}",
+            max_abs_err=0, ms=ms, path_ms=path, plain_ms=plain, bound_ms=bnd, bound_by=by,
+            library_ms=libms)
+        print(f"phase 2 seg_bincount {label}: equal | kernel {ms:.4f} ms "
+              f"({bnd / ms:.0%} of bound), path {path:.4f} ms, plain {plain:.4f} ms, "
+              f"torch.bincount {libms:.4f} ms, bound {bnd:.4f} ms ({by}; {touched} slots "
+              f"touched)", flush=True)
 
     n22 = 1 << 22
     for n_slots in (3840, 990_720, 1 << 22):
@@ -164,8 +243,6 @@ def main() -> int:
         w = rng.integers(1, 9, n22).astype(np.int32)
         seg_case(f"synthetic N=2^22 n_slots={n_slots} weighted", slots, n_slots, w)
         seg_case(f"synthetic N=2^22 n_slots={n_slots}", slots, n_slots, None)
-    seg_case("N=0", np.zeros(0, np.int32), 3840, None)
-    seg_case("N=1", np.array([7], np.int32), 3840, np.array([3], np.int32))
     # the main path's own flush inputs: 16 batches (2**20 spans) of each query
     for qi, q in enumerate(queries):
         plan = plan_of(q)
@@ -173,9 +250,34 @@ def main() -> int:
         raw = np.concatenate([M.eval_batch(plan, b, b.dictionary, series).slots
                               for b in batches[:16]])
         slots, w = pk.compress_slot_runs(raw)
-        seg_case(f"main-path flush of query {qi} ({len(raw)} rows -> {len(slots)} entries, "
-                 f"n_slots={plan.n_slots})", slots.astype(np.int32), plan.n_slots, w,
-                 record=(qi == 2))
+        seg_case(("rate", "count", "quantile")[qi] + " flush", slots.astype(np.int32),
+                 plan.n_slots, w)
+        print(f"  (query {qi}: {len(raw)} rows -> {len(slots)} entries, n_slots={plan.n_slots})",
+              flush=True)
+
+    # edge shapes, kernel against plain: n_slots at and around each arm's
+    # threshold, N from 1 row to 2**20, weights negative and >= 2**16,
+    # every row dropped, and inputs that are views at an odd offset
+    edge_slots = (1, 6143, 6144, 6145, (1 << 15) - 1, 1 << 15, (1 << 15) + 1,
+                  49151, 49152, 49153, 990_720, 1 << 22)
+    n_edge = 0
+    big_w = np.array([65535, 65536, -65535, -65536, 2**31 - 1, -2**31, 70000, -7], np.int32)
+    for n_slots in edge_slots:
+        for n in (1, 3, 4097, 1 << 20):
+            s_np = rng.integers(-3, n_slots + 3, n + 2).astype(np.int32)
+            w_np = rng.integers(-9, 10, n + 2).astype(np.int32)
+            w_np[::7] = big_w[np.arange(len(w_np[::7])) % len(big_w)]
+            s_d, w_d = torch.from_numpy(s_np).to(dev), torch.from_numpy(w_np).to(dev)
+            seg_equal(f"edge n_slots={n_slots} N={n}", s_d[:n], n_slots, None)
+            seg_equal(f"edge n_slots={n_slots} N={n} weighted", s_d[:n], n_slots, w_d[:n])
+            seg_equal(f"edge n_slots={n_slots} N={n} views +1/+2", s_d[1:n + 1], n_slots,
+                      w_d[2:n + 2])
+            dropped = torch.where(s_d[:n] >= 0, s_d[:n] + n_slots, s_d[:n])
+            check(not bool(seg_equal(f"edge n_slots={n_slots} N={n} all dropped", dropped,
+                                     n_slots, w_d[:n]).any()), "all-dropped rows counted")
+            n_edge += 4
+    print(f"phase 2 seg_bincount edge shapes: {n_edge} cases equal "
+          f"(n_slots {', '.join(map(str, edge_slots))}; N 1, 3, 4097, 2^20)", flush=True)
 
     C, S, n_pad = 4, 8, 1 << 20
     cols_np = [rng.integers(0, 40, n_pad).astype(np.uint32) for _ in range(C)]
@@ -183,19 +285,39 @@ def main() -> int:
     cols = [torch.from_numpy(c) for c in cols_np]
     sets_ = [torch.from_numpy(rng.choice(40, size=s, replace=False).astype(np.uint32))
              for s in (8, 5, 8, 3)]
+
+    def in_set_equal(label, cols_h, sets_h, n_pad):
+        """Wrapper on the card (kernel) against the wrapper on the CPU (plain)."""
+        got = pk.in_set_scan([c.to(dev) for c in cols_h], [s.to(dev) for s in sets_h],
+                             n_pad).cpu()
+        check(torch.equal(got, pk.in_set_scan(cols_h, sets_h, n_pad)),
+              f"in_set_scan {label}: kernel != plain")
+        return got
+
     for n in (n_pad, n_pad - 777):
-        dcols = [c[:n].to(dev) for c in cols]
-        got = pk.in_set_scan(dcols, [s.to(dev) for s in sets_], n_pad).cpu()
-        want = pk.in_set_scan([c[:n] for c in cols], sets_, n_pad)
-        check(torch.equal(got, want), f"in_set_scan n={n}: kernel != plain")
+        in_set_equal(f"n={n}", [c[:n] for c in cols], sets_, n_pad)
+    mixed_np = [rng.integers(0, 40, n_pad + 9).astype(dt)
+                for dt in (np.uint32, np.uint16, np.int64, np.int16, np.uint8, np.int32)]
+    mixed_np[3][:50] = -1  # int16 -1 is 0xFFFFFFFF as uint32
+    mixed = [torch.from_numpy(c) for c in mixed_np]
+    mixed_sets = [torch.from_numpy(rng.choice(40, size=s, replace=False).astype(np.uint32))
+                  for s in (20, 30, 25, 33, 28, 31)]
+    for n in (n_pad, n_pad - 5, 1000, 1):
+        for off in (0, 1, 3):
+            got = in_set_equal(f"mixed dtypes n={n} offset={off}",
+                               [c[off:off + n] for c in mixed], mixed_sets, n_pad)
+            check(not bool(got[n:].any()), "in_set_scan rows past n")
+    nine = [mixed[i % 6][i:i + 5000] for i in range(9)]
+    in_set_equal("C=9", nine, [mixed_sets[i % 6] for i in range(9)], 5120)
     u16 = torch.from_numpy(np.full(n_pad, 500, np.uint16))
-    got = pk.in_set_scan([u16.to(dev)], [torch.tensor([500]).to(dev)], n_pad).cpu()
-    check(bool(got.all()), "in_set_scan uint16 column")
-    got = pk.in_set_scan([torch.arange(n_pad).to(dev)],
-                         [torch.tensor([int(pk.NO_MATCH_CODE)]).to(dev)], n_pad).cpu()
-    check(not bool(got.any()), "in_set_scan sentinel code set")
-    print("phase 2 in_set_scan: C=4 S=8 n_pad=2^20 (full and ragged), uint16, sentinel: equal",
-          flush=True)
+    check(bool(in_set_equal("uint16", [u16], [torch.tensor([500])], n_pad).all()),
+          "in_set_scan uint16 column")
+    check(not bool(in_set_equal("sentinel set", [torch.arange(n_pad)],
+                                [torch.tensor([int(pk.NO_MATCH_CODE)])], n_pad).any()),
+          "in_set_scan sentinel code set")
+    print("phase 2 in_set_scan: C=4 S=8 n_pad=2^20 (full and ragged); uint32/uint16/int64/"
+          "int16/uint8/int32 columns at offsets 0, 1, 3 with n = n_pad, n_pad-5, 1000, 1; C=9; "
+          "uint16; sentinel: equal", flush=True)
 
     lo_b, hi_b = (7 << 32) | 0xFFFFFFFF, (9 << 32)
     v = rng.integers(0, 12 << 32, n_pad, dtype=np.int64)
@@ -245,18 +367,26 @@ def main() -> int:
     query_ms = []
     for q in queries:
         before = pk.seg_bincount.launches
+        d2h_before = STATS.d2h.get("seg_bincount", 0)
         got, wall, acc = run_query(q, "cuda")
+        launches = pk.seg_bincount.launches - before
+        d2h = STATS.d2h.get("seg_bincount", 0) - d2h_before
         check(isinstance(acc, M.DeviceAccumulator), "cuda query did not take the device path")
-        check(pk.seg_bincount.launches > before, f"{q}: seg_bincount did not launch")
+        check(launches > 0, f"{q}: seg_bincount did not launch")
         want, cpu_wall, _ = run_query(q, "cpu")
         check(got == want, f"{q}: cuda matrix != cpu matrix")
         check(len(got["result"]) > 0, f"{q}: empty result")
         query_ms.append(wall * 1e3)
         print(f"phase 4 metrics: {q} | {len(got['result'])} series, cuda == cpu | "
-              f"query {wall * 1e3:.1f} ms ({acc.dispatches} seg_bincount launches), "
+              f"query {wall * 1e3:.1f} ms, {launches} seg_bincount launches, "
+              f"{d2h} B device-to-host ({d2h / (acc.plan.n_slots * 8):g} count vectors), "
               f"cpu pipeline {cpu_wall * 1e3:.1f} ms", flush=True)
-    kernels.setdefault("seg_bincount", {})["launches"] = pk.seg_bincount.launches
     check(pk.seg_bincount.launches > 0, "main path: seg_bincount never launched")
+    kernels["seg_bincount"] = dict(seg_times["quantile flush"],
+                                   launches=pk.seg_bincount.launches,
+                                   flush_ms={k.split()[0]: seg_times[k]["ms"]
+                                             for k in ("rate flush", "count flush",
+                                                       "quantile flush")})
 
     # ---------------------------------------------------------------- 5
     for k in (pk.seg_bincount, pk.in_set_scan, pk.u64_range_scan):
@@ -271,12 +401,13 @@ def main() -> int:
         np.array([500], np.uint32),
     ]
     n_rows = len(cat["service"])
-    scan_cols = [torch.from_numpy(cat[k]).to(dev)
-                 for k in ("service", "name", "http_method", "http_status")]
-    scan_sets = [torch.from_numpy(c).to(dev) for c in want_codes]
+    scan_keys = ("service", "name", "http_method", "http_status")
+    scan_cols = [torch.from_numpy(cat[k]).to(dev) for k in scan_keys]
+    # the codes come from the host dictionary, as a search caller has them
+    scan_sets = [torch.from_numpy(c) for c in want_codes]
     hit = pk.in_set_scan(scan_cols, scan_sets, n_rows).cpu().numpy()
     oracle = np.ones(n_rows, bool)
-    for k, c in zip(("service", "name", "http_method", "http_status"), want_codes):
+    for k, c in zip(scan_keys, want_codes):
         oracle &= np.isin(cat[k].astype(np.uint32), c)
     check(np.array_equal(hit, oracle), "scan path: in_set_scan != numpy oracle")
     lo_ns, hi_ns = 100_000_000, 500_000_000
@@ -292,16 +423,33 @@ def main() -> int:
           f"{int(hit.sum())} rows, duration in [100ms, 500ms] -> {int(rng_hit.sum())} rows; "
           f"both equal the numpy oracle", flush=True)
 
-    # time the scan kernels at the scan path's shapes
+    # time the scan kernels at the scan path's shapes, each launch on one of
+    # three copies of the columns (> 2 x L2), as a scan over resident
+    # columns finds them: in HBM
+    codes = pk._code_table(scan_sets).to(dev)
+    s_pad = codes.shape[1]
+    widths = (ctypes.c_int32 * 4)(*(c.element_size() for c in scan_cols))
+    copies = [scan_cols] + [[c.view(torch.uint8).clone().view(c.dtype) for c in scan_cols]
+                            for _ in range(2)]
+    in_set_outs = [torch.empty(n_rows, dtype=torch.bool, device=dev) for _ in copies]
+
+    def in_set_launch(cols_, out_):
+        ptrs = (ctypes.c_void_p * 4)(*(c.data_ptr() for c in cols_))
+
+        def go():
+            _build.check(lib.tt_in_set_scan(ptrs, widths, 0, 4, codes.data_ptr(), s_pad, n_rows,
+                                            n_rows, out_.data_ptr(), stream()), "in_set_scan")
+        return go
+
+    in_set_launches = [in_set_launch(c, o) for c, o in zip(copies, in_set_outs)]
+    in_set_launches[0]()
+    check(np.array_equal(in_set_outs[0].cpu().numpy(), oracle),
+          "in_set_scan kernel at the scan shape != numpy oracle")
+    ms = kernel_ms(torch, in_set_launches)
+    ms_warm = kernel_ms(torch, in_set_launches[:1])
+    path = path_ms(torch, lambda: pk.in_set_scan(scan_cols, scan_sets, n_rows))
+    plain = path_ms(torch, lambda: pk._in_set_plain(scan_cols, codes, n_rows))
     mat = torch.stack([pk.u32_bits(c) for c in scan_cols])
-    s_pad = 4
-    codes = torch.full((4, s_pad), -1, dtype=torch.int32, device=dev)
-    for c, cs in enumerate(scan_sets):
-        codes[c, : cs.shape[0]] = pk.u32_bits(cs)
-    check(torch.equal(pk._in_set_cuda(mat, codes, n_rows), pk._in_set_plain(mat, codes, n_rows)),
-          "in_set_scan at the scan shape: kernel != plain")
-    ms = cuda_ms(torch, lambda: pk._in_set_cuda(mat, codes, n_rows))
-    plain = cuda_ms(torch, lambda: pk._in_set_plain(mat, codes, n_rows))
 
     def isin_chain():
         m = torch.isin(mat[0], codes[0])
@@ -309,26 +457,47 @@ def main() -> int:
             m &= torch.isin(mat[c], codes[c])
         return m
 
-    lib = cuda_ms(torch, isin_chain)
-    bnd, by = bound_ms(4 * n_rows * 4 + codes.numel() * 4 + n_rows, 4 * s_pad * n_rows)
-    kernels["in_set_scan"] = dict(shape=f"C=4 S={s_pad} n_pad={n_rows}", max_abs_err=0, ms=ms,
-                                  plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
+    libms = path_ms(torch, isin_chain)
+    del copies, mat
+    in_bytes = sum(c.numel() * c.element_size() for c in scan_cols)
+    bnd, by = bound_ms(in_bytes + codes.numel() * 4 + n_rows, 4 * s_pad * n_rows)
+    kernels["in_set_scan"] = dict(shape=f"C=4 S={s_pad} n_pad={n_rows} "
+                                  f"({'/'.join(str(c.dtype).split('.')[1] for c in scan_cols)})",
+                                  max_abs_err=0, ms=ms, ms_l2_warm=ms_warm, path_ms=path,
+                                  plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=libms,
                                   launches=scan_launches["in_set_scan"])
-    print(f"phase 5 in_set_scan timing: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"torch.isin chain {lib:.4f} ms, bound {bnd:.4f} ms ({by})", flush=True)
+    print(f"phase 5 in_set_scan timing: kernel {ms:.4f} ms ({bnd / ms:.0%} of bound; "
+          f"{ms_warm:.4f} ms with its inputs in L2), path {path:.4f} ms, plain {plain:.4f} ms, "
+          f"torch.isin chain {libms:.4f} ms, bound {bnd:.4f} ms ({by})", flush=True)
 
-    hi, lo = pk.range_limbs(dur, n_rows)
     bounds = (lo_ns >> 32, lo_ns & 0xFFFFFFFF, hi_ns >> 32, hi_ns & 0xFFFFFFFF)
-    check(torch.equal(pk._range_cuda(hi, lo, bounds, n_rows),
-                      pk._range_plain(hi, lo, bounds, n_rows)),
+    limbs = [pk.range_limbs(dur, n_rows) for _ in range(3)]
+    range_outs = [torch.empty(n_rows, dtype=torch.bool, device=dev) for _ in limbs]
+
+    def range_launch(hi, lo, out_):
+        def go():
+            _build.check(lib.tt_u64_range_scan(hi.data_ptr(), lo.data_ptr(), lo_ns, hi_ns,
+                                               n_rows, n_rows, out_.data_ptr(), stream()),
+                         "u64_range_scan")
+        return go
+
+    range_launches = [range_launch(hi, lo, o) for (hi, lo), o in zip(limbs, range_outs)]
+    range_launches[0]()
+    hi, lo = limbs[0]
+    check(torch.equal(range_outs[0], pk._range_plain(hi, lo, bounds, n_rows)),
           "u64_range_scan at the scan shape: kernel != plain")
-    ms = cuda_ms(torch, lambda: pk._range_cuda(hi, lo, bounds, n_rows))
-    plain = cuda_ms(torch, lambda: pk._range_plain(hi, lo, bounds, n_rows))
+    ms = kernel_ms(torch, range_launches)
+    ms_warm = kernel_ms(torch, range_launches[:1])
+    path = path_ms(torch, lambda: pk.u64_range_scan(dur, lo_ns, hi_ns, n_rows))
+    plain = path_ms(torch, lambda: pk._range_plain(hi, lo, bounds, n_rows))
+    del limbs
     bnd, by = bound_ms(9 * n_rows, 2 * n_rows)
     kernels["u64_range_scan"] = dict(shape=f"n_pad={n_rows}", max_abs_err=0, ms=ms,
-                                     plain_ms=plain, bound_ms=bnd, bound_by=by,
-                                     library_ms=None, launches=scan_launches["u64_range_scan"])
-    print(f"phase 5 u64_range_scan timing: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                                     ms_l2_warm=ms_warm, path_ms=path, plain_ms=plain,
+                                     bound_ms=bnd, bound_by=by, library_ms=None,
+                                     launches=scan_launches["u64_range_scan"])
+    print(f"phase 5 u64_range_scan timing: kernel {ms:.4f} ms ({bnd / ms:.0%} of bound; "
+          f"{ms_warm:.4f} ms with its inputs in L2), path {path:.4f} ms, plain {plain:.4f} ms, "
           f"bound {bnd:.4f} ms ({by})", flush=True)
 
     replaces = {
@@ -340,7 +509,8 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": "tempo_tpu_torch/csrc/kernels.cu",
          "replaces": replaces[k], **kernels[k]}
         for k in ("seg_bincount", "in_set_scan", "u64_range_scan")
-    ], "compaction_step_ms": statistics.median(step_s) * 1e3, "query_ms": query_ms}
+    ], "ptxas": ptxas, "compaction_step_ms": statistics.median(step_s) * 1e3,
+        "query_ms": query_ms}
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -11,7 +11,8 @@ range-vector partial:
 
 Counts are integers and merge by addition, so the host numpy fold
 (HostAccumulator) and the CUDA kernel behind DeviceAccumulator
-(ops/pallas_kernels.seg_bincount) produce the same vector bit for bit.
+(ops/pallas_kernels.seg_bincount, adding every flush into one count
+vector on the card) produce the same vector bit for bit.
 Filters and field expressions reuse the vectorized TraceQL evaluator
 (traceql/vector.py). Block evaluation (evaluate_block) arrives with the
 encoding slice.
@@ -25,7 +26,7 @@ import torch
 
 from tempo_tpu_torch import device as _device
 from tempo_tpu_torch.metrics_engine.plan import MetricsPlan
-from tempo_tpu_torch.ops.pallas_kernels import compress_slot_runs, seg_bincount
+from tempo_tpu_torch.ops.pallas_kernels import compress_slot_runs, seg_bincount_into
 from tempo_tpu_torch.ops.sketch import np_hist_quantile
 from tempo_tpu_torch.traceql import vector
 from tempo_tpu_torch.util.devicetiming import count_transfer, timed_dispatch
@@ -247,7 +248,9 @@ class DeviceAccumulator(HostAccumulator):
     time bin, so consecutive slot ids repeat — compress_slot_runs
     collapses them to (slot, weight) pairs), and one seg_bincount
     launch on `device` folds many row groups at once. On CUDA that is
-    the hand-written kernel; on the CPU its plain version."""
+    the hand-written kernel; on the CPU its plain version. Every flush
+    of a query adds into one int64 count vector that stays on `device`;
+    merged_counts copies it to the host once."""
 
     def __init__(self, plan: MetricsPlan, series: SeriesTable | None = None,
                  flush_rows: int = 1 << 20, device=None):
@@ -255,6 +258,7 @@ class DeviceAccumulator(HostAccumulator):
         self.device = _device.resolve(device)
         self._buf: list = []
         self._buf_rows = 0
+        self._dev_counts: torch.Tensor | None = None  # counts not yet on the host
         self.flush_rows = flush_rows
         self.dispatches = 0
 
@@ -281,14 +285,19 @@ class DeviceAccumulator(HostAccumulator):
                else torch.from_numpy(np.ascontiguousarray(weights, np.int32)).to(self.device))
         count_transfer("seg_bincount",
                        h2d=d_slots.numel() * 4 + (0 if d_w is None else d_w.numel() * 4))
-        out = timed_dispatch("seg_bincount", seg_bincount, d_slots, self.plan.n_slots,
-                             weights=d_w, device=self.device)
-        self.counts += out.cpu().numpy()
-        count_transfer("seg_bincount", d2h=out.numel() * 8)
+        if self._dev_counts is None:
+            self._dev_counts = torch.zeros(self.plan.n_slots, dtype=torch.int64,
+                                           device=self.device)
+        timed_dispatch("seg_bincount", seg_bincount_into, self._dev_counts, d_slots,
+                       self.plan.n_slots, weights=d_w, device=self.device)
         self.dispatches += 1
 
     def merged_counts(self) -> np.ndarray:
         self.flush()
+        if self._dev_counts is not None:
+            self.counts += self._dev_counts.cpu().numpy()
+            count_transfer("seg_bincount", d2h=self._dev_counts.numel() * 8)
+            self._dev_counts = None
         return self.counts
 
 

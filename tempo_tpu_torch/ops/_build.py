@@ -4,7 +4,9 @@ nvcc compiles the source into a shared library with a plain C interface,
 tagged with a hash of the source, under tempo_tpu_torch/_build/ (listed
 in .gitignore); ctypes loads it. The build runs at first use, never at
 import, so the CPU tests import every module without nvcc. A failed
-build raises: there is no fallback.
+build raises: there is no fallback. ptxas reports each kernel's
+registers, static shared memory and spills (`-Xptxas -v`); the report
+is kept beside the library and read by `ptxas_report()`.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -20,7 +23,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "csrc", "kernels.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -31,7 +34,8 @@ _I64 = ctypes.c_int64
 _U64 = ctypes.c_uint64
 _SIGNATURES = {
     "tt_seg_bincount": [_P, _P, _I64, _I32, _P, _P],
-    "tt_in_set_scan": [_P, _P, _I32, _I32, _I64, _I64, _P, _P],
+    "tt_in_set_scan": [ctypes.POINTER(_P), ctypes.POINTER(_I32), ctypes.c_uint32, _I32, _P,
+                       _I32, _I64, _I64, _P, _P],
     "tt_u64_range_scan": [_P, _P, _U64, _U64, _I64, _I64, _P, _P],
 }
 
@@ -60,8 +64,49 @@ def build() -> str:
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    with open(f"{so}.ptxas.txt", "w") as f:
+        f.write(proc.stderr)
     os.replace(tmp, so)
     return so
+
+
+def _kernel_name(mangled: str) -> str:
+    """`_ZN<len><namespace><len><name>[ILb1ELb0EE]...` -> `name` or `name<1,0>`."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    rest = mangled[m.end() + int(m.group(1)):]
+    m = re.match(r"(\d+)", rest)
+    if not m:
+        return mangled
+    name = rest[m.end():m.end() + int(m.group(1))]
+    tmpl = re.match(r"I((?:Lb\dE)+)E", rest[m.end() + int(m.group(1)):])
+    return f"{name}<{','.join(re.findall(r'Lb(\d)E', tmpl.group(1)))}>" if tmpl else name
+
+
+def ptxas_report() -> dict:
+    """{kernel: {"registers", "smem_static", "spill_stores", "spill_loads"}}
+    from the ptxas report of the current build, by kernel name (bool
+    template arguments written as <0,1>)."""
+    report: dict = {}
+    cur = None
+    with open(f"{build()}.ptxas.txt") as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                cur = report.setdefault(_kernel_name(m.group(1)), {})
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                cur["smem_static"] = int(sm.group(1)) if sm else 0
+    return report
 
 
 def lib() -> ctypes.CDLL:

@@ -12,11 +12,14 @@ for tensors that lie on the CPU; for CUDA tensors it launches the
 kernel or raises. Each wrapper counts its kernel launches in a plain
 integer attribute, `<wrapper>.launches`.
 
-uint32 data reaches the kernels as int32 tensors with the same bits
-(`u32_bits`), since torch's uint32 dtype lacks most operators.
+seg_bincount and u64_range_scan take uint32 data as int32 tensors with
+the same bits (`u32_bits`), since torch's uint32 dtype lacks most
+operators; in_set_scan reads integer columns of any width where they lie.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -25,7 +28,7 @@ from tempo_tpu_torch.ops import _build
 
 TILE = 1024
 NO_MATCH_CODE = np.uint32(0xFFFFFFFF)  # sentinel code: matches no dictionary entry
-_MAX_CODE_TABLE = 48 * 1024 // 4  # C*S codes that fit the kernel's shared memory
+_MAX_CODE_TABLE = 48 * 1024 // 4  # codes of one launch that fit its shared memory
 
 
 def u32_bits(x: torch.Tensor) -> torch.Tensor:
@@ -67,35 +70,58 @@ def _route(kernel: str, t: torch.Tensor) -> str:
 # ---------------------------------------------------------------------------
 
 
+def _seg_bincount_plain_into(out: torch.Tensor, slots: torch.Tensor, n_slots: int,
+                             weights: torch.Tensor | None) -> None:
+    """Plain version, adding into out: out[s] += w for slots in [0, n_slots)."""
+    live = (slots >= 0) & (slots < n_slots)
+    idx = torch.where(live, slots, 0).to(torch.int64)
+    w = (live.to(torch.int64) if weights is None
+         else torch.where(live, weights.to(torch.int64), 0))
+    out.index_add_(0, idx, w)
+
+
 def _seg_bincount_plain(slots: torch.Tensor, n_slots: int,
                         weights: torch.Tensor | None) -> torch.Tensor:
     """Plain version: counts[s] += w for slots in [0, n_slots); int64."""
-    live = (slots >= 0) & (slots < n_slots)
-    idx = torch.where(live, slots.to(torch.int64), n_slots)  # trash slot
-    w = (torch.ones_like(idx) if weights is None else weights.to(torch.int64))
-    out = torch.zeros(n_slots + 1, dtype=torch.int64, device=slots.device)
-    out.index_add_(0, idx, w)
-    return out[:n_slots]
+    out = torch.zeros(n_slots, dtype=torch.int64, device=slots.device)
+    _seg_bincount_plain_into(out, slots, n_slots, weights)
+    return out
 
 
-def _seg_bincount_cuda(slots: torch.Tensor, n_slots: int,
-                       weights: torch.Tensor | None) -> torch.Tensor:
+def _seg_bincount_cuda(out: torch.Tensor, slots: torch.Tensor, n_slots: int,
+                       weights: torch.Tensor | None) -> None:
     if slots.dtype != torch.int32 or (weights is not None and weights.dtype != torch.int32):
         raise TypeError("seg_bincount: slots and weights must be int32")
-    if weights is not None and weights.shape != slots.shape:
-        raise ValueError("seg_bincount: weights and slots differ in shape")
-    if not 0 < n_slots < 2**31:
-        raise ValueError(f"seg_bincount: n_slots {n_slots} out of range")
-    _check_cuda("seg_bincount", slots, *(() if weights is None else (weights,)))
+    _check_cuda("seg_bincount", out, slots, *(() if weights is None else (weights,)))
     lib = _build.lib()
-    out = torch.zeros(n_slots, dtype=torch.int64, device=slots.device)
     with torch.cuda.device(slots.device):
         err = lib.tt_seg_bincount(
             slots.data_ptr(), None if weights is None else weights.data_ptr(),
             slots.numel(), n_slots, out.data_ptr(), _stream(slots))
     _build.check(err, "seg_bincount")
     seg_bincount.launches += 1
-    return out
+
+
+def seg_bincount_into(out: torch.Tensor, slots: torch.Tensor, n_slots: int,
+                       weights: torch.Tensor | None = None) -> None:
+    """seg_bincount that adds its counts into `out`, an (n_slots,) int64
+    vector on the slots' device, in place of returning a fresh one: the
+    metrics accumulator folds every flush of a query into one vector that
+    stays on the card. An empty input launches nothing."""
+    if slots.ndim != 1:
+        raise ValueError("seg_bincount: slots must be 1-D")
+    if weights is not None and weights.shape != slots.shape:
+        raise ValueError("seg_bincount: weights and slots differ in shape")
+    if not 0 < n_slots < 2**31:
+        raise ValueError(f"seg_bincount: n_slots {n_slots} out of range")
+    if out.dtype != torch.int64 or out.shape != (n_slots,):
+        raise ValueError(f"seg_bincount: out must be ({n_slots},) int64")
+    if slots.shape[0] == 0:
+        return
+    if _route("seg_bincount", slots) == "cpu":
+        _seg_bincount_plain_into(out, slots, n_slots, weights)
+    else:
+        _seg_bincount_cuda(out, slots, n_slots, weights)
 
 
 def seg_bincount(slots: torch.Tensor, n_slots: int,
@@ -105,13 +131,9 @@ def seg_bincount(slots: torch.Tensor, n_slots: int,
     given. Negative ids and ids >= n_slots are dropped. slots, weights:
     (N,) int32 on one device. Returns (n_slots,) int64 on that device;
     the counts are exact integers at any size."""
-    if slots.ndim != 1:
-        raise ValueError("seg_bincount: slots must be 1-D")
-    if slots.shape[0] == 0:
-        return torch.zeros(n_slots, dtype=torch.int64, device=slots.device)
-    if _route("seg_bincount", slots) == "cpu":
-        return _seg_bincount_plain(slots, n_slots, weights)
-    return _seg_bincount_cuda(slots, n_slots, weights)
+    out = torch.zeros(n_slots, dtype=torch.int64, device=slots.device)
+    seg_bincount_into(out, slots, n_slots, weights)
+    return out
 
 
 seg_bincount.launches = 0
@@ -144,29 +166,63 @@ def compress_slot_runs(slots: np.ndarray, max_fraction: float = 0.75):
 # fused multi-column in-set scan
 # ---------------------------------------------------------------------------
 
+# integer dtypes the kernel reads in place: element bytes, signed
+_IN_PLACE = {
+    torch.bool: (1, False), torch.uint8: (1, False), torch.int8: (1, True),
+    torch.uint16: (2, False), torch.int16: (2, True),
+    torch.uint32: (4, False), torch.int32: (4, False),
+    torch.uint64: (8, False), torch.int64: (8, False),
+}
+_MAX_KERNEL_COLS = 8  # columns one launch takes; more take further launches
 
-def _in_set_plain(mat: torch.Tensor, codes: torch.Tensor, n: int) -> torch.Tensor:
-    """Plain version: mat (C, n_pad), codes (C, S) uint32 bits ->
-    (n_pad,) bool, AND over c of (mat[c, r] in codes[c]), False from row n."""
-    hit = (mat[:, :, None] == codes[:, None, :]).any(dim=2).all(dim=0)
-    hit[n:] = False
-    return hit
+
+def _code_table(code_sets: list[torch.Tensor]) -> torch.Tensor:
+    """(C, S) int32 table of uint32 code bits, each row padded with
+    NO_MATCH_CODE to one power-of-two width S, built on the device of the
+    first code set."""
+    s_pad = 1
+    while s_pad < max(cs.shape[0] for cs in code_sets):
+        s_pad <<= 1
+    dev = code_sets[0].device
+    codes = torch.full((len(code_sets), s_pad), -1, dtype=torch.int32, device=dev)
+    for c, cs in enumerate(code_sets):
+        codes[c, : cs.shape[0]] = u32_bits(cs.to(dev))
+    return codes
 
 
-def _in_set_cuda(mat: torch.Tensor, codes: torch.Tensor, n: int) -> torch.Tensor:
-    if mat.dtype != torch.int32 or codes.dtype != torch.int32:
-        raise TypeError("in_set_scan: columns and codes must be int32 bit patterns")
-    C, n_pad = mat.shape
-    if codes.shape[0] != C or C * codes.shape[1] > _MAX_CODE_TABLE:
+def _in_set_plain(cols: list[torch.Tensor], codes: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """Plain version: cols C (n,) integer tensors, codes (C, S) uint32 bits
+    -> (n_pad,) bool, AND over c of (cols[c][r] in codes[c]), False from row n."""
+    n = cols[0].shape[0]
+    hit = torch.ones(n, dtype=torch.bool, device=codes.device)
+    for c, col in enumerate(cols):
+        hit &= (u32_bits(col)[:, None] == codes[c][None, :]).any(dim=1)
+    out = torch.zeros(n_pad, dtype=torch.bool, device=codes.device)
+    out[:n] = hit
+    return out
+
+
+def _in_set_cuda(cols: list[torch.Tensor], codes: torch.Tensor, n_pad: int) -> torch.Tensor:
+    C, s_pad = codes.shape
+    if codes.dtype != torch.int32:
+        raise TypeError("in_set_scan: codes must be int32 bit patterns")
+    if min(C, _MAX_KERNEL_COLS) * s_pad > _MAX_CODE_TABLE:
         raise ValueError(f"in_set_scan: code table {tuple(codes.shape)} does not fit")
-    _check_cuda("in_set_scan", mat, codes)
+    # integer columns are read where they lie, at their own width; others
+    # (float) become uint32 bits first, as u32_bits gives them
+    cols = [(c if c.dtype in _IN_PLACE else u32_bits(c)).contiguous() for c in cols]
+    _check_cuda("in_set_scan", codes, *cols)
+    widths = [_IN_PLACE[c.dtype][0] for c in cols]
+    sign = sum(1 << i for i, c in enumerate(cols) if _IN_PLACE[c.dtype][1])
     lib = _build.lib()
-    out = torch.empty(n_pad, dtype=torch.bool, device=mat.device)
-    with torch.cuda.device(mat.device):
-        err = lib.tt_in_set_scan(mat.data_ptr(), codes.data_ptr(), C, codes.shape[1],
-                                 n_pad, n, out.data_ptr(), _stream(mat))
+    out = torch.empty(n_pad, dtype=torch.bool, device=codes.device)
+    with torch.cuda.device(codes.device):
+        err = lib.tt_in_set_scan((ctypes.c_void_p * C)(*(c.data_ptr() for c in cols)),
+                                 (ctypes.c_int32 * C)(*widths), sign, C, codes.data_ptr(),
+                                 s_pad, cols[0].shape[0], n_pad, out.data_ptr(),
+                                 _stream(codes))
     _build.check(err, "in_set_scan")
-    in_set_scan.launches += 1
+    in_set_scan.launches += -(-C // _MAX_KERNEL_COLS)
     return out
 
 
@@ -183,20 +239,14 @@ def in_set_scan(cols: list[torch.Tensor], code_sets: list[torch.Tensor],
         raise ValueError("in_set_scan: need one code set per column")
     if n_pad % TILE:
         raise ValueError(f"in_set_scan: n_pad {n_pad} is not a multiple of {TILE}")
-    dev = cols[0].device
     n = cols[0].shape[0]
-    mat = torch.full((C, n_pad), -1, dtype=torch.int32, device=dev)  # NO_MATCH_CODE
-    for c, col in enumerate(cols):
-        mat[c, :n] = u32_bits(col)
-    s_pad = 1
-    while s_pad < max(cs.shape[0] for cs in code_sets):
-        s_pad <<= 1
-    codes = torch.full((C, s_pad), -1, dtype=torch.int32, device=dev)
-    for c, cs in enumerate(code_sets):
-        codes[c, : cs.shape[0]] = u32_bits(cs.to(dev))
-    if _route("in_set_scan", mat) == "cpu":
-        return _in_set_plain(mat, codes, n)
-    return _in_set_cuda(mat, codes, n)
+    if any(c.ndim != 1 or c.shape[0] != n for c in cols) or n > n_pad:
+        raise ValueError(f"in_set_scan: columns must be 1-D of one length <= {n_pad}")
+    dev = cols[0].device
+    codes = _code_table(code_sets).to(dev)
+    if _route("in_set_scan", cols[0]) == "cpu":
+        return _in_set_plain(cols, codes, n_pad)
+    return _in_set_cuda(cols, codes, n_pad)
 
 
 in_set_scan.launches = 0

@@ -80,6 +80,34 @@ def test_seg_bincount_empty_does_not_launch():
     assert got.tolist() == [0] * 10 and pk.seg_bincount.launches == before
 
 
+@pytest.mark.parametrize("n_slots", [300, 990_720])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_seg_bincount_into_accumulates_like_separate_calls(n_slots, weighted):
+    # several flushes added into one vector == the sum of separate calls
+    # == the sum of the JAX numpy arm's vectors
+    rng = np.random.default_rng(n_slots + weighted)
+    out = torch.zeros(n_slots, dtype=torch.int64)
+    separate = torch.zeros(n_slots, dtype=torch.int64)
+    want = np.zeros(n_slots, np.int64)
+    for i, n in enumerate((1, 777, 5000, 0, 3)):
+        s = _slots(n, n_slots, 100 + i)
+        w = rng.integers(-70000, 70000, n).astype(np.int32) if weighted else None
+        s_t, w_t = torch.from_numpy(s), None if w is None else torch.from_numpy(w)
+        pk.seg_bincount_into(out, s_t, n_slots, w_t)
+        separate += pk.seg_bincount(s_t, n_slots, weights=w_t)
+        if n:
+            want += jpk.seg_bincount(s, n_slots, weights=w)
+    assert torch.equal(out, separate)
+    np.testing.assert_array_equal(want, out.numpy())
+
+
+@pytest.mark.parametrize("out", [torch.zeros(9, dtype=torch.int64),
+                                 torch.zeros(10, dtype=torch.int32)])
+def test_seg_bincount_into_refuses_a_wrong_output(out):
+    with pytest.raises(ValueError, match="out must be"):
+        pk.seg_bincount_into(out, torch.tensor([1, 2], dtype=torch.int32), 10)
+
+
 def test_wrappers_refuse_other_devices():
     meta = torch.zeros(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
@@ -152,6 +180,25 @@ def test_in_set_scan_uint16_column():
     assert got.all()
 
 
+def _mixed_columns(n, offset, seed):
+    """uint32, uint16 and int64 code columns (the int64 one with -1, which
+    is 0xFFFFFFFF as uint32), each a view starting `offset` rows in."""
+    rng = np.random.default_rng(seed)
+    full = [rng.integers(0, 40, n + offset).astype(dt) for dt in (np.uint32, np.uint16, np.int64)]
+    full[2][offset: offset + 9] = -1
+    return [c[offset:] for c in full]
+
+
+@pytest.mark.parametrize("n,offset", [(2048, 0), (2047, 1), (1000, 3), (1, 1), (1029, 5)])
+def test_in_set_scan_mixed_dtypes_views_and_ragged_n(n, offset):
+    cols = _mixed_columns(n, offset, n + offset)
+    sets_ = [np.array(s, np.uint32) for s in (range(0, 40, 2), range(25), [0xFFFFFFFF, *range(30)])]
+    n_pad = -(-n // pk.TILE) * pk.TILE
+    got = _in_set_both(cols, sets_, n_pad)
+    assert 0 < got.sum() < n or n == 1
+    assert not got[n:].any()
+
+
 @pytest.mark.parametrize("n", [1024, 1000])
 def test_in_set_scan_sentinel_value_matches_padding(n):
     # a column value 0xFFFFFFFF matches a code set padded with the same
@@ -220,3 +267,49 @@ def test_scan_kernels_match_plain(cuda_device):
     v = torch.from_numpy(rng.integers(0, 2**62, 5000))
     want = pk.u64_range_scan(v, 2**40, 2**61, 5120)
     assert torch.equal(pk.u64_range_scan(v.to(cuda_device), 2**40, 2**61, 5120).cpu(), want)
+
+
+# n_slots below, at and above the dense shared-memory arm's limit (49,152
+# slots), 2**15 (the TPU kernel's limit), the quantile query's 990,720 and
+# the plan's MAX_SLOTS
+_EDGE_SLOTS = [1, (1 << 15) - 1, 1 << 15, (1 << 15) + 1, 49_151, 49_152, 49_153, 990_720, 1 << 22]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_slots", _EDGE_SLOTS)
+@pytest.mark.parametrize("n", [1, 3, 4097, 1 << 20])
+def test_seg_bincount_kernel_edge_shapes(cuda_device, n_slots, n):
+    rng = np.random.default_rng(n_slots + n)
+    s = torch.from_numpy(rng.integers(-3, n_slots + 3, n + 2).astype(np.int32)).to(cuda_device)
+    w_np = rng.integers(-9, 10, n + 2).astype(np.int32)
+    w_np[::5] = np.resize(np.array([65535, 65536, -65536, 2**31 - 1, -2**31, 70000], np.int32),
+                          len(w_np[::5]))
+    w = torch.from_numpy(w_np).to(cuda_device)
+    dropped = torch.where(s >= 0, s + n_slots, s)
+    # aligned, weighted, views at odd offsets, every row dropped
+    for slots, weights in ((s[:n], None), (s[:n], w[:n]), (s[1:n + 1], w[2:n + 2]),
+                           (dropped[:n], w[:n])):
+        want = pk._seg_bincount_plain(slots, n_slots, weights)
+        before = pk.seg_bincount.launches
+        got = pk.seg_bincount(slots, n_slots, weights=weights)
+        assert pk.seg_bincount.launches == before + 1
+        assert torch.equal(got, want)
+        pk.seg_bincount_into(got, slots, n_slots, weights)
+        assert torch.equal(got, 2 * want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(1 << 20, 0), (1 << 20, 1), ((1 << 20) - 5, 3),
+                                      (1000, 1), (1, 1)])
+def test_in_set_scan_kernel_misaligned_and_ragged(cuda_device, n, offset):
+    # the views are taken on the card, so that they start `offset` rows
+    # past an aligned allocation
+    full = [torch.from_numpy(c).to(cuda_device) for c in _mixed_columns(n + offset, 0, n)]
+    cols = [c[offset:] for c in full]
+    sets_ = [torch.tensor(s) for s in (range(0, 40, 2), range(25), range(30))]
+    n_pad = -(-n // pk.TILE) * pk.TILE
+    want = pk.in_set_scan([c.cpu() for c in cols], sets_, n_pad)
+    before = pk.in_set_scan.launches
+    got = pk.in_set_scan(cols, sets_, n_pad)
+    assert pk.in_set_scan.launches == before + 1
+    assert torch.equal(got.cpu(), want)

@@ -12,6 +12,7 @@ from tempo_tpu import metrics_engine as JM
 from tempo_tpu.model import synth as jsynth
 from tempo_tpu_torch import metrics_engine as TM
 from tempo_tpu_torch.model import synth as tsynth
+from tempo_tpu_torch.util.devicetiming import STATS
 
 BASE_S = 1_700_000_000
 
@@ -70,6 +71,27 @@ def test_query_range_exemplars_match():
     want = _run(JM, jsynth, _jax_device, q, exemplars=2)
     assert want["exemplars"]
     assert _run(TM, tsynth, _port_device, q, exemplars=2) == want
+
+
+@pytest.mark.parametrize("q", ["{ } | rate() by (name)",
+                               "{ } | quantile_over_time(duration, 0.5, 0.99)"])
+def test_device_accumulator_copies_counts_to_host_once(q):
+    # several flushes add into one count vector on the device; the
+    # query copies it to the host once, and to_wire twice agrees
+    want = _run(JM, jsynth, _jax_device, q, flush_rows=400)
+    accs = []
+
+    def port_device(M, plan, flush_rows):
+        accs.append(M.DeviceAccumulator(plan, flush_rows=flush_rows, device="cpu"))
+        return accs[-1]
+
+    d2h = STATS.d2h.get("seg_bincount", 0)
+    assert _run(TM, tsynth, port_device, q, flush_rows=400) == want
+    acc = accs[0]
+    assert acc.dispatches > 1
+    assert STATS.d2h.get("seg_bincount", 0) - d2h == acc.plan.n_slots * 8
+    assert acc.to_wire() == acc.to_wire()
+    assert STATS.d2h.get("seg_bincount", 0) - d2h == acc.plan.n_slots * 8
 
 
 def test_make_accumulator_without_device_needs_cuda():
