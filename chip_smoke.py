@@ -26,26 +26,41 @@ Phases, one line each (any failure exits non-zero):
    matrix pipeline, equal between the card and the CPU, with each
    query's kernel launches and device-to-host bytes;
 5. scan: in_set_scan and u64_range_scan over the same 2**22 spans'
-   columns, against a numpy oracle, then timed as in phase 2.
+   columns, against a numpy oracle, then timed as in phase 2;
+6. blocks: the vtpu1 block lifecycle at a compactor job's size. Two
+   blocks of 2**20 spans (131,072 traces x 8 spans each; 1/8 of the
+   second block's traces are copies of the first's) are written with
+   their bloom and HLL built on the card and again on the CPU (every
+   stored object byte-equal), 1,000 present and 1,000 absent trace IDs
+   are found by ID in both (equal answers), the two blocks are compacted
+   with the merge plan and the sketch plane on the card and on the CPU
+   (byte-equal outputs, one trace per distinct ID) and with the native
+   k-way merge plan (the host figure), and the phase-4 queries run
+   through evaluate_block over the compacted block, card accumulator
+   against CPU accumulator.
 
-Phases 3-4 are the main path and phase 5 the scan path: each is run
-with the kernels' launch counts set to 0 just before it, and every
-kernel of the path must have launched. The script then prints one JSON
-line of per-kernel numbers, the nvidia-smi line, and last
-{"ok": true, "device": {...}}. Without a CUDA device it exits 1 and
-prints no result. It imports nothing of JAX or of tempo_tpu.
+Phases 3-4 are the main path, phase 5 the scan path and phase 6 the
+block path: each is run with the kernels' launch counts set to 0 just
+before it, and every kernel of the path must have launched. The script
+then prints one JSON line of per-kernel and per-phase numbers, the
+nvidia-smi line, and last {"ok": true, "device": {...}}. Without a CUDA
+device it exits 1 and prints no result. It imports nothing of JAX or of
+tempo_tpu.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import gzip
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import uuid
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores
@@ -119,10 +134,211 @@ def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def block_objects(root: str, tenant: str, block_id: str, drop_id: bool = False) -> dict:
+    """name -> comparable bytes of one stored block: index.json and
+    dict.bin gunzipped (their gzip header holds the clock), meta.json
+    without its block id when drop_id."""
+    d = os.path.join(root, tenant, block_id)
+    out = {}
+    for name in sorted(os.listdir(d)):
+        with open(os.path.join(d, name), "rb") as f:
+            raw = f.read()
+        if name in ("index.json", "dict.bin"):
+            raw = gzip.decompress(raw)
+        elif name == "meta.json" and drop_id:
+            meta = json.loads(raw)
+            meta.pop("block_id")
+            raw = json.dumps(meta, sort_keys=True).encode()
+        out[name] = raw
+    return out
+
+
+def check_same_blocks(a: dict, b: dict, what: str) -> None:
+    differ = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+    check(not differ, f"{what}: objects differ: {differ[:8]}")
+
+
+def blocks_phase(seed: int, queries: list, plan_of) -> dict:
+    """Phase 6, the block path: write, find by ID, compact and query
+    vtpu1 blocks on the card and on the CPU. Returns its numbers."""
+    import numpy as np
+
+    from tempo_tpu_torch import metrics_engine as M
+    from tempo_tpu_torch import native
+    from tempo_tpu_torch.backend import LocalBackend, TypedBackend
+    from tempo_tpu_torch.encoding.common import BlockConfig, CompactionOptions
+    from tempo_tpu_torch.encoding.vtpu import codec
+    from tempo_tpu_torch.encoding.vtpu.block import VtpuBackendBlock
+    from tempo_tpu_torch.encoding.vtpu.compactor import VtpuCompactor
+    from tempo_tpu_torch.encoding.vtpu.create import write_block
+    from tempo_tpu_torch.model import synth
+    from tempo_tpu_torch.model.columnar import SpanBatch
+    from tempo_tpu_torch.model.trace import combine_traces
+    from tempo_tpu_torch.ops import pallas_kernels as pk
+    from tempo_tpu_torch.util.devicetiming import STATS
+
+    cfg = BlockConfig()
+    tenant = "smoke"
+    devices = ("cuda", "cpu")
+    res: dict = {"codec": codec.resolve_codec("auto")}
+    print(f"phase 6 codec: 'auto' resolves to {res['codec']} (native library "
+          f"{'built' if native.lib() is not None else 'absent'})", flush=True)
+
+    # block A: 16 batches of 8192 traces x 8 spans, a minute apart, sorted
+    # by trace; block B: 14 such batches from other seeds plus every 8th
+    # trace of A (replication-factor copies): 2**20 spans each
+    t0 = time.perf_counter()
+
+    def batches(seed0: int, n: int) -> list:
+        return [synth.make_batch(8192, 8, seed=seed0 + i,
+                                 base_time_ns=(BASE_S + 60 * i) * 10**9) for i in range(n)]
+
+    a = SpanBatch.concat(batches(seed * 1000 + 100, 16)).sorted_by_trace()
+    _, seg_a = a.trace_boundaries()
+    b = SpanBatch.concat(batches(seed * 1000 + 200, 14)
+                         + [a.select(np.flatnonzero(seg_a % 8 == 0))]).sorted_by_trace()
+    ids = {k: x.cols["trace_id"][x.trace_boundaries()[0]] for k, x in (("a", a), ("b", b))}
+    n_distinct = len(np.unique(np.concatenate([ids["a"], ids["b"]]), axis=0))
+    check(a.num_spans == b.num_spans == 1 << 20, "phase 6 blocks are not 2**20 spans")
+    print(f"phase 6 data: blocks of {a.num_spans} and {b.num_spans} spans, "
+          f"{len(ids['a'])} + {len(ids['b'])} traces, {n_distinct} distinct "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_blocks_") as tmp:
+        roots = {dev: os.path.join(tmp, dev) for dev in devices}
+        backends = {dev: TypedBackend(LocalBackend(roots[dev])) for dev in devices}
+        block_ids = {"a": str(uuid.uuid4()), "b": str(uuid.uuid4())}
+
+        # ------------------------------------------------------------ write
+        metas, write_s = {}, {}
+        for dev in devices:
+            for k, batch in (("a", a), ("b", b)):
+                h2d0 = STATS.h2d.get("block_sketch", 0)
+                d2h0 = STATS.d2h.get("block_sketch", 0)
+                t0 = time.perf_counter()
+                metas[dev, k] = write_block([batch], tenant, backends[dev], cfg,
+                                            block_id=block_ids[k], device=dev)
+                write_s[f"{dev} {k}"] = time.perf_counter() - t0
+                print(f"phase 6 write {k} on {dev}: {write_s[f'{dev} {k}'] * 1e3:.0f} ms, "
+                      f"{metas[dev, k].total_records} row groups, {metas[dev, k].size_bytes} B "
+                      f"of pages, sketch H2D {STATS.h2d.get('block_sketch', 0) - h2d0} B, "
+                      f"D2H {STATS.d2h.get('block_sketch', 0) - d2h0} B, "
+                      f"est_distinct {metas[dev, k].est_distinct_traces}", flush=True)
+        for k in "ab":
+            check_same_blocks(block_objects(roots["cuda"], tenant, block_ids[k]),
+                              block_objects(roots["cpu"], tenant, block_ids[k]),
+                              f"block {k} written on cuda vs cpu")
+            check(metas["cuda", k].total_objects == len(ids[k]), f"block {k}: n_traces")
+        print("phase 6 write: blocks a and b byte-equal between cuda and cpu (data.bin, "
+              "bloom shards, meta.json; index and dictionary gunzipped)", flush=True)
+        res["write_ms"] = {k: v * 1e3 for k, v in write_s.items()}
+
+        # ------------------------------------------------------ find by ID
+        rng = np.random.default_rng(seed + 99)
+        present = np.concatenate([ids["a"][rng.choice(len(ids["a"]), 500, replace=False)],
+                                  ids["b"][rng.choice(len(ids["b"]), 500, replace=False)]])
+        known = {bytes(t) for t in np.concatenate([ids["a"], ids["b"]])}
+        absent = [t for t in rng.integers(0, 2**32, (1100, 4), dtype=np.uint32)
+                  if bytes(t) not in known][:1000]
+        check(len(absent) == 1000, "phase 6: could not draw 1000 absent IDs")
+
+        def find_all(dev, limbs_list):
+            blks = [VtpuBackendBlock(metas[dev, k], backends[dev], cfg) for k in "ab"]
+            out = []
+            t0 = time.perf_counter()
+            for limbs in limbs_list:
+                tid = np.asarray(limbs, np.uint32).astype(">u4").tobytes()
+                t = combine_traces([blk.find_trace_by_id(tid) for blk in blks])
+                out.append(None if t is None else (t.trace_id, repr(t.batches)))
+            return out, (time.perf_counter() - t0) / len(limbs_list) * 1e3
+
+        found, find_ms = {}, {}
+        for dev in devices:
+            found[dev, "present"], find_ms[f"{dev} present"] = find_all(dev, present)
+            found[dev, "absent"], find_ms[f"{dev} absent"] = find_all(dev, absent)
+        for kind in ("present", "absent"):
+            check(found["cuda", kind] == found["cpu", kind],
+                  f"find {kind}: cuda-written blocks answer unlike cpu-written ones")
+        for limbs, hit in zip(present, found["cuda", "present"]):
+            check(hit is not None and hit[0] == limbs.astype(">u4").tobytes()
+                  and hit[1].count("Span(") == 8, "find: a present trace was not found whole")
+        check(all(hit is None for hit in found["cuda", "absent"]), "find: an absent ID was found")
+        print(f"phase 6 find: 1000 present found whole, 1000 absent -> None, equal between "
+              f"cuda- and cpu-written blocks | {find_ms['cuda present']:.2f} ms a present ID, "
+              f"{find_ms['cuda absent']:.3f} ms an absent one (two blocks each)", flush=True)
+        res["find_ms"] = find_ms
+
+        # -------------------------------------------------------- compact
+        outs, compact_s = {}, {}
+        for dev, path in (("cuda", "device"), ("cpu", "device"), ("cuda", "auto")):
+            comp = VtpuCompactor(CompactionOptions(block_config=cfg, merge_path=path), device=dev)
+            t0 = time.perf_counter()
+            (outs[dev, path],) = comp.compact([metas[dev, "a"], metas[dev, "b"]], tenant,
+                                              backends[dev])
+            compact_s[f"{dev} {path}"] = time.perf_counter() - t0
+            out = outs[dev, path]
+            check(out.total_objects == n_distinct,
+                  f"compaction {dev} {path}: {out.total_objects} traces, {n_distinct} distinct")
+            sk = comp.sketcher
+            pads = comp.device_merge_pads
+            print(f"phase 6 compact on {dev}, merge_path {path}: "
+                  f"{compact_s[f'{dev} {path}'] * 1e3:.0f} ms, {out.total_spans} spans, "
+                  f"{out.total_objects} traces, {comp.spans_combined} spans combined | "
+                  f"{len(pads)} device merge calls (padded rows: "
+                  f"{', '.join(f'{p} x{pads.count(p)}' for p in sorted(set(pads)))}) | "
+                  f"sketch accumulator: {sk.launches} updates, H2D {sk.h2d_bytes} B, "
+                  f"D2H {sk.d2h_bytes} B", flush=True)
+            if path == "device":
+                res.setdefault("device_merge_calls", {})[dev] = len(pads)
+                res.setdefault("device_merge_padded_rows", {})[dev] = sum(pads)
+                check(pads, f"compaction on {dev}: the merge plan never ran on the device")
+            res.setdefault("sketch_bytes", {})[f"{dev} {path}"] = {
+                "h2d": sk.h2d_bytes, "d2h": sk.d2h_bytes, "updates": sk.launches}
+        ref = block_objects(roots["cpu"], tenant, outs["cpu", "device"].block_id, drop_id=True)
+        for dev, path in (("cuda", "device"), ("cuda", "auto")):
+            check_same_blocks(block_objects(roots[dev], tenant, outs[dev, path].block_id,
+                                            drop_id=True), ref,
+                              f"compacted block ({dev}, {path}) vs (cpu, device)")
+        print("phase 6 compact: outputs byte-equal between cuda and cpu (merge_path device) "
+              "and the native plan (auto)", flush=True)
+        res["compact_ms"] = {k: v * 1e3 for k, v in compact_s.items()}
+
+        # ---------------------------------------------------------- query
+        out_meta, be = outs["cuda", "device"], backends["cuda"]
+        res["query"] = []
+        for q in queries:
+            plan = plan_of(q)
+            row = {"query": q}
+            got = {}
+            for dev in devices:
+                before = pk.seg_bincount.launches
+                d2h0 = STATS.d2h.get("seg_bincount", 0)
+                t0 = time.perf_counter()
+                acc = M.evaluate_block(plan, VtpuBackendBlock(out_meta, be, cfg), device=dev)
+                merged = M.new_wire()
+                M.merge_wire(merged, acc.to_wire(), plan)
+                got[dev] = M.finalize_matrix(plan, merged)
+                row[f"{dev}_ms"] = (time.perf_counter() - t0) * 1e3
+                if dev == "cuda":
+                    check(isinstance(acc, M.DeviceAccumulator), f"{q}: not the card's accumulator")
+                    row["launches"] = pk.seg_bincount.launches - before
+                    row["d2h_bytes"] = STATS.d2h.get("seg_bincount", 0) - d2h0
+                    check(row["launches"] > 0, f"block query {q}: seg_bincount did not launch")
+            check(got["cuda"] == got["cpu"], f"block query {q}: cuda matrix != cpu matrix")
+            check(len(got["cuda"]["result"]) > 0, f"block query {q}: empty result")
+            print(f"phase 6 query: {q} | {len(got['cuda']['result'])} series, cuda == cpu | "
+                  f"{row['cuda_ms']:.1f} ms on the card ({row['launches']} seg_bincount "
+                  f"launches, {row['d2h_bytes']} B device-to-host), {row['cpu_ms']:.1f} ms "
+                  f"with the CPU accumulator", flush=True)
+            res["query"].append(row)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_script = time.perf_counter()
 
     import torch
 
@@ -500,6 +716,23 @@ def main() -> int:
           f"{ms_warm:.4f} ms with its inputs in L2), path {path:.4f} ms, plain {plain:.4f} ms, "
           f"bound {bnd:.4f} ms ({by})", flush=True)
 
+    # ---------------------------------------------------------------- 6
+    for k in (pk.seg_bincount, pk.in_set_scan, pk.u64_range_scan):
+        k.launches = 0
+    t0 = time.perf_counter()
+    before_s = t0 - t_script
+    blocks = blocks_phase(seed, queries, plan_of)
+    blocks["launches"] = {"seg_bincount": pk.seg_bincount.launches,
+                          "in_set_scan": pk.in_set_scan.launches,
+                          "u64_range_scan": pk.u64_range_scan.launches}
+    check(pk.seg_bincount.launches > 0, "block path: seg_bincount never launched")
+    blocks["phase_s"] = time.perf_counter() - t0
+    blocks["phases_0_5_s"] = before_s
+    kernels["seg_bincount"]["launches_block_path"] = pk.seg_bincount.launches
+    print(f"phase 6 blocks: {blocks['phase_s']:.1f} s (phases 0-5: {before_s:.1f} s), "
+          f"seg_bincount launched "
+          f"{pk.seg_bincount.launches} times on the block path", flush=True)
+
     replaces = {
         "seg_bincount": "tempo_tpu/ops/pallas_kernels.py:194",
         "in_set_scan": "tempo_tpu/ops/pallas_kernels.py:55",
@@ -510,7 +743,7 @@ def main() -> int:
          "replaces": replaces[k], **kernels[k]}
         for k in ("seg_bincount", "in_set_scan", "u64_range_scan")
     ], "ptxas": ptxas, "compaction_step_ms": statistics.median(step_s) * 1e3,
-        "query_ms": query_ms}
+        "query_ms": query_ms, "blocks": blocks, "script_s": time.perf_counter() - t_script}
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -13,6 +13,7 @@ from tempo_tpu_torch.metrics_engine.evaluate import (  # noqa: F401
     HostAccumulator,
     SeriesTable,
     eval_batch,
+    evaluate_block,
     finalize_matrix,
     make_accumulator,
     merge_wire,

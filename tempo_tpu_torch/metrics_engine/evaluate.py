@@ -14,8 +14,9 @@ Counts are integers and merge by addition, so the host numpy fold
 (ops/pallas_kernels.seg_bincount, adding every flush into one count
 vector on the card) produce the same vector bit for bit.
 Filters and field expressions reuse the vectorized TraceQL evaluator
-(traceql/vector.py). Block evaluation (evaluate_block) arrives with the
-encoding slice.
+(traceql/vector.py). evaluate_block folds a stored vtpu1 block into an
+accumulator, zone-map pruned, with filters answered in encoded space
+where the pages allow (rg_eval_view).
 """
 
 from __future__ import annotations
@@ -25,7 +26,9 @@ import numpy as np
 import torch
 
 from tempo_tpu_torch import device as _device
+from tempo_tpu_torch.encoding.vtpu.block import _lower_condition, zone_maps_enabled
 from tempo_tpu_torch.metrics_engine.plan import MetricsPlan
+from tempo_tpu_torch.model.columnar import ATTR_COLUMNS, _empty_cols
 from tempo_tpu_torch.ops.pallas_kernels import compress_slot_runs, seg_bincount_into
 from tempo_tpu_torch.ops.sketch import np_hist_quantile
 from tempo_tpu_torch.traceql import vector
@@ -93,21 +96,26 @@ def _format_group_value(kind, v, d) -> str:
     return str(int(f)) if f.is_integer() else repr(f)
 
 
-def eval_batch(plan: MetricsPlan, batch, dictionary, series: SeriesTable) -> EvalResult:
-    """One span batch (SpanBatch) -> combined slot ids. Exact:
-    filters/fields evaluate on the vectorized TraceQL path, identical to
-    what search would match. (The JAX package's `premask`, a filter mask
-    computed in a block's encoded space, arrives with the encoding
-    slice.)"""
+def eval_batch(plan: MetricsPlan, batch, dictionary, series: SeriesTable,
+               premask: np.ndarray | None = None) -> EvalResult:
+    """One row group (ColumnView) or span batch (SpanBatch) -> combined
+    slot ids. Exact: filters/fields evaluate on the vectorized TraceQL
+    path, identical to what search would match.
+
+    premask: the filter-stage mask already computed in encoded (run/
+    dictionary) space — vector.encoded_filter_mask guarantees it equals
+    what the stages below would produce, so the filter columns are never
+    expanded to rows."""
     n = batch.num_spans
     empty = EvalResult(np.empty(0, np.int64), np.empty(0, np.int64), None, 0)
     if n == 0:
         return empty
     ctx = vector._Ctx(batch=batch, d=dictionary, n=n)
 
-    mask = None
-    for st in plan.filters:
-        mask = vector._spanset_mask(st, ctx, base=mask)
+    mask = premask
+    if mask is None:
+        for st in plan.filters:
+            mask = vector._spanset_mask(st, ctx, base=mask)
     if mask is None:
         mask = np.ones(n, bool)
 
@@ -307,6 +315,103 @@ def make_accumulator(plan: MetricsPlan, device=None) -> HostAccumulator:
     CPU. device=None means CUDA, and raises when CUDA is absent."""
     dev = _device.resolve(device)
     return DeviceAccumulator(plan, device=dev) if dev.type == "cuda" else HostAccumulator(plan)
+
+
+# ---------------------------------------------------------------------------
+# block evaluation
+# ---------------------------------------------------------------------------
+
+
+def _lower_prunes(plan: MetricsPlan, dictionary):
+    """(resolvers, impossible): zone-map prune hooks for the filter
+    conditions, exactly the fetch_candidates lowering — sound because
+    conditions are the necessary predicates of the filter stages."""
+    spec = plan.pipeline.conditions()
+    resolvers = []
+    for cond in spec.conditions:
+        r = _lower_condition(cond, dictionary)
+        if r == "impossible":
+            if spec.all_conditions:
+                return [], True
+            continue  # OR: this arm matches nothing; others may match
+        if r is None:
+            if not spec.all_conditions:
+                # OR with an opaque arm: pruning on the remaining arms
+                # would drop spans only the opaque arm matches (same
+                # guard as fetch_candidates' fetch_all)
+                return [], False
+            continue
+        resolvers.append(r)
+    return resolvers, False
+
+
+def rg_prunes(plan: MetricsPlan, rg, resolvers, all_conditions: bool) -> bool:
+    """True when time range or zone maps prove the row group contributes
+    nothing (zero backend reads)."""
+    if rg.end_s < plan.start_s or rg.start_s > plan.end_s:
+        return True
+    hooks = [r.prune(rg) for r in resolvers if getattr(r, "prune", None) is not None]
+    if all_conditions:
+        return any(hooks)
+    return bool(hooks) and len(hooks) == len(resolvers) and all(hooks)
+
+
+def rg_eval_view(plan: MetricsPlan, blk, rg, d):
+    """(view, premask, dead) for one surviving row group: the filter
+    stages are tried in ENCODED space first (vector.encoded_filter_mask
+    over the row group's rle/dct pages — filter columns never expand);
+    a dead premask means nothing in the group can match and NO column
+    needs decoding at all. The view is lazy either way, so the rest of
+    evaluation (bins, by(), value exprs) decodes exactly the columns it
+    touches."""
+    enc_of = (lambda name: blk.encoded_column(rg, name))
+    premask = vector.encoded_filter_mask(plan.filters, enc_of, d, rg.n_spans)
+    if premask is not None and not premask.any():
+        return None, premask, True
+    if premask is None:
+        # filters need row space anyway: keep the ONE coalesced
+        # projection read (gap-tolerant ranged IO) instead of a
+        # round trip per touched column
+        cols = blk.read_columns(rg, list(plan.span_cols))
+        attrs = (blk.read_columns(rg, list(ATTR_COLUMNS))
+                 if plan.needs_attrs else _empty_cols(ATTR_COLUMNS))
+        return vector.ColumnView(cols, attrs, rg.n_spans), None, False
+    view = vector.LazyColumnView(
+        lambda name, b=blk, r=rg: b.read_columns(r, [name])[name],
+        lambda name, b=blk, r=rg: b.read_columns(r, [name])[name],
+        rg.n_spans,
+        enc_of=enc_of,
+    )
+    return view, premask, False
+
+
+def evaluate_block(plan: MetricsPlan, blk, acc: HostAccumulator | None = None,
+                   device=None) -> HostAccumulator:
+    """Fold one backend block into the accumulator, zone-map pruned and
+    projection-limited like the search read path; returns the
+    accumulator. Without `acc`, make_accumulator(plan, device) picks one
+    (CUDA unless device="cpu"; it raises without CUDA)."""
+    if acc is None:
+        acc = make_accumulator(plan, device=device)
+    d = blk.dictionary()
+    resolvers, impossible = _lower_prunes(plan, d)
+    if impossible:
+        return acc  # a filter string absent from the dictionary: zero IO
+    zm = zone_maps_enabled()
+    all_conds = plan.pipeline.conditions().all_conditions
+    for rg in blk.index().row_groups:
+        if rg.end_s < plan.start_s or rg.start_s > plan.end_s:
+            continue
+        if zm and resolvers and rg_prunes(plan, rg, resolvers, all_conds):
+            acc.stats["prunedRowGroups"] += 1
+            blk.pruned_row_groups += 1
+            continue
+        view, premask, dead = rg_eval_view(plan, blk, rg, d)
+        acc.stats["inspectedSpans"] += rg.n_spans
+        if dead:
+            continue  # run-space veto: zero columns expanded
+        acc.add(eval_batch(plan, view, d, acc.series, premask=premask), view)
+    return acc
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Sharded bloom filters, in PyTorch.
 
 Port of tempo_tpu/ops/bloom.py (BloomPlan, plan, build, test,
-test_one_shard, shard bytes). Bit positions use double hashing
+test_one_shard, shard bytes, and the host numpy shard_for_ids and
+np_test_one_shard that find-by-ID uses). Bit positions use double hashing
 pos_i = (h1 + i*h2) mod bits_per_shard with h2 forced odd; the sum
 wraps mod 2**32 BEFORE the `%`, exactly as the uint32 JAX arithmetic
 does. Words hold 32 bits LSB first. uint32 values ride in int64.
@@ -120,6 +121,27 @@ def test_one_shard(shard_words: torch.Tensor, limbs: torch.Tensor, p: BloomPlan)
 def merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """OR-merge two filters with identical plans."""
     return a | b
+
+
+def shard_for_ids(limbs: np.ndarray, p: BloomPlan) -> np.ndarray:
+    """Host-side: which bloom shard object holds each ID (numpy)."""
+    return (hashing.np_fnv1a_32(limbs) % np.uint32(p.n_shards)).astype(np.uint32)
+
+
+def np_test_one_shard(shard_words: np.ndarray, limbs: np.ndarray, p: BloomPlan) -> np.ndarray:
+    """Host mirror of test_one_shard (the find-by-ID read path tests the
+    one fetched shard off the device). Positions derive exactly like
+    _local_positions: same seeds, same h2|1, the sum wrapping mod 2**32."""
+    token = hashing.np_fnv1a_32(limbs)
+    h1 = hashing.np_fmix32(token, seed=_SEED_H1)
+    h2 = hashing.np_fmix32(token, seed=_SEED_H2) | np.uint32(1)
+    ok = np.ones(limbs.shape[0], dtype=bool)
+    with np.errstate(over="ignore"):
+        for i in range(p.k):
+            pos = (h1 + np.uint32(i) * h2) % np.uint32(p.bits_per_shard)
+            bit = (shard_words[pos // np.uint32(_WORD_BITS)] >> (pos % np.uint32(_WORD_BITS))) & np.uint32(1)
+            ok &= bit == 1
+    return ok
 
 
 # serialization — one object per shard, little-endian uint32 words

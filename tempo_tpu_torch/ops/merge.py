@@ -1,8 +1,11 @@
 """Sort/dedupe/segment — the compaction core, in PyTorch.
 
 Port of tempo_tpu/ops/merge.py (lexsort_rows, first_occurrence_mask,
-segment_ids, merge_spans): concatenate the input blocks' span rows,
-sort by (valid, traceID limbs, spanID limbs), mark first occurrences.
+segment_ids, merge_spans, and the numpy mirrors
+np_keys_strictly_increasing and np_merge_spans that the compactor's
+relocation guard and "numpy" merge path use): concatenate the input
+blocks' span rows, sort by (valid, traceID limbs, spanID limbs), mark
+first occurrences.
 
 jnp.lexsort is stable, so the permutation is fixed even among equal
 keys. Here it is a chain of stable sorts from the least significant key
@@ -12,6 +15,7 @@ key first (`_pair_key`), which turns the 7-key sort into 4 passes.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -88,4 +92,53 @@ def merge_spans(trace_limbs: torch.Tensor, span_limbs: torch.Tensor,
         "trace_seg": segment_ids(new_kept),
         "n_rows": keep.sum(dtype=torch.int32),
         "n_traces": new_kept.sum(dtype=torch.int32),
+    }
+
+
+# ---------------------------------------------------------------------------
+# numpy mirror
+# ---------------------------------------------------------------------------
+
+
+def np_keys_strictly_increasing(trace_limbs: np.ndarray,
+                                span_limbs: np.ndarray) -> bool:
+    """True iff the (traceID, spanID) keys are strictly ascending.
+
+    The zero-decode relocation guard: a row group whose keys are strictly
+    sorted contains no duplicate span keys, so the k-way merge over it is
+    the identity and its pages can move verbatim. Strictness matters —
+    an equal adjacent pair is a duplicate the slow path would dedupe,
+    which must force the fall-back re-encode for byte parity.
+    """
+    keys = np.concatenate([trace_limbs, span_limbs], axis=1)
+    if keys.shape[0] <= 1:
+        return True
+    prev, nxt = keys[:-1], keys[1:]
+    diff = nxt != prev
+    any_diff = diff.any(axis=1)
+    # first differing limb decides the lexicographic order
+    first = diff.argmax(axis=1)
+    rows = np.arange(len(prev))
+    return bool((any_diff & (nxt[rows, first] > prev[rows, first])).all())
+
+
+def np_merge_spans(trace_limbs: np.ndarray, span_limbs: np.ndarray,
+                   valid: np.ndarray | None = None):
+    keys = np.concatenate([trace_limbs, span_limbs], axis=1)
+    if valid is None:
+        valid = np.ones(keys.shape[0], bool)
+    cols = [np.where(valid, 0, 1).astype(np.uint32)] + [keys[:, i] for i in range(keys.shape[1])]
+    perm = np.lexsort(tuple(reversed(cols)))
+    skeys = keys[perm]
+    svalid = valid[perm]
+    eq_prev = np.all(skeys[1:] == skeys[:-1], axis=1)
+    keep = np.concatenate([[True], ~eq_prev]) & svalid
+    teq_prev = np.all(skeys[1:, :4] == skeys[:-1, :4], axis=1)
+    tnew = (np.concatenate([[True], ~teq_prev]) & svalid) & keep
+    return {
+        "perm": perm,
+        "keep": keep,
+        "trace_seg": np.cumsum(tnew.astype(np.int32)) - 1,
+        "n_rows": int(keep.sum()),
+        "n_traces": int(tnew.sum()),
     }

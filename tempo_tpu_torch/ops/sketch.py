@@ -76,14 +76,24 @@ def hll_merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def hll_estimate(regs: torch.Tensor, p: HLLPlan) -> torch.Tensor:
     """Cardinality estimate (0-d float32), with linear-counting small-range
-    fix. The float32 sum runs in torch's order, not XLA's, so it agrees
-    with the JAX estimate to float32 rounding, not bit for bit."""
+    fix.
+
+    The result is the same on every device. sum(2**-r) runs in float64,
+    where it is exact in any order (registers hold r <= 33, so at most
+    2**18 terms span fewer than 53 bits), and is rounded to float32
+    once; the zeros are an integer count; the log runs in float64 on the
+    float32 ratio and is rounded once. Every other step is one IEEE
+    float32 operation, as in the JAX estimate, whose float32 sum runs in
+    XLA's order: the two agree wherever that sum is exact."""
     m = p.m
     alpha = {16: 0.673, 32: 0.697, 64: 0.709}.get(m, 0.7213 / (1 + 1.079 / m))
-    inv = torch.exp2(-regs.to(torch.float32)).sum()
-    raw = alpha * m * m / inv
-    zeros = (regs == 0).to(torch.float32).sum()
-    linear = m * torch.log(m / torch.clamp(zeros, min=1.0))
+    f32 = torch.float32
+    inv = torch.exp2(-regs.to(torch.float64)).sum().to(f32)
+    raw = torch.tensor(alpha * m * m, dtype=f32, device=regs.device) / inv
+    zeros = (regs == 0).sum()
+    m32 = torch.tensor(m, dtype=f32, device=regs.device)
+    ratio = m32 / torch.clamp(zeros, min=1).to(f32)
+    linear = m32 * torch.log(ratio.to(torch.float64)).to(f32)
     small = raw <= 2.5 * m
     return torch.where(small & (zeros > 0), linear, raw)
 

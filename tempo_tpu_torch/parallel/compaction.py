@@ -2,7 +2,9 @@
 count-min partials over a padded span batch.
 
 Port of tempo_tpu/parallel/compaction.py (CompactionPlans,
-default_plans, local_compaction_step with axis=None). The sharded
+default_plans, local_compaction_step with axis=None, and the host
+relocation planner plan_disjoint_runs that the block compactor's
+zero-decode fast path uses). The sharded
 compactor and its cross-device merges (psum/pmax over a mesh) arrive
 with the multi-GPU slice.
 """
@@ -65,3 +67,62 @@ def local_compaction_step(tids: torch.Tensor, sids: torch.Tensor,
         "hll": regs,
         "cm": counts,
     }
+
+
+def plan_disjoint_runs(block_rg_ranges):
+    """Relocation plan for the zero-decode compaction fast path.
+
+    block_rg_ranges[b] is block b's ordered row-group trace-ID ranges as
+    inclusive (min_id, max_id) hex pairs (32-char, so string order ==
+    numeric order). Returns segments in global trace-ID order:
+
+      ("relocate", b, i)       — row group i of block b overlaps no row
+                                 group of any other block: its rows pass
+                                 through the k-way merge untouched, so
+                                 its compressed pages can move verbatim
+      ("merge", {b: (lo, hi)}) — half-open row-group index ranges whose
+                                 trace-ID intervals overlap across
+                                 blocks: the streaming merge runs over
+                                 exactly these row groups
+
+    Correctness rests on two block invariants: row groups are sorted by
+    trace ID and a trace never spans row groups — so clusters of the
+    interval sweep partition the trace-ID space, no trace appears in two
+    segments, and concatenating segment outputs in plan order yields the
+    globally sorted block. This is the same uniform ID-space reasoning
+    as partition_by_id_range, at row-group instead of shard granularity.
+    """
+    items = []
+    for b, ranges in enumerate(block_rg_ranges):
+        for i, (lo, hi) in enumerate(ranges):
+            items.append((lo, hi, b, i))
+    items.sort()
+    segments: list = []
+    cluster: list = []
+    cmax = ""
+
+    def _close():
+        if not cluster:
+            return
+        blocks = {b for _, _, b, _ in cluster}
+        if len(blocks) == 1:
+            # single-source cluster: every row group relocates (a whole
+            # single-block job — a level bump — relocates end to end)
+            segments.extend(("relocate", b, i) for _, _, b, i in cluster)
+        else:
+            rngs: dict[int, tuple[int, int]] = {}
+            for _, _, b, i in cluster:
+                lo_i, hi_i = rngs.get(b, (i, i + 1))
+                rngs[b] = (min(lo_i, i), max(hi_i, i + 1))
+            segments.append(("merge", rngs))
+
+    for lo, hi, b, i in items:
+        if cluster and lo <= cmax:
+            cluster.append((lo, hi, b, i))
+            cmax = max(cmax, hi)
+        else:
+            _close()
+            cluster = [(lo, hi, b, i)]
+            cmax = hi
+    _close()
+    return segments

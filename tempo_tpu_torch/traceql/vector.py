@@ -24,10 +24,11 @@ block (the reference's dictionary-pruning trick,
 pkg/parquetquery/predicates.go).
 
 Port note: copied from tempo_tpu/traceql/vector.py with the parts that
-the metrics path over span batches reaches — expression and spanset
-evaluation, validation, projection. The block views, encoded-space
-filters, compiled-tier lowering and the per-trace search partials (with
-the object-engine fallback) arrive with the encoding and search slices.
+the metrics path reaches — expression and spanset evaluation,
+validation, projection, the block column views (ColumnView,
+LazyColumnView) and the encoded-space filter mask. The compiled-tier
+lowering and the per-trace search partials (with the object-engine
+fallback) arrive with the search slice.
 """
 
 from __future__ import annotations
@@ -42,12 +43,77 @@ from tempo_tpu_torch.model.columnar import (
     VT_BOOL,
     VT_INT,
     VT_STR,
+    trace_segmentation,
 )
+from tempo_tpu_torch.ops import scan
 from tempo_tpu_torch.traceql import ast_nodes as A
 
 
 class Unsupported(Exception):
     """Query shape the vector path does not cover; use the object engine."""
+
+
+class ColumnView:
+    """Duck-typed, projection-limited stand-in for SpanBatch: only the
+    columns a query touches are fetched/decoded (reference analog: the
+    iterator tree only reads the parquet columns its predicates name)."""
+
+    def __init__(self, cols: dict, attrs: dict, n: int):
+        self.cols = cols
+        self.attrs = attrs
+        self._n = n
+        self._tb = None
+
+    @property
+    def num_spans(self) -> int:
+        return self._n
+
+    def trace_boundaries(self):
+        if self._tb is None:
+            _, seg, firsts = trace_segmentation(self.cols["trace_id"])
+            self._tb = (firsts, seg)
+        return self._tb
+
+
+class _LazyCols(dict):
+    """Column dict that decodes on first access — evaluation touches a
+    column, the loader pays for it; columns nobody reads cost nothing
+    (and columns answered in encoded space are never expanded at all)."""
+
+    def __init__(self, loader):
+        super().__init__()
+        self._loader = loader
+
+    def __missing__(self, key):
+        arr = self._loader(key)
+        self[key] = arr
+        return arr
+
+
+class LazyColumnView(ColumnView):
+    """ColumnView whose columns materialize lazily from a block reader.
+
+    The run-space metrics path hands eval_batch one of these plus a
+    pre-computed filter mask: when the filters were answered in encoded
+    space, the filter columns are never decoded, and the remaining
+    evaluation (bins, by(), value expressions) decodes exactly the
+    columns it touches. enc_of(name) additionally serves trace
+    segmentation straight from an RLE trace-ID page's run lengths —
+    zero ID decode (the runs ARE the traces).
+    """
+
+    def __init__(self, col_loader, attr_loader, n: int, enc_of=None):
+        super().__init__(_LazyCols(col_loader), _LazyCols(attr_loader), n)
+        self._enc_of = enc_of
+
+    def trace_boundaries(self):
+        if self._tb is None and self._enc_of is not None:
+            enc = self._enc_of("trace_id")
+            if enc is not None and enc.codec == "rle":
+                _, lengths = enc.runs()
+                firsts, seg = scan.runs_firsts_seg(lengths)
+                self._tb = (firsts, seg)
+        return super().trace_boundaries()
 
 
 def needed_columns(pipeline: A.Pipeline):
@@ -573,3 +639,131 @@ def _structural_combine(op: str, a: np.ndarray, b: np.ndarray, ctx: _Ctx) -> np.
         cnt_a = np.bincount(inv[a], minlength=len(uniq))
         return b & (cnt_a[inv] - a.astype(np.int64) > 0)
     raise Unsupported(f"spanset op {op}")
+
+
+# ---------------------------------------------------------------------------
+# encoded-space filter evaluation (run/dictionary space)
+# ---------------------------------------------------------------------------
+#
+# A restricted mirror of _eval for the filter shapes that dominate
+# metrics/search traffic: dedicated-column string predicates, duration
+# comparisons, and &&/|| combinations. Each predicate evaluates per RUN
+# (rle) or per page-dictionary entry (dct) via EncodedColumn.map_mask —
+# the verdict expands as one bool per row and the column values are
+# never materialized. Anything outside the supported grammar returns
+# None and the caller falls back to the exact row-space evaluator; the
+# formulas below replicate _eval's defined-ness semantics exactly
+# (dedicated string columns: code 0 = absent; duration: always
+# defined), so both paths are bit-identical where this one answers.
+
+# exact scopes served purely by a dedicated column (scope "any" also
+# probes the attr table for shadowing and must take the row-space path)
+_ENC_STR_SCOPES = {
+    "service.name": ("resource",),
+    "http.method": ("span",),
+    "http.url": ("span",),
+}
+
+
+def _enc_str_field(e):
+    """(column, kind) for an expression the encoded path can serve as a
+    plain dictionary-code column, else None."""
+    if isinstance(e, A.Intrinsic) and e.name == "name":
+        return "name"
+    if isinstance(e, A.Attribute) and e.scope in _ENC_STR_SCOPES.get(e.name, ()):
+        return _DEDICATED[e.name]
+    return None
+
+
+def _enc_expr_mask(e, enc_of, d, n):
+    """Row mask for one supported expression, or None (unsupported /
+    page not encoded). Never partially wrong: any doubt returns None."""
+    if isinstance(e, A.Binary) and e.op in ("&&", "||"):
+        a = _enc_expr_mask(e.lhs, enc_of, d, n)
+        if a is None:
+            return None
+        b = _enc_expr_mask(e.rhs, enc_of, d, n)
+        if b is None:
+            return None
+        return (a & b) if e.op == "&&" else (a | b)
+    if not isinstance(e, A.Binary):
+        return None
+    # (field, literal) in either order; a swap REVERSES comparison
+    # operators (`100 < duration` is `duration > 100`)
+    _SWAPPED_OP = {"<": ">", "<=": ">=", ">": "<", ">=": "<=",
+                   "=": "=", "!=": "!="}
+    fld, lit, op = e.lhs, e.rhs, e.op
+    if isinstance(fld, A.Literal) and not isinstance(lit, A.Literal):
+        if op in ("=~", "!~"):
+            # literal-on-LHS regex is NOT symmetric: the row-space arm
+            # raises Unsupported (dynamic regex) and falls back to the
+            # object engine — the encoded path must decline too
+            return None
+        op = _SWAPPED_OP.get(op)
+        if op is None:
+            return None
+        fld, lit = lit, fld
+    if not isinstance(lit, A.Literal) or isinstance(fld, A.Literal):
+        return None
+
+    col = _enc_str_field(fld)
+    if col is not None and lit.kind == "string":
+        enc = enc_of(col)
+        if enc is None:
+            return None
+        if op in ("=", "!="):
+            code = d.get(lit.value)
+            want = np.uint32(code) if code is not None else np.uint32(0xFFFFFFFF)
+            if op == "=":
+                # (codes == code) & defined; code 0 = absent ⇒ never eq
+                fn = (lambda v: (v == want) & (v != 0))
+            else:
+                fn = (lambda v: (v != want) & (v != 0))
+            return enc.map_mask(fn)
+        if op in ("=~", "!~"):
+            codes = _regex_codes(d, lit.value)
+            if op == "=~":
+                fn = (lambda v: np.isin(v, codes) & (v != 0))
+            else:
+                fn = (lambda v: ~(np.isin(v, codes) & (v != 0)) & (v != 0))
+            return enc.map_mask(fn)
+        return None
+
+    if (isinstance(fld, A.Intrinsic) and fld.name == "duration"
+            and lit.kind in ("int", "float", "duration")
+            and op in ("=", "!=", ">", ">=", "<", "<=")):
+        enc = enc_of("duration_nano")
+        if enc is None:
+            return None
+        # mirror _eval: the column is compared as float64 (so the same
+        # values compare the same way, rounding included)
+        rv = float(lit.value)
+        fn = (lambda v: {
+            "=": v.astype(np.float64) == rv,
+            "!=": v.astype(np.float64) != rv,
+            ">": v.astype(np.float64) > rv,
+            ">=": v.astype(np.float64) >= rv,
+            "<": v.astype(np.float64) < rv,
+            "<=": v.astype(np.float64) <= rv,
+        }[op])
+        return enc.map_mask(fn)
+    return None
+
+
+def encoded_filter_mask(stages, enc_of, d, n: int) -> np.ndarray | None:
+    """Evaluate a chain of SpansetFilter stages entirely in encoded
+    space: the AND of the stages' masks, or None when any stage (or any
+    page involved) is outside the supported grammar. Exactly equal to
+    chaining _spanset_mask over the same stages."""
+    mask = None
+    for st in stages:
+        if not isinstance(st, A.SpansetFilter):
+            return None
+        if st.expr is None:
+            m = np.ones(n, bool)
+        else:
+            m = _enc_expr_mask(st.expr, enc_of, d, n)
+            if m is None:
+                return None
+        mask = m if mask is None else (mask & m)
+    return mask if mask is not None else np.ones(n, bool)

@@ -1,7 +1,9 @@
 """The port stands alone: with jax and every tempo_tpu module blocked, a
 fresh interpreter imports every tempo_tpu_torch module, runs the
-compaction entry and one metrics query on the CPU, and an entry point
-called without a device raises when CUDA is absent."""
+compaction entry and one metrics query on the CPU, writes two vtpu1
+blocks, finds a trace by ID, compacts the blocks and queries the output
+on the CPU, and an entry point called without a device raises when CUDA
+is absent."""
 
 import os
 import subprocess
@@ -29,7 +31,7 @@ SCRIPT = textwrap.dedent(r"""
     names = [m.name for m in pkgutil.walk_packages(tempo_tpu_torch.__path__, "tempo_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
-    assert len(names) >= 20, names
+    assert len(names) >= 44, names
     for name, mod in sys.modules.items():
         assert mod is None or not (name == "tempo_tpu" or name.startswith("tempo_tpu.") or name == "jax"
                     or name.startswith("jax.")), name
@@ -50,8 +52,30 @@ SCRIPT = textwrap.dedent(r"""
     M.merge_wire(merged, acc.to_wire(), plan)
     assert M.finalize_matrix(plan, merged)["result"]
 
+    import tempfile
+    from tempo_tpu_torch.backend import LocalBackend, TypedBackend
+    from tempo_tpu_torch.encoding.common import BlockConfig, CompactionOptions
+    from tempo_tpu_torch.encoding.vtpu.block import VtpuBackendBlock
+    from tempo_tpu_torch.encoding.vtpu.compactor import VtpuCompactor
+    from tempo_tpu_torch.encoding.vtpu.create import write_block
+    from tempo_tpu_torch.model.columnar import SpanBatch
+
+    cfg = BlockConfig(row_group_spans=256)
+    be = TypedBackend(LocalBackend(tempfile.mkdtemp()))
+    b1, b2 = synth.make_batch(120, 4, seed=1), synth.make_batch(80, 4, seed=2)
+    b2 = SpanBatch.concat([b2, b1.select(list(range(40)))]).sorted_by_trace()
+    metas = [write_block([x], "t", be, cfg, device="cpu") for x in (b1, b2)]
+    tid = b1.cols["trace_id"][0].astype(">u4").tobytes()
+    assert VtpuBackendBlock(metas[0], be, cfg).find_trace_by_id(tid).trace_id == tid
+    (out,) = VtpuCompactor(CompactionOptions(block_config=cfg), device="cpu").compact(metas, "t", be)
+    assert out.total_objects == 200
+    acc = M.evaluate_block(plan, VtpuBackendBlock(out, be, cfg), device="cpu")
+    assert acc.stats["inspectedSpans"] == out.total_spans
+
     if not torch.cuda.is_available():
-        for call in (lambda: entry(), lambda: M.make_accumulator(plan)):
+        for call in (lambda: entry(), lambda: M.make_accumulator(plan),
+                     lambda: write_block([b1], "t", be, cfg), lambda: VtpuCompactor(),
+                     lambda: M.evaluate_block(plan, VtpuBackendBlock(out, be, cfg))):
             try:
                 call()
             except RuntimeError:
