@@ -37,13 +37,30 @@ Phases, one line each (any failure exits non-zero):
    (byte-equal outputs, one trace per distinct ID) and with the native
    k-way merge plan (the host figure), and the phase-4 queries run
    through evaluate_block over the compacted block, card accumulator
-   against CPU accumulator.
+   against CPU accumulator. Each trace's spans form a parent chain;
+7. db: the storage engine. TempoDB(device="cuda") opens a local backend
+   holding copies of the blocks phase 6 wrote on the card, and every
+   answer is held against a numpy oracle computed from the generated
+   batches: poll; find for 200 present IDs (20 of them copies held by
+   both blocks) and 200 absent ones; seven tag searches (service,
+   service+name, http.status_code, an attribute, a duration floor, a
+   time window, a value the dictionary lacks), each at limit 20 and
+   unbounded, cold (column cache cleared) then warm; tag names and
+   values; four TraceQL searches, the structural one on the object
+   engine because copies straddle the blocks; compact_once; the
+   unbounded searches and the structural query (now on the vectorized
+   branch) again over the one compacted block; the phase-4 queries over
+   the DB's blocks, card against CPU; a WAL block of 2**17 spans
+   appended, rescanned and completed on the card, byte-equal to
+   write_batch of the same spans on the CPU.
 
-Phases 3-4 are the main path, phase 5 the scan path and phase 6 the
-block path: each is run with the kernels' launch counts set to 0 just
-before it, and every kernel of the path must have launched. The script
-then prints one JSON line of per-kernel and per-phase numbers, the
-nvidia-smi line, and last {"ok": true, "device": {...}}. Without a CUDA
+Phases 3-4 are the main path, phase 5 the scan path, phase 6 the block
+path and phase 7 the storage engine's path: each is run with the
+kernels' launch counts set to 0 just before it, and every kernel of the
+path must have launched. The script then prints one JSON line of
+per-kernel and per-phase numbers (phase 6's under "blocks", phase 7's
+under "db"), the nvidia-smi line, and last {"ok": true, "device":
+{...}}. Without a CUDA
 device it exits 1 and prints no result. It imports nothing of JAX or of
 tempo_tpu.
 """
@@ -158,10 +175,30 @@ def check_same_blocks(a: dict, b: dict, what: str) -> None:
     check(not differ, f"{what}: objects differ: {differ[:8]}")
 
 
-def blocks_phase(seed: int, queries: list, plan_of) -> dict:
-    """Phase 6, the block path: write, find by ID, compact and query
-    vtpu1 blocks on the card and on the CPU. Returns its numbers."""
+def chain_parents(batch):
+    """The batch with each trace's rows made a parent chain: the trace's
+    first row the root, row k the child of row k-1 (make_batch draws
+    unlinked parent IDs, so structural TraceQL would match nothing)."""
     import numpy as np
+
+    from tempo_tpu_torch.model.columnar import SpanBatch
+
+    firsts, seg = batch.trace_boundaries()
+    row = np.arange(batch.num_spans)
+    sid = batch.cols["span_id"]
+    parent = np.where((row == firsts[seg])[:, None], 0, sid[np.maximum(row - 1, 0)])
+    cols = dict(batch.cols, parent_span_id=parent.astype(np.uint32))
+    return SpanBatch(cols=cols, attrs=batch.attrs, dictionary=batch.dictionary)
+
+
+def blocks_phase(seed: int, queries: list, plan_of, db_root: str):
+    """Phase 6, the block path: write, find by ID, compact and query
+    vtpu1 blocks on the card and on the CPU. The card-written blocks A
+    and B are copied into the local backend at db_root for phase 7.
+    Returns (its numbers, the batches of A and B)."""
+    import numpy as np
+
+    from tempo_tpu_torch.encoding import default_encoding
 
     from tempo_tpu_torch import metrics_engine as M
     from tempo_tpu_torch import native
@@ -185,13 +222,15 @@ def blocks_phase(seed: int, queries: list, plan_of) -> dict:
           f"{'built' if native.lib() is not None else 'absent'})", flush=True)
 
     # block A: 16 batches of 8192 traces x 8 spans, a minute apart, sorted
-    # by trace; block B: 14 such batches from other seeds plus every 8th
-    # trace of A (replication-factor copies): 2**20 spans each
+    # by trace, each trace's spans a parent chain; block B: 14 such
+    # batches from other seeds plus every 8th trace of A (replication-
+    # factor copies): 2**20 spans each
     t0 = time.perf_counter()
 
     def batches(seed0: int, n: int) -> list:
-        return [synth.make_batch(8192, 8, seed=seed0 + i,
-                                 base_time_ns=(BASE_S + 60 * i) * 10**9) for i in range(n)]
+        return [chain_parents(synth.make_batch(8192, 8, seed=seed0 + i,
+                                               base_time_ns=(BASE_S + 60 * i) * 10**9))
+                for i in range(n)]
 
     a = SpanBatch.concat(batches(seed * 1000 + 100, 16)).sorted_by_trace()
     _, seg_a = a.trace_boundaries()
@@ -232,6 +271,11 @@ def blocks_phase(seed: int, queries: list, plan_of) -> dict:
         print("phase 6 write: blocks a and b byte-equal between cuda and cpu (data.bin, "
               "bloom shards, meta.json; index and dictionary gunzipped)", flush=True)
         res["write_ms"] = {k: v * 1e3 for k, v in write_s.items()}
+        # phase 7's backend: the card-written objects, copied as files
+        enc = default_encoding()
+        db_backend = TypedBackend(LocalBackend(db_root))
+        for k in "ab":
+            enc.copy_block(metas["cuda", k], backends["cuda"], db_backend)
 
         # ------------------------------------------------------ find by ID
         rng = np.random.default_rng(seed + 99)
@@ -331,6 +375,311 @@ def blocks_phase(seed: int, queries: list, plan_of) -> dict:
                   f"launches, {row['d2h_bytes']} B device-to-host), {row['cpu_ms']:.1f} ms "
                   f"with the CPU accumulator", flush=True)
             res["query"].append(row)
+    return res, (a, b)
+
+
+STRUCTURAL = "{ duration > 998ms } >> { duration < 3ms }"
+
+
+def trace_hex_set(tids) -> set:
+    """(N, 4) uint32 trace-ID rows -> the set of their distinct hex IDs."""
+    import numpy as np
+
+    raw = np.ascontiguousarray(np.unique(tids, axis=0).astype(">u4")).tobytes()
+    return {raw[i:i + 16].hex() for i in range(0, len(raw), 16)}
+
+
+def db_phase(seed: int, a, b, root: str, queries: list, plan_of) -> dict:
+    """Phase 7, the storage engine: TempoDB over the two blocks that phase
+    6 wrote on the card (copied into root/blocks), every answer held
+    against a numpy oracle computed from the generated batches. Returns
+    its numbers."""
+    import numpy as np
+
+    from tempo_tpu_torch import metrics_engine as M
+    from tempo_tpu_torch.db import DBConfig, TempoDB
+    from tempo_tpu_torch.encoding.common import SearchRequest
+    from tempo_tpu_torch.encoding.vtpu.colcache import shared_cache
+    from tempo_tpu_torch.model import synth
+    from tempo_tpu_torch.model.columnar import VT_INT, VT_STR, SpanBatch
+    from tempo_tpu_torch.ops import pallas_kernels as pk
+
+    tenant = "smoke"
+    res: dict = {}
+    t_phase = time.perf_counter()
+    db = TempoDB(DBConfig(backend="local", backend_path=os.path.join(root, "blocks"),
+                          wal_path=os.path.join(root, "wal")), device="cuda")
+    print(f"phase 7 TempoDB on {db.device}", flush=True)
+
+    # ------------------------------------------------------------ 1. poll
+    t0 = time.perf_counter()
+    db.poll_now()
+    metas = db.blocklist.metas(tenant)
+    res["poll_ms"] = (time.perf_counter() - t0) * 1e3
+    check(len(metas) == 2 and sorted(m.total_spans for m in metas) == [a.num_spans, b.num_spans],
+          f"phase 7 poll: {len(metas)} blocks")
+    dict_bytes = sum(os.path.getsize(os.path.join(root, "blocks", tenant, m.block_id, "dict.bin"))
+                     for m in metas)
+    print(f"phase 7 poll: 2 blocks ({', '.join(str(m.total_spans) for m in metas)} spans) | "
+          f"{res['poll_ms']:.1f} ms", flush=True)
+
+    # ------------------------------------------------------------ 2. find
+    rng = np.random.default_rng(seed + 7)
+    ids_a = a.cols["trace_id"][a.trace_boundaries()[0]]
+    ids_b = b.cols["trace_id"][b.trace_boundaries()[0]]
+    copies = ids_a[::8]  # every 8th trace of A is repeated in B
+    present = np.concatenate([ids_a[rng.choice(len(ids_a), 80, replace=False)],
+                              copies[rng.choice(len(copies), 20, replace=False)],
+                              ids_b[rng.choice(len(ids_b), 100, replace=False)]])
+    known = {bytes(t) for t in np.concatenate([ids_a, ids_b])}
+    absent = [t for t in rng.integers(0, 2**32, (260, 4), dtype=np.uint32)
+              if bytes(t) not in known][:200]
+    check(len(absent) == 200, "phase 7: could not draw 200 absent IDs")
+    t0 = time.perf_counter()
+    for limbs in present:
+        tid = limbs.astype(">u4").tobytes()
+        t = db.find(tenant, tid)
+        check(t is not None and t.trace_id == tid and t.span_count() == 8,
+              "phase 7 find: a present trace was not found whole")
+    res["find_present_ms"] = (time.perf_counter() - t0) / len(present) * 1e3
+    t0 = time.perf_counter()
+    for limbs in absent:
+        check(db.find(tenant, limbs.astype(">u4").tobytes()) is None, "phase 7 find: absent found")
+    res["find_absent_ms"] = (time.perf_counter() - t0) / len(absent) * 1e3
+    tid = copies[0].astype(">u4").tobytes()
+    halves = [db.encoding_for(m.version).open_block(m, db.backend, db.cfg.block)
+              .find_trace_by_id(tid) for m in metas]
+    check(all(h is not None and h.span_count() == 8 for h in halves),
+          "phase 7 find: a copied trace is not in both blocks")
+    print(f"phase 7 find: 200 present found whole (20 of them copies held by both blocks, "
+          f"combined), 200 absent -> None | {res['find_present_ms']:.2f} ms a present ID, "
+          f"{res['find_absent_ms']:.3f} ms an absent one", flush=True)
+
+    # ---------------------------------------------------------- 3. search
+    u = SpanBatch.concat([a, b])  # oracle data: both blocks' rows, one dictionary
+    d = u.dictionary
+    cols, attrs = u.cols, u.attrs
+    starts, dur = cols["start_unix_nano"], cols["duration_nano"]
+
+    def attr_mask(key, value):
+        m = np.zeros(u.num_spans, bool)
+        hit = ((attrs["attr_key"] == d.get(key)) & (attrs["attr_vtype"] == VT_STR)
+               & (attrs["attr_str"] == d.get(value)))
+        m[attrs["attr_span"][hit]] = True
+        return m
+
+    w0, w1 = BASE_S + 8 * 60, BASE_S + 16 * 60  # the later half of A's batches
+    svc_cart = cols["service"] == d.get("cart")
+    searches = [
+        ("service=cart", dict(tags={"service": "cart"}), svc_cart),
+        ("service=cart name=db.query", dict(tags={"service": "cart", "name": "db.query"}),
+         svc_cart & (cols["name"] == d.get("db.query"))),
+        ("http.status_code=500", dict(tags={"http.status_code": "500"}),
+         cols["http_status"] == 500),
+        ("region=v7", dict(tags={"region": "v7"}), attr_mask("region", "v7")),
+        ("duration>=990ms", dict(min_duration_ns=990_000_000), dur >= 990_000_000),
+        ("window", dict(start_seconds=w0, end_seconds=w1),
+         (starts + dur >= np.uint64(w0 * 10**9)) & (starts <= np.uint64(w1 * 10**9))),
+        ("service=no-such-service", dict(tags={"service": "no-such-service"}),
+         np.zeros(u.num_spans, bool)),
+    ]
+    oracle = {label: trace_hex_set(cols["trace_id"][m]) for label, _, m in searches}
+
+    def search(label, kw, limit):
+        t0 = time.perf_counter()
+        r = db.search(tenant, SearchRequest(limit=limit, **kw))
+        ms = (time.perf_counter() - t0) * 1e3
+        hits = [h.trace_id_hex for h in r.traces]
+        want = oracle[label]
+        if limit:
+            check(len(hits) == min(limit, len(want)) and set(hits) <= want,
+                  f"phase 7 search {label} limit {limit}: hits outside the oracle")
+        else:
+            check(len(hits) == len(set(hits)) and set(hits) == want,
+                  f"phase 7 search {label}: {len(hits)} hits, oracle {len(want)}")
+        return dict(ms=ms, hits=len(hits), inspected_bytes=r.inspected_bytes,
+                    decoded_bytes=r.decoded_bytes, pruned_row_groups=r.pruned_row_groups,
+                    coalesced_reads=r.coalesced_reads, inspected_traces=r.inspected_traces), r
+
+    res["search"] = []
+    for label, kw, _ in searches:
+        for limit in (20, 0):
+            shared_cache().clear()
+            cold, r = search(label, kw, limit)
+            warm, _ = search(label, kw, limit)
+            if label.startswith("service=no-such"):
+                # the dictionary alone answers: no index and no page is read
+                check(r.traces == [] and r.decoded_bytes == 0 and r.inspected_bytes == dict_bytes,
+                      f"phase 7 search {label}: read {r.inspected_bytes} B, dictionaries "
+                      f"{dict_bytes} B")
+            res["search"].append(dict(search=label, limit=limit, oracle=len(oracle[label]),
+                                      cold=cold, warm=warm))
+            print(f"phase 7 search {label} limit {limit}: {cold['hits']} hits (oracle "
+                  f"{len(oracle[label])}) | cold {cold['ms']:.1f} ms, inspected "
+                  f"{cold['inspected_bytes']} B, decoded {cold['decoded_bytes']} B, pruned "
+                  f"{cold['pruned_row_groups']} row groups, {cold['coalesced_reads']} reads "
+                  f"coalesced | warm {warm['ms']:.1f} ms, inspected {warm['inspected_bytes']} B, "
+                  f"decoded {warm['decoded_bytes']} B, pruned {warm['pruned_row_groups']}, "
+                  f"coalesced {warm['coalesced_reads']}", flush=True)
+
+    # ------------------------------------------------------------ 4. tags
+    t0 = time.perf_counter()
+    names = db.search_tags(tenant)
+    wk = {"service.name", "name", "http.method", "http.url", "http.status_code"}
+    check(names == wk | {d[int(c)] for c in np.unique(attrs["attr_key"])},
+          f"phase 7 search_tags: {sorted(names)}")
+    statuses = db.search_tag_values(tenant, "http.status_code")
+    check(statuses == {str(int(v)) for v in np.unique(cols["http_status"]) if v},
+          f"phase 7 tag values http.status_code: {sorted(statuses)}")
+    regions = db.search_tag_values(tenant, "region")
+    rk = attrs["attr_key"] == d.get("region")
+    want = {d[int(c)] for c in np.unique(attrs["attr_str"][rk & (attrs["attr_vtype"] == VT_STR)])}
+    want |= {str(int(v)) for v in np.unique(attrs["attr_num"][rk & (attrs["attr_vtype"] == VT_INT)])}
+    check(regions == want, "phase 7 tag values region != oracle")
+    res["tags_ms"] = (time.perf_counter() - t0) * 1e3
+    print(f"phase 7 tags: {len(names)} names, {len(statuses)} http.status_code values, "
+          f"{len(regions)} region values, equal to the oracle | {res['tags_ms']:.0f} ms", flush=True)
+
+    # --------------------------------------------------------- 5. TraceQL
+    def per_trace_count(mask):
+        """Trace IDs whose rows hold more than one masked span, counting
+        both blocks' rows: before compaction each block's partial counts
+        its own copy of a repeated trace, and the partials add."""
+        order = np.lexsort(cols["trace_id"].T[::-1])
+        tid_sorted = cols["trace_id"][order]
+        new = np.ones(len(order), bool)
+        new[1:] = (tid_sorted[1:] != tid_sorted[:-1]).any(axis=1)
+        counts = np.bincount(np.cumsum(new) - 1, weights=mask[order].astype(np.int64))
+        return trace_hex_set(tid_sorted[new][counts > 1])
+
+    tql = [
+        ('{ resource.service.name = "cart" && duration > 100ms }', 0,
+         trace_hex_set(cols["trace_id"][svc_cart & (dur > 100_000_000)])),
+        ("{ span.http.status_code = 500 } | count() > 1", 0,
+         per_trace_count(cols["http_status"] == 500)),
+        ("{ } | by(resource.service.name)", 20, None),
+        (STRUCTURAL, 0, None),
+    ]
+
+    def traceql(q, limit):
+        stats: dict = {}
+        t0 = time.perf_counter()
+        out = db.traceql_search(tenant, q, limit=limit, stats=stats)
+        ms = (time.perf_counter() - t0) * 1e3
+        branch = "object engine" if "prunedRowGroups" in stats else "vectorized"
+        return out, dict(ms=ms, results=len(out), branch=branch,
+                         inspected_traces=stats.get("inspectedTraces", 0),
+                         inspected_bytes=stats.get("inspectedBytes", 0))
+
+    res["traceql"] = []
+    structural_ids = None
+    for q, limit, want in tql:
+        out, row = traceql(q, limit)
+        got = {r.trace_id_hex for r in out}
+        if want is not None:
+            check(got == want, f"phase 7 traceql {q}: {len(got)} traces, oracle {len(want)}")
+        elif limit:
+            check(len(out) == limit, f"phase 7 traceql {q}: {len(out)} results")
+        if q == STRUCTURAL:
+            check(row["branch"] == "object engine" and out,
+                  f"phase 7 structural query: {row['branch']}, {len(out)} results")
+            structural_ids = got
+        else:
+            check(row["branch"] == "vectorized", f"phase 7 traceql {q}: {row['branch']}")
+        res["traceql"].append(dict(query=q, limit=limit, **row))
+        print(f"phase 7 traceql {q}: {len(out)} traces{' = oracle' if want is not None else ''}, "
+              f"{row['branch']} | {row['ms']:.0f} ms, {row['inspected_traces']} traces "
+              f"{'fetched as candidates' if row['branch'] == 'object engine' else 'inspected'}",
+              flush=True)
+
+    # --------------------------------------------------------- 6. compact
+    ccfg = db.cfg.compaction
+    while len({m.end_time // ccfg.window_s for m in metas}) > 1:
+        ccfg.window_s *= 2
+    print(f"phase 7 compaction window_s = {ccfg.window_s} (block end times "
+          f"{sorted(m.end_time for m in metas)})", flush=True)
+    n_distinct = len(np.unique(np.concatenate([ids_a, ids_b]), axis=0))
+    t0 = time.perf_counter()
+    jobs = db.compact_once(tenant)
+    res["compact_ms"] = (time.perf_counter() - t0) * 1e3
+    (out_meta,) = db.blocklist.metas(tenant)
+    check(jobs == 1 and out_meta.total_spans == a.num_spans + b.num_spans - copies.shape[0] * 8
+          and out_meta.total_objects == n_distinct,
+          f"phase 7 compaction: {jobs} jobs, {out_meta.total_spans} spans, "
+          f"{out_meta.total_objects} traces")
+    print(f"phase 7 compact_once: 1 job, {out_meta.total_spans} spans, {out_meta.total_objects} "
+          f"traces, level {out_meta.compaction_level} | {res['compact_ms']:.0f} ms "
+          f"(merge_path auto, sketch plane on {db.device})", flush=True)
+    res["after_compaction"] = []
+    for label, kw, _ in searches:
+        shared_cache().clear()
+        row, _ = search(label, kw, 0)
+        res["after_compaction"].append(dict(search=label, **row))
+    cold_ms = ", ".join(f"{r['ms']:.0f}" for r in res["after_compaction"])
+    print(f"phase 7 after compaction: the {len(searches)} unbounded searches equal their oracles "
+          f"(union of A's and B's answers) | {cold_ms} ms cold", flush=True)
+    out, row = traceql(STRUCTURAL, 0)
+    check(row["branch"] == "vectorized" and {r.trace_id_hex for r in out} == structural_ids,
+          f"phase 7 structural query after compaction: {row['branch']}, {len(out)} results")
+    res["traceql"].append(dict(query=STRUCTURAL, limit=0, after_compaction=True, **row))
+    print(f"phase 7 traceql {STRUCTURAL} after compaction: {len(out)} traces, vectorized, the "
+          f"object engine's traces | {row['ms']:.0f} ms", flush=True)
+
+    # --------------------------------------------------------- 7. metrics
+    res["query"] = []
+    for q in queries:
+        plan = plan_of(q)
+        got, row = {}, {"query": q}
+        for dev in ("cuda", "cpu"):
+            before = pk.seg_bincount.launches
+            t0 = time.perf_counter()
+            merged = M.new_wire()
+            for m in db.blocklist.metas(tenant):
+                blk = db.encoding_for(m.version).open_block(m, db.backend, db.cfg.block)
+                M.merge_wire(merged, M.evaluate_block(plan, blk, device=dev).to_wire(), plan)
+            got[dev] = M.finalize_matrix(plan, merged)
+            row[f"{dev}_ms"] = (time.perf_counter() - t0) * 1e3
+            if dev == "cuda":
+                row["launches"] = pk.seg_bincount.launches - before
+                check(row["launches"] > 0, f"phase 7 query {q}: seg_bincount did not launch")
+        check(got["cuda"] == got["cpu"] and got["cpu"]["result"],
+              f"phase 7 query {q}: cuda matrix != cpu matrix")
+        res["query"].append(row)
+        print(f"phase 7 query: {q} | {len(got['cpu']['result'])} series, cuda == cpu | "
+              f"{row['cuda_ms']:.1f} ms on the card ({row['launches']} seg_bincount launches), "
+              f"{row['cpu_ms']:.1f} ms with the CPU accumulator", flush=True)
+
+    # ------------------------------------------------------------- 8. WAL
+    parts = [chain_parents(synth.make_batch(1024, 8, seed=seed * 1000 + 500 + i,
+                                            base_time_ns=(BASE_S + 60 * i) * 10**9))
+             for i in range(16)]
+    wal_tenant = "smoke-wal"
+    t0 = time.perf_counter()
+    wal_blk = db.wal.new_block(wal_tenant)
+    for p in parts:
+        wal_blk.append(p)
+    res["wal_append_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    (replayed,) = [w for w in db.wal.rescan_blocks() if w.block_id == wal_blk.block_id]
+    res["wal_replay_ms"] = (time.perf_counter() - t0) * 1e3
+    block_id = str(uuid.uuid4())
+    t0 = time.perf_counter()
+    wal_meta = db.write_wal_block(wal_tenant, replayed, block_id=block_id)
+    res["write_wal_block_ms"] = (time.perf_counter() - t0) * 1e3
+    cpu_db = TempoDB(DBConfig(backend="local", backend_path=os.path.join(root, "cpu")),
+                     device="cpu")
+    cpu_db.write_batch(wal_tenant, SpanBatch.concat(parts).sorted_by_trace(), block_id=block_id)
+    check_same_blocks(block_objects(os.path.join(root, "blocks"), wal_tenant, block_id, True),
+                      block_objects(os.path.join(root, "cpu"), wal_tenant, block_id, True),
+                      "phase 7 write_wal_block vs write_batch on the cpu")
+    check(wal_meta.total_spans == 1 << 17 and replayed.num_segments() == 16,
+          f"phase 7 wal: {wal_meta.total_spans} spans, {replayed.num_segments()} segments")
+    print(f"phase 7 wal: 16 segments of 8192 spans appended ({res['wal_append_ms']:.0f} ms), "
+          f"found by rescan_blocks ({res['wal_replay_ms']:.0f} ms), replayed and completed on "
+          f"{db.device} "
+          f"({res['write_wal_block_ms']:.0f} ms): byte-equal to write_batch of the same "
+          f"spans on the cpu", flush=True)
+    res["phase_s"] = time.perf_counter() - t_phase
     return res
 
 
@@ -721,7 +1070,8 @@ def main() -> int:
         k.launches = 0
     t0 = time.perf_counter()
     before_s = t0 - t_script
-    blocks = blocks_phase(seed, queries, plan_of)
+    db_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_db_")
+    blocks, (a, b) = blocks_phase(seed, queries, plan_of, os.path.join(db_dir.name, "blocks"))
     blocks["launches"] = {"seg_bincount": pk.seg_bincount.launches,
                           "in_set_scan": pk.in_set_scan.launches,
                           "u64_range_scan": pk.u64_range_scan.launches}
@@ -733,6 +1083,19 @@ def main() -> int:
           f"seg_bincount launched "
           f"{pk.seg_bincount.launches} times on the block path", flush=True)
 
+    # ---------------------------------------------------------------- 7
+    for k in (pk.seg_bincount, pk.in_set_scan, pk.u64_range_scan):
+        k.launches = 0
+    with db_dir:
+        db = db_phase(seed, a, b, db_dir.name, queries, plan_of)
+    db["launches"] = {"seg_bincount": pk.seg_bincount.launches,
+                      "in_set_scan": pk.in_set_scan.launches,
+                      "u64_range_scan": pk.u64_range_scan.launches}
+    check(pk.seg_bincount.launches > 0, "storage engine path: seg_bincount never launched")
+    kernels["seg_bincount"]["launches_db_path"] = pk.seg_bincount.launches
+    print(f"phase 7 db: {db['phase_s']:.1f} s, seg_bincount launched "
+          f"{pk.seg_bincount.launches} times on the storage engine's path", flush=True)
+
     replaces = {
         "seg_bincount": "tempo_tpu/ops/pallas_kernels.py:194",
         "in_set_scan": "tempo_tpu/ops/pallas_kernels.py:55",
@@ -743,7 +1106,8 @@ def main() -> int:
          "replaces": replaces[k], **kernels[k]}
         for k in ("seg_bincount", "in_set_scan", "u64_range_scan")
     ], "ptxas": ptxas, "compaction_step_ms": statistics.median(step_s) * 1e3,
-        "query_ms": query_ms, "blocks": blocks, "script_s": time.perf_counter() - t_script}
+        "query_ms": query_ms, "blocks": blocks, "db": db,
+        "script_s": time.perf_counter() - t_script}
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -138,7 +138,9 @@ class VtpuCompactor:
         # first row group (instance reuse across jobs is legal)
         self._pending, self._pending_rows, self._stream_resident = [], 0, 0
         out_dict = Dictionary()
-        blocks = [VtpuBackendBlock(m, backend, cfg) for m in metas]
+        # column_cache=None: compaction reads every row group exactly
+        # once — caching would only evict the query working set
+        blocks = [VtpuBackendBlock(m, backend, cfg, column_cache=None) for m in metas]
         # remap every input dictionary onto the shared output dictionary
         # up front, in metas order (the same order the streams would) —
         # the fast path needs the remaps before any stream exists

@@ -37,6 +37,10 @@ def id_to_hex(limbs: np.ndarray) -> str:
     return np.asarray(limbs, dtype=np.uint32).astype(">u4").tobytes().hex()
 
 
+def hex_to_limbs(h: str) -> np.ndarray:
+    return np.frombuffer(bytes.fromhex(h.rjust(32, "0")), dtype=">u4").astype(np.uint32)
+
+
 @dataclass
 class PageMeta:
     offset: int  # absolute into data.bin

@@ -1,9 +1,21 @@
 """Vectorized TraceQL evaluation over columnar span batches.
 
-The hottest read loop of the reference runs as compiled column scans
+The object engine (engine.py) materializes python Span dicts per trace
+and walks them per span — fine for ingester live traces, but the
+hottest read loop of the reference runs as compiled column scans
 (vparquet/block_traceql.go:279-617 iterator trees). This module is the
-columnar equivalent: filters and field expressions evaluate as numpy
-array ops over a SpanBatch.
+columnar equivalent: the whole pipeline evaluates as numpy array ops
+over a row group's SpanBatch, and per-trace aggregates are computed as
+segment reductions.
+
+Cross-block correctness: a trace's spans may straddle blocks, so block
+evaluation returns per-trace PARTIALS — matched span masks are span-
+local (safe per block), while aggregate inputs (count/sum/min/max) are
+associative and merge across blocks before the final aggregate filter
+(db.traceql_search drives the merge). by() keeps those partials per
+(trace, materialized group value) and resolves each group's aggregate
+chain at finalize; select() attaches the chosen fields to the retained
+span tuples.
 
 Structural evaluation (parent.*, childCount, the spanset ops `>`, `>>`,
 `~`, `&&`, `||`) is vectorized as parent-span-id joins within trace
@@ -15,7 +27,7 @@ trace-aligned, fmt.row_group_slices), so the per-batch joins see the
 complete span tree exactly like the reference's per-parquet-row
 evaluation (vparquet/block_traceql.go:375-617). Only filters after
 by()/aggregates, coalesce after by(), and pipeline-valued spanset
-operands raise Unsupported.
+operands raise Unsupported and fall back to the object engine.
 
 Type model: every field expression evaluates to (kind, values, defined)
 with kind in {num, bool, str}; strings are block-dictionary codes, so
@@ -23,12 +35,10 @@ equality is code compare and regex resolves to a code set once per
 block (the reference's dictionary-pruning trick,
 pkg/parquetquery/predicates.go).
 
-Port note: copied from tempo_tpu/traceql/vector.py with the parts that
-the metrics path reaches — expression and spanset evaluation,
-validation, projection, the block column views (ColumnView,
-LazyColumnView) and the encoded-space filter mask. The compiled-tier
-lowering and the per-trace search partials (with the object-engine
-fallback) arrive with the search slice.
+Port of tempo_tpu/traceql/vector.py, copied whole but for the
+compiled-tier lowering (`compiled_filter_specs`, `_compiled_expr_specs`),
+whose one caller is tempo_tpu/compiled/lower.py; it arrives with the
+compiled/ slice.
 """
 
 from __future__ import annotations
@@ -41,12 +51,16 @@ from tempo_tpu_torch.model.columnar import (
     SCOPE_RESOURCE,
     SCOPE_SPAN,
     VT_BOOL,
+    VT_FLOAT,
     VT_INT,
     VT_STR,
-    trace_segmentation,
 )
-from tempo_tpu_torch.ops import scan
 from tempo_tpu_torch.traceql import ast_nodes as A
+
+MAX_SPANS_PER_RESULT = 20  # spans retained per trace in results — both
+# engines apply the same cap (earliest by start, span_id tiebreak) with
+# the true matched count carried separately, so memory stays bounded by
+# limit*cap instead of total matched spans
 
 
 class Unsupported(Exception):
@@ -70,6 +84,8 @@ class ColumnView:
 
     def trace_boundaries(self):
         if self._tb is None:
+            from tempo_tpu_torch.model.columnar import trace_segmentation
+
             _, seg, firsts = trace_segmentation(self.cols["trace_id"])
             self._tb = (firsts, seg)
         return self._tb
@@ -110,6 +126,8 @@ class LazyColumnView(ColumnView):
         if self._tb is None and self._enc_of is not None:
             enc = self._enc_of("trace_id")
             if enc is not None and enc.codec == "rle":
+                from tempo_tpu_torch.ops import scan
+
                 _, lengths = enc.runs()
                 firsts, seg = scan.runs_firsts_seg(lengths)
                 self._tb = (firsts, seg)
@@ -184,6 +202,107 @@ _DEDICATED_SCOPES = {
     "http.url": ("any", "span"),
     "http.status_code": ("any", "span"),
 }
+
+
+def supports(pipeline: A.Pipeline) -> bool:
+    try:
+        _validate(pipeline)
+        return True
+    except Unsupported:
+        return False
+
+
+def needs_whole_traces(pipeline: A.Pipeline) -> bool:
+    """True when evaluation reads span TOPOLOGY (parent joins): the
+    structural spanset ops, parent.* attributes, or childCount.
+
+    Per-batch joins see a complete tree only when each trace lives
+    wholly inside one block (the normal state: row groups are
+    trace-aligned and compaction merges a trace's copies). The db layer
+    checks that at runtime — if a trace id actually appears in several
+    blocks it re-runs the query on the object engine, which evaluates
+    combined traces (stronger than the reference, whose per-parquet-row
+    evaluation is always block-local, vparquet/block_traceql.go:375).
+    Bare `parent = nil` stays exempt: its zero-id form is span-local.
+    """
+
+    found = [False]
+
+    def walk_expr(e):
+        if isinstance(e, A.Attribute):
+            if e.scope == "parent":
+                found[0] = True
+        elif isinstance(e, A.Intrinsic):
+            if e.name == "childCount":
+                found[0] = True
+        elif isinstance(e, A.Unary):
+            walk_expr(e.expr)
+        elif isinstance(e, A.Binary):
+            walk_expr(e.lhs)
+            walk_expr(e.rhs)
+
+    def walk_spanset(node):
+        if isinstance(node, A.SpansetOp):
+            # `&&` needs the whole trace too: its both-operands-matched
+            # test is per TRACE, which a block holding half the trace
+            # answers differently. Only `||` is pointwise.
+            if node.op in (">", ">>", "~", "&&"):
+                found[0] = True
+            walk_spanset(node.lhs)
+            walk_spanset(node.rhs)
+        elif isinstance(node, A.SpansetFilter) and node.expr is not None:
+            walk_expr(node.expr)
+
+    for stage in pipeline.stages:
+        if isinstance(stage, (A.SpansetFilter, A.SpansetOp)):
+            walk_spanset(stage)
+        elif isinstance(stage, A.AggregateFilter) and stage.field_expr is not None:
+            walk_expr(stage.field_expr)
+        elif isinstance(stage, A.GroupBy):
+            walk_expr(stage.expr)
+        elif isinstance(stage, A.Select):
+            for e in stage.exprs:
+                walk_expr(e)
+    return found[0]
+
+
+def _validate(pipeline: A.Pipeline):
+    seen_agg = False
+    seen_by = False
+    for stage in pipeline.stages:
+        if isinstance(stage, (A.SpansetFilter, A.SpansetOp)):
+            if seen_agg:
+                # the flat-mask model folds all filters together before
+                # aggregates resolve (at cross-block finalize), so a
+                # filter AFTER an aggregate would change what the
+                # aggregate observes — stage order matters there
+                raise Unsupported("filter stage after aggregate filter")
+            if seen_by:
+                # same reason: a filter after by() re-filters each
+                # group, which the one-shot mask cannot express
+                raise Unsupported("filter stage after by()")
+            _validate_spanset(stage)
+        elif isinstance(stage, A.AggregateFilter):
+            seen_agg = True
+            if stage.field_expr is not None:
+                _validate_expr(stage.field_expr)
+        elif isinstance(stage, A.Coalesce):
+            if seen_by:
+                # coalesce merges groups back; aggregates after it see
+                # the union again — the keyed-partial model doesn't
+                raise Unsupported("coalesce after by()")
+        elif isinstance(stage, A.GroupBy):
+            if seen_by:
+                raise Unsupported("multiple by() stages")
+            if seen_agg:
+                raise Unsupported("by() after aggregate filter")
+            seen_by = True
+            _validate_expr(stage.expr)
+        elif isinstance(stage, A.Select):
+            for e in stage.exprs:
+                _validate_expr(e)
+        else:
+            raise Unsupported(f"stage {type(stage).__name__}")
 
 
 def _validate_spanset(node):
@@ -562,85 +681,6 @@ def _regex_codes(d, pattern: str) -> np.ndarray:
     return codes
 
 
-def _filter_mask_ctx(expr: A.Expr | None, ctx: _Ctx) -> np.ndarray:
-    if expr is None:
-        return np.ones(ctx.n, bool)
-    k, v, d = _eval(expr, ctx)
-    # only a boolean True matches (object engine: isinstance(v, bool) and v)
-    if k != "bool":
-        return np.zeros(ctx.n, bool)
-    return v & d
-
-
-def _spanset_mask(node, ctx: _Ctx, base: np.ndarray | None = None) -> np.ndarray:
-    """Mask of one spanset expression (filters + structural ops). With
-    `base` set (a later pipeline stage), operand filters see only the
-    current group's spans — pointwise AND, exactly eval_spanset_expr
-    run over the group list."""
-    if isinstance(node, A.SpansetFilter):
-        m = _filter_mask_ctx(node.expr, ctx)
-        return m if base is None else m & base
-    if isinstance(node, A.SpansetOp):
-        a = _spanset_mask(node.lhs, ctx, base)
-        b = _spanset_mask(node.rhs, ctx, base)
-        return _structural_combine(node.op, a, b, ctx)
-    raise Unsupported(f"spanset operand {type(node).__name__}")
-
-
-def _seg_any(mask: np.ndarray, seg: np.ndarray, n_traces: int) -> np.ndarray:
-    hit = np.zeros(n_traces, bool)
-    np.logical_or.at(hit, seg[mask], True)
-    return hit
-
-
-def _structural_combine(op: str, a: np.ndarray, b: np.ndarray, ctx: _Ctx) -> np.ndarray:
-    """Columnar spanset algebra, matching eval_spanset_expr per trace:
-
-    &&  union when BOTH operands matched somewhere in the trace
-    ||  union
-    >   b-spans whose parent row is an a-span (one gather)
-    >>  b-spans with ANY ancestor in a (pointer-doubling closure)
-    ~   b-spans sharing a parent-id VALUE with a DIFFERENT a-span
-        (dangling parent ids group siblings too, like the engine's
-        by_parent dict — reference OpSpansetSibling)
-    """
-    firsts, seg = ctx.batch.trace_boundaries()
-    n_traces = len(firsts)
-    if op == "||":
-        return a | b
-    if op == "&&":
-        both = _seg_any(a, seg, n_traces) & _seg_any(b, seg, n_traces)
-        return (a | b) & both[seg]
-    if op == ">":
-        pr = ctx.parent_rows()
-        safe = np.maximum(pr, 0)
-        return b & (pr >= 0) & a[safe]
-    if op == ">>":
-        # ancestor-of closure by pointer doubling. Invariant after k
-        # rounds: acc[i] = OR of a[] over ancestors at distance 1..2^k,
-        # p[i] = ancestor at distance 2^k (or -1). log2(n)+1 rounds
-        # cover any simple path; the hard cap also terminates on
-        # pathological parent-id cycles (where acc has already
-        # converged — the OR is monotone over a finite set).
-        pr = ctx.parent_rows()
-        p = pr.copy()
-        acc = (p >= 0) & a[np.maximum(p, 0)]
-        rounds = max(1, int(np.ceil(np.log2(max(ctx.n, 2)))) + 1)
-        for _ in range(rounds):
-            if not (p >= 0).any():
-                break
-            safe = np.maximum(p, 0)
-            acc = acc | ((p >= 0) & acc[safe])
-            p = np.where(p >= 0, p[safe], -1)
-        return b & acc
-    if op == "~":
-        keys = ctx.sibling_keys()
-        uniq, inv = np.unique(keys, return_inverse=True)
-        cnt_a = np.bincount(inv[a], minlength=len(uniq))
-        return b & (cnt_a[inv] - a.astype(np.int64) > 0)
-    raise Unsupported(f"spanset op {op}")
-
-
 # ---------------------------------------------------------------------------
 # encoded-space filter evaluation (run/dictionary space)
 # ---------------------------------------------------------------------------
@@ -767,3 +807,520 @@ def encoded_filter_mask(stages, enc_of, d, n: int) -> np.ndarray | None:
                 return None
         mask = m if mask is None else (mask & m)
     return mask if mask is not None else np.ones(n, bool)
+
+
+def filter_mask(expr: A.Expr | None, batch, dictionary) -> np.ndarray:
+    """Exact span mask for one spanset filter over a batch."""
+    n = batch.num_spans
+    if expr is None:
+        return np.ones(n, bool)
+    ctx = _Ctx(batch=batch, d=dictionary, n=n)
+    return _filter_mask_ctx(expr, ctx)
+
+
+def _filter_mask_ctx(expr: A.Expr | None, ctx: _Ctx) -> np.ndarray:
+    if expr is None:
+        return np.ones(ctx.n, bool)
+    k, v, d = _eval(expr, ctx)
+    # only a boolean True matches (object engine: isinstance(v, bool) and v)
+    if k != "bool":
+        return np.zeros(ctx.n, bool)
+    return v & d
+
+
+def _spanset_mask(node, ctx: _Ctx, base: np.ndarray | None = None) -> np.ndarray:
+    """Mask of one spanset expression (filters + structural ops). With
+    `base` set (a later pipeline stage), operand filters see only the
+    current group's spans — pointwise AND, exactly eval_spanset_expr
+    run over the group list."""
+    if isinstance(node, A.SpansetFilter):
+        m = _filter_mask_ctx(node.expr, ctx)
+        return m if base is None else m & base
+    if isinstance(node, A.SpansetOp):
+        a = _spanset_mask(node.lhs, ctx, base)
+        b = _spanset_mask(node.rhs, ctx, base)
+        return _structural_combine(node.op, a, b, ctx)
+    raise Unsupported(f"spanset operand {type(node).__name__}")
+
+
+def _seg_any(mask: np.ndarray, seg: np.ndarray, n_traces: int) -> np.ndarray:
+    hit = np.zeros(n_traces, bool)
+    np.logical_or.at(hit, seg[mask], True)
+    return hit
+
+
+def _structural_combine(op: str, a: np.ndarray, b: np.ndarray, ctx: _Ctx) -> np.ndarray:
+    """Columnar spanset algebra, matching eval_spanset_expr per trace:
+
+    &&  union when BOTH operands matched somewhere in the trace
+    ||  union
+    >   b-spans whose parent row is an a-span (one gather)
+    >>  b-spans with ANY ancestor in a (pointer-doubling closure)
+    ~   b-spans sharing a parent-id VALUE with a DIFFERENT a-span
+        (dangling parent ids group siblings too, like the engine's
+        by_parent dict — reference OpSpansetSibling)
+    """
+    firsts, seg = ctx.batch.trace_boundaries()
+    n_traces = len(firsts)
+    if op == "||":
+        return a | b
+    if op == "&&":
+        both = _seg_any(a, seg, n_traces) & _seg_any(b, seg, n_traces)
+        return (a | b) & both[seg]
+    if op == ">":
+        pr = ctx.parent_rows()
+        safe = np.maximum(pr, 0)
+        return b & (pr >= 0) & a[safe]
+    if op == ">>":
+        # ancestor-of closure by pointer doubling. Invariant after k
+        # rounds: acc[i] = OR of a[] over ancestors at distance 1..2^k,
+        # p[i] = ancestor at distance 2^k (or -1). log2(n)+1 rounds
+        # cover any simple path; the hard cap also terminates on
+        # pathological parent-id cycles (where acc has already
+        # converged — the OR is monotone over a finite set).
+        pr = ctx.parent_rows()
+        p = pr.copy()
+        acc = (p >= 0) & a[np.maximum(p, 0)]
+        rounds = max(1, int(np.ceil(np.log2(max(ctx.n, 2)))) + 1)
+        for _ in range(rounds):
+            if not (p >= 0).any():
+                break
+            safe = np.maximum(p, 0)
+            acc = acc | ((p >= 0) & acc[safe])
+            p = np.where(p >= 0, p[safe], -1)
+        return b & acc
+    if op == "~":
+        keys = ctx.sibling_keys()
+        uniq, inv = np.unique(keys, return_inverse=True)
+        cnt_a = np.bincount(inv[a], minlength=len(uniq))
+        return b & (cnt_a[inv] - a.astype(np.int64) > 0)
+    raise Unsupported(f"spanset op {op}")
+
+
+# ---------------------------------------------------------------------------
+# per-trace partials + cross-block merge
+# ---------------------------------------------------------------------------
+
+
+def _span_key(s):
+    """(start, span_id_hex): unique per span, so the trailing tuple
+    fields (name, dur, select values) never get compared."""
+    return (s[0], s[1])
+
+
+def _merge_aggs(mine: list, other: list) -> None:
+    """Fold other's (count, total, min, max) partials into mine."""
+    for i, (c, t, mn, mx) in enumerate(other):
+        c0, t0, mn0, mx0 = mine[i]
+        mine[i] = (c0 + c, t0 + t, min(mn0, mn), max(mx0, mx))
+
+
+def _merge_spans(a: list, b: list) -> list:
+    """Sorted-union-truncate: both sides are already capped, and the
+    kept set must be the globally earliest spans regardless of block
+    merge order."""
+    return sorted(a + b, key=_span_key)[:MAX_SPANS_PER_RESULT]
+
+
+@dataclass
+class _GroupPartial:
+    """One by()-group of one trace: same associative partials as the
+    trace itself, keyed by the materialized group value."""
+
+    matched: int = 0
+    aggs: list = field(default_factory=list)
+    spans: list = field(default_factory=list)
+
+    def merge(self, other: "_GroupPartial"):
+        self.matched += other.matched
+        _merge_aggs(self.aggs, other.aggs)
+        self.spans = _merge_spans(self.spans, other.spans)
+
+
+@dataclass
+class TracePartial:
+    trace_id: bytes
+    matched: int = 0
+    # aggregate partials per AggregateFilter index: (count, total, mn, mx)
+    aggs: list = field(default_factory=list)
+    # response metadata partials
+    start: int = 0
+    end: int = 0
+    root_service: str = ""
+    root_name: str = ""
+    has_root: bool = False  # root_* comes from a TRUE root span, not the
+    # first-span fallback — a real root in a later block must win
+    spans: list = field(default_factory=list)  # (start, span_id_hex, name, dur[, sel])
+    # by() mode: {group value: _GroupPartial}; group values are
+    # materialized python scalars (dictionary codes resolved), so keys
+    # merge exactly across blocks with different dictionaries
+    groups: dict | None = None
+
+    def merge(self, other: "TracePartial"):
+        self.matched += other.matched
+        _merge_aggs(self.aggs, other.aggs)
+        self.start = min(self.start, other.start)
+        self.end = max(self.end, other.end)
+        if other.has_root and not self.has_root:
+            self.root_service = other.root_service
+            self.root_name = other.root_name
+            self.has_root = True
+        self.spans = _merge_spans(self.spans, other.spans)
+        if other.groups:
+            if self.groups is None:
+                self.groups = {}
+            for key, g in other.groups.items():
+                mine = self.groups.get(key)
+                if mine is None:
+                    self.groups[key] = g
+                else:
+                    mine.merge(g)
+
+
+def _materialize_keys(kind, vals, defined, d, n):
+    """Per-span python-scalar by() keys (None = undefined), stable
+    across blocks whose dictionaries assign different codes."""
+    out = np.full(n, None, dtype=object)
+    if kind is None:
+        return out
+    idx = np.flatnonzero(defined)
+    if not len(idx):
+        return out
+    if kind == "str":
+        uniq, inv = np.unique(vals[idx], return_inverse=True)
+        strings = np.array([d[int(c)] for c in uniq], dtype=object)
+        out[idx] = strings[inv]
+    else:  # num / bool scalars hash and compare consistently everywhere
+        out[idx] = vals[idx].astype(object)
+    return out
+
+
+def evaluate_batch(pipeline: A.Pipeline, batch, dictionary) -> dict:
+    """One row-group batch -> {trace_id_bytes: TracePartial}.
+
+    Aggregate filters are NOT applied here — their inputs are collected
+    as associative partials and resolved in finalize() after all blocks
+    merged (a trace may straddle blocks). With a by() stage the partials
+    are kept per (trace, group value); select() fields are attached to
+    the retained span tuples."""
+    n = batch.num_spans
+    if n == 0:
+        return {}
+    ctx = _Ctx(batch=batch, d=dictionary, n=n)
+
+    mask = _spanset_mask(pipeline.stages[0], ctx)
+    agg_stages = []
+    for stage in pipeline.stages[1:]:
+        if isinstance(stage, A.SpansetFilter):
+            if mask.any():
+                mask = mask & _filter_mask_ctx(stage.expr, ctx)
+        elif isinstance(stage, A.SpansetOp):
+            # later-stage structural op: operand filters see only the
+            # current group's spans (run_stages feeds g, not all spans)
+            if mask.any():
+                mask = _spanset_mask(stage, ctx, base=mask)
+        elif isinstance(stage, A.AggregateFilter):
+            agg_stages.append(stage)
+        # Coalesce: no-op in the flat-mask model
+    if not mask.any():
+        return {}
+    group_stage = next((s for s in pipeline.stages if isinstance(s, A.GroupBy)), None)
+    select_exprs = [e for s in pipeline.stages if isinstance(s, A.Select) for e in s.exprs]
+
+    firsts, seg = batch.trace_boundaries()
+    n_traces = len(firsts)
+    m_count = np.bincount(seg[mask], minlength=n_traces)
+    hit_traces = np.flatnonzero(m_count > 0)
+
+    # aggregate inputs evaluated over MATCHED spans only. Ungrouped:
+    # whole-column bincount partials per trace. Grouped: keep the raw
+    # per-span arrays; the (small) per-group reductions happen in the
+    # assembly loop below.
+    agg_parts = []
+    agg_raw = []
+    for stage in agg_stages:
+        if group_stage is None and stage.agg == "count":
+            agg_parts.append((m_count, np.zeros(n_traces), None, None))
+            continue
+        if stage.agg == "count":
+            agg_raw.append(("count", None, None))
+            continue
+        k, v, d = _eval(stage.field_expr, ctx)
+        if k != "num":
+            v = np.zeros(n, np.float64)
+            d = np.zeros(n, bool)
+        if group_stage is not None:
+            agg_raw.append((stage.agg, v, d))
+            continue
+        ok = mask & d
+        cnt = np.bincount(seg[ok], minlength=n_traces)
+        tot = np.bincount(seg[ok], weights=v[ok], minlength=n_traces)
+        mn = np.full(n_traces, np.inf)
+        mx = np.full(n_traces, -np.inf)
+        if ok.any():
+            np.minimum.at(mn, seg[ok], v[ok])
+            np.maximum.at(mx, seg[ok], v[ok])
+        agg_parts.append((cnt, tot, mn, mx))
+
+    gkeys = None
+    if group_stage is not None:
+        gk, gv, gd = _eval(group_stage.expr, ctx)
+        gkeys = _materialize_keys(gk, gv, gd, dictionary, n)
+
+    sel_arrays = []
+    if select_exprs:
+        from tempo_tpu_torch.traceql.engine import _select_label
+
+        for e in select_exprs:
+            k, v, d = _eval(e, ctx)
+            if k is not None:
+                if isinstance(e, A.Intrinsic):
+                    is_int = e.name in ("duration", "childCount", "status", "kind")
+                elif isinstance(e, A.Attribute):
+                    # _eval populated the vt cache via attr_values. An
+                    # "any"-scope attr can mix VT_INT and VT_FLOAT across
+                    # scopes (both kind "num"): the flag must then be
+                    # per span, following _eval's span-wins fill.
+                    if e.scope == "any":
+                        vt_s = ctx._attr_vt.get(("span", e.name))
+                        vt_r = ctx._attr_vt.get(("resource", e.name))
+                        if vt_s is not None and vt_r is not None and vt_s != vt_r:
+                            _, _, ds = ctx.attr_values("span", e.name)
+                            is_int = np.where(ds, vt_s == VT_INT, vt_r == VT_INT)
+                        else:
+                            is_int = ctx.attr_is_int(e.scope, e.name)
+                    else:
+                        is_int = ctx.attr_is_int(e.scope, e.name)
+                else:
+                    is_int = False
+                sel_arrays.append((_select_label(e), k, v, d, is_int))
+
+    tid = batch.cols["trace_id"]
+    starts = batch.cols["start_unix_nano"]
+    durations = batch.cols["duration_nano"]
+    ends = starts + durations
+    is_root = (batch.cols["parent_span_id"] == 0).all(axis=1)
+    sid = batch.cols["span_id"]
+    names = batch.cols["name"]
+    service = batch.cols["service"]
+
+    # per-trace metadata computed in whole-column passes (the per-trace
+    # Python loop below only assembles already-reduced scalars — on
+    # match-heavy queries this loop used to dominate the whole path)
+    t_start = np.minimum.reduceat(starts, firsts)
+    t_end = np.maximum.reduceat(ends, firsts)
+    # first TRUE-root row per trace (fallback: the trace's first row)
+    root_row = firsts.copy()
+    has_root_arr = np.zeros(n_traces, bool)
+    root_rows_all = np.flatnonzero(is_root)
+    if len(root_rows_all):
+        root_seg = seg[root_rows_all]
+        # rows are in ascending order, so keep the FIRST root per segment
+        first_idx = np.unique(root_seg, return_index=True)[1]
+        root_row[root_seg[first_idx]] = root_rows_all[first_idx]
+        has_root_arr[root_seg[first_idx]] = True
+    # all trace-id / span-id bytes in two bulk byteswaps
+    tid_be = np.ascontiguousarray(tid[firsts]).astype(">u4")
+    m_rows_all = np.flatnonzero(mask)
+    m_seg = seg[m_rows_all]
+    sid_be = np.ascontiguousarray(sid[m_rows_all]).astype(">u4")
+    # matched rows grouped per trace: m_rows_all is sorted, so segment
+    # boundaries are a searchsorted over the hit traces
+    grp_bounds = np.searchsorted(m_seg, hit_traces)
+
+    def _sel_value(kind, val, is_int):
+        if kind == "str":
+            return dictionary[int(val)]
+        if kind == "bool":
+            return bool(val)
+        # render the STORED type: VT_INT attrs / int intrinsics as ints
+        # (wire intValue), VT_FLOAT as floats (doubleValue) — exactly
+        # what the object engine's eval returns
+        return int(val) if is_int else float(val)
+
+    def _tuple_at(i):
+        """Span tuple for position i into m_rows_all."""
+        row = m_rows_all[i]
+        t = (
+            int(starts[row]),
+            sid_be[i].tobytes().hex(),
+            dictionary[int(names[row])],
+            int(durations[row]),
+        )
+        if sel_arrays:
+            t = t + (
+                tuple(
+                    (
+                        lbl,
+                        _sel_value(
+                            k, v[row],
+                            bool(is_int[row]) if isinstance(is_int, np.ndarray) else is_int,
+                        ),
+                    )
+                    for (lbl, k, v, d, is_int) in sel_arrays
+                    if d[row]
+                ),
+            )
+        return t
+
+    out = {}
+    for j, t in enumerate(hit_traces):
+        lo_m = grp_bounds[j]
+        hi_m = grp_bounds[j + 1] if j + 1 < len(hit_traces) else len(m_rows_all)
+        if gkeys is not None:
+            sel = ()  # grouped mode keeps spans per group, not per trace
+        elif hi_m - lo_m > MAX_SPANS_PER_RESULT:
+            # earliest by (start, span_id) — same rule as the object engine
+            rows = m_rows_all[lo_m:hi_m]
+            key = np.lexsort((sid[rows, 1], sid[rows, 0], starts[rows]))
+            sel = lo_m + key[:MAX_SPANS_PER_RESULT]
+        else:
+            sel = range(lo_m, hi_m)
+        root = int(root_row[t])
+        p = TracePartial(
+            trace_id=tid_be[t].tobytes(),
+            matched=int(m_count[t]),
+            start=int(t_start[t]),
+            end=int(t_end[t]),
+            root_service=dictionary[int(service[root])],
+            root_name=dictionary[int(names[root])],
+            has_root=bool(has_root_arr[t]),
+            spans=[_tuple_at(i) for i in sel],
+        )
+        if gkeys is not None:
+            # partials per (trace, group value); small python loop over
+            # this trace's matched rows only
+            pos_by_key: dict = {}
+            for i in range(lo_m, hi_m):
+                pos_by_key.setdefault(gkeys[m_rows_all[i]], []).append(i)
+            p.groups = {}
+            for key, poss in pos_by_key.items():
+                rows_k = m_rows_all[poss]
+                gp = _GroupPartial(matched=len(poss))
+                for (aggname, v, d) in agg_raw:
+                    if aggname == "count":
+                        gp.aggs.append((len(poss), 0.0, np.inf, -np.inf))
+                        continue
+                    ok = rows_k[d[rows_k]]
+                    if len(ok):
+                        vals = v[ok]
+                        gp.aggs.append(
+                            (len(ok), float(vals.sum()), float(vals.min()), float(vals.max()))
+                        )
+                    else:
+                        gp.aggs.append((0, 0.0, np.inf, -np.inf))
+                if len(poss) > MAX_SPANS_PER_RESULT:
+                    order = np.lexsort((sid[rows_k, 1], sid[rows_k, 0], starts[rows_k]))
+                    keep = [poss[k] for k in order[:MAX_SPANS_PER_RESULT]]
+                else:
+                    keep = poss
+                gp.spans = [_tuple_at(i) for i in keep]
+                p.groups[key] = gp
+        for (cnt, tot, mn, mx) in agg_parts:
+            p.aggs.append(
+                (
+                    int(cnt[t]),
+                    float(tot[t]),
+                    float(mn[t]) if mn is not None else np.inf,
+                    float(mx[t]) if mx is not None else -np.inf,
+                )
+            )
+        out[p.trace_id] = p
+    return out
+
+
+def _aggs_pass(agg_stages, matched: int, aggs: list) -> bool:
+    """Resolve the aggregate-filter chain over merged partials."""
+    ok = matched > 0
+    for stage, (cnt, tot, mn, mx) in zip(agg_stages, aggs):
+        if not ok:
+            break
+        if stage.agg == "count":
+            val = matched
+        elif cnt == 0:
+            return False
+        else:
+            val = {
+                "avg": tot / cnt,
+                "sum": tot,
+                "min": mn,
+                "max": mx,
+            }[stage.agg]
+        r = stage.rhs.value
+        ok = {
+            "=": val == r,
+            "!=": val != r,
+            ">": val > r,
+            ">=": val >= r,
+            "<": val < r,
+            "<=": val <= r,
+        }[stage.op]
+    return ok
+
+
+def finalize(pipeline: A.Pipeline, partials: dict, limit: int = 20,
+             start_s: int = 0, end_s: int = 0) -> list:
+    """Merged partials -> SpansetResult list (aggregate filters applied,
+    exact trace-level time window enforced). In by() mode each group
+    resolves its own aggregate chain; a trace matches if ANY group
+    survives, and its matched spans are the union of surviving groups —
+    the same union the object engine's run_stages produces."""
+    from tempo_tpu_torch.traceql.engine import SpansetResult
+
+    agg_stages = [s for s in pipeline.stages[1:] if isinstance(s, A.AggregateFilter)]
+    group_mode = any(isinstance(s, A.GroupBy) for s in pipeline.stages)
+    results = []
+    for p in partials.values():
+        if start_s and p.end < start_s * 10**9:
+            continue
+        if end_s and p.start > end_s * 10**9:
+            continue
+        if group_mode:
+            matched_val = 0
+            spans: list = []
+            for g in (p.groups or {}).values():
+                if _aggs_pass(agg_stages, g.matched, g.aggs):
+                    matched_val += g.matched
+                    spans.extend(g.spans)
+            if matched_val == 0:
+                continue
+        else:
+            if not _aggs_pass(agg_stages, p.matched, p.aggs):
+                continue
+            matched_val = p.matched
+            spans = p.spans
+        kept = sorted(spans, key=_span_key)[:MAX_SPANS_PER_RESULT]
+        span_attrs = {}
+        for s in kept:
+            if len(s) > 4 and s[4]:
+                span_attrs[bytes.fromhex(s[1])] = dict(s[4])
+        results.append(
+            SpansetResult(
+                trace_id_hex=p.trace_id.hex(),
+                root_service_name=p.root_service,
+                root_trace_name=p.root_name,
+                start_time_unix_nano=p.start,
+                duration_ms=(p.end - p.start) // 10**6,
+                spans=[_VSpan(*s[:4]) for s in kept],
+                span_attrs=span_attrs,
+                matched_override=matched_val,
+            )
+        )
+    results.sort(key=lambda r: -r.start_time_unix_nano)
+    return results[:limit] if limit else results
+
+
+class _VSpan:
+    """Duck-typed span for SpansetResult.to_dict()."""
+
+    __slots__ = ("start_unix_nano", "_sid_hex", "name", "duration_nano")
+
+    def __init__(self, start, sid_hex, name, dur):
+        self.start_unix_nano = start
+        self._sid_hex = sid_hex
+        self.name = name
+        self.duration_nano = dur
+
+    @property
+    def span_id(self):
+        return bytes.fromhex(self._sid_hex)

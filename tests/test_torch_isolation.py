@@ -2,8 +2,10 @@
 fresh interpreter imports every tempo_tpu_torch module, runs the
 compaction entry and one metrics query on the CPU, writes two vtpu1
 blocks, finds a trace by ID, compacts the blocks and queries the output
-on the CPU, and an entry point called without a device raises when CUDA
-is absent."""
+on the CPU, drives the storage engine (TempoDB: write, find, tag search,
+tag names, TraceQL search on the vectorized branch and the object
+engine, WAL replay, compaction) on the CPU, and an entry point called
+without a device raises when CUDA is absent."""
 
 import os
 import subprocess
@@ -31,7 +33,7 @@ SCRIPT = textwrap.dedent(r"""
     names = [m.name for m in pkgutil.walk_packages(tempo_tpu_torch.__path__, "tempo_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
-    assert len(names) >= 44, names
+    assert len(names) >= 64, names
     for name, mod in sys.modules.items():
         assert mod is None or not (name == "tempo_tpu" or name.startswith("tempo_tpu.") or name == "jax"
                     or name.startswith("jax.")), name
@@ -72,8 +74,34 @@ SCRIPT = textwrap.dedent(r"""
     acc = M.evaluate_block(plan, VtpuBackendBlock(out, be, cfg), device="cpu")
     assert acc.stats["inspectedSpans"] == out.total_spans
 
+    from tempo_tpu_torch.db import DBConfig, TempoDB
+    from tempo_tpu_torch.encoding.common import SearchRequest
+    from tempo_tpu_torch.traceql import engine
+
+    root = tempfile.mkdtemp()
+    db = TempoDB(DBConfig(backend="local", backend_path=root + "/blocks", wal_path=root + "/wal",
+                          block=cfg, compaction_device_shards=1), device="cpu")
+    for x in (b1, b2):
+        db.write_batch("t", x)
+    assert db.find("t", tid).trace_id == tid
+    resp = db.search("t", SearchRequest(tags={"service": "cart"}, limit=0))
+    assert resp.traces and resp.inspected_blocks == 2
+    assert "service.name" in db.search_tags("t") and "cart" in db.search_tag_values("t", "service.name")
+    stats = {}
+    assert db.traceql_search("t", '{ duration > 500ms }', limit=0, stats=stats)
+    assert "prunedRowGroups" not in stats  # vectorized branch
+    stats = {}
+    db.traceql_search("t", '{ span.region = "v7" || span.region = "v9" }', limit=0, stats=stats)
+    assert "prunedRowGroups" in stats  # mixed attribute types: the object engine
+    assert engine.execute('{ name = "db.query" }', lambda spec, s, e: []) == []
+    wal = db.wal.new_block("t")
+    wal.append(b1)
+    (replayed,) = db.wal.rescan_blocks()
+    assert db.write_wal_block("t", replayed).total_spans == b1.num_spans
+    assert db.compact_once("t") == 1 and len(db.blocklist.metas("t")) == 1
+
     if not torch.cuda.is_available():
-        for call in (lambda: entry(), lambda: M.make_accumulator(plan),
+        for call in (lambda: entry(), lambda: M.make_accumulator(plan), lambda: TempoDB(DBConfig()),
                      lambda: write_block([b1], "t", be, cfg), lambda: VtpuCompactor(),
                      lambda: M.evaluate_block(plan, VtpuBackendBlock(out, be, cfg))):
             try:
@@ -98,7 +126,7 @@ def test_no_import_of_jax_or_tempo_tpu_in_port_sources():
     import re
 
     pat = re.compile(r"^\s*(import|from)\s+(jax|tempo_tpu)(\.|\s|$)")
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tools", "profile_torch_port.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "tempo_tpu_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     bad = []

@@ -2,7 +2,7 @@
 """Where the time goes in the PyTorch/CUDA port, on one NVIDIA GPU.
 
     python3 tools/profile_torch_port.py [--rows 4194304] [--out chiprun_out]
-                                        [--windows step,query,blocks]
+                                        [--windows step,query,blocks,db]
 
 Profiles, with torch.profiler (CPU + CUDA activities), up to three
 windows:
@@ -16,7 +16,18 @@ windows:
    compacts them with merge_path="device" and one runs the quantile
    query through evaluate_block over the output. The write and the
    compaction also print their host functions with the most own time
-   (cProfile).
+   (cProfile);
+4. db: the storage engine — TempoDB(device="cuda") over the same two
+   blocks (written through TempoDB.write_batch, outside the windows).
+   One window is a cold unbounded tag search, `service=cart` (limit 0,
+   column cache cleared), with its host own time (cProfile); the search
+   runs on the host, as the reference's single-device search does, so
+   this window alone expects no device activity: its idle share is the
+   reading. A second host window finds 200 absent trace IDs through
+   TempoDB.find. Then the two blocks are compacted twice, each a window with
+   host own time: by VtpuCompactor directly (merge_path "auto", as
+   phase 6 does) and by TempoDB.compact_once (the selector and driver
+   around the same compactor).
 
 For each window it writes a chrome trace to --out and prints, from that
 trace, the wall time, the device's busy time (the union of its kernel,
@@ -65,10 +76,12 @@ def device_busy(trace_path: str):
 EMPTY_WINDOWS: list = []  # labels of windows whose trace held no device activity
 
 
-def profile_window(torch, label, fn, out_dir, host_top: int = 0):
+def profile_window(torch, label, fn, out_dir, host_top: int = 0, expect_device: bool = True):
     """host_top > 0 also runs fn under cProfile and prints the host
     functions with the most time of their own (numpy and the native
-    codec are invisible to torch.profiler's CPU activity)."""
+    codec are invisible to torch.profiler's CPU activity). A window with
+    expect_device=False runs host code only: no device activity is its
+    expected reading (idle share 1), not a capture fault."""
     import cProfile
     import pstats
 
@@ -88,7 +101,7 @@ def profile_window(torch, label, fn, out_dir, host_top: int = 0):
     path = os.path.join(out_dir, f"trace_{label}.json")
     prof.export_chrome_trace(path)
     busy, by_name = device_busy(path)
-    if not by_name:
+    if not by_name and expect_device:
         EMPTY_WINDOWS.append(label)
         print(f"{label}: the trace holds no device activity (capture fault); no reading")
         return
@@ -141,6 +154,8 @@ def main() -> int:
         profile_query(torch, plan, args.rows, args.out)
     if "blocks" in windows:
         profile_blocks(torch, plan, args.out)
+    if "db" in windows:
+        profile_db(torch, args.out)
     if EMPTY_WINDOWS:
         print(f"profile_torch_port: no device activity captured in {EMPTY_WINDOWS}",
               file=sys.stderr)
@@ -215,6 +230,60 @@ def profile_blocks(torch, plan, out_dir: str) -> None:
 
         query()  # warm-up
         profile_window(torch, "block_query_quantile", query, out_dir)
+
+
+def profile_db(torch, out_dir: str) -> None:
+    import tempfile
+
+    import numpy as np
+
+    from tempo_tpu_torch.db import DBConfig, TempoDB
+    from tempo_tpu_torch.encoding.common import CompactionOptions, SearchRequest
+    from tempo_tpu_torch.encoding.vtpu.compactor import VtpuCompactor
+    from tempo_tpu_torch.encoding.vtpu.colcache import shared_cache
+    from tempo_tpu_torch.model import synth
+    from tempo_tpu_torch.model.columnar import SpanBatch
+
+    def batches(seed0: int, n: int) -> list:
+        return [synth.make_batch(8192, 8, seed=seed0 + i,
+                                 base_time_ns=(BASE_S + 60 * i) * 10**9) for i in range(n)]
+
+    a = SpanBatch.concat(batches(100, 16)).sorted_by_trace()
+    _, seg = a.trace_boundaries()
+    b = SpanBatch.concat(batches(200, 14) + [a.select(np.flatnonzero(seg % 8 == 0))])
+    with tempfile.TemporaryDirectory(prefix="profile_db_") as tmp:
+        db = TempoDB(DBConfig(backend="local", backend_path=tmp), device="cuda")
+        db.write_batch("p", a)
+        db.write_batch("p", b.sorted_by_trace())
+        req = SearchRequest(tags={"service": "cart"}, limit=0)
+        hits = []
+
+        def search():
+            shared_cache().clear()
+            hits.append(len(db.search("p", req).traces))
+
+        search()  # warm-up: imports, thread pools
+        profile_window(torch, "db_search_cold_unbounded", search, out_dir, host_top=15,
+                       expect_device=False)
+        print(f"  ({hits[-1]} hits over 2 blocks of 2^20 spans)")
+
+        rng = np.random.default_rng(5)
+        absent = [t.astype(">u4").tobytes()
+                  for t in rng.integers(0, 2**32, (200, 4), dtype=np.uint32)]
+
+        def find_absent():
+            if any(db.find("p", tid) is not None for tid in absent):
+                raise RuntimeError("profile db: a random trace ID was found")
+
+        profile_window(torch, "db_find_200_absent", find_absent, out_dir, host_top=12,
+                       expect_device=False)
+
+        metas = db.blocklist.metas("p")
+        direct = VtpuCompactor(CompactionOptions(block_config=db.cfg.block), device="cuda")
+        profile_window(torch, "db_compactor_direct",
+                       lambda: direct.compact(metas, "p", db.backend), out_dir, host_top=12)
+        profile_window(torch, "db_compact_once", lambda: db.compact_once("p"), out_dir,
+                       host_top=12)
 
 
 if __name__ == "__main__":
