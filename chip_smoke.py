@@ -52,15 +52,25 @@ Phases, one line each (any failure exits non-zero):
    branch) again over the one compacted block; the phase-4 queries over
    the DB's blocks, card against CPU; a WAL block of 2**17 spans
    appended, rescanned and completed on the card, byte-equal to
-   write_batch of the same spans on the CPU.
+   write_batch of the same spans on the CPU;
+8. app: the single binary. App(device="cuda") behind a TempoServer on
+   127.0.0.1 over a fresh local backend holding a copy of phase 7's
+   compacted block, driven only over HTTP: 2**17 spans pushed as 32 OTLP
+   protobuf requests of 512 traces, plus one OTLP JSON and one gzip
+   request, then /flush; trace by ID for 100 pushed, 100 at-rest and
+   100 absent IDs (404); three tag searches at limit 20 and unbounded;
+   tag names and values; two TraceQL searches; the three phase-4
+   queries as query_range (against evaluate_block with the CPU
+   accumulator on the same backend; seg_bincount must launch). Every
+   other answer is held against a numpy oracle.
 
 Phases 3-4 are the main path, phase 5 the scan path, phase 6 the block
-path and phase 7 the storage engine's path: each is run with the
-kernels' launch counts set to 0 just before it, and every kernel of the
-path must have launched. The script then prints one JSON line of
-per-kernel and per-phase numbers (phase 6's under "blocks", phase 7's
-under "db"), the nvidia-smi line, and last {"ok": true, "device":
-{...}}. Without a CUDA
+path, phase 7 the storage engine's path and phase 8 the server's path:
+each is run with the kernels' launch counts set to 0 just before it,
+and every kernel of the path must have launched. The script then prints
+one JSON line of per-kernel and per-phase numbers (phase 6's under
+"blocks", phase 7's under "db", phase 8's under "app"), the nvidia-smi
+line, and last {"ok": true, "device": {...}}. Without a CUDA
 device it exits 1 and prints no result. It imports nothing of JAX or of
 tempo_tpu.
 """
@@ -77,6 +87,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.parse
 import uuid
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
@@ -680,6 +691,221 @@ def db_phase(seed: int, a, b, root: str, queries: list, plan_of) -> dict:
           f"({res['write_wal_block_ms']:.0f} ms): byte-equal to write_batch of the same "
           f"spans on the cpu", flush=True)
     res["phase_s"] = time.perf_counter() - t_phase
+    res["compacted_block_id"] = out_meta.block_id
+    return res
+
+
+def app_phase(seed: int, a, b, root: str, at_rest_block: str, queries: list, plan_of) -> dict:
+    """Phase 8, the single binary: App(device="cuda") behind a TempoServer
+    on 127.0.0.1 over a fresh local backend holding a copy of phase 7's
+    compacted block, driven only over HTTP. Every answer is held against
+    a numpy oracle, or against the storage engine called directly on the
+    same backend (query_range: evaluate_block with the CPU accumulator).
+    Returns its numbers."""
+    import http.client
+    import shutil
+
+    import numpy as np
+
+    from tempo_tpu_torch import metrics_engine as M
+    from tempo_tpu_torch.api.server import TempoServer
+    from tempo_tpu_torch.app import App, AppConfig
+    from tempo_tpu_torch.db import DBConfig
+    from tempo_tpu_torch.model import synth
+    from tempo_tpu_torch.model.columnar import VT_INT, VT_STR, SpanBatch
+    from tempo_tpu_torch.model.trace import batch_to_traces
+    from tempo_tpu_torch.modules.overrides import Limits
+    from tempo_tpu_torch.ops import pallas_kernels as pk
+    from tempo_tpu_torch.receivers import otlp
+    from tempo_tpu_torch.util.devicetiming import STATS
+
+    tenant = "smoke"
+    res: dict = {"requests": {}}
+    t_phase = time.perf_counter()
+    app_root = os.path.join(root, "app")
+    shutil.copytree(os.path.join(root, "blocks", tenant, at_rest_block),
+                    os.path.join(app_root, "blocks", tenant, at_rest_block))
+    # the push holds 17,408 traces live until /flush: above the default
+    # cap of 10,000 live traces a tenant
+    app = App(AppConfig(db=DBConfig(backend="local", backend_path=os.path.join(app_root, "blocks"),
+                                    wal_path=os.path.join(app_root, "wal")),
+                        limits=Limits(max_traces_per_user=1 << 16),
+                        multitenancy_enabled=True), device="cuda")
+    server = TempoServer(app, host="127.0.0.1", port=0).start()
+    try:
+        check(app.device.type == "cuda" and app.querier.db.device == app.device
+              and all(i.db.device == app.device for i in app.ingesters.values()),
+              f"phase 8: the server runs on {app.device}")
+        app.db.poll_now()  # the server's first blocklist poll finds the block at rest
+        (rest_meta,) = app.db.blocklist.metas(tenant)
+        check(rest_meta.block_id == at_rest_block, "phase 8: the block at rest is not polled")
+        conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=600)
+
+        def http(kind, method, path, body=None, headers=None):
+            t0 = time.perf_counter()
+            conn.request(method, path, body=body,
+                         headers={"X-Scope-OrgID": tenant, **(headers or {})})
+            r = conn.getresponse()
+            out = r.read()
+            res["requests"].setdefault(kind, []).append((time.perf_counter() - t0) * 1e3)
+            return r.status, out
+
+        print(f"phase 8 server: {server.url} on {app.device}, {rest_meta.total_spans} spans "
+              "at rest", flush=True)
+
+        # ------------------------------------------------------------ push
+        # one attribute a span: a span's OTLP attributes are a map, so a
+        # key make_batch drew twice for one span would arrive once
+        pushed = [chain_parents(synth.make_batch(512, 8, seed=seed * 1000 + 800 + i,
+                                                 base_time_ns=(BASE_S + 60 * (40 + i // 2)) * 10**9,
+                                                 n_attrs_per_span=1))
+                  for i in range(34)]
+        bodies = [("pb", otlp.encode_traces_request(batch_to_traces(p))) for p in pushed[:32]]
+        bodies.append(("json", json.dumps(otlp.encode_traces_json(batch_to_traces(pushed[32])))
+                       .encode()))
+        bodies.append(("gzip", gzip.compress(otlp.encode_traces_request(batch_to_traces(pushed[33])))))
+        headers = {"pb": {"Content-Type": "application/x-protobuf"},
+                   "json": {"Content-Type": "application/json"},
+                   "gzip": {"Content-Type": "application/x-protobuf", "Content-Encoding": "gzip"}}
+        t0 = time.perf_counter()
+        for enc, body in bodies:
+            status, _ = http("push", "POST", "/v1/traces", body, headers[enc])
+            check(status == 200, f"phase 8 push ({enc}): HTTP {status}")
+        res["push_s"] = time.perf_counter() - t0
+        n_pushed = sum(p.num_spans for p in pushed)
+        res["push_spans_per_s"] = n_pushed / res["push_s"]
+        t0 = time.perf_counter()
+        status, _ = http("flush", "POST", "/flush")
+        res["flush_ms"] = (time.perf_counter() - t0) * 1e3
+        metas = app.db.blocklist.metas(tenant)
+        check(status == 204 and len(metas) == 2
+              and sum(m.total_spans for m in metas) == rest_meta.total_spans + n_pushed,
+              f"phase 8 flush: HTTP {status}, {len(metas)} blocks")
+        print(f"phase 8 push: {n_pushed} spans in {len(bodies)} OTLP requests (32 protobuf of 512 "
+              f"traces, 1 JSON, 1 gzip) | {res['push_s']:.2f} s, {res['push_spans_per_s']:.0f} "
+              f"spans/s | flush {res['flush_ms']:.0f} ms -> a block of {n_pushed} spans beside "
+              f"the one at rest", flush=True)
+
+        # ------------------------------------------------------------ find
+        u = SpanBatch.concat([a, b] + pushed)  # the oracle's data, one dictionary
+        d, cols, attrs = u.dictionary, u.cols, u.attrs
+        rng = np.random.default_rng(seed + 8)
+        ids_p = np.concatenate([p.cols["trace_id"][p.trace_boundaries()[0]] for p in pushed])
+        ids_r = np.concatenate([x.cols["trace_id"][x.trace_boundaries()[0]] for x in (a, b)])
+        known = {bytes(t) for t in np.concatenate([ids_p, ids_r])}
+        absent = [t for t in rng.integers(0, 2**32, (130, 4), dtype=np.uint32)
+                  if bytes(t) not in known][:100]
+        check(len(absent) == 100, "phase 8: could not draw 100 absent IDs")
+        span_ids = {}  # trace ID -> its span IDs, pushed and at rest
+        for p in [a, b] + pushed:
+            for t, sid in zip(p.cols["trace_id"], p.cols["span_id"]):
+                span_ids.setdefault(bytes(t.astype(">u4")).hex(), set()).add(
+                    bytes(sid.astype(">u4")).hex())
+        for kind, ids in (("find pushed", ids_p[rng.choice(len(ids_p), 100, replace=False)]),
+                          ("find at rest", ids_r[rng.choice(len(ids_r), 100, replace=False)])):
+            for limbs in ids:
+                hexid = bytes(limbs.astype(">u4")).hex()
+                status, body = http(kind, "GET", f"/api/traces/{hexid}")
+                check(status == 200, f"phase 8 {kind}: HTTP {status}")
+                spans = [sp for rs in json.loads(body)["resourceSpans"]
+                         for ss in rs["scopeSpans"] for sp in ss["spans"]]
+                check(len(spans) == 8 and all(sp["traceId"] == hexid for sp in spans),
+                      f"phase 8 {kind}: {len(spans)} spans")
+                check({sp["spanId"] for sp in spans} == span_ids[hexid],
+                      f"phase 8 {kind}: span IDs differ from the written ones")
+        for limbs in absent:
+            status, _ = http("find absent", "GET", f"/api/traces/{bytes(limbs.astype('>u4')).hex()}")
+            check(status == 404, f"phase 8 find absent: HTTP {status}")
+        print("phase 8 find: 100 pushed IDs and 100 at-rest IDs found whole (the written span "
+              "IDs), 100 absent -> 404", flush=True)
+
+        # ---------------------------------------------------------- search
+        def attr_mask(key, value):
+            m = np.zeros(u.num_spans, bool)
+            hit = ((attrs["attr_key"] == d.get(key)) & (attrs["attr_vtype"] == VT_STR)
+                   & (attrs["attr_str"] == d.get(value)))
+            m[attrs["attr_span"][hit]] = True
+            return m
+
+        unbounded = 10**7  # the API takes a positive limit; this one exceeds every answer
+        dur = cols["duration_nano"]
+        searches = [("service.name=cart", cols["service"] == d.get("cart")),
+                    ("http.status_code=500", cols["http_status"] == 500),
+                    ("region=v7", attr_mask("region", "v7"))]
+        for tags, mask in searches:
+            want = trace_hex_set(cols["trace_id"][mask])
+            for limit in (20, unbounded):
+                kind = "search limit 20" if limit == 20 else "search unbounded"
+                status, body = http(kind, "GET", "/api/search?" + urllib.parse.urlencode(
+                    {"tags": tags, "limit": limit}))
+                hits = [t["traceID"] for t in json.loads(body)["traces"]]
+                check(status == 200 and set(hits) <= want
+                      and len(hits) == len(set(hits)) == min(limit, len(want)),
+                      f"phase 8 search {tags} limit {limit}: {len(hits)} hits, oracle {len(want)}")
+        names = set(json.loads(http("tags", "GET", "/api/search/tags")[1])["tagNames"])
+        wk = {"service.name", "name", "http.method", "http.url", "http.status_code"}
+        check(names == wk | {d[int(c)] for c in np.unique(attrs["attr_key"])},
+              f"phase 8 search tags: {sorted(names)}")
+        regions = set(json.loads(http("tag values", "GET", "/api/search/tag/region/values")[1])
+                      ["tagValues"])
+        rk = attrs["attr_key"] == d.get("region")
+        want = {d[int(c)] for c in np.unique(attrs["attr_str"][rk & (attrs["attr_vtype"] == VT_STR)])}
+        want |= {str(int(v)) for v in np.unique(attrs["attr_num"][rk & (attrs["attr_vtype"] == VT_INT)])}
+        check(regions == want, "phase 8 tag values region != oracle")
+        tql = [('{ resource.service.name = "cart" && duration > 100ms }',
+                (cols["service"] == d.get("cart")) & (dur > 100_000_000)),
+               ("{ duration >= 990ms }", dur >= 990_000_000)]
+        for q, mask in tql:
+            status, body = http("traceql", "GET", "/api/search?" + urllib.parse.urlencode(
+                {"q": q, "limit": unbounded}))
+            got = {t["traceID"] for t in json.loads(body)["traces"]}
+            check(status == 200 and got == trace_hex_set(cols["trace_id"][mask]),
+                  f"phase 8 traceql {q}: {len(got)} traces")
+        print(f"phase 8 search: 3 tag searches at limit 20 and unbounded, tags ({len(names)}), "
+              f"region values ({len(regions)}) and 2 TraceQL searches equal their oracles",
+              flush=True)
+
+        # ------------------------------------------------------ query_range
+        res["query_range"] = []
+        for q in queries:
+            plan = plan_of(q)
+            before, d2h = pk.seg_bincount.launches, STATS.d2h.get("seg_bincount", 0)
+            status, body = http("query_range", "GET", "/api/metrics/query_range?"
+                                + urllib.parse.urlencode({"q": q, "start": plan.start_s,
+                                                          "end": plan.end_s, "step": plan.step_s,
+                                                          "maxSeries": plan.max_series}))
+            launches = pk.seg_bincount.launches - before
+            d2h = STATS.d2h.get("seg_bincount", 0) - d2h
+            check(status == 200 and launches > 0,
+                  f"phase 8 query_range {q}: HTTP {status}, {launches} seg_bincount launches")
+            merged = M.new_wire()
+            for m in app.db.blocklist.metas(tenant):
+                blk = app.db.encoding_for(m.version).open_block(m, app.db.backend, app.db.cfg.block)
+                M.merge_wire(merged, M.evaluate_block(plan, blk, device="cpu").to_wire(), plan)
+            want = M.finalize_matrix(plan, merged)
+            doc = json.loads(body)
+            got = doc["data"]
+            check(got["result"] == want["result"] and want["result"],
+                  f"phase 8 query_range {q}: the HTTP matrix != evaluate_block on the cpu")
+            check(doc["metrics"]["deviceDispatches"] == launches,
+                  f"phase 8 query_range {q}: the response reports "
+                  f"{doc['metrics']['deviceDispatches']} device dispatches, {launches} launched")
+            res["query_range"].append(dict(query=q, ms=res["requests"]["query_range"][-1],
+                                           launches=launches, d2h_bytes=d2h))
+            print(f"phase 8 query_range: {q} | {len(got['result'])} series = evaluate_block on "
+                  f"the cpu | {res['requests']['query_range'][-1]:.1f} ms, {launches} "
+                  f"seg_bincount launches (= the response's deviceDispatches), {d2h} B "
+                  "device-to-host", flush=True)
+        conn.close()
+    finally:
+        server.stop()
+        app.shutdown()
+    res["requests"] = {k: dict(n=len(v), p50_ms=statistics.median(v), max_ms=max(v))
+                       for k, v in res["requests"].items()}
+    for k, v in res["requests"].items():
+        print(f"phase 8 {k}: {v['n']} requests | p50 {v['p50_ms']:.2f} ms, max {v['max_ms']:.2f} ms",
+              flush=True)
+    res["phase_s"] = time.perf_counter() - t_phase
     return res
 
 
@@ -1088,13 +1314,25 @@ def main() -> int:
         k.launches = 0
     with db_dir:
         db = db_phase(seed, a, b, db_dir.name, queries, plan_of)
-    db["launches"] = {"seg_bincount": pk.seg_bincount.launches,
-                      "in_set_scan": pk.in_set_scan.launches,
-                      "u64_range_scan": pk.u64_range_scan.launches}
-    check(pk.seg_bincount.launches > 0, "storage engine path: seg_bincount never launched")
-    kernels["seg_bincount"]["launches_db_path"] = pk.seg_bincount.launches
-    print(f"phase 7 db: {db['phase_s']:.1f} s, seg_bincount launched "
-          f"{pk.seg_bincount.launches} times on the storage engine's path", flush=True)
+        db["launches"] = {"seg_bincount": pk.seg_bincount.launches,
+                          "in_set_scan": pk.in_set_scan.launches,
+                          "u64_range_scan": pk.u64_range_scan.launches}
+        check(pk.seg_bincount.launches > 0, "storage engine path: seg_bincount never launched")
+        kernels["seg_bincount"]["launches_db_path"] = pk.seg_bincount.launches
+        print(f"phase 7 db: {db['phase_s']:.1f} s, seg_bincount launched "
+              f"{pk.seg_bincount.launches} times on the storage engine's path", flush=True)
+
+        # ------------------------------------------------------------ 8
+        for k in (pk.seg_bincount, pk.in_set_scan, pk.u64_range_scan):
+            k.launches = 0
+        app = app_phase(seed, a, b, db_dir.name, db.pop("compacted_block_id"), queries, plan_of)
+    app["launches"] = {"seg_bincount": pk.seg_bincount.launches,
+                       "in_set_scan": pk.in_set_scan.launches,
+                       "u64_range_scan": pk.u64_range_scan.launches}
+    check(pk.seg_bincount.launches > 0, "server path: seg_bincount never launched")
+    kernels["seg_bincount"]["launches_app_path"] = pk.seg_bincount.launches
+    print(f"phase 8 app: {app['phase_s']:.1f} s, seg_bincount launched "
+          f"{pk.seg_bincount.launches} times on the server's path", flush=True)
 
     replaces = {
         "seg_bincount": "tempo_tpu/ops/pallas_kernels.py:194",
@@ -1106,7 +1344,7 @@ def main() -> int:
          "replaces": replaces[k], **kernels[k]}
         for k in ("seg_bincount", "in_set_scan", "u64_range_scan")
     ], "ptxas": ptxas, "compaction_step_ms": statistics.median(step_s) * 1e3,
-        "query_ms": query_ms, "blocks": blocks, "db": db,
+        "query_ms": query_ms, "blocks": blocks, "db": db, "app": app,
         "script_s": time.perf_counter() - t_script}
     print(json.dumps(line))
     print(smi)

@@ -1,0 +1,335 @@
+"""App wiring — the single-binary composition on one device.
+
+Port of tempo_tpu/app.py for `target=all` (reference: cmd/tempo/app,
+the module manager DAG modules.go:369-423): every role in-process over
+one ring and one storage engine. `App(cfg, device=None)` resolves the
+device once (CUDA unless "cpu" is passed; raises without CUDA) and
+hands it to every TempoDB it builds, so the blocks' sketch plane and
+the metrics accumulator run on that device from any worker thread.
+
+AppConfig keeps every field of the reference. Features whose modules
+wait for later slices raise NotImplementedError naming their ROADMAP
+item when switched on; none is silently ignored (see _UNPORTED).
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass, field
+
+import torch
+
+from tempo_tpu_torch import device as _device
+from tempo_tpu_torch.config_sections import (
+    CompiledConfig,
+    DeviceTierConfig,
+    RCAConfig,
+    SLOConfig,
+    StandingConfig,
+    VultureConfig,
+)
+from tempo_tpu_torch.db import DBConfig, TempoDB
+from tempo_tpu_torch.encoding.common import SearchRequest
+from tempo_tpu_torch.modules.compactor_module import CompactorModule
+from tempo_tpu_torch.modules.distributor import Distributor
+from tempo_tpu_torch.modules.frontend import Frontend, FrontendConfig
+from tempo_tpu_torch.modules.ingester import Ingester, IngesterConfig
+from tempo_tpu_torch.modules.overrides import Limits, Overrides
+from tempo_tpu_torch.modules.querier import Querier
+from tempo_tpu_torch.modules.ring import MemoryKV, Ring
+from tempo_tpu_torch.modules.worker import JobBroker, LocalWorkerPool
+from tempo_tpu_torch.util import resource, tracing
+from tempo_tpu_torch.util.circuit import CircuitBreaker
+
+log = logging.getLogger(__name__)
+
+DEFAULT_TENANT = "single-tenant"  # reference: util.FakeTenantID for non-multitenant
+
+ROLES = (
+    "all",
+    "distributor",
+    "ingester",
+    "querier",
+    "query-frontend",
+    "compactor",
+    "metrics-generator",
+    "vulture",
+)
+
+_Q1_2 = "ROADMAP Queue 1 item 2 (single binary: microservices and the other roles)"
+_Q1_3 = "ROADMAP Queue 1 item 3 (query and ingest slices)"
+# (switched on?, what, ROADMAP item) for every feature of the reference
+# whose module the port does not carry yet
+_UNPORTED = (
+    (lambda c: (c.target or "all") != "all",
+     lambda c: f"target={c.target!r} (microservices mode)", _Q1_2),
+    (lambda c: c.generator_enabled, lambda c: "the metrics-generator", _Q1_2),
+    (lambda c: c.remote_write is not None and bool(c.remote_write.endpoint),
+     lambda c: "generator remote_write", _Q1_2),
+    (lambda c: bool(c.forwarders), lambda c: "distributor forwarders", _Q1_2),
+    (lambda c: c.usage_stats is not None and getattr(c.usage_stats, "enabled", False),
+     lambda c: "usage_report", _Q1_2),
+    (lambda c: c.self_tracing.enabled, lambda c: "self_tracing", _Q1_2),
+    (lambda c: c.standing.enabled, lambda c: "the standing-query engine", _Q1_3),
+    (lambda c: c.compiled.enabled, lambda c: "the compiled-query tier", _Q1_3),
+    (lambda c: c.rca.enabled, lambda c: "rca", _Q1_3),
+    (lambda c: c.slo.enabled, lambda c: "slo", _Q1_3),
+    (lambda c: c.vulture.enabled, lambda c: "vulture", _Q1_3),
+    (lambda c: c.device_tier.budget_mb > 0,
+     lambda c: "device_tier.budget_mb > 0", "ROADMAP Queue 1 item 1.1 (the device tier)"),
+    (lambda c: c.db.result_cache.enabled, lambda c: "storage.trace.result_cache",
+     "ROADMAP Queue 1 item 1.2 (resultcache/)"),
+    (lambda c: c.db.cache != "none", lambda c: f"storage.trace.cache={c.db.cache!r}",
+     "ROADMAP Queue 1 item 1.2 (cache/)"),
+    (lambda c: c.db.analytics_scan_s > 0, lambda c: "storage.trace.analytics_scan_s > 0",
+     "ROADMAP Queue 1 item 1.2 (db/analytics)"),
+)
+
+
+def refuse_unported(cfg: "AppConfig") -> None:
+    """Raise NotImplementedError for the first unported feature that
+    `cfg` switches on."""
+    for on, what, item in _UNPORTED:
+        if on(cfg):
+            raise NotImplementedError(
+                f"tempo_tpu_torch: {what(cfg)} is not ported yet ({item})")
+
+
+@dataclass
+class AppConfig:
+    target: str = "all"
+    multitenancy_enabled: bool = False
+    db: DBConfig = field(default_factory=DBConfig)
+    ingester: IngesterConfig = field(default_factory=IngesterConfig)
+    frontend: FrontendConfig = field(default_factory=FrontendConfig)
+    limits: Limits = field(default_factory=Limits)
+    overrides_path: str | None = None
+    replication_factor: int = 1
+    n_ingesters: int = 1  # in-process ingesters (tests use >1 to exercise RF)
+    query_workers: int = 4
+    generator_enabled: bool = False  # the reference's default is True
+    # remote-write of generator metrics (reference: modules/generator/storage);
+    # None or an endpoint-less config disables shipping
+    remote_write: "RemoteWriteConfig | None" = None
+    # configured forwarders; tenants opt in via overrides `forwarders`
+    forwarders: list = field(default_factory=list)  # list[ForwarderConfig]
+    # anonymous usage reporting (reference: pkg/usagestats; off by default)
+    usage_stats: "object | None" = None  # config_sections.UsageStatsConfig
+    # -- microservices mode (any target != all) -------------------------
+    instance_id: str = ""  # this process's ring identity
+    ring_kv_path: str = ""  # shared ring state file (FileKV) for one-host clusters
+    # networked ring KV (reference: memberlist/consul/etcd KV): "local"
+    # serves + uses this process's own /kv/v1 store; an http://host:port
+    # URL points the rings at the serving role. Takes precedence over
+    # ring_kv_path, so multi-node clusters need no shared filesystem.
+    ring_kv_url: str = ""
+    advertise_addr: str = ""  # http://host:port other roles reach us at
+    frontend_address: str = ""  # queriers: frontend to pull jobs from
+    # ring health: instances missing heartbeats this long are excluded
+    # from replica sets (reference: dskit ring HeartbeatTimeout)
+    ring_heartbeat_timeout_s: float = 60.0
+    # overload control plane budgets (util/resource): pools + watermarks
+    # that drive the process pressure level and admission gates
+    resource: "resource.ResourceConfig" = field(
+        default_factory=resource.ResourceConfig
+    )
+    # self-observability dogfood loop (util/tracing.SelfTracingConfig):
+    # when enabled, the process exports its own spans into its own
+    # ingest path under the reserved `_self_` tenant — sampled and
+    # rate-bounded, dropped entirely under memory pressure
+    self_tracing: "tracing.SelfTracingConfig" = field(
+        default_factory=tracing.SelfTracingConfig
+    )
+    # continuous-verification prober (vulture.py): enabled=True arms it
+    # in-process on target=all; `-target=vulture` builds the HTTP
+    # sidecar against vulture.target
+    vulture: "VultureConfig" = field(default_factory=VultureConfig)
+    # burn-rate SLO engine (util/slo.py): SLIs over this process's own
+    # counters -> tempo_tpu_slo_* gauges + /status/slo
+    slo: "SLOConfig" = field(default_factory=SLOConfig)
+    # standing-query engine (tempo_tpu_torch/standing): registered query_range
+    # queries fold each ingest cut's delta into per-query accumulators
+    # (O(new spans) per evaluation); lives beside the ingesters
+    standing: "StandingConfig" = field(default_factory=StandingConfig)
+    # device-resident hot tier (encoding/vtpu/colcache.DeviceTier):
+    # budget_mb > 0 pins the hottest compressed pages in accelerator
+    # memory; scans over them skip fetch+decode+h2d entirely
+    device_tier: "DeviceTierConfig" = field(default_factory=DeviceTierConfig)
+    # compiled-query tier (tempo_tpu_torch/compiled): shape-keyed fused device
+    # programs for simple-count metrics plans; kill switch
+    # TEMPO_TPU_COMPILED=0 or compiled.enabled=false
+    compiled: "CompiledConfig" = field(default_factory=CompiledConfig)
+    # auto-RCA incident engine (tempo_tpu_torch/rca): SLO fast-burn and
+    # standing-deviation triggers open machine-written incident records
+    # with a typed, evidence-backed root cause
+    rca: "RCAConfig" = field(default_factory=RCAConfig)
+
+
+class RoleUnavailable(RuntimeError):
+    """API called on a process whose role doesn't serve it."""
+
+
+class App:
+    def __init__(self, cfg: AppConfig, device=None):
+        refuse_unported(cfg)
+        dev = _device.resolve(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.device = dev
+        self.cfg = cfg
+        # (re)apply the overload budgets to the process-wide governor —
+        # pools persist across App rebuilds (modules hold references),
+        # only the limits/watermarks move
+        self.governor = resource.configure(cfg.resource)
+        self.target = "all"
+        self.overrides = Overrides(cfg.limits, cfg.overrides_path)
+        self.ingesters: dict = {}
+        self._heartbeat_stops = []
+        self._registered: list = []  # (ring, instance_id) to unregister on shutdown
+        self._build_all()
+
+    # ------------------------------------------------------------------
+    def _hb_period(self) -> float:
+        return min(10.0, max(0.5, self.cfg.ring_heartbeat_timeout_s / 3))
+
+    def _query_breaker(self):
+        """Shared breaker around query-job execution: a sustained
+        backend outage opens it after 10 consecutive job failures
+        (transient chaos-level flakes never string 10 in a row), after
+        which every retry fails fast instead of re-hammering the backend
+        until a half-open probe succeeds."""
+        return CircuitBreaker(name="query-backend", failure_threshold=10,
+                              reset_timeout_s=5.0)
+
+    # ------------------------------------------------------------------
+    def _build_all(self):
+        cfg = self.cfg
+        self.db = TempoDB(cfg.db, device=self.device)
+        kv = MemoryKV()
+        self.ring = Ring(kv, replication_factor=cfg.replication_factor,
+                         heartbeat_timeout_s=cfg.ring_heartbeat_timeout_s)
+
+        for i in range(cfg.n_ingesters):
+            iid = f"ingester-{i}"
+            # each in-process ingester gets its own WAL subdir (separate
+            # process-equivalents must not share head blocks)
+            sub_cfg = DBConfig(**{**cfg.db.__dict__})
+            sub_cfg.wal_path = (cfg.db.wal_path or "wal") + f"/{iid}"
+            ing_db = TempoDB(sub_cfg, raw_backend=self.db.backend.raw,
+                             device=self.device)
+            ing_db.blocklist = self.db.blocklist  # shared world view
+            ing = Ingester(ing_db, self.overrides, cfg.ingester, instance_id=iid)
+            self.ingesters[iid] = ing
+            self.ring.register(iid)
+            self._registered.append((self.ring, iid))
+            self._heartbeat_stops.append(self.ring.start_heartbeat(iid, period_s=self._hb_period()))
+
+        self.distributor = Distributor(self.ring, ingester_clients=self.ingesters,
+                                       overrides=self.overrides)
+        self.querier = Querier(self.db, self.ring, ingester_clients=self.ingesters)
+        self.broker = JobBroker()
+        self.workers = LocalWorkerPool(self.broker, self.querier, cfg.query_workers,
+                                       breaker=self._query_breaker())
+        self.frontend = Frontend(self.broker, self.db, cfg.frontend, self.overrides)
+        self.compactor = CompactorModule(self.db, ring=None)
+
+    # -- tenant resolution ----------------------------------------------
+    def resolve_tenant(self, org_id: str | None) -> str:
+        """Reference: multitenancy via X-Scope-OrgID (app auth middleware).
+
+        The reserved dogfood tenant (`_self_`) is addressable even
+        without multitenancy — self-traces land there regardless, and an
+        operator must be able to query them from a single-tenant
+        deployment (X-Scope-OrgID: _self_)."""
+        if org_id == tracing.SELF_TENANT:
+            return tracing.SELF_TENANT
+        if not self.cfg.multitenancy_enabled:
+            return DEFAULT_TENANT
+        if not org_id:
+            raise PermissionError("no org id (X-Scope-OrgID) provided")
+        return org_id
+
+    # -- API surface -----------------------------------------------------
+    def _require(self, member, what: str):
+        if member is None:
+            raise RoleUnavailable(f"this process (target={self.target}) does not serve {what}")
+        return member
+
+    def push_traces(self, traces, org_id=None):
+        self._require(self.distributor, "ingest").push_traces(
+            self.resolve_tenant(org_id), traces
+        )
+
+    def push_spans(self, batch, org_id=None):
+        """Columnar ingest entry: a receiver-decoded SpanBatch straight
+        into the distributor fan-out, no object traces in between."""
+        self._require(self.distributor, "ingest").push_batch(
+            self.resolve_tenant(org_id), batch
+        )
+
+    def find_trace(self, trace_id: bytes, org_id=None):
+        return self._require(self.frontend, "queries").find_trace_by_id(
+            self.resolve_tenant(org_id), trace_id
+        )
+
+    def search(self, req: SearchRequest, org_id=None):
+        return self._require(self.frontend, "queries").search(self.resolve_tenant(org_id), req)
+
+    def traceql(self, query: str, org_id=None, **kw):
+        return self._require(self.frontend, "queries").traceql(
+            self.resolve_tenant(org_id), query, **kw
+        )
+
+    def query_range(self, query: str, start_s: int, end_s: int, step_s: int,
+                    org_id=None, max_series: int = 64, exemplars: int = 0) -> dict:
+        """TraceQL metrics (`{...} | rate() ...`) as a Prometheus matrix."""
+        return self._require(self.frontend, "queries").query_range(
+            self.resolve_tenant(org_id), query, start_s, end_s, step_s,
+            max_series=max_series, exemplars=exemplars,
+        )
+
+    def search_tags(self, org_id=None) -> list[str]:
+        """Reference: /api/search/tags is proxied by the frontend straight
+        to queriers (no sharding middleware)."""
+        return self._require(self.querier, "tag queries").search_tags(
+            self.resolve_tenant(org_id)
+        )
+
+    def search_tag_values(self, tag: str, org_id=None) -> list[str]:
+        return self._require(self.querier, "tag queries").search_tag_values(
+            self.resolve_tenant(org_id), tag
+        )
+
+    # -- lifecycle -------------------------------------------------------
+    def start_loops(self):
+        for ing in self.ingesters.values():
+            ing.start_loop()
+        self.db.enable_polling()
+        self.compactor.start()
+
+    def sweep_all(self, immediate: bool = False):
+        """Deterministic maintenance for tests/drives."""
+        for ing in self.ingesters.values():
+            ing.sweep(immediate=immediate)
+
+    def service_states(self) -> dict:
+        states = {"target": self.target}
+        for name in ("distributor", "querier", "frontend", "compactor"):
+            states[name] = "Running"
+        for iid in self.ingesters:
+            states[iid] = "Running"
+        return states
+
+    def shutdown(self):
+        for stop in self._heartbeat_stops:
+            stop.set()
+        for ring, iid in self._registered:
+            try:
+                ring.unregister(iid)
+            except Exception:
+                log.exception("ring unregister failed for %s", iid)
+        for ing in self.ingesters.values():
+            ing.stop(flush=True)
+        self.workers.stop()
+        self.compactor.stop()
+        self.db.shutdown()

@@ -7,8 +7,9 @@ there; search, find and TraceQL run on the host, as the reference's do
 on one device. Not ported yet, and refused rather than ignored: the
 mesh paths (`compaction_device_shards` > 1 or several cards, Queue 1
 item 4) and the backend cache (`cache` other than "none", the cache/
-slice). The shard-partial result cache and the storage analytics arrive
-with the querier and API slices, their only readers.
+slice). The config keeps the fields of the shard-partial result cache
+and the storage analytics, which App refuses to switch on until their
+slice (ROADMAP Queue 1 item 1.2).
 
 Reference: tempodb/tempodb.go:69-102 (Reader/Writer/Compactor interface),
 :109-258 (readerWriter: backend selection, CompleteBlock, WriteBlock,
@@ -36,6 +37,7 @@ import torch
 from tempo_tpu_torch import device as _device
 from tempo_tpu_torch import encoding as encoding_registry
 from tempo_tpu_torch.backend import TypedBackend, make_raw_backend
+from tempo_tpu_torch.config_sections import ResultCacheConfig
 from tempo_tpu_torch.db.blocklist import Blocklist, Poller
 from tempo_tpu_torch.db.compaction import CompactionConfig, CompactionDriver
 from tempo_tpu_torch.db.pool import JobPool
@@ -64,6 +66,8 @@ class DBConfig:
     backend_path: str = ""
     backend_options: dict = field(default_factory=dict)  # cloud backend config kwargs
     cache: str = "none"  # none only until the cache/ slice (reference: none | memory | memcached | redis)
+    cache_options: dict = field(default_factory=dict)
+    cache_background_writes: bool = False
     wal_path: str = ""
     block: BlockConfig = field(default_factory=BlockConfig)
     compaction: CompactionConfig = field(default_factory=CompactionConfig)
@@ -84,6 +88,12 @@ class DBConfig:
     # are deleted by sweep_orphans once they stay meta-less this long —
     # long enough that no healthy in-flight write is still mid-block
     orphan_grace_s: float = 900.0
+    # storage-health analytics scan period (db/analytics, not ported:
+    # App refuses > 0; the reference's default is 600)
+    analytics_scan_s: float = 0.0
+    # shard-partial result cache (resultcache/, not ported: App refuses
+    # enabled)
+    result_cache: ResultCacheConfig = field(default_factory=ResultCacheConfig)
 
 
 class TempoDB:

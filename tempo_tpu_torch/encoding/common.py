@@ -1,11 +1,11 @@
 """Shared encoding contracts and config.
 
 Port of tempo_tpu/encoding/common.py (BlockConfig, CompactionOptions,
-SearchRequest, TraceSearchMetadata, SearchResponse). The wire
-decoders (`SearchRequest.to_dict`/`from_dict`, `SearchResponse.from_dict`)
-arrive with the querier slice, which is their one reader. The port compacts on one device: CompactionOptions.mesh must stay
-None and payload_plane "host" (VtpuCompactor raises NotImplementedError
-otherwise) until the multi-GPU slice.
+SearchRequest, TraceSearchMetadata, SearchResponse, with the wire forms
+the frontend<->querier jobs carry). The port compacts on one device:
+CompactionOptions.mesh must stay None and payload_plane "host"
+(VtpuCompactor raises NotImplementedError otherwise) until the
+multi-GPU slice.
 
 Reference: tempodb/encoding/common/interfaces.go:58-97 (BackendBlock,
 WALBlock, Compactor, CompactionOptions) and config.go:10 (BlockConfig:
@@ -98,6 +98,20 @@ class SearchRequest:
     end_seconds: int = 0  # 0 = unbounded
     limit: int = 20  # 0 = unbounded (matches the reference's semantics)
     query: str = ""  # raw TraceQL, handled by the traceql engine
+
+    def to_dict(self) -> dict:
+        """Wire form for the frontend<->querier job protocol (reference:
+        pkg/api request (de)serialization between shards and queriers)."""
+        import dataclasses
+
+        return dataclasses.asdict(self)
+
+    @staticmethod
+    def from_dict(d: dict) -> "SearchRequest":
+        import dataclasses
+
+        known = {f.name for f in dataclasses.fields(SearchRequest)}
+        return SearchRequest(**{k: v for k, v in d.items() if k in known})
 
 
 @dataclass
@@ -203,3 +217,31 @@ class SearchResponse:
             }
             d["metrics"]["deviceDispatches"] = self.device_dispatches
         return d
+
+    @staticmethod
+    def from_dict(doc: dict) -> "SearchResponse":
+        resp = SearchResponse()
+        for t in doc.get("traces", []):
+            resp.traces.append(
+                TraceSearchMetadata(
+                    trace_id_hex=t["traceID"],
+                    root_service_name=t.get("rootServiceName", ""),
+                    root_trace_name=t.get("rootTraceName", ""),
+                    start_time_unix_nano=int(t.get("startTimeUnixNano", "0")),
+                    duration_ms=t.get("durationMs", 0),
+                )
+            )
+        m = doc.get("metrics", {})
+        resp.inspected_traces = m.get("inspectedTraces", 0)
+        resp.inspected_bytes = int(m.get("inspectedBytes", "0"))
+        resp.decoded_bytes = int(m.get("decodedBytes", "0"))
+        resp.inspected_blocks = m.get("inspectedBlocks", 0)
+        resp.pruned_row_groups = m.get("prunedRowGroups", 0)
+        resp.coalesced_reads = m.get("coalescedReads", 0)
+        resp.status = doc.get("status", "complete")
+        resp.failed_shards = m.get("failedShards", 0)
+        resp.stage_seconds = {
+            str(k): float(v) for k, v in (m.get("stageSeconds") or {}).items()
+        }
+        resp.device_dispatches = int(m.get("deviceDispatches", 0))
+        return resp

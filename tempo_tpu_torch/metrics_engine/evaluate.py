@@ -309,12 +309,16 @@ class DeviceAccumulator(HostAccumulator):
         return self.counts
 
 
-def make_accumulator(plan: MetricsPlan, device=None) -> HostAccumulator:
+def make_accumulator(plan: MetricsPlan, device=None,
+                     series: SeriesTable | None = None) -> HostAccumulator:
     """Pick the reduction path from the resolved device: the CUDA kernel
     (DeviceAccumulator) on a CUDA device, the host numpy fold on the
-    CPU. device=None means CUDA, and raises when CUDA is absent."""
+    CPU. device=None means CUDA, and raises when CUDA is absent.
+    `series` shares another accumulator's series table."""
     dev = _device.resolve(device)
-    return DeviceAccumulator(plan, device=dev) if dev.type == "cuda" else HostAccumulator(plan)
+    if dev.type == "cuda":
+        return DeviceAccumulator(plan, series=series, device=dev)
+    return HostAccumulator(plan, series=series)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 
 Port of tempo_tpu/ops/hashing.py (fnv1a_32, fmix32, hash_streams, and
 the host numpy mirrors np_fnv1a_32, np_fmix32 and trace_id_to_limbs that
-the block read path uses): the same fnv1a over the 16 big-endian bytes
+the block read path uses, and the ring tokens token_for / np_token_for_ids
+that place traces on ingesters): the same fnv1a over the 16 big-endian bytes
 of four uint32 limbs and the same murmur3 finalizer, bit for bit.
 
 Torch's uint32 covers few operators, so every uint32 value here rides
@@ -95,3 +96,35 @@ def trace_id_to_limbs(trace_id: bytes) -> np.ndarray:
     """16-byte trace ID -> (4,) uint32 big-endian limbs."""
     tid = trace_id.rjust(16, b"\x00")[-16:]
     return np.frombuffer(tid, dtype=">u4").astype(np.uint32)
+
+
+def limbs_to_trace_id(limbs: np.ndarray) -> bytes:
+    return np.asarray(limbs, dtype=np.uint32).astype(">u4").tobytes()
+
+
+def token_for(tenant: str, trace_id: bytes) -> int:
+    """Ring token for (tenant, traceID): fnv1a over the tenant bytes then
+    the ID bytes, finalized with fmix32 (the reference's ring token)."""
+    h = FNV1A_OFFSET32
+    for b in tenant.encode("utf-8") + trace_id:
+        h = ((h ^ b) * FNV1A_PRIME32) & MASK32
+    return int(np_fmix32(np.uint32(h)))
+
+
+def np_token_for_ids(tenant: str, limbs: np.ndarray) -> np.ndarray:
+    """Vectorized token_for over (N, 4) trace-ID limbs. Must equal
+    token_for: the distributor places traces with this and the querier
+    reads replicas with token_for."""
+    h0 = FNV1A_OFFSET32
+    for b in tenant.encode("utf-8"):
+        h0 = ((h0 ^ b) * FNV1A_PRIME32) & MASK32
+    limbs = limbs.astype(np.uint32)
+    h = np.full(limbs.shape[:-1], h0, dtype=np.uint32)
+    prime = np.uint32(FNV1A_PRIME32)
+    with np.errstate(over="ignore"):
+        for i in range(limbs.shape[-1]):
+            w = limbs[..., i]
+            for shift in (24, 16, 8, 0):
+                byte = (w >> np.uint32(shift)) & np.uint32(0xFF)
+                h = (h ^ byte) * prime
+    return np_fmix32(h)

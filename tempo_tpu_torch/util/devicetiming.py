@@ -4,8 +4,11 @@ Port of tempo_tpu/util/devicetiming.py (timed_dispatch, count_transfer).
 A dispatch's wall clock closes only when its work is done: on CUDA the
 seam calls torch.cuda.synchronize() where the JAX package called
 jax.block_until_ready. Totals accumulate in a DeviceStats object
-(`STATS`); the Prometheus families arrive with the single
-binary slice.
+(`STATS`), and each dispatch lands in the request's stage waterfall
+(`kernel`, one dispatch; util/stagetimings) and its cost vector
+(`device_seconds`, `device_dispatches`; util/usage), which the query
+responses report as `deviceDispatches`. The Prometheus families are
+not ported yet (ROADMAP Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ import time
 from dataclasses import dataclass, field
 
 import torch
+
+from tempo_tpu_torch.util import stagetimings, usage
 
 
 @dataclass
@@ -52,5 +57,10 @@ def timed_dispatch(kernel: str, fn, *args, device: torch.device, **kwargs):
             torch.cuda.synchronize(device)
         return out
     finally:
-        _add(STATS.seconds, kernel, time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        _add(STATS.seconds, kernel, dt)
         _add(STATS.dispatches, kernel, 1)
+        stagetimings.add("kernel", dt)
+        stagetimings.count_dispatch()
+        usage.charge("device_seconds", dt)
+        usage.charge("device_dispatches")

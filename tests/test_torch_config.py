@@ -1,0 +1,236 @@
+"""The port's config tree against the JAX package's.
+
+The same YAML must give equal config dataclasses in both packages
+(field for field, nested sections and lists included) and the same
+check_config warnings for the sections the port serves. Four defaults differ by design and are named
+here: the metrics-generator, the standing-query engine and the compiled
+tier start off in the port, and the storage analytics scan is 0 — App
+refuses each of them switched on, as it refuses every other section
+whose module is not ported yet, naming its ROADMAP item.
+"""
+
+import dataclasses
+
+import pytest
+
+from tempo_tpu import config as jconfig
+from tempo_tpu_torch import __main__ as tmain
+from tempo_tpu_torch import config
+from tempo_tpu_torch.app import App
+
+FULL_YAML = """
+target: all
+multitenancy_enabled: true
+server:
+  http_listen_port: 3201
+  log_level: warn
+storage:
+  trace:
+    backend: local
+    backend_path: ${BLOCKS:/tmp/blocks}
+    wal_path: /tmp/wal
+    block:
+      bloom_fp: 0.02
+      row_group_spans: 4096
+      step_partial_rules: [[rate_by_service, "{ } | rate() by (resource.service.name)", 60, 64]]
+    compaction:
+      window_s: 1800
+    analytics_scan_s: 0
+    result_cache:
+      max_bytes: 1024
+ingester:
+  max_trace_idle_s: 5.0
+  concurrent_flushes: 2
+query_frontend:
+  query_shards: 8
+  hedge_after_s: 0
+overrides:
+  per_tenant_override_config: /etc/overrides.yaml
+  defaults:
+    max_traces_per_user: 500
+metrics_generator:
+  enabled: false
+standing:
+  enabled: false
+  max_queries_per_tenant: 4
+compiled:
+  enabled: false
+device_tier:
+  budget_mb: 0
+  max_query_batch: 4
+resource:
+  live_trace_bytes: 1048576
+self_tracing:
+  sample_ratio: 0.5
+vulture:
+  retention_s: 100
+slo:
+  eval_interval_s: 5
+  objectives:
+    - name: w
+      sli: availability_write
+rca:
+  walks: 8
+usage_report:
+  enabled: false
+replication_factor: 2
+n_ingesters: 2
+query_workers: 3
+ring_heartbeat_timeout_s: 12.5
+"""
+
+# (path, the port's default) where the defaults differ by design
+PORT_DEFAULTS = {("generator_enabled",): False, ("standing", "enabled"): False,
+                 ("compiled", "enabled"): False, ("db", "analytics_scan_s"): 0.0}
+
+
+def _doc(cfg) -> dict:
+    return dataclasses.asdict(cfg)
+
+
+def _drop_port_defaults(doc: dict) -> dict:
+    for path in PORT_DEFAULTS:
+        d = doc["app"]
+        for k in path[:-1]:
+            d = d[k]
+        del d[path[-1]]
+    return doc
+
+
+def test_full_yaml_equal():
+    env = {"BLOCKS": "/data/blocks"}
+    j, t = jconfig.parse_config(FULL_YAML, env=env), config.parse_config(FULL_YAML, env=env)
+    assert _doc(j) == _doc(t)
+    assert t.app.db.backend_path == "/data/blocks"
+    assert [type(o).__name__ for o in t.app.slo.objectives] == ["SLOObjective"]
+
+
+@pytest.mark.parametrize("yaml_text", [
+    "", "target: all\n", "server:\n  http_listen_port: 0\n",
+    "storage:\n  trace:\n    backend: mock\n    block:\n      codec: zlib\n",
+    "ingester:\n  max_block_bytes: 1000\nquery_workers: 1\n",
+])
+def test_defaults_equal_but_the_named_four(yaml_text):
+    j, t = jconfig.parse_config(yaml_text), config.parse_config(yaml_text)
+    jd, td = _doc(j), _doc(t)
+    for path, port_default in PORT_DEFAULTS.items():
+        d = td["app"]
+        for k in path[:-1]:
+            d = d[k]
+        assert d[path[-1]] == port_default
+    assert _drop_port_defaults(jd) == _drop_port_defaults(td)
+
+
+@pytest.mark.parametrize("bad", [
+    "nope: 1\n", "storage:\n  trace:\n    nope: 1\n", "storage:\n  other: {}\n",
+    "overrides:\n  defaults:\n    nope: 1\n", "distributor:\n  nope: 1\n",
+    "metrics_generator:\n  nope: 1\n", "slo: 3\n", "- a\n",
+])
+def test_same_errors(bad):
+    with pytest.raises(jconfig.ConfigError) as je:
+        jconfig.parse_config(bad)
+    with pytest.raises(config.ConfigError) as te:
+        config.parse_config(bad)
+    assert str(je.value) == str(te.value)
+
+
+# check_config checks the sections the port serves; the warnings of a
+# refused section come with its slice (test_unported_sections_refused
+# covers those sections)
+WARN_YAMLS = [
+    "replication_factor: 3\nn_ingesters: 1\n",
+    "replication_factor: 2\nn_ingesters: 1\n",
+    "storage:\n  trace:\n    block:\n      bloom_fp: 0.2\n",
+    "storage:\n  trace:\n    block:\n      bloom_fp: 0.06\n"
+    "overrides:\n  defaults:\n    block_retention_s: 1\n",
+    "overrides:\n  defaults:\n    block_retention_s: 60\n",
+    "ingester:\n  complete_block_timeout_s: 1\n",
+    "storage:\n  trace:\n    blocklist_poll_s: 10\ningester:\n  complete_block_timeout_s: 5\n",
+    "resource:\n  hard_watermark: 0.5\n  soft_watermark: 0.6\n",
+    "resource:\n  hard_watermark: 0.6\n  soft_watermark: 0.6\n",
+    "ingester:\n  max_block_bytes: 2000000000\n",
+    "resource:\n  wal_head_bytes: 1000\n",
+    "resource:\n  inflight_query_bytes: 1000\n",
+    "query_frontend:\n  query_shards: 64\nresource:\n  inflight_query_bytes: 1000000000\n",
+    "storage:\n  trace:\n    block:\n      step_partial_rules: [[r, '{ } | rate()', 7200, 64]]\n",
+    "storage:\n  trace:\n    block:\n      step_partial_rules:\n"
+    "        [[r, '{ } | rate() by (resource.service.name)', 60, 4000]]\n",
+    "replication_factor: 3\nn_ingesters: 1\nstorage:\n  trace:\n    block:\n"
+    "      bloom_fp: 0.2\noverrides:\n  defaults:\n    block_retention_s: 60\n"
+    "ingester:\n  complete_block_timeout_s: 1\n",
+]
+
+
+def _align_port_defaults(j, t):
+    """The JAX config with the four features set as the port's config
+    has them (the YAML's value where it sets one, else the port's
+    default), so both check the same feature settings."""
+    for path in PORT_DEFAULTS:
+        jd, td = j.app, t.app
+        for k in path[:-1]:
+            jd, td = getattr(jd, k), getattr(td, k)
+        setattr(jd, path[-1], getattr(td, path[-1]))
+
+
+@pytest.mark.parametrize("yaml_text", WARN_YAMLS)
+def test_check_config_warnings_equal(yaml_text):
+    j, t = jconfig.parse_config(yaml_text), config.parse_config(yaml_text)
+    _align_port_defaults(j, t)
+    jw, tw = jconfig.check_config(j), config.check_config(t)
+    assert jw == tw and tw
+
+
+@pytest.mark.parametrize("yaml_text", ["", FULL_YAML])
+def test_check_config_quiet_equal(yaml_text):
+    j, t = jconfig.parse_config(yaml_text), config.parse_config(yaml_text)
+    _align_port_defaults(j, t)
+    assert jconfig.check_config(j) == config.check_config(t)
+
+
+UNPORTED = {
+    "target: querier\n": "target='querier'",
+    "metrics_generator:\n  enabled: true\n": "metrics-generator",
+    "metrics_generator:\n  remote_write:\n    endpoint: http://p:9090\n": "remote_write",
+    "distributor:\n  forwarders:\n    - {name: m, endpoint: http://c:4318}\n": "forwarders",
+    "usage_report:\n  enabled: true\n": "usage_report",
+    "self_tracing:\n  enabled: true\n": "self_tracing",
+    "standing:\n  enabled: true\n": "standing-query",
+    "compiled:\n  enabled: true\n": "compiled-query",
+    "rca:\n  enabled: true\n": "rca",
+    "slo:\n  enabled: true\n": "slo",
+    "vulture:\n  enabled: true\n": "vulture",
+    "device_tier:\n  budget_mb: 64\n": "device_tier",
+    "storage:\n  trace:\n    result_cache:\n      enabled: true\n": "result_cache",
+    "storage:\n  trace:\n    cache: memory\n": "cache='memory'",
+    "storage:\n  trace:\n    analytics_scan_s: 600\n": "analytics_scan_s",
+}
+
+
+@pytest.mark.parametrize("yaml_text", sorted(UNPORTED))
+def test_unported_sections_refused(yaml_text, tmp_path):
+    cfg = config.parse_config(yaml_text)
+    cfg.app.db.backend_path = str(tmp_path / "blocks")
+    cfg.app.target = cfg.target
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item") as e:
+        App(cfg.app, device="cpu")
+    assert UNPORTED[yaml_text] in str(e.value) and "not ported yet" in str(e.value)
+    path = tmp_path / "tempo.yaml"
+    path.write_text(yaml_text)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+        tmain.main(["-config.file", str(path), "-config.verify"])
+
+
+@pytest.mark.parametrize("server", ["grpc_listen_port: 4317", "jaeger_agent_compact_port: 6831",
+                                    "kafka:\n    brokers: [k:9092]"])
+def test_unported_receivers_refused(server, tmp_path):
+    path = tmp_path / "tempo.yaml"
+    path.write_text(f"server:\n  {server}\n")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
+        tmain.main(["-config.file", str(path), "-config.verify"])
+
+
+def test_verify_ok(tmp_path, capsys):
+    path = tmp_path / "tempo.yaml"
+    path.write_text(f"storage:\n  trace:\n    backend_path: {tmp_path}/blocks\n")
+    assert tmain.main(["-config.file", str(path), "-config.verify"]) == 0
+    assert capsys.readouterr().out == "config ok\n"

@@ -4,17 +4,24 @@ compaction entry and one metrics query on the CPU, writes two vtpu1
 blocks, finds a trace by ID, compacts the blocks and queries the output
 on the CPU, drives the storage engine (TempoDB: write, find, tag search,
 tag names, TraceQL search on the vectorized branch and the object
-engine, WAL replay, compaction) on the CPU, and an entry point called
-without a device raises when CUDA is absent."""
+engine, WAL replay, compaction) on the CPU, serves the single binary
+(App + TempoServer: one OTLP push, /flush, the trace read back by ID and
+by search over HTTP) on the CPU, and an entry point called without a
+device raises when CUDA is absent. `python -m tempo_tpu_torch` verifies
+a config and serves HTTP until /shutdown with the same imports blocked."""
 
+import json
 import os
+import socket
 import subprocess
 import sys
 import textwrap
+import time
+import urllib.request
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-SCRIPT = textwrap.dedent(r"""
+BLOCK = textwrap.dedent(r"""
     import importlib, importlib.abc, pkgutil, sys
 
     sys.modules["jax"] = None  # any `import jax` now raises ImportError
@@ -26,6 +33,9 @@ SCRIPT = textwrap.dedent(r"""
             return None
 
     sys.meta_path.insert(0, Refuse())
+""")
+
+SCRIPT = BLOCK + textwrap.dedent(r"""
 
     import torch
     import tempo_tpu_torch
@@ -100,8 +110,40 @@ SCRIPT = textwrap.dedent(r"""
     assert db.write_wal_block("t", replayed).total_spans == b1.num_spans
     assert db.compact_once("t") == 1 and len(db.blocklist.metas("t")) == 1
 
+    import json, urllib.parse, urllib.request
+    from tempo_tpu_torch.api.server import TempoServer
+    from tempo_tpu_torch.app import App, AppConfig
+    from tempo_tpu_torch.model.trace import batch_to_traces
+    from tempo_tpu_torch.receivers import otlp
+
+    root = tempfile.mkdtemp()
+    app = App(AppConfig(db=DBConfig(backend="local", backend_path=root + "/blocks",
+                                    wal_path=root + "/wal")), device="cpu")
+    srv = TempoServer(app).start()
+    try:
+        def http(method, path, body=None, headers=None):
+            req = urllib.request.Request(srv.url + path, data=body, method=method,
+                                         headers=headers or {})
+            with urllib.request.urlopen(req) as r:
+                return r.status, r.read()
+        traces = batch_to_traces(synth.make_batch(20, 3, seed=5))
+        assert http("POST", "/v1/traces", otlp.encode_traces_request(traces),
+                    {"Content-Type": "application/x-protobuf"})[0] == 200
+        assert http("POST", "/flush")[0] == 204 and app.db.blocklist.metas("single-tenant")
+        hexid = traces[0].trace_id.hex()
+        status, body = http("GET", "/api/traces/" + hexid)
+        assert status == 200 and json.loads(body)["resourceSpans"]
+        svc = traces[0].batches[0][0]["service.name"]
+        status, body = http("GET", "/api/search?" + urllib.parse.urlencode(
+            {"tags": f"service.name={svc}", "limit": 100}))
+        assert hexid in [t["traceID"] for t in json.loads(body)["traces"]]
+    finally:
+        srv.stop()
+        app.shutdown()
+
     if not torch.cuda.is_available():
         for call in (lambda: entry(), lambda: M.make_accumulator(plan), lambda: TempoDB(DBConfig()),
+                     lambda: App(AppConfig(db=DBConfig(backend_path=root + "/b2"))),
                      lambda: write_block([b1], "t", be, cfg), lambda: VtpuCompactor(),
                      lambda: M.evaluate_block(plan, VtpuBackendBlock(out, be, cfg))):
             try:
@@ -134,3 +176,47 @@ def test_no_import_of_jax_or_tempo_tpu_in_port_sources():
         with open(p) as f:
             bad += [f"{p}:{i}" for i, line in enumerate(f, 1) if pat.match(line)]
     assert not bad, bad
+
+
+def _run_main(args, **kw):
+    """`python -m tempo_tpu_torch <args>` with jax and tempo_tpu blocked."""
+    code = BLOCK + f"import runpy\nsys.argv = ['tempo_tpu_torch'] + {args!r}\n" \
+        "runpy.run_module('tempo_tpu_torch', run_name='__main__', alter_sys=True)\n"
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            env=dict(os.environ, PYTHONPATH=ROOT), text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, **kw)
+
+
+def test_main_verifies_and_serves(tmp_path):
+    with socket.socket() as s:  # a free port for the listener
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cfg = tmp_path / "tempo.yaml"
+    cfg.write_text(f"server:\n  http_listen_port: {port}\n  log_level: warn\n"
+                   f"storage:\n  trace:\n    backend: local\n"
+                   f"    backend_path: {tmp_path}/blocks\n    wal_path: {tmp_path}/wal\n")
+    out, err = _run_main(["-config.file", str(cfg), "-config.verify"]).communicate(timeout=120)
+    assert out == "config ok\n", err[-2000:]
+
+    proc = _run_main(["-config.file", str(cfg), "-device", "cpu"])
+    try:
+        url = f"http://127.0.0.1:{port}"
+        deadline = time.monotonic() + 120
+        while True:
+            try:
+                with urllib.request.urlopen(url + "/ready", timeout=5) as r:
+                    assert r.read() == b"ready"
+                break
+            except OSError:
+                assert proc.poll() is None and time.monotonic() < deadline, proc.stderr.read()
+                time.sleep(0.2)
+        with urllib.request.urlopen(url + "/status/services") as r:
+            assert json.loads(r.read())["target"] == "all"
+        req = urllib.request.Request(url + "/shutdown", data=b"", method="POST")
+        with urllib.request.urlopen(req) as r:
+            assert r.read() == b"shutdown job acknowledged"
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()

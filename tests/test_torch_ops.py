@@ -71,6 +71,20 @@ def test_hash_streams(n, seed):
     eq(jhash.hash_streams(jnp.asarray(x), n, seed), hashing.hash_streams(T(x), n, seed))
 
 
+@pytest.mark.parametrize("tenant", ["single-tenant", "acme", "ünï", ""])
+@pytest.mark.parametrize("seed", [0, 3])
+def test_ring_tokens_equal(tenant, seed):
+    """The ring tokens that place traces on ingesters (distributor) and
+    find their replicas (querier)."""
+    limbs = np.random.default_rng(seed).integers(0, 2**32, (64, 4), dtype=np.uint32)
+    got = hashing.np_token_for_ids(tenant, limbs)
+    np.testing.assert_array_equal(got, jhash.np_token_for_ids(tenant, limbs))
+    for row, tok in zip(limbs[:8], got[:8]):
+        tid = hashing.limbs_to_trace_id(row)
+        assert tid == jhash.limbs_to_trace_id(row)
+        assert hashing.token_for(tenant, tid) == jhash.token_for(tenant, tid) == int(tok)
+
+
 # ---------------------------------------------------------------------------
 # merge
 # ---------------------------------------------------------------------------

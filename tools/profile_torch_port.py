@@ -2,7 +2,7 @@
 """Where the time goes in the PyTorch/CUDA port, on one NVIDIA GPU.
 
     python3 tools/profile_torch_port.py [--rows 4194304] [--out chiprun_out]
-                                        [--windows step,query,blocks,db]
+                                        [--windows step,query,blocks,db,app]
 
 Profiles, with torch.profiler (CPU + CUDA activities), up to three
 windows:
@@ -27,7 +27,15 @@ windows:
    TempoDB.find. Then the two blocks are compacted twice, each a window with
    host own time: by VtpuCompactor directly (merge_path "auto", as
    phase 6 does) and by TempoDB.compact_once (the selector and driver
-   around the same compactor).
+   around the same compactor);
+5. app: the single binary — App(device="cuda") behind a TempoServer on
+   127.0.0.1 over one block of 2**20 spans (written through
+   TempoDB.write_batch, outside the windows). Windows, each with host own
+   time: 32 OTLP protobuf pushes of 512 traces x 8 spans over HTTP (host
+   work only: its idle share is the reading), POST /flush (cut, WAL and
+   the block write with its sketch plane on the card), three
+   query_range requests (seg_bincount on the card), and 50 finds by ID
+   of traces at rest (host only).
 
 For each window it writes a chrome trace to --out and prints, from that
 trace, the wall time, the device's busy time (the union of its kernel,
@@ -156,6 +164,8 @@ def main() -> int:
         profile_blocks(torch, plan, args.out)
     if "db" in windows:
         profile_db(torch, args.out)
+    if "app" in windows:
+        profile_app(torch, args.out)
     if EMPTY_WINDOWS:
         print(f"profile_torch_port: no device activity captured in {EMPTY_WINDOWS}",
               file=sys.stderr)
@@ -284,6 +294,84 @@ def profile_db(torch, out_dir: str) -> None:
                        lambda: direct.compact(metas, "p", db.backend), out_dir, host_top=12)
         profile_window(torch, "db_compact_once", lambda: db.compact_once("p"), out_dir,
                        host_top=12)
+
+
+def profile_app(torch, out_dir: str) -> None:
+    import http.client
+    import tempfile
+    import urllib.parse
+
+    import numpy as np
+
+    from tempo_tpu_torch.api.server import TempoServer
+    from tempo_tpu_torch.app import App, AppConfig
+    from tempo_tpu_torch.db import DBConfig, TempoDB
+    from tempo_tpu_torch.model import synth
+    from tempo_tpu_torch.model.columnar import SpanBatch
+    from tempo_tpu_torch.model.trace import batch_to_traces
+    from tempo_tpu_torch.modules.overrides import Limits
+    from tempo_tpu_torch.receivers import otlp
+
+    rest = SpanBatch.concat([synth.make_batch(8192, 8, seed=300 + i,
+                                              base_time_ns=(BASE_S + 60 * i) * 10**9)
+                             for i in range(16)]).sorted_by_trace()
+    bodies = [otlp.encode_traces_request(batch_to_traces(synth.make_batch(
+        512, 8, seed=400 + i, base_time_ns=(BASE_S + 60 * (40 + i // 2)) * 10**9,
+        n_attrs_per_span=1))) for i in range(32)]
+    with tempfile.TemporaryDirectory(prefix="profile_app_") as tmp:
+        db = TempoDB(DBConfig(backend="local", backend_path=tmp + "/blocks"), device="cuda")
+        db.write_batch("p", rest)
+        db.shutdown()
+        app = App(AppConfig(db=DBConfig(backend="local", backend_path=tmp + "/blocks",
+                                        wal_path=tmp + "/wal"),
+                            limits=Limits(max_traces_per_user=1 << 16),
+                            multitenancy_enabled=True), device="cuda")
+        server = TempoServer(app).start()
+        try:
+            app.db.poll_now()
+            conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=600)
+
+            def http(method, path, body=None, ok=200, **headers):
+                conn.request(method, path, body=body, headers={"X-Scope-OrgID": "p", **headers})
+                r = conn.getresponse()
+                out = r.read()
+                if r.status != ok:
+                    raise RuntimeError(f"profile app: {method} {path} -> HTTP {r.status}")
+                return out
+
+            def push():
+                for body in bodies:
+                    http("POST", "/v1/traces", body, **{"Content-Type": "application/x-protobuf"})
+
+            http("GET", "/ready")  # warm-up: the connection and the handler
+            profile_window(torch, "app_push_2^17_spans", push, out_dir, host_top=15,
+                           expect_device=False)
+            profile_window(torch, "app_flush", lambda: http("POST", "/flush", ok=204), out_dir,
+                           host_top=12)
+            queries = ["{ } | rate() by (resource.service.name)",
+                       "{ status = error } | count_over_time() by (name)",
+                       "{ } | quantile_over_time(duration, 0.5, 0.99) by "
+                       "(resource.service.name)"]
+
+            def query_range():
+                for q in queries:
+                    http("GET", "/api/metrics/query_range?" + urllib.parse.urlencode(
+                        {"q": q, "start": BASE_S, "end": BASE_S + 3600, "step": 60}))
+
+            profile_window(torch, "app_query_range_x3", query_range, out_dir, host_top=12)
+            ids = rest.cols["trace_id"][rest.trace_boundaries()[0]]
+            pick = ids[np.random.default_rng(6).choice(len(ids), 50, replace=False)]
+
+            def find_at_rest():
+                for limbs in pick:
+                    http("GET", "/api/traces/" + bytes(limbs.astype(">u4")).hex())
+
+            profile_window(torch, "app_find_50_at_rest", find_at_rest, out_dir, host_top=12,
+                           expect_device=False)
+            conn.close()
+        finally:
+            server.stop()
+            app.shutdown()
 
 
 if __name__ == "__main__":
