@@ -7,18 +7,22 @@ Phases, one line each (any failure exits non-zero):
 
 0. device: card name, count, torch/CUDA versions, nvidia-smi name and
    power limit;
-1. build: nvcc builds csrc/kernels.cu (the three hand-written kernels)
-   and ptxas reports each kernel's registers, static shared memory and
-   spills;
+1. build: nvcc builds csrc/kernels.cu (the three Pallas kernels' ports)
+   and csrc/codec_kernels.cu (rle_change_mask and dbp_pack of the device
+   page encode, dbp_decode and compiled_metrics of the compiled query
+   tier), one nvcc a source, in parallel, and ptxas reports each
+   kernel's registers, static shared memory and spills;
 2. kernels: each CUDA kernel against its plain PyTorch version on the
-   card, bit for bit, at the main path's shapes and at edge shapes, and
+   card, bit for bit, at the main path's shapes and at edge shapes (the
+   codec kernels also against the host codec and a numpy interpreter), and
    timed two ways: kernel time (device time alone: a CUDA graph of K
    back-to-back launches of the C entry point into outputs allocated
    and zeroed before the capture, replay time / K, median of 7 replays)
    and path time (CUDA events around one whole wrapper call as the main
    path makes it, median of 25), beside its plain version and one
    PyTorch library call where there is one (both timed as path time),
-   and its bound;
+   and its bound (dbp_decode and compiled_metrics are timed after phase
+   8, on the inputs of phase 8's largest compiled dispatch);
 3. compaction: the flagship step (entry.entry) at 2**22 rows, bit-equal
    between the card and the CPU;
 4. metrics: three TraceQL query_range queries over 2**22 synthetic spans
@@ -32,7 +36,11 @@ Phases, one line each (any failure exits non-zero):
    second block's traces are copies of the first's) are written with
    their bloom and HLL built on the card and again on the CPU (every
    stored object byte-equal), 1,000 present and 1,000 absent trace IDs
-   are found by ID in both (equal answers), the two blocks are compacted
+   are found by ID in both (equal answers; the card's writes run the
+   device page encode, which must have encoded rle, dbp and dct pages,
+   the CPU's the host encoders), one 2**17-span block is written on the
+   card with the device encode and with TEMPO_TPU_DEVICE_ENCODE=0
+   (byte-equal), the two blocks are compacted
    with the merge plan and the sketch plane on the card and on the CPU
    (byte-equal outputs, one trace per distinct ID) and with the native
    k-way merge plan (the host figure), and the phase-4 queries run
@@ -61,13 +69,21 @@ Phases, one line each (any failure exits non-zero):
    100 absent IDs (404); three tag searches at limit 20 and unbounded;
    tag names and values; two TraceQL searches; the three phase-4
    queries as query_range (against evaluate_block with the CPU
-   accumulator on the same backend; seg_bincount must launch). Every
-   other answer is held against a numpy oracle.
+   accumulator on the same backend; seg_bincount must launch); four
+   simple-count query_range queries (no by(): a set on an rle column, one
+   on a dct column, inverted ones, a duration range on a dbp column),
+   each twice, through the compiled tier (the same matrices; dbp_decode
+   and compiled_metrics launch once a codec group, seg_bincount never;
+   the insights record reads compiledShape miss, then hit), and
+   /api/query-insights with the tier's cache stats. Every other answer
+   is held against a numpy oracle.
 
 Phases 3-4 are the main path, phase 5 the scan path, phase 6 the block
 path, phase 7 the storage engine's path and phase 8 the server's path:
 each is run with the kernels' launch counts set to 0 just before it,
-and every kernel of the path must have launched. The script then prints
+and every kernel of the path must have launched (phases 6-8 each
+rle_change_mask, dbp_pack and seg_bincount; phase 8 also dbp_decode and
+compiled_metrics). The script then prints
 one JSON line of per-kernel and per-phase numbers (phase 6's under
 "blocks", phase 7's under "db", phase 8's under "app"), the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Without a CUDA
@@ -156,6 +172,10 @@ def kernel_ms(torch, launches, k: int = 48, reps: int = 7) -> float:
     return statistics.median(times)
 
 
+def fmt_ms(ms) -> str:
+    return "none" if ms is None else f"{ms:.4f} ms"
+
+
 def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
@@ -202,6 +222,345 @@ def chain_parents(batch):
     return SpanBatch(cols=cols, attrs=batch.attrs, dictionary=batch.dictionary)
 
 
+CODEC_KERNELS = ("rle_change_mask", "dbp_pack", "dbp_decode", "compiled_metrics")
+
+
+def launch_counters():
+    """name -> the wrapper whose `launches` counts that kernel's launches."""
+    from tempo_tpu_torch.compiled import program
+    from tempo_tpu_torch.ops import encode as tenc
+    from tempo_tpu_torch.ops import pallas_kernels as pk
+
+    return {"seg_bincount": pk.seg_bincount, "in_set_scan": pk.in_set_scan,
+            "u64_range_scan": pk.u64_range_scan, "rle_change_mask": tenc.rle_change_mask,
+            "dbp_pack": tenc.dbp_pack, "dbp_decode": pk.dbp_decode_limbs,
+            "compiled_metrics": program.compiled_metrics}
+
+
+def reset_launches() -> None:
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: fn.launches for k, fn in launch_counters().items()}
+
+
+def dbp_unit(rng, n: int, width: int):
+    """A uint64 column of n rows whose dbp page has the given delta width
+    (0, or 1..32), its page, and the page's (words, first, width)."""
+    import numpy as np
+
+    from tempo_tpu_torch.encoding.vtpu import lightweight as lw
+
+    if width == 0:
+        deltas = np.zeros(n - 1, np.int64)
+    else:
+        # zigzag widths: |d| < 2^(width-1), one delta at the top of the range
+        top = (1 << (width - 1)) - 1
+        deltas = rng.integers(-top, top + 1, n - 1) if top else rng.integers(-1, 1, n - 1)
+        deltas[0] = -(1 << (width - 1)) if width > 1 else -1
+    col = (np.int64(1 << 40) + np.concatenate([[0], np.cumsum(deltas)])).astype(np.uint64)
+    page = lw.dbp_encode(col)
+    first, _anchors, widths, streams, _n = lw.dbp_parts(page, col.dtype.str, col.shape)
+    check(int(widths[0]) == width, f"dbp unit: width {widths[0]}, wanted {width}")
+    raw = bytes(streams[0])
+    words = np.frombuffer(raw + b"\x00" * ((-len(raw)) % 4 + 4), "<u4")
+    return col, page, (words, int(first[0]), width)
+
+
+def codec_kernels_check(torch, dev, rng) -> int:
+    """Phase 2, the codec's kernels against their plain versions on the
+    card at edge shapes (and pages and counts against the host codec and
+    a numpy interpreter). Returns the number of cases."""
+    import numpy as np
+
+    from tempo_tpu_torch.compiled import executor, program
+    from tempo_tpu_torch.encoding.vtpu import lightweight as lw
+    from tempo_tpu_torch.ops import encode as tenc
+    from tempo_tpu_torch.ops import pallas_kernels as pk
+
+    cases = 0
+    # rle_change_mask: n = 2, 3, 9, 8193 rows of 1 and 4 lanes
+    for n in (2, 3, 9, 8193):
+        for k in (1, 4):
+            a = rng.integers(0, 3, (n, k)).astype(np.uint32)
+            a[rng.random(n) < 0.3] = 0xFFFFFFFF
+            up = torch.from_numpy(tenc._pad_rows(a, tenc._pow2(n)).view(np.int32))
+            check(torch.equal(tenc.rle_change_mask(up.to(dev)).cpu(), tenc._rle_change_plain(up)),
+                  f"rle_change_mask n={n} k={k}: kernel != plain")
+            cases += 1
+    # dbp_pack: both modes, items of 1/2/4/8 bytes, widths 0, 1, 31, 32
+    for item_bits in (0, 8, 16, 32, 64):
+        for n in (2, 3, 9, 8193):
+            n_pad = tenc._pow2(n)
+            lo = rng.integers(0, 1 << 32, (4, n), dtype=np.uint64).astype(np.uint32)
+            hi = rng.integers(0, 1 << 32, (4, n), dtype=np.uint64).astype(np.uint32)
+            if 0 < item_bits < 32:
+                lo &= np.uint32((1 << item_bits) - 1)
+            lo = np.ascontiguousarray(tenc._pad_rows(lo.T, n_pad).T)
+            hi = np.ascontiguousarray(tenc._pad_rows(hi.T, n_pad).T)
+            args = [torch.from_numpy(lo.view(np.int32)), torch.from_numpy(hi.view(np.int32))]
+            got = tenc.dbp_pack(*(x.to(dev) for x in args), item_bits, [0, 1, 31, 32])
+            want = tenc._dbp_pack_plain(*args, item_bits, [0, 1, 31, 32])
+            check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+                  f"dbp_pack item_bits={item_bits} n={n}: kernel != plain")
+            cases += 1
+    # whole pages on the card against the host encoders: items of 1/2/4/8
+    # bytes with negative deltas and 64-bit borrows, 2-D limbs, dct with
+    # one distinct value (width 0) and with 2^k
+    ts = np.uint64(1 << 60) + np.cumsum(rng.integers(0, 1 << 20, 8193).astype(np.uint64))
+    pages = [
+        np.array([127, -128, 0, -1, 5, 127, -128, 3, 3], np.int8),
+        np.array([65535, 0, 1, 65535, 7, 0, 9], np.uint16),
+        rng.integers(-50, 50, 8193).astype(np.int32),
+        ts, ts[::-1].copy(),
+        np.array([(1 << 32) - 3, (1 << 32) + 4, (1 << 32) - 10, (1 << 32) + (1 << 30),
+                  (1 << 32) - (1 << 30), (1 << 32) + 1], np.uint64),
+        np.full(9, 7, np.uint32),
+        rng.integers(0, 8, 8193).astype(np.uint32), rng.integers(0, 1 << 10, 3).astype(np.uint32),
+        rng.integers(0, 1 << 32, (2, 4), dtype=np.uint64).astype(np.uint32),
+        rng.integers(0, 3, (9, 4)).astype(np.uint32),
+    ]
+    host = {"rle": lw.rle_encode, "dbp": lw.dbp_encode, "dct": lw.dct_encode}
+    for arr in pages:
+        for cdc in ("rle", "dbp", "dct"):
+            try:
+                want = host[cdc](arr)
+            except ValueError:
+                want = None
+            try:
+                got = tenc.encode_page_device(arr, cdc, dev)
+            except ValueError:
+                got = None
+            check(got == want, f"{cdc} page of {arr.dtype} {arr.shape} on the card != host page")
+            cases += 1
+    # dbp_decode: n = 2, 3, 9, 8193 at widths 0, 1, 31, 32, against the
+    # host decoder (a page a unit) and the plain version (stacked units)
+    for n in (2, 3, 9, 8193):
+        units = [dbp_unit(rng, n, w) for w in (0, 1, 31, 32)]
+        for col, page, _ in units:
+            check(np.array_equal(pk.dbp_decode_device(page, col.dtype.str, col.shape, dev), col),
+                  f"dbp_decode n={n}: != lightweight.dbp_decode")
+        wp = max(len(u[2][0]) for u in units)
+        words = np.zeros((len(units), wp), np.uint32)
+        for i, u in enumerate(units):
+            words[i, : len(u[2][0])] = u[2][0]
+        args = (torch.from_numpy(words.view(np.int32)),
+                torch.tensor([u[2][1] for u in units], dtype=torch.uint64).view(torch.int64),
+                torch.tensor([u[2][2] for u in units], dtype=torch.int32))
+        got = pk.dbp_decode_limbs(*(x.to(dev) for x in args), n).cpu()
+        check(torch.equal(got, pk._dbp_decode_plain(*args, n)), f"dbp_decode n={n}: kernel != plain")
+        check(np.array_equal(got.numpy().view(np.uint64), np.stack([u[0] for u in units])),
+              f"dbp_decode n={n}: != the columns")
+        cases += 1
+    # compiled_metrics: rle/dct/dbp mixes, an inverted set, an empty set
+    # (NO_MATCH), windows that start after some rows and bins past n_bins,
+    # against the plain version and a numpy interpreter over the columns
+    start0 = BASE_S
+    for codecs in (("rle",), ("dct",), ("dbp",), ("rle", "dct"), ("dct", "dbp"),
+                   ("rle", "dct", "dbp"), ("rle", "rle")):
+        units, raw = [], []
+        for _ in range(7):
+            n = int(rng.integers(2, 9000))
+            cols, vals = [], []
+            for codec in codecs:
+                if codec == "rle":
+                    cuts = np.sort(rng.choice(np.arange(1, n), min(n - 1, int(rng.integers(0, 40))),
+                                              replace=False))
+                    lengths = np.diff(np.concatenate([[0], cuts, [n]])).astype(np.int32)
+                    values = rng.integers(0, 6, len(lengths)).astype(np.uint32)
+                    cols.append(("rle", {"values": values, "lengths": lengths}, {"n": n}))
+                    vals.append(np.repeat(values, lengths).astype(np.uint64))
+                elif codec == "dct":
+                    d = int(rng.integers(1, 9))
+                    values = np.sort(rng.choice(np.arange(20, dtype=np.uint32), d, replace=False))
+                    idx = rng.integers(0, d, n).astype(np.int32)
+                    cols.append(("dct", {"values": values, "idx": idx}, {"n": n}))
+                    vals.append(values[idx].astype(np.uint64))
+                else:
+                    col, page, (words, first, width) = dbp_unit(rng, n, int(rng.choice([0, 1, 12, 31])))
+                    cols.append(("dbp", {"words": words}, {"n": n, "first": first, "width": width}))
+                    vals.append(lw.dbp_decode(page, col.dtype.str, col.shape))
+            t_s = (start0 - 20 + rng.integers(0, 120, n)).astype(np.uint32)
+            units.append(executor._Unit(n, t_s, cols, ()))
+            raw.append((t_s, vals))
+        n_pad = executor._pow2(max(u.n for u in units))
+        colsig = tuple(("range", f"c{i}") if c == "dbp" else ("set", f"c{i}", i % 2 == 0)
+                       for i, c in enumerate(codecs))
+        t_s, valid, payloads, pads = executor._stack_group(units, colsig, n_pad)
+        sets = [np.array([1, 3, 3, 3], np.uint32), np.full(4, 0xFFFFFFFF, np.uint32),
+                np.array([2, 4, 5, 19], np.uint32)]
+        ranges = [(0, (1 << 64) - 1), (5, 4), ((1 << 40) - 10**6, (1 << 40) + 10**6)]
+        sig_cols, qargs = [], []
+        for i, codec in enumerate(codecs):
+            if codec == "dbp":
+                sig_cols.append(("dbp", "range", False, pads[i]))
+                qargs.append(np.array(ranges, np.uint64))
+            else:
+                sig_cols.append((codec, "set", colsig[i][2], 4))
+                qargs.append(np.stack([np.stack([s] * len(units)) for s in sets]))
+        tb = np.array([[start0, 10], [start0 + 30, 7], [start0 - 100, 60]], np.uint32)
+        nb = np.array([6, 3, 2], np.uint32)
+        sig = (tuple(sig_cols), n_pad, 8, 3)
+
+        def on(d):
+            return (executor._tensor(t_s, d), executor._tensor(valid, d),
+                    tuple(tuple(executor._tensor(a, d) for a in p) for p in payloads),
+                    tuple(executor._tensor(a, d) for a in qargs), executor._tensor(tb, d),
+                    executor._tensor(nb, d))
+
+        got = program.compiled_metrics(sig, *on(dev)).cpu()
+        check(torch.equal(got, program.compiled_metrics(sig, *on(torch.device("cpu")))),
+              f"compiled_metrics {'+'.join(codecs)}: kernel != plain")
+        want = np.zeros((3, 8), np.int64)
+        for ts_u, vals in raw:
+            for q in range(3):
+                hit = np.ones(len(ts_u), bool)
+                for i, codec in enumerate(codecs):
+                    if codec == "dbp":
+                        lo, hi = ranges[q]
+                        hit &= (vals[i] >= np.uint64(lo)) & (vals[i] <= np.uint64(hi))
+                    else:
+                        hit &= np.isin(vals[i], sets[q].astype(np.uint64)) != colsig[i][2]
+                ok = hit & (ts_u >= tb[q, 0])
+                bins = (ts_u.astype(np.int64) - int(tb[q, 0])) // int(tb[q, 1])
+                ok &= bins < nb[q]
+                np.add.at(want[q], bins[ok], 1)
+        check(np.array_equal(got.numpy(), want) and want.any(),
+              f"compiled_metrics {'+'.join(codecs)}: != the numpy interpreter over decoded columns")
+        cases += 1
+    return cases
+
+
+def time_encode_kernels(torch, dev, seed: int, lib, stream) -> dict:
+    """rle_change_mask and dbp_pack at the shapes a block write gives them:
+    one 2**15-span row group (4096 traces x 8 spans) of the phase-6 data
+    kind; the trace_id limbs (32768, 4) are an rle page and duration_nano
+    a 64-bit dbp page."""
+    import numpy as np
+
+    from tempo_tpu_torch.encoding.vtpu import lightweight as lw
+    from tempo_tpu_torch.model import synth
+    from tempo_tpu_torch.ops import _build
+    from tempo_tpu_torch.ops import encode as tenc
+
+    b = chain_parents(synth.make_batch(4096, 8, seed=seed * 1000 + 7)).sorted_by_trace()
+    tid, dur = b.cols["trace_id"], b.cols["duration_nano"]
+    check(lw.choose_codec("trace_id", tid, "zstd") == "rle"
+          and lw.choose_codec("duration_nano", dur, "zstd") == "dbp",
+          "row group: trace_id is not rle or duration_nano not dbp")
+    out = {}
+    # rle_change_mask on the trace_id limbs
+    up = torch.from_numpy(tenc._pad_rows(tenc._unsigned_2d(tid), tenc._pow2(len(tid)))
+                          .astype(np.uint32).view(np.int32)).to(dev)
+    n_pad, k = up.shape
+    mask_out = torch.empty(n_pad - 1, dtype=torch.bool, device=dev)
+
+    def rle_launch():
+        _build.check(lib.tt_rle_change_mask(up.data_ptr(), n_pad, k, mask_out.data_ptr(),
+                                            stream()), "rle_change_mask")
+
+    rle_launch()
+    check(torch.equal(mask_out, tenc._rle_change_plain(up)), "rle_change_mask timing input")
+    ms = kernel_ms(torch, [rle_launch])
+    bnd, by = bound_ms(n_pad * k * 4 + n_pad - 1, n_pad * k)
+    out["rle_change_mask"] = dict(
+        shape=f"({n_pad}, {k}) uint32 lanes (trace_id of a 2^15-span row group)", max_abs_err=0,
+        ms=ms, path_ms=path_ms(torch, lambda: tenc.rle_change_mask(up)),
+        plain_ms=path_ms(torch, lambda: tenc._rle_change_plain(up)), bound_ms=bnd, bound_by=by,
+        library_ms=path_ms(torch, lambda: (up[1:] != up[:-1]).any(1)))
+    # dbp_pack, delta mode over the duration limbs at the probed width
+    w = lw._dbp_width(lw._zigzag(lw._deltas_s64(dur)))
+    limbs = tenc._unsigned_2d(dur).reshape(len(dur), 1, 2)
+    lo = torch.from_numpy(np.ascontiguousarray(tenc._pad_rows(limbs[:, :, 0], n_pad).T)
+                          .view(np.int32)).to(dev)
+    hi = torch.from_numpy(np.ascontiguousarray(tenc._pad_rows(limbs[:, :, 1], n_pad).T)
+                          .view(np.int32)).to(dev)
+    words = -(-n_pad * w // 32)
+    packed = torch.empty(words, dtype=torch.int32, device=dev)
+    w_arr, off = np.array([w], np.int32), np.array([0, words], np.int64)
+
+    def pack_launch():
+        _build.check(lib.tt_dbp_pack(lo.data_ptr(), hi.data_ptr(), n_pad, 64, w_arr.ctypes.data,
+                                     off.ctypes.data, 1, packed.data_ptr(), stream()), "dbp_pack")
+
+    pack_launch()
+    want = tenc._dbp_pack_plain(lo, hi, 64, [w])[0]
+    check(torch.equal(packed.view(torch.uint8)[: n_pad * w // 8], want), "dbp_pack timing input")
+    ms = kernel_ms(torch, [pack_launch])
+    bnd, by = bound_ms(2 * 4 * n_pad + 4 * words, 12 * n_pad)
+    out["dbp_pack"] = dict(
+        shape=f"n_pad={n_pad} 64-bit items (duration_nano), width {w}", max_abs_err=0, ms=ms,
+        path_ms=path_ms(torch, lambda: tenc.dbp_pack(lo, hi, 64, [w])),
+        plain_ms=path_ms(torch, lambda: tenc._dbp_pack_plain(lo, hi, 64, [w])),
+        bound_ms=bnd, bound_by=by, library_ms=None)
+    return out
+
+
+def time_compiled_kernels(torch, recorded: dict, lib, stream) -> dict:
+    """dbp_decode and compiled_metrics at the shapes phase 8's simple-count
+    query_range gave them: the largest recorded dispatch with a dbp
+    column, on its own inputs (still on the card)."""
+    from tempo_tpu_torch.compiled import program
+    from tempo_tpu_torch.ops import _build
+    from tempo_tpu_torch.ops import pallas_kernels as pk
+
+    sig, args = recorded["sig"], recorded["args"]
+    t_s, valid, payloads, qargs, tb, nb = args
+    sig_cols, n_pad, slot_pad, q = sig
+    c_dbp = next(c for c, col in enumerate(sig_cols) if col[0] == "dbp")
+    words, first, width = payloads[c_dbp]
+    n_units, wp = words.shape
+    dec = torch.empty((n_units, n_pad), dtype=torch.int64, device=words.device)
+
+    def dec_launch():
+        _build.check(lib.tt_dbp_decode(words.data_ptr(), wp, first.data_ptr(), width.data_ptr(),
+                                       n_units, n_pad, dec.data_ptr(), stream()), "dbp_decode")
+
+    dec_launch()
+    check(torch.equal(dec, pk._dbp_decode_plain(words, first, width, n_pad)),
+          "dbp_decode at phase 8's shape: kernel != plain")
+    # the library line: torch.cumsum over the unpacked deltas
+    deltas = torch.diff(dec, dim=1, prepend=torch.zeros_like(dec[:, :1]))
+    ms = kernel_ms(torch, [dec_launch])
+    bnd, by = bound_ms(words.numel() * 4 + n_units * 12 + dec.numel() * 8, 12 * dec.numel())
+    out = {"dbp_decode": dict(
+        shape=f"U={n_units} units x n_pad={n_pad}, {wp} words a unit", max_abs_err=0, ms=ms,
+        path_ms=path_ms(torch, lambda: pk.dbp_decode_limbs(words, first, width, n_pad)),
+        plain_ms=path_ms(torch, lambda: pk._dbp_decode_plain(words, first, width, n_pad)),
+        bound_ms=bnd, bound_by=by, library_ms=path_ms(torch, lambda: torch.cumsum(deltas, dim=1)))}
+    decoded = {c: pk.dbp_decode_limbs(*payloads[c], n_pad)
+               for c, col in enumerate(sig_cols) if col[0] == "dbp"}
+    desc, scratch = program._describe(sig, t_s, payloads, qargs, decoded)
+    counts = torch.zeros((q, slot_pad), dtype=torch.int64, device=t_s.device)
+
+    def metrics_launch():
+        _build.check(lib.tt_compiled_metrics(desc.ctypes.data, len(sig_cols), t_s.data_ptr(),
+                                             valid.data_ptr(), n_pad, n_units, q, tb.data_ptr(),
+                                             nb.data_ptr(), slot_pad, counts.data_ptr(), stream()),
+                     "compiled_metrics")
+
+    metrics_launch()
+    check(torch.equal(counts, program._metrics_plain(sig, *args)),
+          "compiled_metrics at phase 8's shape: kernel != plain")
+    ms = kernel_ms(torch, [metrics_launch])
+    nbytes = t_s.numel() * 5 + q * slot_pad * 8
+    for (codec, kind, _inv, _pad), payload, qa in zip(sig_cols, payloads, qargs):
+        nbytes += qa.numel() * qa.element_size()
+        nbytes += (n_units * n_pad * 8 if codec == "dbp"
+                   else sum(x.numel() * x.element_size() for x in payload))
+    bnd, by = bound_ms(nbytes, q * t_s.numel() * (4 + 2 * len(sig_cols)))
+    out["compiled_metrics"] = dict(
+        shape=f"Q={q} U={n_units} n_pad={n_pad} columns {'+'.join(c[0] for c in sig_cols)} "
+              f"slot_pad={slot_pad}", max_abs_err=0, ms=ms,
+        path_ms=path_ms(torch, lambda: program.compiled_metrics(sig, *args)),
+        plain_ms=path_ms(torch, lambda: program._metrics_plain(sig, *args)),
+        bound_ms=bnd, bound_by=by, library_ms=None)
+    del scratch
+    return out
+
+
 def blocks_phase(seed: int, queries: list, plan_of, db_root: str):
     """Phase 6, the block path: write, find by ID, compact and query
     vtpu1 blocks on the card and on the CPU. The card-written blocks A
@@ -222,9 +581,11 @@ def blocks_phase(seed: int, queries: list, plan_of, db_root: str):
     from tempo_tpu_torch.model import synth
     from tempo_tpu_torch.model.columnar import SpanBatch
     from tempo_tpu_torch.model.trace import combine_traces
+    from tempo_tpu_torch.ops import encode as tenc
     from tempo_tpu_torch.ops import pallas_kernels as pk
     from tempo_tpu_torch.util.devicetiming import STATS
 
+    LIGHT = ("rle", "dbp", "dct")
     cfg = BlockConfig()
     tenant = "smoke"
     devices = ("cuda", "cpu")
@@ -260,8 +621,12 @@ def blocks_phase(seed: int, queries: list, plan_of, db_root: str):
         block_ids = {"a": str(uuid.uuid4()), "b": str(uuid.uuid4())}
 
         # ------------------------------------------------------------ write
+        # the card's writes run the device page-encode arm (the switch
+        # unset follows the writer's device), the CPU's the host encoders
         metas, write_s = {}, {}
         for dev in devices:
+            pages0 = {c: tenc.device_encode_pages_total.value(codec=c) for c in LIGHT}
+            k1, k2 = tenc.rle_change_mask.launches, tenc.dbp_pack.launches
             for k, batch in (("a", a), ("b", b)):
                 h2d0 = STATS.h2d.get("block_sketch", 0)
                 d2h0 = STATS.d2h.get("block_sketch", 0)
@@ -274,6 +639,17 @@ def blocks_phase(seed: int, queries: list, plan_of, db_root: str):
                       f"of pages, sketch H2D {STATS.h2d.get('block_sketch', 0) - h2d0} B, "
                       f"D2H {STATS.d2h.get('block_sketch', 0) - d2h0} B, "
                       f"est_distinct {metas[dev, k].est_distinct_traces}", flush=True)
+            pages = {c: tenc.device_encode_pages_total.value(codec=c) - pages0[c] for c in LIGHT}
+            launched = (tenc.rle_change_mask.launches - k1, tenc.dbp_pack.launches - k2)
+            check(all(pages.values()) if dev == "cuda" else not any(pages.values()),
+                  f"phase 6 write on {dev}: device-encoded pages {pages}")
+            res.setdefault("device_encode_pages", {})[dev] = pages
+            print(f"phase 6 write on {dev}: device page encode {'on' if dev == 'cuda' else 'off'} | "
+                  f"pages encoded on the card {pages}, rle_change_mask {launched[0]} / dbp_pack "
+                  f"{launched[1]} launches", flush=True)
+        print(f"phase 6 write walls: card (device encode) {write_s['cuda a']:.2f} / "
+              f"{write_s['cuda b']:.2f} s, cpu (host encode) {write_s['cpu a']:.2f} / "
+              f"{write_s['cpu b']:.2f} s", flush=True)
         for k in "ab":
             check_same_blocks(block_objects(roots["cuda"], tenant, block_ids[k]),
                               block_objects(roots["cpu"], tenant, block_ids[k]),
@@ -282,6 +658,28 @@ def blocks_phase(seed: int, queries: list, plan_of, db_root: str):
         print("phase 6 write: blocks a and b byte-equal between cuda and cpu (data.bin, "
               "bloom shards, meta.json; index and dictionary gunzipped)", flush=True)
         res["write_ms"] = {k: v * 1e3 for k, v in write_s.items()}
+        # one 2**17-span block written twice on the card, with the device
+        # encode and with TEMPO_TPU_DEVICE_ENCODE=0 (the host encoders)
+        small = a.select(np.arange(1 << 17))
+        arm = {}
+        for label, env in (("device encode", None), ("host encode", "0")):
+            if env is not None:
+                os.environ["TEMPO_TPU_DEVICE_ENCODE"] = env
+            try:
+                sid = str(uuid.uuid4())
+                t0 = time.perf_counter()
+                write_block([small], tenant, backends["cuda"], cfg, block_id=sid, device="cuda")
+                arm[label] = (time.perf_counter() - t0, sid)
+            finally:
+                os.environ.pop("TEMPO_TPU_DEVICE_ENCODE", None)
+        check_same_blocks(block_objects(roots["cuda"], tenant, arm["device encode"][1], True),
+                          block_objects(roots["cuda"], tenant, arm["host encode"][1], True),
+                          "2**17-span block: device encode vs host encode on the card")
+        res["arm_2e17_ms"] = {k: v[0] * 1e3 for k, v in arm.items()}
+        print(f"phase 6 encode arm: a 2^17-span block written on the card in "
+              f"{arm['device encode'][0] * 1e3:.0f} ms with the device encode, "
+              f"{arm['host encode'][0] * 1e3:.0f} ms with TEMPO_TPU_DEVICE_ENCODE=0: byte-equal",
+              flush=True)
         # phase 7's backend: the card-written objects, copied as files
         enc = default_encoding()
         db_backend = TypedBackend(LocalBackend(db_root))
@@ -326,6 +724,7 @@ def blocks_phase(seed: int, queries: list, plan_of, db_root: str):
         # -------------------------------------------------------- compact
         outs, compact_s = {}, {}
         for dev, path in (("cuda", "device"), ("cpu", "device"), ("cuda", "auto")):
+            pages0 = {c: tenc.device_encode_pages_total.value(codec=c) for c in LIGHT}
             comp = VtpuCompactor(CompactionOptions(block_config=cfg, merge_path=path), device=dev)
             t0 = time.perf_counter()
             (outs[dev, path],) = comp.compact([metas[dev, "a"], metas[dev, "b"]], tenant,
@@ -342,7 +741,9 @@ def blocks_phase(seed: int, queries: list, plan_of, db_root: str):
                   f"{len(pads)} device merge calls (padded rows: "
                   f"{', '.join(f'{p} x{pads.count(p)}' for p in sorted(set(pads)))}) | "
                   f"sketch accumulator: {sk.launches} updates, H2D {sk.h2d_bytes} B, "
-                  f"D2H {sk.d2h_bytes} B", flush=True)
+                  f"D2H {sk.d2h_bytes} B | pages encoded on the card "
+                  f"{ {c: tenc.device_encode_pages_total.value(codec=c) - pages0[c] for c in LIGHT} }",
+                  flush=True)
             if path == "device":
                 res.setdefault("device_merge_calls", {})[dev] = len(pads)
                 res.setdefault("device_merge_padded_rows", {})[dev] = sum(pads)
@@ -695,7 +1096,16 @@ def db_phase(seed: int, a, b, root: str, queries: list, plan_of) -> dict:
     return res
 
 
-def app_phase(seed: int, a, b, root: str, at_rest_block: str, queries: list, plan_of) -> dict:
+SIMPLE_COUNT = [  # query_range without by(): the compiled tier's queries
+    '{ resource.service.name = "cart" } | rate()',
+    '{ name = "db.query" } | count_over_time()',
+    '{ resource.service.name != "cart" && duration > 100ms } | rate()',
+    '{ span.http.method !~ "G.*" } | count_over_time()',
+]
+
+
+def app_phase(seed: int, a, b, root: str, at_rest_block: str, queries: list, plan_of,
+              recorded: dict) -> dict:
     """Phase 8, the single binary: App(device="cuda") behind a TempoServer
     on 127.0.0.1 over a fresh local backend holding a copy of phase 7's
     compacted block, driven only over HTTP. Every answer is held against
@@ -716,11 +1126,32 @@ def app_phase(seed: int, a, b, root: str, at_rest_block: str, queries: list, pla
     from tempo_tpu_torch.model.trace import batch_to_traces
     from tempo_tpu_torch.modules.overrides import Limits
     from tempo_tpu_torch.ops import pallas_kernels as pk
+    from tempo_tpu_torch.compiled import executor, program
+    from tempo_tpu_torch.compiled.lower import lower_metrics_plan
     from tempo_tpu_torch.receivers import otlp
+    from tempo_tpu_torch.util import insights
     from tempo_tpu_torch.util.devicetiming import STATS
 
     tenant = "smoke"
     res: dict = {"requests": {}}
+    counters = launch_counters()
+
+    def recording_build(sig):
+        """The tier's program, recording each dispatch's codec mix and
+        the inputs of the largest one with a dbp column (timed after the
+        phase at these shapes)."""
+        prog = program.build_metrics_program(sig)
+
+        def rec(*args):
+            mix = tuple(c[0] for c in sig[0])
+            recorded["mixes"].append(mix)
+            if "dbp" in mix and args[0].numel() > recorded.get("rows", -1):
+                recorded.update(rows=args[0].numel(), sig=sig, args=args)
+            return prog(*args)
+        return rec
+
+    recorded["mixes"] = []
+    executor.build_metrics_program = recording_build
     t_phase = time.perf_counter()
     app_root = os.path.join(root, "app")
     shutil.copytree(os.path.join(root, "blocks", tenant, at_rest_block),
@@ -896,8 +1327,98 @@ def app_phase(seed: int, a, b, root: str, at_rest_block: str, queries: list, pla
                   f"the cpu | {res['requests']['query_range'][-1]:.1f} ms, {launches} "
                   f"seg_bincount launches (= the response's deviceDispatches), {d2h} B "
                   "device-to-host", flush=True)
+
+        # ------------------------------------- simple-count query_range
+        # the compiled tier: one fused dispatch (dbp_decode + compiled_metrics)
+        # per codec group of a job, seg_bincount never; each query twice,
+        # its insights record reading miss, then hit
+        insights.LOG.configure(sample_every=1)
+        res["compiled"] = []
+        mixes_seen = set()
+        for q in SIMPLE_COUNT:
+            plan = plan_of(q)
+            check(lower_metrics_plan(plan) is not None, f"phase 8 {q}: does not lower")
+            merged = M.new_wire()
+            for m in app.db.blocklist.metas(tenant):
+                blk = app.db.encoding_for(m.version).open_block(m, app.db.backend, app.db.cfg.block)
+                M.merge_wire(merged, M.evaluate_block(plan, blk, device="cpu").to_wire(), plan)
+            want = M.finalize_matrix(plan, merged)
+            for rep, verdict in ((1, "miss"), (2, "hit")):
+                before = {k: fn.launches for k, fn in counters.items()}
+                n_mix = len(recorded["mixes"])
+                status, body = http("query_range compiled", "GET", "/api/metrics/query_range?"
+                                    + urllib.parse.urlencode({"q": q, "start": plan.start_s,
+                                                              "end": plan.end_s,
+                                                              "step": plan.step_s}))
+                ms = res["requests"]["query_range compiled"][-1]
+                launched = {k: fn.launches - before[k] for k, fn in counters.items()}
+                doc = json.loads(body)
+                mixes = recorded["mixes"][n_mix:]
+                mixes_seen |= {c for mix in mixes for c in mix}
+                check(status == 200 and doc["data"]["result"] == want["result"] and want["result"],
+                      f"phase 8 compiled {q}: HTTP {status}, matrix != evaluate_block on the cpu")
+                check(launched["seg_bincount"] == 0 and launched["compiled_metrics"] > 0
+                      and launched["compiled_metrics"] == len(mixes)
+                      == doc["metrics"]["deviceDispatches"],
+                      f"phase 8 compiled {q}: launches {launched}, {len(mixes)} dispatches, "
+                      f"deviceDispatches {doc['metrics']['deviceDispatches']}")
+                check(launched["dbp_decode"] == sum(mix.count("dbp") for mix in mixes),
+                      f"phase 8 compiled {q}: {launched['dbp_decode']} dbp_decode launches")
+                rec = json.loads(http("query insights", "GET", "/api/query-insights?limit=1")[1])
+                shape = rec["insights"][0].get("compiledShape")
+                check(rec["insights"][0]["kind"] == "query_range" and shape == verdict,
+                      f"phase 8 compiled {q} #{rep}: compiledShape {shape}, wanted {verdict}")
+                res["compiled"].append(dict(query=q, rep=rep, ms=ms, compiled_shape=shape,
+                                            dispatches=len(mixes), mixes=sorted(set(mixes)),
+                                            launches={k: launched[k] for k in
+                                                      ("compiled_metrics", "dbp_decode")},
+                                            result=want["result"]))
+                print(f"phase 8 query_range compiled #{rep}: {q} | {len(doc['data']['result'])} "
+                      f"series = evaluate_block on the cpu | {ms:.1f} ms, compiledShape {shape}, "
+                      f"{len(mixes)} dispatches (codec groups "
+                      f"{', '.join('+'.join(m) for m in sorted(set(mixes)))}), compiled_metrics "
+                      f"{launched['compiled_metrics']} / dbp_decode {launched['dbp_decode']} / "
+                      f"seg_bincount 0 launches", flush=True)
+        # the same queries through the interpreter (the tier switched off),
+        # for the latency beside the tier's
+        for q in SIMPLE_COUNT:
+            os.environ["TEMPO_TPU_COMPILED"] = "0"
+            try:
+                before = {k: fn.launches for k, fn in counters.items()}
+                plan = plan_of(q)
+                status, body = http("query_range interpreter", "GET", "/api/metrics/query_range?"
+                                    + urllib.parse.urlencode({"q": q, "start": plan.start_s,
+                                                              "end": plan.end_s,
+                                                              "step": plan.step_s}))
+            finally:
+                del os.environ["TEMPO_TPU_COMPILED"]
+            ms = res["requests"]["query_range interpreter"][-1]
+            launched = {k: fn.launches - before[k] for k, fn in counters.items()}
+            want = next(r for r in res["compiled"] if r["query"] == q)["result"]
+            rec = json.loads(http("query insights", "GET", "/api/query-insights?limit=1")[1])
+            check(status == 200 and json.loads(body)["data"]["result"] == want
+                  and launched["compiled_metrics"] == 0 and launched["seg_bincount"] > 0
+                  and rec["insights"][0].get("compiledShape") == "fallback",
+                  f"phase 8 {q} with TEMPO_TPU_COMPILED=0: HTTP {status}, launches {launched}")
+            res["compiled"].append(dict(query=q, rep="interpreter", ms=ms,
+                                        compiled_shape="fallback",
+                                        launches={"seg_bincount": launched["seg_bincount"]}))
+            print(f"phase 8 query_range interpreter (TEMPO_TPU_COMPILED=0): {q} | the same matrix | "
+                  f"{ms:.1f} ms, {launched['seg_bincount']} seg_bincount launches", flush=True)
+        for r in res["compiled"]:
+            r.pop("result", None)
+        check({"rle", "dct", "dbp"} <= mixes_seen,
+              f"phase 8 compiled: the launch groups' codecs {sorted(mixes_seen)} miss one of "
+              "rle, dct, dbp")
+        status, body = http("query insights", "GET", "/api/query-insights")
+        stats = json.loads(body)["compiled"]
+        check(status == 200 and stats["shapes"] >= len(SIMPLE_COUNT) and stats["programs"] > 0,
+              f"phase 8 /api/query-insights: HTTP {status}, compiled {stats}")
+        res["compiled_stats"] = stats
+        print(f"phase 8 /api/query-insights: HTTP 200, compiled {stats}", flush=True)
         conn.close()
     finally:
+        executor.build_metrics_program = program.build_metrics_program
         server.stop()
         app.shutdown()
     res["requests"] = {k: dict(n=len(v), p50_ms=statistics.median(v), max_ms=max(v))
@@ -945,9 +1466,11 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 1
     t0 = time.perf_counter()
-    so = _build.build()
+    libs = _build.build()
     lib = _build.lib()
-    print(f"phase 1 build: {time.perf_counter() - t0:.2f} s ({os.path.basename(so)})", flush=True)
+    print(f"phase 1 build: {time.perf_counter() - t0:.2f} s "
+          f"({', '.join(os.path.basename(x) for x in libs)}; one nvcc a source, in parallel)",
+          flush=True)
     ptxas = _build.ptxas_report()
     for kname, r in sorted(ptxas.items()):
         print(f"phase 1 ptxas {kname}: {r.get('registers')} registers, "
@@ -955,7 +1478,8 @@ def main() -> int:
               f"{r.get('spill_loads')} B loaded", flush=True)
     print("phase 1 dynamic smem: seg_bincount_kernel<weighted,0> (dense) 4 B a slot "
           "(n_slots <= 49,152: up to 196,608 B, opted in above 48 KiB), <weighted,1> (hashed) "
-          "65,536 B; in_set_scan_kernel 4 B a code of its columns", flush=True)
+          "65,536 B; in_set_scan_kernel 4 B a code of its columns; compiled_metrics_kernel "
+          "4 B a bin (slot_pad <= 12,288, else none)", flush=True)
 
     def stream() -> int:
         return torch.cuda.current_stream().cuda_stream
@@ -1120,9 +1644,24 @@ def main() -> int:
         check(torch.equal(got, want), f"u64_range_scan n={n}: kernel != plain")
     print("phase 2 u64_range_scan: n_pad=2^20, bounds on the limb boundary: equal", flush=True)
 
+    t0 = time.perf_counter()
+    n_codec = codec_kernels_check(torch, dev, rng)
+    print(f"phase 2 codec kernels: {n_codec} cases equal ({time.perf_counter() - t0:.1f} s): "
+          "rle_change_mask n 2/3/9/8193 x 1/4 lanes; dbp_pack items 0(pack)/8/16/32/64 bits x "
+          "n 2/3/9/8193 x widths 0/1/31/32; rle/dbp/dct pages on the card == host pages "
+          "(1/2/4/8-byte items, negative deltas, 64-bit borrows, dct d=1 and 2^k); dbp_decode "
+          "n 2/3/9/8193 x widths 0/1/31/32 == lightweight.dbp_decode and plain; "
+          "compiled_metrics over 7 rle/dct/dbp mixes (inverted and empty sets, t_s < start, "
+          "bins >= n_bins) == plain == a numpy interpreter over the decoded columns", flush=True)
+    for kname, rec in time_encode_kernels(torch, dev, seed, lib, stream).items():
+        kernels[kname] = rec
+        print(f"phase 2 {kname} timing ({rec['shape']}): kernel {rec['ms']:.4f} ms "
+              f"({rec['bound_ms'] / rec['ms']:.0%} of bound), path {rec['path_ms']:.4f} ms, "
+              f"plain {rec['plain_ms']:.4f} ms, library {fmt_ms(rec['library_ms'])}, "
+              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})", flush=True)
+
     # ---------------------------------------------------------------- 3 + 4
-    for k in (pk.seg_bincount, pk.in_set_scan, pk.u64_range_scan):
-        k.launches = 0
+    reset_launches()
 
     fn, ex = entry(device="cuda", n_rows=1 << 22)
     out = fn(*ex)  # first call: allocator and library warm-up
@@ -1180,8 +1719,7 @@ def main() -> int:
                                                        "quantile flush")})
 
     # ---------------------------------------------------------------- 5
-    for k in (pk.seg_bincount, pk.in_set_scan, pk.u64_range_scan):
-        k.launches = 0
+    reset_launches()
     cat = {k: np.concatenate([b.cols[k] for b in batches])
            for k in ("service", "name", "http_method", "http_status", "duration_nano")}
     d = batches[0].dictionary  # make_batch builds the same dictionary every time
@@ -1292,57 +1830,73 @@ def main() -> int:
           f"bound {bnd:.4f} ms ({by})", flush=True)
 
     # ---------------------------------------------------------------- 6
-    for k in (pk.seg_bincount, pk.in_set_scan, pk.u64_range_scan):
-        k.launches = 0
+    # the block path: seg_bincount (queries) and the page-encode kernels
+    # (the card's writes and compactions)
+    block_kernels = ("seg_bincount", "rle_change_mask", "dbp_pack")
+    reset_launches()
     t0 = time.perf_counter()
     before_s = t0 - t_script
     db_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_db_")
     blocks, (a, b) = blocks_phase(seed, queries, plan_of, os.path.join(db_dir.name, "blocks"))
-    blocks["launches"] = {"seg_bincount": pk.seg_bincount.launches,
-                          "in_set_scan": pk.in_set_scan.launches,
-                          "u64_range_scan": pk.u64_range_scan.launches}
-    check(pk.seg_bincount.launches > 0, "block path: seg_bincount never launched")
+    blocks["launches"] = read_launches()
+    for k in block_kernels:
+        check(blocks["launches"][k] > 0, f"block path: {k} never launched")
     blocks["phase_s"] = time.perf_counter() - t0
     blocks["phases_0_5_s"] = before_s
-    kernels["seg_bincount"]["launches_block_path"] = pk.seg_bincount.launches
-    print(f"phase 6 blocks: {blocks['phase_s']:.1f} s (phases 0-5: {before_s:.1f} s), "
-          f"seg_bincount launched "
-          f"{pk.seg_bincount.launches} times on the block path", flush=True)
+    print(f"phase 6 blocks: {blocks['phase_s']:.1f} s (phases 0-5: {before_s:.1f} s), launches "
+          f"on the block path: {blocks['launches']}", flush=True)
 
     # ---------------------------------------------------------------- 7
-    for k in (pk.seg_bincount, pk.in_set_scan, pk.u64_range_scan):
-        k.launches = 0
+    reset_launches()
+    recorded: dict = {}
     with db_dir:
         db = db_phase(seed, a, b, db_dir.name, queries, plan_of)
-        db["launches"] = {"seg_bincount": pk.seg_bincount.launches,
-                          "in_set_scan": pk.in_set_scan.launches,
-                          "u64_range_scan": pk.u64_range_scan.launches}
-        check(pk.seg_bincount.launches > 0, "storage engine path: seg_bincount never launched")
-        kernels["seg_bincount"]["launches_db_path"] = pk.seg_bincount.launches
-        print(f"phase 7 db: {db['phase_s']:.1f} s, seg_bincount launched "
-              f"{pk.seg_bincount.launches} times on the storage engine's path", flush=True)
+        db["launches"] = read_launches()
+        for k in block_kernels:
+            check(db["launches"][k] > 0, f"storage engine path: {k} never launched")
+        print(f"phase 7 db: {db['phase_s']:.1f} s, launches on the storage engine's path: "
+              f"{db['launches']}", flush=True)
 
         # ------------------------------------------------------------ 8
-        for k in (pk.seg_bincount, pk.in_set_scan, pk.u64_range_scan):
-            k.launches = 0
-        app = app_phase(seed, a, b, db_dir.name, db.pop("compacted_block_id"), queries, plan_of)
-    app["launches"] = {"seg_bincount": pk.seg_bincount.launches,
-                       "in_set_scan": pk.in_set_scan.launches,
-                       "u64_range_scan": pk.u64_range_scan.launches}
-    check(pk.seg_bincount.launches > 0, "server path: seg_bincount never launched")
-    kernels["seg_bincount"]["launches_app_path"] = pk.seg_bincount.launches
-    print(f"phase 8 app: {app['phase_s']:.1f} s, seg_bincount launched "
-          f"{pk.seg_bincount.launches} times on the server's path", flush=True)
+        reset_launches()
+        app = app_phase(seed, a, b, db_dir.name, db.pop("compacted_block_id"), queries, plan_of,
+                        recorded)
+    app["launches"] = read_launches()
+    for k in block_kernels + ("dbp_decode", "compiled_metrics"):
+        check(app["launches"][k] > 0, f"server path: {k} never launched")
+    print(f"phase 8 app: {app['phase_s']:.1f} s, launches on the server's path: "
+          f"{app['launches']}", flush=True)
+    for k in ("seg_bincount", "rle_change_mask", "dbp_pack"):
+        kernels[k]["launches_block_path"] = blocks["launches"][k]
+        kernels[k]["launches_db_path"] = db["launches"][k]
+        kernels[k]["launches_app_path"] = app["launches"][k]
+    for k in ("rle_change_mask", "dbp_pack"):
+        kernels[k]["launches"] = blocks["launches"][k]
 
+    # the compiled tier's kernels at the shapes phase 8 gave them
+    for kname, rec in time_compiled_kernels(torch, recorded, lib, stream).items():
+        kernels[kname] = dict(rec, launches=app["launches"][kname])
+        print(f"phase 8 {kname} timing ({rec['shape']}): kernel {rec['ms']:.4f} ms "
+              f"({rec['bound_ms'] / rec['ms']:.0%} of bound), path {rec['path_ms']:.4f} ms, "
+              f"plain {rec['plain_ms']:.4f} ms, library {fmt_ms(rec['library_ms'])}, "
+              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})", flush=True)
+    recorded.clear()
+
+    source = {k: "tempo_tpu_torch/csrc/kernels.cu"
+              for k in ("seg_bincount", "in_set_scan", "u64_range_scan")}
+    source.update({k: "tempo_tpu_torch/csrc/codec_kernels.cu" for k in CODEC_KERNELS})
     replaces = {
         "seg_bincount": "tempo_tpu/ops/pallas_kernels.py:194",
         "in_set_scan": "tempo_tpu/ops/pallas_kernels.py:55",
         "u64_range_scan": "tempo_tpu/ops/pallas_kernels.py:152",
+        "rle_change_mask": "tempo_tpu/ops/encode.py:135",
+        "dbp_pack": "tempo_tpu/ops/encode.py:147",
+        "dbp_decode": "tempo_tpu/ops/pallas_kernels.py:383",
+        "compiled_metrics": "tempo_tpu/compiled/program.py:58",
     }
     line = {"kernels": [
-        {"name": k, "route": "cuda", "source": "tempo_tpu_torch/csrc/kernels.cu",
-         "replaces": replaces[k], **kernels[k]}
-        for k in ("seg_bincount", "in_set_scan", "u64_range_scan")
+        {"name": k, "route": "cuda", "source": source[k], "replaces": replaces[k], **kernels[k]}
+        for k in ("seg_bincount", "in_set_scan", "u64_range_scan") + CODEC_KERNELS
     ], "ptxas": ptxas, "compaction_step_ms": statistics.median(step_s) * 1e3,
         "query_ms": query_ms, "blocks": blocks, "db": db, "app": app,
         "script_s": time.perf_counter() - t_script}

@@ -15,6 +15,7 @@ Port of tempo_tpu/api/server.py for the single binary. Routes:
   GET  /api/search/tags      tag names
   GET  /api/search/tag/{n}/values
   GET  /api/metrics/query_range   TraceQL metrics (Prometheus matrix)
+  GET  /api/query-insights   per-query records + the compiled tier's cache stats
   GET  /api/echo             frontend liveness ("echo")
   POST /flush /shutdown
   GET  /ready /metrics /status[/config|/runtime_config|/services|
@@ -68,7 +69,6 @@ _UNPORTED_ROUTES = (
     (("/api/graph/dependencies", "/api/graph/critical-path", "/api/graph/walks"), (),
      "the graph/ analytics", _Q1_3),
     ((api_params.PATH_RCA, "/status/rca"), (api_params.PATH_RCA + "/",), "rca", _Q1_3),
-    ((api_params.PATH_QUERY_INSIGHTS,), (), "query insights with the compiled tier", _Q1_3),
     (("/status/slo",), (), "the SLO engine", _Q1_3),
     (("/status/profile", "/status/profile/device"), (), "util/profiling", _Q1_3),
     (("/status/storage",), (), "the storage analytics", _Q1_2A),
@@ -327,6 +327,26 @@ class _Handler(BaseHTTPRequestHandler):
             tag = unquote(path[len(api_params.PATH_SEARCH_TAG_VALUES) + 1 : -len("/values")])
             self._send_json(200, {"tagValues": app.search_tag_values(tag, org_id=self._org_id())})
             return 200
+        if path == api_params.PATH_QUERY_INSIGHTS:
+            # the query-insights ring (util/insights): sampled + slow/
+            # error-triggered per-query records, tenant-scoped
+            from tempo_tpu_torch.compiled import cache as compiled_cache
+            from tempo_tpu_torch.util import insights as insights_mod
+
+            tenant = app.resolve_tenant(self._org_id())
+            try:
+                limit = int(qs.get("limit", ["50"])[0])
+            except ValueError as e:
+                raise BadRequest(f"bad limit: {e}") from e
+            self._send_json(200, {
+                "tenant": tenant,
+                "insights": insights_mod.LOG.snapshot(tenant, limit=limit),
+                # the compiled tier's cache roll-up behind the records'
+                # compiledShape field: shapes/programs cached, hits,
+                # misses, compiles, evictions
+                "compiled": compiled_cache.shape_cache().stats(),
+            })
+            return 200
         if path == api_params.PATH_ECHO:
             self._send(200, b"echo", "text/plain; charset=utf-8")
             return 200
@@ -562,6 +582,7 @@ _ENDPOINTS = [
     "GET /api/search/tags",
     "GET /api/search/tag/{name}/values",
     "GET /api/metrics/query_range",
+    "GET /api/query-insights",
     "GET /api/echo",
     "GET /ready",
     "GET /metrics",

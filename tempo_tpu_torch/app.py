@@ -9,19 +9,23 @@ the metrics accumulator run on that device from any worker thread.
 
 AppConfig keeps every field of the reference. Features whose modules
 wait for later slices raise NotImplementedError naming their ROADMAP
-item when switched on; none is silently ignored (see _UNPORTED).
+item when switched on, by config or by the environment switch with
+which the reference turns them on; none is silently ignored (see
+_UNPORTED and _UNPORTED_ENV).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 from dataclasses import dataclass, field
 
 import torch
 
 from tempo_tpu_torch import device as _device
+from tempo_tpu_torch.compiled import cache as compiled_cache
+from tempo_tpu_torch.compiled.cache import CompiledConfig
 from tempo_tpu_torch.config_sections import (
-    CompiledConfig,
     DeviceTierConfig,
     RCAConfig,
     SLOConfig,
@@ -71,7 +75,6 @@ _UNPORTED = (
      lambda c: "usage_report", _Q1_2),
     (lambda c: c.self_tracing.enabled, lambda c: "self_tracing", _Q1_2),
     (lambda c: c.standing.enabled, lambda c: "the standing-query engine", _Q1_3),
-    (lambda c: c.compiled.enabled, lambda c: "the compiled-query tier", _Q1_3),
     (lambda c: c.rca.enabled, lambda c: "rca", _Q1_3),
     (lambda c: c.slo.enabled, lambda c: "slo", _Q1_3),
     (lambda c: c.vulture.enabled, lambda c: "vulture", _Q1_3),
@@ -86,13 +89,40 @@ _UNPORTED = (
 )
 
 
+def _env_mb(name: str) -> int:
+    return int(os.environ.get(name, "0") or "0")
+
+
+def _result_cache_env_on() -> bool:
+    """TEMPO_TPU_RESULT_CACHE forcing the cache on, parsed as the
+    reference's resultcache._env_state parses it."""
+    v = os.environ.get("TEMPO_TPU_RESULT_CACHE", "").strip().lower()
+    return v in ("1", "true", "yes", "force", "on")
+
+
+# (switched on?, what, ROADMAP item) for every environment switch with
+# which the reference turns on a feature whose module the port lacks
+_UNPORTED_ENV = (
+    (lambda: _env_mb("TEMPO_TPU_DEVICE_TIER_MB") > 0, "TEMPO_TPU_DEVICE_TIER_MB > 0",
+     "ROADMAP Queue 1 item 1.1 (the device tier)"),
+    (lambda: _env_mb("TEMPO_TPU_INGEST_TAIL_MB") > 0, "TEMPO_TPU_INGEST_TAIL_MB > 0",
+     "ROADMAP Queue 1 item 1.1 (the device tier)"),
+    (_result_cache_env_on, "TEMPO_TPU_RESULT_CACHE=on",
+     "ROADMAP Queue 1 item 1.2 (resultcache/)"),
+)
+
+
 def refuse_unported(cfg: "AppConfig") -> None:
     """Raise NotImplementedError for the first unported feature that
-    `cfg` switches on."""
+    `cfg` or the environment switches on."""
     for on, what, item in _UNPORTED:
         if on(cfg):
             raise NotImplementedError(
                 f"tempo_tpu_torch: {what(cfg)} is not ported yet ({item})")
+    for on, what, item in _UNPORTED_ENV:
+        if on():
+            raise NotImplementedError(
+                f"tempo_tpu_torch: {what} is not ported yet ({item})")
 
 
 @dataclass
@@ -181,6 +211,9 @@ class App:
         # pools persist across App rebuilds (modules hold references),
         # only the limits/watermarks move
         self.governor = resource.configure(cfg.resource)
+        # apply the compiled-tier section (and register its counters on
+        # the boot path, so /metrics exposes them before the first query)
+        compiled_cache.configure(cfg.compiled)
         self.target = "all"
         self.overrides = Overrides(cfg.limits, cfg.overrides_path)
         self.ingesters: dict = {}

@@ -11,10 +11,9 @@ usage_report) so a Tempo operator's mental model carries over.
 
 Port of tempo_tpu/config.py: the same YAML gives the same dataclasses.
 The sections of modules not ported yet come from config_sections, and
-four defaults differ from the reference (`metrics_generator.enabled`,
-`standing.enabled` and `compiled.enabled` start off,
-`storage.trace.analytics_scan_s` is 0); App refuses each unported
-section that is switched on.
+three defaults differ from the reference (`metrics_generator.enabled`
+and `standing.enabled` start off, `storage.trace.analytics_scan_s` is
+0); App refuses each unported section that is switched on.
 """
 
 from __future__ import annotations
@@ -29,8 +28,8 @@ import yaml
 
 from tempo_tpu_torch import config_sections
 from tempo_tpu_torch.app import AppConfig
+from tempo_tpu_torch.compiled.cache import CompiledConfig
 from tempo_tpu_torch.config_sections import (
-    CompiledConfig,
     DeviceTierConfig,
     ForwarderConfig,
     RCAConfig,
@@ -324,4 +323,13 @@ def check_config(cfg: Config) -> list[str]:
                 )
         except Exception:  # noqa: BLE001 — an uncompilable rule already
             pass  # warned at parse_rules time (dropped loudly)
+    # -- compiled-query tier ----------------------------------------------
+    if app.compiled.enabled and app.multitenancy_enabled \
+            and app.compiled.max_shapes <= 0:
+        warnings.append(
+            "compiled.max_shapes is unset in a multitenant cluster: query "
+            "text is tenant-controlled, so distinct literal-stripped shapes "
+            "— and the jitted programs behind them — can grow without bound "
+            "(set the cap; the LRU keeps hot dashboards compiled)"
+        )
     return warnings

@@ -4,12 +4,10 @@ The port reads the same YAML into the same dataclasses as tempo_tpu
 (config.py), so every section keeps every field of the reference. The
 modules behind these sections wait for later slices; App raises
 NotImplementedError, naming the ROADMAP item, when one is switched on.
-Three sections the reference enables by default start off here:
-`standing.enabled` and `compiled.enabled` (and the App's
-`generator_enabled`).
+Two features the reference enables by default start off here:
+`standing.enabled` and the App's `generator_enabled`.
 
-Copies of: compiled/cache.CompiledConfig,
-encoding/vtpu/colcache.DeviceTierConfig,
+Copies of: encoding/vtpu/colcache.DeviceTierConfig,
 modules/forwarder.ForwarderConfig, modules/generator/storage.
 RemoteWriteConfig, rca/engine.RCAConfig, standing/engine.StandingConfig,
 usagestats.UsageStatsConfig, util/slo.SLOObjective + SLOConfig,
@@ -20,15 +18,6 @@ resultcache.ResultCacheConfig.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-
-
-@dataclass
-class CompiledConfig:
-    """`compiled:` — the compiled-query tier (off in the port)."""
-
-    enabled: bool = False
-    max_shapes: int = 0
-    respect_governor: bool = True
 
 
 @dataclass

@@ -229,6 +229,60 @@ class EncodedColumn:
             cache.put(ki, idx)
         return values, idx
 
+    # -- the encoded page as device payload ----------------------------
+    def resident_key(self) -> tuple:
+        return (str(self.blk.meta.block_id), self.name, int(self.pm.offset))
+
+    def resident_payload(self):
+        """This page's encoded form as host arrays ready for device
+        placement: (codec, arrays, meta, host_bytes), or None when the
+        shape cannot be evaluated on the device (vector columns, >32-bit
+        or signed rle/dct values, multi-subcolumn dbp). host_bytes is
+        what one host-path serve moves. The compiled query tier stacks
+        these (compiled/executor); the device tier that keeps them
+        resident is ROADMAP Queue 1 item 1.1."""
+        from tempo_tpu_torch.encoding.vtpu import lightweight as lw
+
+        pm = self.pm
+        if pm.shape and len(pm.shape) > 1:
+            return None
+        if self.codec == "rle":
+            values, lengths = self.runs()
+            # unsigned-only: the device compares in u32, which preserves
+            # equality under wrap but not ordering, and range_mask needs
+            # ordering
+            if (values.ndim != 1 or values.dtype.kind != "u"
+                    or values.dtype.itemsize > 4):
+                return None
+            return ("rle",
+                    {"values": values.astype(np.uint32),
+                     "lengths": lengths.astype(np.int32)},
+                    {"n": self.n},
+                    values.nbytes + lengths.nbytes)
+        if self.codec == "dct":
+            values, idx = self._dct_indices()
+            if (values.ndim != 1 or values.dtype.kind != "u"
+                    or values.dtype.itemsize > 4):
+                return None
+            w = max(values.shape[0] - 1, 0).bit_length()
+            return ("dct",
+                    {"values": values.astype(np.uint32),
+                     "idx": idx.astype(np.int32)},
+                    {"n": self.n},
+                    values.nbytes + (self.n * w + 7) // 8)
+        if self.codec == "dbp":
+            first, _anchors, widths, streams, n = lw.dbp_parts(
+                self._page(), pm.dtype, pm.shape)
+            if len(widths) != 1 or n == 0:
+                return None
+            raw = bytes(streams[0])
+            pad = (-len(raw)) % 4 + 4  # round to words + one guard word
+            words = np.frombuffer(raw + b"\x00" * pad, "<u4")
+            return ("dbp", {"words": words},
+                    {"n": n, "first": int(first[0]), "width": int(widths[0])},
+                    n * np.dtype(pm.dtype).itemsize)
+        return None
+
     # -- predicate evaluation in encoded space -------------------------
     def in_set_mask(self, codes: np.ndarray, invert: bool = False):
         """Row mask for `column in codes` (1-D columns), or None when

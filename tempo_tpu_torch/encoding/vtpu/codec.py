@@ -1,9 +1,10 @@
 """Column page codec: numpy array <-> compressed bytes.
 
-Port of tempo_tpu/encoding/vtpu/codec.py without the device
-page-encode arm (tempo_tpu/ops/encode.py, a later slice of the port):
-lightweight pages are encoded on the host, which the reference's
-contract makes byte-identical to its device encoder's pages.
+Port of tempo_tpu/encoding/vtpu/codec.py. Lightweight pages (rle, dbp,
+dct) take the device page-encode arm (ops/encode) on the writer's device
+where ops.encode.device_encode_enabled(device) says so, else the host
+encoders; both give the same bytes. The reference reads its device from
+a module global; here every writer passes the device it owns.
 
 Fills the role of the reference's compression pools
 (tempodb/encoding/v2/pool.go:96-405 — gzip/lz4/snappy/zstd/s2 readers
@@ -111,12 +112,20 @@ def choose_codec(name: str, arr: np.ndarray, codec: str) -> str:
     return lightweight.choose_codec(name, arr, resolve_codec(codec))
 
 
-def encode(arr: np.ndarray, codec: str) -> tuple[bytes, int]:
-    """array -> (page bytes, crc32 of uncompressed payload)."""
+def encode(arr: np.ndarray, codec: str, device=None) -> tuple[bytes, int]:
+    """array -> (page bytes, crc32 of uncompressed payload). `device` is
+    the writer's device (None: the host); lightweight pages are encoded
+    there when the device arm is on."""
     if codec in LIGHTWEIGHT_CODECS:
         from tempo_tpu_torch.encoding.vtpu import lightweight
+        from tempo_tpu_torch.ops import encode as device_encode
 
         raw_crc = zlib.crc32(np.ascontiguousarray(arr).tobytes())
+        if device_encode.device_encode_enabled(device):
+            page = device_encode.encode_page_device(
+                arr, codec, "cpu" if device is None else device)
+            if page is not None:  # None: fewer than 2 rows
+                return page, raw_crc
         enc = {"rle": lightweight.rle_encode, "dbp": lightweight.dbp_encode,
                "dct": lightweight.dct_encode}[codec]
         return enc(arr), raw_crc

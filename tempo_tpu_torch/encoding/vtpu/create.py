@@ -223,7 +223,8 @@ class BlockWriter:
             self._unique_ids.append(batch.cols["trace_id"][firsts])
         partials = self._batch_partials(batch)
         for lo, hi in fmt.row_group_slices(batch, self.cfg.row_group_spans):
-            payload, rg = fmt.serialize_row_group(batch, lo, hi, self.offset, self.cfg.codec)
+            payload, rg = fmt.serialize_row_group(batch, lo, hi, self.offset, self.cfg.codec,
+                                                    self.device)
             self.backend.append_named(self.meta, DataName, payload)
             self.offset += len(payload)
             self.pages_reencoded += len(rg.pages)
@@ -261,7 +262,8 @@ class BlockWriter:
             if table is None:
                 continue
             keys, arr = table
-            page, crc = codec_mod.encode(arr, codec_mod.resolve_codec(self.cfg.codec))
+            page, crc = codec_mod.encode(arr, codec_mod.resolve_codec(self.cfg.codec),
+                                         self.device)
             name = sp_rules.page_name(bp.rule.name)
             rg.pages[name] = fmt.PageMeta(
                 offset=self.offset, length=len(page), dtype=arr.dtype.str,
@@ -356,7 +358,7 @@ class BlockWriter:
             if arr is not None:
                 chosen = chosen_codecs.get(name) or codec_mod.choose_codec(
                     name, arr, self.cfg.codec)
-                page, crc = codec_mod.encode(arr, chosen)
+                page, crc = codec_mod.encode(arr, chosen, self.device)
                 pages[name] = fmt.PageMeta(
                     offset=self.offset + len(payload), length=len(page),
                     dtype=arr.dtype.str, shape=tuple(arr.shape),

@@ -183,11 +183,12 @@ def deserialize_dictionary(raw: bytes) -> Dictionary:
 
 
 def serialize_row_group(batch: SpanBatch, lo: int, hi: int, base_offset: int,
-                        codec: str) -> tuple[bytes, RowGroupMeta]:
+                        codec: str, device) -> tuple[bytes, RowGroupMeta]:
     """Serialize span rows [lo:hi) (and their attrs) as one row group.
 
     Row indices in the attr pages are rebased to the row group start so
-    each row group decodes standalone.
+    each row group decodes standalone. `device` is the writer's: the
+    codec pool threads encode lightweight pages there (codec.encode).
     """
     codec = codec_mod.resolve_codec(codec)
     n = hi - lo
@@ -213,7 +214,7 @@ def serialize_row_group(batch: SpanBatch, lo: int, hi: int, base_offset: int,
     def enc_one(c):
         name, arr = c
         chosen = codec_mod.choose_codec(name, arr, codec)
-        page, crc = codec_mod.encode(arr, chosen)
+        page, crc = codec_mod.encode(arr, chosen, device)
         return page, crc, chosen
 
     encoded = codec_mod.map_pages(enc_one, cols)

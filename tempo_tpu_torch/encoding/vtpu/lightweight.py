@@ -51,6 +51,7 @@ their first compaction exactly like zone maps did.
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 
@@ -85,6 +86,15 @@ _DCT_MAX_FRACTION = 0.5
 # u32 words, so widths past 32 would need a third gather — reject them
 # (the host could go wider, but one format keeps the fuzz surface small)
 DBP_MAX_WIDTH = 32
+
+
+def lightweight_enabled() -> bool:
+    """Writer kill switch (TEMPO_TPU_LIGHTWEIGHT=0): readers always
+    understand the encodings; this only stops NEW pages from using them
+    (the bench's legacy-codec arm and the operator escape hatch)."""
+    return os.environ.get("TEMPO_TPU_LIGHTWEIGHT", "1").strip().lower() not in (
+        "0", "false", "no",
+    )
 
 
 class _Truncated(Exception):
@@ -616,6 +626,8 @@ def choose_codec(name: str, arr: np.ndarray, default: str) -> str:
     keeps `default` (the entropy codec), so high-entropy columns and
     tiny pages are untouched.
     """
+    if not lightweight_enabled():
+        return default
     n = arr.shape[0] if arr.ndim else 0
     if n < 16 or arr.dtype.kind not in "ui":
         return default

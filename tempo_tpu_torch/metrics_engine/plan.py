@@ -9,8 +9,7 @@ slot space (series x bins x buckets) is the static shape the device
 reductions are jitted against, so it is bounded here (MAX_SLOTS) and a
 query that would exceed it fails fast as a client error.
 
-Port note: copied from tempo_tpu/metrics_engine/plan.py; the compiled
-tier's plan test (is_simple_count_plan) arrives with that tier.
+Port note: copied from tempo_tpu/metrics_engine/plan.py.
 """
 
 from __future__ import annotations
@@ -64,6 +63,23 @@ class MetricsPlan:
     def bin_ts(self, b: int) -> int:
         """Unix-seconds timestamp of bin b (start of the step interval)."""
         return self.start_s + b * self.step_s
+
+
+def is_simple_count_plan(plan: "MetricsPlan") -> bool:
+    """True when the plan's reduction is a pure span count per time bin
+    — one unlabeled series, no histogram buckets, no value read-out.
+    This is the reduction shape the compiled tier (tempo_tpu_torch/compiled)
+    fuses into a single device program: rate and count_over_time share
+    it because rate only rescales counts at finalize (finalize_matrix
+    divides by step_s). by()/quantile/histogram/exemplar plans keep the
+    interpreter, whose answers are bit-identical where both run."""
+    return (plan.func in ("rate", "count_over_time")
+            and plan.by_expr is None
+            and plan.hist is None
+            and plan.value_expr is None
+            and not plan.qs
+            and plan.exemplars == 0
+            and plan.max_series == 1)
 
 
 def _label_name(e) -> str:

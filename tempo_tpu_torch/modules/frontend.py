@@ -13,9 +13,9 @@ microservice deployments share this exact code path — the process
 boundary is the broker seam (the reference's httpgrpc boundary).
 
 Port of tempo_tpu/modules/frontend.py: find by ID, search, query_range
-and TraceQL. Not here yet: the graph endpoints (the graph/ slice) and
-the compiled tier's search-shape ledger (Queue 1 item 3), whose verdict
-only the query-insights record carries.
+and TraceQL, with the compiled tier's verdicts (its search-shape ledger
+and the query_range roll-up) on the query-insights records. Not here
+yet: the graph endpoints (the graph/ slice).
 """
 
 from __future__ import annotations
@@ -490,6 +490,13 @@ class Frontend:
                 group, size = [], 0
         if group:
             descs.append({"kind": "search_blocks", "block_ids": group, "search": req.to_dict()})
+
+        if any(d["kind"] == "search_blocks" for d in descs):
+            # the compiled tier's contribution to search is the shape
+            # ledger: hit/miss counters and the per-query compiledShape
+            # verdict on the insights record
+            from tempo_tpu_torch import compiled
+            insights.note(compiledShape=compiled.observe_search_shape(req))
 
         with self._admit(tenant, est_bytes, protected=protected, what="search"):
             results, errors = self._run_jobs(tenant, descs)

@@ -7,13 +7,13 @@ TraceQL delegation :469).
 Port of tempo_tpu/modules/querier.py on one device: find by ID, search
 (live segments and blocks), tags, TraceQL, and query_range over live
 data (host accumulator) and over blocks (evaluate_block into the
-accumulator of the DB's device: seg_bincount on the card). Not here
-yet: the serverless external endpoints (ROADMAP Queue 1 item 3), the
-result cache (Queue 1 item 1.2; App refuses `db.result_cache.enabled`),
-the compiled tier (Queue 1 item 3; App refuses `compiled.enabled`), the
-mesh search and metrics (Queue 1 item 4), the multi-query job seams
-(their callers are the standing and compiled tiers) and the graph jobs
-(the graph/ slice).
+accumulator of the DB's device: seg_bincount on the card), with the
+compiled tier claiming simple-count plans over blocks first
+(query_range_blocks, query_range_blocks_multi). Not here yet: the
+serverless external endpoints (ROADMAP Queue 1 item 3), the result cache
+(Queue 1 item 1.2; App refuses `db.result_cache.enabled`), the mesh
+search and metrics (Queue 1 item 4), the multi-query search seam (its
+caller is the standing tier) and the graph jobs (the graph/ slice).
 """
 
 from __future__ import annotations
@@ -160,8 +160,19 @@ class Querier:
 
         sp_rule = (sp_rules.match_rule(plan, sp_rules.block_rules(self.db.cfg.block))
                    if all(m.version == "vtpu1" for m in metas) else None)
-        # the compiled tier and the mesh evaluator would claim the job
-        # here; neither is ported (see the module docstring)
+        # compiled tier (tempo_tpu_torch/compiled): a simple-count plan
+        # whose filters flatten to per-column predicates runs as ONE
+        # fused program over the whole block batch, shape-cached. The
+        # step-partial tier outranks it (pre-bucketed pages beat any span
+        # scan); a decline falls through to the interpreter below,
+        # bit-identically. (The mesh evaluator would claim the job next;
+        # it is not ported, see the module docstring.)
+        if sp_rule is None and all(m.version == "vtpu1" for m in metas):
+            from tempo_tpu_torch import compiled
+
+            wire = compiled.try_query_range(self.db, tenant, plan, metas)
+            if wire is not None:
+                return wire
         dev = self.db.device
         acc = make_accumulator(plan, device=dev)
         for m in metas:
@@ -194,8 +205,47 @@ class Querier:
                 have = acc.exemplars.setdefault(key, [])
                 have.extend(ex[: max(0, plan.exemplars - len(have))])
         wire = acc.to_wire()
+        # the compiled tier declined (or is off): the job ran on the
+        # interpreter — insights aggregate this per query
         wire["compiledShape"] = "fallback"
         return wire
+
+    def query_range_blocks_multi(self, tenant: str, block_ids: list,
+                                 queries: list, start_s: int, end_s: int,
+                                 step_s: int, max_series: int = 64,
+                                 exemplars: int = 0) -> list:
+        """N concurrent query_range requests against ONE block batch:
+        lowerable same-shape plans coalesce into one fused compiled
+        launch over a shared page stack; the rest run one by one.
+        Results are positionally aligned and bit-identical to N
+        sequential query_range_blocks calls."""
+        from tempo_tpu_torch.metrics_engine import compile_metrics_plan
+
+        queries = list(queries)
+        if not queries:
+            return []
+        plans = [compile_metrics_plan(q, start_s, end_s, step_s,
+                                      max_series=max_series,
+                                      exemplars=exemplars)
+                 for q in queries]
+        out = [None] * len(queries)
+        metas = []
+        for bid in block_ids:
+            try:
+                metas.append(self.db.backend.block_meta(tenant, bid))
+            except NotFound:
+                log.warning("metrics job: block %s deleted mid-query", bid)
+        if len(plans) > 1 and metas and all(m.version == "vtpu1"
+                                            for m in metas):
+            from tempo_tpu_torch import compiled
+
+            out = compiled.try_query_range_many(self.db, tenant, plans, metas)
+        for i, q in enumerate(queries):
+            if out[i] is None:
+                out[i] = self.query_range_blocks(
+                    tenant, block_ids, q, start_s, end_s, step_s,
+                    max_series=max_series, exemplars=exemplars)
+        return out
 
     def search_tags(self, tenant: str) -> list[str]:
         """Tag names in live ingester data AND backend blocks. The

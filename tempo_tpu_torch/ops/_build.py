@@ -1,12 +1,15 @@
-"""Build and load the port's CUDA kernels (csrc/kernels.cu).
+"""Build and load the port's CUDA kernels (csrc/kernels.cu: the three
+Pallas kernels; csrc/codec_kernels.cu: the codec's page encode and the
+compiled query tier).
 
-nvcc compiles the source into a shared library with a plain C interface,
-tagged with a hash of the source, under tempo_tpu_torch/_build/ (listed
-in .gitignore); ctypes loads it. The build runs at first use, never at
-import, so the CPU tests import every module without nvcc. A failed
-build raises: there is no fallback. ptxas reports each kernel's
-registers, static shared memory and spills (`-Xptxas -v`); the report
-is kept beside the library and read by `ptxas_report()`.
+nvcc compiles each source into a shared library with a plain C
+interface, tagged with a hash of the source, under tempo_tpu_torch/_build/
+(listed in .gitignore); the sources build in parallel, one nvcc each,
+and ctypes loads them. The build runs at first use, never at import, so
+the CPU tests import every module without nvcc. A failed build raises:
+there is no fallback. ptxas reports each kernel's registers, static
+shared memory and spills (`-Xptxas -v`); the report is kept beside each
+library and read by `ptxas_report()`.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import subprocess
 import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "kernels.cu")
+SOURCES = ("kernels.cu", "codec_kernels.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -37,6 +40,10 @@ _SIGNATURES = {
     "tt_in_set_scan": [ctypes.POINTER(_P), ctypes.POINTER(_I32), ctypes.c_uint32, _I32, _P,
                        _I32, _I64, _I64, _P, _P],
     "tt_u64_range_scan": [_P, _P, _U64, _U64, _I64, _I64, _P, _P],
+    "tt_rle_change_mask": [_P, _I64, _I32, _P, _P],
+    "tt_dbp_pack": [_P, _P, _I64, _I32, _P, _P, _I32, _P, _P],
+    "tt_dbp_decode": [_P, _I64, _P, _P, _I32, _I64, _P, _P],
+    "tt_compiled_metrics": [_P, _I32, _P, _P, _I64, _I32, _I32, _P, _P, _I32, _P, _P],
 }
 
 
@@ -50,24 +57,38 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build() -> str:
-    """Compile kernels.cu if no library for its current source exists;
-    returns the library path."""
-    with open(_SRC, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"libtempo_kernels_{tag}.so")
-    if os.path.exists(so):
-        return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    with open(f"{so}.ptxas.txt", "w") as f:
-        f.write(proc.stderr)
-    os.replace(tmp, so)
-    return so
+def _target(src: str) -> tuple[str, str]:
+    path = os.path.join(_PKG, "csrc", src)
+    with open(path, "rb") as f:
+        tag = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    stem = os.path.splitext(src)[0]
+    return path, os.path.join(BUILD_DIR, f"libtempo_{stem}_{tag}.so")
+
+
+def build() -> list[str]:
+    """Compile every source that has no library for its current text,
+    one nvcc each, all started together; returns the library paths."""
+    targets = [_target(src) for src in SOURCES]
+    todo = [(src, so) for src, so in targets if not os.path.exists(so)]
+    if todo:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        nvcc = _nvcc()
+        procs = [(so, f"{so}.{os.getpid()}.tmp",
+                  subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", f"{so}.{os.getpid()}.tmp", src],
+                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+                 for src, so in todo]
+        failed = []
+        for so, tmp, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(so)}: nvcc failed ({proc.returncode}):\n{err}")
+                continue
+            with open(f"{so}.ptxas.txt", "w") as f:
+                f.write(err)
+            os.replace(tmp, so)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return [so for _, so in targets]
 
 
 def _kernel_name(mangled: str) -> str:
@@ -90,36 +111,46 @@ def ptxas_report() -> dict:
     template arguments written as <0,1>)."""
     report: dict = {}
     cur = None
-    with open(f"{build()}.ptxas.txt") as f:
-        for line in f:
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                cur = report.setdefault(_kernel_name(m.group(1)), {})
-                continue
-            if cur is None:
-                continue
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            if m:
-                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                cur["registers"] = int(m.group(1))
-                sm = re.search(r"(\d+) bytes smem", line)
-                cur["smem_static"] = int(sm.group(1)) if sm else 0
+    lines = []
+    for so in build():
+        with open(f"{so}.ptxas.txt") as f:
+            lines += f.readlines()
+    for line in lines:
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = report.setdefault(_kernel_name(m.group(1)), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem_static"] = int(sm.group(1)) if sm else 0
     return report
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+class _Libs:
+    """The loaded kernel libraries; an entry point is looked up by name
+    in each in turn."""
+
+    def __init__(self, handles: list):
+        for name, argtypes in _SIGNATURES.items():
+            fn = next(getattr(h, name) for h in handles if hasattr(h, name))
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            setattr(self, name, fn)
+
+
+def lib() -> _Libs:
+    """The loaded kernel libraries, built on first use."""
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(build())
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = handle
+            _lib = _Libs([ctypes.CDLL(so) for so in build()])
         return _lib
 
 

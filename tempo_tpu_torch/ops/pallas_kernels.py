@@ -2,12 +2,14 @@
 
 Port of tempo_tpu/ops/pallas_kernels.py: seg_bincount (+ the host
 pre-pass compress_slot_runs), in_set_scan and u64_range_scan, with the
-same arguments and the same results. Each kernel is CUDA C++ in
-csrc/kernels.cu, built with nvcc at first use (ops/_build.py) and
-launched through ctypes on PyTorch's current stream.
+same arguments and the same results, and the dbp page decode
+(dbp_decode_limbs, dbp_decode_device) that the compiled query tier runs.
+Each kernel is CUDA C++ in csrc/kernels.cu (csrc/codec_kernels.cu for the
+decode), built with nvcc at first use (ops/_build.py) and launched
+through ctypes on PyTorch's current stream.
 
 Beside each kernel sits its plain PyTorch version (_seg_bincount_plain,
-_in_set_plain, _range_plain). A wrapper takes the plain version only
+_in_set_plain, _range_plain, _dbp_decode_plain). A wrapper takes the plain version only
 for tensors that lie on the CPU; for CUDA tensors it launches the
 kernel or raises. Each wrapper counts its kernel launches in a plain
 integer attribute, `<wrapper>.launches`.
@@ -317,3 +319,101 @@ def u64_range_scan(values: torch.Tensor, lo_bound: int, hi_bound: int,
 
 
 u64_range_scan.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# dbp decode (the compiled tier's decode of delta-bitpacked pages)
+# ---------------------------------------------------------------------------
+
+
+def _dbp_decode_plain(words: torch.Tensor, first: torch.Tensor, width: torch.Tensor,
+                      n: int) -> torch.Tensor:
+    """Plain version: words (U, W) uint32 bits, first (U,) int64 holding
+    uint64 bits, width (U,) int -> (U, n) int64 holding the uint64 values:
+    the inclusive prefix sum of [first, d_0, ..., d_{n-2}] mod 2^64."""
+    u_count, n_words = words.shape
+    dev = words.device
+    if n == 0:
+        return torch.zeros((u_count, 0), dtype=torch.int64, device=dev)
+    w = width.to(torch.int64)[:, None]
+    i = torch.arange(n - 1, dtype=torch.int64, device=dev)[None, :]
+    off = i * w
+    wi = off >> 5
+    rem = off & 31
+    wv = _u32(words)
+    pad = torch.zeros((u_count, 2), dtype=torch.int64, device=dev)
+    wv = torch.cat([wv, pad], dim=1)  # reads past the stream take zeros
+    lo_w = torch.gather(wv, 1, wi.clamp(max=n_words))
+    hi_w = torch.gather(wv, 1, (wi + 1).clamp(max=n_words))
+    hi_part = torch.where(rem == 0, 0, (hi_w << ((32 - rem) & 31)) & 0xFFFFFFFF)
+    mask = torch.where(w >= 32, 0xFFFFFFFF, (1 << (w & 31)) - 1)
+    z = ((lo_w >> rem) | hi_part) & mask
+    d = (z >> 1) ^ ((0 - (z & 1)) & 0xFFFFFFFF)
+    d = torch.where(d >= (1 << 31), d - (1 << 32), d)  # sign-extend the 32-bit delta
+    e = torch.cat([first.to(torch.int64)[:, None], d], dim=1)
+    return torch.cumsum(e, dim=1)  # int64 adds wrap as uint64 adds do
+
+
+def _dbp_decode_cuda(words: torch.Tensor, first: torch.Tensor, width: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    if words.dtype != torch.int32 or first.dtype != torch.int64 or width.dtype != torch.int32:
+        raise TypeError("dbp_decode: words int32, first int64, width int32")
+    _check_cuda("dbp_decode", words, first, width)
+    u_count, n_words = words.shape
+    out = torch.empty((u_count, n), dtype=torch.int64, device=words.device)
+    if u_count and n:
+        with torch.cuda.device(words.device):
+            err = _build.lib().tt_dbp_decode(words.data_ptr(), n_words, first.data_ptr(),
+                                             width.data_ptr(), u_count, n, out.data_ptr(),
+                                             _stream(words))
+        _build.check(err, "dbp_decode")
+        dbp_decode_limbs.launches += 1
+    return out
+
+
+def dbp_decode_limbs(words: torch.Tensor, first: torch.Tensor, width: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """Packed zigzag deltas -> absolute uint64 values, for U units at
+    once: words (U, W) int32 tensor of the packed uint32 words (each row
+    with room for the words its deltas straddle), first (U,) int64 of
+    uint64 bits, width (U,) int32 (<= 32). Returns (U, n) int64 holding
+    the uint64 bits. The JAX package carried the values as (hi, lo) u32
+    limbs; the port keeps native 64-bit integers, bit for bit the same."""
+    if words.ndim != 2 or first.shape != (words.shape[0],) or width.shape != first.shape:
+        raise ValueError("dbp_decode: words (U, W), first (U,), width (U,)")
+    if _route("dbp_decode", words) == "cpu":
+        return _dbp_decode_plain(words, first, width, n)
+    return _dbp_decode_cuda(words, first, width, n)
+
+
+dbp_decode_limbs.launches = 0
+
+
+def dbp_decode_device(page: bytes, dtype: str, shape: tuple, device) -> np.ndarray:
+    """Decode one dbp page on `device` (the host only reinterprets the
+    packed bytes as u32 words), one dbp_decode launch a sub-column.
+    Bit-identical to lightweight.dbp_decode."""
+    from tempo_tpu_torch.encoding.vtpu import lightweight as lw
+    from tempo_tpu_torch.util.devicetiming import timed_dispatch
+
+    device = torch.device(device)
+    first, _anchors, widths, streams, n = lw.dbp_parts(page, dtype, shape)
+    dt = np.dtype(dtype)
+    if n == 0:
+        return np.empty(shape, dt)
+    k = len(widths)
+    out = np.empty((n, k), np.uint64)
+    for c in range(k):
+        raw = bytes(streams[c])
+        pad = (-len(raw)) % 4 + 4  # round to words + one guard word
+        words = np.frombuffer(raw + b"\x00" * pad, "<u4")
+
+        def run(words=words, c=c):
+            return dbp_decode_limbs(
+                torch.from_numpy(words.view(np.int32).copy()).to(device)[None, :],
+                torch.tensor([int(first[c])], dtype=torch.uint64).view(torch.int64).to(device),
+                torch.tensor([widths[c]], dtype=torch.int32, device=device), n)
+
+        vals = timed_dispatch("dbp_decode", run, device=device)
+        out[:, c] = vals[0].cpu().numpy().view(np.uint64)
+    return np.ascontiguousarray(out.astype(dt, copy=False).reshape(shape))

@@ -809,6 +809,79 @@ def encoded_filter_mask(stages, enc_of, d, n: int) -> np.ndarray | None:
     return mask if mask is not None else np.ones(n, bool)
 
 
+def compiled_filter_specs(stages) -> tuple | None:
+    """Shape-level lowering of SpansetFilter stages for the compiled
+    tier (tempo_tpu_torch/compiled): the stages as a flat AND of per-column
+    predicates, or None when anything falls outside the grammar.
+
+    Each predicate is one of
+      ("set",   column, mode, value)   mode: eq | ne | re | nre
+      ("range", "duration_nano", op, rv)  op: > | >= | < | <=
+
+    The supported grammar is deliberately a SUBSET of _enc_expr_mask's:
+    every `||` declines (an OR cannot be an AND of column predicates),
+    and set predicates resolve per block dictionary to a code set whose
+    membership (with the documented invert/0-code handling in
+    compiled/lower.py) equals _enc_expr_mask's formulas exactly — so
+    a compiled answer and the interpreter fallback are bit-identical
+    by construction. Never partially wrong: any doubt returns None."""
+    preds: list = []
+    for st in stages:
+        if not isinstance(st, A.SpansetFilter):
+            return None
+        if st.expr is None:
+            continue
+        if not _compiled_expr_specs(st.expr, preds):
+            return None
+    return tuple(preds)
+
+
+def _compiled_expr_specs(e, out: list) -> bool:
+    if isinstance(e, A.Binary) and e.op == "&&":
+        return (_compiled_expr_specs(e.lhs, out)
+                and _compiled_expr_specs(e.rhs, out))
+    if not isinstance(e, A.Binary) or e.op == "||":
+        return False
+    # (field, literal) in either order; a swap REVERSES comparison
+    # operators — same table as _enc_expr_mask
+    _SWAPPED_OP = {"<": ">", "<=": ">=", ">": "<", ">=": "<=",
+                   "=": "=", "!=": "!="}
+    fld, lit, op = e.lhs, e.rhs, e.op
+    if isinstance(fld, A.Literal) and not isinstance(lit, A.Literal):
+        if op in ("=~", "!~"):
+            return False  # literal-on-LHS regex: not symmetric
+        op = _SWAPPED_OP.get(op)
+        if op is None:
+            return False
+        fld, lit = lit, fld
+    if not isinstance(lit, A.Literal) or isinstance(fld, A.Literal):
+        return False
+
+    col = _enc_str_field(fld)
+    if col is not None and lit.kind == "string":
+        mode = {"=": "eq", "!=": "ne", "=~": "re", "!~": "nre"}.get(op)
+        if mode is None:
+            return False
+        if mode in ("re", "nre"):
+            try:  # a bad pattern must 400 on the interpreter path, not
+                import re as _re  # crash inside a fused program
+
+                _re.compile(lit.value)
+            except _re.error:
+                return False
+        out.append(("set", col, mode, lit.value))
+        return True
+
+    if (isinstance(fld, A.Intrinsic) and fld.name == "duration"
+            and lit.kind in ("int", "float", "duration")
+            and op in (">", ">=", "<", "<=")):
+        # `=`/`!=` on float-compared durations have no contiguous
+        # integer-range form; they stay on the interpreter
+        out.append(("range", "duration_nano", op, float(lit.value)))
+        return True
+    return False
+
+
 def filter_mask(expr: A.Expr | None, batch, dictionary) -> np.ndarray:
     """Exact span mask for one spanset filter over a batch."""
     n = batch.num_spans

@@ -6,8 +6,9 @@ seam calls torch.cuda.synchronize() where the JAX package called
 jax.block_until_ready. Totals accumulate in a DeviceStats object
 (`STATS`), and each dispatch lands in the request's stage waterfall
 (`kernel`, one dispatch; util/stagetimings) and its cost vector
-(`device_seconds`, `device_dispatches`; util/usage), which the query
-responses report as `deviceDispatches`. The Prometheus families are
+(`device_seconds`, `device_dispatches`, and `transfer_bytes` from
+count_transfer; util/usage), which the query responses report as
+`deviceDispatches`. The Prometheus families are
 not ported yet (ROADMAP Queue 1 item 2).
 """
 
@@ -39,11 +40,15 @@ def _add(d: dict, key: str, v) -> None:
 
 
 def count_transfer(kernel: str, h2d: int = 0, d2h: int = 0) -> None:
-    """Account the bytes one dispatch moved host->device and back."""
+    """Account the bytes one dispatch moved host->device and back, in
+    the totals and, as the reference does, in the active cost vector's
+    `transfer_bytes`."""
     if h2d:
         _add(STATS.h2d, kernel, int(h2d))
     if d2h:
         _add(STATS.d2h, kernel, int(d2h))
+    if h2d or d2h:
+        usage.charge("transfer_bytes", int(h2d) + int(d2h))
 
 
 def timed_dispatch(kernel: str, fn, *args, device: torch.device, **kwargs):

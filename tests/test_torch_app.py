@@ -10,13 +10,15 @@ in-process ingesters; then the refusals (429 on the rate limit,
 TraceTooLarge and MaxLiveTraces, 400 on bad TraceQL, 404 on a route the
 port does not serve yet). The port runs with device="cpu".
 
-The JAX App runs with the three features the port does not carry off
-(metrics-generator, standing queries, compiled tier), its storage engine
+The JAX App runs with the two features the port does not carry off
+(metrics-generator, standing queries), its storage engine
 pinned to one device (compaction_device_shards=1: the JAX tests run on
 an 8-device CPU mesh whose sharded search is the multi-GPU slice), and
 its storage analytics scan off. ReadAhead prefetch, hedged requests and
 all but one query worker are off in both, so every answer reads the
-same bytes on every run.
+same bytes on every run. The compiled query tier is on in both (the
+default), each with a fresh shape cache per test, so hit/miss verdicts
+and the cache's counts compare one for one.
 
 Fields left out of the comparison, all wall-clock: `elapsedMs` and
 `stageSeconds` of search and query_range responses, `heartbeat_age_s`
@@ -40,7 +42,7 @@ import torch
 
 from tempo_tpu.api.server import TempoServer as JTempoServer
 from tempo_tpu.app import App as JApp, AppConfig as JAppConfig
-from tempo_tpu.compiled import CompiledConfig as JCompiledConfig
+from tempo_tpu.compiled import cache as jcompiled_cache
 from tempo_tpu.db import DBConfig as JDBConfig
 from tempo_tpu.encoding.common import BlockConfig as JBlockConfig
 from tempo_tpu.encoding.vtpu import colcache as jcolcache
@@ -50,6 +52,7 @@ from tempo_tpu.modules.overrides import Limits as JLimits
 from tempo_tpu.standing import StandingConfig as JStandingConfig
 from tempo_tpu.util import pipeline as jpipeline
 from tempo_tpu_torch.api.server import TempoServer
+from tempo_tpu_torch.compiled import cache as compiled_cache
 from tempo_tpu_torch.app import App, AppConfig
 from tempo_tpu_torch.db import DBConfig
 from tempo_tpu_torch.encoding.common import BlockConfig
@@ -76,6 +79,8 @@ def _no_prefetch(monkeypatch):
     for cache in (jcolcache.shared_cache(), colcache.shared_cache()):
         if cache is not None:
             cache.clear()
+    monkeypatch.setattr(jcompiled_cache, "_shared", jcompiled_cache.ShapeCache())
+    monkeypatch.setattr(compiled_cache, "_shared", compiled_cache.ShapeCache())
 
 
 def _request(url, method, path, body=None, headers=None):
@@ -108,8 +113,7 @@ class AppPair:
         self.japp = JApp(JAppConfig(
             db=jdb, ingester=JIngesterConfig(), limits=JLimits(**(limits or {})),
             frontend=JFrontendConfig(hedge_after_s=0),
-            generator_enabled=False, standing=JStandingConfig(enabled=False),
-            compiled=JCompiledConfig(enabled=False), **kw))
+            generator_enabled=False, standing=JStandingConfig(enabled=False), **kw))
         self.tapp = None
         self.servers = []
         try:
@@ -373,13 +377,12 @@ def test_status_pages(make_pair):
     (_, _, jb), (_, _, tb) = pair.both("GET", "/status/endpoints")
     served = json.loads(tb)["endpoints"]
     assert served == [e for e in json.loads(jb)["endpoints"] if e in served]
-    assert len(served) == 21
+    assert len(served) == 22
     assert _request(pair.servers[1].url, "GET", "/status")[2] == tb
     # defaults and diff differ only where the port's defaults do: the
-    # three features it does not carry start off, and the storage
+    # two features it does not carry start off, and the storage
     # analytics scan is 0 (App refuses it switched on)
-    port_defaults = {("generator_enabled",), ("standing", "enabled"), ("compiled", "enabled"),
-                     ("db", "analytics_scan_s")}
+    port_defaults = {("generator_enabled",), ("standing", "enabled"), ("db", "analytics_scan_s")}
 
     def drop(doc):
         for path in port_defaults:
@@ -399,7 +402,10 @@ def test_status_pages(make_pair):
     push_all(pair, seed=3)
     pair.same("POST", "/flush")
     after = [_counters(b) for _, _, b in pair.both("GET", "/metrics")]
-    deltas = [{k: a[k] - b.get(k, 0.0) for k in a if k.startswith(COUNTED)}
+    # series whose delta is zero on a side are left out: the JAX metrics
+    # registry is process-global, so it may carry zero-delta series of
+    # tenants that earlier tests in the same process pushed
+    deltas = [{k: d for k in a if k.startswith(COUNTED) and (d := a[k] - b.get(k, 0.0))}
               for a, b in zip(after, before)]
     assert deltas[0] == deltas[1] and deltas[1]
 
@@ -515,3 +521,59 @@ def test_app_on_cuda_matches_jax(make_pair, monkeypatch):
     _, _, body = _request(pair.servers[1].url, "GET", "/api/metrics/query_range"
                           + qs(q=QUERY_RANGES[0], start=T0 - 60, end=T0 + 600, step=60))
     assert json.loads(body)["metrics"]["deviceDispatches"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the compiled query tier
+# ---------------------------------------------------------------------------
+
+
+SIMPLE_COUNT = [
+    '{ resource.service.name = "cart" } | rate()',                     # rle set
+    '{ name = "db.query" } | count_over_time()',                        # dct set
+    '{ resource.service.name != "cart" && duration > 100ms } | rate()',  # inverted, dbp range
+    '{ span.http.method !~ "G.*" } | count_over_time()',                 # inverted dct
+]
+# wall-clock fields of an insights record (and of its cost vector)
+INSIGHT_CLOCK = ("ts", "durationSeconds", "stageSeconds")
+
+
+def _norm_insights(raw: bytes):
+    doc = json.loads(raw)
+    for rec in doc["insights"]:
+        for k in INSIGHT_CLOCK:
+            rec.pop(k, None)
+        rec.get("usage", {}).pop("device_seconds", None)
+    return doc
+
+
+def test_simple_count_query_range_through_the_compiled_tier(make_pair, monkeypatch):
+    """Simple-count query_range over flushed blocks: both Apps answer the
+    same matrices through their compiled tiers, the insights records
+    read miss then hit alike, and /api/query-insights answers field for
+    field (its clock fields left out)."""
+    from tempo_tpu.util import insights as jinsights
+    from tempo_tpu_torch.util import insights
+
+    pair = make_pair()
+    for log in (jinsights.LOG, insights.LOG):  # after App start, which configures them
+        log.clear()
+        monkeypatch.setattr(log, "sample_every", 1)
+    push_all(pair, seed=6)
+    assert pair.same("POST", "/flush")[0] == 204
+    push_all(pair, seed=7, minute=3)
+    assert pair.same("POST", "/flush")[0] == 204
+    shapes = []
+    for q in SIMPLE_COUNT:
+        for _ in range(2):
+            status, body = pair.same(
+                "GET", "/api/metrics/query_range" + qs(q=q, start=T0 - 60, end=T0 + 600, step=60),
+                norm=norm_query)
+            assert status == 200 and json.loads(body)["data"]["result"]
+            _, raw = pair.same("GET", "/api/query-insights?limit=1", norm=_norm_insights)
+            shapes.append(json.loads(raw)["insights"][0]["compiledShape"])
+    assert shapes == ["miss", "hit"] * len(SIMPLE_COUNT)
+    _, raw = pair.same("GET", "/api/query-insights", norm=_norm_insights)
+    doc = json.loads(raw)
+    assert doc["compiled"]["misses"] >= len(SIMPLE_COUNT) and doc["compiled"]["programs"] >= 1
+    assert pair.same("GET", "/api/query-insights?limit=x")[0] == 400

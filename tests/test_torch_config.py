@@ -2,11 +2,12 @@
 
 The same YAML must give equal config dataclasses in both packages
 (field for field, nested sections and lists included) and the same
-check_config warnings for the sections the port serves. Four defaults differ by design and are named
-here: the metrics-generator, the standing-query engine and the compiled
-tier start off in the port, and the storage analytics scan is 0 — App
-refuses each of them switched on, as it refuses every other section
-whose module is not ported yet, naming its ROADMAP item.
+check_config warnings for the sections the port serves. Three defaults differ by design and are
+named here: the metrics-generator and the standing-query engine start
+off in the port, and the storage analytics scan is 0 — App refuses each
+of them switched on, as it refuses every other section whose module is
+not ported yet, naming its ROADMAP item, and every environment switch
+with which the reference turns such a module on.
 """
 
 import dataclasses
@@ -81,7 +82,7 @@ ring_heartbeat_timeout_s: 12.5
 
 # (path, the port's default) where the defaults differ by design
 PORT_DEFAULTS = {("generator_enabled",): False, ("standing", "enabled"): False,
-                 ("compiled", "enabled"): False, ("db", "analytics_scan_s"): 0.0}
+                 ("db", "analytics_scan_s"): 0.0}
 
 
 def _doc(cfg) -> dict:
@@ -158,11 +159,14 @@ WARN_YAMLS = [
     "replication_factor: 3\nn_ingesters: 1\nstorage:\n  trace:\n    block:\n"
     "      bloom_fp: 0.2\noverrides:\n  defaults:\n    block_retention_s: 60\n"
     "ingester:\n  complete_block_timeout_s: 1\n",
+    # the compiled tier: uncapped shapes in a multitenant cluster
+    "multitenancy_enabled: true\n",
+    "multitenancy_enabled: true\ncompiled:\n  max_shapes: 0\n  respect_governor: false\n",
 ]
 
 
 def _align_port_defaults(j, t):
-    """The JAX config with the four features set as the port's config
+    """The JAX config with the three features set as the port's config
     has them (the YAML's value where it sets one, else the port's
     default), so both check the same feature settings."""
     for path in PORT_DEFAULTS:
@@ -195,7 +199,6 @@ UNPORTED = {
     "usage_report:\n  enabled: true\n": "usage_report",
     "self_tracing:\n  enabled: true\n": "self_tracing",
     "standing:\n  enabled: true\n": "standing-query",
-    "compiled:\n  enabled: true\n": "compiled-query",
     "rca:\n  enabled: true\n": "rca",
     "slo:\n  enabled: true\n": "slo",
     "vulture:\n  enabled: true\n": "vulture",
@@ -234,3 +237,51 @@ def test_verify_ok(tmp_path, capsys):
     path.write_text(f"storage:\n  trace:\n    backend_path: {tmp_path}/blocks\n")
     assert tmain.main(["-config.file", str(path), "-config.verify"]) == 0
     assert capsys.readouterr().out == "config ok\n"
+
+
+@pytest.mark.parametrize("yaml_text", [
+    "multitenancy_enabled: true\ncompiled:\n  max_shapes: 512\n",
+    "multitenancy_enabled: true\ncompiled:\n  enabled: false\n",
+    "compiled:\n  enabled: true\n  max_shapes: 64\n  respect_governor: false\n",
+])
+def test_compiled_section_equal(yaml_text, tmp_path):
+    """The compiled section round-trips, warns only multitenant and
+    uncapped, and App starts with it (the tier is served)."""
+    j, t = jconfig.parse_config(yaml_text), config.parse_config(yaml_text)
+    assert _doc(j)["app"]["compiled"] == _doc(t)["app"]["compiled"]
+    _align_port_defaults(j, t)
+    assert jconfig.check_config(j) == config.check_config(t)
+    assert not any("compiled" in w for w in config.check_config(t))
+    t.app.db.backend_path = str(tmp_path / "blocks")
+    t.app.db.wal_path = str(tmp_path / "wal")
+    App(t.app, device="cpu").shutdown()
+
+
+UNPORTED_ENV = {
+    ("TEMPO_TPU_DEVICE_TIER_MB", "64"): "TEMPO_TPU_DEVICE_TIER_MB",
+    ("TEMPO_TPU_INGEST_TAIL_MB", "8"): "TEMPO_TPU_INGEST_TAIL_MB",
+    ("TEMPO_TPU_RESULT_CACHE", "on"): "TEMPO_TPU_RESULT_CACHE",
+    ("TEMPO_TPU_RESULT_CACHE", "force"): "TEMPO_TPU_RESULT_CACHE",
+}
+
+
+@pytest.mark.parametrize("env", sorted(UNPORTED_ENV), ids=lambda e: "=".join(e))
+def test_unported_env_switches_refused(env, tmp_path, monkeypatch):
+    """An environment switch with which the reference turns on a module
+    the port lacks is refused at App start, naming its ROADMAP item."""
+    monkeypatch.setenv(*env)
+    path = tmp_path / "tempo.yaml"
+    path.write_text(f"storage:\n  trace:\n    backend_path: {tmp_path}/blocks\n")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1") as e:
+        tmain.main(["-config.file", str(path), "-config.verify"])
+    assert UNPORTED_ENV[env] in str(e.value) and "not ported yet" in str(e.value)
+
+
+@pytest.mark.parametrize("env", [("TEMPO_TPU_DEVICE_TIER_MB", "0"), ("TEMPO_TPU_INGEST_TAIL_MB", "0"),
+                                 ("TEMPO_TPU_RESULT_CACHE", "off"), ("TEMPO_TPU_RESULT_CACHE", "")],
+                         ids=lambda e: "=".join(e))
+def test_env_switches_off_start(env, tmp_path, monkeypatch):
+    monkeypatch.setenv(*env)
+    path = tmp_path / "tempo.yaml"
+    path.write_text(f"storage:\n  trace:\n    backend_path: {tmp_path}/blocks\n")
+    assert tmain.main(["-config.file", str(path), "-config.verify"]) == 0

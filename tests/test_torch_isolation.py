@@ -4,10 +4,12 @@ compaction entry and one metrics query on the CPU, writes two vtpu1
 blocks, finds a trace by ID, compacts the blocks and queries the output
 on the CPU, drives the storage engine (TempoDB: write, find, tag search,
 tag names, TraceQL search on the vectorized branch and the object
-engine, WAL replay, compaction) on the CPU, serves the single binary
+engine, WAL replay, compaction) on the CPU, encodes pages through the
+device page-encode arm forced on the CPU, serves the single binary
 (App + TempoServer: one OTLP push, /flush, the trace read back by ID and
-by search over HTTP) on the CPU, and an entry point called without a
-device raises when CUDA is absent. `python -m tempo_tpu_torch` verifies
+by search, a simple-count query_range through the compiled tier and
+/api/query-insights over HTTP) on the CPU, and an entry point called
+without a device raises when CUDA is absent. `python -m tempo_tpu_torch` verifies
 a config and serves HTTP until /shutdown with the same imports blocked."""
 
 import json
@@ -44,6 +46,9 @@ SCRIPT = BLOCK + textwrap.dedent(r"""
     for name in names:
         importlib.import_module(name)
     assert len(names) >= 64, names
+    for name in ("tempo_tpu_torch.compiled.executor", "tempo_tpu_torch.compiled.program",
+                 "tempo_tpu_torch.ops.encode", "tempo_tpu_torch.parallel.search"):
+        assert name in names, name
     for name, mod in sys.modules.items():
         assert mod is None or not (name == "tempo_tpu" or name.startswith("tempo_tpu.") or name == "jax"
                     or name.startswith("jax.")), name
@@ -110,6 +115,16 @@ SCRIPT = BLOCK + textwrap.dedent(r"""
     assert db.write_wal_block("t", replayed).total_spans == b1.num_spans
     assert db.compact_once("t") == 1 and len(db.blocklist.metas("t")) == 1
 
+    import os
+    from tempo_tpu_torch.encoding.vtpu import codec, lightweight
+    from tempo_tpu_torch.ops import encode as device_encode
+    os.environ["TEMPO_TPU_DEVICE_ENCODE"] = "1"
+    col = b1.cols["service"]
+    for name in ("rle", "dbp", "dct"):
+        assert codec.encode(col, name, "cpu")[0] == getattr(lightweight, f"{name}_encode")(col)
+        assert device_encode.device_encode_pages_total.value(codec=name) >= 1
+    del os.environ["TEMPO_TPU_DEVICE_ENCODE"]
+
     import json, urllib.parse, urllib.request
     from tempo_tpu_torch.api.server import TempoServer
     from tempo_tpu_torch.app import App, AppConfig
@@ -137,6 +152,13 @@ SCRIPT = BLOCK + textwrap.dedent(r"""
         status, body = http("GET", "/api/search?" + urllib.parse.urlencode(
             {"tags": f"service.name={svc}", "limit": 100}))
         assert hexid in [t["traceID"] for t in json.loads(body)["traces"]]
+        t_s = min(t.start_end_seconds()[0] for t in traces)
+        status, body = http("GET", "/api/metrics/query_range?" + urllib.parse.urlencode(
+            {"q": f'{{ resource.service.name = "{svc}" }} | rate()', "start": t_s - 60,
+             "end": t_s + 600, "step": 60}))
+        assert status == 200 and json.loads(body)["data"]["result"]
+        status, body = http("GET", "/api/query-insights")
+        assert status == 200 and json.loads(body)["compiled"]["misses"] >= 1
     finally:
         srv.stop()
         app.shutdown()
