@@ -8,21 +8,25 @@ Phases, one line each (any failure exits non-zero):
 0. device: card name, count, torch/CUDA versions, nvidia-smi name and
    power limit;
 1. build: nvcc builds csrc/kernels.cu (the three Pallas kernels' ports)
-   and csrc/codec_kernels.cu (rle_change_mask and dbp_pack of the device
-   page encode, dbp_decode and compiled_metrics of the compiled query
-   tier), one nvcc a source, in parallel, and ptxas reports each
-   kernel's registers, static shared memory and spills;
+   and csrc/codec_kernels.cu (the batched rle_change_mask and dbp_pack of
+   the device page encode, dbp_decode and compiled_metrics of the
+   compiled query tier), one nvcc a source, in parallel, and ptxas
+   reports each kernel's registers, static shared memory and spills;
 2. kernels: each CUDA kernel against its plain PyTorch version on the
    card, bit for bit, at the main path's shapes and at edge shapes (the
-   codec kernels also against the host codec and a numpy interpreter), and
-   timed two ways: kernel time (device time alone: a CUDA graph of K
-   back-to-back launches of the C entry point into outputs allocated
-   and zeroed before the capture, replay time / K, median of 7 replays)
-   and path time (CUDA events around one whole wrapper call as the main
-   path makes it, median of 25), beside its plain version and one
-   PyTorch library call where there is one (both timed as path time),
-   and its bound (dbp_decode and compiled_metrics are timed after phase
-   8, on the inputs of phase 8's largest compiled dispatch);
+   page-encode kernels over mixed page tables; the codec kernels also
+   against the host codec and a numpy interpreter), and timed two ways:
+   kernel time (device time alone: a CUDA graph of K back-to-back
+   launches of the C entry point into outputs allocated and zeroed
+   before the capture, replay time / K, median of 7 replays) and path
+   time (CUDA events around one whole wrapper call as the main path
+   makes it, median of 25), beside its plain version and one PyTorch
+   library call where there is one (both timed as path time), and its
+   bound (rle_change_mask and dbp_pack are timed after phase 6, at one
+   row group's and one block's pages of its card write, with the
+   writer's whole dispatch by host clock; dbp_decode and
+   compiled_metrics after phase 8, on the inputs of phase 8's largest
+   compiled dispatch);
 3. compaction: the flagship step (entry.entry) at 2**22 rows, bit-equal
    between the card and the CPU;
 4. metrics: three TraceQL query_range queries over 2**22 synthetic spans
@@ -37,8 +41,10 @@ Phases, one line each (any failure exits non-zero):
    their bloom and HLL built on the card and again on the CPU (every
    stored object byte-equal), 1,000 present and 1,000 absent trace IDs
    are found by ID in both (equal answers; the card's writes run the
-   device page encode, which must have encoded rle, dbp and dct pages,
-   the CPU's the host encoders), one 2**17-span block is written on the
+   device page encode, which must have encoded rle, dbp and dct pages
+   in one page-encode dispatch a row group, at most one launch of each
+   kernel a dispatch, the CPU's the host encoders), one 2**17-span
+   block is written on the
    card with the device encode and with TEMPO_TPU_DEVICE_ENCODE=0
    (byte-equal), the two blocks are compacted
    with the merge plan and the sketch plane on the card and on the CPU
@@ -82,7 +88,8 @@ Phases 3-4 are the main path, phase 5 the scan path, phase 6 the block
 path, phase 7 the storage engine's path and phase 8 the server's path:
 each is run with the kernels' launch counts set to 0 just before it,
 and every kernel of the path must have launched (phases 6-8 each
-rle_change_mask, dbp_pack and seg_bincount; phase 8 also dbp_decode and
+rle_change_mask, dbp_pack and seg_bincount, each page-encode kernel at
+most once a page-encode dispatch; phase 8 also dbp_decode and
 compiled_metrics). The script then prints
 one JSON line of per-kernel and per-phase numbers (phase 6's under
 "blocks", phase 7's under "db", phase 8's under "app"), the nvidia-smi
@@ -281,30 +288,42 @@ def codec_kernels_check(torch, dev, rng) -> int:
     from tempo_tpu_torch.ops import pallas_kernels as pk
 
     cases = 0
-    # rle_change_mask: n = 2, 3, 9, 8193 rows of 1 and 4 lanes
-    for n in (2, 3, 9, 8193):
-        for k in (1, 4):
-            a = rng.integers(0, 3, (n, k)).astype(np.uint32)
-            a[rng.random(n) < 0.3] = 0xFFFFFFFF
-            up = torch.from_numpy(tenc._pad_rows(a, tenc._pow2(n)).view(np.int32))
-            check(torch.equal(tenc.rle_change_mask(up.to(dev)).cpu(), tenc._rle_change_plain(up)),
-                  f"rle_change_mask n={n} k={k}: kernel != plain")
-            cases += 1
-    # dbp_pack: both modes, items of 1/2/4/8 bytes, widths 0, 1, 31, 32
-    for item_bits in (0, 8, 16, 32, 64):
-        for n in (2, 3, 9, 8193):
-            n_pad = tenc._pow2(n)
-            lo = rng.integers(0, 1 << 32, (4, n), dtype=np.uint64).astype(np.uint32)
-            hi = rng.integers(0, 1 << 32, (4, n), dtype=np.uint64).astype(np.uint32)
-            if 0 < item_bits < 32:
-                lo &= np.uint32((1 << item_bits) - 1)
-            lo = np.ascontiguousarray(tenc._pad_rows(lo.T, n_pad).T)
-            hi = np.ascontiguousarray(tenc._pad_rows(hi.T, n_pad).T)
-            args = [torch.from_numpy(lo.view(np.int32)), torch.from_numpy(hi.view(np.int32))]
-            got = tenc.dbp_pack(*(x.to(dev) for x in args), item_bits, [0, 1, 31, 32])
-            want = tenc._dbp_pack_plain(*args, item_bits, [0, 1, 31, 32])
-            check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
-                  f"dbp_pack item_bits={item_bits} n={n}: kernel != plain")
+    # the batched kernels against their plain versions over mixed page
+    # tables: n = 2, 3, 9, 2049, 8193 rows; rle pages of 1, 3, 4, 8 and 600
+    # lanes (the last opts into more than 48 KB of shared memory); dbp
+    # limbs of every item width (0: pack mode) at widths 0, 1, 31, 32; a
+    # dbp page of 20 columns; dct index streams
+    for n in (2, 3, 9, 2049, 8193):
+        for lanes in ((1, 3, 4, 8), (600,)):
+            plans = []
+            for k in lanes:
+                a = rng.integers(0, 3, (n, k)).astype(np.uint32)
+                a[rng.random(n) < 0.3] = 0xFFFFFFFF
+                plans.append(tenc.prepare_page(a if k > 1 else a[:, 0].copy(), "rle"))
+            if len(lanes) > 1:
+                for item_bits in (0, 8, 16, 32, 64):
+                    p = tenc.PagePlan(np.zeros(n, np.uint32), "dbp" if item_bits else "dct")
+                    p.item_bits = item_bits
+                    for w in (0, 1, 31, 32):
+                        lo = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+                        if 0 < item_bits < 32:
+                            lo &= np.uint32((1 << item_bits) - 1)
+                        hi = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+                        p.cols.append((w, lo, hi if item_bits == 64 else None))
+                    plans.append(p)
+                plans.append(tenc.prepare_page(
+                    np.cumsum(rng.integers(-3, 4, (n, 20)), 0).astype(np.int32), "dbp"))
+                plans.append(tenc.prepare_page(rng.integers(0, 9, n).astype(np.uint16), "dct"))
+            batch = tenc.PageBatch(plans)
+            buf = np.zeros(batch.in_words, np.uint32)
+            batch.fill(buf)
+            data = torch.from_numpy(buf.view(np.int32))
+            want = torch.zeros(max(batch.out_words, 1), dtype=torch.int32)
+            batch.launch(data, want)
+            got = torch.zeros_like(want).to(dev)
+            batch.launch(data.to(dev), got)
+            check(torch.equal(got.cpu(), want),
+                  f"batched rle_change_mask/dbp_pack n={n} lanes={lanes}: kernel != plain")
             cases += 1
     # whole pages on the card against the host encoders: items of 1/2/4/8
     # bytes with negative deltas and 64-bit borrows, 2-D limbs, dct with
@@ -323,10 +342,12 @@ def codec_kernels_check(torch, dev, rng) -> int:
         rng.integers(0, 3, (9, 4)).astype(np.uint32),
     ]
     host = {"rle": lw.rle_encode, "dbp": lw.dbp_encode, "dct": lw.dct_encode}
+    batch_pages = []
     for arr in pages:
         for cdc in ("rle", "dbp", "dct"):
             try:
                 want = host[cdc](arr)
+                batch_pages.append((arr, cdc))
             except ValueError:
                 want = None
             try:
@@ -335,6 +356,10 @@ def codec_kernels_check(torch, dev, rng) -> int:
                 got = None
             check(got == want, f"{cdc} page of {arr.dtype} {arr.shape} on the card != host page")
             cases += 1
+    # the same pages as one batch: one dispatch, each page the host's
+    check(tenc.encode_pages_device(batch_pages, dev) == [host[c](a) for a, c in batch_pages],
+          "a batch of pages on the card != the host pages")
+    cases += 1
     # dbp_decode: n = 2, 3, 9, 8193 at widths 0, 1, 31, 32, against the
     # host decoder (a page a unit) and the plain version (stacked units)
     for n in (2, 3, 9, 8193):
@@ -433,68 +458,92 @@ def codec_kernels_check(torch, dev, rng) -> int:
     return cases
 
 
-def time_encode_kernels(torch, dev, seed: int, lib, stream) -> dict:
-    """rle_change_mask and dbp_pack at the shapes a block write gives them:
-    one 2**15-span row group (4096 traces x 8 spans) of the phase-6 data
-    kind; the trace_id limbs (32768, 4) are an rle page and duration_nano
-    a 64-bit dbp page."""
+def time_encode_kernels(torch, dev, recorded: list, lib, stream) -> dict:
+    """rle_change_mask and dbp_pack at the shapes phase 6's card write of
+    block A gave them: one row group's lightweight pages (the writer's
+    first batch; `recorded` holds each batch's plans) and one block's
+    (every batch of that write laid out as one). Each is timed as the
+    other kernels are (device time, wrapper path time, plain version on
+    the card, bound; for rle_change_mask the per-page torch expression
+    `(a[1:] != a[:-1]).any(1)` over the batch's pages as the library
+    line), and the writer's whole dispatch is timed by host clock: the
+    `page_encode` dispatch (copy in, both launches, copy out, stream
+    wait: timed_dispatch's wall) and encode_prepared around it (layout,
+    staging fill and page assembly on the codec pool too)."""
     import numpy as np
 
-    from tempo_tpu_torch.encoding.vtpu import lightweight as lw
-    from tempo_tpu_torch.model import synth
     from tempo_tpu_torch.ops import _build
     from tempo_tpu_torch.ops import encode as tenc
+    from tempo_tpu_torch.util.devicetiming import STATS
 
-    b = chain_parents(synth.make_batch(4096, 8, seed=seed * 1000 + 7)).sorted_by_trace()
-    tid, dur = b.cols["trace_id"], b.cols["duration_nano"]
-    check(lw.choose_codec("trace_id", tid, "zstd") == "rle"
-          and lw.choose_codec("duration_nano", dur, "zstd") == "dbp",
-          "row group: trace_id is not rle or duration_nano not dbp")
-    out = {}
-    # rle_change_mask on the trace_id limbs
-    up = torch.from_numpy(tenc._pad_rows(tenc._unsigned_2d(tid), tenc._pow2(len(tid)))
-                          .astype(np.uint32).view(np.int32)).to(dev)
-    n_pad, k = up.shape
-    mask_out = torch.empty(n_pad - 1, dtype=torch.bool, device=dev)
+    shapes = {"row_group": [p for p in recorded[0] if p is not None],
+              "block": [p for plans in recorded for p in plans if p is not None]}
+    staging = tenc.PageStaging(dev)
+    out = {"rle_change_mask": {}, "dbp_pack": {}}
+    for label, plans in shapes.items():
+        reps = 25 if label == "row_group" else 5
+        batch = tenc.PageBatch(plans)
+        buf = np.zeros(batch.in_words, np.uint32)
+        batch.fill(buf)
+        data_h = torch.from_numpy(buf.view(np.int32))
+        want = torch.zeros(batch.out_words, dtype=torch.int32)
+        batch.launch(data_h, want)
+        data = data_h.to(dev)
+        res = torch.zeros(batch.out_words, dtype=torch.int32, device=dev)
+        batch.launch(data, res)
+        check(torch.equal(res.cpu(), want), f"encode kernels at one {label}'s pages: kernel != plain")
+        rle_t, rle_tiles, dbp_t, dbp_tiles = batch.tensors(data)
 
-    def rle_launch():
-        _build.check(lib.tt_rle_change_mask(up.data_ptr(), n_pad, k, mask_out.data_ptr(),
-                                            stream()), "rle_change_mask")
+        def rle_launch():
+            _build.check(lib.tt_rle_change_mask(data.data_ptr(), rle_t.data_ptr(),
+                                                rle_tiles.data_ptr(), rle_tiles.numel(),
+                                                tenc._rle_stage_words(batch.lanes), res.data_ptr(),
+                                                stream()), "rle_change_mask")
 
-    rle_launch()
-    check(torch.equal(mask_out, tenc._rle_change_plain(up)), "rle_change_mask timing input")
-    ms = kernel_ms(torch, [rle_launch])
-    bnd, by = bound_ms(n_pad * k * 4 + n_pad - 1, n_pad * k)
-    out["rle_change_mask"] = dict(
-        shape=f"({n_pad}, {k}) uint32 lanes (trace_id of a 2^15-span row group)", max_abs_err=0,
-        ms=ms, path_ms=path_ms(torch, lambda: tenc.rle_change_mask(up)),
-        plain_ms=path_ms(torch, lambda: tenc._rle_change_plain(up)), bound_ms=bnd, bound_by=by,
-        library_ms=path_ms(torch, lambda: (up[1:] != up[:-1]).any(1)))
-    # dbp_pack, delta mode over the duration limbs at the probed width
-    w = lw._dbp_width(lw._zigzag(lw._deltas_s64(dur)))
-    limbs = tenc._unsigned_2d(dur).reshape(len(dur), 1, 2)
-    lo = torch.from_numpy(np.ascontiguousarray(tenc._pad_rows(limbs[:, :, 0], n_pad).T)
-                          .view(np.int32)).to(dev)
-    hi = torch.from_numpy(np.ascontiguousarray(tenc._pad_rows(limbs[:, :, 1], n_pad).T)
-                          .view(np.int32)).to(dev)
-    words = -(-n_pad * w // 32)
-    packed = torch.empty(words, dtype=torch.int32, device=dev)
-    w_arr, off = np.array([w], np.int32), np.array([0, words], np.int64)
+        def pack_launch():
+            _build.check(lib.tt_dbp_pack(data.data_ptr(), dbp_t.data_ptr(), dbp_tiles.data_ptr(),
+                                         dbp_tiles.numel(), res.data_ptr(), stream()), "dbp_pack")
 
-    def pack_launch():
-        _build.check(lib.tt_dbp_pack(lo.data_ptr(), hi.data_ptr(), n_pad, 64, w_arr.ctypes.data,
-                                     off.ctypes.data, 1, packed.data_ptr(), stream()), "dbp_pack")
-
-    pack_launch()
-    want = tenc._dbp_pack_plain(lo, hi, 64, [w])[0]
-    check(torch.equal(packed.view(torch.uint8)[: n_pad * w // 8], want), "dbp_pack timing input")
-    ms = kernel_ms(torch, [pack_launch])
-    bnd, by = bound_ms(2 * 4 * n_pad + 4 * words, 12 * n_pad)
-    out["dbp_pack"] = dict(
-        shape=f"n_pad={n_pad} 64-bit items (duration_nano), width {w}", max_abs_err=0, ms=ms,
-        path_ms=path_ms(torch, lambda: tenc.dbp_pack(lo, hi, 64, [w])),
-        plain_ms=path_ms(torch, lambda: tenc._dbp_pack_plain(lo, hi, 64, [w])),
-        bound_ms=bnd, bound_by=by, library_ms=None)
+        views = [data[int(r[0]): int(r[0]) + int(r[1] * r[2])].view(int(r[1]), int(r[2]))
+                 for r in batch.rle_table]
+        rle_in = sum(int(r[1] * r[2]) * 4 for r in batch.rle_table)
+        rle_out = sum(-(-int(r[1] - 1) // 32) * 4 for r in batch.rle_table)
+        bnd, by = bound_ms(rle_in + batch.rle_table.nbytes + rle_out,
+                           sum(int(r[1] * r[2]) for r in batch.rle_table))
+        out["rle_change_mask"][label] = dict(
+            shape=f"{len(views)} pages, {sum(int(r[1]) for r in batch.rle_table)} rows, "
+                  f"{rle_in} B of lanes ({rle_tiles.numel()} tiles of about "
+                  f"{tenc.RLE_TILE_WORDS * 4} B)",
+            max_abs_err=0, ms=kernel_ms(torch, [rle_launch]),
+            path_ms=path_ms(torch, lambda: tenc.rle_change_mask(data, rle_t, rle_tiles, res,
+                                                                batch.lanes), reps=reps),
+            plain_ms=path_ms(torch, lambda: tenc._rle_change_plain(data, rle_t, res), reps=reps),
+            bound_ms=bnd, bound_by=by,
+            library_ms=path_ms(torch, lambda: [(a[1:] != a[:-1]).any(1) for a in views], reps=reps))
+        dbp_in = sum(int(r[2]) * 4 * (2 if r[1] >= 0 else 1) for r in batch.dbp_table)
+        values = sum(int(r[2] - 1 if r[3] else r[2]) for r in batch.dbp_table)
+        dbp_out = sum(-(-int((r[2] - 1 if r[3] else r[2]) * r[4]) // 32) * 4 for r in batch.dbp_table)
+        bnd, by = bound_ms(dbp_in + batch.dbp_table.nbytes + dbp_out, 12 * values)
+        out["dbp_pack"][label] = dict(
+            shape=f"{len(batch.dbp_cols)} columns ({sum(1 for r in batch.dbp_table if r[3] == 0)} "
+                  f"dct index streams), {values} values, {dbp_in} B in, {dbp_out} B out "
+                  f"({dbp_tiles.numel()} tiles of {tenc.PACK_VALUES} values)",
+            max_abs_err=0, ms=kernel_ms(torch, [pack_launch]),
+            path_ms=path_ms(torch, lambda: tenc.dbp_pack(data, dbp_t, dbp_tiles, res), reps=reps),
+            plain_ms=path_ms(torch, lambda: tenc._dbp_pack_plain(data, dbp_t, res), reps=reps),
+            bound_ms=bnd, bound_by=by, library_ms=None)
+        # the writer's dispatch of these pages, by host clock
+        walls, dispatch = [], []
+        for _ in range(reps + 2):
+            s0 = STATS.seconds.get("page_encode", 0.0)
+            t0 = time.perf_counter()
+            tenc.encode_prepared(plans, dev, staging)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            dispatch.append((STATS.seconds["page_encode"] - s0) * 1e3)
+        for k in out:
+            out[k][label].update(dispatch_ms=statistics.median(dispatch[2:]),
+                                 encode_ms=statistics.median(walls[2:]))
+        del data, res
     return out
 
 
@@ -561,11 +610,12 @@ def time_compiled_kernels(torch, recorded: dict, lib, stream) -> dict:
     return out
 
 
-def blocks_phase(seed: int, queries: list, plan_of, db_root: str):
+def blocks_phase(seed: int, queries: list, plan_of, db_root: str, encode_batches: list):
     """Phase 6, the block path: write, find by ID, compact and query
     vtpu1 blocks on the card and on the CPU. The card-written blocks A
-    and B are copied into the local backend at db_root for phase 7.
-    Returns (its numbers, the batches of A and B)."""
+    and B are copied into the local backend at db_root for phase 7; the
+    plans of each page-encode batch of A's card write are appended to
+    encode_batches. Returns (its numbers, the batches of A and B)."""
     import numpy as np
 
     from tempo_tpu_torch.encoding import default_encoding
@@ -624,15 +674,27 @@ def blocks_phase(seed: int, queries: list, plan_of, db_root: str):
         # the card's writes run the device page-encode arm (the switch
         # unset follows the writer's device), the CPU's the host encoders
         metas, write_s = {}, {}
+        real_prepared = tenc.encode_prepared
+
+        def recording(plans, device, staging=None):
+            encode_batches.append(list(plans))
+            return real_prepared(plans, device, staging)
+
         for dev in devices:
             pages0 = {c: tenc.device_encode_pages_total.value(codec=c) for c in LIGHT}
             k1, k2 = tenc.rle_change_mask.launches, tenc.dbp_pack.launches
+            d0 = STATS.dispatches.get("page_encode", 0)
             for k, batch in (("a", a), ("b", b)):
                 h2d0 = STATS.h2d.get("block_sketch", 0)
                 d2h0 = STATS.d2h.get("block_sketch", 0)
+                if (dev, k) == ("cuda", "a"):
+                    tenc.encode_prepared = recording
                 t0 = time.perf_counter()
-                metas[dev, k] = write_block([batch], tenant, backends[dev], cfg,
-                                            block_id=block_ids[k], device=dev)
+                try:
+                    metas[dev, k] = write_block([batch], tenant, backends[dev], cfg,
+                                                block_id=block_ids[k], device=dev)
+                finally:
+                    tenc.encode_prepared = real_prepared
                 write_s[f"{dev} {k}"] = time.perf_counter() - t0
                 print(f"phase 6 write {k} on {dev}: {write_s[f'{dev} {k}'] * 1e3:.0f} ms, "
                       f"{metas[dev, k].total_records} row groups, {metas[dev, k].size_bytes} B "
@@ -641,12 +703,22 @@ def blocks_phase(seed: int, queries: list, plan_of, db_root: str):
                       f"est_distinct {metas[dev, k].est_distinct_traces}", flush=True)
             pages = {c: tenc.device_encode_pages_total.value(codec=c) - pages0[c] for c in LIGHT}
             launched = (tenc.rle_change_mask.launches - k1, tenc.dbp_pack.launches - k2)
+            dispatches = STATS.dispatches.get("page_encode", 0) - d0
+            rgs = sum(metas[dev, k].total_records for k in "ab")
             check(all(pages.values()) if dev == "cuda" else not any(pages.values()),
                   f"phase 6 write on {dev}: device-encoded pages {pages}")
+            check(dispatches == (rgs if dev == "cuda" else 0) and max(launched) <= dispatches,
+                  f"phase 6 write on {dev}: {dispatches} page-encode dispatches, launches "
+                  f"{launched}, for {rgs} row groups")
             res.setdefault("device_encode_pages", {})[dev] = pages
+            res.setdefault("write_launches", {})[dev] = {
+                "rle_change_mask": launched[0], "dbp_pack": launched[1],
+                "page_encode_dispatches": dispatches, "row_groups": rgs}
             print(f"phase 6 write on {dev}: device page encode {'on' if dev == 'cuda' else 'off'} | "
                   f"pages encoded on the card {pages}, rle_change_mask {launched[0]} / dbp_pack "
-                  f"{launched[1]} launches", flush=True)
+                  f"{launched[1]} launches in {dispatches} page-encode dispatches for {rgs} row "
+                  f"groups ({launched[0] / rgs:.2f} / {launched[1] / rgs:.2f} launches a row "
+                  f"group)", flush=True)
         print(f"phase 6 write walls: card (device encode) {write_s['cuda a']:.2f} / "
               f"{write_s['cuda b']:.2f} s, cpu (host encode) {write_s['cpu a']:.2f} / "
               f"{write_s['cpu b']:.2f} s", flush=True)
@@ -725,6 +797,8 @@ def blocks_phase(seed: int, queries: list, plan_of, db_root: str):
         outs, compact_s = {}, {}
         for dev, path in (("cuda", "device"), ("cpu", "device"), ("cuda", "auto")):
             pages0 = {c: tenc.device_encode_pages_total.value(codec=c) for c in LIGHT}
+            k1, k2 = tenc.rle_change_mask.launches, tenc.dbp_pack.launches
+            d0 = STATS.dispatches.get("page_encode", 0)
             comp = VtpuCompactor(CompactionOptions(block_config=cfg, merge_path=path), device=dev)
             t0 = time.perf_counter()
             (outs[dev, path],) = comp.compact([metas[dev, "a"], metas[dev, "b"]], tenant,
@@ -742,8 +816,13 @@ def blocks_phase(seed: int, queries: list, plan_of, db_root: str):
                   f"{', '.join(f'{p} x{pads.count(p)}' for p in sorted(set(pads)))}) | "
                   f"sketch accumulator: {sk.launches} updates, H2D {sk.h2d_bytes} B, "
                   f"D2H {sk.d2h_bytes} B | pages encoded on the card "
-                  f"{ {c: tenc.device_encode_pages_total.value(codec=c) - pages0[c] for c in LIGHT} }",
-                  flush=True)
+                  f"{ {c: tenc.device_encode_pages_total.value(codec=c) - pages0[c] for c in LIGHT} }"
+                  f", rle_change_mask {tenc.rle_change_mask.launches - k1} / dbp_pack "
+                  f"{tenc.dbp_pack.launches - k2} launches in "
+                  f"{STATS.dispatches.get('page_encode', 0) - d0} page-encode dispatches for "
+                  f"{out.total_records} row groups written", flush=True)
+            check(STATS.dispatches.get("page_encode", 0) - d0 <= out.total_records,
+                  f"compaction {dev} {path}: more page-encode dispatches than row groups")
             if path == "device":
                 res.setdefault("device_merge_calls", {})[dev] = len(pads)
                 res.setdefault("device_merge_padded_rows", {})[dev] = sum(pads)
@@ -1647,18 +1726,14 @@ def main() -> int:
     t0 = time.perf_counter()
     n_codec = codec_kernels_check(torch, dev, rng)
     print(f"phase 2 codec kernels: {n_codec} cases equal ({time.perf_counter() - t0:.1f} s): "
-          "rle_change_mask n 2/3/9/8193 x 1/4 lanes; dbp_pack items 0(pack)/8/16/32/64 bits x "
-          "n 2/3/9/8193 x widths 0/1/31/32; rle/dbp/dct pages on the card == host pages "
-          "(1/2/4/8-byte items, negative deltas, 64-bit borrows, dct d=1 and 2^k); dbp_decode "
+          "batched rle_change_mask + dbp_pack over mixed page tables (n 2/3/9/2049/8193; rle "
+          "1/3/4/8 lanes and 600 lanes; dbp items 0(pack)/8/16/32/64 bits x widths 0/1/31/32, "
+          "20 columns of a page; dct) == plain; rle/dbp/dct pages on the card == host pages, "
+          "singly and as one batch (1/2/4/8-byte items, negative deltas, 64-bit borrows, dct "
+          "d=1 and 2^k); dbp_decode "
           "n 2/3/9/8193 x widths 0/1/31/32 == lightweight.dbp_decode and plain; "
           "compiled_metrics over 7 rle/dct/dbp mixes (inverted and empty sets, t_s < start, "
           "bins >= n_bins) == plain == a numpy interpreter over the decoded columns", flush=True)
-    for kname, rec in time_encode_kernels(torch, dev, seed, lib, stream).items():
-        kernels[kname] = rec
-        print(f"phase 2 {kname} timing ({rec['shape']}): kernel {rec['ms']:.4f} ms "
-              f"({rec['bound_ms'] / rec['ms']:.0%} of bound), path {rec['path_ms']:.4f} ms, "
-              f"plain {rec['plain_ms']:.4f} ms, library {fmt_ms(rec['library_ms'])}, "
-              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})", flush=True)
 
     # ---------------------------------------------------------------- 3 + 4
     reset_launches()
@@ -1837,35 +1912,65 @@ def main() -> int:
     t0 = time.perf_counter()
     before_s = t0 - t_script
     db_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_db_")
-    blocks, (a, b) = blocks_phase(seed, queries, plan_of, os.path.join(db_dir.name, "blocks"))
+    encode_batches: list = []  # the plans of each page-encode batch of block A's card write
+    d0 = STATS.dispatches.get("page_encode", 0)
+    blocks, (a, b) = blocks_phase(seed, queries, plan_of, os.path.join(db_dir.name, "blocks"),
+                                  encode_batches)
     blocks["launches"] = read_launches()
+    blocks["page_encode_dispatches"] = STATS.dispatches.get("page_encode", 0) - d0
     for k in block_kernels:
         check(blocks["launches"][k] > 0, f"block path: {k} never launched")
     blocks["phase_s"] = time.perf_counter() - t0
     blocks["phases_0_5_s"] = before_s
     print(f"phase 6 blocks: {blocks['phase_s']:.1f} s (phases 0-5: {before_s:.1f} s), launches "
-          f"on the block path: {blocks['launches']}", flush=True)
+          f"on the block path: {blocks['launches']}, {blocks['page_encode_dispatches']} "
+          f"page-encode dispatches", flush=True)
+    # the page-encode kernels at one row group's and one block's pages
+    t0 = time.perf_counter()
+    for kname, recs in time_encode_kernels(torch, dev, encode_batches, lib, stream).items():
+        kernels[kname] = dict(recs["row_group"], block=recs["block"])
+        for label, rec in recs.items():
+            print(f"phase 6 {kname} timing at one {label.replace('_', ' ')}'s pages "
+                  f"({rec['shape']}): kernel {rec['ms']:.4f} ms ({rec['bound_ms'] / rec['ms']:.0%} "
+                  f"of bound), path {rec['path_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+                  f"library {fmt_ms(rec['library_ms'])}, bound {rec['bound_ms']:.4f} ms "
+                  f"({rec['bound_by']}) | the writer's dispatch {rec['dispatch_ms']:.3f} ms "
+                  f"(copies, launches, stream wait), encode_prepared {rec['encode_ms']:.3f} ms",
+                  flush=True)
+    encode_batches.clear()
+    blocks["encode_timing_s"] = time.perf_counter() - t0
 
     # ---------------------------------------------------------------- 7
     reset_launches()
     recorded: dict = {}
     with db_dir:
+        d0 = STATS.dispatches.get("page_encode", 0)
         db = db_phase(seed, a, b, db_dir.name, queries, plan_of)
         db["launches"] = read_launches()
+        db["page_encode_dispatches"] = STATS.dispatches.get("page_encode", 0) - d0
         for k in block_kernels:
             check(db["launches"][k] > 0, f"storage engine path: {k} never launched")
+        for k in ("rle_change_mask", "dbp_pack"):
+            check(db["launches"][k] <= db["page_encode_dispatches"],
+                  f"storage engine path: {k} launched more than once a page-encode dispatch")
         print(f"phase 7 db: {db['phase_s']:.1f} s, launches on the storage engine's path: "
-              f"{db['launches']}", flush=True)
+              f"{db['launches']}, {db['page_encode_dispatches']} page-encode dispatches",
+              flush=True)
 
         # ------------------------------------------------------------ 8
         reset_launches()
+        d0 = STATS.dispatches.get("page_encode", 0)
         app = app_phase(seed, a, b, db_dir.name, db.pop("compacted_block_id"), queries, plan_of,
                         recorded)
     app["launches"] = read_launches()
+    app["page_encode_dispatches"] = STATS.dispatches.get("page_encode", 0) - d0
     for k in block_kernels + ("dbp_decode", "compiled_metrics"):
         check(app["launches"][k] > 0, f"server path: {k} never launched")
+    for k in ("rle_change_mask", "dbp_pack"):
+        check(app["launches"][k] <= app["page_encode_dispatches"],
+              f"server path: {k} launched more than once a page-encode dispatch")
     print(f"phase 8 app: {app['phase_s']:.1f} s, launches on the server's path: "
-          f"{app['launches']}", flush=True)
+          f"{app['launches']}, {app['page_encode_dispatches']} page-encode dispatches", flush=True)
     for k in ("seg_bincount", "rle_change_mask", "dbp_pack"):
         kernels[k]["launches_block_path"] = blocks["launches"][k]
         kernels[k]["launches_db_path"] = db["launches"][k]

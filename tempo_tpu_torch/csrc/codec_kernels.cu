@@ -27,78 +27,173 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxGrid = 132 * 16;
 
 using u64 = unsigned long long;
 
 int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
-unsigned grid_for(int64_t n) {
-  return (unsigned)std::max<int64_t>(1, std::min<int64_t>(cdiv(n, kThreads), kMaxGrid));
+// ---------------------------------------------------------------------------
+// Batched page encode: rle_change_mask and dbp_pack
+//
+// Each launch covers every page of a batch (the block writer's batch is one
+// row group's lightweight pages). The pages' u32 sources lie in one flat
+// buffer; a page table in device memory (int64 rows, offsets in u32 words)
+// says where each page's sources are, where its output words go and which
+// tile is its first; a flattened tile list (int32, one entry a tile) names
+// each tile's page, so a block finds its page with one load and no page is
+// padded or launched alone. Both kernels stage a tile in shared memory with
+// cp.async 16-byte copies (scalar loads where a segment is not 16-byte
+// aligned, and for the tail), so each input word is read from device memory
+// once and no register holds it on the way, and mask the ragged end of each
+// page themselves.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+// Issue dst[0, count) = src[0, count) for the block's threads together (dst
+// 16-byte aligned); complete with cp_async_wait_all() and a barrier.
+__device__ __forceinline__ void stage_async(uint32_t* __restrict__ dst,
+                                            const uint32_t* __restrict__ src, int64_t count) {
+  int64_t done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15u) == 0) {
+    const int64_t n4 = count >> 2;
+    for (int64_t i = threadIdx.x; i < n4; i += blockDim.x) cp_async16(dst + 4 * i, src + 4 * i);
+    done = n4 << 2;
+  }
+  for (int64_t i = done + threadIdx.x; i < count; i += blockDim.x) dst[i] = __ldg(src + i);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
 // rle_change_mask
 //
-// Replaces _rle_kernel (tempo_tpu/ops/encode.py:135-144): over (n_pad, k)
-// uint32 lanes, out[i] = row i+1 differs from row i in any lane, for
-// i < n_pad - 1. The host turns the mask into run firsts and lengths.
+// Replaces _rle_kernel (tempo_tpu/ops/encode.py:135-144): for each page of
+// (rows, lanes) uint32 lanes, mark i (i < rows - 1) = row i+1 differs from
+// row i in some lane. Marks are stored as bits, 32 rows a word (bit i % 32 of
+// word i / 32), from the page's out_off; the host turns them into run firsts
+// and lengths. Page table: in_off, rows, lanes, out_off, first_tile,
+// tile_rows.
 //
-// What bounds it: memory, 4k bytes read and one written a row. One thread a
-// row; neighbouring threads read neighbouring rows, so the loads of a warp
-// are contiguous, and each row is read by two threads (its own and the one
-// before), the second time from L1/L2.
+// What bounds it: memory, 4 * lanes bytes read a row and one bit written.
+// The earlier design (one launch a page, a thread a row, a byte a mark)
+// read each row twice (as its own row and as the row before's neighbour)
+// and paid a launch, a copy and a device-wide sync for each of a row
+// group's pages, far above the sub-microsecond bound of a page. Design: one
+// launch for the batch; a block stages one tile of a page, tile_rows rows
+// (a power of two, tile_rows * lanes <= 2048 words: every tile about 8 KB
+// whatever its lanes) plus one halo row, each row read from device memory
+// once; each thread compares its rows with the next from shared memory (as
+// 16- or 8-byte vectors where the lanes allow), a warp ballot turns 32 marks
+// into a word, and the tile's words are stored whole. Rows past the page's
+// end give zero bits.
 // ---------------------------------------------------------------------------
 
-__global__ void rle_change_mask_kernel(const uint32_t* __restrict__ a, int64_t n_pad, int32_t k,
-                                       uint8_t* __restrict__ out) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_pad - 1; i += stride) {
-    const uint32_t* r0 = a + i * k;
-    uint32_t diff = 0;
-    for (int32_t c = 0; c < k; ++c) diff |= r0[c] ^ r0[c + k];
-    out[i] = diff != 0u;
+constexpr int kRleFields = 6;
+constexpr int kMaxTileRows = 2048;
+
+__global__ void __launch_bounds__(kThreads) rle_change_mask_kernel(
+    const uint32_t* __restrict__ data, const int64_t* __restrict__ table,
+    const int32_t* __restrict__ tile_page, uint32_t* __restrict__ out) {
+  extern __shared__ uint4 rows_sh4[];
+  __shared__ uint32_t words_sh[kMaxTileRows / 32];
+  uint32_t* rows_sh = reinterpret_cast<uint32_t*>(rows_sh4);
+  const int64_t tile = blockIdx.x;
+  const int64_t* e = table + (int64_t)__ldg(tile_page + tile) * kRleFields;
+  const int64_t rows = e[1];
+  const int k = (int)e[2];
+  const int tile_rows = (int)e[5];
+  const int64_t r0 = (tile - e[4]) * tile_rows;
+  const int64_t r_end = min64(r0 + tile_rows + 1, rows);  // the tile's rows and the halo row
+  stage_async(rows_sh, data + e[0] + r0 * k, (r_end - r0) * k);
+  cp_async_wait_all();
+  __syncthreads();
+  const int64_t marks = rows - 1;
+  for (int i = threadIdx.x; i < tile_rows; i += blockDim.x) {  // tile_rows % 32 == 0: whole warps
+    bool diff = false;
+    if (r0 + i < marks) {
+      const uint32_t* a = rows_sh + i * k;
+      const uint32_t* b = a + k;
+      uint32_t x = 0;
+      if ((k & 3) == 0) {
+        for (int c = 0; c < k; c += 4) {
+          const uint4 u = *reinterpret_cast<const uint4*>(a + c);
+          const uint4 v = *reinterpret_cast<const uint4*>(b + c);
+          x |= (u.x ^ v.x) | (u.y ^ v.y) | (u.z ^ v.z) | (u.w ^ v.w);
+        }
+      } else if ((k & 1) == 0) {
+        for (int c = 0; c < k; c += 2) {
+          const uint2 u = *reinterpret_cast<const uint2*>(a + c);
+          const uint2 v = *reinterpret_cast<const uint2*>(b + c);
+          x |= (u.x ^ v.x) | (u.y ^ v.y);
+        }
+      } else {
+        for (int c = 0; c < k; ++c) x |= a[c] ^ b[c];
+      }
+      diff = x != 0u;
+    }
+    const uint32_t word = __ballot_sync(0xffffffffu, diff);
+    if ((threadIdx.x & 31) == 0) words_sh[i >> 5] = word;
   }
+  __syncthreads();
+  const int64_t w0 = r0 >> 5;
+  const int64_t n_words = min64(tile_rows >> 5, ((marks + 31) >> 5) - w0);
+  for (int j = threadIdx.x; j < n_words; j += blockDim.x) out[e[3] + w0 + j] = words_sh[j];
 }
 
 // ---------------------------------------------------------------------------
 // dbp_pack
 //
 // Replaces _dbp_kernel and _pack_kernel through _pack_lanes
-// (tempo_tpu/ops/encode.py:124-202). Delta mode (item_bits 8/16/32/64): for
-// each sub-column c of lo/hi uint32 limb planes (k, n_pad), the delta of rows
-// i and i+1 wrapped to the item width and sign-extended to 64 bits, its
-// zigzag (low limb only: widths are capped at 32), packed at the column's
-// static width w into a little-endian bit stream (value i at bits
-// [i*w, (i+1)*w)), the n_pad-th value being zero. Pack mode (item_bits 0):
-// the bitpack of a uint32 index stream (dct). The words of the stream, read
-// as bytes, are np.packbits(bitorder="little")'s bytes.
+// (tempo_tpu/ops/encode.py:124-202). Column table: lo_off, hi_off, rows,
+// item_bits, width, out_off, first_tile, 0. Delta mode (item_bits
+// 8/16/32/64): the rows - 1 deltas of rows i and i+1 of the column's uint32
+// limbs (the high limbs at hi_off for 64-bit items), wrapped to the item
+// width and sign-extended to 64 bits, zigzagged (low limb only: widths are
+// capped at 32). Pack mode (item_bits 0): the rows values as they are (a dct
+// index stream). The m values pack at the column's static width w (1..32)
+// into a little-endian bit stream, value i at bits [i*w, (i+1)*w), stored as
+// ceil(m*w/32) words from out_off whose bytes are np.packbits(bitorder=
+// "little")'s, the spare bits zero.
 //
 // What bounds it: memory, 4 (8 for 64-bit items) bytes read a value and w/8
-// written. The TPU built a (values, w) bit matrix and folded bytes with a
-// weighted sum; here one thread builds one output word from the at most
-// ceil(32/w)+1 values whose bits overlap it, computing each delta and zigzag
-// in registers from rows i and i+1: no bit matrix, no atomics, each output
-// word written once. Width 0 gives an empty stream.
+// written. The earlier design launched once a page (and once per 16 columns,
+// its column table passed by value), and built each output word from device
+// memory, recomputing the zigzag of every value whose bits straddle two
+// words. Design: the column table lives in device memory (no cap on
+// columns; both modes in one launch); a block takes kPackValues values of
+// one column, so its words are exactly 64 * w, none shared with another
+// block. It stages the values and the one after (for the last delta) in
+// shared memory, computes each zigzag once (in registers, then into shared
+// memory with one pad word every 32), and builds each output word from the
+// at most ceil(32/w) + 1 values that overlap it (a 64-bit window cut by a
+// funnel shift). Word j starts at value 32j/w, so the lanes of a warp read
+// 32/w words apart: unpadded, that is a 2- to 32-way bank conflict at the
+// small widths of dct index streams, and shared memory, not device memory,
+// became the limit; the pad word spreads those reads over the banks.
+// Consecutive threads store consecutive words, so a warp's stores coalesce.
+// Values past the column's end are zero, so the ragged end needs no padding.
 // ---------------------------------------------------------------------------
 
-constexpr int kMaxPackCols = 16;
+constexpr int kDbpFields = 8;
+constexpr int kPackValues = 2048;
+constexpr int kPackPerThread = kPackValues / kThreads;
 
-struct PackCols {
-  int32_t n_cols;
-  int32_t width[kMaxPackCols];
-  int64_t word_off[kMaxPackCols + 1];  // first output word of each column; [n_cols] = total
-};
+__device__ __forceinline__ int padded(int i) { return i + (i >> 5); }
 
-__device__ __forceinline__ uint32_t zigzag_lo(const uint32_t* __restrict__ lo,
-                                              const uint32_t* __restrict__ hi, int64_t i,
+__device__ __forceinline__ uint32_t zigzag_lo(uint32_t a, uint32_t b, uint32_t ha, uint32_t hb,
                                               int item_bits) {
-  const uint32_t a = lo[i], b = lo[i + 1];
   uint32_t d_lo, d_hi;
   if (item_bits == 64) {
     d_lo = b - a;
-    const uint32_t borrow = b < a ? 1u : 0u;
-    d_hi = hi[i + 1] - hi[i] - borrow;
+    d_hi = hb - ha - (b < a ? 1u : 0u);
   } else if (item_bits == 32) {
     d_lo = b - a;
     d_hi = 0u - (d_lo >> 31);
@@ -109,34 +204,56 @@ __device__ __forceinline__ uint32_t zigzag_lo(const uint32_t* __restrict__ lo,
     d_lo = d_w | (sign ? ~mask : 0u);
     d_hi = 0u - sign;
   }
-  const uint32_t neg = 0u - (d_hi >> 31);
-  return (d_lo << 1) ^ neg;
+  return (d_lo << 1) ^ (0u - (d_hi >> 31));
 }
 
-__global__ void dbp_pack_kernel(const uint32_t* __restrict__ lo, const uint32_t* __restrict__ hi,
-                                int64_t n_pad, int item_bits, PackCols cols,
-                                uint32_t* __restrict__ out) {
-  const int c = blockIdx.y;
-  const int64_t w = cols.width[c];
-  const int64_t n_words = cols.word_off[c + 1] - cols.word_off[c];
-  const uint32_t* lo_c = lo + (int64_t)c * n_pad;
-  const uint32_t* hi_c = item_bits == 64 ? hi + (int64_t)c * n_pad : nullptr;
-  uint32_t* out_c = out + cols.word_off[c];
+__global__ void __launch_bounds__(kThreads) dbp_pack_kernel(
+    const uint32_t* __restrict__ data, const int64_t* __restrict__ table,
+    const int32_t* __restrict__ tile_col, uint32_t* __restrict__ out) {
+  __shared__ __align__(16) uint32_t lo_sh[kPackValues + 4];
+  // the high limbs, then the zigzags (value i at padded(i))
+  __shared__ __align__(16) uint32_t hi_sh[kPackValues + kPackValues / 32 + 4];
+  const int64_t tile = blockIdx.x;
+  const int64_t* e = table + (int64_t)__ldg(tile_col + tile) * kDbpFields;
+  const int64_t rows = e[2];
+  const int item_bits = (int)e[3];
+  const int w = (int)e[4];
+  const int64_t m = item_bits ? rows - 1 : rows;
+  const int64_t v0 = (tile - e[6]) * kPackValues;
+  const int64_t count = min64(v0 + kPackValues + 1, rows) - v0;
+  stage_async(lo_sh, data + e[0] + v0, count);
+  if (item_bits == 64) stage_async(hi_sh, data + e[1] + v0, count);
+  cp_async_wait_all();
+  __syncthreads();
   const uint32_t vmask = w >= 32 ? 0xFFFFFFFFu : ((1u << w) - 1u);
-  // delta mode: n_pad - 1 zigzags, then the zero value; pack mode: n_pad values
-  const int64_t last = item_bits ? n_pad - 2 : n_pad - 1;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < n_words; j += stride) {
-    const int64_t bit0 = j * 32;
-    const int64_t i_hi = (bit0 + 31) / w;
-    const int64_t i_end = i_hi < last ? i_hi : last;
-    uint32_t word = 0;
-    for (int64_t i = bit0 / w; i <= i_end; ++i) {
-      const uint32_t z = (item_bits ? zigzag_lo(lo_c, hi_c, i, item_bits) : lo_c[i]) & vmask;
-      const int64_t b = i * w - bit0;
-      word |= b >= 0 ? (uint32_t)((u64)z << b) : (z >> (-b));
+  uint32_t z[kPackPerThread];
+#pragma unroll
+  for (int j = 0; j < kPackPerThread; ++j) {
+    const int i = threadIdx.x + j * kThreads;
+    uint32_t v = 0u;
+    if (v0 + i < m) {
+      v = item_bits == 0 ? lo_sh[i]
+          : item_bits == 64 ? zigzag_lo(lo_sh[i], lo_sh[i + 1], hi_sh[i], hi_sh[i + 1], 64)
+                            : zigzag_lo(lo_sh[i], lo_sh[i + 1], 0u, 0u, item_bits);
     }
-    out_c[j] = word;
+    z[j] = v & vmask;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kPackPerThread; ++j) hi_sh[padded(threadIdx.x + j * kThreads)] = z[j];
+  __syncthreads();
+  const int tile_words = (kPackValues / 32) * w;
+  const int64_t wbase = (tile - e[6]) * tile_words;
+  const int64_t n_words = min64(tile_words, ((m * w + 31) >> 5) - wbase);
+  uint32_t* dst = out + e[5] + wbase;
+  for (int j = threadIdx.x; j < n_words; j += blockDim.x) {
+    const int bit0 = j * 32;
+    const int i0 = bit0 / w;
+    const int s = bit0 - i0 * w;  // bits of value i0 below the word
+    unsigned long long acc = 0ull;
+    for (int i = i0, sh = 0; sh < s + 32; ++i, sh += w)
+      acc |= (unsigned long long)hi_sh[padded(i)] << sh;
+    dst[j] = __funnelshift_r((uint32_t)acc, (uint32_t)(acc >> 32), s);
   }
 }
 
@@ -375,39 +492,38 @@ __global__ void __launch_bounds__(kThreads) compiled_metrics_kernel(
 
 extern "C" {
 
-// a: (n_pad, k) uint32; out: (n_pad - 1,) uint8.
-int tt_rle_change_mask(const void* a, int64_t n_pad, int32_t k, void* out, void* stream) {
-  if (n_pad < 2) return 0;
-  rle_change_mask_kernel<<<grid_for(n_pad - 1), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)a, n_pad, k, (uint8_t*)out);
+// data: the batch's flat uint32 sources; table: pages x 6 int64 in device
+// memory (in_off, rows >= 2, lanes, out_off, first_tile, tile_rows: a
+// multiple of 32 up to 2048); tile_page: n_tiles int32 in device memory,
+// each tile's page (a page's ceil((rows - 1) / tile_rows) tiles, in order
+// from first_tile); stage_words: the most words a tile stages,
+// (tile_rows + 1) * lanes over the pages (the dynamic shared memory); out:
+// uint32 mark words.
+int tt_rle_change_mask(const void* data, const void* table, const void* tile_page,
+                       int64_t n_tiles, int32_t stage_words, void* out, void* stream) {
+  if (n_tiles == 0) return 0;
+  const size_t smem = ((size_t)stage_words * 4 + 15) & ~(size_t)15;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rle_change_mask_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  rle_change_mask_kernel<<<(unsigned)n_tiles, kThreads, smem, (cudaStream_t)stream>>>(
+      (const uint32_t*)data, (const int64_t*)table, (const int32_t*)tile_page, (uint32_t*)out);
   return (int)cudaGetLastError();
 }
 
-// lo, hi: (k, n_pad) uint32 limb planes (hi read only for item_bits 64;
-// item_bits 0 packs lo as it is); widths: k static widths <= 32;
-// word_off: k + 1 word offsets into out, uint32 words.
-int tt_dbp_pack(const void* lo, const void* hi, int64_t n_pad, int32_t item_bits,
-                const int32_t* widths, const int64_t* word_off, int32_t k, void* out,
-                void* stream) {
-  for (int32_t c0 = 0; c0 < k; c0 += kMaxPackCols) {
-    PackCols t;
-    t.n_cols = std::min(kMaxPackCols, k - c0);
-    int64_t most = 0;
-    for (int j = 0; j <= t.n_cols; ++j) t.word_off[j] = word_off[c0 + j] - word_off[c0];
-    for (int j = 0; j < t.n_cols; ++j) {
-      t.width[j] = widths[c0 + j];
-      most = std::max(most, t.word_off[j + 1] - t.word_off[j]);
-    }
-    if (most == 0) continue;
-    const dim3 grid(grid_for(most), (unsigned)t.n_cols);
-    dbp_pack_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)lo + (int64_t)c0 * n_pad,
-        hi ? (const uint32_t*)hi + (int64_t)c0 * n_pad : nullptr, n_pad, item_bits, t,
-        (uint32_t*)out + word_off[c0]);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+// data: the batch's flat uint32 sources; table: columns x 8 int64 in device
+// memory (lo_off, hi_off, rows, item_bits, width 1..32, out_off, first_tile,
+// 0); tile_col: n_tiles int32 in device memory, each tile's column (a
+// column's ceil(m / 2048) tiles for its m values, in order from first_tile);
+// out: uint32 stream words.
+int tt_dbp_pack(const void* data, const void* table, const void* tile_col, int64_t n_tiles,
+                void* out, void* stream) {
+  if (n_tiles == 0) return 0;
+  dbp_pack_kernel<<<(unsigned)n_tiles, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)data, (const int64_t*)table, (const int32_t*)tile_col, (uint32_t*)out);
+  return (int)cudaGetLastError();
 }
 
 // words: (U, words_stride) uint32; first: (U,) uint64; width: (U,) int32;

@@ -4,7 +4,9 @@ Port of tempo_tpu/encoding/vtpu/codec.py. Lightweight pages (rle, dbp,
 dct) take the device page-encode arm (ops/encode) on the writer's device
 where ops.encode.device_encode_enabled(device) says so, else the host
 encoders; both give the same bytes. The reference reads its device from
-a module global; here every writer passes the device it owns.
+a module global; here every writer passes the device it owns, and
+`encode_lightweight` encodes a writer's row group of lightweight pages
+in one device dispatch where the reference makes one a page.
 
 Fills the role of the reference's compression pools
 (tempodb/encoding/v2/pool.go:96-405 — gzip/lz4/snappy/zstd/s2 readers
@@ -112,23 +114,51 @@ def choose_codec(name: str, arr: np.ndarray, codec: str) -> str:
     return lightweight.choose_codec(name, arr, resolve_codec(codec))
 
 
-def encode(arr: np.ndarray, codec: str, device=None) -> tuple[bytes, int]:
-    """array -> (page bytes, crc32 of uncompressed payload). `device` is
-    the writer's device (None: the host); lightweight pages are encoded
-    there when the device arm is on."""
-    if codec in LIGHTWEIGHT_CODECS:
-        from tempo_tpu_torch.encoding.vtpu import lightweight
+def raw_crc(arr: np.ndarray) -> int:
+    """crc32 of the array's uncompressed bytes (a lightweight page's index crc)."""
+    return zlib.crc32(np.ascontiguousarray(arr).tobytes())
+
+
+def device_arm(device) -> bool:
+    """Whether lightweight pages of a writer on `device` take the device
+    page encode (ops.encode.device_encode_enabled)."""
+    from tempo_tpu_torch.ops import encode as device_encode
+
+    return device_encode.device_encode_enabled(device)
+
+
+def _host_light(arr: np.ndarray, codec: str) -> bytes:
+    from tempo_tpu_torch.encoding.vtpu import lightweight
+
+    return {"rle": lightweight.rle_encode, "dbp": lightweight.dbp_encode,
+            "dct": lightweight.dct_encode}[codec](arr)
+
+
+def encode_lightweight(pages: list, device=None, staging=None) -> list[bytes]:
+    """Lightweight (array, codec) pages -> their page bytes: one batched
+    dispatch of the device page encode on the writer's `device` (None:
+    the host) where the arm is on, with `staging` the writer's buffers;
+    the host encoders for the pages the device arm declines (fewer than
+    2 rows) and where the arm is off."""
+    if not pages:
+        return []
+    if device_arm(device):
         from tempo_tpu_torch.ops import encode as device_encode
 
-        raw_crc = zlib.crc32(np.ascontiguousarray(arr).tobytes())
-        if device_encode.device_encode_enabled(device):
-            page = device_encode.encode_page_device(
-                arr, codec, "cpu" if device is None else device)
-            if page is not None:  # None: fewer than 2 rows
-                return page, raw_crc
-        enc = {"rle": lightweight.rle_encode, "dbp": lightweight.dbp_encode,
-               "dct": lightweight.dct_encode}[codec]
-        return enc(arr), raw_crc
+        out = device_encode.encode_pages_device(pages, "cpu" if device is None else device,
+                                                staging)
+    else:
+        out = [None] * len(pages)
+    return [page if page is not None else _host_light(arr, cdc)
+            for page, (arr, cdc) in zip(out, pages)]
+
+
+def encode(arr: np.ndarray, codec: str, device=None) -> tuple[bytes, int]:
+    """array -> (page bytes, crc32 of uncompressed payload). `device` is
+    the writer's device (None: the host); a lightweight page is encoded
+    there, as a batch of one, when the device arm is on."""
+    if codec in LIGHTWEIGHT_CODECS:
+        return encode_lightweight([(arr, codec)], device)[0], raw_crc(arr)
     nat = native.lib()
     if nat is not None:
         if codec not in nat.PAGE_CODECS:

@@ -199,8 +199,18 @@ class BlockWriter:
         # step-partial downsampling tier (standing/rules.py): rules this
         # writer materializes per row group; () disables
         self.step_rules = sp_rules.block_rules(cfg)
+        self._staging = None
 
     # ------------------------------------------------------------------
+    def _page_staging(self):
+        """The writer's reusable buffers for the batched device page
+        encode (ops.encode.PageStaging); None while the arm is off."""
+        if self._staging is None and codec_mod.device_arm(self.device):
+            from tempo_tpu_torch.ops.encode import PageStaging
+
+            self._staging = PageStaging(self.device)
+        return self._staging
+
     def _add_rg(self, rg: fmt.RowGroupMeta) -> None:
         self.index.row_groups.append(rg)
         self._n_spans += rg.n_spans
@@ -224,7 +234,7 @@ class BlockWriter:
         partials = self._batch_partials(batch)
         for lo, hi in fmt.row_group_slices(batch, self.cfg.row_group_spans):
             payload, rg = fmt.serialize_row_group(batch, lo, hi, self.offset, self.cfg.codec,
-                                                    self.device)
+                                                    self.device, self._page_staging())
             self.backend.append_named(self.meta, DataName, payload)
             self.offset += len(payload)
             self.pages_reencoded += len(rg.pages)
@@ -351,14 +361,33 @@ class BlockWriter:
                 reencode[name] = arr
                 chosen_codecs[name] = chosen  # don't re-run the probe below
 
+        # re-encoded pages: the lightweight ones in one batched dispatch
+        # where the device arm is on, the rest one by one
+        arm = codec_mod.device_arm(self.device)
+        encoded: dict[str, tuple] = {}
+        light: list[str] = []
+        for name in rg.pages:
+            arr = reencode.get(name)
+            if arr is None:
+                continue
+            chosen = chosen_codecs.get(name) or codec_mod.choose_codec(name, arr, self.cfg.codec)
+            chosen_codecs[name] = chosen
+            if arm and chosen in codec_mod.LIGHTWEIGHT_CODECS:
+                light.append(name)
+            else:
+                encoded[name] = codec_mod.encode(arr, chosen, self.device)
+        for name, page in zip(light, codec_mod.encode_lightweight(
+                [(reencode[n], chosen_codecs[n]) for n in light], self.device,
+                self._page_staging())):
+            encoded[name] = (page, codec_mod.raw_crc(reencode[name]))
+
         payload = bytearray()
         pages: dict[str, fmt.PageMeta] = {}
         for name, pm in rg.pages.items():
             arr = reencode.get(name)
             if arr is not None:
-                chosen = chosen_codecs.get(name) or codec_mod.choose_codec(
-                    name, arr, self.cfg.codec)
-                page, crc = codec_mod.encode(arr, chosen, self.device)
+                chosen = chosen_codecs[name]
+                page, crc = encoded[name]
                 pages[name] = fmt.PageMeta(
                     offset=self.offset + len(payload), length=len(page),
                     dtype=arr.dtype.str, shape=tuple(arr.shape),

@@ -183,12 +183,14 @@ def deserialize_dictionary(raw: bytes) -> Dictionary:
 
 
 def serialize_row_group(batch: SpanBatch, lo: int, hi: int, base_offset: int,
-                        codec: str, device) -> tuple[bytes, RowGroupMeta]:
+                        codec: str, device, staging=None) -> tuple[bytes, RowGroupMeta]:
     """Serialize span rows [lo:hi) (and their attrs) as one row group.
 
     Row indices in the attr pages are rebased to the row group start so
-    each row group decodes standalone. `device` is the writer's: the
-    codec pool threads encode lightweight pages there (codec.encode).
+    each row group decodes standalone. `device` is the writer's: where
+    the device page encode is on, the row group's lightweight pages are
+    encoded there in one dispatch (codec.encode_lightweight, through the
+    writer's `staging`).
     """
     codec = codec_mod.resolve_codec(codec)
     n = hi - lo
@@ -210,14 +212,24 @@ def serialize_row_group(batch: SpanBatch, lo: int, hi: int, base_offset: int,
     # column pages compress in parallel on the codec pool (the native
     # codec releases the GIL), then assemble in deterministic order.
     # Each column picks its own codec: the lightweight tier (rle/dbp)
-    # when the data's run/delta structure earns it, else `codec`.
+    # when the data's run/delta structure earns it, else `codec`. With
+    # the device arm on, the lightweight pages wait for one batched
+    # dispatch below.
+    arm = codec_mod.device_arm(device)
+
     def enc_one(c):
         name, arr = c
         chosen = codec_mod.choose_codec(name, arr, codec)
+        if arm and chosen in codec_mod.LIGHTWEIGHT_CODECS:
+            return None, codec_mod.raw_crc(arr), chosen
         page, crc = codec_mod.encode(arr, chosen, device)
         return page, crc, chosen
 
     encoded = codec_mod.map_pages(enc_one, cols)
+    light = [i for i, (page, _, _) in enumerate(encoded) if page is None]
+    for i, page in zip(light, codec_mod.encode_lightweight(
+            [(cols[i][1], encoded[i][2]) for i in light], device, staging)):
+        encoded[i] = (page,) + encoded[i][1:]
     payload = bytearray()
     pages: dict[str, PageMeta] = {}
     for (name, arr), (page, crc, chosen) in zip(cols, encoded):

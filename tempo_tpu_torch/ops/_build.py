@@ -40,8 +40,8 @@ _SIGNATURES = {
     "tt_in_set_scan": [ctypes.POINTER(_P), ctypes.POINTER(_I32), ctypes.c_uint32, _I32, _P,
                        _I32, _I64, _I64, _P, _P],
     "tt_u64_range_scan": [_P, _P, _U64, _U64, _I64, _I64, _P, _P],
-    "tt_rle_change_mask": [_P, _I64, _I32, _P, _P],
-    "tt_dbp_pack": [_P, _P, _I64, _I32, _P, _P, _I32, _P, _P],
+    "tt_rle_change_mask": [_P, _P, _P, _I64, _I32, _P, _P],
+    "tt_dbp_pack": [_P, _P, _P, _I64, _P, _P],
     "tt_dbp_decode": [_P, _I64, _P, _P, _I32, _I64, _P, _P],
     "tt_compiled_metrics": [_P, _I32, _P, _P, _I64, _I32, _I32, _P, _P, _I32, _P, _P],
 }

@@ -51,15 +51,22 @@ def count_transfer(kernel: str, h2d: int = 0, d2h: int = 0) -> None:
         usage.charge("transfer_bytes", int(h2d) + int(d2h))
 
 
-def timed_dispatch(kernel: str, fn, *args, device: torch.device, **kwargs):
+def timed_dispatch(kernel: str, fn, *args, device: torch.device, stream=None, **kwargs):
     """Run fn(*args, **kwargs) as one device dispatch and record its wall
-    clock, synchronising `device` first when it is a CUDA device so that
-    the time includes the work, not just its launch."""
+    clock, waiting for its work first when `device` is a CUDA device so
+    that the time includes the work, not just its launch: on an event of
+    `stream` when one is given (the dispatch ran there), else on the
+    whole device."""
     t0 = time.perf_counter()
     try:
         out = fn(*args, **kwargs)
         if device.type == "cuda":
-            torch.cuda.synchronize(device)
+            if stream is None:
+                torch.cuda.synchronize(device)
+            else:
+                done = torch.cuda.Event()
+                done.record(stream)
+                done.synchronize()
         return out
     finally:
         dt = time.perf_counter() - t0

@@ -10,9 +10,14 @@ shape and length class the write path produces, at the edges of the
 power-of-two row padding. codec.encode gives the same bytes with the
 switch at 0, 1 and unset; a failing kernel raises instead of falling back
 to the host; and blocks written and compacted with the arm forced equal
-the JAX package's. The `cuda` tests hold the two kernels (rle_change_mask
-and dbp_pack) against their plain versions on the card, and a card-
-written block against the CPU's, and skip here. Tolerance: exact bytes.
+the JAX package's. Mixed batches through encode_pages_device (one
+dispatch for every page of the batch) are held page by page against the
+JAX package's encode_page_device and the host encoders, the block writer
+makes one batched call a row group, and a failing plain version raises
+through the batched path. The `cuda` tests hold the two batched kernels
+(rle_change_mask and dbp_pack) against their plain versions on the card
+over mixed page tables, and a card-written block against the CPU's, and
+skip here. Tolerance: exact bytes.
 """
 
 import numpy as np
@@ -29,6 +34,7 @@ from tempo_tpu_torch.encoding.vtpu.compactor import VtpuCompactor
 from tempo_tpu_torch.model import synth
 from tempo_tpu_torch.ops import encode as tenc
 from tempo_tpu_torch.ops import pallas_kernels
+from tempo_tpu_torch.util.devicetiming import STATS
 
 from test_torch_blocks import Pair, assert_same_objects, cuda_device  # noqa: F401
 
@@ -125,6 +131,130 @@ def test_dtype_and_length_grid(dtype, k):
             for cdc in CODECS:
                 port, jax_page, host = _pages(arr, cdc)
                 assert port == jax_page == host, (n, smooth, cdc)
+
+
+def _mixed_pages(rng, n):
+    """(array, codec) pages of every codec at n rows: u8/u16/u32/i64/u64
+    columns of shape (n,) and (n, 3), smooth and with runs; dbp columns of
+    delta widths 0, 1, 31 and 32 and a dbp page of 20 columns; dct pages
+    of index widths 0 and 1. Pages whose width the host refuses are left
+    out (a batch with one raises as a whole)."""
+    cols = [_column(rng, dtype, n, k, smooth)
+            for dtype in (np.uint8, np.uint16, np.uint32, np.int64, np.uint64)
+            for k in (1, 3) for smooth in (True, False)]
+    wide = np.concatenate([[0], rng.integers(-(1 << 29), 1 << 29, n - 1)])
+    wide[-1] = 1 << 29
+    cols += [np.full(n, 7, np.uint64), (n - np.arange(n, dtype=np.uint32) // 2),
+             np.cumsum(wide).astype(np.int64), np.cumsum(wide * 2).astype(np.int64),
+             np.cumsum(rng.integers(-3, 4, (n, 20)), axis=0).astype(np.int32),
+             rng.integers(0, 2, n).astype(np.uint32)]
+    pages = []
+    for arr in cols:
+        for cdc in CODECS:
+            try:
+                HOST_ENC[cdc](arr)
+            except ValueError:
+                continue
+            pages.append((arr, cdc))
+    return pages
+
+
+@pytest.mark.parametrize("n", [2, 3, 9, 8193])
+def test_mixed_batch_equals_jax_and_host(n):
+    """One batched dispatch over every codec, dtype, shape and edge width:
+    each page equals the JAX package's device page and the host page."""
+    pages = _mixed_pages(np.random.default_rng(n), n)
+    widths = {w for a, c in pages if c == "dbp"
+              for w in lw.dbp_parts(HOST_ENC[c](a), a.dtype.str, a.shape)[2]}
+    assert {0, 1, 31, 32} <= widths and any(a.ndim == 2 and a.shape[1] > 16 for a, _ in pages)
+    before = STATS.dispatches.get("page_encode", 0)
+    got = tenc.encode_pages_device(pages, "cpu")
+    assert STATS.dispatches.get("page_encode", 0) == before + 1
+    for (arr, cdc), page in zip(pages, got):
+        assert page == jenc.encode_page_device(arr, cdc) == HOST_ENC[cdc](arr), (arr.dtype, arr.shape, cdc)
+
+
+def test_batch_of_one():
+    arr = np.repeat(np.arange(7, dtype=np.uint64) * 3, 5)
+    for cdc in CODECS:
+        assert tenc.encode_pages_device([(arr, cdc)], "cpu") == [jenc.encode_page_device(arr, cdc)]
+        assert tenc.encode_pages_device([(arr, cdc)], "cpu") == [HOST_ENC[cdc](arr)]
+
+
+def test_batch_declines_what_the_host_takes():
+    """Under 2 rows or a codec outside the lightweight tier: None in its
+    place, the rest of the batch encoded; a batch of only those makes no
+    dispatch."""
+    arr = np.repeat(np.arange(5, dtype=np.uint32), 3)
+    before = STATS.dispatches.get("page_encode", 0)
+    assert tenc.encode_pages_device([(arr[:1], "rle"), (arr, "zstd")], "cpu") == [None, None]
+    assert STATS.dispatches.get("page_encode", 0) == before
+    got = tenc.encode_pages_device([(arr[:1], "dbp"), (arr, "rle"), (arr, "none")], "cpu")
+    assert got == [None, lw.rle_encode(arr), None]
+
+
+def test_staging_is_reused_and_grows():
+    """One writer's staging over batches of growing and shrinking sizes."""
+    staging = tenc.PageStaging("cpu")
+    rng = np.random.default_rng(5)
+    for n in (9, 70_000, 3):
+        pages = [(rng.integers(0, 4, n).astype(np.uint32), c) for c in CODECS]
+        assert tenc.encode_pages_device(pages, "cpu", staging) == [HOST_ENC[c](a) for a, c in pages]
+
+
+def test_width_over_the_cap_raises_through_the_batch():
+    pages = [(np.arange(9, dtype=np.uint32), "rle"),
+             (np.array([0, 1 << 40, 0, 1 << 40], np.uint64), "dbp")]
+    with pytest.raises(ValueError, match="exceeds cap"):
+        tenc.encode_pages_device(pages, "cpu")
+
+
+def _counting(monkeypatch, names):
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        real = getattr(tenc, name)
+
+        def counted(*a, _name=name, _real=real):
+            calls[_name] += 1
+            return _real(*a)
+
+        monkeypatch.setattr(tenc, name, counted)
+    return calls
+
+
+def test_writer_makes_one_batched_call_a_row_group(tmp_path, monkeypatch):
+    """Each row group's lightweight pages go through one batched call:
+    one plain rle_change_mask and one plain dbp_pack, one dispatch."""
+    from tempo_tpu_torch.backend import LocalBackend, TypedBackend
+    from tempo_tpu_torch.encoding.vtpu import create
+
+    calls = _counting(monkeypatch, ["_rle_change_plain", "_dbp_pack_plain", "encode_prepared"])
+    before = STATS.dispatches.get("page_encode", 0)
+    meta = create.write_block([synth.make_batch(400, 6, seed=8)], "t",
+                              TypedBackend(LocalBackend(str(tmp_path))),
+                              BlockConfig(row_group_spans=512), block_id="b", device="cpu")
+    n_rg = meta.total_records
+    assert n_rg == 5
+    assert calls == {"_rle_change_plain": n_rg, "_dbp_pack_plain": n_rg, "encode_prepared": n_rg}
+    assert STATS.dispatches.get("page_encode", 0) - before == n_rg
+
+
+@pytest.mark.parametrize("plain", ["_rle_change_plain", "_dbp_pack_plain"])
+def test_failing_plain_version_raises_through_the_batch(tmp_path, monkeypatch, plain):
+    from tempo_tpu_torch.backend import LocalBackend, TypedBackend
+    from tempo_tpu_torch.encoding.vtpu import create
+
+    def boom(*a, **kw):
+        raise RuntimeError("injected kernel failure")
+
+    monkeypatch.setattr(tenc, plain, boom)
+    arr = np.array([3, 1, 2, 1, 3, 3, 9, 9, 9], np.uint32)
+    with pytest.raises(RuntimeError, match="injected"):
+        tenc.encode_pages_device([(arr, c) for c in CODECS], "cpu")
+    with pytest.raises(RuntimeError, match="injected"):
+        create.write_block([synth.make_batch(50, 4, seed=2)], "t",
+                           TypedBackend(LocalBackend(str(tmp_path))), BlockConfig(), device="cpu")
+    assert all(tenc.encode_fallback_total.value(codec=c) == 0 for c in CODECS)
 
 
 def test_dbp_width_cap_raises_like_host():
@@ -226,6 +356,56 @@ def test_compaction_with_the_arm_forced_equals_jax(tmp_path):
 # ---------------------------------------------------------------------------
 
 
+def _staged(plans):
+    """A PageBatch of plans, its filled staging buffer as a CPU int32
+    tensor, and a zeroed output buffer."""
+    batch = tenc.PageBatch(plans)
+    buf = np.zeros(batch.in_words, np.uint32)
+    batch.fill(buf)
+    return batch, torch.from_numpy(buf.view(np.int32)), torch.zeros(max(batch.out_words, 1),
+                                                                    dtype=torch.int32)
+
+
+def _launched_on(batch, data, out, device):
+    """The batch's launches on `device` (the plain versions on the CPU) ->
+    the output words on the CPU, and the launches each kernel made."""
+    before = (tenc.rle_change_mask.launches, tenc.dbp_pack.launches)
+    got = out.clone().to(device)
+    batch.launch(data.to(device), got)
+    return got.cpu(), (tenc.rle_change_mask.launches - before[0],
+                       tenc.dbp_pack.launches - before[1])
+
+
+def _limb_plan(rng, n, item_bits, widths):
+    """A dbp plan of random limbs (masked to the item width) packed at
+    the given widths, or a pack-mode plan (item_bits 0) of random values."""
+    p = tenc.PagePlan(np.zeros(n, np.uint32), "dbp" if item_bits else "dct")
+    p.item_bits = item_bits
+    for w in widths:
+        lo = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+        if 0 < item_bits < 32:
+            lo &= np.uint32((1 << item_bits) - 1)
+        hi = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+        p.cols.append((w, lo, hi if item_bits == 64 else None))
+    return p
+
+
+def _mixed_plans(rng, n):
+    """Every codec's plans at n rows: rle pages of 1, 3, 4 and 8 lanes
+    (some rows the absent sentinel), random limbs of every item width
+    at widths 0, 1, 31 and 32, 20 dbp columns of one page, dct pages."""
+    plans = []
+    for k in (1, 3, 4, 8):
+        a = rng.integers(0, 3, (n, k)).astype(np.uint32)
+        a[rng.random(n) < 0.3] = ABSENT
+        plans.append(tenc.prepare_page(a if k > 1 else a[:, 0].copy(), "rle"))
+    for item_bits in (0, 8, 16, 32, 64):
+        plans.append(_limb_plan(rng, n, item_bits, [0, 1, 31, 32]))
+    plans.append(tenc.prepare_page(np.cumsum(rng.integers(-3, 4, (n, 20)), 0).astype(np.int32), "dbp"))
+    plans.append(tenc.prepare_page(rng.integers(0, 9, n).astype(np.uint16), "dct"))
+    return plans
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [2, 3, 9, 8193])
 @pytest.mark.parametrize("k", [1, 4])
@@ -233,11 +413,11 @@ def test_rle_change_mask_kernel_equals_plain(cuda_device, n, k):
     rng = np.random.default_rng(n * k)
     a = rng.integers(0, 3, (n, k)).astype(np.uint32)
     a[rng.random(n) < 0.3] = ABSENT
-    up = torch.from_numpy(tenc._pad_rows(a, tenc._pow2(n)).view(np.int32))
-    before = tenc.rle_change_mask.launches
-    got = tenc.rle_change_mask(up.to(cuda_device))
-    assert tenc.rle_change_mask.launches == before + 1
-    assert torch.equal(got.cpu(), tenc._rle_change_plain(up))
+    plans = [tenc.prepare_page(a, "rle"), tenc.prepare_page(a[::-1].copy(), "rle")]
+    batch, data, out = _staged(plans)
+    got, launched = _launched_on(batch, data, out, cuda_device)
+    assert launched == (1, 0)
+    assert torch.equal(got, _launched_on(batch, data, out, "cpu")[0])
 
 
 @pytest.mark.cuda
@@ -245,20 +425,42 @@ def test_rle_change_mask_kernel_equals_plain(cuda_device, n, k):
 @pytest.mark.parametrize("n", [2, 3, 9, 8193])
 def test_dbp_pack_kernel_equals_plain(cuda_device, item_bits, n):
     rng = np.random.default_rng(item_bits + n)
-    n_pad = tenc._pow2(n)
-    lo = rng.integers(0, 1 << 32, (4, n), dtype=np.uint64).astype(np.uint32)
-    hi = rng.integers(0, 1 << 32, (4, n), dtype=np.uint64).astype(np.uint32)
-    if item_bits and item_bits < 32:
-        lo &= np.uint32((1 << item_bits) - 1)
-    lo = np.ascontiguousarray(tenc._pad_rows(lo.T, n_pad).T)
-    hi = np.ascontiguousarray(tenc._pad_rows(hi.T, n_pad).T)
-    widths = [0, 1, 31, 32]
-    args = [torch.from_numpy(lo.view(np.int32)), torch.from_numpy(hi.view(np.int32))]
-    before = tenc.dbp_pack.launches
-    got = tenc.dbp_pack(*(a.to(cuda_device) for a in args), item_bits, widths)
-    assert tenc.dbp_pack.launches == before + 1
-    want = tenc._dbp_pack_plain(*args, item_bits, widths)
-    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    plans = [_limb_plan(rng, n, item_bits, [0, 1, 31, 32]), _limb_plan(rng, n, item_bits, [7])]
+    batch, data, out = _staged(plans)
+    got, launched = _launched_on(batch, data, out, cuda_device)
+    assert launched == (0, 1)
+    assert torch.equal(got, _launched_on(batch, data, out, "cpu")[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3, 9, 2049, 8193])
+def test_batched_kernels_on_mixed_tables_equal_plain(cuda_device, n):
+    """Every codec, item width and edge width in one batch: one launch of
+    each kernel, the same words as the plain versions."""
+    batch, data, out = _staged(_mixed_plans(np.random.default_rng(n), n))
+    got, launched = _launched_on(batch, data, out, cuda_device)
+    assert launched == (1, 1)
+    assert torch.equal(got, _launched_on(batch, data, out, "cpu")[0])
+
+
+@pytest.mark.cuda
+def test_wide_rle_rows_take_opted_in_shared_memory(cuda_device):
+    """600 lanes a row: 32-row tiles of 77 KB, above the 48 KB default."""
+    rng = np.random.default_rng(600)
+    a = rng.integers(0, 2, (300, 600)).astype(np.uint32).repeat(2, axis=0)
+    batch, data, out = _staged([tenc.prepare_page(a, "rle")])
+    assert batch.rle_table[0, 5] == 32
+    got, _ = _launched_on(batch, data, out, cuda_device)
+    assert torch.equal(got, _launched_on(batch, data, out, "cpu")[0])
+
+
+@pytest.mark.cuda
+def test_pages_batch_on_the_card_equals_host(cuda_device):
+    arrs = [(arr, c) for arr, c in ((p.values[0], p.values[1]) for p in CASES)]
+    before = STATS.dispatches.get("page_encode", 0)
+    got = tenc.encode_pages_device(arrs, cuda_device)
+    assert STATS.dispatches.get("page_encode", 0) == before + 1
+    assert got == [HOST_ENC[c](arr) for arr, c in arrs]
 
 
 @pytest.mark.cuda

@@ -190,7 +190,8 @@ def test_no_import_of_jax_or_tempo_tpu_in_port_sources():
     import re
 
     pat = re.compile(r"^\s*(import|from)\s+(jax|tempo_tpu)(\.|\s|$)")
-    paths = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tools", "profile_torch_port.py")]
+    paths = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tools", "profile_torch_port.py"),
+             os.path.join(ROOT, "tools", "sweep_page_encode.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "tempo_tpu_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     bad = []
