@@ -9,8 +9,8 @@ Phases, one line each (any failure exits non-zero):
    power limit;
 1. build: nvcc builds csrc/kernels.cu (the three Pallas kernels' ports)
    and csrc/codec_kernels.cu (the batched rle_change_mask and dbp_pack of
-   the device page encode, dbp_decode and compiled_metrics of the
-   compiled query tier), one nvcc a source, in parallel, and ptxas
+   the device page encode, dbp_decode of the device page decode and
+   compiled_metrics of the compiled query tier), one nvcc a source, in parallel, and ptxas
    reports each kernel's registers, static shared memory and spills;
 2. kernels: each CUDA kernel against its plain PyTorch version on the
    card, bit for bit, at the main path's shapes and at edge shapes (the
@@ -24,9 +24,11 @@ Phases, one line each (any failure exits non-zero):
    library call where there is one (both timed as path time), and its
    bound (rle_change_mask and dbp_pack are timed after phase 6, at one
    row group's and one block's pages of its card write, with the
-   writer's whole dispatch by host clock; dbp_decode and
-   compiled_metrics after phase 8, on the inputs of phase 8's largest
-   compiled dispatch);
+   writer's whole dispatch by host clock; dbp_decode after phase 8 on
+   the inputs of phase 8's largest compiled dispatch with a dbp column and
+   on phase 5's page, and the compiled dispatch as a whole, all its
+   launches in one graph, on those inputs and on a copy with four query
+   lanes, against the bound of the fused program's work);
 3. compaction: the flagship step (entry.entry) at 2**22 rows, bit-equal
    between the card and the CPU;
 4. metrics: three TraceQL query_range queries over 2**22 synthetic spans
@@ -34,7 +36,10 @@ Phases, one line each (any failure exits non-zero):
    matrix pipeline, equal between the card and the CPU, with each
    query's kernel launches and device-to-host bytes;
 5. scan: in_set_scan and u64_range_scan over the same 2**22 spans'
-   columns, against a numpy oracle, then timed as in phase 2;
+   columns, against a numpy oracle, then timed as in phase 2, and the
+   device page decode (dbp_decode_device, which the script calls itself:
+   no served path decodes dbp on the card) of one 2**20-row dbp page of
+   their durations, against the column;
 6. blocks: the vtpu1 block lifecycle at a compactor job's size. Two
    blocks of 2**20 spans (131,072 traces x 8 spans each; 1/8 of the
    second block's traces are copies of the first's) are written with
@@ -78,8 +83,10 @@ Phases, one line each (any failure exits non-zero):
    accumulator on the same backend; seg_bincount must launch); four
    simple-count query_range queries (no by(): a set on an rle column, one
    on a dct column, inverted ones, a duration range on a dbp column),
-   each twice, through the compiled tier (the same matrices; dbp_decode
-   and compiled_metrics launch once a codec group, seg_bincount never;
+   each twice, through the compiled tier (the same matrices;
+   compiled_metrics once a codec group in at most two kernel launches, a
+   prepare launch where a group has an rle column or a dbp column of more
+   than one tile, then the count; dbp_decode and seg_bincount never;
    the insights record reads compiledShape miss, then hit), and
    /api/query-insights with the tier's cache stats. Every other answer
    is held against a numpy oracle.
@@ -89,8 +96,10 @@ path, phase 7 the storage engine's path and phase 8 the server's path:
 each is run with the kernels' launch counts set to 0 just before it,
 and every kernel of the path must have launched (phases 6-8 each
 rle_change_mask, dbp_pack and seg_bincount, each page-encode kernel at
-most once a page-encode dispatch; phase 8 also dbp_decode and
-compiled_metrics). The script then prints
+most once a page-encode dispatch; phase 5 also dbp_decode, which it
+calls itself through dbp_decode_device, since no served path decodes dbp
+on the card; phase 8 also compiled_metrics, and never dbp_decode, which
+the compiled tier fuses into its count). The script then prints
 one JSON line of per-kernel and per-phase numbers (phase 6's under
 "blocks", phase 7's under "db", phase 8's under "app"), the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Without a CUDA
@@ -360,9 +369,10 @@ def codec_kernels_check(torch, dev, rng) -> int:
     check(tenc.encode_pages_device(batch_pages, dev) == [host[c](a) for a, c in batch_pages],
           "a batch of pages on the card != the host pages")
     cases += 1
-    # dbp_decode: n = 2, 3, 9, 8193 at widths 0, 1, 31, 32, against the
-    # host decoder (a page a unit) and the plain version (stacked units)
-    for n in (2, 3, 9, 8193):
+    # dbp_decode: n = 2, 3, 9, a tile's 2048 +- 1, 8193 at widths 0, 1, 31,
+    # 32, against the host decoder (a page a unit) and the plain version
+    # (stacked units)
+    for n in (2, 3, 9, 2047, 2049, 8193):
         units = [dbp_unit(rng, n, w) for w in (0, 1, 31, 32)]
         for col, page, _ in units:
             check(np.array_equal(pk.dbp_decode_device(page, col.dtype.str, col.shape, dev), col),
@@ -547,66 +557,135 @@ def time_encode_kernels(torch, dev, recorded: list, lib, stream) -> dict:
     return out
 
 
-def time_compiled_kernels(torch, recorded: dict, lib, stream) -> dict:
-    """dbp_decode and compiled_metrics at the shapes phase 8's simple-count
-    query_range gave them: the largest recorded dispatch with a dbp
-    column, on its own inputs (still on the card)."""
+def tile_bin_spans(torch, tile: int, t_s, valid, tb, nb, slot_pad: int) -> tuple:
+    """The bins a row tile's in-window rows span (last - first + 1) over
+    every (lane, unit, tile of `tile` rows) with a valid row in the lane's
+    window, binned as the count kernel bins them: (min, median, max), or
+    (0, 0.0, 0) when no tile has one. t_s and tb hold uint32 bits."""
+    n_units, n_pad = t_s.shape
+    pad = -n_pad % tile
+    ts = torch.nn.functional.pad(t_s.to(torch.int64) & 0xFFFFFFFF, (0, pad))
+    ok = torch.nn.functional.pad(valid.bool(), (0, pad))
+    ts, ok = ts.view(n_units, -1, tile), ok.view(n_units, -1, tile)
+    spans = []
+    for (start, step), n_bins in zip((tb.to(torch.int64) & 0xFFFFFFFF).tolist(), nb.tolist()):
+        rel = ts - start
+        inwin = ok & (rel >= 0) & (rel < min(int(n_bins), slot_pad) * step)
+        b = torch.div(rel, step, rounding_mode="floor")
+        hi = torch.where(inwin, b, torch.full_like(b, -1)).amax(-1)
+        lo = torch.where(inwin, b, torch.full_like(b, 1 << 40)).amin(-1)
+        spans.append((hi - lo + 1)[hi >= 0])
+    s = torch.cat(spans).double()
+    if s.numel() == 0:
+        return 0, 0.0, 0
+    return int(s.min()), float(s.median()), int(s.max())
+
+
+def time_compiled_kernels(torch, recorded: dict, long_dbp: tuple, lib, stream) -> dict:
+    """dbp_decode and the compiled dispatch at the shapes the main path
+    gave them. dbp_decode at phase 8's largest dispatch with a dbp column
+    (its U units of n_pad rows, on their own inputs still on the card) and
+    at phase 5's page-decode shape (one unit of 2^20 values: long_dbp =
+    (words, first, width, n)). The compiled dispatch as a whole (every
+    launch it makes, in one graph) at the same phase-8 dispatch and at a
+    copy of it with Q=4 lanes of shifted windows. The dispatch's bound is
+    the work of the fused program whatever implements it: each input read
+    once (t_s, valid, the words the dbp deltas occupy, rle runs, dct
+    dictionaries and indices, codes, bounds), the counts written once, no
+    decoded column."""
     from tempo_tpu_torch.compiled import program
     from tempo_tpu_torch.ops import _build
     from tempo_tpu_torch.ops import pallas_kernels as pk
+
+    def decode_case(words, first, width, n):
+        n_units, wp = words.shape
+        dec = torch.empty((n_units, n), dtype=torch.int64, device=words.device)
+        sums = torch.empty((n_units, -(-n // lib.tt_dbp_tile())), dtype=torch.int64,
+                           device=words.device)
+        launched = ctypes.c_int32(0)
+
+        def launch():
+            _build.check(lib.tt_dbp_decode(words.data_ptr(), wp, first.data_ptr(),
+                                           width.data_ptr(), n_units, n, sums.data_ptr(),
+                                           dec.data_ptr(), ctypes.byref(launched), stream()),
+                         "dbp_decode")
+
+        launch()
+        check(torch.equal(dec, pk._dbp_decode_plain(words, first, width, n)),
+              f"dbp_decode U={n_units} n={n}: kernel != plain")
+        # the library line: torch.cumsum over the unpacked deltas
+        deltas = torch.diff(dec, dim=1, prepend=torch.zeros_like(dec[:, :1]))
+        # the bound of the decode alone: the words array as stored, first and width, the output
+        bnd, by = bound_ms(words.numel() * 4 + n_units * 12 + dec.numel() * 8, 12 * dec.numel())
+        return dict(
+            shape=f"U={n_units} units x n={n}, {wp} words a unit, widths "
+                  f"{sorted(set(width.tolist()))[:4]}", max_abs_err=0,
+            ms=kernel_ms(torch, [launch]), kernels_a_call=launched.value,
+            path_ms=path_ms(torch, lambda: pk.dbp_decode_limbs(words, first, width, n)),
+            plain_ms=path_ms(torch, lambda: pk._dbp_decode_plain(words, first, width, n)),
+            bound_ms=bnd, bound_by=by,
+            library_ms=path_ms(torch, lambda: torch.cumsum(deltas, dim=1)))
 
     sig, args = recorded["sig"], recorded["args"]
     t_s, valid, payloads, qargs, tb, nb = args
     sig_cols, n_pad, slot_pad, q = sig
     c_dbp = next(c for c, col in enumerate(sig_cols) if col[0] == "dbp")
-    words, first, width = payloads[c_dbp]
-    n_units, wp = words.shape
-    dec = torch.empty((n_units, n_pad), dtype=torch.int64, device=words.device)
+    out = {"dbp_decode": decode_case(*payloads[c_dbp], n_pad)}
+    out["dbp_decode"]["long_unit"] = decode_case(*long_dbp)
 
-    def dec_launch():
-        _build.check(lib.tt_dbp_decode(words.data_ptr(), wp, first.data_ptr(), width.data_ptr(),
-                                       n_units, n_pad, dec.data_ptr(), stream()), "dbp_decode")
+    def dispatch_case(sig, args):
+        t_s, valid, payloads, qargs, tb, nb = args
+        sig_cols, n_pad, slot_pad, q = sig
+        n_units = t_s.shape[0]
+        desc, scratch = program._describe(sig, t_s, payloads, qargs)
+        counts = torch.zeros((q, slot_pad), dtype=torch.int64, device=t_s.device)
+        launched = ctypes.c_int32(0)
 
-    dec_launch()
-    check(torch.equal(dec, pk._dbp_decode_plain(words, first, width, n_pad)),
-          "dbp_decode at phase 8's shape: kernel != plain")
-    # the library line: torch.cumsum over the unpacked deltas
-    deltas = torch.diff(dec, dim=1, prepend=torch.zeros_like(dec[:, :1]))
-    ms = kernel_ms(torch, [dec_launch])
-    bnd, by = bound_ms(words.numel() * 4 + n_units * 12 + dec.numel() * 8, 12 * dec.numel())
-    out = {"dbp_decode": dict(
-        shape=f"U={n_units} units x n_pad={n_pad}, {wp} words a unit", max_abs_err=0, ms=ms,
-        path_ms=path_ms(torch, lambda: pk.dbp_decode_limbs(words, first, width, n_pad)),
-        plain_ms=path_ms(torch, lambda: pk._dbp_decode_plain(words, first, width, n_pad)),
-        bound_ms=bnd, bound_by=by, library_ms=path_ms(torch, lambda: torch.cumsum(deltas, dim=1)))}
-    decoded = {c: pk.dbp_decode_limbs(*payloads[c], n_pad)
-               for c, col in enumerate(sig_cols) if col[0] == "dbp"}
-    desc, scratch = program._describe(sig, t_s, payloads, qargs, decoded)
-    counts = torch.zeros((q, slot_pad), dtype=torch.int64, device=t_s.device)
+        def launch():  # the dispatch's launches: its counts zeroed, then its kernels
+            counts.zero_()
+            _build.check(lib.tt_compiled_metrics(desc.ctypes.data, len(sig_cols), t_s.data_ptr(),
+                                                 valid.data_ptr(), n_pad, n_units, q,
+                                                 tb.data_ptr(), nb.data_ptr(), slot_pad,
+                                                 counts.data_ptr(), ctypes.byref(launched),
+                                                 stream()), "compiled_metrics")
 
-    def metrics_launch():
-        _build.check(lib.tt_compiled_metrics(desc.ctypes.data, len(sig_cols), t_s.data_ptr(),
-                                             valid.data_ptr(), n_pad, n_units, q, tb.data_ptr(),
-                                             nb.data_ptr(), slot_pad, counts.data_ptr(), stream()),
-                     "compiled_metrics")
+        launch()
+        check(torch.equal(counts, program._metrics_plain(sig, *args)),
+              f"compiled_metrics Q={q} at phase 8's shape: kernel != plain")
+        ms = kernel_ms(torch, [launch])
+        rows = t_s.numel()
+        nbytes = rows * 5 + q * slot_pad * 8 + tb.numel() * 4 + nb.numel() * 4
+        for (codec, _kind, _inv, _pad), payload, qa in zip(sig_cols, payloads, qargs):
+            nbytes += qa.numel() * qa.element_size()
+            if codec == "dbp":
+                words, first, width = payload
+                nbytes += sum(((n_pad - 1) * int(w) + 31) // 32 * 4 for w in width.tolist())
+                nbytes += n_units * 12
+            else:
+                nbytes += sum(x.numel() * x.element_size() for x in payload)
+        n_dbp = sum(1 for c in sig_cols if c[0] == "dbp")
+        bnd, by = bound_ms(nbytes, rows * (4 + 12 * n_dbp + q * (2 + 2 * len(sig_cols))))
+        res = dict(
+            shape=f"Q={q} U={n_units} n_pad={n_pad} columns {'+'.join(c[0] for c in sig_cols)} "
+                  f"slot_pad={slot_pad}", max_abs_err=0, ms=ms,
+            kernels_a_dispatch=launched.value,
+            path_ms=path_ms(torch, lambda: program.compiled_metrics(sig, *args)),
+            plain_ms=path_ms(torch, lambda: program._metrics_plain(sig, *args)),
+            bound_ms=bnd, bound_by=by, bound_bytes=nbytes, library_ms=None,
+            tile_bins=tile_bin_spans(torch, lib.tt_dbp_tile(), t_s, valid, tb, nb, slot_pad))
+        del scratch
+        return res
 
-    metrics_launch()
-    check(torch.equal(counts, program._metrics_plain(sig, *args)),
-          "compiled_metrics at phase 8's shape: kernel != plain")
-    ms = kernel_ms(torch, [metrics_launch])
-    nbytes = t_s.numel() * 5 + q * slot_pad * 8
-    for (codec, kind, _inv, _pad), payload, qa in zip(sig_cols, payloads, qargs):
-        nbytes += qa.numel() * qa.element_size()
-        nbytes += (n_units * n_pad * 8 if codec == "dbp"
-                   else sum(x.numel() * x.element_size() for x in payload))
-    bnd, by = bound_ms(nbytes, q * t_s.numel() * (4 + 2 * len(sig_cols)))
-    out["compiled_metrics"] = dict(
-        shape=f"Q={q} U={n_units} n_pad={n_pad} columns {'+'.join(c[0] for c in sig_cols)} "
-              f"slot_pad={slot_pad}", max_abs_err=0, ms=ms,
-        path_ms=path_ms(torch, lambda: program.compiled_metrics(sig, *args)),
-        plain_ms=path_ms(torch, lambda: program._metrics_plain(sig, *args)),
-        bound_ms=bnd, bound_by=by, library_ms=None)
-    del scratch
+    out["compiled_metrics"] = dispatch_case(sig, args)
+    # Q=4: the same units, each lane's window one step later than the last
+    q4 = 4
+    step = int(tb[0, 1])
+    tb4 = torch.stack([tb[0] + torch.tensor([k * step, 0], dtype=tb.dtype, device=tb.device)
+                       for k in range(q4)])
+    nb4 = nb[:1].repeat(q4)
+    qargs4 = tuple(qa[:1].repeat(q4, *([1] * (qa.dim() - 1))).contiguous() for qa in qargs)
+    out["compiled_metrics"]["q4"] = dispatch_case(
+        (sig_cols, n_pad, slot_pad, q4), (t_s, valid, payloads, qargs4, tb4.contiguous(), nb4))
     return out
 
 
@@ -1204,6 +1283,7 @@ def app_phase(seed: int, a, b, root: str, at_rest_block: str, queries: list, pla
     from tempo_tpu_torch.model.columnar import VT_INT, VT_STR, SpanBatch
     from tempo_tpu_torch.model.trace import batch_to_traces
     from tempo_tpu_torch.modules.overrides import Limits
+    from tempo_tpu_torch.ops import _build
     from tempo_tpu_torch.ops import pallas_kernels as pk
     from tempo_tpu_torch.compiled import executor, program
     from tempo_tpu_torch.compiled.lower import lower_metrics_plan
@@ -1224,12 +1304,14 @@ def app_phase(seed: int, a, b, root: str, at_rest_block: str, queries: list, pla
         def rec(*args):
             mix = tuple(c[0] for c in sig[0])
             recorded["mixes"].append(mix)
+            recorded["n_pads"].append(sig[1])
             if "dbp" in mix and args[0].numel() > recorded.get("rows", -1):
                 recorded.update(rows=args[0].numel(), sig=sig, args=args)
             return prog(*args)
         return rec
 
-    recorded["mixes"] = []
+    recorded["mixes"], recorded["n_pads"] = [], []
+    tile = _build.lib().tt_dbp_tile()
     executor.build_metrics_program = recording_build
     t_phase = time.perf_counter()
     app_root = os.path.join(root, "app")
@@ -1408,8 +1490,9 @@ def app_phase(seed: int, a, b, root: str, at_rest_block: str, queries: list, pla
                   "device-to-host", flush=True)
 
         # ------------------------------------- simple-count query_range
-        # the compiled tier: one fused dispatch (dbp_decode + compiled_metrics)
-        # per codec group of a job, seg_bincount never; each query twice,
+        # the compiled tier: one fused dispatch (compiled_metrics: at most a
+        # prepare and a count launch) per codec group of a job, dbp_decode
+        # and seg_bincount never; each query twice,
         # its insights record reading miss, then hit
         insights.LOG.configure(sample_every=1)
         res["compiled"] = []
@@ -1424,6 +1507,7 @@ def app_phase(seed: int, a, b, root: str, at_rest_block: str, queries: list, pla
             want = M.finalize_matrix(plan, merged)
             for rep, verdict in ((1, "miss"), (2, "hit")):
                 before = {k: fn.launches for k, fn in counters.items()}
+                kernels_before = program.compiled_metrics.kernel_launches
                 n_mix = len(recorded["mixes"])
                 status, body = http("query_range compiled", "GET", "/api/metrics/query_range?"
                                     + urllib.parse.urlencode({"q": q, "start": plan.start_s,
@@ -1441,8 +1525,17 @@ def app_phase(seed: int, a, b, root: str, at_rest_block: str, queries: list, pla
                       == doc["metrics"]["deviceDispatches"],
                       f"phase 8 compiled {q}: launches {launched}, {len(mixes)} dispatches, "
                       f"deviceDispatches {doc['metrics']['deviceDispatches']}")
-                check(launched["dbp_decode"] == sum(mix.count("dbp") for mix in mixes),
-                      f"phase 8 compiled {q}: {launched['dbp_decode']} dbp_decode launches")
+                # each dispatch: a prepare launch when it has an rle column
+                # or a dbp column of more than one tile, then the count
+                # launch; the dbp decode is fused in, so no dbp_decode launch
+                kernel_launches = program.compiled_metrics.kernel_launches - kernels_before
+                want_kernels = sum(1 + int("rle" in mix or ("dbp" in mix and n_pad > tile))
+                                   for mix, n_pad in zip(mixes, recorded["n_pads"][n_mix:]))
+                check(kernel_launches == want_kernels and kernel_launches <= 2 * len(mixes)
+                      and launched["dbp_decode"] == 0,
+                      f"phase 8 compiled {q}: {kernel_launches} compiled_metrics kernel launches "
+                      f"for {len(mixes)} dispatches (wanted {want_kernels}), "
+                      f"{launched['dbp_decode']} dbp_decode launches")
                 rec = json.loads(http("query insights", "GET", "/api/query-insights?limit=1")[1])
                 shape = rec["insights"][0].get("compiledShape")
                 check(rec["insights"][0]["kind"] == "query_range" and shape == verdict,
@@ -1451,13 +1544,15 @@ def app_phase(seed: int, a, b, root: str, at_rest_block: str, queries: list, pla
                                             dispatches=len(mixes), mixes=sorted(set(mixes)),
                                             launches={k: launched[k] for k in
                                                       ("compiled_metrics", "dbp_decode")},
+                                            kernel_launches=kernel_launches,
                                             result=want["result"]))
                 print(f"phase 8 query_range compiled #{rep}: {q} | {len(doc['data']['result'])} "
                       f"series = evaluate_block on the cpu | {ms:.1f} ms, compiledShape {shape}, "
                       f"{len(mixes)} dispatches (codec groups "
                       f"{', '.join('+'.join(m) for m in sorted(set(mixes)))}), compiled_metrics "
-                      f"{launched['compiled_metrics']} / dbp_decode {launched['dbp_decode']} / "
-                      f"seg_bincount 0 launches", flush=True)
+                      f"{launched['compiled_metrics']} dispatches in {kernel_launches} kernel "
+                      f"launches / dbp_decode {launched['dbp_decode']} / seg_bincount 0 launches",
+                      flush=True)
         # the same queries through the interpreter (the tier switched off),
         # for the latency beside the tier's
         for q in SIMPLE_COUNT:
@@ -1525,6 +1620,7 @@ def main() -> int:
     import numpy as np
 
     from tempo_tpu_torch import metrics_engine as M
+    from tempo_tpu_torch.encoding.vtpu import lightweight as lw
     from tempo_tpu_torch.entry import entry
     from tempo_tpu_torch.model import synth
     from tempo_tpu_torch.ops import _build
@@ -1557,8 +1653,9 @@ def main() -> int:
               f"{r.get('spill_loads')} B loaded", flush=True)
     print("phase 1 dynamic smem: seg_bincount_kernel<weighted,0> (dense) 4 B a slot "
           "(n_slots <= 49,152: up to 196,608 B, opted in above 48 KiB), <weighted,1> (hashed) "
-          "65,536 B; in_set_scan_kernel 4 B a code of its columns; compiled_metrics_kernel "
-          "4 B a bin (slot_pad <= 12,288, else none)", flush=True)
+          "65,536 B; in_set_scan_kernel 4 B a code of its columns; compiled_count_kernel "
+          "its tile's staged dbp words, masks and rle runs, and 4 B a bin a query lane where "
+          "that fits 227 KB (else none: global atomics)", flush=True)
 
     def stream() -> int:
         return torch.cuda.current_stream().cuda_stream
@@ -1731,7 +1828,7 @@ def main() -> int:
           "20 columns of a page; dct) == plain; rle/dbp/dct pages on the card == host pages, "
           "singly and as one batch (1/2/4/8-byte items, negative deltas, 64-bit borrows, dct "
           "d=1 and 2^k); dbp_decode "
-          "n 2/3/9/8193 x widths 0/1/31/32 == lightweight.dbp_decode and plain; "
+          "n 2/3/9/2047/2049/8193 x widths 0/1/31/32 == lightweight.dbp_decode and plain; "
           "compiled_metrics over 7 rle/dct/dbp mixes (inverted and empty sets, t_s < start, "
           "bins >= n_bins) == plain == a numpy interpreter over the decoded columns", flush=True)
 
@@ -1819,13 +1916,34 @@ def main() -> int:
     rng_hit = pk.u64_range_scan(dur, lo_ns, hi_ns, n_rows).cpu().numpy()
     check(np.array_equal(rng_hit, (cat["duration_nano"] >= lo_ns) & (cat["duration_nano"] <= hi_ns)),
           "scan path: u64_range_scan != numpy oracle")
+    # the device page decode, called here directly (no served path calls it
+    # until the resident dbp range scan, ROADMAP Queue 2 item 5): the first
+    # 2^20 spans' durations as one dbp page (width 31), decoded on the card
+    n_long = 1 << 20
+    long_col = cat["duration_nano"][:n_long]
+    long_page = lw.dbp_encode(long_col)
+    kernels_before = pk.dbp_decode_limbs.kernel_launches
+    decoded = pk.dbp_decode_device(long_page, long_col.dtype.str, long_col.shape, dev)
+    check(np.array_equal(decoded, long_col), "scan path: dbp_decode_device != the column")
     scan_launches = {"in_set_scan": pk.in_set_scan.launches,
-                     "u64_range_scan": pk.u64_range_scan.launches}
+                     "u64_range_scan": pk.u64_range_scan.launches,
+                     "dbp_decode": pk.dbp_decode_limbs.launches}
     for k, n in scan_launches.items():
         check(n > 0, f"scan path: {k} never launched")
+    first, _anchors, widths, streams, _n = lw.dbp_parts(long_page, long_col.dtype.str,
+                                                        long_col.shape)
+    raw = bytes(streams[0])
+    long_words = np.frombuffer(raw + b"\x00" * ((-len(raw)) % 4 + 4), "<u4")
+    long_dbp = (torch.from_numpy(long_words.view(np.int32).copy()).to(dev)[None, :],
+                torch.tensor([int(first[0])], dtype=torch.uint64).view(torch.int64).to(dev),
+                torch.tensor([widths[0]], dtype=torch.int32, device=dev), n_long)
     print(f"phase 5 scan: {n_rows} spans, service/name/method/status in-set -> "
           f"{int(hit.sum())} rows, duration in [100ms, 500ms] -> {int(rng_hit.sum())} rows; "
-          f"both equal the numpy oracle", flush=True)
+          f"both equal the numpy oracle; chip_smoke's own dbp_decode_device call (no served "
+          f"path decodes dbp): a {n_long}-row dbp page of durations (width "
+          f"{widths[0]}) decoded on the card == the column ({scan_launches['dbp_decode']} "
+          f"dbp_decode call, {pk.dbp_decode_limbs.kernel_launches - kernels_before} kernel "
+          f"launches)", flush=True)
 
     # time the scan kernels at the scan path's shapes, each launch on one of
     # three copies of the columns (> 2 x L2), as a scan over resident
@@ -1964,8 +2082,10 @@ def main() -> int:
                         recorded)
     app["launches"] = read_launches()
     app["page_encode_dispatches"] = STATS.dispatches.get("page_encode", 0) - d0
-    for k in block_kernels + ("dbp_decode", "compiled_metrics"):
+    for k in block_kernels + ("compiled_metrics",):
         check(app["launches"][k] > 0, f"server path: {k} never launched")
+    # the compiled tier fuses the dbp decode: dbp_decode is on the scan path only
+    check(app["launches"]["dbp_decode"] == 0, "server path: dbp_decode launched")
     for k in ("rle_change_mask", "dbp_pack"):
         check(app["launches"][k] <= app["page_encode_dispatches"],
               f"server path: {k} launched more than once a page-encode dispatch")
@@ -1978,14 +2098,26 @@ def main() -> int:
     for k in ("rle_change_mask", "dbp_pack"):
         kernels[k]["launches"] = blocks["launches"][k]
 
-    # the compiled tier's kernels at the shapes phase 8 gave them
-    for kname, rec in time_compiled_kernels(torch, recorded, lib, stream).items():
-        kernels[kname] = dict(rec, launches=app["launches"][kname])
-        print(f"phase 8 {kname} timing ({rec['shape']}): kernel {rec['ms']:.4f} ms "
-              f"({rec['bound_ms'] / rec['ms']:.0%} of bound), path {rec['path_ms']:.4f} ms, "
-              f"plain {rec['plain_ms']:.4f} ms, library {fmt_ms(rec['library_ms'])}, "
-              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})", flush=True)
+    # dbp_decode and the compiled dispatch at the shapes phases 5 and 8 gave them
+    for kname, rec in time_compiled_kernels(torch, recorded, long_dbp, lib, stream).items():
+        kernels[kname] = dict(rec, launches=scan_launches["dbp_decode"] if kname == "dbp_decode"
+                              else app["launches"][kname])
+        for label, r in (("", rec), (" one long unit", rec.get("long_unit")),
+                         (" Q=4", rec.get("q4"))):
+            if r is None:
+                continue
+            launches = r.get("kernels_a_call", r.get("kernels_a_dispatch"))
+            where = ("phase 8" if kname == "compiled_metrics"
+                     else "off the served paths, chip_smoke's own call:")
+            print(f"{where} {kname}{label} timing ({r['shape']}): kernel {r['ms']:.5f} ms "
+                  f"({r['bound_ms'] / r['ms']:.0%} of bound, {launches} kernel launches), "
+                  f"path {r['path_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+                  f"{fmt_ms(r['library_ms'])}, bound {r['bound_ms']:.5f} ms ({r['bound_by']})"
+                  + (" | bins a row tile's in-window rows span (min, median, max): "
+                     f"{r['tile_bins']}" if "tile_bins" in r else ""), flush=True)
+    kernels["dbp_decode"]["launches_app_path"] = app["launches"]["dbp_decode"]
     recorded.clear()
+    del long_dbp
 
     source = {k: "tempo_tpu_torch/csrc/kernels.cu"
               for k in ("seg_bincount", "in_set_scan", "u64_range_scan")}

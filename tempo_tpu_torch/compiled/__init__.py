@@ -4,8 +4,8 @@ Port of tempo_tpu/compiled/. One normalized query shape
 (util/queryshape) -> one lowering verdict; one static signature (codec
 mix, pad widths) -> ONE fused program whose literals and time bounds are
 runtime arguments. A simple-count metrics query over blocks then runs as
-one dispatch per codec group (the hand-written dbp_decode and
-compiled_metrics kernels on the card) instead of the interpreter's
+one dispatch per codec group (the hand-written compiled_metrics on the
+card: at most two launches, the dbp decode fused in) instead of the interpreter's
 per-row-group train. Kill switch: TEMPO_TPU_COMPILED=0 or
 compiled.enabled=false (results are bit-identical either way; the tier
 only changes WHERE the counting happens).

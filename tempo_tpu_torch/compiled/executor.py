@@ -16,8 +16,8 @@ whole query becomes:
      widths, then move to the DB's device.
   3. LAUNCH (device, once per codec group, under dispatch_lock): the
      fused program of compiled/program.py — filter + time-bin + count for
-     all Q query lanes over all U units in one dispatch (the dbp decode
-     and the counting kernel).
+     all Q query lanes over all U units in one dispatch (a prepare and a
+     count launch, the dbp decode fused into the count).
 
 Counts are integers and merge by addition, so folding device partials
 with interpreter partials is exact.

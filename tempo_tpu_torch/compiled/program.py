@@ -6,11 +6,19 @@ Everything literal- or time-dependent is a runtime argument (per-unit
 code sets, range bounds, [start_s, step_s], n_bins), so a literal swap or
 a shifted dashboard window reuses the same program.
 
-On CUDA tensors the program is the hand-written kernel `compiled_metrics`
-(csrc/codec_kernels.cu), with each dbp column decoded by the
-`dbp_decode` kernel just before it (ops/pallas_kernels.dbp_decode_limbs):
-the two launches are one dispatch of the executor. On CPU tensors it is
-the plain PyTorch version `_metrics_plain` beside it.
+On CUDA tensors the program is the hand-written `compiled_metrics`
+(csrc/codec_kernels.cu), one dispatch of the executor in at most two
+launches whatever its columns. A prepare launch computes the dbp tile
+sums of every dbp column and the run starts of every rle column (none
+when there are neither). The count launch runs one block a (row tile,
+unit): it reads each row's t_s, valid and payloads once for all Q lanes,
+decodes dbp columns inside the tile (no decoded column is written) and
+finds each counted row's rle run among the tile's runs; it is a
+programmatic dependent launch, reading its rows while the prepare launch
+runs. It replaces the reference's one jitted program. What bounds it is
+memory: each input read once and the counts written once
+(csrc/codec_kernels.cu says what the design does about it). On CPU
+tensors it is the plain PyTorch version `_metrics_plain` beside it.
 
 Exactness: the per-codec formulas are the reference's (rle run verdicts
 repeated to rows, dct dictionary verdicts gathered by index, dbp decoded
@@ -41,6 +49,7 @@ on one device (uint32 data as int32 bits, uint64 as int64 bits):
 
 from __future__ import annotations
 
+import ctypes
 import threading
 
 import numpy as np
@@ -53,7 +62,6 @@ from tempo_tpu_torch.ops.pallas_kernels import (
     _route,
     _stream,
     _u32,
-    dbp_decode_limbs,
 )
 
 _CODEC_ID = {"rle": 0, "dct": 1, "dbp": 2}
@@ -121,38 +129,49 @@ def _metrics_plain(sig, t_s, valid, payloads, qargs, tb, nb) -> torch.Tensor:
     return counts[:, :slot_pad]
 
 
-def _describe(sig, t_s, payloads, qargs, decoded: dict) -> tuple[np.ndarray, list]:
-    """The C entry's column table (n_cols x 11 int64: codec, kind,
-    invert, pad, n_codes, then the device pointers values, aux, starts,
-    decoded, codes, bounds) and the scratch tensors it points into, which
-    the caller keeps alive until the launch is queued. decoded: column
-    index -> (U, n_pad) decoded values of a dbp column."""
-    sig_cols = sig[0]
+def _describe(sig, t_s, payloads, qargs):
+    """The C entry's column table (n_cols x 11 int64: codec, kind, invert,
+    pad, n_codes, then the device pointers values, aux, scratch, first,
+    codes, bounds) and the scratch tensors it points into (the prepare
+    launch's: each rle column's run starts and tile first runs, each dbp
+    column's tile sums), which the caller keeps alive until the launch is
+    queued."""
+    sig_cols, n_pad = sig[0], sig[1]
     n_units = t_s.shape[0]
+    tiles = -(-n_pad // _build.lib().tt_dbp_tile())
     desc = np.zeros((len(sig_cols), 11), np.int64)
     scratch = []
     for c, ((codec, kind, invert, _pad), payload, qa) in enumerate(zip(sig_cols, payloads, qargs)):
         row = desc[c]
         row[0], row[1], row[2] = _CODEC_ID[codec], int(kind == "range"), int(bool(invert))
-        if codec == "rle":
-            values, lengths = payload
-            _check_cuda("compiled_metrics", values, lengths, t_s)
-            starts = torch.empty((n_units, values.shape[1] + 1), dtype=torch.int32,
-                                 device=t_s.device)
-            scratch.append(starts)
-            row[3], row[5], row[6], row[7] = (values.shape[1], values.data_ptr(),
-                                              lengths.data_ptr(), starts.data_ptr())
-        elif codec == "dct":
-            dvals, idx = payload
-            _check_cuda("compiled_metrics", dvals, idx, t_s)
-            row[3], row[5], row[6] = dvals.shape[1], dvals.data_ptr(), idx.data_ptr()
+        _check_cuda("compiled_metrics", *payload, t_s)
+        if codec == "dbp":
+            words, first, width = payload
+            if (words.dtype, first.dtype, width.dtype) != (torch.int32, torch.int64, torch.int32):
+                raise TypeError("compiled_metrics: dbp words int32, first int64, width int32")
+            sums = torch.empty((n_units, tiles), dtype=torch.int64, device=t_s.device)
+            scratch.append(sums)
+            row[3], row[5], row[6], row[7], row[8] = (words.shape[1], words.data_ptr(),
+                                                      width.data_ptr(), sums.data_ptr(),
+                                                      first.data_ptr())
         else:
-            _check_cuda("compiled_metrics", decoded[c], t_s)
-            row[8] = decoded[c].data_ptr()
+            values, aux = payload  # rle values, lengths; dct dictionary, indices
+            if values.dtype != torch.int32 or aux.dtype != torch.int32:
+                raise TypeError(f"compiled_metrics: {codec} payload int32")
+            row[3], row[5], row[6] = values.shape[1], values.data_ptr(), aux.data_ptr()
+            if codec == "rle":  # run starts, then each row tile's first run
+                runs = torch.empty((n_units, values.shape[1] + 1 + tiles), dtype=torch.int32,
+                                   device=t_s.device)
+                scratch.append(runs)
+                row[7] = runs.data_ptr()
         _check_cuda("compiled_metrics", qa, t_s)
         if kind == "set":
+            if qa.dtype != torch.int32:
+                raise TypeError("compiled_metrics: codes int32")
             row[4], row[9] = qa.shape[2], qa.data_ptr()
         else:
+            if qa.dtype != torch.int64:
+                raise TypeError("compiled_metrics: bounds int64")
             row[10] = qa.data_ptr()
     return desc, scratch
 
@@ -164,20 +183,19 @@ def _metrics_cuda(sig, t_s, valid, payloads, qargs, tb, nb) -> torch.Tensor:
     if t_s.dtype != torch.int32 or valid.dtype != torch.bool:
         raise TypeError("compiled_metrics: t_s int32 bits, valid bool")
     _check_cuda("compiled_metrics", t_s, valid, tb, nb)
-    # each dbp column is decoded by its own kernel just before
-    decoded = {c: dbp_decode_limbs(*payload, n_pad)
-               for c, ((codec, *_), payload) in enumerate(zip(sig_cols, payloads))
-               if codec == "dbp"}
-    desc, _scratch = _describe(sig, t_s, payloads, qargs, decoded)
+    desc, _scratch = _describe(sig, t_s, payloads, qargs)
     n_units, q = t_s.shape[0], tb.shape[0]
     out = torch.zeros((q, slot_pad), dtype=torch.int64, device=t_s.device)
+    launched = ctypes.c_int32(0)
     with torch.cuda.device(t_s.device):
         err = _build.lib().tt_compiled_metrics(
             desc.ctypes.data, len(sig_cols), t_s.data_ptr(), valid.data_ptr(), n_pad, n_units,
-            q, tb.data_ptr(), nb.data_ptr(), slot_pad, out.data_ptr(), _stream(t_s))
+            q, tb.data_ptr(), nb.data_ptr(), slot_pad, out.data_ptr(), ctypes.byref(launched),
+            _stream(t_s))
     _build.check(err, "compiled_metrics")
     with _launch_lock:
         compiled_metrics.launches += 1
+        compiled_metrics.kernel_launches += launched.value
     return out
 
 
@@ -190,7 +208,8 @@ def compiled_metrics(sig, t_s, valid, payloads, qargs, tb, nb) -> torch.Tensor:
     return _metrics_cuda(sig, t_s, valid, payloads, qargs, tb, nb)
 
 
-compiled_metrics.launches = 0
+compiled_metrics.launches = 0  # dispatches of the fused program
+compiled_metrics.kernel_launches = 0  # its kernels: at most two a dispatch
 
 
 def build_metrics_program(sig):

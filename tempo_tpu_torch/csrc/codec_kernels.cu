@@ -72,6 +72,19 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// Programmatic dependent launch (Hopper): a kernel launched with
+// launch_dependent() may start while the kernel before it on the stream
+// runs, once every block of that kernel has called grid_launch_dependents();
+// grid_dependency_wait() then returns when that kernel has finished and
+// its writes are visible (at once when there is none).
+__device__ __forceinline__ void grid_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------------------
 // rle_change_mask
 //
@@ -258,41 +271,38 @@ __global__ void __launch_bounds__(kThreads) dbp_pack_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// dbp_decode
+// The dbp tile machinery, shared by dbp_decode and compiled_metrics
 //
-// Replaces _dbp_decode_jit with _limb_add (tempo_tpu/ops/pallas_kernels.py:
-// 373-417): for each unit u, packed zigzag deltas of width w_u <= 32 in
-// uint32 words, and a first value -> n absolute uint64 values, the inclusive
-// prefix sum of [first, d_0, ..., d_{n-2}] modulo 2^64. Each delta is
-// extracted from the one or two words its bits straddle (shift counts kept
-// below 32), unzigzagged in 32 bits and sign-extended, which is exact since
-// |delta| < 2^31.
-//
-// What bounds it: memory, w/8 bytes read and 8 written a value; the TPU
-// carried u64 as two u32 limbs through an associative scan, Hopper adds
-// 64-bit integers natively. Design: one block of 256 threads a unit walks its
-// values in tiles of 1024 (4 consecutive values a thread): a thread sums its
-// 4 deltas, a warp-shuffle scan and a scan of the 8 warp totals in shared
-// memory give each thread its offset, and a 64-bit carry runs from tile to
-// tile. Simple, not fast: a single unit of many values runs on one SM.
+// A dbp stream holds a unit's zigzag deltas at a fixed width w <= 32 in
+// uint32 words; element i of the unit is first + d_0 + ... + d_{i-1}
+// modulo 2^64. A unit is cut into tiles of kTile elements, one block a
+// tile, so tile t needs the carry first + (the delta sums of tiles
+// 0..t-1) and a scan inside itself. Within a tile each lane owns kPer
+// consecutive elements (warp w's lane l: elements w * kSeg + kPer * l + k),
+// so its deltas are one run of kPer * w bits:
+// - dbp_stage copies the words of the tile's deltas into shared memory
+//   once (cp.async, 16 bytes at a time where the row is aligned), zeros
+//   past the stream's end, as the plain version reads them;
+// - dbp_lane_deltas cuts a lane's deltas from a sliding pair of staged
+//   words (a funnel shift a delta, one new word every 32 bits);
+// - dbp_tile_sum (the reduce pass) sums a tile's deltas;
+// - dbp_tile_values (the scan pass) gives each lane its elements' values in
+//   registers: a running sum, one warp scan of the lane totals and one
+//   exchange of warp totals, from the carry of the tiles before.
+// A delta is unzigzagged in 32 bits and sign-extended, which is exact
+// since |delta| < 2^31.
 // ---------------------------------------------------------------------------
 
-constexpr int kScanItems = 4;
+constexpr int kTile = 2048;  // elements (rows) a block
 constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ u64 dbp_delta(const uint32_t* __restrict__ words, int64_t n_words,
-                                         int64_t j, uint32_t w, uint32_t mask) {
-  if (w == 0) return 0ull;
-  const u64 off = (u64)j * w;
-  const int64_t wi = (int64_t)(off >> 5);
-  const uint32_t rem = (uint32_t)(off & 31u);
-  const uint32_t lo_w = wi < n_words ? words[wi] : 0u;
-  const uint32_t hi_w = wi + 1 < n_words ? words[wi + 1] : 0u;
-  const uint32_t hi_part = rem == 0u ? 0u : (hi_w << ((32u - rem) & 31u));
-  const uint32_t z = ((lo_w >> rem) | hi_part) & mask;
-  const uint32_t d = (z >> 1) ^ (0u - (z & 1u));
-  return (u64)(int64_t)(int32_t)d;
-}
+constexpr int kSeg = kTile / kWarps;     // elements a warp
+constexpr int kPer = kTile / kThreads;   // consecutive elements a lane
+constexpr int kTileWords = kTile / 32;   // bit-mask words a tile: word w * kPer + k, bit l
+// the staged words of a tile: kTile deltas of <= 32 bits, the word one
+// straddles, the word after the last (the funnel shift's high word) and
+// up to 3 words of alignment, and 4 more the sliding pair may read past
+constexpr int kStageWords = kTile + 12;
+static_assert(kTile % (kThreads * 4) == 0, "a lane's elements are whole 16-byte loads of t_s");
 
 template <typename T>
 __device__ __forceinline__ T warp_inclusive_scan(T v) {
@@ -302,6 +312,13 @@ __device__ __forceinline__ T warp_inclusive_scan(T v) {
     const T t = __shfl_up_sync(0xffffffffu, v, o);
     if (lane >= o) v += t;
   }
+  return v;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
@@ -325,36 +342,211 @@ __device__ __forceinline__ T block_exclusive(T sum, T* warp_tot, T* total) {
   return before + incl - sum;
 }
 
+// The block's sum of `v`, to every thread; xs: kWarps u64 of shared memory.
+// Ends with a barrier.
+__device__ __forceinline__ u64 block_sum(u64 v, u64* xs) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) xs[threadIdx.x >> 5] = v;
+  __syncthreads();
+  u64 all = 0;
+#pragma unroll
+  for (int k = 0; k < kWarps; ++k) all += xs[k];
+  __syncthreads();
+  return all;
+}
+
+struct DbpTile {
+  const uint32_t* sh;  // staged words; sh[0] is word bit0 / 32 of the stream
+  u64 bit0;
+  uint32_t w, mask;
+};
+
+// Issue the copy of the words that hold the deltas of elements [i0, i1)
+// (element i adds d_{i-1}) of one unit's stream of n_words words into sh
+// (kStageWords, 16-byte aligned); complete with cp_async_wait_all() and a
+// barrier.
+__device__ __forceinline__ DbpTile dbp_stage(uint32_t* sh, const uint32_t* __restrict__ words,
+                                             int64_t n_words, uint32_t w, int64_t i0, int64_t i1) {
+  DbpTile t;
+  t.sh = sh;
+  t.bit0 = 0;
+  t.w = w;
+  t.mask = w >= 32u ? 0xFFFFFFFFu : ((1u << w) - 1u);
+  const int64_t jlo = i0 > 0 ? i0 - 1 : 0, jend = i1 - 1;  // deltas [jlo, jend)
+  if (w == 0u || jend <= jlo) return t;
+  const int64_t wa = (int64_t)(((u64)jlo * w) >> 5) & ~(int64_t)3;
+  const int64_t wend = (int64_t)((((u64)jend * w - 1) >> 5) + 2);
+  t.bit0 = (u64)wa * 32;
+  const int64_t have = min64(wend, n_words) - wa;
+  if (have > 0) stage_async(sh, words + wa, have);
+  for (int64_t k = (have > 0 ? have : 0) + threadIdx.x; k < wend - wa; k += blockDim.x) sh[k] = 0u;
+  return t;
+}
+
+// This lane's kPer deltas: d[k] is the delta element ib + k adds (d_{ib+k-1}
+// for 1 <= ib + k < n, else 0), ib = i0 + the lane's first element.
+__device__ __forceinline__ void dbp_lane_deltas(const DbpTile& t, int64_t ib, int64_t n,
+                                                int32_t (&d)[kPer]) {
+  if (t.w == 0u) {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) d[k] = 0;
+    return;
+  }
+  const int64_t j0 = ib > 0 ? ib - 1 : 0;  // the lane's first delta
+  const uint32_t off = (uint32_t)((u64)j0 * t.w - t.bit0);
+  uint32_t wi = off >> 5, rem = off & 31u;
+  uint32_t lo = t.sh[wi], hi = t.sh[wi + 1];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int64_t i = ib + k;
+    d[k] = 0;
+    if (i >= 1 && i < n) {
+      const uint32_t z = __funnelshift_r(lo, hi, rem) & t.mask;
+      d[k] = (int32_t)((z >> 1) ^ (0u - (z & 1u)));
+      rem += t.w;
+      if (rem >= 32u) {
+        rem -= 32u;
+        ++wi;
+        lo = hi;
+        hi = t.sh[wi + 1];
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ int64_t lane_first(int64_t i0) {
+  return i0 + (int64_t)(threadIdx.x >> 5) * kSeg + kPer * (threadIdx.x & 31);
+}
+
+// The delta sum of the tile at i0 (elements below n), to every thread; xs:
+// kWarps u64. Ends with a barrier.
+__device__ __forceinline__ u64 dbp_tile_sum(const DbpTile& t, int64_t i0, int64_t n, u64* xs) {
+  int32_t d[kPer];
+  dbp_lane_deltas(t, lane_first(i0), n, d);
+  int64_t s = 0;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) s += d[k];
+  return block_sum((u64)s, xs);
+}
+
+// This thread's share of the carry into tile t: the sums of tiles [0, t)
+// of its unit.
+__device__ __forceinline__ u64 dbp_carry_part(const u64* __restrict__ sums, int64_t t) {
+  u64 s = 0;
+  for (int64_t k = threadIdx.x; k < t; k += blockDim.x) s += sums[k];
+  return s;
+}
+
+// This lane's kPer values of tile `tile` (at i0 = tile * kTile; elements
+// past n take no delta): `first` plus the sums of the tiles before it plus
+// the deltas up to each element. The sums of the tiles before are `part`
+// summed over the block (each thread's share, dbp_carry_part), or, when
+// `sums` is given (the unit's tile sums, written by the launch before),
+// read from it after grid_dependency_wait, once the deltas are cut. xs:
+// 2 * kWarps u64. Every thread of the block calls it; it holds one barrier.
+__device__ __forceinline__ void dbp_tile_values(const DbpTile& t, int64_t tile, int64_t n,
+                                                u64 first, const u64* __restrict__ sums, u64 part,
+                                                u64* xs, u64 (&v)[kPer]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t i0 = tile * kTile;
+  int32_t d[kPer];
+  dbp_lane_deltas(t, lane_first(i0), n, d);
+  int64_t s = 0;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) s += d[k];
+  const u64 incl = warp_inclusive_scan((u64)s);
+  if (sums) {
+    grid_dependency_wait();
+    part = dbp_carry_part(sums, tile);
+  }
+  const u64 cs = warp_sum(part);
+  if (lane == 31) xs[warp] = incl;
+  if (lane == 0) xs[kWarps + warp] = cs;
+  __syncthreads();
+  u64 acc = first + incl - (u64)s;
+#pragma unroll
+  for (int k = 0; k < kWarps; ++k) acc += xs[kWarps + k] + (k < warp ? xs[k] : 0ull);
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    acc += (u64)(int64_t)d[k];
+    v[k] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dbp_decode
+//
+// Replaces _dbp_decode_jit with _limb_add (tempo_tpu/ops/pallas_kernels.py:
+// 373-417): for each unit u, packed zigzag deltas of width w_u <= 32 in
+// uint32 words, and a first value -> n absolute uint64 values, the inclusive
+// prefix sum of [first, d_0, ..., d_{n-2}] modulo 2^64. The TPU carried u64
+// as two u32 limbs through an associative scan; Hopper adds 64-bit integers
+// natively.
+//
+// What bounds it: memory, w/8 bytes read and 8 written a value. The earlier
+// design ran one block a unit through its values in serial tiles of 1,024:
+// 64 blocks on 132 SMs at the compiled tier's shape and one SM for a long
+// column, with two scattered 4-byte word loads a value and strided 8-byte
+// stores. Design: reduce, then scan, over a (tiles, units) grid:
+// dbp_tile_sum_kernel writes each tile's delta sum (every tile but a unit's
+// last; a unit of one tile needs no first pass), and dbp_decode_kernel
+// gives its tile the carry first + the sums of the tiles before it (summed
+// across the block). The scan pass is a programmatic dependent launch: it
+// stages its words and cuts its deltas while the reduce pass runs, and
+// waits for the sums only then. It takes each lane's values from
+// dbp_tile_values and
+// stores them through shared memory in element order (a pad value every 8,
+// so the lanes' 64-bit stores hit distinct banks), so a warp's 32 values
+// go out as 256 contiguous bytes.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int vpad(int e) { return e + (e >> 3); }
+// the staged words, then (over them: every lane has cut its deltas at the
+// barrier in dbp_tile_values) the values, 64-bit with a pad every 8
+constexpr int kDecodeWords = kStageWords > 2 * (kTile + kTile / 8) ? kStageWords
+                                                                   : 2 * (kTile + kTile / 8);
+
+__global__ void __launch_bounds__(kThreads) dbp_tile_sum_kernel(
+    const uint32_t* __restrict__ words, int64_t words_stride, const int32_t* __restrict__ width,
+    int64_t n, int64_t n_tiles, u64* __restrict__ sums) {
+  __shared__ __align__(16) uint32_t sh[kStageWords];
+  __shared__ u64 xs[kWarps];
+  grid_launch_dependents();
+  const int64_t t = blockIdx.x, u = blockIdx.y;
+  const int64_t i0 = t * kTile;
+  const DbpTile tile = dbp_stage(sh, words + u * words_stride, words_stride, (uint32_t)width[u],
+                                 i0, min64(i0 + kTile, n));
+  cp_async_wait_all();
+  __syncthreads();
+  const u64 s = dbp_tile_sum(tile, i0, n, xs);
+  if (threadIdx.x == 0) sums[u * n_tiles + t] = s;
+}
+
 __global__ void __launch_bounds__(kThreads) dbp_decode_kernel(
     const uint32_t* __restrict__ words, int64_t words_stride, const u64* __restrict__ first,
-    const int32_t* __restrict__ width, int64_t n, u64* __restrict__ out) {
-  __shared__ u64 warp_tot[kWarps];
-  const int64_t u = blockIdx.x;
-  const uint32_t* wu = words + u * words_stride;
+    const int32_t* __restrict__ width, int64_t n, int64_t n_tiles, const u64* __restrict__ sums,
+    u64* __restrict__ out) {
+  __shared__ __align__(16) uint32_t sh[kDecodeWords];
+  __shared__ u64 xs[2 * kWarps];
+  u64* v_sh = reinterpret_cast<u64*>(sh);
+  const int64_t t = blockIdx.x, u = blockIdx.y;
+  const int64_t i0 = t * kTile;
+  const DbpTile tile = dbp_stage(sh, words + u * words_stride, words_stride, (uint32_t)width[u],
+                                 i0, min64(i0 + kTile, n));
+  const u64 first_u = first[u];
+  cp_async_wait_all();
+  __syncthreads();
+  u64 v[kPer];
+  dbp_tile_values(tile, t, n, first_u, sums + u * n_tiles, 0, xs, v);
+  const int lane = threadIdx.x & 31, w0 = (threadIdx.x >> 5) * kSeg;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) v_sh[vpad(w0 + kPer * lane + k)] = v[k];
+  __syncwarp();
   u64* ou = out + u * n;
-  const uint32_t w = (uint32_t)width[u];
-  const uint32_t mask = w >= 32u ? 0xFFFFFFFFu : ((1u << w) - 1u);
-  u64 carry = first[u];
-  constexpr int64_t kTile = (int64_t)kThreads * kScanItems;
-  for (int64_t t0 = 0; t0 < n; t0 += kTile) {
-    const int64_t base = t0 + (int64_t)threadIdx.x * kScanItems;
-    u64 v[kScanItems];
-    u64 sum = 0;
 #pragma unroll
-    for (int k = 0; k < kScanItems; ++k) {
-      const int64_t i = base + k;
-      // element i > 0 adds delta i-1; element 0 is the first value (the carry)
-      sum += (i > 0 && i < n) ? dbp_delta(wu, words_stride, i - 1, w, mask) : 0ull;
-      v[k] = sum;
-    }
-    u64 tile_total;
-    const u64 off = carry + block_exclusive(sum, warp_tot, &tile_total);
-#pragma unroll
-    for (int k = 0; k < kScanItems; ++k) {
-      const int64_t i = base + k;
-      if (i < n) ou[i] = off + v[k];
-    }
-    carry += tile_total;
+  for (int m = 0; m < kPer; ++m) {
+    const int e = w0 + 32 * m + lane;
+    if (i0 + e < n) ou[i0 + e] = v_sh[vpad(e)];
   }
 }
 
@@ -369,36 +561,63 @@ __global__ void __launch_bounds__(kThreads) dbp_decode_kernel(
 // then `valid`, t_s >= start and bin = (t_s - start) / step < n_bins (u32
 // throughout), counted into (Q, slot_pad) int64 bins.
 //
-// What bounds it: memory for the rows (t_s, valid and one payload word a
-// column a row, read once per lane) and the atomics of hot bins; a metrics
-// window puts a row group's rows into few bins. Design: a first kernel
-// computes each rle column's run starts per unit on the card (an exclusive
-// block scan of the run lengths), so a row finds its run by a binary search
-// over them; dbp columns arrive decoded by a dbp_decode launch just before
-// (the reference fuses the decode; here it is a second kernel of the same
-// dispatch). The counting kernel runs one thread a row over a (row tiles,
-// U, Q) grid, counts into 32-bit shared-memory bins when slot_pad fits in
-// 48 KB, and merges each non-zero bin into the int64 output with one
-// atomic. Rows past a unit's length are dropped by `valid` before any
-// payload is read, never by the value they hold.
+// What bounds it: memory, each input read once: t_s and valid, the words
+// the dbp deltas occupy, the rle runs, the dct dictionaries and indices,
+// the codes and bounds, and the counts written once. The earlier design
+// decoded each dbp column into a (U, n_pad) u64 tensor with a dbp_decode
+// launch and read it back, found each row's rle run by a binary search
+// (about 15 dependent loads a row) after a run-starts launch a column,
+// re-read every row once a lane (a (row tiles, U, Q) grid) and counted a
+// tile's rows, which fall into one or two bins, with atomics on the same
+// shared-memory word. Design: at most two launches a dispatch, whatever its
+// columns, and no decoded column in device memory.
+// - compiled_prepare_kernel computes the dbp tile sums of every dbp column
+//   and, for every rle column, the run starts and the run that covers each
+//   row tile's first row (skipped when there are no such columns).
+// - compiled_count_kernel runs one block a (row tile of kTile rows, unit),
+//   each lane owning kPer consecutive rows. A lane reads its rows' t_s and
+//   valid once (16- and 4-byte loads) into registers and sets their bits
+//   in a mask a query lane (each window tested without a division), then
+//   the masks narrow column by column: an rle column stages the tile's
+//   runs (from the prepared first runs of the tile and the next) with each
+//   run's verdict once a lane, and each counted row finds its run (a
+//   binary search for a lane's first row, a step forward for the next); a
+//   dct column gathers the index (16-byte loads) and dictionary entry of
+//   each row a lane counts; a dbp column is decoded in registers by
+//   dbp_tile_values, its carry from the prepared tile sums. The count is a
+//   programmatic dependent launch of the prepare launch: it reads its rows
+//   and copies its first dbp column's words while the prepare runs, and
+//   waits for it only before the columns. Rows no lane counts (pad rows
+//   past a unit's length among them)
+//   read no dictionary entry. Last, each counted row adds one to its
+//   lane's bin (a division by multiplication) with one atomic; the bins
+//   live in shared memory when Q x slot_pad x 4 B fits the dynamic budget
+//   and are flushed with one global atomic a non-zero bin, else the
+//   atomics go straight to the int64 output.
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxCCols = 16;
 constexpr int kDescFields = 11;
-constexpr int32_t kSmemBins = 48 * 1024 / 4;
+// the dynamic shared memory a block may take: 227 KB less the static part
+constexpr int64_t kMaxDynSmem = 227 * 1024 - 4096;
+// set codes staged in shared memory when every set column's Q x K fits
+// together (else read from L1/L2)
+constexpr int64_t kMaxStagedCodes = 4096;
 
 struct CCol {
   int32_t codec;    // 0 rle, 1 dct, 2 dbp
   int32_t kind;     // 0 set, 1 range
   int32_t invert;   // set: the verdict is inverted
-  int32_t pad;      // rle: runs a unit (RP); dct: dictionary entries a unit (VP)
+  int32_t pad;      // rle: runs a unit (RP); dct: dictionary entries a unit (VP); dbp: words a unit (WP)
   int32_t n_codes;  // set: codes a (lane, unit) (K)
-  const uint32_t* values;   // rle (U, RP) run values; dct (U, VP) dictionary
-  const int32_t* aux;       // rle (U, RP) run lengths; dct (U, n_pad) indices
-  int32_t* starts;          // rle (U, RP + 1) run starts, written by run_starts_kernel
-  const u64* decoded;       // dbp (U, n_pad) values
-  const uint32_t* codes;    // set (Q, U, K)
-  const u64* bounds;        // range (Q, 2): inclusive lo, hi
+  const uint32_t* values;  // rle (U, RP) run values; dct (U, VP) dictionary; dbp (U, WP) words
+  const int32_t* aux;      // rle (U, RP) run lengths; dct (U, n_pad) indices; dbp (U,) widths
+  // the prepare launch's: rle (U, RP + 1 + n_tiles) int32, the run starts
+  // then each tile's first run; dbp (U, n_tiles) u64 tile sums
+  void* scratch;
+  const u64* first;        // dbp (U,) first values
+  const uint32_t* codes;   // set (Q, U, K)
+  const u64* bounds;       // range (Q, 2): inclusive lo, hi
 };
 
 struct CCols {
@@ -406,86 +625,468 @@ struct CCols {
   CCol c[kMaxCCols];
 };
 
-__global__ void __launch_bounds__(kThreads) run_starts_kernel(const int32_t* __restrict__ lengths,
-                                                              int64_t rp, int32_t* __restrict__ starts) {
-  __shared__ int32_t warp_tot[kWarps];
-  const int64_t u = blockIdx.x;
-  const int32_t* lu = lengths + u * rp;
-  int32_t* su = starts + u * (rp + 1);
+// Copy the column table from the kernel's parameters into shared memory
+// (static offsets: a parameter indexed at run time would be copied to every
+// thread's local memory); a barrier before use.
+__device__ __forceinline__ void load_cols(const CCols& cols, CCols* sh) {
+#pragma unroll
+  for (int c = 0; c < kMaxCCols; ++c)
+    if (threadIdx.x == c && c < cols.n_cols) sh->c[c] = cols.c[c];
+  if (threadIdx.x == 0) sh->n_cols = cols.n_cols;
+}
+
+// One unit's rle scratch: the run starts of its rp run lengths (an
+// exclusive scan) at su[0..rp], su[rp] their sum, then at su[rp + 1 + t]
+// the run covering row tile t's first row: the last run starting at or
+// before it (a zero-length run covers nothing; the last run covers every
+// row past the lengths' sum, as the plain version's searchsorted gives
+// them). Each thread takes kItems consecutive runs and keeps their starts
+// in registers. Every thread of the block calls it.
+__device__ __forceinline__ void rle_prepare_block(const int32_t* __restrict__ lu, int64_t rp,
+                                                  int64_t n_tiles, int32_t* __restrict__ su,
+                                                  int32_t* warp_tot) {
+  constexpr int kItems = 8;
+  constexpr int64_t kChunk = (int64_t)kThreads * kItems;
+  int32_t* first_run = su + rp + 1;
   int32_t carry = 0;
-  constexpr int64_t kTile = (int64_t)kThreads * kScanItems;
-  for (int64_t t0 = 0; t0 < rp; t0 += kTile) {
-    const int64_t base = t0 + (int64_t)threadIdx.x * kScanItems;
-    int32_t v[kScanItems];
+  for (int64_t t0 = 0; t0 < rp; t0 += kChunk) {
+    const int64_t base = t0 + (int64_t)threadIdx.x * kItems;
+    int32_t v[kItems];
     int32_t sum = 0;
 #pragma unroll
-    for (int k = 0; k < kScanItems; ++k) {
+    for (int k = 0; k < kItems; ++k) {
       v[k] = sum;  // exclusive within the thread
       sum += base + k < rp ? lu[base + k] : 0;
     }
-    int32_t tile_total;
-    const int32_t off = carry + block_exclusive(sum, warp_tot, &tile_total);
+    int32_t total;
+    const int32_t off = carry + block_exclusive(sum, warp_tot, &total);
 #pragma unroll
-    for (int k = 0; k < kScanItems; ++k)
-      if (base + k < rp) su[base + k] = off + v[k];
-    carry += tile_total;
+    for (int k = 0; k < kItems; ++k) {
+      const int64_t run = base + k;
+      if (run >= rp) break;
+      const int64_t a = off + v[k];
+      const int64_t b = run == rp - 1 ? n_tiles * kTile : off + (k + 1 < kItems ? v[k + 1] : sum);
+      su[run] = (int32_t)a;
+      for (int64_t t = (a + kTile - 1) / kTile; t < n_tiles && t * kTile < b; ++t)
+        first_run[t] = (int32_t)run;
+    }
+    carry += total;
   }
   if (threadIdx.x == 0) su[rp] = carry;
 }
 
-__device__ __forceinline__ bool col_hit(const CCol& cc, int64_t u, int64_t q, int64_t n_units,
-                                        int64_t n_pad, int64_t r) {
-  u64 v;
-  if (cc.codec == 0) {
-    // the last run k with start_k <= r (jnp.repeat fills rows past the
-    // lengths' sum with the last run; such rows are not valid)
-    const int32_t* st = cc.starts + u * (cc.pad + 1);
-    int32_t lo = 0, hi = cc.pad - 1;
-    while (lo < hi) {
-      const int32_t mid = (lo + hi + 1) >> 1;
-      if (st[mid] <= r) lo = mid; else hi = mid - 1;
+// 8 blocks an SM: its dbp tile sums (a block a tile) fill the card in one
+// wave
+__global__ void __launch_bounds__(kThreads, 8) compiled_prepare_kernel(CCols cols_p, int64_t n_pad,
+                                                                    int64_t n_units,
+                                                                    int64_t n_tiles) {
+  __shared__ __align__(16) uint32_t sh[kStageWords];
+  __shared__ u64 xs[kWarps];
+  __shared__ int32_t itot[kWarps];
+  __shared__ CCols cols;
+  grid_launch_dependents();
+  load_cols(cols_p, &cols);
+  __syncthreads();
+  // the rle columns' blocks first (each scans a unit's runs: the longest
+  // blocks), then the dbp columns' tile sums
+  int64_t b = blockIdx.x;
+  for (int c = 0; c < cols.n_cols; ++c) {
+    const CCol& cc = cols.c[c];
+    if (cc.codec != 0) continue;
+    if (b < n_units) {  // a unit's run starts and tiles' first runs
+      rle_prepare_block(cc.aux + b * cc.pad, cc.pad, n_tiles,
+                        static_cast<int32_t*>(cc.scratch) + b * (cc.pad + 1 + n_tiles), itot);
+      return;
     }
-    v = cc.values[u * cc.pad + lo];
-  } else if (cc.codec == 1) {
-    v = cc.values[u * cc.pad + cc.aux[u * n_pad + r]];
-  } else {
-    v = cc.decoded[u * n_pad + r];
+    b -= n_units;
   }
-  if (cc.kind == 1) return v >= cc.bounds[2 * q] && v <= cc.bounds[2 * q + 1];
-  const uint32_t* codes = cc.codes + (q * n_units + u) * cc.n_codes;
+  for (int c = 0; c < cols.n_cols; ++c) {
+    const CCol& cc = cols.c[c];
+    if (cc.codec != 2) continue;
+    const int64_t jobs = n_units * (n_tiles - 1);  // every tile but a unit's last
+    if (b < jobs) {
+      const int64_t u = b / (n_tiles - 1), t = b % (n_tiles - 1), i0 = t * kTile;
+      const DbpTile tile = dbp_stage(sh, cc.values + u * cc.pad, cc.pad, (uint32_t)cc.aux[u], i0,
+                                     min64(i0 + kTile, n_pad));
+      cp_async_wait_all();
+      __syncthreads();
+      const u64 s = dbp_tile_sum(tile, i0, n_pad, xs);
+      if (threadIdx.x == 0) static_cast<u64*>(cc.scratch)[u * n_tiles + t] = s;
+      return;
+    }
+    b -= jobs;
+  }
+}
+
+// Lane q's verdict on value v of column cc; codes + q * stride are the
+// lane's codes of this unit, bounds its range.
+__device__ __forceinline__ bool lane_hit(const CCol& cc, const uint32_t* codes, int64_t stride,
+                                         const u64* bounds, int q, u64 v) {
+  if (cc.kind == 1) return v >= bounds[2 * q] && v <= bounds[2 * q + 1];
+  const uint32_t* cq = codes + q * stride;
   bool h = false;
-  for (int32_t s = 0; s < cc.n_codes; ++s) h |= (uint32_t)v == codes[s];
+  for (int32_t s = 0; s < cc.n_codes; ++s) h |= (uint32_t)v == cq[s];
   return h != (cc.invert != 0);
 }
 
-__global__ void __launch_bounds__(kThreads) compiled_metrics_kernel(
-    CCols cols, const uint32_t* __restrict__ t_s, const uint8_t* __restrict__ valid,
-    int64_t n_pad, const uint32_t* __restrict__ tb, const uint32_t* __restrict__ nb,
-    int32_t slot_pad, int32_t smem_bins, u64* __restrict__ out) {
-  extern __shared__ uint32_t bins_sh[];
-  const int64_t u = blockIdx.y, q = blockIdx.z, n_units = gridDim.y;
-  for (int32_t s = threadIdx.x; s < smem_bins; s += blockDim.x) bins_sh[s] = 0u;
+// Lane q's verdicts on this lane's kPer values (bit k: value k), each
+// code or bound read once.
+template <typename V>
+__device__ __forceinline__ uint32_t lane_hits(const CCol& cc, const uint32_t* codes, int64_t stride,
+                                              const u64* bounds, int q, const V (&v)[kPer]) {
+  uint32_t hits = 0u;
+  if (cc.kind == 1) {
+    const u64 lo = bounds[2 * q], hi = bounds[2 * q + 1];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) hits |= (uint32_t)((u64)v[k] >= lo && (u64)v[k] <= hi) << k;
+    return hits;
+  }
+  const uint32_t* cq = codes + q * stride;
+  for (int32_t s = 0; s < cc.n_codes; ++s) {
+    const uint32_t code = cq[s];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) hits |= (uint32_t)((uint32_t)v[k] == code) << k;
+  }
+  return cc.invert ? hits ^ ((1u << kPer) - 1u) : hits;
+}
+
+// AND the warp's lanes' verdicts (bit k of each lane's hits: its row k)
+// into lane q's kPer mask words of the warp's rows; the warp calls it
+// together.
+__device__ __forceinline__ void narrow_words(uint32_t* words, uint32_t hits) {
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const uint32_t bits = __ballot_sync(0xffffffffu, (hits >> k) & 1u);
+    if ((threadIdx.x & 31) == 0) words[k] &= bits;
+  }
+}
+
+// Division by an invariant u32 (Granlund and Montgomery, "Division by
+// invariant integers using multiplication", 1994, fig. 4.1): n / d ==
+// (t + ((n - t) >> s1)) >> s2 with t = umulhi(m, n), exact for every u32 n
+// and d >= 1. shifts holds s1 | s2 << 8.
+__device__ __forceinline__ void div_magic(uint32_t d, uint32_t* m, uint32_t* shifts) {
+  const int l = d > 1u ? 32 - __clz(d - 1u) : 0;  // ceil(log2 d)
+  // m = floor(2^32 (2^l - d) / d) + 1 < 2^32: a double quotient, corrected
+  const u64 num = (((u64)1 << l) - d) << 32, dd = d ? d : 1u;
+  u64 q = (u64)((double)num / (double)dd);
+  while (q * dd > num) --q;
+  while ((q + 1) * dd <= num) ++q;
+  *m = (uint32_t)(q + 1u);
+  *shifts = (l ? 1u : 0u) | ((uint32_t)(l ? l - 1 : 0) << 8);
+}
+
+__device__ __forceinline__ uint32_t div_by_magic(uint32_t n, uint32_t m, uint32_t shifts) {
+  const uint32_t t = __umulhi(m, n);
+  return (t + ((n - t) >> (shifts & 0xffu))) >> (shifts >> 8);
+}
+
+// The runs [k0, k1] that cover row tile t of a unit (its rle scratch st:
+// rp run starts and more, then each tile's first run).
+__device__ __forceinline__ void rle_tile_runs(const int32_t* st, int32_t rp, int64_t n_tiles,
+                                              int64_t t, int32_t* k0, int32_t* k1) {
+  *k0 = rp > 0 ? st[rp + 1 + t] : 0;
+  *k1 = t + 1 < n_tiles ? st[rp + 2 + t] : rp - 1;
+}
+
+// The count kernel's dynamic shared memory, in 4-byte words (offsets
+// multiples of 4 words, so every area is 16-byte aligned).
+struct CountSmem {
+  int64_t region, mask, runs, run_hits, bounds, codes, lanes, lims, bins, total;
+};
+
+// The runs an rle column stages a tile: every run that starts in it (at
+// most kTile of positive length), the one before and the one after; the
+// zero-length runs that pad a unit's runs come last and are cut.
+constexpr int kRunSlots = kTile + 2 * kThreads;
+
+__host__ __device__ __forceinline__ int64_t round4(int64_t x) { return (x + 3) & ~(int64_t)3; }
+
+__host__ __device__ __forceinline__ CountSmem count_smem(int64_t n_q, int64_t n_cols, bool has_dbp,
+                                                         bool has_rle, int64_t staged_codes,
+                                                         int64_t bins) {
+  CountSmem s;
+  s.region = 0;
+  s.mask = s.region + (has_dbp ? round4(kStageWords) : 0);
+  s.runs = s.mask + round4(n_q * kTileWords);
+  s.run_hits = s.runs + (has_rle ? kRunSlots : 0);
+  s.bounds = s.run_hits + (has_rle ? round4(n_q * (kRunSlots / 32)) : 0);
+  s.codes = s.bounds + 4 * n_q * n_cols;
+  s.lanes = s.codes + round4(staged_codes);
+  s.lims = s.lanes + round4(3 * n_q);
+  s.bins = s.lims + round4(2 * n_q);
+  s.total = s.bins + round4(bins);
+  return s;
+}
+
+__global__ void __launch_bounds__(kThreads, 4) compiled_count_kernel(
+    CCols cols_p, const uint32_t* __restrict__ t_s, const uint8_t* __restrict__ valid,
+    int64_t n_pad, int64_t n_units, int64_t n_tiles, int32_t n_q, const uint32_t* __restrict__ tb,
+    const uint32_t* __restrict__ nb, int32_t slot_pad, bool has_dbp, bool has_rle,
+    int64_t staged_codes, bool smem_bins, u64* __restrict__ out) {
+  extern __shared__ uint4 smem4[];
+  __shared__ u64 xs[2 * kWarps];
+  __shared__ CCols cols;
+  uint32_t* smem = reinterpret_cast<uint32_t*>(smem4);
+  const CountSmem L = count_smem(n_q, cols_p.n_cols, has_dbp, has_rle, staged_codes,
+                                 smem_bins ? (int64_t)n_q * slot_pad : 0);
+  uint32_t* region = smem + L.region;
+  uint32_t* mask = smem + L.mask;  // (Q, kTileWords): the rows each lane counts
+  int32_t* runs = reinterpret_cast<int32_t*>(smem + L.runs);  // an rle column's staged starts
+  uint32_t* run_hits = smem + L.run_hits;  // (Q, kRunSlots / 32): their verdicts
+  u64* bounds_sh = reinterpret_cast<u64*>(smem + L.bounds);  // (n_cols, Q, 2)
+  uint32_t* codes_sh = smem + L.codes;  // each set column's (Q, K), when they all fit
+  // (Q, 3): start and the step's division magic (multiplier, shifts)
+  uint32_t* lanes = smem + L.lanes;
+  u64* lims = reinterpret_cast<u64*>(smem + L.lims);  // (Q,): the window's seconds, n_bins x step
+  uint32_t* bins = smem + L.bins;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t* my_mask = mask + warp * kPer;     // + q * kTileWords + k: lane q's word of row k
+
+  const int64_t u = blockIdx.x / n_tiles, t = blockIdx.x % n_tiles;
+  const int64_t r0 = t * kTile;
+  const int lr = warp * kSeg + kPer * lane;  // this lane's first row in the tile
+  const int64_t rb = r0 + lr;                 // ... in the unit
+
+  // this lane's rows' t_s and valid, read once (16- and 4-byte loads where
+  // aligned), issued before the block's set-up
+  uint32_t ts[kPer];
+  bool ok[kPer];
+  {
+    const int64_t g = u * n_pad + rb;
+    if (rb + kPer <= n_pad && (g & 3) == 0) {
+#pragma unroll
+      for (int k = 0; k < kPer; k += 4) {
+        const uint4 x = *reinterpret_cast<const uint4*>(t_s + g + k);
+        const uchar4 y = *reinterpret_cast<const uchar4*>(valid + g + k);
+        ts[k] = x.x, ts[k + 1] = x.y, ts[k + 2] = x.z, ts[k + 3] = x.w;
+        ok[k] = y.x != 0, ok[k + 1] = y.y != 0, ok[k + 2] = y.z != 0, ok[k + 3] = y.w != 0;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const bool in = rb + k < n_pad;
+        ts[k] = in ? t_s[g + k] : 0u;
+        ok[k] = in && valid[g + k] != 0;
+      }
+    }
+  }
+  load_cols(cols_p, &cols);
+  for (int q = threadIdx.x; q < n_q; q += blockDim.x) {
+    const uint32_t step = tb[2 * q + 1];
+    lanes[3 * q] = tb[2 * q];
+    div_magic(step, &lanes[3 * q + 1], &lanes[3 * q + 2]);
+    lims[q] = (u64)min(nb[q], (uint32_t)slot_pad) * step;
+  }
+  if (smem_bins)
+    for (int64_t s = threadIdx.x; s < (int64_t)n_q * slot_pad; s += blockDim.x) bins[s] = 0u;
   __syncthreads();
-  const uint32_t start = tb[2 * q], step = tb[2 * q + 1], n_bins = nb[q];
-  u64* out_q = out + q * slot_pad;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < n_pad; r += stride) {
-    const int64_t row = u * n_pad + r;
-    if (!valid[row]) continue;
-    const uint32_t ts = t_s[row];
-    if (ts < start) continue;
-    const uint32_t bin = (ts - start) / step;
-    if (bin >= n_bins) continue;
-    bool hit = true;
-    for (int32_t c = 0; c < cols.n_cols && hit; ++c) hit = col_hit(cols.c[c], u, q, n_units, n_pad, r);
-    if (!hit) continue;
-    if (smem_bins) atomicAdd(&bins_sh[bin], 1u);
-    else atomicAdd(&out_q[bin], 1ull);
+  // the first dbp column's words, copied while the rows are read
+  int first_dbp = -1;
+  for (int c = 0; c < cols.n_cols && first_dbp < 0; ++c)
+    if (cols.c[c].codec == 2) first_dbp = c;
+  DbpTile staged;
+  if (first_dbp >= 0) {
+    const CCol& cc = cols.c[first_dbp];
+    staged = dbp_stage(region, cc.values + u * cc.pad, cc.pad, (uint32_t)cc.aux[u], r0,
+                       min64(r0 + kTile, n_pad));
+  }
+
+  // a mask word a lane a row: the rows each lane's window counts
+  // ((t_s - start) / step < n_bins as t_s - start < n_bins x step)
+  uint32_t my_live = 0u;  // bit k: a lane counts row k
+  for (int q = 0; q < n_q; ++q) {
+    const uint32_t start = lanes[3 * q];
+    const u64 lim = lims[q];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const bool in = ok[k] && ts[k] >= start && (u64)(ts[k] - start) < lim;
+      const uint32_t bits = __ballot_sync(0xffffffffu, in);
+      if (lane == 0) my_mask[q * kTileWords + k] = bits;
+      my_live |= (uint32_t)in << k;
+    }
+  }
+  if (!__syncthreads_or(my_live != 0u)) {  // no lane counts a row of this tile
+    cp_async_wait_all();
+    return;
+  }
+  // every column's range bounds and (when they fit) this unit's codes
+  for (int c = 0, at = 0; c < cols.n_cols; ++c) {
+    const CCol& cc = cols.c[c];
+    if (cc.kind == 1) {
+      for (int s = threadIdx.x; s < 2 * n_q; s += blockDim.x)
+        bounds_sh[2 * n_q * c + s] = cc.bounds[s];
+    } else if (staged_codes) {
+      for (int64_t s = threadIdx.x; s < (int64_t)n_q * cc.n_codes; s += blockDim.x)
+        codes_sh[at + s] = cc.codes[((s / cc.n_codes) * n_units + u) * cc.n_codes + s % cc.n_codes];
+      at += n_q * cc.n_codes;
+    }
+  }
+  __syncthreads();
+  grid_dependency_wait();  // the prepare launch's run starts and tile sums
+  // what the first rle and dbp columns read of it, read together
+  int first_rle = -1;
+  for (int c = 0; c < cols.n_cols && first_rle < 0; ++c)
+    if (cols.c[c].codec == 0) first_rle = c;
+  int32_t k0_first = 0, k1_first = -1;
+  if (first_rle >= 0) {
+    const CCol& cc = cols.c[first_rle];
+    rle_tile_runs(static_cast<const int32_t*>(cc.scratch) + u * (cc.pad + 1 + n_tiles), cc.pad,
+                  n_tiles, t, &k0_first, &k1_first);
+  }
+  u64 part_first = 0, first_value = 0;
+  if (first_dbp >= 0) {
+    const CCol& cc = cols.c[first_dbp];
+    part_first = dbp_carry_part(static_cast<const u64*>(cc.scratch) + u * n_tiles, t);
+    first_value = cc.first[u];
+  }
+
+  for (int c = 0, at = 0; c < cols.n_cols; ++c) {
+    const CCol& cc = cols.c[c];
+    const u64* bounds = bounds_sh + 2 * n_q * c;
+    const uint32_t* codes = cc.codes + u * cc.n_codes;  // lane q's: + q * U * K
+    int64_t stride = n_units * cc.n_codes;
+    if (cc.kind == 0 && staged_codes) {
+      codes = codes_sh + at;
+      stride = cc.n_codes;
+      at += n_q * cc.n_codes;
+    }
+    if (cc.codec == 2) {
+      // the tile decoded in registers (every row's delta: the scan needs
+      // them), its carry from the prepared tile sums
+      const bool first = c == first_dbp;
+      const DbpTile tile = first ? staged
+                                 : dbp_stage(region, cc.values + u * cc.pad, cc.pad,
+                                             (uint32_t)cc.aux[u], r0, min64(r0 + kTile, n_pad));
+      const u64 part = first ? part_first
+                             : dbp_carry_part(static_cast<const u64*>(cc.scratch) + u * n_tiles, t);
+      const u64 first_u = first ? first_value : cc.first[u];
+      cp_async_wait_all();
+      __syncthreads();
+      u64 v[kPer];
+      dbp_tile_values(tile, t, n_pad, first_u, nullptr, part, xs, v);
+      for (int q = 0; q < n_q; ++q)
+        narrow_words(my_mask + q * kTileWords, lane_hits(cc, codes, stride, bounds, q, v));
+    } else if (cc.codec == 1) {
+      // the index and dictionary entry of each row a lane counts
+      const int64_t g = u * n_pad + rb;
+      int32_t idx[kPer];
+      if (my_live != 0u && rb + kPer <= n_pad && (g & 3) == 0) {
+#pragma unroll
+        for (int k = 0; k < kPer; k += 4) {
+          const int4 x = *reinterpret_cast<const int4*>(cc.aux + g + k);
+          idx[k] = x.x, idx[k + 1] = x.y, idx[k + 2] = x.z, idx[k + 3] = x.w;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) idx[k] = (my_live >> k) & 1u ? cc.aux[g + k] : 0;
+      }
+      uint32_t v[kPer];
+      const uint32_t* dv = cc.values + u * cc.pad;
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) v[k] = (my_live >> k) & 1u ? dv[idx[k]] : 0u;
+      for (int q = 0; q < n_q; ++q)
+        narrow_words(my_mask + q * kTileWords, lane_hits(cc, codes, stride, bounds, q, v));
+    } else {
+      // the runs that cover the tile's rows (from the prepared first runs
+      // of this tile and the next), staged with each run's verdict once a
+      // lane (a ballot a warp of runs), two runs a thread a pass; then each
+      // counted row's run: a binary search for a lane's first, a step
+      // forward for the next
+      const int32_t rp = cc.pad;
+      const int32_t* st = static_cast<const int32_t*>(cc.scratch) + u * (rp + 1 + n_tiles);
+      const uint32_t* vals = cc.values + u * rp;
+      int32_t k0 = k0_first, k1 = k1_first;
+      if (c != first_rle) rle_tile_runs(st, rp, n_tiles, t, &k0, &k1);
+      const int staged = min(k1 - k0 + 1, kRunSlots);
+      for (int cb = 0; cb < staged; cb += 2 * kThreads) {
+        int32_t a[2];
+        u64 v[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = cb + h * kThreads + threadIdx.x;
+          a[h] = j < staged ? st[k0 + j] : 0x7FFFFFFF;
+          v[h] = j < staged ? vals[k0 + j] : 0u;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = cb + h * kThreads + threadIdx.x;
+          if (j < kRunSlots) runs[j] = a[h];
+          for (int q = 0; q < n_q; ++q) {
+            const uint32_t bits = __ballot_sync(
+                0xffffffffu, j < staged && lane_hit(cc, codes, stride, bounds, q, v[h]));
+            if (lane == 0 && j < kRunSlots) run_hits[q * (kRunSlots / 32) + (j >> 5)] = bits;
+          }
+        }
+      }
+      __syncthreads();
+      int run[kPer];
+      int j = 0;
+      if (my_live) {
+        int hi = staged - 1;  // the last staged run starting at or before the lane's first row
+        while (j < hi) {
+          const int mid = (j + hi + 1) >> 1;
+          if (runs[mid] <= rb) j = mid;
+          else hi = mid - 1;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        if ((my_live >> k) & 1u)
+          while (j + 1 < staged && runs[j + 1] <= rb + k) ++j;
+        run[k] = j;
+      }
+      for (int q = 0; q < n_q; ++q) {
+        const uint32_t* hq = run_hits + q * (kRunSlots / 32);
+        uint32_t hits = 0u;
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) hits |= ((hq[run[k] >> 5] >> (run[k] & 31)) & 1u) << k;
+        narrow_words(my_mask + q * kTileWords, hits);
+      }
+    }
+    __syncthreads();
+  }
+
+  // count: each counted row adds one to its lane's bin (a division by
+  // multiplication)
+  for (int q = 0; q < n_q; ++q) {
+    const uint32_t start = lanes[3 * q], dm = lanes[3 * q + 1], ds = lanes[3 * q + 2];
+    uint32_t* bins_q = bins + (int64_t)q * slot_pad;
+    u64* out_q = out + (int64_t)q * slot_pad;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      if (!((my_mask[q * kTileWords + k] >> lane) & 1u)) continue;
+      const uint32_t bin = div_by_magic(ts[k] - start, dm, ds);
+      if (smem_bins) atomicAdd(&bins_q[bin], 1u);
+      else atomicAdd(&out_q[bin], 1ull);
+    }
   }
   if (!smem_bins) return;
   __syncthreads();
-  for (int32_t s = threadIdx.x; s < smem_bins; s += blockDim.x)
-    if (bins_sh[s]) atomicAdd(&out_q[s], (u64)bins_sh[s]);
+  for (int64_t s = threadIdx.x; s < (int64_t)n_q * slot_pad; s += blockDim.x)
+    if (bins[s]) atomicAdd(&out[s], (u64)bins[s]);
+}
+
+// Launch kernel<<<grid, kThreads, smem, stream>>>(args...), when
+// `programmatic` as a programmatic dependent launch of the kernel before it
+// on the stream (see grid_dependency_wait; only after a launch of this
+// file, whose inputs were complete before it started); returns the
+// launch's error.
+template <typename... P, typename... A>
+cudaError_t launch_dependent(bool programmatic, void (*kernel)(P...), dim3 grid, size_t smem,
+                             cudaStream_t stream, A... args) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = attr;
+  config.numAttrs = programmatic ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&config, kernel, static_cast<P>(args)...);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace
@@ -526,30 +1127,62 @@ int tt_dbp_pack(const void* data, const void* table, const void* tile_col, int64
   return (int)cudaGetLastError();
 }
 
+// The elements a tile of dbp_decode and compiled_metrics, for the wrappers'
+// scratch: (U, ceil(n / tile)) u64 tile sums.
+int tt_dbp_tile(void) { return kTile; }
+
 // words: (U, words_stride) uint32; first: (U,) uint64; width: (U,) int32;
-// out: (U, n) uint64.
+// sums: (U, ceil(n / tt_dbp_tile())) uint64 scratch; out: (U, n) uint64.
+// *launched: the kernels launched (1, or 2 when a unit has more than one
+// tile).
 int tt_dbp_decode(const void* words, int64_t words_stride, const void* first, const void* width,
-                  int32_t n_units, int64_t n, void* out, void* stream) {
+                  int32_t n_units, int64_t n, void* sums, void* out, int32_t* launched,
+                  void* stream) {
+  *launched = 0;
   if (n_units == 0 || n == 0) return 0;
-  dbp_decode_kernel<<<(unsigned)n_units, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)words, words_stride, (const u64*)first, (const int32_t*)width, n,
-      (u64*)out);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const int64_t n_tiles = cdiv(n, kTile);
+  if (n_tiles > 1) {
+    dbp_tile_sum_kernel<<<dim3((unsigned)(n_tiles - 1), (unsigned)n_units), kThreads, 0, st>>>(
+        (const uint32_t*)words, words_stride, (const int32_t*)width, n, n_tiles, (u64*)sums);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    ++*launched;
+  }
+  const cudaError_t err = launch_dependent(
+      n_tiles > 1, dbp_decode_kernel, dim3((unsigned)n_tiles, (unsigned)n_units), 0, st,
+      (const uint32_t*)words, words_stride, (const u64*)first, (const int32_t*)width, n, n_tiles,
+      (const u64*)sums, (u64*)out);
+  if (err != cudaSuccess) return (int)err;
+  ++*launched;
+  return 0;
 }
 
 // desc: n_cols x 11 int64 on the host, per column: codec, kind, invert, pad,
-// n_codes, then device pointers values, aux, starts (scratch), decoded,
-// codes, bounds (0 where unused). t_s: (U, n_pad) uint32; valid: (U, n_pad)
-// uint8; tb: (Q, 2) uint32 start, step; nb: (Q,) uint32; out: (Q, slot_pad)
-// int64, zeroed by the caller.
+// n_codes, then device pointers values, aux, scratch, first, codes, bounds
+// (0 where unused), with n_tiles = ceil(n_pad / tt_dbp_tile()):
+//   rle  values (U, RP), lengths (U, RP), scratch (U, RP + 1 + n_tiles) int32;
+//   dct  dictionary (U, VP), indices (U, n_pad);
+//   dbp  words (U, WP), widths (U,) int32, scratch (U, n_tiles) uint64,
+//        first (U,) uint64;
+//   set codes (Q, U, K); range bounds (Q, 2) uint64.
+// t_s: (U, n_pad) uint32; valid: (U, n_pad) uint8; tb: (Q, 2) uint32 start,
+// step; nb: (Q,) uint32; out: (Q, slot_pad) int64, zeroed by the caller.
+// *launched: the kernels launched (the prepare launch when there is an rle
+// column or a dbp column of more than one tile, then the count launch).
 int tt_compiled_metrics(const int64_t* desc, int32_t n_cols, const void* t_s, const void* valid,
                         int64_t n_pad, int32_t n_units, int32_t n_q, const void* tb,
-                        const void* nb, int32_t slot_pad, void* out, void* stream) {
+                        const void* nb, int32_t slot_pad, void* out, int32_t* launched,
+                        void* stream) {
+  *launched = 0;
   if (n_cols > kMaxCCols) return (int)cudaErrorInvalidValue;
   if (n_units == 0 || n_q == 0 || n_pad == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  const int64_t n_tiles = cdiv(n_pad, kTile);
   CCols cols;
   cols.n_cols = n_cols;
+  bool has_dbp = false, has_rle = false;
+  int64_t max_codes = 0, prepare_blocks = 0;
   for (int c = 0; c < n_cols; ++c) {
     const int64_t* d = desc + c * kDescFields;
     CCol& cc = cols.c[c];
@@ -560,23 +1193,49 @@ int tt_compiled_metrics(const int64_t* desc, int32_t n_cols, const void* t_s, co
     cc.n_codes = (int32_t)d[4];
     cc.values = (const uint32_t*)d[5];
     cc.aux = (const int32_t*)d[6];
-    cc.starts = (int32_t*)d[7];
-    cc.decoded = (const u64*)d[8];
+    cc.scratch = (void*)d[7];
+    cc.first = (const u64*)d[8];
     cc.codes = (const uint32_t*)d[9];
     cc.bounds = (const u64*)d[10];
-    if (cc.codec == 0) {
-      run_starts_kernel<<<(unsigned)n_units, kThreads, 0, st>>>(cc.aux, cc.pad, cc.starts);
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
+    if (cc.codec == 2) {
+      has_dbp = true;
+      prepare_blocks += (int64_t)n_units * (n_tiles - 1);
+    } else if (cc.codec == 0) {
+      has_rle = true;
+      prepare_blocks += n_units;
     }
+    if (cc.kind == 0) max_codes += (int64_t)n_q * cc.n_codes;
   }
-  const int32_t smem_bins = slot_pad <= kSmemBins ? slot_pad : 0;
-  const unsigned tiles = (unsigned)std::max<int64_t>(1, std::min<int64_t>(cdiv(n_pad, kThreads), 64));
-  const dim3 grid(tiles, (unsigned)n_units, (unsigned)n_q);
-  compiled_metrics_kernel<<<grid, kThreads, (size_t)smem_bins * sizeof(uint32_t), st>>>(
-      cols, (const uint32_t*)t_s, (const uint8_t*)valid, n_pad, (const uint32_t*)tb,
-      (const uint32_t*)nb, slot_pad, smem_bins, (u64*)out);
-  return (int)cudaGetLastError();
+  if (prepare_blocks > 0) {
+    compiled_prepare_kernel<<<(unsigned)prepare_blocks, kThreads, 0, st>>>(cols, n_pad, n_units,
+                                                                          n_tiles);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    ++*launched;
+  }
+  const int64_t staged_codes = max_codes <= kMaxStagedCodes ? max_codes : 0;
+  bool smem_bins = true;
+  int64_t words =
+      count_smem(n_q, n_cols, has_dbp, has_rle, staged_codes, (int64_t)n_q * slot_pad).total;
+  if (words * 4 > kMaxDynSmem) {  // the lanes' bins do not fit: global atomics
+    smem_bins = false;
+    words = count_smem(n_q, n_cols, has_dbp, has_rle, staged_codes, 0).total;
+    if (words * 4 > kMaxDynSmem) return (int)cudaErrorInvalidValue;  // too many lanes
+  }
+  const size_t smem = (size_t)words * 4;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        compiled_count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const cudaError_t err = launch_dependent(
+      prepare_blocks > 0, compiled_count_kernel, dim3((unsigned)(n_tiles * n_units)), smem, st,
+      cols, (const uint32_t*)t_s, (const uint8_t*)valid, n_pad, (int64_t)n_units, n_tiles, n_q,
+      (const uint32_t*)tb, (const uint32_t*)nb, slot_pad, has_dbp, has_rle, staged_codes,
+      smem_bins, (u64*)out);
+  if (err != cudaSuccess) return (int)err;
+  ++*launched;
+  return 0;
 }
 
 }  // extern "C"

@@ -42,8 +42,10 @@ _SIGNATURES = {
     "tt_u64_range_scan": [_P, _P, _U64, _U64, _I64, _I64, _P, _P],
     "tt_rle_change_mask": [_P, _P, _P, _I64, _I32, _P, _P],
     "tt_dbp_pack": [_P, _P, _P, _I64, _P, _P],
-    "tt_dbp_decode": [_P, _I64, _P, _P, _I32, _I64, _P, _P],
-    "tt_compiled_metrics": [_P, _I32, _P, _P, _I64, _I32, _I32, _P, _P, _I32, _P, _P],
+    "tt_dbp_tile": [],
+    "tt_dbp_decode": [_P, _I64, _P, _P, _I32, _I64, _P, _P, ctypes.POINTER(_I32), _P],
+    "tt_compiled_metrics": [_P, _I32, _P, _P, _I64, _I32, _I32, _P, _P, _I32, _P,
+                            ctypes.POINTER(_I32), _P],
 }
 
 

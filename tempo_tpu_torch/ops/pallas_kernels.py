@@ -3,7 +3,8 @@
 Port of tempo_tpu/ops/pallas_kernels.py: seg_bincount (+ the host
 pre-pass compress_slot_runs), in_set_scan and u64_range_scan, with the
 same arguments and the same results, and the dbp page decode
-(dbp_decode_limbs, dbp_decode_device) that the compiled query tier runs.
+(dbp_decode_limbs, dbp_decode_device: a dbp page decoded on the card; the
+compiled query tier fuses the same tile machinery into its own program).
 Each kernel is CUDA C++ in csrc/kernels.cu (csrc/codec_kernels.cu for the
 decode), built with nvcc at first use (ops/_build.py) and launched
 through ctypes on PyTorch's current stream.
@@ -362,12 +363,18 @@ def _dbp_decode_cuda(words: torch.Tensor, first: torch.Tensor, width: torch.Tens
     u_count, n_words = words.shape
     out = torch.empty((u_count, n), dtype=torch.int64, device=words.device)
     if u_count and n:
+        lib = _build.lib()
+        # the tile sums of the reduce pass, one a (unit, tile)
+        sums = torch.empty((u_count, -(-n // lib.tt_dbp_tile())), dtype=torch.int64,
+                           device=words.device)
+        launched = ctypes.c_int32(0)
         with torch.cuda.device(words.device):
-            err = _build.lib().tt_dbp_decode(words.data_ptr(), n_words, first.data_ptr(),
-                                             width.data_ptr(), u_count, n, out.data_ptr(),
-                                             _stream(words))
+            err = lib.tt_dbp_decode(words.data_ptr(), n_words, first.data_ptr(), width.data_ptr(),
+                                    u_count, n, sums.data_ptr(), out.data_ptr(),
+                                    ctypes.byref(launched), _stream(words))
         _build.check(err, "dbp_decode")
         dbp_decode_limbs.launches += 1
+        dbp_decode_limbs.kernel_launches += launched.value
     return out
 
 
@@ -378,7 +385,9 @@ def dbp_decode_limbs(words: torch.Tensor, first: torch.Tensor, width: torch.Tens
     with room for the words its deltas straddle), first (U,) int64 of
     uint64 bits, width (U,) int32 (<= 32). Returns (U, n) int64 holding
     the uint64 bits. The JAX package carried the values as (hi, lo) u32
-    limbs; the port keeps native 64-bit integers, bit for bit the same."""
+    limbs; the port keeps native 64-bit integers, bit for bit the same.
+    On the card: two kernels over (tiles, units), a tile-sum pass and a
+    scan pass (one when every unit fits one tile)."""
     if words.ndim != 2 or first.shape != (words.shape[0],) or width.shape != first.shape:
         raise ValueError("dbp_decode: words (U, W), first (U,), width (U,)")
     if _route("dbp_decode", words) == "cpu":
@@ -386,7 +395,8 @@ def dbp_decode_limbs(words: torch.Tensor, first: torch.Tensor, width: torch.Tens
     return _dbp_decode_cuda(words, first, width, n)
 
 
-dbp_decode_limbs.launches = 0
+dbp_decode_limbs.launches = 0  # calls that launched the decode
+dbp_decode_limbs.kernel_launches = 0  # its kernels: the reduce pass (units of 2+ tiles), the scan
 
 
 def dbp_decode_device(page: bytes, dtype: str, shape: tuple, device) -> np.ndarray:

@@ -595,3 +595,283 @@ def test_compiled_metrics_kernel_equals_plain(codecs):
     got = program.compiled_metrics(sig, *on(dev))
     assert program.compiled_metrics.launches == before + 1
     assert torch.equal(got.cpu(), program.compiled_metrics(sig, *on(torch.device("cpu"))))
+
+
+# ---------------------------------------------------------------------------
+# 7. the tiled kernels' edges: tile boundaries, long units, carries that
+#    wrap, many lanes, one bin, bins past the shared-memory budget, runs
+#    across tiles, 64-code sets
+# ---------------------------------------------------------------------------
+
+TILE = 2048  # elements a block of dbp_decode and compiled_metrics (kTile in codec_kernels.cu)
+
+
+def _dbp_words(col):
+    """A uint64 column's dbp page of one sub-column as (words, first,
+    width), with the one guard word the stream's readers expect."""
+    first, _anchors, widths, streams, _n = lw.dbp_parts(lw.dbp_encode(col), col.dtype.str,
+                                                        col.shape)
+    raw = bytes(streams[0])
+    return (np.frombuffer(raw + b"\x00" * ((-len(raw)) % 4 + 4), "<u4"), int(first[0]),
+            int(widths[0]))
+
+
+def _dbp_column(rng, n, width, wrap=False):
+    """n uint64 values whose zigzag deltas are exactly `width` bits wide
+    (0..32); with wrap (widths 2+), the column climbs through 2^64 halfway."""
+    if wrap:  # non-negative deltas below 2^(width-1), one at the top
+        deltas = rng.integers(0, 1 << (width - 1), n - 1)
+        deltas[0] = (1 << (width - 1)) - 1
+        start = np.uint64((1 << 64) - int(deltas.sum()) // 2)
+    elif width == 0:
+        deltas = np.zeros(n - 1, np.int64)
+        start = np.uint64(1 << 40)
+    else:
+        top = (1 << (width - 1)) - 1
+        deltas = rng.integers(-top, top + 1, n - 1) if top else rng.integers(-1, 1, n - 1)
+        deltas[0] = -(1 << (width - 1)) if width > 1 else -1
+        start = np.uint64(1 << 40)
+    with np.errstate(over="ignore"):
+        col = start + np.concatenate([[0], np.cumsum(deltas)]).astype(np.int64).astype(np.uint64)
+    return col
+
+
+def _edge_units(rng, codecs, ns, width=12, runs=None, d=8, dom=12, wrap=False):
+    """One unit a row count in ns: rle columns of `runs` runs (random
+    when None) of values in 0..dom-1, dct dictionaries of d of those
+    values, dbp columns of the given delta width; t_s over two minutes
+    around BASE_S."""
+    units, raw = [], []
+    for n in ns:
+        cols, vals = [], []
+        for codec in codecs:
+            if codec == "rle":
+                k = min(n, runs if runs is not None else int(rng.integers(1, 40)))
+                cuts = np.sort(rng.choice(np.arange(1, n), k - 1, replace=False)) if k > 1 else []
+                lengths = np.diff(np.concatenate([[0], cuts, [n]])).astype(np.int32)
+                values = rng.integers(0, dom, len(lengths)).astype(np.uint32)
+                cols.append(("rle", {"values": values, "lengths": lengths}, {"n": n}))
+                vals.append(np.repeat(values, lengths).astype(np.uint64))
+            elif codec == "dct":
+                values = np.sort(rng.choice(np.arange(dom, dtype=np.uint32), d, replace=False))
+                idx = rng.integers(0, d, n).astype(np.int32)
+                cols.append(("dct", {"values": values, "idx": idx}, {"n": n}))
+                vals.append(values[idx].astype(np.uint64))
+            else:
+                col = _dbp_column(rng, n, width, wrap)
+                words, first, w = _dbp_words(col)
+                assert w == width
+                cols.append(("dbp", {"words": words}, {"n": n, "first": first, "width": w}))
+                vals.append(col)
+        t_s = (BASE_S - 20 + rng.integers(0, 120, n)).astype(np.uint32)
+        units.append(executor._Unit(n, t_s, cols, ()))
+        raw.append((t_s, vals))
+    return units, raw
+
+
+def _edge_program(units, codecs, q, sets, ranges, invert=True):
+    """The stacked program inputs of units for q lanes: set columns take
+    sets[lane] (K codes, the same for every unit; inverted on every other
+    column when invert), range columns ranges[lane]."""
+    n_pad = executor._pow2(max(u.n for u in units))
+    colsig = tuple(("range", f"c{i}") if c == "dbp" else ("set", f"c{i}", invert and i % 2 == 0)
+                   for i, c in enumerate(codecs))
+    t_s, valid, payloads, pads = executor._stack_group(units, colsig, n_pad)
+    sig_cols, qargs = [], []
+    for i, codec in enumerate(codecs):
+        if codec == "dbp":
+            sig_cols.append(("dbp", "range", False, pads[i]))
+            qargs.append(np.array(ranges[:q], np.uint64))
+        else:
+            k = len(sets[0])
+            sig_cols.append((codec, "set", colsig[i][2], k))
+            qargs.append(np.stack([np.stack([np.asarray(s, np.uint32)] * len(units))
+                                   for s in sets[:q]]))
+    return tuple(sig_cols), n_pad, (t_s, valid, payloads, qargs)
+
+
+def _on(arrays, tb, nb, dev):
+    t_s, valid, payloads, qargs = arrays
+    return (executor._tensor(t_s, dev), executor._tensor(valid, dev),
+            tuple(tuple(executor._tensor(a, dev) for a in p) for p in payloads),
+            tuple(executor._tensor(a, dev) for a in qargs), executor._tensor(tb, dev),
+            executor._tensor(nb, dev))
+
+
+def _oracle(raw, codecs, sig_cols, sets, ranges, tb, nb, slot_pad):
+    """Counts from the decoded columns, in numpy."""
+    q = len(tb)
+    want = np.zeros((q, slot_pad), np.int64)
+    for ts_u, vals in raw:
+        for qq in range(q):
+            hit = np.ones(len(ts_u), bool)
+            for i, codec in enumerate(codecs):
+                if codec == "dbp":
+                    lo, hi = ranges[qq]
+                    hit &= (vals[i] >= np.uint64(lo)) & (vals[i] <= np.uint64(hi))
+                else:
+                    hit &= np.isin(vals[i], np.asarray(sets[qq], np.uint64)) != sig_cols[i][2]
+            ok = hit & (ts_u >= tb[qq, 0])
+            bins = (ts_u.astype(np.int64) - int(tb[qq, 0])) // int(tb[qq, 1])
+            ok &= bins < min(int(nb[qq]), slot_pad)
+            np.add.at(want[qq], bins[ok], 1)
+    return want
+
+
+_SETS64 = [list(range(0, 128, 2)), [0xFFFFFFFF] * 64, list(range(50, 114)), list(range(64))]
+_SETS4 = [[1, 3, 7, 9], [0xFFFFFFFF] * 4, [2, 4, 5, 190], [10, 20, 30, 40]]
+_RANGES = [(0, (1 << 64) - 1), (5, 4), ((1 << 40) - 10**6, (1 << 40) + 10**6),
+           ((1 << 40) - (1 << 36), 1 << 41)]
+# (name, codecs, row counts, dbp width, rle runs, Q, lane sets, windows, n_bins, slot_pad)
+_WIN4 = [[BASE_S, 10], [BASE_S + 30, 7], [BASE_S - 100, 60], [BASE_S + 5, 1]]
+EDGE_CASES = [
+    ("tile-1", ("rle", "dct", "dbp"), [TILE - 1, 5], 12, None, 2, _SETS4, _WIN4, [6, 3], 8),
+    ("tile", ("rle", "dct", "dbp"), [TILE, TILE - 3], 31, None, 2, _SETS4, _WIN4, [6, 3], 8),
+    ("tile+1", ("rle", "dct", "dbp"), [TILE + 1, 2], 1, None, 2, _SETS4, _WIN4, [6, 3], 8),
+    ("tiles", ("dbp", "rle"), [5 * TILE + 17, 3 * TILE, 700], 32, None, 4, _SETS4, _WIN4,
+     [6, 3, 2, 100], 128),
+    ("width0", ("dbp",), [3 * TILE + 1, TILE], 0, None, 1, _SETS4, _WIN4, [12], 16),
+    ("rle-spans", ("rle",), [4 * TILE, 2 * TILE + 9], 12, 3, 4, _SETS4, _WIN4, [6, 3, 2, 100],
+     128),
+    ("rle-many", ("rle", "dct"), [3 * TILE + 100, TILE], 12, 1500, 2, _SETS4, _WIN4, [6, 3], 8),
+    ("codes64", ("rle", "dct", "rle"), [2 * TILE + 3, 900], 12, 50, 4, _SETS64, _WIN4,
+     [6, 3, 2, 100], 128),
+    ("one-bin", ("dct", "dbp"), [2 * TILE + 3, TILE], 12, None, 1, _SETS4, [[BASE_S - 100, 600]],
+     [1], 1),
+    ("global-bins", ("rle", "dbp"), [3 * TILE, 333], 12, None, 1, _SETS4, [[BASE_S - 20, 1]],
+     [1 << 16], 1 << 16),
+    ("no-column", (), [3 * TILE + 5, TILE], 12, None, 4, _SETS4, _WIN4, [6, 3, 2, 100], 128),
+]
+
+
+def _edge_inputs(case, seed=0):
+    name, codecs, ns, width, runs, q, sets, wins, n_bins, slot_pad = case
+    rng = np.random.default_rng(seed + len(name))
+    wide = len(sets[0]) == 64  # 64-code sets over 128 values, else 4 codes over 12
+    units, raw = _edge_units(rng, codecs, ns, width=width, runs=runs, d=64 if wide else 8,
+                             dom=128 if wide else 12)
+    if name == "one-bin":  # every row of every unit in the one bin
+        for un, (ts_u, _vals) in zip(units, raw):
+            un.t_s[:] = BASE_S
+            ts_u[:] = BASE_S
+    sig_cols, n_pad, arrays = _edge_program(units, codecs, q, sets, _RANGES)
+    tb = np.array(wins[:q], np.uint32)
+    nb = np.array(n_bins[:q], np.uint32)
+    return raw, codecs, (sig_cols, n_pad, slot_pad, q), arrays, tb, nb, sets[:q]
+
+
+@pytest.mark.parametrize("case", EDGE_CASES, ids=lambda c: c[0])
+def test_program_plain_edge_shapes_equal_oracle(case):
+    """The fused program's plain version at the kernels' edge shapes
+    against counts taken in numpy from the decoded columns."""
+    raw, codecs, sig, arrays, tb, nb, sets = _edge_inputs(case)
+    got = program.compiled_metrics(sig, *_on(arrays, tb, nb, torch.device("cpu")))
+    want = _oracle(raw, codecs, sig[0], sets, _RANGES, tb, nb, sig[2])
+    assert np.array_equal(got.numpy(), want) and want.sum() > 0
+
+
+@pytest.mark.parametrize("case", [c for c in EDGE_CASES if c[0] in ("one-bin", "global-bins")]
+                         + [("q1", ("rle", "dct", "dbp"), [700, 300], 12, None, 1, _SETS4,
+                             _WIN4, [6], 8)], ids=lambda c: c[0])
+def test_program_plain_equals_jax_edge_shapes(case):
+    """The plain version against the JAX program at one bin, one lane and
+    a slot_pad above the kernel's shared-memory budget."""
+    raw, codecs, sig, arrays, tb, nb, _sets = _edge_inputs(case)
+    sig_cols, n_pad, slot_pad, q = sig
+    t_s, valid, payloads, qargs = arrays
+    jpay, jq = [], []
+    for p, qa, codec in zip(payloads, qargs, codecs):
+        if codec == "dbp":
+            words, first, width = p
+            jpay.append((jnp.asarray(words), jnp.asarray((first >> np.uint64(32)).astype(np.uint32)),
+                         jnp.asarray((first & np.uint64(0xFFFFFFFF)).astype(np.uint32)),
+                         jnp.asarray(width)))
+            jq.append(np.array([[lo >> 32, lo & 0xFFFFFFFF, hi >> 32, hi & 0xFFFFFFFF]
+                                for lo, hi in (tuple(int(x) for x in r) for r in qa)], np.uint32))
+        else:
+            jpay.append(tuple(jnp.asarray(a) for a in p))
+            jq.append(qa)
+    jprog = jbuild_program((sig_cols, n_pad, slot_pad, q))
+    ref = np.asarray(jprog(jnp.asarray(t_s), jnp.asarray(valid), tuple(jpay),
+                           tuple(jnp.asarray(a) for a in jq), jnp.asarray(tb), jnp.asarray(nb)))
+    got = program.compiled_metrics(sig, *_on(arrays, tb, nb, torch.device("cpu")))
+    assert np.array_equal(got.numpy(), ref.astype(np.int64)) and ref.sum() > 0
+
+
+def _tile(dev):
+    from tempo_tpu_torch.ops import _build
+
+    assert _build.lib().tt_dbp_tile() == TILE
+    return dev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", EDGE_CASES, ids=lambda c: c[0])
+def test_compiled_metrics_kernel_edge_shapes(case):
+    """The fused kernel against its plain version, bit for bit, at the
+    tile edges, several tiles a unit, Q=4 windows, one bin, the global
+    atomic branch, rle runs across tiles and 64-code sets; at most two
+    launches a dispatch."""
+    dev = _tile(_cuda())
+    raw, codecs, sig, arrays, tb, nb, sets = _edge_inputs(case)
+    before = (program.compiled_metrics.launches, program.compiled_metrics.kernel_launches)
+    got = program.compiled_metrics(sig, *_on(arrays, tb, nb, dev))
+    launches = program.compiled_metrics.launches - before[0]
+    kernels = program.compiled_metrics.kernel_launches - before[1]
+    assert launches == 1 and 1 <= kernels <= 2
+    want = program.compiled_metrics(sig, *_on(arrays, tb, nb, torch.device("cpu")))
+    assert torch.equal(got.cpu(), want)
+    assert np.array_equal(want.numpy(), _oracle(raw, codecs, sig[0], sets, _RANGES, tb, nb, sig[2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,wrap", [(0, False), (1, False), (31, False), (32, False),
+                                        (2, True), (31, True), (32, True)])
+def test_compiled_metrics_kernel_long_unit(width, wrap):
+    """U=1 with n=2^20 rows (512 tiles): a dbp column of each width, its
+    carry wrapping 2^64 (widths of 2+ bits) or not, beside an rle column,
+    four lanes."""
+    dev = _tile(_cuda())
+    rng = np.random.default_rng(width)
+    n = 1 << 20
+    units, raw = _edge_units(rng, ("dbp", "rle"), [n], width=width, runs=300, wrap=wrap)
+    col = raw[0][1][0]
+    ranges = [(0, (1 << 64) - 1), (int(col[n // 3]), int(col[n // 2])),
+              (int(col[-1]), int(col[-1])), (int(col.min()), int(col.max()))]
+    sig_cols, n_pad, arrays = _edge_program(units, ("dbp", "rle"), 4, _SETS4, ranges)
+    tb = np.array(_WIN4, np.uint32)
+    nb = np.array([6, 3, 2, 100], np.uint32)
+    sig = (sig_cols, n_pad, 128, 4)
+    got = program.compiled_metrics(sig, *_on(arrays, tb, nb, dev))
+    want = program.compiled_metrics(sig, *_on(arrays, tb, nb, torch.device("cpu")))
+    assert torch.equal(got.cpu(), want)
+    assert np.array_equal(want.numpy(), _oracle(raw, ("dbp", "rle"), sig_cols, _SETS4, ranges,
+                                                tb, nb, 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [0, 1, 31, 32])
+@pytest.mark.parametrize("n,units", [(TILE - 1, 3), (TILE, 3), (TILE + 1, 3), (5 * TILE + 7, 4),
+                                     (1 << 20, 1)])
+def test_dbp_decode_kernel_tiles(n, units, width):
+    """dbp_decode against its plain version and the columns at the tile
+    edges, several tiles a unit and one unit of 2^20 values, every width,
+    one unit's carry wrapping 2^64 (widths of 2+ bits); the reduce pass
+    launches only for units of more than one tile."""
+    dev = _tile(_cuda())
+    rng = np.random.default_rng(n + width)
+    cols = [_dbp_column(rng, n, width, wrap=width >= 2 and i == 0) for i in range(units)]
+    parts = [_dbp_words(c) for c in cols]
+    wp = max(len(p[0]) for p in parts)
+    words = np.zeros((units, wp), np.uint32)
+    for i, p in enumerate(parts):
+        words[i, : len(p[0])] = p[0]
+    args = (torch.from_numpy(words.view(np.int32)),
+            torch.tensor([p[1] for p in parts], dtype=torch.uint64).view(torch.int64),
+            torch.tensor([p[2] for p in parts], dtype=torch.int32))
+    before = (tpk.dbp_decode_limbs.launches, tpk.dbp_decode_limbs.kernel_launches)
+    got = tpk.dbp_decode_limbs(*(a.to(dev) for a in args), n).cpu()
+    assert tpk.dbp_decode_limbs.launches == before[0] + 1
+    assert tpk.dbp_decode_limbs.kernel_launches == before[1] + (2 if n > TILE else 1)
+    assert torch.equal(got, tpk._dbp_decode_plain(*args, n))
+    assert np.array_equal(got.numpy().view(np.uint64), np.stack(cols))
