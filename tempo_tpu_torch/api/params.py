@@ -7,8 +7,8 @@ startPage, pagesToSearch, version, size, footerSize — the sub-request a
 frontend shard sends a querier), ParseTraceID from the /api/traces/{id}
 path, and ValidateAndSanitizeRequest:428.
 
-Port of tempo_tpu/api/params.py without the standing-query and graph
-request types (their slices).
+Port of tempo_tpu/api/params.py, with the standing-query read request;
+without the graph request types (their slice).
 """
 
 from __future__ import annotations
@@ -315,3 +315,35 @@ def parse_trace_id(path_tail: str) -> bytes:
     if len(s) % 2:
         s = "0" + s
     return binascii.unhexlify(s).rjust(16, b"\x00")
+
+
+@dataclass
+class StandingReadRequest:
+    """GET /api/metrics/standing/{id}: optional start/end/step — all
+    default to the registration's own window/grid."""
+
+    start_s: int = 0
+    end_s: int = 0
+    step_s: int = 0
+
+
+def parse_standing_read_request(qs: dict) -> StandingReadRequest:
+    req = StandingReadRequest()
+    try:
+        req.start_s = int(_first(qs, "start", "0"))
+        req.end_s = int(_first(qs, "end", "0"))
+    except ValueError as e:
+        raise BadRequest(str(e)) from None
+    step_raw = _first(qs, "step")
+    if step_raw:
+        if step_raw.lstrip("-").isdigit():
+            req.step_s = int(step_raw)
+        else:
+            req.step_s = parse_duration_ns(step_raw) // 10**9
+        if req.step_s <= 0:
+            raise BadRequest("step must be positive")
+    if req.start_s < 0 or req.end_s < 0:
+        raise BadRequest("start/end must be non-negative")
+    if req.end_s and req.start_s and req.end_s <= req.start_s:
+        raise BadRequest("end must be after start")
+    return req

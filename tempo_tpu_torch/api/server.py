@@ -15,11 +15,12 @@ Port of tempo_tpu/api/server.py for the single binary. Routes:
   GET  /api/search/tags      tag names
   GET  /api/search/tag/{n}/values
   GET  /api/metrics/query_range   TraceQL metrics (Prometheus matrix)
+  POST/GET/DELETE /api/metrics/standing[/{id}[/state]]  standing queries
   GET  /api/query-insights   per-query records + the compiled tier's cache stats
   GET  /api/echo             frontend liveness ("echo")
   POST /flush /shutdown
   GET  /ready /metrics /status[/config|/runtime_config|/services|
-       /endpoints|/buildinfo] and the ring pages
+       /endpoints|/buildinfo|/standing] and the ring pages
 Every other route of the reference answers 404 naming the ROADMAP item
 that ports it (_UNPORTED_ROUTES).
 """
@@ -64,8 +65,6 @@ _UNPORTED_ROUTES = (
     (("/memberlist",), (), "the ring KV (netkv)", _Q1_2),
     (("/api/usage", "/status/usage", "/status/usage-stats"), (),
      "the usage endpoints (usagestats)", _Q1_2),
-    ((api_params.PATH_METRICS_STANDING, "/status/standing"),
-     (api_params.PATH_METRICS_STANDING + "/",), "the standing-query engine", _Q1_3),
     (("/api/graph/dependencies", "/api/graph/critical-path", "/api/graph/walks"), (),
      "the graph/ analytics", _Q1_3),
     ((api_params.PATH_RCA, "/status/rca"), (api_params.PATH_RCA + "/",), "rca", _Q1_3),
@@ -206,8 +205,11 @@ class _Handler(BaseHTTPRequestHandler):
             return api_params.PATH_TRACES + "/{traceID}"
         if p.startswith(api_params.PATH_SEARCH_TAG_VALUES + "/") and p.endswith("/values"):
             return api_params.PATH_SEARCH_TAG_VALUES + "/{name}/values"
-        if p.startswith(("/rpc/", "/kv/", api_params.PATH_METRICS_STANDING + "/",
-                         api_params.PATH_RCA + "/")):
+        if p.startswith(api_params.PATH_METRICS_STANDING + "/"):
+            if p.endswith("/state"):
+                return api_params.PATH_METRICS_STANDING + "/{id}/state"
+            return api_params.PATH_METRICS_STANDING + "/{id}"
+        if p.startswith(("/rpc/", "/kv/", api_params.PATH_RCA + "/")):
             return "{unported}"
         return p
 
@@ -308,6 +310,13 @@ class _Handler(BaseHTTPRequestHandler):
             else:
                 self._send(200, b"", "application/x-protobuf")
             return 200
+
+        # standing queries (tempo_tpu_torch/standing): registration +
+        # incremental reads + alert state, tenant-scoped. Served by
+        # ingester-owning processes (the cut path folds there).
+        if path == api_params.PATH_METRICS_STANDING or path.startswith(
+                api_params.PATH_METRICS_STANDING + "/"):
+            return self._standing(method, path, qs)
 
         if method != "GET" and path not in ("/flush", "/shutdown"):
             self._send_error(405, "method not allowed")
@@ -466,8 +475,83 @@ class _Handler(BaseHTTPRequestHandler):
         if path == "/status/services":
             self._send_json(200, app.service_states() if hasattr(app, "service_states") else {"app": "Running"})
             return 200
+        if path == "/status/standing":
+            # operator view of the standing-query engine: registration
+            # and fold totals plus the per-tenant cut-delta counters
+            eng = getattr(app, "standing", None)
+            if eng is None:
+                self._send_json(200, {"enabled": False})
+            else:
+                self._send_json(200, {"enabled": True, **eng.status()})
+            return 200
         self._send_error(404, "not found")
         return 404
+
+    # -- standing queries ----------------------------------------------
+    def _standing(self, method: str, path: str, qs: dict) -> int:
+        from tempo_tpu_torch.standing import UnknownStandingQuery
+        from tempo_tpu_torch.standing.engine import StandingFoldFailed
+
+        app, org = self.app, self._org_id()
+        tail = path[len(api_params.PATH_METRICS_STANDING):].strip("/")
+        try:
+            if not tail:
+                if method == "POST":
+                    try:
+                        body = json.loads(self._body() or b"{}")
+                    except ValueError as e:
+                        raise BadRequest(f"bad json body: {e}") from e
+                    if not isinstance(body, dict):
+                        raise BadRequest("body must be a json object")
+                    try:
+                        doc = app.standing_register(body, org_id=org)
+                    except (ValueError, TypeError) as e:
+                        raise BadRequest(str(e)) from e
+                    self._send_json(200, doc)
+                    return 200
+                if method == "GET":
+                    self._send_json(200, {"queries": app.standing_list(org_id=org)})
+                    return 200
+                self._send_error(405, "method not allowed")
+                return 405
+            parts = tail.split("/")
+            qid = parts[0]
+            if len(parts) == 2 and parts[1] == "state" and method == "GET":
+                self._send_json(200, app.standing_state(qid, org_id=org))
+                return 200
+            if len(parts) != 1:
+                self._send_error(404, "not found")
+                return 404
+            if method == "DELETE":
+                app.standing_delete(qid, org_id=org)
+                self._send(204, b"", "text/plain; charset=utf-8")
+                return 204
+            if method == "GET":
+                req = api_params.parse_standing_read_request(qs)
+                try:
+                    doc = app.standing_read(qid, org_id=org,
+                                            start_s=req.start_s,
+                                            end_s=req.end_s,
+                                            step_s=req.step_s)
+                except ValueError as e:
+                    raise BadRequest(str(e)) from e
+                stats = doc.pop("stats", {})
+                self._send_json(200, {
+                    "status": "success",
+                    "data": {"resultType": doc["resultType"],
+                             "result": doc["result"]},
+                    "metrics": stats,
+                })
+                return 200
+            self._send_error(405, "method not allowed")
+            return 405
+        except UnknownStandingQuery:
+            self._send_error(404, "no such standing query")
+            return 404
+        except StandingFoldFailed as e:
+            # the card's fold arm failed: no host rebuild stands in for it
+            self._send_error(500, str(e))
+            return 500
 
     # -- query handlers ------------------------------------------------
     def _trace_by_id(self, tail: str, qs: dict) -> int:
@@ -582,6 +666,11 @@ _ENDPOINTS = [
     "GET /api/search/tags",
     "GET /api/search/tag/{name}/values",
     "GET /api/metrics/query_range",
+    "POST /api/metrics/standing",
+    "GET /api/metrics/standing",
+    "GET /api/metrics/standing/{id}",
+    "GET /api/metrics/standing/{id}/state",
+    "DELETE /api/metrics/standing/{id}",
     "GET /api/query-insights",
     "GET /api/echo",
     "GET /ready",
@@ -591,6 +680,7 @@ _ENDPOINTS = [
     "GET /status/config",
     "GET /status/services",
     "GET /status/endpoints",
+    "GET /status/standing",
     "GET /status/runtime_config",
     "POST /flush",
     "POST /shutdown",

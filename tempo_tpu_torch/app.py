@@ -4,8 +4,9 @@ Port of tempo_tpu/app.py for `target=all` (reference: cmd/tempo/app,
 the module manager DAG modules.go:369-423): every role in-process over
 one ring and one storage engine. `App(cfg, device=None)` resolves the
 device once (CUDA unless "cpu" is passed; raises without CUDA) and
-hands it to every TempoDB it builds, so the blocks' sketch plane and
-the metrics accumulator run on that device from any worker thread.
+hands it to every TempoDB it builds and to the standing-query engine,
+so the blocks' sketch plane, the metrics accumulator and the standing
+fold run on that device from any worker or cut thread.
 
 AppConfig keeps every field of the reference. Features whose modules
 wait for later slices raise NotImplementedError naming their ROADMAP
@@ -29,7 +30,6 @@ from tempo_tpu_torch.config_sections import (
     DeviceTierConfig,
     RCAConfig,
     SLOConfig,
-    StandingConfig,
     VultureConfig,
 )
 from tempo_tpu_torch.db import DBConfig, TempoDB
@@ -42,6 +42,7 @@ from tempo_tpu_torch.modules.overrides import Limits, Overrides
 from tempo_tpu_torch.modules.querier import Querier
 from tempo_tpu_torch.modules.ring import MemoryKV, Ring
 from tempo_tpu_torch.modules.worker import JobBroker, LocalWorkerPool
+from tempo_tpu_torch.standing import StandingConfig, StandingEngine
 from tempo_tpu_torch.util import resource, tracing
 from tempo_tpu_torch.util.circuit import CircuitBreaker
 
@@ -74,7 +75,6 @@ _UNPORTED = (
     (lambda c: c.usage_stats is not None and getattr(c.usage_stats, "enabled", False),
      lambda c: "usage_report", _Q1_2),
     (lambda c: c.self_tracing.enabled, lambda c: "self_tracing", _Q1_2),
-    (lambda c: c.standing.enabled, lambda c: "the standing-query engine", _Q1_3),
     (lambda c: c.rca.enabled, lambda c: "rca", _Q1_3),
     (lambda c: c.slo.enabled, lambda c: "slo", _Q1_3),
     (lambda c: c.vulture.enabled, lambda c: "vulture", _Q1_3),
@@ -219,7 +219,15 @@ class App:
         self.ingesters: dict = {}
         self._heartbeat_stops = []
         self._registered: list = []  # (ring, instance_id) to unregister on shutdown
+        # built BEFORE the ingesters so the cut path holds a stable
+        # reference; storage/WAL wiring attaches after the build
+        self.standing = (
+            StandingEngine(cfg.standing, overrides=self.overrides,
+                           governor=self.governor, device=self.device)
+            if cfg.standing.enabled else None
+        )
         self._build_all()
+        self._maybe_standing_attach()
 
     # ------------------------------------------------------------------
     def _hb_period(self) -> float:
@@ -251,7 +259,8 @@ class App:
             ing_db = TempoDB(sub_cfg, raw_backend=self.db.backend.raw,
                              device=self.device)
             ing_db.blocklist = self.db.blocklist  # shared world view
-            ing = Ingester(ing_db, self.overrides, cfg.ingester, instance_id=iid)
+            ing = Ingester(ing_db, self.overrides, cfg.ingester, instance_id=iid,
+                           standing=self.standing)
             self.ingesters[iid] = ing
             self.ring.register(iid)
             self._registered.append((self.ring, iid))
@@ -265,6 +274,21 @@ class App:
                                        breaker=self._query_breaker())
         self.frontend = Frontend(self.broker, self.db, cfg.frontend, self.overrides)
         self.compactor = CompactorModule(self.db, ring=None)
+
+    def _maybe_standing_attach(self):
+        """Late wiring of the standing engine: storage for restart
+        rebuilds, the ingesters for the read tail / WAL replay, and the
+        WAL root for the registration snapshot. Loads the snapshot and
+        rebuilds restored accumulators exactly from step partials +
+        the rescanned WAL."""
+        if self.standing is None:
+            return
+        if not self.ingesters:
+            self.standing = None  # engine serves nothing without a cut path
+            return
+        snap_dir = self.cfg.db.wal_path or "wal"
+        self.standing.attach(db=self.db, ingesters=self.ingesters,
+                             snapshot_dir=snap_dir)
 
     # -- tenant resolution ----------------------------------------------
     def resolve_tenant(self, org_id: str | None) -> str:
@@ -333,6 +357,41 @@ class App:
             self.resolve_tenant(org_id), tag
         )
 
+    # -- standing queries -------------------------------------------------
+    def _standing(self):
+        return self._require(self.standing, "standing queries")
+
+    def standing_register(self, body: dict, org_id=None) -> dict:
+        """POST /api/metrics/standing: register a query_range query for
+        incremental evaluation (validated by the exact metrics grammar/
+        planner; caps via standing config + per-tenant Limits)."""
+        tenant = self.resolve_tenant(org_id)
+        q = self._standing().register(
+            tenant,
+            query=str(body.get("q") or body.get("query") or ""),
+            step_s=int(body.get("step", 0)),
+            window_s=int(body.get("window", 0)),
+            alert=body.get("alert"),
+            max_series=int(body.get("maxSeries", 64)),
+            deviation=body.get("deviation"),
+        )
+        return q.to_doc()
+
+    def standing_list(self, org_id=None) -> list[dict]:
+        return self._standing().list(self.resolve_tenant(org_id))
+
+    def standing_read(self, qid: str, org_id=None, start_s: int = 0,
+                      end_s: int = 0, step_s: int = 0) -> dict:
+        return self._standing().read(self.resolve_tenant(org_id), qid,
+                                     start_s=start_s, end_s=end_s,
+                                     step_s=step_s)
+
+    def standing_state(self, qid: str, org_id=None) -> dict:
+        return self._standing().state(self.resolve_tenant(org_id), qid)
+
+    def standing_delete(self, qid: str, org_id=None) -> None:
+        self._standing().delete(self.resolve_tenant(org_id), qid)
+
     # -- lifecycle -------------------------------------------------------
     def start_loops(self):
         for ing in self.ingesters.values():
@@ -349,6 +408,8 @@ class App:
         states = {"target": self.target}
         for name in ("distributor", "querier", "frontend", "compactor"):
             states[name] = "Running"
+        if self.standing is not None:
+            states["standing"] = "Running"
         for iid in self.ingesters:
             states[iid] = "Running"
         return states
@@ -363,6 +424,10 @@ class App:
                 log.exception("ring unregister failed for %s", iid)
         for ing in self.ingesters.values():
             ing.stop(flush=True)
+        if self.standing is not None:
+            # after the ingester drain: the final cuts' folds land first,
+            # then registrations + state snapshot to the WAL dir
+            self.standing.stop()
         self.workers.stop()
         self.compactor.stop()
         self.db.shutdown()

@@ -11,9 +11,9 @@ usage_report) so a Tempo operator's mental model carries over.
 
 Port of tempo_tpu/config.py: the same YAML gives the same dataclasses.
 The sections of modules not ported yet come from config_sections, and
-three defaults differ from the reference (`metrics_generator.enabled`
-and `standing.enabled` start off, `storage.trace.analytics_scan_s` is
-0); App refuses each unported section that is switched on.
+two defaults differ from the reference (`metrics_generator.enabled`
+starts off, `storage.trace.analytics_scan_s` is 0); App refuses each
+unported section that is switched on.
 """
 
 from __future__ import annotations
@@ -34,7 +34,6 @@ from tempo_tpu_torch.config_sections import (
     ForwarderConfig,
     RCAConfig,
     RemoteWriteConfig,
-    StandingConfig,
     UsageStatsConfig,
     VultureConfig,
 )
@@ -42,6 +41,7 @@ from tempo_tpu_torch.db import DBConfig
 from tempo_tpu_torch.modules.frontend import FrontendConfig
 from tempo_tpu_torch.modules.ingester import IngesterConfig
 from tempo_tpu_torch.modules.overrides import Limits
+from tempo_tpu_torch.standing import StandingConfig
 from tempo_tpu_torch.util.resource import ResourceConfig
 from tempo_tpu_torch.util.tracing import SelfTracingConfig
 
@@ -294,7 +294,15 @@ def check_config(cfg: Config) -> list[str]:
             f"ceiling ({resident_cap} bytes = query_shards x target_bytes_per_job): "
             "two concurrent broad queries cannot both be admitted"
         )
-    # -- step-partial downsampling tier ----------------------------------
+    # -- standing queries + step-partial downsampling tier ---------------
+    if app.standing.enabled and app.multitenancy_enabled \
+            and app.standing.max_queries_per_tenant <= 0:
+        warnings.append(
+            "standing.max_queries_per_tenant is unset in a multitenant "
+            "cluster: any tenant can register unbounded standing queries, "
+            "each evaluated on every ingest cut (set the cap, or per-tenant "
+            "overrides.max_standing_queries)"
+        )
     from tempo_tpu_torch.standing import rules as _sp_rules
 
     for rule in _sp_rules.parse_rules(

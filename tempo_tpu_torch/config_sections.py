@@ -4,12 +4,13 @@ The port reads the same YAML into the same dataclasses as tempo_tpu
 (config.py), so every section keeps every field of the reference. The
 modules behind these sections wait for later slices; App raises
 NotImplementedError, naming the ROADMAP item, when one is switched on.
-Two features the reference enables by default start off here:
-`standing.enabled` and the App's `generator_enabled`.
+One feature the reference enables by default starts off here: the App's
+`generator_enabled`. (`standing:` is the ported engine's own
+StandingConfig, in tempo_tpu_torch/standing/engine.py.)
 
 Copies of: encoding/vtpu/colcache.DeviceTierConfig,
 modules/forwarder.ForwarderConfig, modules/generator/storage.
-RemoteWriteConfig, rca/engine.RCAConfig, standing/engine.StandingConfig,
+RemoteWriteConfig, rca/engine.RCAConfig,
 usagestats.UsageStatsConfig, util/slo.SLOObjective + SLOConfig,
 vulture.VultureConfig and
 resultcache.ResultCacheConfig.
@@ -69,18 +70,6 @@ class RCAConfig:
     walk_seed: int = 0
     insights_limit: int = 20
     queue_max: int = 16
-
-
-@dataclass
-class StandingConfig:
-    """`standing:` — the standing-query engine (off in the port)."""
-
-    enabled: bool = False
-    max_queries_per_tenant: int = 0
-    snapshot_period_s: float = 30.0
-    default_window_s: int = 3600
-    max_window_s: int = 30 * 86400
-    recent_tail: bool = True
 
 
 @dataclass

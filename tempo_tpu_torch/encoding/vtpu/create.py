@@ -285,6 +285,7 @@ class BlockWriter:
             self.offset += len(page)
             self.pages_reencoded += 1
             self.bytes_reencoded += len(page)
+            sp_rules.partial_pages_written_total.inc()
 
     def append_relocated(self, rg: fmt.RowGroupMeta, raw_pages: dict,
                          reencode: dict, min_id: str, max_id: str,

@@ -1,10 +1,11 @@
 """Ingester — live traces -> WAL head block -> complete block -> flush.
 
-Port of tempo_tpu/modules/ingester.py. Not here yet: the standing-query
-fold at each cut and its read/replay seams (the standing slice; App
-refuses `standing.enabled`), and the device tier's tail hooks (the cut
-parked on the card, tail keys on live segments; ROADMAP Queue 1 item
-1.1; App refuses `device_tier.budget_mb > 0`).
+Port of tempo_tpu/modules/ingester.py, with the standing-query fold at
+each cut and its read/replay seams (`standing_live_batches`,
+`standing_wal_batches`, `standing_flushed_since`). Not here yet: the
+device tier's tail hooks (the cut parked on the card, tail keys on live
+segments; ROADMAP Queue 1 item 4; App refuses
+`device_tier.budget_mb > 0`).
 
 Reference: modules/ingester (instance.go:98 per-tenant instance with
 mutex-guarded live-trace map, CutCompleteTraces:240, CutBlockIfReady:275,
@@ -87,12 +88,16 @@ class IngesterConfig:
 
 class TenantInstance:
     def __init__(self, tenant: str, db, overrides, cfg: IngesterConfig,
-                 governor: "resource.ResourceGovernor | None" = None):
+                 governor: "resource.ResourceGovernor | None" = None,
+                 standing=None):
         self.tenant = tenant
         self.db = db
         self.overrides = overrides
         self.cfg = cfg
         self.governor = governor or resource.governor()
+        # standing-query engine (tempo_tpu_torch/standing): the cut path
+        # folds each cut's delta into registered per-query accumulators
+        self.standing = standing
         self.lock = threading.Lock()
         self.live: dict[bytes, LiveTrace] = {}
         self.head = db.wal.new_block(tenant)
@@ -211,10 +216,21 @@ class TenantInstance:
             with self.lock:
                 self.head.append(batch)
                 self.head._gov_bytes = getattr(self.head, "_gov_bytes", 0) + cut_bytes
+                # WAL segment identity of this cut (block id + segment
+                # index): the standing fold below carries it so a
+                # concurrent rebuild that already replayed the segment
+                # can dedupe the in-flight fold exactly
+                seg_key = f"{self.head.block_id}:{self.head._next_seg - 1}"
         except BaseException:
             wal_pool.sub(cut_bytes)  # append failed: nothing to account
             raise
-        # device-tier slice: park the cut on the card here (ingest_tail.park_cut)
+        # the device tier parks the cut on the card here (ingest_tail.park_cut;
+        # ROADMAP Queue 1 item 4)
+        # standing-query fold: evaluate every registered query against
+        # ONLY this cut's spans — O(delta), outside the instance lock
+        # (the engine serializes itself), and never fatal to the cut
+        if self.standing is not None:
+            self.standing.fold(self.tenant, batch, seg_key=seg_key)
         return len(cut)
 
     def cut_block_if_ready(self, now: float | None = None, immediate: bool = False):
@@ -383,21 +399,43 @@ class TenantInstance:
         with self.lock:
             segs = [seg for lt in self.live.values() for seg in lt.segments]
             wal_blocks = [self.head] + list(self.completing)
-        # device-tier slice: stamp each WAL segment's tail key here
+        # the device tier stamps each WAL segment's tail key here
+        # (ROADMAP Queue 1 item 4)
         for blk in wal_blocks:
             segs.extend(blk.iter_batches())
         return segs
+
+    def live_only_batches(self) -> list[SpanBatch]:
+        """Uncut live-trace segments ONLY (no WAL): the standing-query
+        read tail. Cut spans are already in the standing accumulator —
+        including the WAL here would double-count every cut."""
+        with self.lock:
+            return [seg for lt in self.live.values() for seg in lt.segments]
+
+    def wal_segment_batches(self) -> list[tuple[str, SpanBatch]]:
+        """(segment key, batch) for every WAL segment (head + completing)
+        — the standing rebuild's replay source. Keys match the cut
+        path's fold keys ("<block_id>:<seg index>") so a rebuild and an
+        in-flight fold can never double-count one segment. Keys come
+        from the on-disk segment numbers, so a skipped corrupt segment
+        cannot shift later segments onto the wrong fold keys."""
+        with self.lock:
+            wal_blocks = [self.head] + list(self.completing)
+        return [(f"{blk.block_id}:{i}", batch)
+                for blk in wal_blocks for i, batch in blk.iter_batches_keyed()]
 
 
 class Ingester:
     def __init__(self, db, overrides, cfg: IngesterConfig | None = None,
                  instance_id: str = "ingester-0",
-                 governor: "resource.ResourceGovernor | None" = None):
+                 governor: "resource.ResourceGovernor | None" = None,
+                 standing=None):
         self.db = db
         self.overrides = overrides
         self.cfg = cfg or IngesterConfig()
         self.instance_id = instance_id
         self.governor = governor or resource.governor()
+        self.standing = standing  # StandingEngine or None
         self.instances: dict[str, TenantInstance] = {}
         self.lock = threading.Lock()
         self._stop = threading.Event()
@@ -412,7 +450,8 @@ class Ingester:
             inst = self.instances.get(tenant)
             if inst is None:
                 inst = TenantInstance(tenant, self.db, self.overrides, self.cfg,
-                                      governor=self.governor)
+                                      governor=self.governor,
+                                      standing=self.standing)
                 self.instances[tenant] = inst
             return inst
 
@@ -438,6 +477,30 @@ class Ingester:
         with self.lock:
             inst = self.instances.get(tenant)
         return inst.live_batches() if inst else []
+
+    # -- standing-query seams -------------------------------------------
+    def standing_live_batches(self, tenant: str) -> list[SpanBatch]:
+        """Uncut live-trace tail (standing reads)."""
+        with self.lock:
+            inst = self.instances.get(tenant)
+        return inst.live_only_batches() if inst else []
+
+    def standing_wal_batches(self, tenant: str) -> list:
+        """Keyed WAL segments (standing rebuild replay)."""
+        with self.lock:
+            inst = self.instances.get(tenant)
+        return inst.wal_segment_batches() if inst else []
+
+    def standing_flushed_since(self, tenant: str, t: float) -> list[str]:
+        """Block ids flushed at or after t (the standing rebuild's
+        flush-race detector: a block completing mid-rebuild is visible
+        in neither the blocklist snapshot nor the cleared WAL)."""
+        with self.lock:
+            inst = self.instances.get(tenant)
+        if inst is None:
+            return []
+        with inst.lock:
+            return [str(meta.block_id) for meta, at in inst.flushed if at >= t]
 
     # -- lifecycle -------------------------------------------------------
     def replay(self) -> None:

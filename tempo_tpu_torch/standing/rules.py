@@ -1,8 +1,8 @@
 """Step-partial downsampling tier: pre-bucketed (series, bin) counts.
 
 Port of tempo_tpu/standing/rules.py, host code copied as is (np.unique
-over rows and np.add.at included); the two Prometheus counters of the
-reference arrive with the single-binary slice.
+over rows and np.add.at included), with the reference's two Prometheus
+counters.
 
 The range-vector partial of every metrics query is one segmented
 bincount (metrics_engine/evaluate.py), and integer counts merge by
@@ -302,6 +302,7 @@ def evaluate_block_hybrid(plan, rule: StepRule, blk, acc) -> None:
         if rg_has_partial(rg, rule):
             fold_rg_partial(plan, rule, blk, rg, acc)
             acc.stats["partialRowGroups"] = acc.stats.get("partialRowGroups", 0) + 1
+            partial_row_groups_read_total.inc()
             continue
         if d is None:
             d = blk.dictionary()
@@ -310,3 +311,16 @@ def evaluate_block_hybrid(plan, rule: StepRule, blk, acc) -> None:
         if dead:
             continue
         acc.add(eval_batch(plan, view, d, acc.series, premask=premask), view)
+
+
+from tempo_tpu_torch.util import metrics as _metrics  # noqa: E402
+
+partial_row_groups_read_total = _metrics.counter(
+    "tempo_tpu_standing_partial_row_groups_read_total",
+    "Row groups whose query_range contribution was served from stored "
+    "step-partial columns (zero span-column fetches)",
+)
+partial_pages_written_total = _metrics.counter(
+    "tempo_tpu_standing_partial_pages_written_total",
+    "Step-partial pages written at block flush/compaction, by rule",
+)

@@ -10,9 +10,9 @@ in-process ingesters; then the refusals (429 on the rate limit,
 TraceTooLarge and MaxLiveTraces, 400 on bad TraceQL, 404 on a route the
 port does not serve yet). The port runs with device="cpu".
 
-The JAX App runs with the two features the port does not carry off
-(metrics-generator, standing queries), its storage engine
-pinned to one device (compaction_device_shards=1: the JAX tests run on
+The JAX App runs with the feature the port does not carry off (the
+metrics-generator), with the standing-query engine on in both (the
+default), its storage engine pinned to one device (compaction_device_shards=1: the JAX tests run on
 an 8-device CPU mesh whose sharded search is the multi-GPU slice), and
 its storage analytics scan off. ReadAhead prefetch, hedged requests and
 all but one query worker are off in both, so every answer reads the
@@ -49,7 +49,6 @@ from tempo_tpu.encoding.vtpu import colcache as jcolcache
 from tempo_tpu.modules.frontend import FrontendConfig as JFrontendConfig
 from tempo_tpu.modules.ingester import IngesterConfig as JIngesterConfig
 from tempo_tpu.modules.overrides import Limits as JLimits
-from tempo_tpu.standing import StandingConfig as JStandingConfig
 from tempo_tpu.util import pipeline as jpipeline
 from tempo_tpu_torch.api.server import TempoServer
 from tempo_tpu_torch.compiled import cache as compiled_cache
@@ -113,7 +112,7 @@ class AppPair:
         self.japp = JApp(JAppConfig(
             db=jdb, ingester=JIngesterConfig(), limits=JLimits(**(limits or {})),
             frontend=JFrontendConfig(hedge_after_s=0),
-            generator_enabled=False, standing=JStandingConfig(enabled=False), **kw))
+            generator_enabled=False, **kw))
         self.tapp = None
         self.servers = []
         try:
@@ -377,12 +376,12 @@ def test_status_pages(make_pair):
     (_, _, jb), (_, _, tb) = pair.both("GET", "/status/endpoints")
     served = json.loads(tb)["endpoints"]
     assert served == [e for e in json.loads(jb)["endpoints"] if e in served]
-    assert len(served) == 22
+    assert len(served) == 28
     assert _request(pair.servers[1].url, "GET", "/status")[2] == tb
     # defaults and diff differ only where the port's defaults do: the
-    # two features it does not carry start off, and the storage
-    # analytics scan is 0 (App refuses it switched on)
-    port_defaults = {("generator_enabled",), ("standing", "enabled"), ("db", "analytics_scan_s")}
+    # metrics-generator, which it does not carry, starts off, and the
+    # storage analytics scan is 0 (App refuses it switched on)
+    port_defaults = {("generator_enabled",), ("db", "analytics_scan_s")}
 
     def drop(doc):
         for path in port_defaults:
@@ -472,7 +471,7 @@ def test_bad_requests_400(idle_pair, path):
     ("POST", "/api/v2/spans"),
     ("POST", "/api/traces"),
     ("GET", "/api/graph/dependencies"),
-    ("GET", "/api/metrics/standing"),
+    ("GET", "/status/profile"),
     ("GET", "/api/rca"),
     ("GET", "/api/usage"),
     ("GET", "/status/storage"),

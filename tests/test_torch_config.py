@@ -2,12 +2,12 @@
 
 The same YAML must give equal config dataclasses in both packages
 (field for field, nested sections and lists included) and the same
-check_config warnings for the sections the port serves. Three defaults differ by design and are
-named here: the metrics-generator and the standing-query engine start
-off in the port, and the storage analytics scan is 0 — App refuses each
-of them switched on, as it refuses every other section whose module is
-not ported yet, naming its ROADMAP item, and every environment switch
-with which the reference turns such a module on.
+check_config warnings for the sections the port serves. Two defaults differ by design and are
+named here: the metrics-generator starts off in the port, and the
+storage analytics scan is 0 — App refuses each of them switched on, as
+it refuses every other section whose module is not ported yet, naming
+its ROADMAP item, and every environment switch with which the reference
+turns such a module on.
 """
 
 import dataclasses
@@ -81,8 +81,7 @@ ring_heartbeat_timeout_s: 12.5
 """
 
 # (path, the port's default) where the defaults differ by design
-PORT_DEFAULTS = {("generator_enabled",): False, ("standing", "enabled"): False,
-                 ("db", "analytics_scan_s"): 0.0}
+PORT_DEFAULTS = {("generator_enabled",): False, ("db", "analytics_scan_s"): 0.0}
 
 
 def _doc(cfg) -> dict:
@@ -162,12 +161,16 @@ WARN_YAMLS = [
     # the compiled tier: uncapped shapes in a multitenant cluster
     "multitenancy_enabled: true\n",
     "multitenancy_enabled: true\ncompiled:\n  max_shapes: 0\n  respect_governor: false\n",
+    # the standing engine: an uncapped registration count in a
+    # multitenant cluster, alone and beside the compiled tier's warning
+    "multitenancy_enabled: true\ncompiled:\n  max_shapes: 64\n",
+    "multitenancy_enabled: true\nstanding:\n  max_queries_per_tenant: 0\n",
 ]
 
 
 def _align_port_defaults(j, t):
-    """The JAX config with the three features set as the port's config
-    has them (the YAML's value where it sets one, else the port's
+    """The JAX config with the features of PORT_DEFAULTS set as the
+    port's config has them (the YAML's value where it sets one, else the port's
     default), so both check the same feature settings."""
     for path in PORT_DEFAULTS:
         jd, td = j.app, t.app
@@ -198,7 +201,6 @@ UNPORTED = {
     "distributor:\n  forwarders:\n    - {name: m, endpoint: http://c:4318}\n": "forwarders",
     "usage_report:\n  enabled: true\n": "usage_report",
     "self_tracing:\n  enabled: true\n": "self_tracing",
-    "standing:\n  enabled: true\n": "standing-query",
     "rca:\n  enabled: true\n": "rca",
     "slo:\n  enabled: true\n": "slo",
     "vulture:\n  enabled: true\n": "vulture",

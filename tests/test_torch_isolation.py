@@ -7,8 +7,10 @@ tag names, TraceQL search on the vectorized branch and the object
 engine, WAL replay, compaction) on the CPU, encodes pages through the
 device page-encode arm forced on the CPU, serves the single binary
 (App + TempoServer: one OTLP push, /flush, the trace read back by ID and
-by search, a simple-count query_range through the compiled tier and
-/api/query-insights over HTTP) on the CPU, and an entry point called
+by search, a simple-count query_range through the compiled tier,
+/api/query-insights, and a standing query registered, folded at the
+flush's cut and read against query_range over HTTP) on the CPU, and an
+entry point called
 without a device raises when CUDA is absent. `python -m tempo_tpu_torch` verifies
 a config and serves HTTP until /shutdown with the same imports blocked."""
 
@@ -47,7 +49,8 @@ SCRIPT = BLOCK + textwrap.dedent(r"""
         importlib.import_module(name)
     assert len(names) >= 64, names
     for name in ("tempo_tpu_torch.compiled.executor", "tempo_tpu_torch.compiled.program",
-                 "tempo_tpu_torch.ops.encode", "tempo_tpu_torch.parallel.search"):
+                 "tempo_tpu_torch.ops.encode", "tempo_tpu_torch.parallel.search",
+                 "tempo_tpu_torch.standing.engine"):
         assert name in names, name
     for name, mod in sys.modules.items():
         assert mod is None or not (name == "tempo_tpu" or name.startswith("tempo_tpu.") or name == "jax"
@@ -159,6 +162,27 @@ SCRIPT = BLOCK + textwrap.dedent(r"""
         assert status == 200 and json.loads(body)["data"]["result"]
         status, body = http("GET", "/api/query-insights")
         assert status == 200 and json.loads(body)["compiled"]["misses"] >= 1
+        import time
+        q = "{ } | rate() by (resource.service.name)"
+        status, body = http("POST", "/api/metrics/standing",
+                            json.dumps({"q": q, "step": 60, "window": 3600}).encode(),
+                            {"Content-Type": "application/json"})
+        assert status == 200
+        qid = json.loads(body)["id"]
+        base = (int(time.time()) // 60) * 60 - 600
+        recent = batch_to_traces(synth.make_batch(20, 3, seed=6, base_time_ns=base * 10**9))
+        assert http("POST", "/v1/traces", otlp.encode_traces_request(recent),
+                    {"Content-Type": "application/x-protobuf"})[0] == 200
+        assert http("POST", "/flush")[0] == 204
+        window = {"start": base - 60, "end": base + 120, "step": 60}
+        status, body = http("GET", f"/api/metrics/standing/{qid}?" + urllib.parse.urlencode(window))
+        standing = json.loads(body)["data"]["result"]
+        status2, body = http("GET", "/api/metrics/query_range?" + urllib.parse.urlencode(
+            dict(window, q=q)))
+        assert status == status2 == 200 and standing
+        assert sorted(map(str, standing)) == sorted(map(str, json.loads(body)["data"]["result"]))
+        status, body = http("GET", "/status/standing")
+        assert json.loads(body)["foldSpans"] == 60
     finally:
         srv.stop()
         app.shutdown()
