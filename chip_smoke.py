@@ -9,13 +9,17 @@ Phases, one line each (any failure exits non-zero):
    power limit;
 1. build: nvcc builds csrc/kernels.cu (the three Pallas kernels' ports)
    and csrc/codec_kernels.cu (the batched rle_change_mask and dbp_pack of
-   the device page encode, dbp_decode of the device page decode and
-   compiled_metrics of the compiled query tier), one nvcc a source, in parallel, and ptxas
-   reports each kernel's registers, static shared memory and spills;
+   the device page encode, dbp_decode of the device page decode,
+   compiled_metrics of the compiled query tier and the device tier's
+   resident_rle_scan, resident_dct_scan and resident_dbp_scan), one nvcc
+   a source, in parallel, and ptxas reports each kernel's registers,
+   static shared memory and spills;
 2. kernels: each CUDA kernel against its plain PyTorch version on the
    card, bit for bit, at the main path's shapes and at edge shapes (the
    page-encode kernels over mixed page tables; the codec kernels also
-   against the host codec and a numpy interpreter), and timed two ways:
+   against the host codec and a numpy interpreter; the resident scans
+   over run tiles, dictionary sizes and dbp widths 0-64), and timed two
+   ways:
    kernel time (device time alone: a CUDA graph of K back-to-back
    launches of the C entry point into outputs allocated and zeroed
    before the capture, replay time / K, median of 7 replays) and path
@@ -28,7 +32,8 @@ Phases, one line each (any failure exits non-zero):
    the inputs of phase 8's largest compiled dispatch with a dbp column and
    on phase 5's page, and the compiled dispatch as a whole, all its
    launches in one graph, on those inputs and on a copy with four query
-   lanes, against the bound of the fused program's work);
+   lanes, against the bound of the fused program's work; the resident
+   scans after phase 10, at the largest resident page of each codec);
 3. compaction: the flagship step (entry.entry) at 2**22 rows, bit-equal
    between the card and the CPU;
 4. metrics: three TraceQL query_range queries over 2**22 synthetic spans
@@ -111,12 +116,24 @@ Phases, one line each (any failure exits non-zero):
    >= 1, dirty false) the same reads. No query may be dirty or have
    shed. Prints fold ms a cut, the standing_fold dispatch's ms, bytes
    each way and launches a fold, read ms beside query_range ms, the
-   first-read and restart rebuild ms, and /status/standing.
+   first-read and restart rebuild ms, and /status/standing;
+10. device-tier: the device-resident hot tier on the card (1,024 MB)
+   over phase 7's compacted block (TempoDB(device="cuda")): phase 8's
+   four simple counts through the querier's compiled tier with the tier
+   off, then three passes of phase 7's seven unbounded tag searches and
+   the four counts: cold (the tier empty, the page-heat ledger
+   recording; twice), admitting (after refresh_admission(force=True):
+   the admission h2d) and resident (the resident scans and stacks).
+   Every answer equals phase 7's numpy oracle and its tier-off answer,
+   every matrix the tier-off one; a stack admitted must then be served
+   from the card. Prints per pass the search ms, the tier's hits,
+   avoided and admission h2d bytes, and each resident kernel's launches.
 
 Phases 3-4 are the main path, phase 5 the scan path, phase 6 the block
 path, phase 7 the storage engine's path, phase 8 the server's path and
 phase 9 the standing engine's (seg_bincount at the cuts' folds and in
-query_range, the page-encode kernels at its flush, compiled_metrics):
+query_range, the page-encode kernels at its flush, compiled_metrics) and
+phase 10 the device tier's (the three resident scans, compiled_metrics):
 each is run with the kernels' launch counts set to 0 just before it,
 and every kernel of the path must have launched (phases 6-8 each
 rle_change_mask, dbp_pack and seg_bincount, each page-encode kernel at
@@ -126,7 +143,9 @@ on the card; phase 8 also compiled_metrics, and never dbp_decode, which
 the compiled tier fuses into its count). The script then prints
 one JSON line of per-kernel and per-phase numbers (phase 6's under
 "blocks", phase 7's under "db", phase 8's under "app", phase 9's under
-"standing"), the nvidia-smi
+"standing", phase 10's under "tier"; "shed" names the depth a slow host
+cut: phase 7's warm unbounded repeats past 250 s before it, phase 8's
+interpreter runs past 420 s before it), the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Without a CUDA
 device it exits 1 and prints no result. It imports nothing of JAX or of
 tempo_tpu.
@@ -316,6 +335,7 @@ def chain_parents(batch):
 
 
 CODEC_KERNELS = ("rle_change_mask", "dbp_pack", "dbp_decode", "compiled_metrics")
+RESIDENT_KERNELS = ("resident_rle_scan", "resident_dct_scan", "resident_dbp_scan")
 
 
 def launch_counters():
@@ -323,11 +343,13 @@ def launch_counters():
     from tempo_tpu_torch.compiled import program
     from tempo_tpu_torch.ops import encode as tenc
     from tempo_tpu_torch.ops import pallas_kernels as pk
+    from tempo_tpu_torch.ops import scan
 
     return {"seg_bincount": pk.seg_bincount, "in_set_scan": pk.in_set_scan,
             "u64_range_scan": pk.u64_range_scan, "rle_change_mask": tenc.rle_change_mask,
             "dbp_pack": tenc.dbp_pack, "dbp_decode": pk.dbp_decode_limbs,
-            "compiled_metrics": program.compiled_metrics}
+            "compiled_metrics": program.compiled_metrics,
+            **{k: getattr(scan, k) for k in RESIDENT_KERNELS}}
 
 
 def reset_launches() -> None:
@@ -1028,6 +1050,347 @@ def blocks_phase(seed: int, queries: list, plan_of, db_root: str, encode_batches
 STRUCTURAL = "{ duration > 998ms } >> { duration < 3ms }"
 
 
+def resident_kernels_check(torch, dev, rng) -> int:
+    """Phase 2: the three resident scans on the card against their plain
+    versions on the CPU, bit for bit: rle at 1 to 3 run tiles with run
+    lengths summing below, to and past n (zero-length runs, values equal
+    to NO_MATCH_CODE, the code-set padding); dct at 1 to 40,000
+    dictionary entries (in-set, inverted, between over the top half of
+    u32); dbp at widths 0, 1, 31, 32, 33 and 64 over 1 to 3 row tiles,
+    with bounds that cut inside a limb. Returns the cases held."""
+    import numpy as np
+
+    from tempo_tpu_torch.ops import scan
+
+    def u32(a):
+        return torch.from_numpy(np.array(a, np.uint32).view(np.int32))
+
+    def same(label, fn, *args, **kw):
+        want = fn(*args, **kw)
+        got = fn(*(a.to(dev) if torch.is_tensor(a) else a for a in args),
+                 **{k: v.to(dev) if torch.is_tensor(v) else v for k, v in kw.items()})
+        check(torch.equal(got.cpu(), want), f"{fn.__name__} {label}: kernel != plain")
+
+    n_cases = 0
+    for r, per_run in ((1, 5), (7, 3), (2048, 2), (2049, 1), (6000, 3)):
+        values = rng.integers(0, 60, r).astype(np.uint32)
+        values[::13] = 0xFFFFFFFF
+        lengths = rng.integers(0, 2 * per_run + 1, r).astype(np.int32)
+        total = int(lengths.sum())
+        codes = u32(scan.pad_codes_u32(np.array([3, 9, 0xFFFFFFFF, 40, 41], np.uint32)))
+        for n in sorted({1, max(1, total - 7), max(1, total), total + 9}):
+            args = (u32(values), torch.from_numpy(lengths), n)
+            same(f"R={r} n={n} in", scan.resident_rle_scan, *args, codes=codes)
+            same(f"R={r} n={n} not in", scan.resident_rle_scan, *args, codes=codes, invert=True)
+            same(f"R={r} n={n} between", scan.resident_rle_scan, *args, lo=7, hi=2**32 - 2)
+            n_cases += 3
+    for v, n in ((1, 1), (9, 4097), (300, 70_000), (40_000, 5000)):
+        dvals = rng.integers(0, 2**32, v, dtype=np.uint64).astype(np.uint32)
+        idx = torch.from_numpy(rng.integers(0, v, n).astype(np.int32))
+        codes = u32(scan.pad_codes_u32(dvals[:3]))
+        for kw in ({"codes": codes}, {"codes": codes, "invert": True},
+                   {"lo": 2**31, "hi": 2**32 - 1}):
+            same(f"V={v} n={n} {sorted(kw)}", scan.resident_dct_scan, u32(dvals), idx, **kw)
+            n_cases += 1
+    for width in (0, 1, 31, 32, 33, 64):
+        for n in (1, 2, 2048, 2049, 5000):
+            raw = rng.integers(0, 256, ((n - 1) * width + 7) // 8, dtype=np.uint8).tobytes()
+            words = u32(np.frombuffer(raw + b"\x00" * ((-len(raw)) % 4 + 4), "<u4"))
+            first = int(rng.integers(0, 2**63))
+            for lo, hi in ((0, 2**64 - 1), (first, first + 2**33),
+                           ((first & ~0xFFFFFFFF) + 3, (first | 0xFFFFFFFF) - 3)):
+                lo, hi = sorted((lo % 2**64, hi % 2**64))
+                want = scan.resident_dbp_scan(words, first, width, n, lo, hi)
+                got = scan.resident_dbp_scan(words.to(dev), first, width, n, lo, hi)
+                check(torch.equal(got.cpu(), want),
+                      f"resident_dbp_scan width={width} n={n}: kernel != plain")
+                n_cases += 1
+    return n_cases
+
+
+def tier_phase(root: str, inputs: dict, compacted_block_id: str, plan_of,
+               device: str = "cuda") -> dict:
+    """Phase 10, the device-resident hot tier. TempoDB(device="cuda") over
+    phase 7's compacted block. Phase 8's four simple-count query_range
+    queries run first with the tier off, through the querier's compiled
+    tier. Then the tier is configured on the card (1,024 MB; `device` is
+    "cpu" only in a rehearsal without a card) and three
+    passes each run phase 7's seven unbounded tag searches and the four
+    queries: cold (the tier empty, the page-heat ledger recording; the
+    searches and the queries twice), admitting (after refresh_admission(force=True): the
+    pages and stacks inside the what-if knee go to the card as the
+    queries reach them) and resident (served by the resident scans and
+    the resident stacks). Every search answer equals phase 7's numpy
+    oracle and its tier-off answer over the same block, every matrix the
+    tier-off one; a stack admitted in the admitting pass must be served
+    from the card in the resident pass. Returns its numbers; res["tier"]
+    is the configured tier, for the kernel timing."""
+    from tempo_tpu_torch import metrics_engine as M
+    from tempo_tpu_torch.config_sections import DeviceTierConfig
+    from tempo_tpu_torch.db import DBConfig, TempoDB
+    from tempo_tpu_torch.encoding.common import SearchRequest
+    from tempo_tpu_torch.encoding.vtpu import colcache
+    from tempo_tpu_torch.modules.querier import Querier
+    from tempo_tpu_torch.ops import scan
+    from tempo_tpu_torch.util import pageheat
+    from tempo_tpu_torch.util.devicetiming import STATS
+
+    tenant = "smoke"
+    res: dict = {"passes": [], "compiled": []}
+    t_phase = time.perf_counter()
+    db = TempoDB(DBConfig(backend="local", backend_path=os.path.join(root, "blocks"),
+                          wal_path=os.path.join(root, "wal-tier")), device=device)
+    db.poll_now()
+    metas = db.blocklist.metas(tenant)
+    check([m.block_id for m in metas] == [compacted_block_id],
+          f"phase 10: blocks {[m.block_id for m in metas]}, wanted phase 7's compacted block")
+    querier = Querier(db)
+    ids = [m.block_id for m in metas]
+
+    def matrix(q):
+        """One simple-count query_range job over the block, through the
+        querier's compiled tier: (matrix, ms)."""
+        plan = plan_of(q)
+        t0 = time.perf_counter()
+        wire = querier.query_range_blocks(tenant, ids, q, plan.start_s, plan.end_s, plan.step_s)
+        ms = (time.perf_counter() - t0) * 1e3
+        check(wire.get("compiledShape") in ("hit", "miss"),
+              f"phase 10 {q}: the compiled tier did not take it ({wire.get('compiledShape')})")
+        merged = M.new_wire()
+        M.merge_wire(merged, wire, plan)
+        return M.finalize_matrix(plan, merged)["result"], ms
+
+    check(colcache.configure_device_tier(None, device=device) is None, "phase 10: tier on")
+    want = {}
+    for q in SIMPLE_COUNT:
+        want[q], ms = matrix(q)
+        check(want[q], f"phase 10 {q}: empty matrix")
+        res["compiled"].append(dict(query=q, run="tier off", ms=ms))
+
+    pageheat.LEDGER.reset()
+    tier = colcache.configure_device_tier(DeviceTierConfig(budget_mb=1024), device=device)
+    check(tier is colcache.shared_device_tier() and tier.device.type == device,
+          f"phase 10: the tier is not on {device}")
+    colcache.shared_cache().clear()
+    print(f"phase 10 tier: DeviceTier on {tier.device}, {tier.budget_bytes >> 20} MB, over "
+          f"block {compacted_block_id} ({metas[0].total_spans} spans)", flush=True)
+
+    def counts():
+        st = tier.stats()
+        return dict(hits=st["hits"], avoided_bytes=st["avoided_bytes"],
+                    admissions=st["admissions"], entries=st["entries"],
+                    admission_h2d_bytes=STATS.h2d.get("device_tier_admit", 0),
+                    stack_avoided_bytes=STATS.avoided.get("compiled_metrics", 0),
+                    compiled_dispatches=STATS.dispatches.get("compiled_metrics", 0),
+                    **{k: getattr(scan, k).launches for k in RESIDENT_KERNELS})
+
+    admitted_stacks = set()
+    for name in ("cold", "admitting", "resident"):
+        if name == "admitting":
+            tier.refresh_admission(force=True)
+            with tier._lock:
+                res["admission_set_pages"] = len(tier._admit_keys)
+                res["admission_budget_bytes"] = tier._admit_budget
+        before = counts()
+        rows = []
+        # the cold pass twice: the ledger admits a page once it has
+        # shipped twice (admit_min_ships), and a dbp page ships once a pass
+        for label, kw in inputs["searches"] * (2 if name == "cold" else 1):
+            t0 = time.perf_counter()
+            r = db.search(tenant, SearchRequest(limit=0, **kw))
+            ms = (time.perf_counter() - t0) * 1e3
+            hits = {h.trace_id_hex for h in r.traces}
+            check(len(hits) == len(r.traces) and hits == inputs["oracle"][label]
+                  and hits == inputs["tier_off"][label],
+                  f"phase 10 {name} search {label}: {len(hits)} hits, oracle "
+                  f"{len(inputs['oracle'][label])}, tier off {len(inputs['tier_off'][label])}")
+            rows.append(dict(search=label, ms=ms, hits=len(hits)))
+        searched = counts()
+        for rep in range(2 if name == "cold" else 1):
+            for q in SIMPLE_COUNT:
+                b = counts()
+                got, ms = matrix(q)
+                check(got == want[q], f"phase 10 {name} {q}: matrix != the tier-off matrix")
+                a = counts()
+                row = dict(query=q, run=name, ms=ms,
+                           dispatches=a["compiled_dispatches"] - b["compiled_dispatches"],
+                           admissions=a["admissions"] - b["admissions"],
+                           stack_avoided_bytes=a["stack_avoided_bytes"] - b["stack_avoided_bytes"])
+                check(row["dispatches"] > 0, f"phase 10 {name} {q}: compiled_metrics idle")
+                if name == "admitting" and row["admissions"]:
+                    admitted_stacks.add(q)
+                if name == "resident" and q in admitted_stacks:
+                    check(row["admissions"] == 0 and row["stack_avoided_bytes"] > 0,
+                          f"phase 10 {q}: an admitted stack not served from the card ({row})")
+                row["resident"] = row["stack_avoided_bytes"] > 0
+                res["compiled"].append(row)
+        after = counts()
+        search_delta = {k: searched[k] - before[k] for k in after}
+        res["passes"].append(dict(
+            name=name, search_ms=sum(r["ms"] for r in rows), searches=rows,
+            search_counts=search_delta,
+            query_counts={k: after[k] - searched[k] for k in after}, entries=after["entries"]))
+        each = ", ".join("%.0f" % r["ms"] for r in rows)
+        print(f"phase 10 {name} pass: {len(rows)} unbounded searches = oracle = tier off | "
+              f"{sum(r['ms'] for r in rows):.0f} ms ({each}) | tier hits "
+              f"{search_delta['hits']}, avoided {search_delta['avoided_bytes']} B, admissions "
+              f"{search_delta['admissions']} ({search_delta['admission_h2d_bytes']} B h2d), "
+              f"{after['entries']} resident | launches "
+              + ", ".join(f"{k} {search_delta[k]}" for k in RESIDENT_KERNELS), flush=True)
+        for row in res["compiled"][-4:]:
+            print(f"phase 10 {name} query_range: {row['query']} | matrix = tier off | "
+                  f"{row['ms']:.1f} ms, {row['dispatches']} compiled_metrics dispatches, "
+                  f"{row['admissions']} stack admissions, {row['stack_avoided_bytes']} B of "
+                  f"stack h2d avoided", flush=True)
+    cold, admitting, resident = (p["search_counts"] for p in res["passes"])
+    check(cold["admissions"] == 0 and res["passes"][0]["entries"] == 0
+          and all(cold[k] == 0 for k in RESIDENT_KERNELS),
+          "phase 10 cold pass: the tier admitted or scanned before its admission set")
+    check(admitting["admissions"] > 0 and admitting["admission_h2d_bytes"] > 0,
+          "phase 10 admitting pass: no page admitted")
+    check(resident["admissions"] == 0 and resident["hits"] > 0 and resident["avoided_bytes"] > 0
+          and resident["admission_h2d_bytes"] == 0, f"phase 10 resident pass: {resident}")
+    check(admitted_stacks, "phase 10: no compiled stack admitted")
+    res["stacks_resident"] = sorted(admitted_stacks)
+    res["stats"] = tier.stats()
+    res["codecs_resident"] = sorted({r["codec"] for r in tier.resident_pages(top=1 << 20)})
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["tier"] = tier
+    db.shutdown()
+    return res
+
+
+def time_resident_kernels(torch, tier, lib, stream) -> dict:
+    """The three resident scans at the largest resident page of each codec
+    that phase 10 left on the card: kernel against plain there (in-set,
+    inverted and between for rle and dct; a range cutting the page's
+    values for dbp), then timed as in phase 2 (kernel by CUDA graph of the
+    C entry point, path by the served call resident_*_mask with its code
+    set's h2d and the mask's d2h, the plain version on the card, the
+    library chain, the bound: the page's arrays and the code set read
+    once, the mask written once, one compare a code and run or entry, a
+    few operations a dbp row)."""
+    import numpy as np
+
+    from tempo_tpu_torch.ops import _build
+    from tempo_tpu_torch.ops import scan
+
+    largest = {}
+    for res in list(tier._lru.values()):
+        if res.codec in ("rle", "dct", "dbp") and res.nbytes > getattr(
+                largest.get(res.codec), "nbytes", -1):
+            largest[res.codec] = res
+    check(set(largest) == {"rle", "dct", "dbp"},
+          f"phase 10: resident codecs {sorted(largest)}, wanted rle, dct and dbp")
+    out = {}
+
+    def graph_ms(entry, fn_args, n):
+        mask = torch.empty(n, dtype=torch.bool, device=tier.device)
+        launched = ctypes.c_int32(0)
+
+        def launch():
+            _build.check(getattr(lib, entry)(*fn_args, mask.data_ptr(), ctypes.byref(launched),
+                                             stream()), entry)
+        launch()
+        return mask, kernel_ms(torch, [launch]), launched.value
+
+    # rle: the run values' three most common as the code set
+    res = largest["rle"]
+    v, ln, n = res.arrays["values"], res.arrays["lengths"], int(res.meta["n"])
+    r = v.numel()
+    vals, cnt = torch.unique(v, return_counts=True)
+    codes_np = scan.pad_codes_u32(vals[torch.argsort(cnt, descending=True)][:3].cpu().numpy()
+                                  .view(np.uint32))
+    codes = torch.from_numpy(codes_np.view(np.int32)).to(tier.device)
+    for kw in ({"codes": codes}, {"codes": codes, "invert": True}, {"lo": 1, "hi": 2**31}):
+        check(torch.equal(scan.resident_rle_scan(v, ln, n, **kw),
+                          scan._rle_scan_plain(v, ln, n, kw.get("codes"), kw.get("invert", False),
+                                               kw.get("lo", 0), kw.get("hi", 0))),
+              f"resident_rle_scan at the largest rle page {sorted(kw)}: kernel != plain")
+    sums = torch.empty(max(1, -(-r // lib.tt_dbp_tile())), dtype=torch.int64, device=v.device)
+    packed = torch.empty(r, dtype=torch.int64, device=v.device)
+    mask, ms, kl = graph_ms("tt_resident_rle_scan",
+                            (v.data_ptr(), ln.data_ptr(), r, codes.data_ptr(), codes.numel(), 0,
+                             0, 0, n, sums.data_ptr(), packed.data_ptr()), n)
+    check(torch.equal(mask, scan._rle_scan_plain(v, ln, n, codes, False, 0, 0)),
+          "resident_rle_scan graph launch != plain")
+    v64 = v.to(torch.int64) & 0xFFFFFFFF
+    c64 = codes.to(torch.int64) & 0xFFFFFFFF
+    ln64 = ln.to(torch.int64)
+    bnd, by = bound_ms(8 * r + 4 * codes.numel() + n, r * codes.numel() + n)
+    out["resident_rle_scan"] = dict(
+        shape=f"R={r} runs, n={n} rows, K={codes.numel()} codes (in-set)", max_abs_err=0, ms=ms,
+        kernels_a_call=kl,
+        path_ms=path_ms(torch, lambda: scan.resident_in_set_mask(res, codes_np)),
+        plain_ms=path_ms(torch, lambda: scan._rle_scan_plain(v, ln, n, codes, False, 0, 0)),
+        bound_ms=bnd, bound_by=by,
+        library_ms=path_ms(torch, lambda: torch.repeat_interleave(torch.isin(v64, c64), ln64,
+                                                                  output_size=n)))
+
+    res_d = largest["dct"]
+    dv, idx, n_d = res_d.arrays["values"], res_d.arrays["idx"], int(res_d.meta["n"])
+    codes_d_np = scan.pad_codes_u32(dv[:3].cpu().numpy().view(np.uint32))
+    codes_d = torch.from_numpy(codes_d_np.view(np.int32)).to(tier.device)
+    for kw in ({"codes": codes_d}, {"codes": codes_d, "invert": True}, {"lo": 1, "hi": 2**31}):
+        check(torch.equal(scan.resident_dct_scan(dv, idx, **kw),
+                          scan._dct_scan_plain(dv, idx, kw.get("codes"), kw.get("invert", False),
+                                               kw.get("lo", 0), kw.get("hi", 0))),
+              f"resident_dct_scan at the largest dct page {sorted(kw)}: kernel != plain")
+    verdict = torch.empty(dv.numel(), dtype=torch.uint8, device=dv.device)
+    mask, ms, kl = graph_ms("tt_resident_dct_scan",
+                            (dv.data_ptr(), dv.numel(), idx.data_ptr(), n_d, codes_d.data_ptr(),
+                             codes_d.numel(), 0, 0, 0, verdict.data_ptr()), n_d)
+    check(torch.equal(mask, scan._dct_scan_plain(dv, idx, codes_d, False, 0, 0)),
+          "resident_dct_scan graph launch != plain")
+    dv64 = dv.to(torch.int64) & 0xFFFFFFFF
+    cd64 = codes_d.to(torch.int64) & 0xFFFFFFFF
+    idx64 = idx.to(torch.int64)
+    bnd, by = bound_ms(4 * dv.numel() + 4 * n_d + 4 * codes_d.numel() + n_d,
+                       dv.numel() * codes_d.numel() + n_d)
+    out["resident_dct_scan"] = dict(
+        shape=f"V={dv.numel()} entries, n={n_d} rows, K={codes_d.numel()} codes (in-set)",
+        max_abs_err=0, ms=ms, kernels_a_call=kl,
+        path_ms=path_ms(torch, lambda: scan.resident_in_set_mask(res_d, codes_d_np)),
+        plain_ms=path_ms(torch, lambda: scan._dct_scan_plain(dv, idx, codes_d, False, 0, 0)),
+        bound_ms=bnd, bound_by=by,
+        library_ms=path_ms(torch, lambda: torch.isin(dv64, cd64)[idx64]))
+
+    res_b = largest["dbp"]
+    words, n_b = res_b.arrays["words"], int(res_b.meta["n"])
+    first, width = int(res_b.meta["first"]), int(res_b.meta["width"])
+    first_t = torch.tensor([first], dtype=torch.uint64).view(torch.int64).to(words.device)
+    width_t = torch.tensor([width], dtype=torch.int32, device=words.device)
+    from tempo_tpu_torch.ops import pallas_kernels as pk
+
+    dec = pk._dbp_decode_plain(words[None, :], first_t, width_t, n_b)[0]
+    mid = int(dec.median())  # a range that cuts the page's values
+    lo, hi = mid % 2**64, (mid + (1 << 33)) % 2**64
+    check(torch.equal(scan.resident_dbp_scan(words, first, width, n_b, lo, hi),
+                      scan._dbp_scan_plain(words, first_t[0], width_t[0], n_b, lo, hi)),
+          "resident_dbp_scan at the largest dbp page: kernel != plain")
+    sums_b = torch.empty(max(1, -(-n_b // lib.tt_dbp_tile())), dtype=torch.int64,
+                         device=words.device)
+    mask, ms, kl = graph_ms("tt_resident_dbp_scan",
+                            (words.data_ptr(), words.numel(), first, width, n_b, lo, hi,
+                             sums_b.data_ptr()), n_b)
+    check(torch.equal(mask, scan._dbp_scan_plain(words, first_t[0], width_t[0], n_b, lo, hi)),
+          "resident_dbp_scan graph launch != plain")
+    e = torch.diff(dec, prepend=torch.zeros(1, dtype=torch.int64, device=dec.device))
+    bnd, by = bound_ms(4 * words.numel() + n_b, 4 * n_b)
+    out["resident_dbp_scan"] = dict(
+        shape=f"n={n_b} rows, width {width}, {words.numel()} words", max_abs_err=0, ms=ms,
+        kernels_a_call=kl,
+        path_ms=path_ms(torch, lambda: scan.resident_range_mask(res_b, lo, hi)),
+        plain_ms=path_ms(torch, lambda: scan._dbp_scan_plain(words, first_t[0], width_t[0],
+                                                             n_b, lo, hi)),
+        bound_ms=bnd, bound_by=by,
+        # torch.cumsum over the unpacked deltas, then the compare (the
+        # values as signed: this page's values lie below 2^63)
+        library_ms=path_ms(torch, lambda: (lambda c: (c >= lo) & (c <= hi))(
+            torch.cumsum(e, 0))))
+    return out
+
+
 def trace_hex_set(tids) -> set:
     """(N, 4) uint32 trace-ID rows -> the set of their distinct hex IDs."""
     import numpy as np
@@ -1262,9 +1625,11 @@ def db_phase(seed: int, a, b, root: str, queries: list, plan_of, shed: bool = Fa
           f"traces, level {out_meta.compaction_level} | {res['compact_ms']:.0f} ms "
           f"(merge_path auto, sketch plane on {db.device})", flush=True)
     res["after_compaction"] = []
+    tier_off = {}  # phase 10 holds the tier's answers to these
     for label, kw, _ in searches:
         shared_cache().clear()
-        row, _ = search(label, kw, 0)
+        row, r = search(label, kw, 0)
+        tier_off[label] = {h.trace_id_hex for h in r.traces}
         res["after_compaction"].append(dict(search=label, **row))
     cold_ms = ", ".join(f"{r['ms']:.0f}" for r in res["after_compaction"])
     print(f"phase 7 after compaction: the {len(searches)} unbounded searches equal their oracles "
@@ -1332,6 +1697,8 @@ def db_phase(seed: int, a, b, root: str, queries: list, plan_of, shed: bool = Fa
           f"spans on the cpu", flush=True)
     res["phase_s"] = time.perf_counter() - t_phase
     res["compacted_block_id"] = out_meta.block_id
+    res["tier_inputs"] = dict(searches=[(label, kw) for label, kw, _ in searches],
+                              oracle=oracle, tier_off=tier_off)
     return res
 
 
@@ -1344,13 +1711,15 @@ SIMPLE_COUNT = [  # query_range without by(): the compiled tier's queries
 
 
 def app_phase(seed: int, a, b, root: str, at_rest_block: str, queries: list, plan_of,
-              recorded: dict) -> dict:
+              recorded: dict, shed: bool = False) -> dict:
     """Phase 8, the single binary: App(device="cuda") behind a TempoServer
     on 127.0.0.1 over a fresh local backend holding a copy of phase 7's
     compacted block, driven only over HTTP. Every answer is held against
     a numpy oracle, or against the storage engine called directly on the
     same backend (query_range: evaluate_block with the CPU accumulator).
-    Returns its numbers."""
+    `shed` drops the simple counts' runs through the interpreter (their
+    latency beside the tier's: a slow host's depth cut). Returns its
+    numbers."""
     import http.client
     import shutil
 
@@ -1648,7 +2017,7 @@ def app_phase(seed: int, a, b, root: str, at_rest_block: str, queries: list, pla
                       f" | {jobs['jobs']} jobs, {jobs['hedged']} hedged", flush=True)
         # the same queries through the interpreter (the tier switched off),
         # for the latency beside the tier's
-        for q in SIMPLE_COUNT:
+        for q in () if shed else SIMPLE_COUNT:
             ledger.start(f"phase 8 {q} with TEMPO_TPU_COMPILED=0")
             os.environ["TEMPO_TPU_COMPILED"] = "0"
             try:
@@ -2257,6 +2626,15 @@ def main() -> int:
           "compiled_metrics over 7 rle/dct/dbp mixes (inverted and empty sets, t_s < start, "
           "bins >= n_bins) == plain == a numpy interpreter over the decoded columns", flush=True)
 
+    t0 = time.perf_counter()
+    n_resident = resident_kernels_check(torch, dev, rng)
+    print(f"phase 2 resident scans: {n_resident} cases equal ({time.perf_counter() - t0:.1f} s): "
+          "resident_rle_scan at 1 to 3 run tiles, lengths summing below, to and past n (zero-"
+          "length runs, NO_MATCH_CODE values), in-set / inverted / between; resident_dct_scan "
+          "at 1 to 40,000 entries; resident_dbp_scan at widths 0/1/31/32/33/64 over 1 to 3 row "
+          "tiles, bounds inside a limb == plain (timed in phase 10 at the largest resident "
+          "page of each codec)", flush=True)
+
     # ---------------------------------------------------------------- 3 + 4
     reset_launches()
 
@@ -2486,33 +2864,43 @@ def main() -> int:
     # ---------------------------------------------------------------- 7
     reset_launches()
     recorded: dict = {}
-    with db_dir:
-        d0 = STATS.dispatches.get("page_encode", 0)
-        # a slow host sheds phase 7's warm unbounded repeats (timing only):
-        # phases 7-9 take about 290 s, so past 250 s here the script would
-        # pass 540 s
-        elapsed = time.perf_counter() - t_script
-        shed = elapsed > 250
-        print(f"phase 7 depth: phases 0-6 took {elapsed:.1f} s -> "
-              + ("the warm unbounded repeats shed" if shed else "nothing shed"), flush=True)
-        db = db_phase(seed, a, b, db_dir.name, queries, plan_of, shed=shed)
-        sheds = ["phase 7 warm unbounded search repeats"] if shed else []
-        db["launches"] = read_launches()
-        db["page_encode_dispatches"] = STATS.dispatches.get("page_encode", 0) - d0
-        for k in block_kernels:
-            check(db["launches"][k] > 0, f"storage engine path: {k} never launched")
-        for k in ("rle_change_mask", "dbp_pack"):
-            check(db["launches"][k] <= db["page_encode_dispatches"],
-                  f"storage engine path: {k} launched more than once a page-encode dispatch")
-        print(f"phase 7 db: {db['phase_s']:.1f} s, launches on the storage engine's path: "
-              f"{db['launches']}, {db['page_encode_dispatches']} page-encode dispatches",
-              flush=True)
+    # db_dir holds phase 7's compacted block until phase 10
+    d0 = STATS.dispatches.get("page_encode", 0)
+    # a slow host sheds phase 7's warm unbounded repeats (timing only):
+    # phases 7-9 take about 290 s, so past 250 s here the script would
+    # pass 540 s
+    elapsed = time.perf_counter() - t_script
+    shed = elapsed > 250
+    print(f"phase 7 depth: phases 0-6 took {elapsed:.1f} s -> "
+          + ("the warm unbounded repeats shed" if shed else "nothing shed"), flush=True)
+    db = db_phase(seed, a, b, db_dir.name, queries, plan_of, shed=shed)
+    sheds = ["phase 7 warm unbounded search repeats"] if shed else []
+    tier_inputs = db.pop("tier_inputs")
+    compacted_block_id = db.pop("compacted_block_id")
+    db["launches"] = read_launches()
+    db["page_encode_dispatches"] = STATS.dispatches.get("page_encode", 0) - d0
+    for k in block_kernels:
+        check(db["launches"][k] > 0, f"storage engine path: {k} never launched")
+    for k in ("rle_change_mask", "dbp_pack"):
+        check(db["launches"][k] <= db["page_encode_dispatches"],
+              f"storage engine path: {k} launched more than once a page-encode dispatch")
+    print(f"phase 7 db: {db['phase_s']:.1f} s, launches on the storage engine's path: "
+          f"{db['launches']}, {db['page_encode_dispatches']} page-encode dispatches",
+          flush=True)
 
-        # ------------------------------------------------------------ 8
-        reset_launches()
-        d0 = STATS.dispatches.get("page_encode", 0)
-        app = app_phase(seed, a, b, db_dir.name, db.pop("compacted_block_id"), queries, plan_of,
-                        recorded)
+    # ------------------------------------------------------------ 8
+    # a slow host sheds phase 8's interpreter runs of the simple counts
+    # (their latency beside the tier's): phases 8-10 take about 150 s,
+    # so past 420 s here the script would pass 600 s
+    elapsed = time.perf_counter() - t_script
+    if elapsed > 420:
+        sheds.append("phase 8 simple counts through the interpreter")
+    print(f"phase 8 depth: phases 0-7 took {elapsed:.1f} s -> "
+          + ("the interpreter runs shed" if elapsed > 420 else "nothing shed"), flush=True)
+    reset_launches()
+    d0 = STATS.dispatches.get("page_encode", 0)
+    app = app_phase(seed, a, b, db_dir.name, compacted_block_id, queries, plan_of,
+                    recorded, shed=elapsed > 420)
     app["launches"] = read_launches()
     app["page_encode_dispatches"] = STATS.dispatches.get("page_encode", 0) - d0
     for k in block_kernels + ("compiled_metrics",):
@@ -2568,9 +2956,33 @@ def main() -> int:
     for k in standing_kernels:
         kernels[k]["launches_standing_path"] = standing["launches"][k]
 
+    # ---------------------------------------------------------------- 10
+    reset_launches()
+    tier = tier_phase(db_dir.name, tier_inputs, compacted_block_id, plan_of)
+    tier["launches"] = read_launches()
+    for k in RESIDENT_KERNELS + ("compiled_metrics",):
+        check(tier["launches"][k] > 0, f"device tier path: {k} never launched")
+    print(f"phase 10 device tier: {tier['phase_s']:.1f} s, launches on the tier's path: "
+          f"{tier['launches']}, stacks served from the card for "
+          f"{len(tier['stacks_resident'])} of {len(SIMPLE_COUNT)} queries, codecs resident "
+          f"{tier['codecs_resident']}, tier {tier['stats']}", flush=True)
+    for kname, rec in time_resident_kernels(torch, tier.pop("tier"), lib, stream).items():
+        kernels[kname] = dict(rec, launches=tier["launches"][kname])
+        print(f"phase 10 {kname} timing at the largest resident page ({rec['shape']}): kernel "
+              f"{rec['ms']:.5f} ms ({rec['bound_ms'] / rec['ms']:.0%} of bound, "
+              f"{rec['kernels_a_call']} kernel launches), path {rec['path_ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f} ms, library {fmt_ms(rec['library_ms'])}, bound "
+              f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})", flush=True)
+    kernels["compiled_metrics"]["launches_tier_path"] = tier["launches"]["compiled_metrics"]
+    from tempo_tpu_torch.encoding.vtpu import colcache
+
+    colcache.configure_device_tier(None, device="cuda")
+    db_dir.cleanup()
+
     source = {k: "tempo_tpu_torch/csrc/kernels.cu"
               for k in ("seg_bincount", "in_set_scan", "u64_range_scan")}
-    source.update({k: "tempo_tpu_torch/csrc/codec_kernels.cu" for k in CODEC_KERNELS})
+    source.update({k: "tempo_tpu_torch/csrc/codec_kernels.cu"
+                   for k in CODEC_KERNELS + RESIDENT_KERNELS})
     replaces = {
         "seg_bincount": "tempo_tpu/ops/pallas_kernels.py:194",
         "in_set_scan": "tempo_tpu/ops/pallas_kernels.py:55",
@@ -2579,13 +2991,17 @@ def main() -> int:
         "dbp_pack": "tempo_tpu/ops/encode.py:147",
         "dbp_decode": "tempo_tpu/ops/pallas_kernels.py:383",
         "compiled_metrics": "tempo_tpu/compiled/program.py:58",
+        "resident_rle_scan": "tempo_tpu/ops/scan.py:169",
+        "resident_dct_scan": "tempo_tpu/ops/scan.py:186",
+        "resident_dbp_scan": "tempo_tpu/ops/scan.py:204",
     }
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": source[k], "replaces": replaces[k], **kernels[k]}
         for k in ("seg_bincount", "in_set_scan", "u64_range_scan") + CODEC_KERNELS
+        + RESIDENT_KERNELS
     ], "ptxas": ptxas, "compaction_step_ms": statistics.median(step_s) * 1e3,
         "query_ms": query_ms, "blocks": blocks, "db": db, "app": app, "standing": standing,
-        "shed": sheds, "script_s": time.perf_counter() - t_script}
+        "tier": tier, "shed": sheds, "script_s": time.perf_counter() - t_script}
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

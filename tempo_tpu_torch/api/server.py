@@ -20,7 +20,7 @@ Port of tempo_tpu/api/server.py for the single binary. Routes:
   GET  /api/echo             frontend liveness ("echo")
   POST /flush /shutdown
   GET  /ready /metrics /status[/config|/runtime_config|/services|
-       /endpoints|/buildinfo|/standing] and the ring pages
+       /endpoints|/buildinfo|/standing|/device] and the ring pages
 Every other route of the reference answers 404 naming the ROADMAP item
 that ports it (_UNPORTED_ROUTES).
 """
@@ -52,7 +52,6 @@ VERSION = "0.1.0"
 
 log = logging.getLogger(__name__)
 
-_Q1_1 = "ROADMAP Queue 1 item 1.1 (the device tier: util/pageheat)"
 _Q1_2A = "ROADMAP Queue 1 item 1.2 (db/analytics)"
 _Q1_2 = "ROADMAP Queue 1 item 2 (single binary: microservices and the other roles)"
 _Q1_3 = "ROADMAP Queue 1 item 3 (query and ingest slices)"
@@ -71,7 +70,6 @@ _UNPORTED_ROUTES = (
     (("/status/slo",), (), "the SLO engine", _Q1_3),
     (("/status/profile", "/status/profile/device"), (), "util/profiling", _Q1_3),
     (("/status/storage",), (), "the storage analytics", _Q1_2A),
-    (("/status/device",), (), "the device data-movement report", _Q1_1),
 )
 
 
@@ -475,6 +473,34 @@ class _Handler(BaseHTTPRequestHandler):
         if path == "/status/services":
             self._send_json(200, app.service_states() if hasattr(app, "service_states") else {"app": "Running"})
             return 200
+        if path == "/status/device":
+            # device data-movement plane (util/pageheat + devicetiming):
+            # per-kernel transfer bytes, the (block, column) page-heat
+            # hot set with transfer amplification, the ghost-LRU what-if
+            # curve and the resident tier's state.
+            # ?budgets_mb=64,128,256 overrides the working-set-fraction
+            # budgets; ?top=N bounds the hot-set report.
+            from tempo_tpu_torch.util import pageheat
+
+            budgets = None
+            raw = qs.get("budgets_mb", [""])[0]
+            if raw:
+                try:
+                    budgets = [int(float(b) * (1 << 20))
+                               for b in raw.split(",") if b.strip()]
+                except (ValueError, OverflowError) as e:
+                    # OverflowError: int(inf * 2**20) — same client error
+                    raise BadRequest(f"bad budgets_mb: {e}") from e
+                if not budgets or any(b <= 0 for b in budgets):
+                    raise BadRequest(
+                        f"bad budgets_mb {raw!r}: need positive MB values")
+            try:
+                top = int(qs.get("top", ["50"])[0])
+            except ValueError as e:
+                raise BadRequest(f"bad top: {e}") from e
+            self._send_json(200, pageheat.device_report(
+                budgets_bytes=budgets, top=top))
+            return 200
         if path == "/status/standing":
             # operator view of the standing-query engine: registration
             # and fold totals plus the per-tenant cut-delta counters
@@ -680,6 +706,7 @@ _ENDPOINTS = [
     "GET /status/config",
     "GET /status/services",
     "GET /status/endpoints",
+    "GET /status/device",
     "GET /status/standing",
     "GET /status/runtime_config",
     "POST /flush",

@@ -33,6 +33,7 @@ from tempo_tpu_torch.config_sections import (
     VultureConfig,
 )
 from tempo_tpu_torch.db import DBConfig, TempoDB
+from tempo_tpu_torch.encoding.vtpu.colcache import configure_device_tier
 from tempo_tpu_torch.encoding.common import SearchRequest
 from tempo_tpu_torch.modules.compactor_module import CompactorModule
 from tempo_tpu_torch.modules.distributor import Distributor
@@ -63,6 +64,7 @@ ROLES = (
 
 _Q1_2 = "ROADMAP Queue 1 item 2 (single binary: microservices and the other roles)"
 _Q1_3 = "ROADMAP Queue 1 item 3 (query and ingest slices)"
+_Q1_4B = "ROADMAP Queue 1 item 4b (the ingest tail)"
 # (switched on?, what, ROADMAP item) for every feature of the reference
 # whose module the port does not carry yet
 _UNPORTED = (
@@ -78,8 +80,8 @@ _UNPORTED = (
     (lambda c: c.rca.enabled, lambda c: "rca", _Q1_3),
     (lambda c: c.slo.enabled, lambda c: "slo", _Q1_3),
     (lambda c: c.vulture.enabled, lambda c: "vulture", _Q1_3),
-    (lambda c: c.device_tier.budget_mb > 0,
-     lambda c: "device_tier.budget_mb > 0", "ROADMAP Queue 1 item 1.1 (the device tier)"),
+    (lambda c: c.device_tier.ingest_tail_budget_mb > 0,
+     lambda c: "device_tier.ingest_tail_budget_mb > 0", _Q1_4B),
     (lambda c: c.db.result_cache.enabled, lambda c: "storage.trace.result_cache",
      "ROADMAP Queue 1 item 1.2 (resultcache/)"),
     (lambda c: c.db.cache != "none", lambda c: f"storage.trace.cache={c.db.cache!r}",
@@ -103,10 +105,8 @@ def _result_cache_env_on() -> bool:
 # (switched on?, what, ROADMAP item) for every environment switch with
 # which the reference turns on a feature whose module the port lacks
 _UNPORTED_ENV = (
-    (lambda: _env_mb("TEMPO_TPU_DEVICE_TIER_MB") > 0, "TEMPO_TPU_DEVICE_TIER_MB > 0",
-     "ROADMAP Queue 1 item 1.1 (the device tier)"),
     (lambda: _env_mb("TEMPO_TPU_INGEST_TAIL_MB") > 0, "TEMPO_TPU_INGEST_TAIL_MB > 0",
-     "ROADMAP Queue 1 item 1.1 (the device tier)"),
+     _Q1_4B),
     (_result_cache_env_on, "TEMPO_TPU_RESULT_CACHE=on",
      "ROADMAP Queue 1 item 1.2 (resultcache/)"),
 )
@@ -211,6 +211,10 @@ class App:
         # pools persist across App rebuilds (modules hold references),
         # only the limits/watermarks move
         self.governor = resource.configure(cfg.resource)
+        # install (or disable) the device-resident hot tier on this App's
+        # device; it binds to the governor lazily, so order relative to
+        # configure() is free
+        configure_device_tier(cfg.device_tier, device=self.device)
         # apply the compiled-tier section (and register its counters on
         # the boot path, so /metrics exposes them before the first query)
         compiled_cache.configure(cfg.compiled)
@@ -228,6 +232,7 @@ class App:
         )
         self._build_all()
         self._maybe_standing_attach()
+        self._maybe_pageheat_exporter()
 
     # ------------------------------------------------------------------
     def _hb_period(self) -> float:
@@ -289,6 +294,16 @@ class App:
         snap_dir = self.cfg.db.wal_path or "wal"
         self.standing.attach(db=self.db, ingesters=self.ingesters,
                              snapshot_dir=snap_dir)
+
+    def _maybe_pageheat_exporter(self):
+        """Device data-movement export (util/pageheat): refresh the
+        per-budget miss-ratio gauges on an interval and, when
+        TEMPO_TPU_PAGEHEAT_EXPORT_DIR is set, write the ledger snapshot
+        `cli analyse device` replays. Runs where the block reads happen:
+        this process owns the storage engine."""
+        from tempo_tpu_torch.util.pageheat import PageHeatExporter
+
+        self.pageheat_exporter = PageHeatExporter()
 
     # -- tenant resolution ----------------------------------------------
     def resolve_tenant(self, org_id: str | None) -> str:
@@ -398,6 +413,7 @@ class App:
             ing.start_loop()
         self.db.enable_polling()
         self.compactor.start()
+        self.pageheat_exporter.start()
 
     def sweep_all(self, immediate: bool = False):
         """Deterministic maintenance for tests/drives."""
@@ -430,4 +446,5 @@ class App:
             self.standing.stop()
         self.workers.stop()
         self.compactor.stop()
+        self.pageheat_exporter.stop()
         self.db.shutdown()

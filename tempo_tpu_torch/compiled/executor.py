@@ -13,7 +13,10 @@ whole query becomes:
      columns, u32-overflowing values) is evaluated right here by the
      interpreter — a decline, bit-identical by construction.
   2. STACK (host): bound units group by codec mix and pad to shared pow2
-     widths, then move to the DB's device.
+     widths; the query-independent stack is offered to the device tier
+     (encoding/vtpu/colcache.DeviceTier) under a composite key, so
+     repeated shapes over the same block set ship ZERO payload bytes.
+     A stack the tier does not hold moves to the DB's device.
   3. LAUNCH (device, once per codec group, under dispatch_lock): the
      fused program of compiled/program.py — filter + time-bin + count for
      all Q query lanes over all U units in one dispatch (a prepare and a
@@ -22,11 +25,8 @@ whole query becomes:
 Counts are integers and merge by addition, so folding device partials
 with interpreter partials is exact.
 
-Not here: the reference offers each stack to the device-resident tier
-(`shared_device_tier()`, ROADMAP Queue 1 item 1.1), which is None in the
-port, so every dispatch ships its stack. And unlike the reference, a
-failure of the tier raises instead of falling back to the interpreter:
-only the declines above reach it.
+Unlike the reference, a failure of the tier raises instead of falling
+back to the interpreter: only the declines above reach it.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from tempo_tpu_torch.compiled.lower import (
     resolve_codes,
 )
 from tempo_tpu_torch.compiled.program import build_metrics_program
+from tempo_tpu_torch.encoding.vtpu.colcache import device_tensor as _tensor
 from tempo_tpu_torch.ops.scan import pad_codes_u32
 from tempo_tpu_torch.util import queryshape
 
@@ -54,13 +55,6 @@ _TS_MAX = (1 << 32) - 1
 
 def _pow2(n: int) -> int:
     return 1 << max(0, int(n) - 1).bit_length()
-
-
-def shared_device_tier():
-    """The device-resident tier that would keep stacks on the card: not
-    ported yet (ROADMAP Queue 1 item 1.1), so every dispatch ships its
-    stack."""
-    return None
 
 
 class _Unit:
@@ -162,28 +156,54 @@ def _stack_group(units, colsig, n_pad):
     return t_s, valid, tuple(payloads), tuple(pads)
 
 
-def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array -> tensor on `device`; uint32 as int32 bits, uint64 as
-    int64 bits."""
-    if a.dtype == np.uint32:
-        a = a.view(np.int32)
-    elif a.dtype == np.uint64:
-        a = a.view(np.int64)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+def _stack_arrays(t_s, valid, payloads) -> dict:
+    """A stack's arrays by name, as the device tier holds them."""
+    arrays = {"t_s": t_s, "valid": valid}
+    for i, p in enumerate(payloads):
+        for j, a in enumerate(p):
+            arrays[f"c{i}_{j}"] = a
+    return arrays
+
+
+def _resident_payloads(res, colsig):
+    """Rebuild the (t_s, valid, payloads) tuple from a resident entry's
+    tensors (the naming _stack_group gave them when offering)."""
+    width = {"rle": 2, "dct": 2, "dbp": 3}
+    payloads = tuple(tuple(res.arrays[f"c{i}_{j}"] for j in range(width[codec]))
+                     for i, codec in enumerate(res.meta["codecs"][: len(colsig)]))
+    return res.arrays["t_s"], res.arrays["valid"], payloads
 
 
 def _dispatch_group(cache, units, colsig, plans, lanes, slot_pad, device):
     """ONE fused dispatch for one codec group; returns the (Q, slot_pad)
     counts. lanes[q] = per-plan list of per-unit code sets /
     bounds, aligned with `units`."""
+    from tempo_tpu_torch.encoding.vtpu.colcache import shared_device_tier
     from tempo_tpu_torch.parallel.search import dispatch_lock
     from tempo_tpu_torch.util.devicetiming import count_transfer, timed_dispatch
 
     n_pad = _pow2(max(un.n for un in units))
     gkey = tuple(c[0] for c in units[0].cols)
-    if shared_device_tier() is not None:
-        raise NotImplementedError("resident compiled stacks (ROADMAP Queue 1 item 1.1)")
-    t_s, valid, payloads, pads = _stack_group(units, colsig, n_pad)
+    pkeys = tuple(un.pkeys for un in units)
+    skey = ("compiled_stack", pkeys, gkey, n_pad)
+
+    tier = shared_device_tier()
+    res = tier.get(skey) if tier is not None else None
+    if res is not None:
+        t_s, valid, payloads = _resident_payloads(res, colsig)
+        pads = tuple(res.meta["pads"])
+        tier.record_avoided(res.host_bytes, kernel="compiled_metrics")
+    else:
+        t_s, valid, payloads, pads = _stack_group(units, colsig, n_pad)
+        if tier is not None:
+            arrays = _stack_arrays(t_s, valid, payloads)
+            tier.offer(skey, "compiled_stack", arrays,
+                       meta={"pads": list(pads), "codecs": list(gkey)},
+                       host_bytes=sum(a.nbytes for a in arrays.values()),
+                       page_keys=[k for un in units for k in un.pkeys])
+            res = tier.get(skey)
+            if res is not None:
+                t_s, valid, payloads = _resident_payloads(res, colsig)
 
     # per-lane runtime args: codes (Q, U, K) per set column (each block
     # dictionary maps the literal to its own codes), bounds (Q, 2) per
@@ -220,22 +240,30 @@ def _dispatch_group(cache, units, colsig, plans, lanes, slot_pad, device):
     sig = (tuple(sig_cols), n_pad, slot_pad, q)
     prog = cache.program(sig, build_metrics_program)
 
+    def dev(a):
+        return _tensor(a, device)
+
     def launch():
-        dev_payloads = tuple(tuple(_tensor(a, device) for a in p) for p in payloads)
-        dev_qargs = tuple(_tensor(a, device) for a in qargs)
-        return prog(_tensor(t_s, device), _tensor(valid, device), dev_payloads, dev_qargs,
-                    _tensor(tb, device), _tensor(nb, device))
+        if res is None:  # the stack ships; a resident one is on the card already
+            stack = dev(t_s), dev(valid), tuple(tuple(dev(a) for a in p) for p in payloads)
+        else:
+            stack = t_s, valid, payloads
+        return prog(*stack, tuple(dev(a) for a in qargs), dev(tb), dev(nb))
 
     with dispatch_lock:
         counts = timed_dispatch("compiled_metrics", launch, device=device)
         # no bin can count more rows than the stack holds, so below 2^31
         # rows the counts come back as int32, the reference's type
-        if t_s.size < 1 << 31:
+        if len(units) * n_pad < 1 << 31:
             counts = counts.to(torch.int32)
         counts = counts.cpu().numpy()
-    h2d = (t_s.nbytes + valid.nbytes + sum(a.nbytes for p in payloads for a in p)
-           + sum(a.nbytes for a in qargs) + tb.nbytes + nb.nbytes)
-    count_transfer("compiled_metrics", h2d=h2d, d2h=counts.nbytes)
+    stack_bytes = (t_s.nbytes + valid.nbytes + sum(a.nbytes for p in payloads for a in p))
+    args_bytes = sum(a.nbytes for a in qargs) + tb.nbytes + nb.nbytes
+    if res is None:
+        count_transfer("compiled_metrics", h2d=stack_bytes + args_bytes, d2h=counts.nbytes)
+    else:
+        count_transfer("compiled_metrics", h2d=args_bytes, d2h=counts.nbytes,
+                       resident=stack_bytes)
     return counts
 
 

@@ -331,6 +331,45 @@ def check_config(cfg: Config) -> list[str]:
                 )
         except Exception:  # noqa: BLE001 — an uncompilable rule already
             pass  # warned at parse_rules time (dropped loudly)
+    # -- device-resident hot tier -----------------------------------------
+    if app.device_tier.budget_mb > 0:
+        from tempo_tpu_torch.encoding.vtpu.colcache import hbm_headroom_bytes
+
+        budget = app.device_tier.budget_mb << 20
+        headroom = hbm_headroom_bytes()
+        if 0 < headroom < budget:
+            warnings.append(
+                f"device_tier.budget_mb ({app.device_tier.budget_mb}) exceeds "
+                f"detected accelerator memory ({headroom} bytes): admissions "
+                "will OOM the device before the tier's own eviction runs — "
+                "size the tier from the what-if knee, not the whole HBM"
+            )
+        if not app.device_tier.respect_governor:
+            warnings.append(
+                "device_tier.respect_governor=false with a non-zero budget: "
+                "the hot tier will NOT shed under memory pressure, breaking "
+                "the shed order (device tier -> host tier -> ingest refusal) "
+                "the overload plane depends on"
+            )
+        host_cache = int(os.environ.get("TEMPO_TPU_COLCACHE_MB", "256")) << 20
+        if 0 < host_cache < budget:
+            warnings.append(
+                f"host column cache ({host_cache >> 20} MB, "
+                "TEMPO_TPU_COLCACHE_MB) is smaller than device_tier.budget_mb "
+                f"({app.device_tier.budget_mb} MB): an inverted cache "
+                "hierarchy — every device admission rebuilds its payload "
+                "through a host tier too small to hold it"
+            )
+    # -- device-native ingest plane ---------------------------------------
+    if os.environ.get("TEMPO_TPU_DEVICE_ENCODE", "").lower() in (
+            "1", "true", "yes", "force") and app.device_tier.budget_mb <= 0:
+        warnings.append(
+            "TEMPO_TPU_DEVICE_ENCODE is forced on while device_tier.budget_mb "
+            "is 0: flush pages encode on device but the just-cut tail cannot "
+            "stay resident, so every standing fold and live-tail search "
+            "re-ships the columns the encoder just had in HBM — give the "
+            "tier a budget (with an ingest_tail share) or drop the override"
+        )
     # -- compiled-query tier ----------------------------------------------
     if app.compiled.enabled and app.multitenancy_enabled \
             and app.compiled.max_shapes <= 0:
@@ -340,4 +379,16 @@ def check_config(cfg: Config) -> list[str]:
             "— and the jitted programs behind them — can grow without bound "
             "(set the cap; the LRU keeps hot dashboards compiled)"
         )
+    if app.compiled.enabled and app.device_tier.budget_mb > 0:
+        from tempo_tpu_torch.encoding.vtpu.colcache import hbm_headroom_bytes as _hbm
+
+        headroom = _hbm()
+        if 0 < headroom < (app.device_tier.budget_mb << 20):
+            warnings.append(
+                "compiled tier enabled while device_tier.budget_mb exceeds "
+                "detected accelerator memory: the tier's stacked page sets "
+                "and cached executables compete for HBM the page budget "
+                "already oversubscribes — shrink the budget below the "
+                "headroom before enabling compiled execution"
+            )
     return warnings

@@ -1,13 +1,15 @@
 // Hand-written Hopper (sm_90a) kernels of the vtpu1 codec in tempo_tpu_torch:
-// the device page-encode arm (rle_change_mask, dbp_pack) and the compiled
-// query tier (dbp_decode, compiled_metrics).
+// the device page-encode arm (rle_change_mask, dbp_pack), the compiled
+// query tier (dbp_decode, compiled_metrics) and the device tier's resident
+// scans (resident_rle_scan, resident_dct_scan, resident_dbp_scan).
 //
 // These replace jitted device programs of the JAX package, not Pallas
 // kernels: ops/encode.py's _rle_kernel, _dbp_kernel and _pack_kernel,
-// ops/pallas_kernels.py's _dbp_decode_jit and compiled/program.py's
-// build_metrics_program. Each computes the same function as its plain
-// PyTorch version beside its wrapper (tempo_tpu_torch/ops/encode.py,
-// ops/pallas_kernels.py, compiled/program.py). The interface is plain C,
+// ops/pallas_kernels.py's _dbp_decode_jit, compiled/program.py's
+// build_metrics_program and ops/scan.py's resident scans. Each computes the
+// same function as its plain PyTorch version beside its wrapper
+// (tempo_tpu_torch/ops/encode.py, ops/pallas_kernels.py,
+// compiled/program.py, ops/scan.py). The interface is plain C,
 // as in kernels.cu: pointers, sizes and the CUDA stream as arguments, bound
 // with ctypes. Every entry point launches on the caller's stream, does not
 // synchronise, allocates nothing (the wrapper passes outputs and scratch),
@@ -1067,6 +1069,254 @@ __global__ void __launch_bounds__(kThreads, 4) compiled_count_kernel(
     if (bins[s]) atomicAdd(&out[s], (u64)bins[s]);
 }
 
+// ---------------------------------------------------------------------------
+// Resident scans: resident_rle_scan, resident_dct_scan, resident_dbp_scan
+//
+// Replace the device tier's jitted scans of tempo_tpu/ops/scan.py:169-216
+// (_rle_in_set_resident_jit, _rle_between_resident_jit,
+// _dct_in_set_resident_jit, _dct_between_resident_jit,
+// _dbp_between_resident_jit): a row mask over one page held on the card in
+// its encoded form. A value's verdict (resident_verdict) is, by mode, 0 "in
+// the code set", 1 "not in it" or 2 lo <= value <= hi, all unsigned 32-bit;
+// a dbp page's is lo <= value <= hi over its decoded unsigned 64-bit values.
+// The mask is written a byte a row (a torch.bool tensor). Each lane owns
+// kPer consecutive rows (lane_first), stored as one 8-byte word, so a warp
+// writes 256 contiguous bytes.
+//
+// What bounds them: memory. rle reads 8 bytes a run and writes a byte a row,
+// dct reads 4 bytes an index and writes a byte a row (its dictionary is
+// small), dbp reads w / 8 bytes a row and writes one; the code set is tiny
+// beside the page. Designs:
+// - rle: row r takes the verdict of the LAST run whose start (the exclusive
+//   prefix sum of the lengths) is <= r, which is jnp.repeat(verdicts,
+//   lengths, total_repeat_length=n)'s rule: rows past the runs' total take
+//   the last run's verdict, runs past n are cut, a zero-length run wins
+//   no row. The starts are a reduce-then-scan over 2,048-run tiles, as
+//   dbp_decode's: rle_run_sums_kernel sums each tile's lengths (pages of
+//   more than one tile), rle_run_starts_kernel gives each run its start and
+//   verdict, packed as start << 1 | verdict in one int64, and
+//   rle_expand_kernel gives each lane's first row its run by a binary search
+//   over the starts, then walks the runs forward over its 8 rows. Both
+//   later passes are programmatic dependent launches.
+// - dct: dct_verdict_kernel computes the verdict once per dictionary entry;
+//   dct_gather_kernel (a dependent launch) loads its rows' indices as two
+//   16-byte vectors before it waits, then gathers the verdicts. An index
+//   reads as jnp indexing does: a negative one from the end, one past the
+//   end clamped.
+// - dbp: dbp_decode's two passes with the compare in the scan's epilogue,
+//   so no decoded value is written: resident_dbp_sum_kernel sums each
+//   tile's deltas (pages of more than one 2,048-row tile), and
+//   resident_dbp_scan_kernel (a dependent launch) gives each lane its
+//   values from the carry and compares them. A lane cuts its deltas
+//   straight from the words in device memory (no staging), which serves
+//   every width to 64: a delta is the low 32 bits of its w-bit field, as
+//   the reference's decode reads it (pages hold w <= 32).
+// ---------------------------------------------------------------------------
+
+constexpr int32_t kModeBetween = 2;
+
+__device__ __forceinline__ bool resident_verdict(uint32_t v, const uint32_t* __restrict__ codes,
+                                                 int32_t n_codes, int32_t mode, uint32_t lo,
+                                                 uint32_t hi) {
+  if (mode == kModeBetween) return v >= lo && v <= hi;
+  bool hit = false;
+  for (int32_t k = 0; k < n_codes; ++k) hit |= __ldg(codes + k) == v;
+  return hit != (mode == 1);
+}
+
+// Store a lane's kPer verdict bytes (bit 8 * k of `bytes`: row i0 + k) to
+// out[i0, min(i0 + kPer, n)).
+__device__ __forceinline__ void store_mask(uint8_t* __restrict__ out, int64_t i0, int64_t n,
+                                           u64 bytes) {
+  if (i0 + kPer <= n) {
+    *reinterpret_cast<u64*>(out + i0) = bytes;
+  } else {
+    for (int k = 0; i0 + k < n; ++k) out[i0 + k] = (uint8_t)(bytes >> (8 * k));
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) rle_run_sums_kernel(
+    const int32_t* __restrict__ lengths, int64_t r, u64* __restrict__ sums) {
+  __shared__ u64 xs[kWarps];
+  grid_launch_dependents();
+  const int64_t k0 = lane_first((int64_t)blockIdx.x * kTile);
+  int64_t s = 0;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) s += k0 + k < r ? lengths[k0 + k] : 0;
+  const u64 all = block_sum((u64)s, xs);
+  if (threadIdx.x == 0) sums[blockIdx.x] = all;
+}
+
+__global__ void __launch_bounds__(kThreads) rle_run_starts_kernel(
+    const uint32_t* __restrict__ values, const int32_t* __restrict__ lengths, int64_t r,
+    const uint32_t* __restrict__ codes, int32_t n_codes, int32_t mode, uint32_t lo, uint32_t hi,
+    const u64* sums, int64_t* __restrict__ packed) {
+  __shared__ u64 xs[2 * kWarps];
+  grid_launch_dependents();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t t = blockIdx.x, k0 = lane_first(t * kTile);
+  int64_t len[kPer];
+  u64 hits = 0, s = 0;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const bool live = k0 + k < r;
+    len[k] = live ? lengths[k0 + k] : 0;
+    s += (u64)len[k];
+    if (live && resident_verdict(values[k0 + k], codes, n_codes, mode, lo, hi)) hits |= 1u << k;
+  }
+  const u64 incl = warp_inclusive_scan(s);
+  grid_dependency_wait();  // the tile sums (at once for a one-tile page)
+  const u64 cs = warp_sum(dbp_carry_part(sums, t));
+  if (lane == 31) xs[warp] = incl;
+  if (lane == 0) xs[kWarps + warp] = cs;
+  __syncthreads();
+  u64 acc = incl - s;
+#pragma unroll
+  for (int k = 0; k < kWarps; ++k) acc += xs[kWarps + k] + (k < warp ? xs[k] : 0ull);
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    if (k0 + k < r) packed[k0 + k] = (int64_t)((acc << 1) | ((hits >> k) & 1u));
+    acc += (u64)len[k];
+  }
+}
+
+__device__ __forceinline__ int64_t run_start(const int64_t* packed, int64_t k) {
+  return packed[k] >> 1;
+}
+
+__global__ void __launch_bounds__(kThreads) rle_expand_kernel(const int64_t* packed, int64_t r,
+                                                              int64_t n,
+                                                              uint8_t* __restrict__ out) {
+  const int64_t i0 = lane_first((int64_t)blockIdx.x * kTile);
+  grid_dependency_wait();  // the starts and verdicts
+  if (i0 >= n) return;
+  int64_t a = 1, b = r;  // the first run starting past i0 lies in [a, b]; run 0 starts at 0
+  while (a < b) {
+    const int64_t m = (a + b) >> 1;
+    if (run_start(packed, m) <= i0) a = m + 1;
+    else b = m;
+  }
+  int64_t k = a - 1;
+  u64 bytes = 0;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    while (k + 1 < r && run_start(packed, k + 1) <= i0 + j) ++k;
+    bytes |= (u64)(packed[k] & 1) << (8 * j);
+  }
+  store_mask(out, i0, n, bytes);
+}
+
+__global__ void __launch_bounds__(kThreads) dct_verdict_kernel(
+    const uint32_t* __restrict__ values, int64_t v_count, const uint32_t* __restrict__ codes,
+    int32_t n_codes, int32_t mode, uint32_t lo, uint32_t hi, uint8_t* __restrict__ verdict) {
+  grid_launch_dependents();
+  const int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (e < v_count) verdict[e] = resident_verdict(values[e], codes, n_codes, mode, lo, hi);
+}
+
+__global__ void __launch_bounds__(kThreads) dct_gather_kernel(const int32_t* __restrict__ idx,
+                                                              int64_t n, const uint8_t* verdict,
+                                                              int64_t v_count,
+                                                              uint8_t* __restrict__ out) {
+  const int64_t i0 = lane_first((int64_t)blockIdx.x * kTile);
+  int32_t ix[kPer];
+  if (i0 + kPer <= n && (reinterpret_cast<uintptr_t>(idx) & 15u) == 0) {
+    const int4 p = __ldg(reinterpret_cast<const int4*>(idx + i0));
+    const int4 q = __ldg(reinterpret_cast<const int4*>(idx + i0) + 1);
+    ix[0] = p.x, ix[1] = p.y, ix[2] = p.z, ix[3] = p.w;
+    ix[4] = q.x, ix[5] = q.y, ix[6] = q.z, ix[7] = q.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) ix[k] = i0 + k < n ? idx[i0 + k] : 0;
+  }
+  grid_dependency_wait();  // the entries' verdicts
+  if (i0 >= n) return;
+  u64 bytes = 0;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    int64_t e = ix[k] < 0 ? ix[k] + v_count : ix[k];
+    e = e < 0 ? 0 : (e >= v_count ? v_count - 1 : e);
+    bytes |= (u64)verdict[e] << (8 * k);
+  }
+  store_mask(out, i0, n, bytes);
+}
+
+__device__ __forceinline__ uint32_t word_or_zero(const uint32_t* __restrict__ words,
+                                                 int64_t n_words, int64_t k) {
+  return k < n_words ? __ldg(words + k) : 0u;
+}
+
+// As dbp_lane_deltas, read from device memory at any width w <= 64: d[k] is
+// the delta element ib + k adds, the low 32 bits of field ib + k - 1.
+__device__ __forceinline__ void resident_lane_deltas(const uint32_t* __restrict__ words,
+                                                     int64_t n_words, uint32_t w, int64_t ib,
+                                                     int64_t n, int32_t (&d)[kPer]) {
+  const uint32_t mask = w >= 32u ? 0xFFFFFFFFu : ((1u << w) - 1u);
+  const u64 off = (u64)(ib > 0 ? ib - 1 : 0) * w;
+  int64_t wi = (int64_t)(off >> 5);
+  uint32_t rem = (uint32_t)(off & 31u);
+  uint32_t lo = word_or_zero(words, n_words, wi), hi = word_or_zero(words, n_words, wi + 1);
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int64_t i = ib + k;
+    d[k] = 0;
+    if (i >= 1 && i < n) {
+      const uint32_t z = __funnelshift_r(lo, hi, rem) & mask;
+      d[k] = (int32_t)((z >> 1) ^ (0u - (z & 1u)));
+      rem += w;
+      while (rem >= 32u) {
+        rem -= 32u;
+        ++wi;
+        lo = hi;
+        hi = word_or_zero(words, n_words, wi + 1);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) resident_dbp_sum_kernel(
+    const uint32_t* __restrict__ words, int64_t n_words, uint32_t w, int64_t n,
+    u64* __restrict__ sums) {
+  __shared__ u64 xs[kWarps];
+  grid_launch_dependents();
+  int32_t d[kPer];
+  resident_lane_deltas(words, n_words, w, lane_first((int64_t)blockIdx.x * kTile), n, d);
+  int64_t s = 0;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) s += d[k];
+  const u64 all = block_sum((u64)s, xs);
+  if (threadIdx.x == 0) sums[blockIdx.x] = all;
+}
+
+__global__ void __launch_bounds__(kThreads) resident_dbp_scan_kernel(
+    const uint32_t* __restrict__ words, int64_t n_words, u64 first, uint32_t w, int64_t n,
+    u64 lo, u64 hi, const u64* sums, uint8_t* __restrict__ out) {
+  __shared__ u64 xs[2 * kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t t = blockIdx.x, i0 = lane_first(t * kTile);
+  int32_t d[kPer];
+  resident_lane_deltas(words, n_words, w, i0, n, d);
+  int64_t s = 0;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) s += d[k];
+  const u64 incl = warp_inclusive_scan((u64)s);
+  grid_dependency_wait();  // the tile sums (at once for a one-tile page)
+  const u64 cs = warp_sum(dbp_carry_part(sums, t));
+  if (lane == 31) xs[warp] = incl;
+  if (lane == 0) xs[kWarps + warp] = cs;
+  __syncthreads();
+  u64 acc = first + incl - (u64)s;
+#pragma unroll
+  for (int k = 0; k < kWarps; ++k) acc += xs[kWarps + k] + (k < warp ? xs[k] : 0ull);
+  u64 bytes = 0;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    acc += (u64)(int64_t)d[k];
+    bytes |= (u64)(acc >= lo && acc <= hi) << (8 * k);
+  }
+  if (i0 < n) store_mask(out, i0, n, bytes);
+}
+
 // Launch kernel<<<grid, kThreads, smem, stream>>>(args...), when
 // `programmatic` as a programmatic dependent launch of the kernel before it
 // on the stream (see grid_dependency_wait; only after a launch of this
@@ -1233,6 +1483,90 @@ int tt_compiled_metrics(const int64_t* desc, int32_t n_cols, const void* t_s, co
       cols, (const uint32_t*)t_s, (const uint8_t*)valid, n_pad, (int64_t)n_units, n_tiles, n_q,
       (const uint32_t*)tb, (const uint32_t*)nb, slot_pad, has_dbp, has_rle, staged_codes,
       smem_bins, (u64*)out);
+  if (err != cudaSuccess) return (int)err;
+  ++*launched;
+  return 0;
+}
+
+// values: (r,) uint32 run values; lengths: (r,) int32 run lengths (>= 0);
+// codes: (n_codes,) uint32 (modes 0 and 1); sums: ceil(r / tt_dbp_tile())
+// uint64 scratch; packed: (r,) int64 scratch; out: (n,) uint8 row mask.
+// *launched: the kernels launched (2, or 3 when r spans more than one
+// tile).
+int tt_resident_rle_scan(const void* values, const void* lengths, int64_t r, const void* codes,
+                         int32_t n_codes, int32_t mode, uint32_t lo, uint32_t hi, int64_t n,
+                         void* sums, void* packed, void* out, int32_t* launched, void* stream) {
+  *launched = 0;
+  if (n == 0) return 0;
+  if (r == 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int64_t r_tiles = cdiv(r, kTile);
+  if (r_tiles > 1) {
+    rle_run_sums_kernel<<<(unsigned)(r_tiles - 1), kThreads, 0, st>>>((const int32_t*)lengths, r,
+                                                                       (u64*)sums);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    ++*launched;
+  }
+  cudaError_t err = launch_dependent(r_tiles > 1, rle_run_starts_kernel, dim3((unsigned)r_tiles),
+                                     0, st, (const uint32_t*)values, (const int32_t*)lengths, r,
+                                     (const uint32_t*)codes, n_codes, mode, lo, hi,
+                                     (const u64*)sums, (int64_t*)packed);
+  if (err != cudaSuccess) return (int)err;
+  ++*launched;
+  err = launch_dependent(true, rle_expand_kernel, dim3((unsigned)cdiv(n, kTile)), 0, st,
+                         (const int64_t*)packed, r, n, (uint8_t*)out);
+  if (err != cudaSuccess) return (int)err;
+  ++*launched;
+  return 0;
+}
+
+// values: (v_count,) uint32 dictionary; idx: (n,) int32; codes: (n_codes,)
+// uint32 (modes 0 and 1); verdict: (v_count,) uint8 scratch; out: (n,) uint8
+// row mask. *launched: the kernels launched (2).
+int tt_resident_dct_scan(const void* values, int64_t v_count, const void* idx, int64_t n,
+                         const void* codes, int32_t n_codes, int32_t mode, uint32_t lo,
+                         uint32_t hi, void* verdict, void* out, int32_t* launched, void* stream) {
+  *launched = 0;
+  if (n == 0) return 0;
+  if (v_count == 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  dct_verdict_kernel<<<(unsigned)cdiv(v_count, kThreads), kThreads, 0, st>>>(
+      (const uint32_t*)values, v_count, (const uint32_t*)codes, n_codes, mode, lo, hi,
+      (uint8_t*)verdict);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ++*launched;
+  err = launch_dependent(true, dct_gather_kernel, dim3((unsigned)cdiv(n, kTile)), 0, st,
+                         (const int32_t*)idx, n, (const uint8_t*)verdict, v_count, (uint8_t*)out);
+  if (err != cudaSuccess) return (int)err;
+  ++*launched;
+  return 0;
+}
+
+// words: (n_words,) uint32, the packed deltas with their guard word; width
+// 0..64; lo, hi: inclusive uint64 bounds; sums: ceil(n / tt_dbp_tile())
+// uint64 scratch; out: (n,) uint8 row mask. *launched: the kernels launched
+// (1, or 2 when n spans more than one tile).
+int tt_resident_dbp_scan(const void* words, int64_t n_words, uint64_t first, int32_t width,
+                         int64_t n, uint64_t lo, uint64_t hi, void* sums, void* out,
+                         int32_t* launched, void* stream) {
+  *launched = 0;
+  if (n == 0) return 0;
+  if (width < 0 || width > 64) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int64_t n_tiles = cdiv(n, kTile);
+  if (n_tiles > 1) {
+    resident_dbp_sum_kernel<<<(unsigned)(n_tiles - 1), kThreads, 0, st>>>(
+        (const uint32_t*)words, n_words, (uint32_t)width, n, (u64*)sums);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    ++*launched;
+  }
+  const cudaError_t err = launch_dependent(
+      n_tiles > 1, resident_dbp_scan_kernel, dim3((unsigned)n_tiles), 0, st,
+      (const uint32_t*)words, n_words, (u64)first, (uint32_t)width, n, (u64)lo, (u64)hi,
+      (const u64*)sums, (uint8_t*)out);
   if (err != cudaSuccess) return (int)err;
   ++*launched;
   return 0;

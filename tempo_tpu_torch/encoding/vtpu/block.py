@@ -4,11 +4,11 @@ Port of tempo_tpu/encoding/vtpu/block.py on the host: VtpuBackendBlock
 (index, dictionary, coalesced column reads through the process-wide
 decoded-column cache, find_trace_by_id, search, hits_for_mask,
 fetch_candidates, iter_eval_views, tag_names/tag_values,
-collect_spans_for_ids, scrub), EncodedColumn with its rle/dct/dbp arms,
-the zone-map and condition lowering and the Prometheus counter families.
-The device tier of the column cache (`EncodedColumn.resident*`) and the
-page-heat ledger that admits pages to it arrive with the device-tier
-slice; until then every encoded-space predicate takes the host arm.
+collect_spans_for_ids, scrub), EncodedColumn with its rle/dct/dbp arms
+and its device-tier residency (`resident*`: a page the page-heat ledger
+admits is scanned on the card by the resident kernels of ops/scan), the
+page-heat touches of every query-path page access, the zone-map and
+condition lowering and the Prometheus counter families.
 
 Reference analogs: tempodb/encoding/vparquet/block_findtracebyid.go
 (bloom shard test then ID-column probe) and block_search.go
@@ -33,7 +33,9 @@ Read path economy, in pruning order (cheapest veto first):
    auto-disabled on single-core hosts).
 
 Predicate masks evaluate on the host (numpy over run/dictionary space
-or decoded columns), as the reference's single-device search does.
+or decoded columns), as the reference's single-device search does,
+except over pages resident in the device tier, which the resident
+kernels scan on the card.
 """
 
 from __future__ import annotations
@@ -200,9 +202,15 @@ class EncodedColumn:
         if cache is not None:
             values, lengths = cache.get(kv), cache.get(kl)
             if values is not None and lengths is not None:
+                # a warm hit is STILL a re-ship: the host cache elides
+                # IO+decode, not the h2d trip — exactly the signal the
+                # page-heat ledger exists to surface
+                blk._touch_pageheat(self.name, pm,
+                                    values.nbytes + lengths.nbytes)
                 return values, lengths
         values, lengths = lw.rle_decode_runs(self._page(), pm.dtype, pm.shape)
         blk._account_decoded(values.nbytes + lengths.nbytes)
+        blk._touch_pageheat(self.name, pm, values.nbytes + lengths.nbytes)
         if cache is not None:
             cache.put(kv, values)
             cache.put(kl, lengths)
@@ -218,29 +226,42 @@ class EncodedColumn:
         if cache is not None:
             values, idx = cache.get(kv), cache.get(ki)
             if values is not None and idx is not None:
+                w = max(values.shape[0] - 1, 0).bit_length()
+                blk._touch_pageheat(self.name, pm,
+                                    values.nbytes + (self.n * w + 7) // 8)
                 return values, idx
         values, idx = lw.dct_indices(self._page(), pm.dtype, pm.shape)
         # index expansion materializes no values: count the packed
         # stream's size (width bits per row), i.e. the encoded form
         w = max(values.shape[0] - 1, 0).bit_length()
         blk._account_decoded(values.nbytes + (self.n * w + 7) // 8)
+        blk._touch_pageheat(self.name, pm, values.nbytes + (self.n * w + 7) // 8)
         if cache is not None:
             cache.put(kv, values)
             cache.put(ki, idx)
         return values, idx
 
-    # -- the encoded page as device payload ----------------------------
+    # -- device-resident hot tier --------------------------------------
     def resident_key(self) -> tuple:
         return (str(self.blk.meta.block_id), self.name, int(self.pm.offset))
+
+    def _device_tier(self):
+        # one-shot streaming readers (compaction, column_cache=None)
+        # bypass the tier the same way they bypass the heat ledger
+        if self.blk._colcache is None:
+            return None
+        from tempo_tpu_torch.encoding.vtpu.colcache import shared_device_tier
+
+        return shared_device_tier()
 
     def resident_payload(self):
         """This page's encoded form as host arrays ready for device
         placement: (codec, arrays, meta, host_bytes), or None when the
         shape cannot be evaluated on the device (vector columns, >32-bit
         or signed rle/dct values, multi-subcolumn dbp). host_bytes is
-        what one host-path serve moves. The compiled query tier stacks
-        these (compiled/executor); the device tier that keeps them
-        resident is ROADMAP Queue 1 item 1.1."""
+        what one host-path serve moves — the per-hit avoided-transfer
+        increment. The device tier keeps these resident (resident()), and
+        the compiled query tier stacks them (compiled/executor)."""
         from tempo_tpu_torch.encoding.vtpu import lightweight as lw
 
         pm = self.pm
@@ -283,12 +304,43 @@ class EncodedColumn:
                     n * np.dtype(pm.dtype).itemsize)
         return None
 
+    def resident(self):
+        """Resident entry for this page, admitting it (one h2d, counted)
+        when the page-heat ledger puts it inside the what-if knee. The
+        admitting query serves from the fresh entry too — host decode
+        ran once to build the payload, never twice."""
+        tier = self._device_tier()
+        if tier is None:
+            return None
+        key = self.resident_key()
+        res = tier.get(key)
+        if res is not None:
+            return res
+        if not tier.should_admit([key]):
+            return None
+        payload = self.resident_payload()
+        if payload is None:
+            return None
+        codec, arrays, meta, host_bytes = payload
+        if tier.offer(key, codec, arrays, meta, host_bytes=host_bytes):
+            return tier.get(key)
+        return None
+
     # -- predicate evaluation in encoded space -------------------------
     def in_set_mask(self, codes: np.ndarray, invert: bool = False):
         """Row mask for `column in codes` (1-D columns), or None when
         this codec cannot answer without full decode (dbp)."""
         from tempo_tpu_torch.ops import scan
 
+        res = self.resident()
+        if res is not None:
+            m = scan.resident_in_set_mask(res, codes, invert=invert)
+            if m is not None:
+                # fetch+decode+h2d all skipped: the fused device decode
+                # ran over the parked compressed page
+                self._device_tier().record_avoided(
+                    res.host_bytes, kernel=f"resident_{res.codec}_scan")
+                return m
         if self.codec == "rle":
             values, lengths = self.runs()
             return scan.expand_run_mask(
@@ -300,9 +352,18 @@ class EncodedColumn:
         return None
 
     def range_mask(self, lo, hi):
-        """Row mask for lo <= column <= hi, or None (dbp/entropy)."""
+        """Row mask for lo <= column <= hi, or None (dbp/entropy —
+        though a RESIDENT dbp page answers: its device delta-decode is
+        fused into the compare)."""
         from tempo_tpu_torch.ops import scan
 
+        res = self.resident()
+        if res is not None:
+            m = scan.resident_range_mask(res, lo, hi)
+            if m is not None:
+                self._device_tier().record_avoided(
+                    res.host_bytes, kernel=f"resident_{res.codec}_scan")
+                return m
         if self.codec == "rle":
             values, lengths = self.runs()
             return scan.expand_run_mask(
@@ -473,6 +534,20 @@ class VtpuBackendBlock:
         usage.account_bytes(decoded_bytes_total, "decoded_bytes",
                             self.meta.tenant_id, nbytes)
 
+    def _touch_pageheat(self, name: str, pm, moved_bytes: int) -> None:
+        """Feed the device data-movement ledger (util/pageheat): one
+        query-path access to this (block, column, page), sized by what
+        would ship to the device (`moved_bytes`) vs the page's stored
+        size. Query paths only — one-shot streaming readers (compaction,
+        column_cache=None) would poison the heat signal with pages that
+        are about to be rewritten."""
+        if self._colcache is None:
+            return
+        from tempo_tpu_torch.util import pageheat
+
+        pageheat.touch(self.meta.block_id, name, pm.offset,
+                       moved_bytes, pm.length)
+
     def _fetch_columns(self, rg: fmt.RowGroupMeta, names: list[str]) -> dict[str, np.ndarray]:
         """Fetch+decode columns with coalesced ranged reads, accounting
         the round trips saved vs one-read-per-page."""
@@ -541,6 +616,10 @@ class VtpuBackendBlock:
             for name, arr in dec.items():
                 cache.put((self.meta.block_id, name, rg.pages[name].offset), arr)
                 out[name] = arr
+        # page-heat ledger: hits AND misses are accesses — the host
+        # cache elides IO/decode, never the per-dispatch h2d trip
+        for name, arr in out.items():
+            self._touch_pageheat(name, rg.pages[name], arr.nbytes)
         return out
 
     def bloom_plan(self) -> bloom.BloomPlan:

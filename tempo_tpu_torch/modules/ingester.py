@@ -3,9 +3,9 @@
 Port of tempo_tpu/modules/ingester.py, with the standing-query fold at
 each cut and its read/replay seams (`standing_live_batches`,
 `standing_wal_batches`, `standing_flushed_since`). Not here yet: the
-device tier's tail hooks (the cut parked on the card, tail keys on live
-segments; ROADMAP Queue 1 item 4; App refuses
-`device_tier.budget_mb > 0`).
+device tier's ingest tail (the cut parked on the card, tail keys on live
+segments; ROADMAP Queue 1 item 4b; App refuses
+`device_tier.ingest_tail_budget_mb > 0`).
 
 Reference: modules/ingester (instance.go:98 per-tenant instance with
 mutex-guarded live-trace map, CutCompleteTraces:240, CutBlockIfReady:275,
@@ -225,7 +225,7 @@ class TenantInstance:
             wal_pool.sub(cut_bytes)  # append failed: nothing to account
             raise
         # the device tier parks the cut on the card here (ingest_tail.park_cut;
-        # ROADMAP Queue 1 item 4)
+        # ROADMAP Queue 1 item 4b)
         # standing-query fold: evaluate every registered query against
         # ONLY this cut's spans — O(delta), outside the instance lock
         # (the engine serializes itself), and never fatal to the cut
@@ -400,7 +400,7 @@ class TenantInstance:
             segs = [seg for lt in self.live.values() for seg in lt.segments]
             wal_blocks = [self.head] + list(self.completing)
         # the device tier stamps each WAL segment's tail key here
-        # (ROADMAP Queue 1 item 4)
+        # (ROADMAP Queue 1 item 4b)
         for blk in wal_blocks:
             segs.extend(blk.iter_batches())
         return segs

@@ -11,9 +11,10 @@ accumulator of the DB's device: seg_bincount on the card), with the
 compiled tier claiming simple-count plans over blocks first
 (query_range_blocks, query_range_blocks_multi). Not here yet: the
 serverless external endpoints (ROADMAP Queue 1 item 3), the result cache
-(Queue 1 item 1.2; App refuses `db.result_cache.enabled`), the mesh
-search and metrics (Queue 1 item 4), the multi-query search seam (its
-caller is the standing tier) and the graph jobs (the graph/ slice).
+(Queue 1 item 1.2; App refuses `db.result_cache.enabled`), the live-tail
+hook of the device tier's ingest tail (Queue 1 item 4b), the mesh search
+and metrics (Queue 1 item 12), the multi-query search seam (its caller is
+the standing tier) and the graph jobs (the graph/ slice).
 """
 
 from __future__ import annotations
@@ -315,7 +316,7 @@ def _search_batch(batch: SpanBatch, req: SearchRequest) -> SearchResponse:
     if n == 0:
         return resp
     d = batch.dictionary
-    # device-tier slice: the resident-tail scan (ingest_tail) goes here
+    # the resident-tail scan (ops/ingest_tail) goes here: ROADMAP Queue 1 item 4b
     mask = np.ones(n, bool)
     for k, v in req.tags.items():
         v = str(v)

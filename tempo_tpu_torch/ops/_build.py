@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels (csrc/kernels.cu: the three
-Pallas kernels; csrc/codec_kernels.cu: the codec's page encode and the
-compiled query tier).
+Pallas kernels; csrc/codec_kernels.cu: the codec's page encode, the
+compiled query tier and the device tier's resident scans).
 
 nvcc compiles each source into a shared library with a plain C
 interface, tagged with a hash of the source, under tempo_tpu_torch/_build/
@@ -46,6 +46,12 @@ _SIGNATURES = {
     "tt_dbp_decode": [_P, _I64, _P, _P, _I32, _I64, _P, _P, ctypes.POINTER(_I32), _P],
     "tt_compiled_metrics": [_P, _I32, _P, _P, _I64, _I32, _I32, _P, _P, _I32, _P,
                             ctypes.POINTER(_I32), _P],
+    "tt_resident_rle_scan": [_P, _P, _I64, _P, _I32, _I32, ctypes.c_uint32, ctypes.c_uint32,
+                             _I64, _P, _P, _P, ctypes.POINTER(_I32), _P],
+    "tt_resident_dct_scan": [_P, _I64, _P, _I64, _P, _I32, _I32, ctypes.c_uint32,
+                             ctypes.c_uint32, _P, _P, ctypes.POINTER(_I32), _P],
+    "tt_resident_dbp_scan": [_P, _I64, _U64, _I32, _I64, _U64, _U64, _P, _P,
+                             ctypes.POINTER(_I32), _P],
 }
 
 

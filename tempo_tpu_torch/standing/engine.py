@@ -584,7 +584,7 @@ class StandingEngine:
             return
         plan = rules_mod.window_plan(q.template, start, int(n_bins))
         # the resident-tail fold over the cut parked on the card comes with
-        # the device tier (ROADMAP Queue 1 item 4, ops/ingest_tail)
+        # the device tier's ingest tail (ROADMAP Queue 1 item 4b, ops/ingest_tail)
         with q.lock:
             res = eval_batch(plan, batch, dictionary, q.series)
             live = res.slots[res.slots >= 0]

@@ -12,6 +12,8 @@ turns such a module on.
 
 import dataclasses
 
+import re
+
 import pytest
 
 from tempo_tpu import config as jconfig
@@ -187,6 +189,31 @@ def test_check_config_warnings_equal(yaml_text):
     assert jw == tw and tw
 
 
+# the device tier's warnings (config.py: the HBM headroom, an unshed
+# tier, an inverted cache hierarchy, the forced device encode without a
+# tier, the compiled tier over an oversubscribed budget), each case with
+# the environment that trips it
+TIER_WARNINGS = [
+    ("device_tier:\n  budget_mb: 64\n  respect_governor: false\n", {}),
+    ("device_tier:\n  budget_mb: 64\n", {"TEMPO_TPU_HBM_BYTES": "1000"}),
+    ("device_tier:\n  budget_mb: 512\n", {"TEMPO_TPU_COLCACHE_MB": "64"}),
+    ("", {"TEMPO_TPU_DEVICE_ENCODE": "1"}),
+]
+
+
+@pytest.mark.parametrize("case", TIER_WARNINGS, ids=lambda c: c[0].replace("\n", " ") + str(c[1]))
+def test_device_tier_warnings_equal(case, monkeypatch):
+    yaml_text, env = case
+    for k in ("TEMPO_TPU_HBM_BYTES", "TEMPO_TPU_COLCACHE_MB", "TEMPO_TPU_DEVICE_ENCODE"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    j, t = jconfig.parse_config(yaml_text), config.parse_config(yaml_text)
+    _align_port_defaults(j, t)
+    jw, tw = jconfig.check_config(j), config.check_config(t)
+    assert jw == tw and any("device_tier" in w or "DEVICE_ENCODE" in w for w in tw)
+
+
 @pytest.mark.parametrize("yaml_text", ["", FULL_YAML])
 def test_check_config_quiet_equal(yaml_text):
     j, t = jconfig.parse_config(yaml_text), config.parse_config(yaml_text)
@@ -204,7 +231,7 @@ UNPORTED = {
     "rca:\n  enabled: true\n": "rca",
     "slo:\n  enabled: true\n": "slo",
     "vulture:\n  enabled: true\n": "vulture",
-    "device_tier:\n  budget_mb: 64\n": "device_tier",
+    "device_tier:\n  budget_mb: 64\n  ingest_tail_budget_mb: 8\n": "ingest_tail_budget_mb",
     "storage:\n  trace:\n    result_cache:\n      enabled: true\n": "result_cache",
     "storage:\n  trace:\n    cache: memory\n": "cache='memory'",
     "storage:\n  trace:\n    analytics_scan_s: 600\n": "analytics_scan_s",
@@ -259,11 +286,12 @@ def test_compiled_section_equal(yaml_text, tmp_path):
     App(t.app, device="cpu").shutdown()
 
 
+# env switch -> (what the refusal names, the ROADMAP item it cites)
 UNPORTED_ENV = {
-    ("TEMPO_TPU_DEVICE_TIER_MB", "64"): "TEMPO_TPU_DEVICE_TIER_MB",
-    ("TEMPO_TPU_INGEST_TAIL_MB", "8"): "TEMPO_TPU_INGEST_TAIL_MB",
-    ("TEMPO_TPU_RESULT_CACHE", "on"): "TEMPO_TPU_RESULT_CACHE",
-    ("TEMPO_TPU_RESULT_CACHE", "force"): "TEMPO_TPU_RESULT_CACHE",
+    ("TEMPO_TPU_INGEST_TAIL_MB", "8"): ("TEMPO_TPU_INGEST_TAIL_MB",
+                                        "ROADMAP Queue 1 item 4b (the ingest tail)"),
+    ("TEMPO_TPU_RESULT_CACHE", "on"): ("TEMPO_TPU_RESULT_CACHE", "ROADMAP Queue 1 item 1.2"),
+    ("TEMPO_TPU_RESULT_CACHE", "force"): ("TEMPO_TPU_RESULT_CACHE", "ROADMAP Queue 1 item 1.2"),
 }
 
 
@@ -274,9 +302,10 @@ def test_unported_env_switches_refused(env, tmp_path, monkeypatch):
     monkeypatch.setenv(*env)
     path = tmp_path / "tempo.yaml"
     path.write_text(f"storage:\n  trace:\n    backend_path: {tmp_path}/blocks\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1") as e:
+    what, item = UNPORTED_ENV[env]
+    with pytest.raises(NotImplementedError, match=re.escape(item)) as e:
         tmain.main(["-config.file", str(path), "-config.verify"])
-    assert UNPORTED_ENV[env] in str(e.value) and "not ported yet" in str(e.value)
+    assert what in str(e.value) and "not ported yet" in str(e.value)
 
 
 @pytest.mark.parametrize("env", [("TEMPO_TPU_DEVICE_TIER_MB", "0"), ("TEMPO_TPU_INGEST_TAIL_MB", "0"),

@@ -8,8 +8,9 @@ engine, WAL replay, compaction) on the CPU, encodes pages through the
 device page-encode arm forced on the CPU, serves the single binary
 (App + TempoServer: one OTLP push, /flush, the trace read back by ID and
 by search, a simple-count query_range through the compiled tier,
-/api/query-insights, and a standing query registered, folded at the
-flush's cut and read against query_range over HTTP) on the CPU, and an
+/api/query-insights, /status/device's page-heat ledger, and a standing
+query registered, folded at the flush's cut and read against query_range
+over HTTP) on the CPU, and an
 entry point called
 without a device raises when CUDA is absent. `python -m tempo_tpu_torch` verifies
 a config and serves HTTP until /shutdown with the same imports blocked."""
@@ -50,7 +51,7 @@ SCRIPT = BLOCK + textwrap.dedent(r"""
     assert len(names) >= 64, names
     for name in ("tempo_tpu_torch.compiled.executor", "tempo_tpu_torch.compiled.program",
                  "tempo_tpu_torch.ops.encode", "tempo_tpu_torch.parallel.search",
-                 "tempo_tpu_torch.standing.engine"):
+                 "tempo_tpu_torch.standing.engine", "tempo_tpu_torch.util.pageheat"):
         assert name in names, name
     for name, mod in sys.modules.items():
         assert mod is None or not (name == "tempo_tpu" or name.startswith("tempo_tpu.") or name == "jax"
@@ -162,6 +163,8 @@ SCRIPT = BLOCK + textwrap.dedent(r"""
         assert status == 200 and json.loads(body)["data"]["result"]
         status, body = http("GET", "/api/query-insights")
         assert status == 200 and json.loads(body)["compiled"]["misses"] >= 1
+        status, body = http("GET", "/status/device")
+        assert status == 200 and json.loads(body)["pageHeat"]["totalShips"] >= 1
         import time
         q = "{ } | rate() by (resource.service.name)"
         status, body = http("POST", "/api/metrics/standing",
