@@ -11,14 +11,16 @@ Phases, one line each (any failure exits non-zero):
    and csrc/codec_kernels.cu (the batched rle_change_mask and dbp_pack of
    the device page encode, dbp_decode of the device page decode,
    compiled_metrics of the compiled query tier and the device tier's
-   resident_rle_scan, resident_dct_scan and resident_dbp_scan), one nvcc
-   a source, in parallel, and ptxas reports each kernel's registers,
+   resident_rle_scan, resident_dct_scan and resident_dbp_scan, the rle
+   and dbp ones also batched over page tables), one nvcc a source, in
+   parallel, and ptxas reports each kernel's registers,
    static shared memory and spills;
 2. kernels: each CUDA kernel against its plain PyTorch version on the
    card, bit for bit, at the main path's shapes and at edge shapes (the
    page-encode kernels over mixed page tables; the codec kernels also
    against the host codec and a numpy interpreter; the resident scans
-   over run tiles, dictionary sizes and dbp widths 0-64), and timed two
+   over run tiles, dictionary sizes and every dbp width 0-64, and the
+   batched ones over mixed page tables), and timed two
    ways:
    kernel time (device time alone: a CUDA graph of K back-to-back
    launches of the C entry point into outputs allocated and zeroed
@@ -33,7 +35,8 @@ Phases, one line each (any failure exits non-zero):
    on phase 5's page, and the compiled dispatch as a whole, all its
    launches in one graph, on those inputs and on a copy with four query
    lanes, against the bound of the fused program's work; the resident
-   scans after phase 10, at the largest resident page of each codec);
+   scans after phase 10, at the largest resident page of each codec,
+   and the batched ones at one search's stage-1 pages);
 3. compaction: the flagship step (entry.entry) at 2**22 rows, bit-equal
    between the card and the CPU;
 4. metrics: three TraceQL query_range queries over 2**22 synthetic spans
@@ -123,11 +126,19 @@ Phases, one line each (any failure exits non-zero):
    off, then three passes of phase 7's seven unbounded tag searches and
    the four counts: cold (the tier empty, the page-heat ledger
    recording; twice), admitting (after refresh_admission(force=True):
-   the admission h2d) and resident (the resident scans and stacks).
+   the admission h2d) and resident (the resident scans and stacks; an
+   unbounded search's stage-1 pages that the tier holds go through one
+   batched rle and one batched dbp launch), then the resident pass's
+   searches once more through the per-page loop (the batched stage 1
+   off), which must give the same answers, tier hits and avoided bytes.
    Every answer equals phase 7's numpy oracle and its tier-off answer,
    every matrix the tier-off one; a stack admitted must then be served
    from the card. Prints per pass the search ms, the tier's hits,
-   avoided and admission h2d bytes, and each resident kernel's launches.
+   avoided and admission h2d bytes, and each resident kernel's launches,
+   and the resident pass's rle and dbp launches beside the 128 and 64
+   calls of the design with one call a page (they must be fewer). The resident scans are then timed at the
+   largest resident page of each codec and the batched ones at the
+   resident pass's largest stage-1 batch of each codec.
 
 Phases 3-4 are the main path, phase 5 the scan path, phase 6 the block
 path, phase 7 the storage engine's path, phase 8 the server's path and
@@ -335,7 +346,12 @@ def chain_parents(batch):
 
 
 CODEC_KERNELS = ("rle_change_mask", "dbp_pack", "dbp_decode", "compiled_metrics")
-RESIDENT_KERNELS = ("resident_rle_scan", "resident_dct_scan", "resident_dbp_scan")
+RESIDENT_KERNELS = ("resident_rle_scan", "resident_dct_scan", "resident_dbp_scan",
+                    "resident_rle_scan_batch", "resident_dbp_scan_batch")
+# the resident rle and dbp scans' calls in phase 10's resident pass when
+# every page took its own call (2-3 kernels a call): what the batched
+# stage 1 is held to
+ONE_CALL_A_PAGE = {"rle": 128, "dbp": 64}
 
 
 def launch_counters():
@@ -1050,14 +1066,29 @@ def blocks_phase(seed: int, queries: list, plan_of, db_root: str, encode_batches
 STRUCTURAL = "{ duration > 998ms } >> { duration < 3ms }"
 
 
+def _dbp_words(np, rng, width: int, n: int, n_words: int = 0):
+    """(words u32 with the guard word, padded with zeros to n_words, first)
+    of n values whose deltas are width-bit fields of random bits."""
+    raw = rng.integers(0, 256, ((n - 1) * width + 7) // 8 if n else 0, dtype=np.uint8).tobytes()
+    words = np.frombuffer(raw + b"\x00" * ((-len(raw)) % 4 + 4), "<u4")
+    if n_words > len(words):
+        words = np.concatenate([words, np.zeros(n_words - len(words), np.uint32)])
+    return words, int(rng.integers(0, 2**63))
+
+
 def resident_kernels_check(torch, dev, rng) -> int:
-    """Phase 2: the three resident scans on the card against their plain
-    versions on the CPU, bit for bit: rle at 1 to 3 run tiles with run
+    """Phase 2: the resident scans on the card against their plain versions
+    on the CPU, bit for bit: rle at 1 to 3 of its 8,192-run tiles with run
     lengths summing below, to and past n (zero-length runs, values equal
-    to NO_MATCH_CODE, the code-set padding); dct at 1 to 40,000
+    to NO_MATCH_CODE, the code-set padding; the code set by value, and
+    above the by-value cap in device memory); dct at 1 to 40,000
     dictionary entries (in-set, inverted, between over the top half of
-    u32); dbp at widths 0, 1, 31, 32, 33 and 64 over 1 to 3 row tiles,
-    with bounds that cut inside a limb. Returns the cases held."""
+    u32); dbp at every width 0-64 at 1 to 70,000 rows (one CTA, clusters
+    of 256- and of 512-thread CTAs, shares of one and of two row tiles),
+    with bounds that cut inside a limb; then the batched rle and dbp
+    scans over mixed page tables (pages of no run and of n == 0, a page
+    of more than one run tile, every dbp width, a 65,536-row page and a
+    70,000-row one). Returns the cases held."""
     import numpy as np
 
     from tempo_tpu_torch.ops import scan
@@ -1067,12 +1098,12 @@ def resident_kernels_check(torch, dev, rng) -> int:
 
     def same(label, fn, *args, **kw):
         want = fn(*args, **kw)
-        got = fn(*(a.to(dev) if torch.is_tensor(a) else a for a in args),
-                 **{k: v.to(dev) if torch.is_tensor(v) else v for k, v in kw.items()})
+        got = fn(*(a.to(dev) if torch.is_tensor(a) else a for a in args), **kw)
         check(torch.equal(got.cpu(), want), f"{fn.__name__} {label}: kernel != plain")
 
     n_cases = 0
-    for r, per_run in ((1, 5), (7, 3), (2048, 2), (2049, 1), (6000, 3)):
+    big = u32(np.arange(300, dtype=np.uint32) * 7)  # over the by-value cap
+    for r, per_run in ((1, 5), (7, 3), (2048, 2), (8193, 1), (20000, 3)):
         values = rng.integers(0, 60, r).astype(np.uint32)
         values[::13] = 0xFFFFFFFF
         lengths = rng.integers(0, 2 * per_run + 1, r).astype(np.int32)
@@ -1082,21 +1113,24 @@ def resident_kernels_check(torch, dev, rng) -> int:
             args = (u32(values), torch.from_numpy(lengths), n)
             same(f"R={r} n={n} in", scan.resident_rle_scan, *args, codes=codes)
             same(f"R={r} n={n} not in", scan.resident_rle_scan, *args, codes=codes, invert=True)
+            same(f"R={r} n={n} in 300", scan.resident_rle_scan, *args, codes=big)
             same(f"R={r} n={n} between", scan.resident_rle_scan, *args, lo=7, hi=2**32 - 2)
-            n_cases += 3
+            n_cases += 4
     for v, n in ((1, 1), (9, 4097), (300, 70_000), (40_000, 5000)):
         dvals = rng.integers(0, 2**32, v, dtype=np.uint64).astype(np.uint32)
         idx = torch.from_numpy(rng.integers(0, v, n).astype(np.int32))
-        codes = u32(scan.pad_codes_u32(dvals[:3]))
+        codes = u32(scan.pad_codes_u32(dvals[:3])).to(dev)  # the dct scan reads them there
         for kw in ({"codes": codes}, {"codes": codes, "invert": True},
                    {"lo": 2**31, "hi": 2**32 - 1}):
-            same(f"V={v} n={n} {sorted(kw)}", scan.resident_dct_scan, u32(dvals), idx, **kw)
+            want = scan.resident_dct_scan(u32(dvals), idx, **{k: x.cpu() if torch.is_tensor(x)
+                                                              else x for k, x in kw.items()})
+            got = scan.resident_dct_scan(u32(dvals).to(dev), idx.to(dev), **kw)
+            check(torch.equal(got.cpu(), want), f"resident_dct_scan V={v} n={n}: kernel != plain")
             n_cases += 1
-    for width in (0, 1, 31, 32, 33, 64):
-        for n in (1, 2, 2048, 2049, 5000):
-            raw = rng.integers(0, 256, ((n - 1) * width + 7) // 8, dtype=np.uint8).tobytes()
-            words = u32(np.frombuffer(raw + b"\x00" * ((-len(raw)) % 4 + 4), "<u4"))
-            first = int(rng.integers(0, 2**63))
+    for width in range(65):
+        for n in (1, 2, 8193, 16385, 40000, 70000):
+            words, first = _dbp_words(np, rng, width, n)
+            words = u32(words)
             for lo, hi in ((0, 2**64 - 1), (first, first + 2**33),
                            ((first & ~0xFFFFFFFF) + 3, (first | 0xFFFFFFFF) - 3)):
                 lo, hi = sorted((lo % 2**64, hi % 2**64))
@@ -1105,6 +1139,39 @@ def resident_kernels_check(torch, dev, rng) -> int:
                 check(torch.equal(got.cpu(), want),
                       f"resident_dbp_scan width={width} n={n}: kernel != plain")
                 n_cases += 1
+    # the batched scans over mixed page tables
+    pages = []
+    for r, n_of in ((5, lambda t: t + 3), (60, lambda t: t), (40, lambda t: max(1, t - 5)),
+                    (20000, lambda t: t + 1), (3, lambda t: 0), (0, lambda t: 9),
+                    (3623, lambda t: 32768)):
+        values = rng.integers(0, 9, r).astype(np.uint32)
+        lengths = rng.integers(0, 5, r).astype(np.int32)
+        pages.append((u32(values), torch.from_numpy(lengths), n_of(int(lengths.sum()))))
+    gpu = [(v.to(dev), ln.to(dev), n) for v, ln, n in pages]
+    for kw in ({"codes": u32(scan.pad_codes_u32(np.array([1, 4, 0xFFFFFFFF], np.uint32)))},
+               {"codes": u32(np.array([2], np.uint32)), "invert": True},
+               {"codes": big}, {"lo": 2, "hi": 6}):
+        want, offs = scan.resident_rle_scan_batch(pages, **kw)
+        got, goffs = scan.resident_rle_scan_batch(gpu, **kw)
+        got = got.cpu()  # each page's mask; the padding between them is not written
+        check(goffs == offs and all(torch.equal(got[o:o + n], want[o:o + n])
+                                    for (_, _, n), o in zip(pages, offs)),
+              f"resident_rle_scan_batch {sorted(kw)}: kernel != plain")
+        n_cases += 1
+    dpages = []
+    for width, n in [(w, 300) for w in range(65)] + [(31, 65536), (17, 70000), (9, 0), (5, 1)]:
+        words, first = _dbp_words(np, rng, width, n)
+        dpages.append((u32(words), first, width, n))
+    gpu = [(w.to(dev), f, width, n) for w, f, width, n in dpages]
+    first = dpages[66][1]
+    for lo, hi in ((0, 2**64 - 1), (first, first + 2**33), (2**64 - 1, 2**64 - 1),
+                   ((first & ~0xFFFFFFFF) + 3, (first | 0xFFFFFFFF) - 3)):
+        lo, hi = sorted((lo % 2**64, hi % 2**64))
+        want, offs = scan.resident_dbp_scan_batch(dpages, lo, hi)
+        got = scan.resident_dbp_scan_batch(gpu, lo, hi)[0].cpu()
+        check(all(torch.equal(got[o:o + p[3]], want[o:o + p[3]]) for p, o in zip(dpages, offs)),
+              f"resident_dbp_scan_batch [{lo}, {hi}]: kernel != plain")
+        n_cases += 1
     return n_cases
 
 
@@ -1184,18 +1251,12 @@ def tier_phase(root: str, inputs: dict, compacted_block_id: str, plan_of,
                     compiled_dispatches=STATS.dispatches.get("compiled_metrics", 0),
                     **{k: getattr(scan, k).launches for k in RESIDENT_KERNELS})
 
-    admitted_stacks = set()
-    for name in ("cold", "admitting", "resident"):
-        if name == "admitting":
-            tier.refresh_admission(force=True)
-            with tier._lock:
-                res["admission_set_pages"] = len(tier._admit_keys)
-                res["admission_budget_bytes"] = tier._admit_budget
+    def searches(name, reps=1):
+        """Phase 7's unbounded searches, each answer held to its oracle and
+        its tier-off answer: (rows, the counters they moved)."""
         before = counts()
         rows = []
-        # the cold pass twice: the ledger admits a page once it has
-        # shipped twice (admit_min_ships), and a dbp page ships once a pass
-        for label, kw in inputs["searches"] * (2 if name == "cold" else 1):
+        for label, kw in inputs["searches"] * reps:
             t0 = time.perf_counter()
             r = db.search(tenant, SearchRequest(limit=0, **kw))
             ms = (time.perf_counter() - t0) * 1e3
@@ -1205,6 +1266,41 @@ def tier_phase(root: str, inputs: dict, compacted_block_id: str, plan_of,
                   f"phase 10 {name} search {label}: {len(hits)} hits, oracle "
                   f"{len(inputs['oracle'][label])}, tier off {len(inputs['tier_off'][label])}")
             rows.append(dict(search=label, ms=ms, hits=len(hits)))
+        after = counts()
+        return rows, {k: after[k] - before[k] for k in after}
+
+    # the resident pass's batched stage 1: the largest batch of each codec,
+    # for the kernels' timing at one search's stage-1 pages
+    batches: dict = {}
+    spied = {fn: getattr(scan, fn) for fn in ("resident_in_set_masks", "resident_range_masks")}
+
+    def spy(fn):
+        def call(entries, *args, **kw):
+            for codec in ("rle", "dbp"):
+                group = [e for e in entries if e.codec == codec]
+                if len(group) > len(batches.get(codec, ((),))[0]):
+                    batches[codec] = (group, fn, args, kw)
+            return spied[fn](entries, *args, **kw)
+        return call
+
+    admitted_stacks = set()
+    for name in ("cold", "admitting", "resident"):
+        if name == "admitting":
+            tier.refresh_admission(force=True)
+            with tier._lock:
+                res["admission_set_pages"] = len(tier._admit_keys)
+                res["admission_budget_bytes"] = tier._admit_budget
+        before = counts()
+        # the cold pass twice: the ledger admits a page once it has
+        # shipped twice (admit_min_ships), and a dbp page ships once a pass
+        if name == "resident":
+            for fn in spied:
+                setattr(scan, fn, spy(fn))
+        try:
+            rows, _ = searches(name, 2 if name == "cold" else 1)
+        finally:
+            for fn, real in spied.items():
+                setattr(scan, fn, real)
         searched = counts()
         for rep in range(2 if name == "cold" else 1):
             for q in SIMPLE_COUNT:
@@ -1242,6 +1338,45 @@ def tier_phase(root: str, inputs: dict, compacted_block_id: str, plan_of,
                   f"{row['ms']:.1f} ms, {row['dispatches']} compiled_metrics dispatches, "
                   f"{row['admissions']} stack admissions, {row['stack_avoided_bytes']} B of "
                   f"stack h2d avoided", flush=True)
+    # the resident pass once more through the per-page loop (the batched
+    # stage 1 off): the same answers, the same tier hits and avoided bytes
+    from tempo_tpu_torch.encoding.vtpu.block import VtpuBackendBlock
+
+    real_stage1 = VtpuBackendBlock._resident_stage1
+    VtpuBackendBlock._resident_stage1 = lambda self, *a, **k: {}
+    try:
+        loop_rows, loop = searches("per-page loop")
+    finally:
+        VtpuBackendBlock._resident_stage1 = real_stage1
+    batched = res["passes"][-1]["search_counts"]
+    for k in ("hits", "avoided_bytes", "admissions", "admission_h2d_bytes"):
+        check(loop[k] == batched[k],
+              f"phase 10: the batched search's {k} {batched[k]} != the per-page loop's {loop[k]}")
+    check(loop["resident_rle_scan_batch"] == loop["resident_dbp_scan_batch"] == 0,
+          "phase 10: the per-page loop took a batch")
+    res["per_page_loop"] = dict(search_ms=sum(r["ms"] for r in loop_rows), searches=loop_rows,
+                                search_counts=loop)
+    launches = {c: (batched[f"resident_{c}_scan"] + batched[f"resident_{c}_scan_batch"],
+                    loop[f"resident_{c}_scan"]) for c in ("rle", "dbp")}
+    res["resident_pass_launches"] = {c: dict(batched=b, per_page_loop=p,
+                                             one_call_a_page=ONE_CALL_A_PAGE[c])
+                                     for c, (b, p) in launches.items()}
+    print(f"phase 10 per-page loop: the {len(loop_rows)} searches again with the batched stage "
+          f"1 off: answers = oracle = tier off, tier hits {loop['hits']} and avoided "
+          f"{loop['avoided_bytes']} B = the batched pass's | "
+          f"{sum(r['ms'] for r in loop_rows):.0f} ms against "
+          f"{res['passes'][-1]['search_ms']:.0f} ms batched",
+          flush=True)
+    for c, (b, p) in launches.items():
+        print(f"phase 10 resident pass {c} launches: {b} with the batched stage 1 "
+              f"({batched[f'resident_{c}_scan']} a page + {batched[f'resident_{c}_scan_batch']} "
+              f"batched), {p} through the per-page loop, beside the {ONE_CALL_A_PAGE[c]} of "
+              "one call a page", flush=True)
+        check(b < ONE_CALL_A_PAGE[c], f"phase 10: {b} resident {c} launches, not fewer than "
+              f"the {ONE_CALL_A_PAGE[c]} of one call a page")
+    check(set(batches) == {"rle", "dbp"},
+          f"phase 10: the resident pass batched only {sorted(batches)}")
+    res["batches"] = batches
     cold, admitting, resident = (p["search_counts"] for p in res["passes"])
     check(cold["admissions"] == 0 and res["passes"][0]["entries"] == 0
           and all(cold[k] == 0 for k in RESIDENT_KERNELS),
@@ -1260,19 +1395,22 @@ def tier_phase(root: str, inputs: dict, compacted_block_id: str, plan_of,
     return res
 
 
-def time_resident_kernels(torch, tier, lib, stream) -> dict:
-    """The three resident scans at the largest resident page of each codec
-    that phase 10 left on the card: kernel against plain there (in-set,
-    inverted and between for rle and dct; a range cutting the page's
-    values for dbp), then timed as in phase 2 (kernel by CUDA graph of the
-    C entry point, path by the served call resident_*_mask with its code
-    set's h2d and the mask's d2h, the plain version on the card, the
-    library chain, the bound: the page's arrays and the code set read
-    once, the mask written once, one compare a code and run or entry, a
-    few operations a dbp row)."""
+def time_resident_kernels(torch, tier, batches, lib, stream) -> dict:
+    """The resident scans at the largest resident page of each codec that
+    phase 10 left on the card, and the batched rle and dbp scans at the
+    resident pass's largest stage-1 batch of each codec (the pages of one
+    search): kernel against plain there (in-set, inverted and between for
+    rle and dct; a range cutting the page's values for dbp), then timed as
+    in phase 2 (kernel by CUDA graph of the C entry point, path by the
+    served call: resident_*_mask with its code set and the mask's copy
+    home, resident_in_set_masks / resident_range_masks for a batch; the
+    plain version on the card, the library chain, the bound: the pages'
+    arrays and the code set read once, the masks written once, one
+    compare a code and run or entry, a few operations a dbp row)."""
     import numpy as np
 
     from tempo_tpu_torch.ops import _build
+    from tempo_tpu_torch.ops import pallas_kernels as pk
     from tempo_tpu_torch.ops import scan
 
     largest = {}
@@ -1283,9 +1421,10 @@ def time_resident_kernels(torch, tier, lib, stream) -> dict:
     check(set(largest) == {"rle", "dct", "dbp"},
           f"phase 10: resident codecs {sorted(largest)}, wanted rle, dct and dbp")
     out = {}
+    dev = tier.device
 
     def graph_ms(entry, fn_args, n):
-        mask = torch.empty(n, dtype=torch.bool, device=tier.device)
+        mask = torch.empty(n, dtype=torch.bool, device=dev)
         launched = ctypes.c_int32(0)
 
         def launch():
@@ -1294,100 +1433,193 @@ def time_resident_kernels(torch, tier, lib, stream) -> dict:
         launch()
         return mask, kernel_ms(torch, [launch]), launched.value
 
-    # rle: the run values' three most common as the code set
+    def u64_bits(x):
+        return x - 2**64 if x >= 2**63 else x
+
+    # rle: the run values' three most common as the code set, by value
     res = largest["rle"]
     v, ln, n = res.arrays["values"], res.arrays["lengths"], int(res.meta["n"])
     r = v.numel()
     vals, cnt = torch.unique(v, return_counts=True)
     codes_np = scan.pad_codes_u32(vals[torch.argsort(cnt, descending=True)][:3].cpu().numpy()
                                   .view(np.uint32))
-    codes = torch.from_numpy(codes_np.view(np.int32)).to(tier.device)
+    codes = torch.from_numpy(codes_np.view(np.int32))
+    codes_d = codes.to(dev)
     for kw in ({"codes": codes}, {"codes": codes, "invert": True}, {"lo": 1, "hi": 2**31}):
         check(torch.equal(scan.resident_rle_scan(v, ln, n, **kw),
-                          scan._rle_scan_plain(v, ln, n, kw.get("codes"), kw.get("invert", False),
-                                               kw.get("lo", 0), kw.get("hi", 0))),
+                          scan._rle_scan_plain(v, ln, n, codes_d if "codes" in kw else None,
+                                               kw.get("invert", False), kw.get("lo", 0),
+                                               kw.get("hi", 0))),
               f"resident_rle_scan at the largest rle page {sorted(kw)}: kernel != plain")
-    sums = torch.empty(max(1, -(-r // lib.tt_dbp_tile())), dtype=torch.int64, device=v.device)
-    packed = torch.empty(r, dtype=torch.int64, device=v.device)
-    mask, ms, kl = graph_ms("tt_resident_rle_scan",
-                            (v.data_ptr(), ln.data_ptr(), r, codes.data_ptr(), codes.numel(), 0,
-                             0, 0, n, sums.data_ptr(), packed.data_ptr()), n)
-    check(torch.equal(mask, scan._rle_scan_plain(v, ln, n, codes, False, 0, 0)),
-          "resident_rle_scan graph launch != plain")
+    plain_mask = scan._rle_scan_plain(v, ln, n, codes_d, False, 0, 0)
+    page = (ctypes.c_int64 * 8)(v.data_ptr(), ln.data_ptr(), r, n, 0, 0, 0, 0)
+    rle_args = (page, codes.data_ptr(), codes.numel(), None, 0, 0, 0)
+    mask, ms, kl = graph_ms("tt_resident_rle_scan", rle_args, n)
+    check(torch.equal(mask, plain_mask), "resident_rle_scan graph launch != plain")
     v64 = v.to(torch.int64) & 0xFFFFFFFF
-    c64 = codes.to(torch.int64) & 0xFFFFFFFF
+    c64 = codes_d.to(torch.int64) & 0xFFFFFFFF
     ln64 = ln.to(torch.int64)
     bnd, by = bound_ms(8 * r + 4 * codes.numel() + n, r * codes.numel() + n)
     out["resident_rle_scan"] = dict(
         shape=f"R={r} runs, n={n} rows, K={codes.numel()} codes (in-set)", max_abs_err=0, ms=ms,
         kernels_a_call=kl,
         path_ms=path_ms(torch, lambda: scan.resident_in_set_mask(res, codes_np)),
-        plain_ms=path_ms(torch, lambda: scan._rle_scan_plain(v, ln, n, codes, False, 0, 0)),
+        plain_ms=path_ms(torch, lambda: scan._rle_scan_plain(v, ln, n, codes_d, False, 0, 0)),
         bound_ms=bnd, bound_by=by,
         library_ms=path_ms(torch, lambda: torch.repeat_interleave(torch.isin(v64, c64), ln64,
                                                                   output_size=n)))
 
     res_d = largest["dct"]
     dv, idx, n_d = res_d.arrays["values"], res_d.arrays["idx"], int(res_d.meta["n"])
-    codes_d_np = scan.pad_codes_u32(dv[:3].cpu().numpy().view(np.uint32))
-    codes_d = torch.from_numpy(codes_d_np.view(np.int32)).to(tier.device)
-    for kw in ({"codes": codes_d}, {"codes": codes_d, "invert": True}, {"lo": 1, "hi": 2**31}):
+    codes_dct_np = scan.pad_codes_u32(dv[:3].cpu().numpy().view(np.uint32))
+    codes_dct = torch.from_numpy(codes_dct_np.view(np.int32)).to(dev)
+    for kw in ({"codes": codes_dct}, {"codes": codes_dct, "invert": True},
+               {"lo": 1, "hi": 2**31}):
         check(torch.equal(scan.resident_dct_scan(dv, idx, **kw),
                           scan._dct_scan_plain(dv, idx, kw.get("codes"), kw.get("invert", False),
                                                kw.get("lo", 0), kw.get("hi", 0))),
               f"resident_dct_scan at the largest dct page {sorted(kw)}: kernel != plain")
     verdict = torch.empty(dv.numel(), dtype=torch.uint8, device=dv.device)
     mask, ms, kl = graph_ms("tt_resident_dct_scan",
-                            (dv.data_ptr(), dv.numel(), idx.data_ptr(), n_d, codes_d.data_ptr(),
-                             codes_d.numel(), 0, 0, 0, verdict.data_ptr()), n_d)
-    check(torch.equal(mask, scan._dct_scan_plain(dv, idx, codes_d, False, 0, 0)),
+                            (dv.data_ptr(), dv.numel(), idx.data_ptr(), n_d, codes_dct.data_ptr(),
+                             codes_dct.numel(), 0, 0, 0, verdict.data_ptr()), n_d)
+    check(torch.equal(mask, scan._dct_scan_plain(dv, idx, codes_dct, False, 0, 0)),
           "resident_dct_scan graph launch != plain")
     dv64 = dv.to(torch.int64) & 0xFFFFFFFF
-    cd64 = codes_d.to(torch.int64) & 0xFFFFFFFF
+    cd64 = codes_dct.to(torch.int64) & 0xFFFFFFFF
     idx64 = idx.to(torch.int64)
-    bnd, by = bound_ms(4 * dv.numel() + 4 * n_d + 4 * codes_d.numel() + n_d,
-                       dv.numel() * codes_d.numel() + n_d)
+    bnd, by = bound_ms(4 * dv.numel() + 4 * n_d + 4 * codes_dct.numel() + n_d,
+                       dv.numel() * codes_dct.numel() + n_d)
     out["resident_dct_scan"] = dict(
-        shape=f"V={dv.numel()} entries, n={n_d} rows, K={codes_d.numel()} codes (in-set)",
+        shape=f"V={dv.numel()} entries, n={n_d} rows, K={codes_dct.numel()} codes (in-set)",
         max_abs_err=0, ms=ms, kernels_a_call=kl,
-        path_ms=path_ms(torch, lambda: scan.resident_in_set_mask(res_d, codes_d_np)),
-        plain_ms=path_ms(torch, lambda: scan._dct_scan_plain(dv, idx, codes_d, False, 0, 0)),
+        path_ms=path_ms(torch, lambda: scan.resident_in_set_mask(res_d, codes_dct_np)),
+        plain_ms=path_ms(torch, lambda: scan._dct_scan_plain(dv, idx, codes_dct, False, 0, 0)),
         bound_ms=bnd, bound_by=by,
         library_ms=path_ms(torch, lambda: torch.isin(dv64, cd64)[idx64]))
+
+    def dbp_plain(words, first, width, n_, lo, hi):
+        f, w = scan._dbp_first_width(first, width, words.device)
+        return scan._dbp_scan_plain(words, f, w, n_, lo, hi)
+
+    def dbp_deltas(words, first, width, n_):
+        """The page's values' steps, its first value as the first: one
+        cumsum gives the values back (as int64, mod 2^64)."""
+        f, w = scan._dbp_first_width(first, width, words.device)
+        dec = pk._dbp_decode_plain(words[None, :], f, w, n_)[0]
+        return dec, torch.diff(dec, prepend=torch.zeros(1, dtype=torch.int64, device=dev))
 
     res_b = largest["dbp"]
     words, n_b = res_b.arrays["words"], int(res_b.meta["n"])
     first, width = int(res_b.meta["first"]), int(res_b.meta["width"])
-    first_t = torch.tensor([first], dtype=torch.uint64).view(torch.int64).to(words.device)
-    width_t = torch.tensor([width], dtype=torch.int32, device=words.device)
-    from tempo_tpu_torch.ops import pallas_kernels as pk
-
-    dec = pk._dbp_decode_plain(words[None, :], first_t, width_t, n_b)[0]
+    dec, e = dbp_deltas(words, first, width, n_b)
     mid = int(dec.median())  # a range that cuts the page's values
     lo, hi = mid % 2**64, (mid + (1 << 33)) % 2**64
-    check(torch.equal(scan.resident_dbp_scan(words, first, width, n_b, lo, hi),
-                      scan._dbp_scan_plain(words, first_t[0], width_t[0], n_b, lo, hi)),
+    want = dbp_plain(words, first, width, n_b, lo, hi)
+    check(torch.equal(scan.resident_dbp_scan(words, first, width, n_b, lo, hi), want),
           "resident_dbp_scan at the largest dbp page: kernel != plain")
-    sums_b = torch.empty(max(1, -(-n_b // lib.tt_dbp_tile())), dtype=torch.int64,
-                         device=words.device)
-    mask, ms, kl = graph_ms("tt_resident_dbp_scan",
-                            (words.data_ptr(), words.numel(), first, width, n_b, lo, hi,
-                             sums_b.data_ptr()), n_b)
-    check(torch.equal(mask, scan._dbp_scan_plain(words, first_t[0], width_t[0], n_b, lo, hi)),
-          "resident_dbp_scan graph launch != plain")
-    e = torch.diff(dec, prepend=torch.zeros(1, dtype=torch.int64, device=dec.device))
+    page_b = (ctypes.c_int64 * 8)(words.data_ptr(), 0, words.numel(), n_b, u64_bits(first),
+                                  width, 0, 0)
+    mask, ms, kl = graph_ms("tt_resident_dbp_scan", (page_b, lo, hi), n_b)
+    check(torch.equal(mask, want), "resident_dbp_scan graph launch != plain")
     bnd, by = bound_ms(4 * words.numel() + n_b, 4 * n_b)
     out["resident_dbp_scan"] = dict(
         shape=f"n={n_b} rows, width {width}, {words.numel()} words", max_abs_err=0, ms=ms,
         kernels_a_call=kl,
         path_ms=path_ms(torch, lambda: scan.resident_range_mask(res_b, lo, hi)),
-        plain_ms=path_ms(torch, lambda: scan._dbp_scan_plain(words, first_t[0], width_t[0],
-                                                             n_b, lo, hi)),
+        plain_ms=path_ms(torch, lambda: dbp_plain(words, first, width, n_b, lo, hi)),
         bound_ms=bnd, bound_by=by,
         # torch.cumsum over the unpacked deltas, then the compare (the
         # values as signed: this page's values lie below 2^63)
         library_ms=path_ms(torch, lambda: (lambda c: (c >= lo) & (c <= hi))(
             torch.cumsum(e, 0))))
+
+    # the batched scans at the resident pass's largest stage-1 batch
+    for codec, (group, fn, args, kw) in sorted(batches.items()):
+        ns = [int(g.meta["n"]) for g in group]
+        offs, total = scan._offsets(ns)
+        if codec == "rle":
+            rows = [[g.arrays["values"].data_ptr(), g.arrays["lengths"].data_ptr(),
+                     g.arrays["values"].numel(), nn, 0, 0, off, 0]
+                    for g, nn, off in zip(group, ns, offs)]
+            pages = [(g.arrays["values"], g.arrays["lengths"], nn) for g, nn in zip(group, ns)]
+            if fn == "resident_in_set_masks":
+                padded = scan.pad_codes_u32(args[0])
+                bcodes = torch.from_numpy(padded.view(np.int32))
+                invert = bool(kw.get("invert", False))
+                plain_kw = dict(codes=bcodes.to(dev), invert=invert)
+                c_args = (bcodes.data_ptr(), bcodes.numel(), None, 1 if invert else 0, 0, 0)
+                k_codes = bcodes.numel()
+            else:
+                blo, bhi = int(np.uint32(args[0])), int(np.uint32(args[1]))
+                plain_kw = dict(lo=blo, hi=bhi)
+                c_args = (None, 0, None, 2, blo, bhi)
+                k_codes = 1
+            plain = lambda: scan._rle_scan_batch_plain(  # noqa: E731
+                pages, plain_kw.get("codes"), plain_kw.get("invert", False),
+                plain_kw.get("lo", 0), plain_kw.get("hi", 0))
+            r_all = sum(p[0].numel() for p in pages)
+            nbytes, ops = 8 * r_all + 4 * k_codes + sum(ns), r_all * k_codes + sum(ns)
+            v_cat = torch.cat([p[0] for p in pages]).to(torch.int64) & 0xFFFFFFFF
+            ln_cat = torch.cat([p[1] for p in pages]).to(torch.int64)
+            exact = all(int(p[1].sum()) == p[2] for p in pages)
+            if fn == "resident_in_set_masks":
+                c_cat = plain_kw["codes"].to(torch.int64) & 0xFFFFFFFF
+                hit = lambda: torch.isin(v_cat, c_cat)  # noqa: E731
+            else:
+                hit = lambda: (v_cat >= blo) & (v_cat <= bhi)  # noqa: E731
+            library = (lambda: torch.repeat_interleave(hit(), ln_cat, output_size=sum(ns))) \
+                if exact else None
+            entry = "tt_resident_rle_scan_batch"
+        else:
+            blo, bhi = int(args[0]) & (2**64 - 1), int(args[1]) & (2**64 - 1)
+            rows = [[g.arrays["words"].data_ptr(), 0, g.arrays["words"].numel(), nn,
+                     u64_bits(int(g.meta["first"])), int(g.meta["width"]), off, 0]
+                    for g, nn, off in zip(group, ns, offs)]
+            pages = [(g.arrays["words"], int(g.meta["first"]), int(g.meta["width"]), nn)
+                     for g, nn in zip(group, ns)]
+            c_args = (blo, bhi)
+            plain = lambda: scan._dbp_scan_batch_plain(pages, blo, bhi)  # noqa: E731
+            nbytes = sum(4 * p[0].numel() + p[3] for p in pages)
+            ops = 4 * sum(ns)
+            # one cumsum over every page's steps, each page's first step
+            # taking it from the page before's last value to its first
+            steps, last = [], 0
+            for p in pages:
+                dec_p, e_p = dbp_deltas(*p)
+                if p[3]:
+                    e_p = e_p.clone()
+                    e_p[0] = dec_p[0] - last
+                    last = dec_p[-1]
+                    steps.append(e_p)
+            e_cat = torch.cat(steps)
+            # the values as signed: these pages' values lie below 2^63, so
+            # a bound above is the same as 2^63 - 1
+            signed = blo < 2**63 and all(int(dbp_deltas(*p)[0].min()) >= 0 for p in pages if p[3])
+            chi = min(bhi, 2**63 - 1)
+            library = (lambda: (lambda c: (c >= blo) & (c <= chi))(torch.cumsum(e_cat, 0))) \
+                if signed else None
+            entry = "tt_resident_dbp_scan_batch"
+        table = torch.tensor(rows, dtype=torch.int64, device=dev)
+        want, _ = plain()
+        full = (table.data_ptr(), len(rows), max(ns)) + c_args
+        got = getattr(scan, fn)(group, *args, **kw)
+        check(all(np.array_equal(m, want[o:o + nn].cpu().numpy())
+                  for m, o, nn in zip(got, offs, ns)),
+              f"{entry}: the served batch != plain")
+        bmask, bms, bkl = graph_ms(entry, full, total)
+        check(all(torch.equal(bmask[o:o + nn], want[o:o + nn]) for o, nn in zip(offs, ns)),
+              f"{entry} graph launch != plain")
+        rec = dict(shape=f"{len(group)} {codec} pages of one search's stage 1, {sum(ns)} rows"
+                   + (f", {sum(p[0].numel() for p in pages)} runs" if codec == "rle" else ""),
+                   pages=len(group), max_abs_err=0, ms=bms, kernels_a_call=bkl,
+                   ms_a_page=bms / len(group),
+                   path_ms=path_ms(torch, lambda: getattr(scan, fn)(group, *args, **kw)),
+                   plain_ms=path_ms(torch, plain), library_ms=None)
+        if library is not None:
+            rec["library_ms"] = path_ms(torch, library)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, ops)
+        out[entry[3:-6] + "_batch"] = rec
     return out
 
 
@@ -2449,7 +2681,9 @@ def main() -> int:
           "(n_slots <= 49,152: up to 196,608 B, opted in above 48 KiB), <weighted,1> (hashed) "
           "65,536 B; in_set_scan_kernel 4 B a code of its columns; compiled_count_kernel "
           "its tile's staged dbp words, masks and rle runs, and 4 B a bin a query lane where "
-          "that fits 227 KB (else none: global atomics)", flush=True)
+          "that fits 227 KB (else none: global atomics); resident_rle_kernel 65,536 B (a "
+          "tile of 8,192 runs' values and lengths), resident_dbp_kernel none (its deltas stay "
+          "in registers)", flush=True)
 
     def stream() -> int:
         return torch.cuda.current_stream().cuda_stream
@@ -2630,10 +2864,10 @@ def main() -> int:
     n_resident = resident_kernels_check(torch, dev, rng)
     print(f"phase 2 resident scans: {n_resident} cases equal ({time.perf_counter() - t0:.1f} s): "
           "resident_rle_scan at 1 to 3 run tiles, lengths summing below, to and past n (zero-"
-          "length runs, NO_MATCH_CODE values), in-set / inverted / between; resident_dct_scan "
-          "at 1 to 40,000 entries; resident_dbp_scan at widths 0/1/31/32/33/64 over 1 to 3 row "
-          "tiles, bounds inside a limb == plain (timed in phase 10 at the largest resident "
-          "page of each codec)", flush=True)
+          "length runs, NO_MATCH_CODE values), in-set (by value and 300 codes in device "
+          "memory) / inverted / between; resident_dct_scan at 1 to 40,000 entries; "
+          "resident_dbp_scan at every width 0-64 at 1 to 70,000 rows, bounds inside a limb; the batched rle and dbp scans over mixed page tables (no run, n = 0, 20,000 "
+          "runs, every width, 65,536 and 70,000 rows) == plain (timed in phase 10)", flush=True)
 
     # ---------------------------------------------------------------- 3 + 4
     reset_launches()
@@ -2816,14 +3050,22 @@ def main() -> int:
     path = path_ms(torch, lambda: pk.u64_range_scan(dur, lo_ns, hi_ns, n_rows))
     plain = path_ms(torch, lambda: pk._range_plain(hi, lo, bounds, n_rows))
     del limbs
+    # no one torch call compares over uint64 (torch has no unsigned 64-bit
+    # compare): the nearest is a chain of two int64 compares and an AND,
+    # right here since every duration lies below 2^63
+    check(torch.equal((dur >= lo_ns) & (dur <= hi_ns), range_outs[0]),
+          "u64_range_scan: the int64 compare chain != the kernel")
+    chain = path_ms(torch, lambda: (dur >= lo_ns) & (dur <= hi_ns))
     bnd, by = bound_ms(9 * n_rows, 2 * n_rows)
     kernels["u64_range_scan"] = dict(shape=f"n_pad={n_rows}", max_abs_err=0, ms=ms,
                                      ms_l2_warm=ms_warm, path_ms=path, plain_ms=plain,
                                      bound_ms=bnd, bound_by=by, library_ms=None,
+                                     library_chain_ms=chain,
                                      launches=scan_launches["u64_range_scan"])
     print(f"phase 5 u64_range_scan timing: kernel {ms:.4f} ms ({bnd / ms:.0%} of bound; "
           f"{ms_warm:.4f} ms with its inputs in L2), path {path:.4f} ms, plain {plain:.4f} ms, "
-          f"bound {bnd:.4f} ms ({by})", flush=True)
+          f"int64 compare chain {chain:.4f} ms (no one torch call), bound {bnd:.4f} ms ({by})",
+          flush=True)
 
     # ---------------------------------------------------------------- 6
     # the block path: seg_bincount (queries) and the page-encode kernels
@@ -2966,13 +3208,18 @@ def main() -> int:
           f"{tier['launches']}, stacks served from the card for "
           f"{len(tier['stacks_resident'])} of {len(SIMPLE_COUNT)} queries, codecs resident "
           f"{tier['codecs_resident']}, tier {tier['stats']}", flush=True)
-    for kname, rec in time_resident_kernels(torch, tier.pop("tier"), lib, stream).items():
+    timed = time_resident_kernels(torch, tier.pop("tier"), tier.pop("batches"), lib, stream)
+    for kname, rec in timed.items():
         kernels[kname] = dict(rec, launches=tier["launches"][kname])
-        print(f"phase 10 {kname} timing at the largest resident page ({rec['shape']}): kernel "
-              f"{rec['ms']:.5f} ms ({rec['bound_ms'] / rec['ms']:.0%} of bound, "
-              f"{rec['kernels_a_call']} kernel launches), path {rec['path_ms']:.4f} ms, plain "
-              f"{rec['plain_ms']:.4f} ms, library {fmt_ms(rec['library_ms'])}, bound "
-              f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})", flush=True)
+        where = ("one search's stage-1 pages" if kname.endswith("_batch")
+                 else "the largest resident page")
+        print(f"phase 10 {kname} timing at {where} ({rec['shape']}): kernel "
+              f"{rec['ms']:.5f} ms ({rec['bound_ms'] / rec['ms']:.1%} of bound, "
+              f"{rec['kernels_a_call']} kernel launches"
+              + (f", {rec['ms_a_page'] * 1e3:.3f} us a page" if "ms_a_page" in rec else "")
+              + f"), path {rec['path_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
+              f"{fmt_ms(rec['library_ms'])}, bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})",
+              flush=True)
     kernels["compiled_metrics"]["launches_tier_path"] = tier["launches"]["compiled_metrics"]
     from tempo_tpu_torch.encoding.vtpu import colcache
 
@@ -2994,6 +3241,10 @@ def main() -> int:
         "resident_rle_scan": "tempo_tpu/ops/scan.py:169",
         "resident_dct_scan": "tempo_tpu/ops/scan.py:186",
         "resident_dbp_scan": "tempo_tpu/ops/scan.py:204",
+        # one launch over a search's stage-1 pages, where the reference
+        # runs its per-page jits page by page
+        "resident_rle_scan_batch": "tempo_tpu/ops/scan.py:169",
+        "resident_dbp_scan_batch": "tempo_tpu/ops/scan.py:204",
     }
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": source[k], "replaces": replaces[k], **kernels[k]}

@@ -62,8 +62,6 @@ _UNPORTED_ROUTES = (
     (("/api/traces",), (), "the Jaeger thrift receiver", _Q1_2),
     ((), ("/rpc/", "/kv/"), "inter-role RPC and the ring KV (microservices mode)", _Q1_2),
     (("/memberlist",), (), "the ring KV (netkv)", _Q1_2),
-    (("/api/usage", "/status/usage", "/status/usage-stats"), (),
-     "the usage endpoints (usagestats)", _Q1_2),
     (("/api/graph/dependencies", "/api/graph/critical-path", "/api/graph/walks"), (),
      "the graph/ analytics", _Q1_3),
     ((api_params.PATH_RCA, "/status/rca"), (api_params.PATH_RCA + "/",), "rca", _Q1_3),
@@ -334,6 +332,19 @@ class _Handler(BaseHTTPRequestHandler):
             tag = unquote(path[len(api_params.PATH_SEARCH_TAG_VALUES) + 1 : -len("/values")])
             self._send_json(200, {"tagValues": app.search_tag_values(tag, org_id=self._org_id())})
             return 200
+        if path == api_params.PATH_USAGE:
+            # tenant-scoped cost rollup (util/usage): a tenant sees only
+            # its own vectors
+            from tempo_tpu_torch.util import usage as usage_mod
+
+            tenant = app.resolve_tenant(self._org_id())
+            doc = usage_mod.usage_report(tenant).get("tenants", {}).get(tenant, {})
+            self._send_json(200, {
+                "tenant": tenant,
+                "kinds": doc.get("kinds", {}),
+                "total": doc.get("total", {}),
+            })
+            return 200
         if path == api_params.PATH_QUERY_INSIGHTS:
             # the query-insights ring (util/insights): sampled + slow/
             # error-triggered per-query records, tenant-scoped
@@ -472,6 +483,17 @@ class _Handler(BaseHTTPRequestHandler):
             return 200
         if path == "/status/services":
             self._send_json(200, app.service_states() if hasattr(app, "service_states") else {"app": "Running"})
+            return 200
+        if path == "/status/usage":
+            # operator view: every tenant's cost vectors
+            from tempo_tpu_torch.util import usage as usage_mod
+
+            self._send_json(200, usage_mod.usage_report())
+            return 200
+        if path == "/status/usage-stats":
+            # the anonymous usage reporter is not ported (its config
+            # section is refused), so no report is ever built
+            self._send_json(200, {"enabled": False})
             return 200
         if path == "/status/device":
             # device data-movement plane (util/pageheat + devicetiming):

@@ -25,6 +25,8 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <climits>
+#include <cstring>
 
 namespace {
 
@@ -32,7 +34,7 @@ constexpr int kThreads = 256;
 
 using u64 = unsigned long long;
 
-int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
+__host__ __device__ __forceinline__ int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 // ---------------------------------------------------------------------------
 // Batched page encode: rle_change_mask and dbp_pack
@@ -325,8 +327,9 @@ __device__ __forceinline__ T warp_sum(T v) {
 }
 
 // Block-wide exclusive offset of each thread's `sum` (in thread order) and the
-// block total. Ends with a barrier, so warp_tot may be reused at once.
-template <typename T>
+// block total, over NW warps. Ends with a barrier, so warp_tot may be reused
+// at once.
+template <typename T, int NW = kWarps>
 __device__ __forceinline__ T block_exclusive(T sum, T* warp_tot, T* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const T incl = warp_inclusive_scan(sum);
@@ -334,7 +337,7 @@ __device__ __forceinline__ T block_exclusive(T sum, T* warp_tot, T* total) {
   __syncthreads();
   T before = 0, all = 0;
 #pragma unroll
-  for (int k = 0; k < kWarps; ++k) {
+  for (int k = 0; k < NW; ++k) {
     const T s = warp_tot[k];
     before += k < warp ? s : (T)0;
     all += s;
@@ -344,15 +347,16 @@ __device__ __forceinline__ T block_exclusive(T sum, T* warp_tot, T* total) {
   return before + incl - sum;
 }
 
-// The block's sum of `v`, to every thread; xs: kWarps u64 of shared memory.
-// Ends with a barrier.
+// The block's sum of `v` over NW warps, to every thread; xs: NW u64 of
+// shared memory. Ends with a barrier.
+template <int NW = kWarps>
 __device__ __forceinline__ u64 block_sum(u64 v, u64* xs) {
   v = warp_sum(v);
   if ((threadIdx.x & 31) == 0) xs[threadIdx.x >> 5] = v;
   __syncthreads();
   u64 all = 0;
 #pragma unroll
-  for (int k = 0; k < kWarps; ++k) all += xs[k];
+  for (int k = 0; k < NW; ++k) all += xs[k];
   __syncthreads();
   return all;
 }
@@ -1076,41 +1080,23 @@ __global__ void __launch_bounds__(kThreads, 4) compiled_count_kernel(
 // (_rle_in_set_resident_jit, _rle_between_resident_jit,
 // _dct_in_set_resident_jit, _dct_between_resident_jit,
 // _dbp_between_resident_jit): a row mask over one page held on the card in
-// its encoded form. A value's verdict (resident_verdict) is, by mode, 0 "in
-// the code set", 1 "not in it" or 2 lo <= value <= hi, all unsigned 32-bit;
-// a dbp page's is lo <= value <= hi over its decoded unsigned 64-bit values.
-// The mask is written a byte a row (a torch.bool tensor). Each lane owns
-// kPer consecutive rows (lane_first), stored as one 8-byte word, so a warp
-// writes 256 contiguous bytes.
+// its encoded form. A value's verdict is, by mode, 0 "in the code set", 1
+// "not in it" or 2 lo <= value <= hi, all unsigned 32-bit; a dbp page's is
+// lo <= value <= hi over its decoded unsigned 64-bit values. The mask is
+// written a byte a row (a torch.bool tensor).
 //
 // What bounds them: memory. rle reads 8 bytes a run and writes a byte a row,
 // dct reads 4 bytes an index and writes a byte a row (its dictionary is
 // small), dbp reads w / 8 bytes a row and writes one; the code set is tiny
-// beside the page. Designs:
-// - rle: row r takes the verdict of the LAST run whose start (the exclusive
-//   prefix sum of the lengths) is <= r, which is jnp.repeat(verdicts,
-//   lengths, total_repeat_length=n)'s rule: rows past the runs' total take
-//   the last run's verdict, runs past n are cut, a zero-length run wins
-//   no row. The starts are a reduce-then-scan over 2,048-run tiles, as
-//   dbp_decode's: rle_run_sums_kernel sums each tile's lengths (pages of
-//   more than one tile), rle_run_starts_kernel gives each run its start and
-//   verdict, packed as start << 1 | verdict in one int64, and
-//   rle_expand_kernel gives each lane's first row its run by a binary search
-//   over the starts, then walks the runs forward over its 8 rows. Both
-//   later passes are programmatic dependent launches.
-// - dct: dct_verdict_kernel computes the verdict once per dictionary entry;
-//   dct_gather_kernel (a dependent launch) loads its rows' indices as two
-//   16-byte vectors before it waits, then gathers the verdicts. An index
-//   reads as jnp indexing does: a negative one from the end, one past the
-//   end clamped.
-// - dbp: dbp_decode's two passes with the compare in the scan's epilogue,
-//   so no decoded value is written: resident_dbp_sum_kernel sums each
-//   tile's deltas (pages of more than one 2,048-row tile), and
-//   resident_dbp_scan_kernel (a dependent launch) gives each lane its
-//   values from the carry and compares them. A lane cuts its deltas
-//   straight from the words in device memory (no staging), which serves
-//   every width to 64: a delta is the low 32 bits of its w-bit field, as
-//   the reference's decode reads it (pages hold w <= 32).
+// beside the page. A page is tens of KB, so the launches, not the bytes,
+// decide the time: rle and dbp take one launch a scan, and one launch over
+// a search's pages (the design below, "One launch a scan"). dct (not yet
+// redesigned): dct_verdict_kernel computes the verdict once per dictionary
+// entry (resident_verdict); dct_gather_kernel (a dependent launch) loads its
+// rows' indices as two 16-byte vectors before it waits, then gathers the
+// verdicts, a lane's kPer consecutive rows stored as one 8-byte word
+// (store_mask). An index reads as jnp indexing does: a negative one from
+// the end, one past the end clamped.
 // ---------------------------------------------------------------------------
 
 constexpr int32_t kModeBetween = 2;
@@ -1133,77 +1119,6 @@ __device__ __forceinline__ void store_mask(uint8_t* __restrict__ out, int64_t i0
   } else {
     for (int k = 0; i0 + k < n; ++k) out[i0 + k] = (uint8_t)(bytes >> (8 * k));
   }
-}
-
-__global__ void __launch_bounds__(kThreads) rle_run_sums_kernel(
-    const int32_t* __restrict__ lengths, int64_t r, u64* __restrict__ sums) {
-  __shared__ u64 xs[kWarps];
-  grid_launch_dependents();
-  const int64_t k0 = lane_first((int64_t)blockIdx.x * kTile);
-  int64_t s = 0;
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) s += k0 + k < r ? lengths[k0 + k] : 0;
-  const u64 all = block_sum((u64)s, xs);
-  if (threadIdx.x == 0) sums[blockIdx.x] = all;
-}
-
-__global__ void __launch_bounds__(kThreads) rle_run_starts_kernel(
-    const uint32_t* __restrict__ values, const int32_t* __restrict__ lengths, int64_t r,
-    const uint32_t* __restrict__ codes, int32_t n_codes, int32_t mode, uint32_t lo, uint32_t hi,
-    const u64* sums, int64_t* __restrict__ packed) {
-  __shared__ u64 xs[2 * kWarps];
-  grid_launch_dependents();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t t = blockIdx.x, k0 = lane_first(t * kTile);
-  int64_t len[kPer];
-  u64 hits = 0, s = 0;
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    const bool live = k0 + k < r;
-    len[k] = live ? lengths[k0 + k] : 0;
-    s += (u64)len[k];
-    if (live && resident_verdict(values[k0 + k], codes, n_codes, mode, lo, hi)) hits |= 1u << k;
-  }
-  const u64 incl = warp_inclusive_scan(s);
-  grid_dependency_wait();  // the tile sums (at once for a one-tile page)
-  const u64 cs = warp_sum(dbp_carry_part(sums, t));
-  if (lane == 31) xs[warp] = incl;
-  if (lane == 0) xs[kWarps + warp] = cs;
-  __syncthreads();
-  u64 acc = incl - s;
-#pragma unroll
-  for (int k = 0; k < kWarps; ++k) acc += xs[kWarps + k] + (k < warp ? xs[k] : 0ull);
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    if (k0 + k < r) packed[k0 + k] = (int64_t)((acc << 1) | ((hits >> k) & 1u));
-    acc += (u64)len[k];
-  }
-}
-
-__device__ __forceinline__ int64_t run_start(const int64_t* packed, int64_t k) {
-  return packed[k] >> 1;
-}
-
-__global__ void __launch_bounds__(kThreads) rle_expand_kernel(const int64_t* packed, int64_t r,
-                                                              int64_t n,
-                                                              uint8_t* __restrict__ out) {
-  const int64_t i0 = lane_first((int64_t)blockIdx.x * kTile);
-  grid_dependency_wait();  // the starts and verdicts
-  if (i0 >= n) return;
-  int64_t a = 1, b = r;  // the first run starting past i0 lies in [a, b]; run 0 starts at 0
-  while (a < b) {
-    const int64_t m = (a + b) >> 1;
-    if (run_start(packed, m) <= i0) a = m + 1;
-    else b = m;
-  }
-  int64_t k = a - 1;
-  u64 bytes = 0;
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    while (k + 1 < r && run_start(packed, k + 1) <= i0 + j) ++k;
-    bytes |= (u64)(packed[k] & 1) << (8 * j);
-  }
-  store_mask(out, i0, n, bytes);
 }
 
 __global__ void __launch_bounds__(kThreads) dct_verdict_kernel(
@@ -1241,26 +1156,326 @@ __global__ void __launch_bounds__(kThreads) dct_gather_kernel(const int32_t* __r
   store_mask(out, i0, n, bytes);
 }
 
-__device__ __forceinline__ uint32_t word_or_zero(const uint32_t* __restrict__ words,
-                                                 int64_t n_words, int64_t k) {
-  return k < n_words ? __ldg(words + k) : 0u;
+
+// ---------------------------------------------------------------------------
+// One launch a scan: resident_rle_scan and resident_dbp_scan
+//
+// Each page's scan runs in one launch, in the CTAs of that page (ctas a
+// page, from its rows), with no dependent launch and no
+// global scratch; a batched launch runs every page of a page table the
+// same way, one group of CTAs a page, each page's mask at its out_off of
+// one buffer. A launch's parameters go by value (ScanParams,
+// __grid_constant__): the page itself (a single scan) or the page table's
+// device pointer, the mode and bounds, and a code set of up to kScanCodes
+// codes (a larger one is copied to the card once a call: codes_dev). The
+// CTAs a page: enough for its rows, at most kScanCtas (rle) or kDbpCtas
+// (dbp), and in an rle batch no more than two waves over the card's SMs
+// (scan_ctas).
+// - rle: each CTA stages a tile of up to kRunTile runs (values and
+//   lengths, 64 KB) into shared memory by Hopper's 1-D bulk copy (TMA)
+//   completing on an mbarrier (stage_bulk), scans the lengths into starts
+//   in place (a thread owns an odd number of consecutive runs, so a warp's
+//   accesses fall on distinct banks: warp shuffles, then one pass across
+//   warps), turns each value into its verdict once, and then writes the
+//   rows of its share (whole 16-row chunks, 16-byte stores) that the
+//   tile's runs cover: [start of the tile's first run, start of the next
+//   tile's), the last tile's to n. Row r takes the verdict of the last run
+//   whose start is <= r, jnp.repeat's rule: rows past the runs' total take
+//   the last run's verdict, runs past n are cut (their starts saturate at
+//   n), a zero-length run wins no row. Larger pages loop over run tiles and
+//   carry the prefix. Each 16-row chunk finds its run by a binary search of
+//   the starts in shared memory and walks on. The CTAs of a page each scan
+//   all of its runs (a few tens of KB from L2) and write only their share
+//   of rows.
+// - dbp: the CTAs of a page form a cluster, each with a share of the rows
+//   in tiles of kPer rows a lane (CTAs of 256 threads, or of 512 for pages
+//   over kDbpCtas x 2,048 rows). Each lane cuts its rows' deltas (the low
+//   32 bits of each width-bit field, any width 0-64, as the reference's
+//   decode reads it) straight from the page's words in device memory into
+//   registers, and a block scan gives each lane its offset and the share
+//   its sum. Each CTA then pushes its sum into the shared memory of every
+//   later CTA of the cluster and arrives on that CTA's mbarrier; a CTA
+//   waits only for the sums of the CTAs before it (the one cluster barrier,
+//   which makes the mbarriers visible, is arrived at before the deltas are
+//   cut), then each lane adds its deltas onto the carry, compares each
+//   value with [lo, hi] as unsigned 64-bit and writes its kPer bytes as
+//   one 8-byte store. A share of more than one tile cuts its deltas twice.
+// ---------------------------------------------------------------------------
+
+constexpr int kScanCodes = 256;                 // codes that go by value
+constexpr int kScanCtas = 8;                    // the most CTAs an rle page
+constexpr int kDbpCtas = 16;                    // the most CTAs a dbp page (a non-portable cluster)
+constexpr int kRunTile = 8192;                  // rle runs a tile: 64 KB of values and lengths
+constexpr int kRleCtaRows = 16 * kThreads;      // rows a CTA expands in one chunk a thread
+constexpr int kPageFields = 8;
+
+// A page of a resident scan, as the wrappers lay it out in 8 int64: rle
+// values, lengths, runs r, rows n, 0, 0, out_off, 0; dbp words, 0, words,
+// rows n, first, width, out_off, 0.
+struct ScanPage {
+  const uint32_t* a;
+  const uint32_t* b;
+  int64_t count, n;
+  u64 first;
+  int64_t width, out_off, unused;
+};
+static_assert(sizeof(ScanPage) == kPageFields * 8, "8 int64 a page");
+
+struct ScanParams {
+  ScanPage page;          // the page of a single scan (table null)
+  const ScanPage* table;  // a batch's pages in device memory
+  uint8_t* out;
+  int32_t ctas, mode, n_codes, unused;
+  uint32_t lo, hi;        // rle bounds
+  u64 lo64, hi64;         // dbp bounds
+  const uint32_t* codes_dev;  // the code set in device memory when it exceeds kScanCodes
+  uint32_t codes[kScanCodes];
+};
+
+// The code set where a CTA reads it: copied into `sh` (kScanCodes words of
+// shared memory) when it fits, else in device memory. Every thread calls
+// it; the caller's next block barrier publishes the copy.
+__device__ __forceinline__ const uint32_t* scan_codes(const ScanParams& p, uint32_t* sh) {
+  if (p.mode == kModeBetween || p.n_codes > kScanCodes) return p.codes_dev;
+  for (int k = threadIdx.x; k < p.n_codes; k += blockDim.x)
+    sh[k] = p.codes_dev ? __ldg(p.codes_dev + k) : p.codes[k];
+  return sh;
 }
 
-// As dbp_lane_deltas, read from device memory at any width w <= 64: d[k] is
-// the delta element ib + k adds, the low 32 bits of field ib + k - 1.
-__device__ __forceinline__ void resident_lane_deltas(const uint32_t* __restrict__ words,
-                                                     int64_t n_words, uint32_t w, int64_t ib,
-                                                     int64_t n, int32_t (&d)[kPer]) {
+// A run value's verdict; the first eight codes are compared from registers
+// (c8: the code set's first eight, repeated from its first where it has
+// fewer, which keeps membership), the rest from `codes`.
+__device__ __forceinline__ bool scan_verdict(const ScanParams& p, const uint32_t* codes,
+                                             const uint32_t (&c8)[8], uint32_t v) {
+  if (p.mode == kModeBetween) return v >= p.lo && v <= p.hi;
+  bool hit = false;
+  if (p.n_codes > 0) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) hit |= c8[k] == v;
+  }
+  for (int32_t k = 8; k < p.n_codes; ++k) hit |= codes[k] == v;
+  return hit != (p.mode == 1);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return (uint32_t)__cvta_generic_to_shared(ptr);
+}
+
+// An mbarrier that `count` arrivals complete (one, with the bulk copies'
+// bytes, for staging), visible to the cluster after its next barrier.
+__device__ __forceinline__ void mbar_init(u64* bar, uint32_t count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Wait for phase `parity` of bar, acquiring what the arrivals released (at
+// the CTA's scope, or the cluster's for arrivals from other CTAs).
+template <bool kCluster = false>
+__device__ __forceinline__ void mbar_wait(u64* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    if constexpr (kCluster) {
+      asm volatile(
+          "{\n .reg .pred p;\n mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+          "%2;\n selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(smem_u32(bar)), "r"(parity)
+          : "memory");
+    } else {
+      asm volatile(
+          "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          " selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(smem_u32(bar)), "r"(parity)
+          : "memory");
+    }
+  } while (!done);
+}
+
+// dst[0, count) = src[0, count) and dst[count, fill) = 0, in uint32 words
+// (dst 16-byte aligned shared memory). The body, the whole 16-byte groups
+// of a 16-byte aligned src, goes by bulk copy, the rest by loads.
+struct Segment {
+  uint32_t* dst;
+  const uint32_t* src;
+  int64_t count, fill;
+};
+
+__device__ __forceinline__ int64_t bulk_words(const Segment& s) {
+  return (reinterpret_cast<uintptr_t>(s.src) & 15u) ? 0 : (s.count & ~(int64_t)3);
+}
+
+// Stage the segments with every thread of the block: thread 0 arms the
+// barrier with the bodies' bytes and issues their bulk copies, every thread
+// loads the tails and zeroes the fill, then all wait for the barrier's
+// phase `parity` and meet at a block barrier. A buffer read before must be
+// released by a block barrier first; the proxy fence orders those reads
+// before the copy's writes.
+template <int N>
+__device__ __forceinline__ void stage_bulk(const Segment (&seg)[N], u64* bar, uint32_t parity) {
+  if (threadIdx.x == 0) {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    uint32_t bytes = 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) bytes += (uint32_t)(bulk_words(seg[i]) * 4);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+                 "r"(bytes)
+                 : "memory");
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int64_t w = bulk_words(seg[i]);
+      if (w > 0) {
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+            "[%3];\n" ::"r"(smem_u32(seg[i].dst)),
+            "l"(seg[i].src), "r"((uint32_t)(w * 4)), "r"(smem_u32(bar))
+            : "memory");
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    for (int64_t k = bulk_words(seg[i]) + threadIdx.x; k < seg[i].fill; k += blockDim.x)
+      seg[i].dst[k] = k < seg[i].count ? __ldg(seg[i].src + k) : 0u;
+  }
+  mbar_wait(bar, parity);
+  __syncthreads();
+}
+
+// Rows [a, b) of out (b - a <= 16) from the verdict bytes w (byte k: row
+// base + k): one 16-byte store for a whole aligned chunk, else bytes.
+__device__ __forceinline__ void store_rows(uint8_t* __restrict__ out, int64_t base, int64_t a,
+                                           int64_t b, const uint32_t (&w)[4]) {
+  if (a == base && b == base + 16 && (reinterpret_cast<uintptr_t>(out + base) & 15u) == 0) {
+    *reinterpret_cast<uint4*>(out + base) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      if (base + k >= a && base + k < b) out[base + k] = (uint8_t)(w[k >> 2] >> (8 * (k & 3)));
+    }
+  }
+}
+
+// The rows [lo, hi) of one run tile: cnt runs with their starts and
+// verdicts in shared memory.
+__device__ __forceinline__ void rle_expand(const uint32_t* verdict, const int32_t* starts, int cnt,
+                                           int64_t lo, int64_t hi, uint8_t* __restrict__ out) {
+  for (int64_t base = (lo & ~(int64_t)15) + 16 * (int64_t)threadIdx.x; base < hi;
+       base += 16 * (int64_t)blockDim.x) {
+    const int64_t a = base > lo ? base : lo, b = min64(base + 16, hi);
+    int l = 0, h = cnt - 1;  // the last run starting at or before a (starts[0] <= lo <= a)
+    while (l < h) {
+      const int m = (l + h + 1) >> 1;
+      if (starts[m] <= a) l = m;
+      else h = m - 1;
+    }
+    int64_t next = l + 1 < cnt ? starts[l + 1] : INT64_MAX;
+    uint32_t v = verdict[l];
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const int64_t row = base + k;
+      if (row >= a && row < b) {
+        while (row >= next) {
+          ++l;
+          v = verdict[l];
+          next = l + 1 < cnt ? starts[l + 1] : INT64_MAX;
+        }
+        w[k >> 2] |= v << (8 * (k & 3));
+      }
+    }
+    store_rows(out, base, a, b, w);
+  }
+}
+
+__device__ __forceinline__ ScanPage scan_page(const ScanParams& p, int64_t pi) {
+  return p.table ? p.table[pi] : p.page;
+}
+
+// This CTA's share of a page's n rows: whole 16-row chunks, [*lo, *hi).
+__device__ __forceinline__ void row_share(int64_t n, int ctas, int c, int64_t* lo, int64_t* hi) {
+  const int64_t per = cdiv(cdiv(n, 16), ctas) * 16;
+  *lo = min64(n, c * per);
+  *hi = min64(n, *lo + per);
+}
+
+__global__ void __launch_bounds__(kThreads) resident_rle_kernel(const __grid_constant__ ScanParams p) {
+  extern __shared__ uint4 rle_sm4[];
+  uint32_t* verdict = reinterpret_cast<uint32_t*>(rle_sm4);  // run values, then verdicts
+  int32_t* starts = reinterpret_cast<int32_t*>(verdict + kRunTile);  // lengths, then starts
+  __shared__ u64 bar;
+  __shared__ int64_t warp_tot[kWarps];
+  __shared__ uint32_t codes_sh[kScanCodes];
+  const int c = (int)(blockIdx.x % (unsigned)p.ctas);
+  const ScanPage pg = scan_page(p, blockIdx.x / (unsigned)p.ctas);
+  const int64_t n = pg.n, r = pg.count;
+  uint8_t* out = p.out + pg.out_off;
+  int64_t row_lo, row_hi;
+  row_share(n, p.ctas, c, &row_lo, &row_hi);
+  if (row_lo >= row_hi) return;
+  if (r == 0) {  // no run: no row in the set
+    for (int64_t i = row_lo + threadIdx.x; i < row_hi; i += blockDim.x) out[i] = 0;
+    return;
+  }
+  const uint32_t* codes = scan_codes(p, codes_sh);
+  if (threadIdx.x == 0) mbar_init(&bar);
+  __syncthreads();
+  uint32_t c8[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) c8[k] = p.n_codes > 0 ? codes[k < p.n_codes ? k : 0] : 0u;
+  uint32_t parity = 0;
+  int64_t carry = 0;  // the lengths of the tiles before
+  for (int64_t k0 = 0; k0 < r && min64(carry, n) < row_hi; k0 += kRunTile) {
+    const int cnt = (int)min64(kRunTile, r - k0);
+    const Segment seg[2] = {{verdict, pg.a + k0, cnt, cnt},
+                            {reinterpret_cast<uint32_t*>(starts), pg.b + k0, cnt, cnt}};
+    stage_bulk(seg, &bar, parity);
+    parity ^= 1u;
+    // starts and verdicts in place: thread t owns `per` consecutive runs,
+    // per odd, so that a warp's threads read and write distinct banks
+    const int per = (int)(cdiv(cnt, kThreads) | 1);
+    const int j0 = min(cnt, (int)threadIdx.x * per), j1 = min(cnt, j0 + per);
+    int64_t s = 0;
+#pragma unroll 4
+    for (int j = j0; j < j1; ++j) s += starts[j];
+    int64_t total;
+    int64_t acc = carry + block_exclusive(s, warp_tot, &total);  // ends with a barrier
+#pragma unroll 4
+    for (int j = j0; j < j1; ++j) {
+      const int32_t len = starts[j];
+      starts[j] = (int32_t)min64(acc, n);
+      verdict[j] = scan_verdict(p, codes, c8, verdict[j]) ? 1u : 0u;
+      acc += len;
+    }
+    __syncthreads();
+    const int64_t s0 = min64(carry, n);
+    const int64_t s1 = k0 + cnt < r ? min64(carry + total, n) : n;
+    const int64_t lo = s0 > row_lo ? s0 : row_lo, hi = min64(s1, row_hi);
+    if (lo < hi) rle_expand(verdict, starts, cnt, lo, hi, out);
+    carry += total;
+    __syncthreads();  // the tile is read before the next stage overwrites it
+  }
+}
+
+// The deltas that rows [ib, ib + kPer) of a page add (row i adds field
+// i - 1; row 0 and rows at or past n add none), cut straight from its words
+// in device memory: a funnel shift a delta from a sliding pair of words
+// (past the page's count a word reads as zero), the low 32 bits of a
+// width-bit field at any width 0-64, unzigzagged and sign-extended.
+__device__ __forceinline__ void dbp_page_deltas(const ScanPage& pg, uint32_t w, int64_t ib,
+                                                int32_t (&d)[kPer]) {
   const uint32_t mask = w >= 32u ? 0xFFFFFFFFu : ((1u << w) - 1u);
   const u64 off = (u64)(ib > 0 ? ib - 1 : 0) * w;
   int64_t wi = (int64_t)(off >> 5);
   uint32_t rem = (uint32_t)(off & 31u);
-  uint32_t lo = word_or_zero(words, n_words, wi), hi = word_or_zero(words, n_words, wi + 1);
+  auto word = [&](int64_t k) { return k < pg.count ? __ldg(pg.a + k) : 0u; };
+  uint32_t lo = word(wi), hi = word(wi + 1);
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
     const int64_t i = ib + k;
     d[k] = 0;
-    if (i >= 1 && i < n) {
+    if (i >= 1 && i < pg.n) {
       const uint32_t z = __funnelshift_r(lo, hi, rem) & mask;
       d[k] = (int32_t)((z >> 1) ^ (0u - (z & 1u)));
       rem += w;
@@ -1268,46 +1483,23 @@ __device__ __forceinline__ void resident_lane_deltas(const uint32_t* __restrict_
         rem -= 32u;
         ++wi;
         lo = hi;
-        hi = word_or_zero(words, n_words, wi + 1);
+        hi = word(wi + 1);
       }
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads) resident_dbp_sum_kernel(
-    const uint32_t* __restrict__ words, int64_t n_words, uint32_t w, int64_t n,
-    u64* __restrict__ sums) {
-  __shared__ u64 xs[kWarps];
-  grid_launch_dependents();
-  int32_t d[kPer];
-  resident_lane_deltas(words, n_words, w, lane_first((int64_t)blockIdx.x * kTile), n, d);
-  int64_t s = 0;
+__device__ __forceinline__ u64 lane_sum(const int32_t (&d)[kPer]) {
+  u64 s = 0;
 #pragma unroll
-  for (int k = 0; k < kPer; ++k) s += d[k];
-  const u64 all = block_sum((u64)s, xs);
-  if (threadIdx.x == 0) sums[blockIdx.x] = all;
+  for (int k = 0; k < kPer; ++k) s += (u64)(int64_t)d[k];
+  return s;
 }
 
-__global__ void __launch_bounds__(kThreads) resident_dbp_scan_kernel(
-    const uint32_t* __restrict__ words, int64_t n_words, u64 first, uint32_t w, int64_t n,
-    u64 lo, u64 hi, const u64* sums, uint8_t* __restrict__ out) {
-  __shared__ u64 xs[2 * kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t t = blockIdx.x, i0 = lane_first(t * kTile);
-  int32_t d[kPer];
-  resident_lane_deltas(words, n_words, w, i0, n, d);
-  int64_t s = 0;
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) s += d[k];
-  const u64 incl = warp_inclusive_scan((u64)s);
-  grid_dependency_wait();  // the tile sums (at once for a one-tile page)
-  const u64 cs = warp_sum(dbp_carry_part(sums, t));
-  if (lane == 31) xs[warp] = incl;
-  if (lane == 0) xs[kWarps + warp] = cs;
-  __syncthreads();
-  u64 acc = first + incl - (u64)s;
-#pragma unroll
-  for (int k = 0; k < kWarps; ++k) acc += xs[kWarps + k] + (k < warp ? xs[k] : 0ull);
+// Rows [i0, i0 + kPer) of out: acc (the value before row i0) plus each
+// delta, compared with [lo, hi] as unsigned 64-bit; one 8-byte store.
+__device__ __forceinline__ void dbp_compare(const int32_t (&d)[kPer], u64 acc, u64 lo, u64 hi,
+                                            uint8_t* __restrict__ out, int64_t i0, int64_t n) {
   u64 bytes = 0;
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
@@ -1315,6 +1507,170 @@ __global__ void __launch_bounds__(kThreads) resident_dbp_scan_kernel(
     bytes |= (u64)(acc >= lo && acc <= hi) << (8 * k);
   }
   if (i0 < n) store_mask(out, i0, n, bytes);
+}
+
+// A dbp page's scan in CTAs of T threads, each lane kPer rows of a tile of
+// kPer x T (lane_first).
+template <int T>
+__global__ void __launch_bounds__(T) resident_dbp_kernel(const __grid_constant__ ScanParams p) {
+  constexpr int kNW = T / 32;
+  constexpr int64_t kRows = (int64_t)kPer * T;  // rows a tile
+  __shared__ u64 xs[kNW];
+  __shared__ u64 pushed[kDbpCtas];  // the sums of the shares before this one
+  __shared__ u64 bar;               // completes when all of them are in
+  const int c = (int)(blockIdx.x % (unsigned)p.ctas);
+  const ScanPage pg = scan_page(p, blockIdx.x / (unsigned)p.ctas);
+  const uint32_t w = (uint32_t)pg.width;
+  uint8_t* out = p.out + pg.out_off;
+  const int64_t tiles = cdiv(pg.n, kRows), per = cdiv(tiles, p.ctas);
+  const int64_t t0 = min64(tiles, c * per), t1 = min64(tiles, t0 + per);
+  if (p.ctas > 1) {  // every CTA's barrier set up before any CTA pushes
+    if (threadIdx.x == 0 && c > 0) mbar_init(&bar, (uint32_t)c);
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  }
+  int32_t d[kPer];
+  u64 before = 0, total = 0;  // the lane's offset in a one-tile share; the share's sum
+  if (t1 - t0 == 1) {
+    dbp_page_deltas(pg, w, lane_first(t0 * kRows), d);
+    before = block_exclusive<u64, kNW>(lane_sum(d), xs, &total);
+  } else if (p.ctas > 1) {
+    u64 s = 0;
+    for (int64_t t = t0; t < t1; ++t) {
+      dbp_page_deltas(pg, w, lane_first(t * kRows), d);
+      s += lane_sum(d);
+    }
+    total = block_sum<kNW>(s, xs);
+  }
+  u64 carry = pg.first;
+  if (p.ctas > 1) {
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    // thread k pushes the share's sum into CTA k > c and arrives on its
+    // barrier; only pushes cross CTAs and every CTA waits for all of the
+    // pushes into it, so a CTA may exit without a cluster barrier
+    const int to = threadIdx.x;
+    if (to > c && to < p.ctas) {
+      asm volatile(
+          "{\n .reg .b32 ra, rb;\n mapa.shared::cluster.u32 ra, %0, %2;\n"
+          " mapa.shared::cluster.u32 rb, %1, %2;\n st.shared::cluster.u64 [ra], %3;\n"
+          " mbarrier.arrive.release.cluster.shared::cluster.b64 _, [rb];\n}\n" ::"r"(
+              smem_u32(&pushed[c])),
+          "r"(smem_u32(&bar)), "r"(to), "l"(total)
+          : "memory");
+    }
+    if (c > 0) {
+      mbar_wait<true>(&bar, 0);
+      const int lane = threadIdx.x & 31;
+      carry += warp_sum(lane < c ? pushed[lane] : 0ull);
+    }
+  }
+  if (t1 - t0 == 1) {
+    dbp_compare(d, carry + before, p.lo64, p.hi64, out, lane_first(t0 * kRows), pg.n);
+    return;
+  }
+  for (int64_t t = t0; t < t1; ++t) {
+    const int64_t i0 = lane_first(t * kRows);
+    dbp_page_deltas(pg, w, i0, d);
+    u64 tile_sum;
+    const u64 acc = carry + block_exclusive<u64, kNW>(lane_sum(d), xs, &tile_sum);
+    dbp_compare(d, acc, p.lo64, p.hi64, out, i0, pg.n);
+    carry += tile_sum;
+  }
+}
+
+constexpr size_t kRleSmem = 2 * (size_t)kRunTile * 4;
+
+// Launch `kernel` over n_pages pages of prm.ctas CTAs of `threads` each (a
+// cluster of them when `cluster`, of up to 16); returns the launch's error.
+cudaError_t scan_launch(void (*kernel)(ScanParams), const ScanParams& prm, int64_t n_pages,
+                        size_t smem, bool cluster, cudaStream_t stream, int threads = kThreads) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && cluster)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned)(n_pages * prm.ctas));
+  config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)prm.ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = cluster && prm.ctas > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&config, kernel, prm);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// CTAs a page: enough for its rows (rows_a_cta each), at most `most`, and
+// where `fill`, no more than two waves' worth over the card's SMs for all
+// pages (each rle CTA scans all of its page's runs again).
+int scan_ctas(int64_t max_n, int64_t rows_a_cta, int64_t n_pages, int most, bool fill) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0, count = 0;
+    if (cudaGetDevice(&dev) == cudaSuccess &&
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess)
+      sms = count;
+  }
+  int64_t c = cdiv(max_n, rows_a_cta);
+  const int64_t waves = cdiv(2 * (int64_t)(sms > 0 ? sms : 132), n_pages);
+  if (fill && c > waves) c = waves;
+  return (int)(c < 1 ? 1 : (c > most ? most : c));
+}
+
+// The rle scan of one page (page on the host) or of a page table (table in
+// device memory); see tt_resident_rle_scan.
+int rle_scan(const int64_t* page, const void* table, int32_t n_pages, int64_t max_n,
+             const void* codes, int32_t n_codes, const void* codes_dev, int32_t mode, uint32_t lo,
+             uint32_t hi, void* out, int32_t* launched, void* stream) {
+  *launched = 0;
+  if (n_pages == 0 || max_n == 0) return 0;
+  if (max_n > INT32_MAX || mode < 0 || mode > kModeBetween) return (int)cudaErrorInvalidValue;
+  if (mode != kModeBetween && n_codes > kScanCodes && codes_dev == nullptr)
+    return (int)cudaErrorInvalidValue;
+  ScanParams prm = {};
+  if (page) memcpy(&prm.page, page, sizeof(ScanPage));
+  prm.table = (const ScanPage*)table;
+  prm.out = (uint8_t*)out;
+  prm.ctas = scan_ctas(max_n, kRleCtaRows, n_pages, kScanCtas, true);
+  prm.mode = mode;
+  prm.n_codes = mode == kModeBetween ? 0 : n_codes;
+  prm.lo = lo;
+  prm.hi = hi;
+  prm.codes_dev = (const uint32_t*)codes_dev;
+  if (codes_dev == nullptr && prm.n_codes > 0) memcpy(prm.codes, codes, 4 * (size_t)prm.n_codes);
+  const cudaError_t err =
+      scan_launch(resident_rle_kernel, prm, n_pages, kRleSmem, false, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  *launched = 1;
+  return 0;
+}
+
+int dbp_scan(const int64_t* page, const void* table, int32_t n_pages, int64_t max_n,
+             uint64_t lo, uint64_t hi, void* out, int32_t* launched, void* stream) {
+  *launched = 0;
+  if (n_pages == 0 || max_n == 0) return 0;
+  if (page && (page[5] < 0 || page[5] > 64)) return (int)cudaErrorInvalidValue;
+  ScanParams prm = {};
+  if (page) memcpy(&prm.page, page, sizeof(ScanPage));
+  prm.table = (const ScanPage*)table;
+  prm.out = (uint8_t*)out;
+  // CTAs of 512 threads where 256 would leave a CTA more than one tile
+  const bool wide = cdiv(max_n, kTile) > kDbpCtas;
+  const int threads = wide ? 2 * kThreads : kThreads;
+  prm.ctas = scan_ctas(max_n, (int64_t)kPer * threads, n_pages, kDbpCtas, false);
+  prm.mode = kModeBetween;
+  prm.lo64 = lo;
+  prm.hi64 = hi;
+  const cudaError_t err =
+      scan_launch(wide ? resident_dbp_kernel<2 * kThreads> : resident_dbp_kernel<kThreads>, prm,
+                  n_pages, 0, true, (cudaStream_t)stream, threads);
+  if (err != cudaSuccess) return (int)err;
+  *launched = 1;
+  return 0;
 }
 
 // Launch kernel<<<grid, kThreads, smem, stream>>>(args...), when
@@ -1488,38 +1844,34 @@ int tt_compiled_metrics(const int64_t* desc, int32_t n_cols, const void* t_s, co
   return 0;
 }
 
-// values: (r,) uint32 run values; lengths: (r,) int32 run lengths (>= 0);
-// codes: (n_codes,) uint32 (modes 0 and 1); sums: ceil(r / tt_dbp_tile())
-// uint64 scratch; packed: (r,) int64 scratch; out: (n,) uint8 row mask.
-// *launched: the kernels launched (2, or 3 when r spans more than one
-// tile).
-int tt_resident_rle_scan(const void* values, const void* lengths, int64_t r, const void* codes,
-                         int32_t n_codes, int32_t mode, uint32_t lo, uint32_t hi, int64_t n,
-                         void* sums, void* packed, void* out, int32_t* launched, void* stream) {
-  *launched = 0;
-  if (n == 0) return 0;
-  if (r == 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int64_t r_tiles = cdiv(r, kTile);
-  if (r_tiles > 1) {
-    rle_run_sums_kernel<<<(unsigned)(r_tiles - 1), kThreads, 0, st>>>((const int32_t*)lengths, r,
-                                                                       (u64*)sums);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    ++*launched;
-  }
-  cudaError_t err = launch_dependent(r_tiles > 1, rle_run_starts_kernel, dim3((unsigned)r_tiles),
-                                     0, st, (const uint32_t*)values, (const int32_t*)lengths, r,
-                                     (const uint32_t*)codes, n_codes, mode, lo, hi,
-                                     (const u64*)sums, (int64_t*)packed);
-  if (err != cudaSuccess) return (int)err;
-  ++*launched;
-  err = launch_dependent(true, rle_expand_kernel, dim3((unsigned)cdiv(n, kTile)), 0, st,
-                         (const int64_t*)packed, r, n, (uint8_t*)out);
-  if (err != cudaSuccess) return (int)err;
-  ++*launched;
-  return 0;
+// page: 8 int64 on the host, an rle page in ScanPage's layout (values,
+// lengths, r >= 1, n <= INT32_MAX, 0, 0, 0, 0; lengths >= 0); codes:
+// n_codes uint32 on the host, by value in the launch when n_codes <=
+// tt_resident_scan_codes(), else codes_dev, the same codes in device memory
+// (taken whenever given); mode 0 "in the set", 1 "not in it", 2 lo <= value
+// <= hi; out: (n,) uint8 row mask. *launched: the kernels launched (1, or 0
+// when n == 0).
+int tt_resident_rle_scan(const int64_t* page, const void* codes, int32_t n_codes,
+                         const void* codes_dev, int32_t mode, uint32_t lo, uint32_t hi, void* out,
+                         int32_t* launched, void* stream) {
+  return rle_scan(page, nullptr, 1, page[3], codes, n_codes, codes_dev, mode, lo, hi, out,
+                  launched, stream);
 }
+
+// table: n_pages x 8 int64 rle pages in device memory, each with its mask's
+// offset in out (a multiple of 16 keeps the stores whole; pages of r == 0
+// give zeros); max_n: the most rows of a page; the rest as
+// tt_resident_rle_scan. *launched: 1, or 0 when there is no row.
+int tt_resident_rle_scan_batch(const void* table, int32_t n_pages, int64_t max_n,
+                               const void* codes, int32_t n_codes, const void* codes_dev,
+                               int32_t mode, uint32_t lo, uint32_t hi, void* out,
+                               int32_t* launched, void* stream) {
+  return rle_scan(nullptr, table, n_pages, max_n, codes, n_codes, codes_dev, mode, lo, hi, out,
+                  launched, stream);
+}
+
+// The most codes a resident rle scan takes by value.
+int tt_resident_scan_codes(void) { return kScanCodes; }
 
 // values: (v_count,) uint32 dictionary; idx: (n,) int32; codes: (n_codes,)
 // uint32 (modes 0 and 1); verdict: (v_count,) uint8 scratch; out: (n,) uint8
@@ -1544,32 +1896,21 @@ int tt_resident_dct_scan(const void* values, int64_t v_count, const void* idx, i
   return 0;
 }
 
-// words: (n_words,) uint32, the packed deltas with their guard word; width
-// 0..64; lo, hi: inclusive uint64 bounds; sums: ceil(n / tt_dbp_tile())
-// uint64 scratch; out: (n,) uint8 row mask. *launched: the kernels launched
-// (1, or 2 when n spans more than one tile).
-int tt_resident_dbp_scan(const void* words, int64_t n_words, uint64_t first, int32_t width,
-                         int64_t n, uint64_t lo, uint64_t hi, void* sums, void* out,
+// page: 8 int64 on the host, a dbp page in ScanPage's layout (words, 0,
+// n_words, n, first, width 0..64, 0, 0: the packed deltas with their guard
+// word); lo, hi: inclusive uint64 bounds; out: (n,) uint8 row mask.
+// *launched: the kernels launched (1, or 0 when n == 0).
+int tt_resident_dbp_scan(const int64_t* page, uint64_t lo, uint64_t hi, void* out,
                          int32_t* launched, void* stream) {
-  *launched = 0;
-  if (n == 0) return 0;
-  if (width < 0 || width > 64) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int64_t n_tiles = cdiv(n, kTile);
-  if (n_tiles > 1) {
-    resident_dbp_sum_kernel<<<(unsigned)(n_tiles - 1), kThreads, 0, st>>>(
-        (const uint32_t*)words, n_words, (uint32_t)width, n, (u64*)sums);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    ++*launched;
-  }
-  const cudaError_t err = launch_dependent(
-      n_tiles > 1, resident_dbp_scan_kernel, dim3((unsigned)n_tiles), 0, st,
-      (const uint32_t*)words, n_words, (u64)first, (uint32_t)width, n, (u64)lo, (u64)hi,
-      (const u64*)sums, (uint8_t*)out);
-  if (err != cudaSuccess) return (int)err;
-  ++*launched;
-  return 0;
+  return dbp_scan(page, nullptr, 1, page[3], lo, hi, out, launched, stream);
+}
+
+// table: n_pages x 8 int64 dbp pages in device memory (widths 0..64), each
+// with its mask's offset in out; max_n: the most rows of a page.
+// *launched: 1, or 0 when there is no row.
+int tt_resident_dbp_scan_batch(const void* table, int32_t n_pages, int64_t max_n, uint64_t lo,
+                               uint64_t hi, void* out, int32_t* launched, void* stream) {
+  return dbp_scan(nullptr, table, n_pages, max_n, lo, hi, out, launched, stream);
 }
 
 }  // extern "C"

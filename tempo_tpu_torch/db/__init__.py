@@ -220,7 +220,7 @@ class TempoDB:
                 if want > 1:
                     raise NotImplementedError(
                         f"tempo_tpu_torch: a {want}-device compaction mesh is "
-                        "not ported yet (ROADMAP Queue 1 item 4); set "
+                        "not ported yet (ROADMAP Queue 1 item 12); set "
                         "compaction_device_shards=1")
             self._compaction_mesh = None
         return self._compaction_mesh

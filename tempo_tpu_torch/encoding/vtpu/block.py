@@ -156,6 +156,11 @@ def zone_prunes(rg: fmt.RowGroupMeta, preds, req: SearchRequest) -> bool:
     return False
 
 
+def _duration_bounds(req) -> tuple[int, int]:
+    """A search's inclusive duration range in ns."""
+    return req.min_duration_ns or 0, req.max_duration_ns or ((1 << 64) - 1)
+
+
 class EncodedColumn:
     """Predicate/gather access to ONE column page in its encoded space
     (lightweight tier only — encoding/vtpu/lightweight.py).
@@ -732,6 +737,12 @@ class VtpuBackendBlock:
                         out.update(self.read_columns(live[i], [nm]))
                 return out
 
+            # an unbounded search visits every live row group, so the
+            # stage-1 masks of the pages the device tier holds come first,
+            # from one batched scan a codec; a limited one stops early and
+            # touches no page its loop never reaches
+            pre = (self._resident_stage1(live, stage1[0], preds, req)
+                   if stage1 and live and not req.limit else {})
             ra = ReadAhead(load_stage1, len(live)) if stage1 and live else None
             try:
                 for i, rg in enumerate(live):
@@ -739,7 +750,8 @@ class VtpuBackendBlock:
                     have = ra.get(i) if ra is not None else {}
                     remaining = (req.limit - len(resp.traces)) if req.limit else 0
                     resp.traces.extend(self._search_row_group(
-                        rg, req, preds, limit=remaining, have_cols=have))
+                        rg, req, preds, limit=remaining, have_cols=have,
+                        stage1=pre.get(i)))
                     if req.limit and len(resp.traces) >= req.limit:
                         break
             finally:
@@ -750,9 +762,65 @@ class VtpuBackendBlock:
         resp.coalesced_reads = self.coalesced_reads - coalesced_before
         return resp
 
+    def _resident_stage1(self, live: list, col: str, preds, req) -> dict:
+        """{index in live: serve} for the live row groups whose stage-1
+        predicate page (on `col`) the device tier already holds: rle pages
+        for a code set, rle and dbp pages for the duration range, their
+        masks from one batched scan a codec
+        (ops/scan.resident_in_set_masks / resident_range_masks). serve()
+        returns the mask and counts the tier's get and avoided bytes where
+        the per-page serve would, when _search_row_group reaches the page,
+        so the tier's counters and LRU order stay the loop's; it returns
+        None for a page evicted since the batch. Pages not
+        resident, and dct pages, are left to _search_row_group, which
+        admits and serves them as it does; this admits nothing."""
+        from tempo_tpu_torch.encoding.vtpu.colcache import shared_device_tier
+        from tempo_tpu_torch.ops import scan
+
+        # one-shot readers (column_cache=None) bypass the tier, as
+        # EncodedColumn._device_tier does
+        tier = shared_device_tier() if self._colcache is not None else None
+        if tier is None:
+            return {}
+        in_set = bool(preds["span_eq"])
+        codecs = ("rle",) if in_set else ("rle", "dbp")
+        found = []
+        for i, rg in enumerate(live):
+            enc = self.encoded_column(rg, col) if rg.n_spans else None
+            if enc is None or enc.codec not in codecs:
+                continue
+            key = enc.resident_key()
+            res = tier.peek(key)
+            if res is not None:
+                found.append((i, key, res))
+        if not found:
+            return {}
+        entries = [res for _, _, res in found]
+        if in_set:
+            masks = scan.resident_in_set_masks(entries, preds["span_eq"][0][1])
+        else:
+            lo, hi = _duration_bounds(req)
+            masks = scan.resident_range_masks(entries, np.uint64(lo), np.uint64(hi))
+
+        def serve(mask, key, res):
+            def served():
+                # evicted since the batch (by this search's own admissions
+                # or a shed): None, and the per-page path takes its miss
+                # and re-admits the page as the loop does
+                if tier.get(key, count_miss=False) is None:
+                    return None
+                tier.record_avoided(res.host_bytes, kernel=f"resident_{res.codec}_scan")
+                return mask
+            return served
+
+        return {i: serve(m, key, res) for (i, key, res), m in zip(found, masks)}
+
     def _search_row_group(self, rg, req, preds, limit: int,
-                          have_cols: dict | None = None) -> list[TraceSearchMetadata]:
-        """limit: max hits to return; 0 means unbounded.
+                          have_cols: dict | None = None,
+                          stage1=None) -> list[TraceSearchMetadata]:
+        """limit: max hits to return; 0 means unbounded. stage1: when the
+        caller has the first predicate's mask, a call that returns it
+        (_resident_stage1).
 
         Lazy projection in three stages: the most selective predicate's
         column alone (usually prefetched), then — only if spans survive —
@@ -773,8 +841,8 @@ class VtpuBackendBlock:
             return self.encoded_column(rg, name) is not None
 
         for k, (col, codes) in enumerate(preds["span_eq"]):
-            m = None
-            if col not in cols:
+            m = stage1() if k == 0 and stage1 is not None else None
+            if m is None and col not in cols:
                 enc = self.encoded_column(rg, col)
                 if enc is not None:
                     m = enc.in_set_mask(codes)
@@ -797,10 +865,9 @@ class VtpuBackendBlock:
             if not span_mask.any():
                 return []
         if dur_pred:
-            lo = req.min_duration_ns or 0
-            hi = req.max_duration_ns or ((1 << 64) - 1)
-            m = None
-            if "duration_nano" not in cols:
+            lo, hi = _duration_bounds(req)
+            m = stage1() if stage1 is not None and not preds["span_eq"] else None
+            if m is None and "duration_nano" not in cols:
                 enc = self.encoded_column(rg, "duration_nano")
                 if enc is not None:
                     m = enc.range_mask(np.uint64(lo), np.uint64(hi))

@@ -342,14 +342,24 @@ class DeviceTier:
         return all((str(b), c, int(o)) in admit for b, c, o in page_keys)
 
     # -- get/put -------------------------------------------------------
-    def get(self, key):
+    def peek(self, key):
+        """The entry of `key` if it is resident now, counting nothing and
+        leaving the LRU order as it is: a batched scan reads its pages
+        first and counts each one's get where the per-page path would."""
+        with self._lock:
+            return self._lru.get(key)
+
+    def get(self, key, count_miss: bool = True):
+        """count_miss=False: a miss counts nothing, so the caller's
+        per-page path can take the page's own get (a batched scan's page
+        evicted before its turn)."""
         self.shed()
         with self._lock:
             res = self._lru.get(key)
             if res is not None:
                 self._lru.move_to_end(key)
                 self.hits += 1
-            else:
+            elif count_miss:
                 self.misses += 1
         return res
 

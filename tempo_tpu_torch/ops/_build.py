@@ -46,12 +46,15 @@ _SIGNATURES = {
     "tt_dbp_decode": [_P, _I64, _P, _P, _I32, _I64, _P, _P, ctypes.POINTER(_I32), _P],
     "tt_compiled_metrics": [_P, _I32, _P, _P, _I64, _I32, _I32, _P, _P, _I32, _P,
                             ctypes.POINTER(_I32), _P],
-    "tt_resident_rle_scan": [_P, _P, _I64, _P, _I32, _I32, ctypes.c_uint32, ctypes.c_uint32,
-                             _I64, _P, _P, _P, ctypes.POINTER(_I32), _P],
+    "tt_resident_rle_scan": [_P, _P, _I32, _P, _I32, ctypes.c_uint32, ctypes.c_uint32, _P,
+                             ctypes.POINTER(_I32), _P],
+    "tt_resident_rle_scan_batch": [_P, _I32, _I64, _P, _I32, _P, _I32, ctypes.c_uint32,
+                                   ctypes.c_uint32, _P, ctypes.POINTER(_I32), _P],
+    "tt_resident_scan_codes": [],
     "tt_resident_dct_scan": [_P, _I64, _P, _I64, _P, _I32, _I32, ctypes.c_uint32,
                              ctypes.c_uint32, _P, _P, ctypes.POINTER(_I32), _P],
-    "tt_resident_dbp_scan": [_P, _I64, _U64, _I32, _I64, _U64, _U64, _P, _P,
-                             ctypes.POINTER(_I32), _P],
+    "tt_resident_dbp_scan": [_P, _U64, _U64, _P, ctypes.POINTER(_I32), _P],
+    "tt_resident_dbp_scan_batch": [_P, _I32, _I64, _U64, _U64, _P, ctypes.POINTER(_I32), _P],
 }
 
 
@@ -100,7 +103,8 @@ def build() -> list[str]:
 
 
 def _kernel_name(mangled: str) -> str:
-    """`_ZN<len><namespace><len><name>[ILb1ELb0EE]...` -> `name` or `name<1,0>`."""
+    """`_ZN<len><namespace><len><name>[ILb1ELb0EE | ILi256EE]...` -> `name`,
+    `name<1,0>` or `name<256>`."""
     m = re.match(r"_ZN(\d+)", mangled)
     if not m:
         return mangled
@@ -109,14 +113,14 @@ def _kernel_name(mangled: str) -> str:
     if not m:
         return mangled
     name = rest[m.end():m.end() + int(m.group(1))]
-    tmpl = re.match(r"I((?:Lb\dE)+)E", rest[m.end() + int(m.group(1)):])
-    return f"{name}<{','.join(re.findall(r'Lb(\d)E', tmpl.group(1)))}>" if tmpl else name
+    tmpl = re.match(r"I((?:L[bi]\d+E)+)E", rest[m.end() + int(m.group(1)):])
+    return f"{name}<{','.join(re.findall(r'L[bi](\d+)E', tmpl.group(1)))}>" if tmpl else name
 
 
 def ptxas_report() -> dict:
     """{kernel: {"registers", "smem_static", "spill_stores", "spill_loads"}}
-    from the ptxas report of the current build, by kernel name (bool
-    template arguments written as <0,1>)."""
+    from the ptxas report of the current build, by kernel name (template
+    arguments written as <0,1> or <256>)."""
     report: dict = {}
     cur = None
     lines = []

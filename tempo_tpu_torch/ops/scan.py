@@ -6,9 +6,10 @@ in_set_runs, between_runs, expand_run_mask, runs_firsts_seg,
 pad_codes_u32, dict_codes_matching), which the block read path uses to
 answer predicates per run without expanding column values, and the
 scans over pages resident in the device tier (resident_in_set_mask,
-resident_range_mask; reference :169-305). Those run three hand-written
-CUDA kernels (csrc/codec_kernels.cu), each beside its plain PyTorch
-version:
+resident_range_mask; reference :169-305), and their batched forms over
+many resident pages (resident_in_set_masks, resident_range_masks). Those
+run three hand-written CUDA kernels (csrc/codec_kernels.cu), each beside
+its plain PyTorch version:
 
   resident_rle_scan  per run: value in the code set (or not), or
                      lo <= value <= hi; repeated to the run's rows with
@@ -18,11 +19,16 @@ version:
   resident_dbp_scan  the dbp delta decode with the unsigned 64-bit range
                      compare fused in; only the mask is written.
 
+resident_rle_scan and resident_dbp_scan take one launch a page, and their
+batched forms (resident_rle_scan_batch, resident_dbp_scan_batch) one
+launch over a page table, each page's mask at its offset of one buffer;
+the batches' plain versions loop over the pages' plain versions.
+
 A wrapper takes the plain version only for tensors that lie on the CPU;
 for CUDA tensors it launches its kernels or raises, and counts the calls
 that launched in `<wrapper>.launches` (its kernels in
 `.kernel_launches`). The resident arrays count as resident, never as
-h2d: only the code set or the bounds ship.
+h2d: only the code set or the bounds ship (and a batch's page table).
 """
 
 from __future__ import annotations
@@ -121,6 +127,7 @@ def dict_codes_matching(entries: list, predicate) -> np.ndarray:
 # membership is np.isin bit for bit even against pathological values.
 
 _IN_SET, _NOT_IN_SET, _BETWEEN = 0, 1, 2
+_PAGE_FIELDS = 8  # a page of an rle or dbp scan: int64 x 8 (csrc/codec_kernels.cu ScanPage)
 
 
 def _mode(codes, invert: bool) -> int:
@@ -195,7 +202,7 @@ def _launch(kernel: str, wrapper, entry: str, out: torch.Tensor, *args) -> torch
         err = getattr(_build.lib(), entry)(*args, out.data_ptr(), ctypes.byref(launched),
                                            _stream(out))
     _build.check(err, kernel)
-    wrapper.launches += 1
+    wrapper.launches += 1 if launched.value else 0
     wrapper.kernel_launches += launched.value
     return out
 
@@ -204,29 +211,61 @@ def _codes_arg(codes: torch.Tensor | None):
     return (None, 0) if codes is None else (codes.data_ptr(), codes.numel())
 
 
+def _as_codes(codes) -> torch.Tensor | None:
+    """A code set as a 1-D int32 tensor of uint32 bits: a tensor as it
+    is, a numpy array or sequence as a CPU tensor."""
+    if codes is None or isinstance(codes, torch.Tensor):
+        if codes is not None and (codes.dtype != torch.int32 or codes.ndim != 1):
+            raise ValueError("codes: a 1-D int32 tensor of uint32 bits")
+        return codes
+    return torch.from_numpy(np.asarray(codes).astype(np.uint32).view(np.int32).reshape(-1))
+
+
+def _rle_codes(codes: torch.Tensor | None, device: torch.device):
+    """(host pointer, device pointer, count, keep) of a code set for the
+    rle kernel: a CPU code set of at most tt_resident_scan_codes() codes
+    goes by value in the launch, a larger one is copied to the card once,
+    one already on the card is read there. `keep` holds the tensors until
+    the launch is enqueued."""
+    if codes is None:
+        return None, None, 0, None
+    if codes.device.type == "cuda":
+        return None, codes.data_ptr(), codes.numel(), codes
+    codes = codes.contiguous()
+    if codes.numel() <= _build.lib().tt_resident_scan_codes():
+        return codes.data_ptr(), None, codes.numel(), codes
+    dev_codes = codes.to(device)
+    return None, dev_codes.data_ptr(), codes.numel(), dev_codes
+
+
+def _u64_bits(x: int) -> int:
+    """A uint64 as the int64 with its bits."""
+    x &= 2**64 - 1
+    return x - 2**64 if x >= 2**63 else x
+
+
 def resident_rle_scan(values: torch.Tensor, lengths: torch.Tensor, n: int,
-                      codes: torch.Tensor | None = None, invert: bool = False,
+                      codes=None, invert: bool = False,
                       lo: int = 0, hi: int = 0) -> torch.Tensor:
     """(n,) bool row mask of an rle page: values (R,) uint32 run values as
-    int32 bits, lengths (R,) int32; `codes` (K,) uint32 as int32 bits for
-    `value in codes` (`not in` with invert), else lo <= value <= hi
-    (uint32). On the card: run-tile length sums (pages of more than one
-    2,048-run tile), the runs' starts and verdicts, the row expansion."""
-    tensors = (values, lengths) + (() if codes is None else (codes,))
-    route = _check("resident_rle_scan", *tensors)
+    int32 bits, lengths (R,) int32; `codes` (K,) uint32 (int32 bits as a
+    tensor, or a numpy array) for `value in codes` (`not in` with invert),
+    else lo <= value <= hi (uint32). On the card: one launch, the code set
+    by value (a CPU set of up to tt_resident_scan_codes() codes)."""
+    route = _check("resident_rle_scan", values, lengths)
+    codes = _as_codes(codes)
     r = values.numel()
     if r == 0 or n == 0:  # no run to repeat: nothing launches
         return torch.zeros(n, dtype=torch.bool, device=values.device)
     if route == "cpu":
-        return _rle_scan_plain(values, lengths, n, codes, invert, lo, hi)
+        return _rle_scan_plain(values, lengths, n, None if codes is None else codes.cpu(),
+                               invert, lo, hi)
     out = torch.empty(n, dtype=torch.bool, device=values.device)
-    tile = _build.lib().tt_dbp_tile()
-    sums = torch.empty(max(1, -(-r // tile)), dtype=torch.int64, device=values.device)
-    packed = torch.empty(max(1, r), dtype=torch.int64, device=values.device)
-    codes_p, n_codes = _codes_arg(codes)
-    return _launch("resident_rle_scan", resident_rle_scan, "tt_resident_rle_scan", out,
-                   values.data_ptr(), lengths.data_ptr(), r, codes_p, n_codes,
-                   _mode(codes, invert), lo, hi, n, sums.data_ptr(), packed.data_ptr())
+    page = (ctypes.c_int64 * _PAGE_FIELDS)(values.data_ptr(), lengths.data_ptr(), r, n,
+                                           0, 0, 0, 0)
+    codes_h, codes_d, k, _keep = _rle_codes(codes, values.device)
+    return _launch("resident_rle_scan", resident_rle_scan, "tt_resident_rle_scan", out, page,
+                   codes_h, k, codes_d, _mode(codes, invert), lo, hi)
 
 
 resident_rle_scan.launches = 0
@@ -261,6 +300,12 @@ resident_dct_scan.launches = 0
 resident_dct_scan.kernel_launches = 0
 
 
+def _dbp_first_width(first: int, width: int, device: torch.device):
+    """The plain version's (1,) first (uint64 bits as int64) and width."""
+    return (torch.tensor([_u64_bits(first)], dtype=torch.int64, device=device),
+            torch.tensor([width], dtype=torch.int32, device=device))
+
+
 def resident_dbp_scan(words: torch.Tensor, first: int, width: int, n: int,
                       lo: int, hi: int) -> torch.Tensor:
     """(n,) bool mask lo <= value <= hi (uint64) of a dbp page: words (W,)
@@ -268,39 +313,152 @@ def resident_dbp_scan(words: torch.Tensor, first: int, width: int, n: int,
     guard word), `first` the page's first value, `width` its delta width.
     The decode takes the low 32 bits of each width-bit field, as the
     reference's _dbp_decode_jit does at any width (pages hold <= 32). On
-    the card: tile delta sums (more than one 2,048-row tile), then the
-    decode and compare as a programmatic dependent launch."""
+    the card: one launch."""
+    if not 0 <= width <= 64:
+        raise ValueError(f"resident_dbp_scan: width {width} outside 0..64")
     if _check("resident_dbp_scan", words) == "cpu":
-        dev = words.device
-        return _dbp_scan_plain(words, torch.tensor([first & (2**64 - 1)], dtype=torch.uint64)
-                               .view(torch.int64).to(dev),
-                               torch.tensor([width], dtype=torch.int32, device=dev), n, lo, hi)
+        f, w = _dbp_first_width(first, width, words.device)
+        return _dbp_scan_plain(words, f, w, n, lo, hi)
     out = torch.empty(n, dtype=torch.bool, device=words.device)
     if n == 0:
         return out
-    sums = torch.empty(max(1, -(-n // _build.lib().tt_dbp_tile())), dtype=torch.int64,
-                       device=words.device)
-    return _launch("resident_dbp_scan", resident_dbp_scan, "tt_resident_dbp_scan", out,
-                   words.data_ptr(), words.numel(), first & (2**64 - 1), width, n, lo, hi,
-                   sums.data_ptr())
+    page = (ctypes.c_int64 * _PAGE_FIELDS)(words.data_ptr(), 0, words.numel(), n,
+                                           _u64_bits(first), width, 0, 0)
+    return _launch("resident_dbp_scan", resident_dbp_scan, "tt_resident_dbp_scan", out, page,
+                   lo & (2**64 - 1), hi & (2**64 - 1))
 
 
 resident_dbp_scan.launches = 0
 resident_dbp_scan.kernel_launches = 0
 
 
+# ---------------------------------------------------------------------------
+# batched scans: one launch over a page table
+# ---------------------------------------------------------------------------
+
+def _offsets(ns: list[int]) -> tuple[list[int], int]:
+    """Each page's mask offset in the batch's buffer (16-byte aligned, so
+    the kernel's row stores stay whole) and the buffer's size."""
+    offs, total = [], 0
+    for n in ns:
+        offs.append(total)
+        total += -(-n // 16) * 16
+    return offs, total
+
+
+def _batch_launch(kernel: str, wrapper, entry: str, rows: list, ns: list[int],
+                  device: torch.device, *args) -> tuple[torch.Tensor, list[int]]:
+    """Copy the page table to the card (pinned, on the current stream) and
+    launch `entry` over it into one buffer; returns (buffer, offsets)."""
+    offs, total = _offsets(ns)
+    for row, off in zip(rows, offs):
+        row[6] = off
+    table_h = torch.tensor(rows, dtype=torch.int64).pin_memory()
+    table = table_h.to(device, non_blocking=True)
+    out = torch.empty(total, dtype=torch.bool, device=device)
+    _launch(kernel, wrapper, entry, out, table.data_ptr(), len(rows), max(ns), *args)
+    return out, offs
+
+
+def _rle_scan_batch_plain(pages, codes, invert, lo, hi) -> tuple[torch.Tensor, list[int]]:
+    offs, total = _offsets([n for _, _, n in pages])
+    out = torch.zeros(total, dtype=torch.bool, device=pages[0][0].device)
+    for (values, lengths, n), off in zip(pages, offs):
+        if values.numel() and n:
+            out[off:off + n] = _rle_scan_plain(values, lengths, n, codes, invert, lo, hi)
+    return out, offs
+
+
+def resident_rle_scan_batch(pages: list, codes=None, invert: bool = False, lo: int = 0,
+                            hi: int = 0) -> tuple[torch.Tensor, list[int]]:
+    """resident_rle_scan over many pages [(values, lengths, n)] on one
+    device in one launch: (buffer, offsets), page i's mask at
+    buffer[offsets[i]:offsets[i] + n_i], equal to its resident_rle_scan."""
+    if not pages:
+        raise ValueError("resident_rle_scan_batch: no page")
+    route = _check("resident_rle_scan_batch", *(t for v, ln, _ in pages for t in (v, ln)))
+    codes = _as_codes(codes)
+    if route == "cpu":
+        return _rle_scan_batch_plain(pages, None if codes is None else codes.cpu(), invert,
+                                     lo, hi)
+    device = pages[0][0].device
+    rows = [[v.data_ptr(), ln.data_ptr(), v.numel(), n, 0, 0, 0, 0] for v, ln, n in pages]
+    codes_h, codes_d, k, _keep = _rle_codes(codes, device)
+    return _batch_launch("resident_rle_scan_batch", resident_rle_scan_batch,
+                         "tt_resident_rle_scan_batch", rows, [n for _, _, n in pages], device,
+                         codes_h, k, codes_d, _mode(codes, invert), lo, hi)
+
+
+resident_rle_scan_batch.launches = 0
+resident_rle_scan_batch.kernel_launches = 0
+
+
+def _dbp_scan_batch_plain(pages, lo, hi) -> tuple[torch.Tensor, list[int]]:
+    offs, total = _offsets([n for _, _, _, n in pages])
+    out = torch.zeros(total, dtype=torch.bool, device=pages[0][0].device)
+    for (words, first, width, n), off in zip(pages, offs):
+        f, w = _dbp_first_width(first, width, words.device)
+        out[off:off + n] = _dbp_scan_plain(words, f, w, n, lo, hi)
+    return out, offs
+
+
+def resident_dbp_scan_batch(pages: list, lo: int, hi: int) -> tuple[torch.Tensor, list[int]]:
+    """resident_dbp_scan over many pages [(words, first, width, n)] on one
+    device in one launch: (buffer, offsets) as resident_rle_scan_batch."""
+    if not pages:
+        raise ValueError("resident_dbp_scan_batch: no page")
+    if any(not 0 <= width <= 64 for _, _, width, _ in pages):
+        raise ValueError("resident_dbp_scan_batch: a width outside 0..64")
+    route = _check("resident_dbp_scan_batch", *(p[0] for p in pages))
+    if route == "cpu":
+        return _dbp_scan_batch_plain(pages, lo, hi)
+    rows = [[w.data_ptr(), 0, w.numel(), n, _u64_bits(first), width, 0, 0]
+            for w, first, width, n in pages]
+    return _batch_launch("resident_dbp_scan_batch", resident_dbp_scan_batch,
+                         "tt_resident_dbp_scan_batch", rows, [p[3] for p in pages],
+                         pages[0][0].device, lo & (2**64 - 1), hi & (2**64 - 1))
+
+
+resident_dbp_scan_batch.launches = 0
+resident_dbp_scan_batch.kernel_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# serving: masks of resident entries (colcache._Resident) as numpy arrays
+# ---------------------------------------------------------------------------
+
+
 def _codes_tensor(codes: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A uint32 code set as the int32 tensor the scans take."""
+    """A uint32 code set as the int32 tensor the dct scan takes."""
     return torch.from_numpy(codes.view(np.int32).copy()).to(device)
 
 
+def _home(out: torch.Tensor) -> torch.Tensor:
+    """A mask's copy home: on the card, enqueued into pinned memory on the
+    current stream (the dispatch's wait covers it)."""
+    if out.device.type != "cuda":
+        return out
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    return host
+
+
+def _dispatch(kernel: str, device: torch.device, fn):
+    """fn() under the timing seam, waiting on an event of the current
+    stream (the launches' and the copy's), never on the whole device."""
+    from tempo_tpu_torch.util.devicetiming import timed_dispatch
+
+    stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
+    return timed_dispatch(kernel, fn, device=device, stream=stream)
+
+
 def _serve(kernel: str, res, fn, h2d: int = 0) -> np.ndarray:
-    """One resident scan under the timing seam: the mask comes home as a
-    numpy bool array (d2h), the resident arrays count as resident."""
-    from tempo_tpu_torch.util.devicetiming import count_transfer, timed_dispatch
+    """One resident scan: the mask comes home as a numpy bool array
+    (d2h), the resident arrays count as resident."""
+    from tempo_tpu_torch.util.devicetiming import count_transfer
 
     dev = next(iter(res.arrays.values())).device
-    mask = timed_dispatch(kernel, fn, device=dev).cpu().numpy()
+    mask = _dispatch(kernel, dev, lambda: _home(fn())).numpy()
     count_transfer(kernel, h2d=h2d, d2h=mask.nbytes, resident=res.nbytes)
     return mask
 
@@ -321,7 +479,8 @@ def resident_in_set_mask(res, codes: np.ndarray,
     if res.codec == "rle":
         def fn():
             return resident_rle_scan(a["values"], a["lengths"], n,
-                                     codes=_codes_tensor(padded, dev), invert=bool(invert))
+                                     codes=torch.from_numpy(padded.view(np.int32)),
+                                     invert=bool(invert))
     else:
         def fn():
             return resident_dct_scan(a["values"], a["idx"],
@@ -351,3 +510,68 @@ def resident_range_mask(res, lo, hi) -> np.ndarray | None:
     return _serve("resident_dbp_scan", res, lambda: resident_dbp_scan(
         a["words"], int(res.meta["first"]), int(res.meta["width"]), n,
         int(lo) & (2**64 - 1), int(hi) & (2**64 - 1)), h2d=16)
+
+
+def _serve_batch(kernel: str, entries: list, fn, h2d: int) -> list[np.ndarray]:
+    """One batched scan over resident entries: one dispatch, the buffer
+    home in one copy; returns each entry's mask (a view of it). The page
+    table ships with the code set or bounds."""
+    from tempo_tpu_torch.util.devicetiming import count_transfer
+
+    dev = next(iter(entries[0].arrays.values())).device
+
+    def run():
+        out, offs = fn()
+        return _home(out), offs
+
+    buf, offs = _dispatch(kernel, dev, run)
+    flat = buf.numpy()
+    table = _PAGE_FIELDS * 8 * len(entries) if dev.type == "cuda" else 0
+    count_transfer(kernel, h2d=h2d + table, d2h=flat.nbytes,
+                   resident=sum(r.nbytes for r in entries))
+    return [flat[o:o + int(r.meta["n"])] for r, o in zip(entries, offs)]
+
+
+def resident_in_set_masks(entries: list, codes: np.ndarray,
+                          invert: bool = False) -> list[np.ndarray]:
+    """resident_in_set_mask of many resident rle entries on one device in
+    one launch (resident_rle_scan_batch): one mask per entry, each equal
+    to the entry's own. A dct entry takes resident_in_set_mask."""
+    if any(r.codec != "rle" for r in entries):
+        raise ValueError("resident_in_set_masks: rle entries only")
+    if not entries:
+        return []
+    padded = pad_codes_u32(codes)
+    pages = [(r.arrays["values"], r.arrays["lengths"], int(r.meta["n"])) for r in entries]
+    return _serve_batch("resident_rle_scan", entries, lambda: resident_rle_scan_batch(
+        pages, codes=torch.from_numpy(padded.view(np.int32)), invert=bool(invert)),
+        h2d=padded.nbytes)
+
+
+def resident_range_masks(entries: list, lo, hi) -> list[np.ndarray]:
+    """resident_range_mask of many resident rle and dbp entries on one
+    device: one launch a codec (resident_rle_scan_batch,
+    resident_dbp_scan_batch), one mask per entry in their order, each
+    equal to the entry's own. A dct entry takes resident_range_mask."""
+    if any(r.codec not in ("rle", "dbp") for r in entries):
+        raise ValueError("resident_range_masks: rle and dbp entries only")
+    out: list = [None] * len(entries)
+    rle = [i for i, r in enumerate(entries) if r.codec == "rle"]
+    dbp = [i for i, r in enumerate(entries) if r.codec == "dbp"]
+    if rle:
+        lo32, hi32 = int(np.uint32(lo)), int(np.uint32(hi))
+        group = [entries[i] for i in rle]
+        pages = [(r.arrays["values"], r.arrays["lengths"], int(r.meta["n"])) for r in group]
+        masks = _serve_batch("resident_rle_scan", group, lambda: resident_rle_scan_batch(
+            pages, lo=lo32, hi=hi32), h2d=0)
+        for i, m in zip(rle, masks):
+            out[i] = m
+    if dbp:
+        group = [entries[i] for i in dbp]
+        pages = [(r.arrays["words"], int(r.meta["first"]), int(r.meta["width"]),
+                  int(r.meta["n"])) for r in group]
+        masks = _serve_batch("resident_dbp_scan", group, lambda: resident_dbp_scan_batch(
+            pages, int(lo) & (2**64 - 1), int(hi) & (2**64 - 1)), h2d=16)
+        for i, m in zip(dbp, masks):
+            out[i] = m
+    return out

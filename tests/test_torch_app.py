@@ -474,7 +474,6 @@ def test_bad_requests_400(idle_pair, path):
     ("GET", "/api/graph/dependencies"),
     ("GET", "/status/profile"),
     ("GET", "/api/rca"),
-    ("GET", "/api/usage"),
     ("GET", "/status/storage"),
     ("GET", "/status/slo"),
     ("POST", "/rpc/v1/worker/pull"),
