@@ -11,16 +11,17 @@ Phases, one line each (any failure exits non-zero):
    and csrc/codec_kernels.cu (the batched rle_change_mask and dbp_pack of
    the device page encode, dbp_decode of the device page decode,
    compiled_metrics of the compiled query tier and the device tier's
-   resident_rle_scan, resident_dct_scan and resident_dbp_scan, the rle
-   and dbp ones also batched over page tables), one nvcc a source, in
+   resident_rle_scan, resident_dct_scan and resident_dbp_scan, each also
+   batched over page tables), one nvcc a source, in
    parallel, and ptxas reports each kernel's registers,
    static shared memory and spills;
 2. kernels: each CUDA kernel against its plain PyTorch version on the
    card, bit for bit, at the main path's shapes and at edge shapes (the
    page-encode kernels over mixed page tables; the codec kernels also
    against the host codec and a numpy interpreter; the resident scans
-   over run tiles, dictionary sizes and every dbp width 0-64, and the
-   batched ones over mixed page tables), and timed two
+   over run tiles, dictionary sizes up to n/2 at 65,536 rows and every
+   dbp width 0-64, the code set by value and above the by-value cap, and
+   the batched ones over mixed page tables), and timed two
    ways:
    kernel time (device time alone: a CUDA graph of K back-to-back
    launches of the C entry point into outputs allocated and zeroed
@@ -36,7 +37,7 @@ Phases, one line each (any failure exits non-zero):
    launches in one graph, on those inputs and on a copy with four query
    lanes, against the bound of the fused program's work; the resident
    scans after phase 10, at the largest resident page of each codec,
-   and the batched ones at one search's stage-1 pages);
+   and the batched ones at one search's stage-1 pages of each codec);
 3. compaction: the flagship step (entry.entry) at 2**22 rows, bit-equal
    between the card and the CPU;
 4. metrics: three TraceQL query_range queries over 2**22 synthetic spans
@@ -128,15 +129,22 @@ Phases, one line each (any failure exits non-zero):
    recording; twice), admitting (after refresh_admission(force=True):
    the admission h2d) and resident (the resident scans and stacks; an
    unbounded search's stage-1 pages that the tier holds go through one
-   batched rle and one batched dbp launch), then the resident pass's
+   batched launch a codec), then the resident pass's
    searches once more through the per-page loop (the batched stage 1
    off), which must give the same answers, tier hits and avoided bytes.
+   Phase 10 also runs an eighth unbounded search, name=db.query, whose
+   stage-1 column is dct-coded (phase 7 computes its oracle and tier-off
+   answer after compaction); the seven searches' dct pages are scanned in
+   stage 2 (the name column of service=cart name=db.query, 8 calls a
+   pass), which stays one call a page.
    Every answer equals phase 7's numpy oracle and its tier-off answer,
    every matrix the tier-off one; a stack admitted must then be served
    from the card. Prints per pass the search ms, the tier's hits,
    avoided and admission h2d bytes, and each resident kernel's launches,
-   and the resident pass's rle and dbp launches beside the 128 and 64
-   calls of the design with one call a page (they must be fewer). The resident scans are then timed at the
+   and the resident pass's launches of each codec beside the per-page
+   loop's and the calls of the design with one call a page (they must be
+   fewer; dct's by the stage-1 pages its batches took, its stage-2 calls
+   printed apart). The resident scans are then timed at the
    largest resident page of each codec and the batched ones at the
    resident pass's largest stage-1 batch of each codec.
 
@@ -347,11 +355,12 @@ def chain_parents(batch):
 
 CODEC_KERNELS = ("rle_change_mask", "dbp_pack", "dbp_decode", "compiled_metrics")
 RESIDENT_KERNELS = ("resident_rle_scan", "resident_dct_scan", "resident_dbp_scan",
-                    "resident_rle_scan_batch", "resident_dbp_scan_batch")
-# the resident rle and dbp scans' calls in phase 10's resident pass when
-# every page took its own call (2-3 kernels a call): what the batched
-# stage 1 is held to
-ONE_CALL_A_PAGE = {"rle": 128, "dbp": 64}
+                    "resident_rle_scan_batch", "resident_dct_scan_batch", "resident_dbp_scan_batch")
+# the resident scans' calls in phase 10's resident pass when every page
+# took its own call (rle and dbp: PR 10's 2-3 kernels a call; dct: the
+# per-page loop's with name=db.query, 8 of them stage 2's): what the
+# batched stage 1 is held to
+ONE_CALL_A_PAGE = {"rle": 128, "dct": 11, "dbp": 64}
 
 
 def launch_counters():
@@ -1082,13 +1091,17 @@ def resident_kernels_check(torch, dev, rng) -> int:
     lengths summing below, to and past n (zero-length runs, values equal
     to NO_MATCH_CODE, the code-set padding; the code set by value, and
     above the by-value cap in device memory); dct at 1 to 40,000
-    dictionary entries (in-set, inverted, between over the top half of
-    u32); dbp at every width 0-64 at 1 to 70,000 rows (one CTA, clusters
+    dictionary entries and at n/2 of 65,536 rows (the bitset up to 1,024
+    entries, a verdict a row above; in-set with the code set by value from the
+    CPU, above the by-value cap and on the card, inverted, between over
+    the top half of u32; indices at jnp's edges); dbp at every width 0-64
+    at 1 to 70,000 rows (one CTA, clusters
     of 256- and of 512-thread CTAs, shares of one and of two row tiles),
-    with bounds that cut inside a limb; then the batched rle and dbp
+    with bounds that cut inside a limb; then the batched rle, dct and dbp
     scans over mixed page tables (pages of no run and of n == 0, a page
-    of more than one run tile, every dbp width, a 65,536-row page and a
-    70,000-row one). Returns the cases held."""
+    of more than one run tile, dictionaries of 1 to 32,768 entries, every
+    dbp width, a 65,536-row page and a 70,000-row one). Returns the cases
+    held."""
     import numpy as np
 
     from tempo_tpu_torch.ops import scan
@@ -1116,16 +1129,27 @@ def resident_kernels_check(torch, dev, rng) -> int:
             same(f"R={r} n={n} in 300", scan.resident_rle_scan, *args, codes=big)
             same(f"R={r} n={n} between", scan.resident_rle_scan, *args, lo=7, hi=2**32 - 2)
             n_cases += 4
-    for v, n in ((1, 1), (9, 4097), (300, 70_000), (40_000, 5000)):
+    def dct_page(v, n):
+        """(dictionary, idx) of n rows over v entries, a few indices at
+        jnp's edges (negative from the end, below -v, at and past v)."""
         dvals = rng.integers(0, 2**32, v, dtype=np.uint64).astype(np.uint32)
-        idx = torch.from_numpy(rng.integers(0, v, n).astype(np.int32))
-        codes = u32(scan.pad_codes_u32(dvals[:3])).to(dev)  # the dct scan reads them there
-        for kw in ({"codes": codes}, {"codes": codes, "invert": True},
-                   {"lo": 2**31, "hi": 2**32 - 1}):
-            want = scan.resident_dct_scan(u32(dvals), idx, **{k: x.cpu() if torch.is_tensor(x)
-                                                              else x for k, x in kw.items()})
-            got = scan.resident_dct_scan(u32(dvals).to(dev), idx.to(dev), **kw)
-            check(torch.equal(got.cpu(), want), f"resident_dct_scan V={v} n={n}: kernel != plain")
+        dvals[::11] = 0xFFFFFFFF
+        idx = rng.integers(0, max(v, 1), n).astype(np.int32)
+        edges = np.array([-1, -v, -v - 1, v, v + 5], np.int32)
+        idx[::101] = edges[np.arange(len(idx[::101])) % len(edges)]
+        return u32(dvals), torch.from_numpy(idx)
+
+    for v, n in ((1, 1), (9, 4097), (257, 65536), (300, 70_000), (1024, 4096), (1025, 4096),
+                 (2048, 65536), (32768, 65536), (40_000, 5000)):
+        dvals, idx = dct_page(v, n)
+        codes = u32(scan.pad_codes_u32(dvals[:3].numpy().view(np.uint32)))  # by value
+        for kw in ({"codes": codes}, {"codes": codes, "invert": True}, {"codes": big},
+                   {"codes": codes.to(dev)}, {"lo": 2**31, "hi": 2**32 - 1}):
+            want = scan.resident_dct_scan(dvals, idx, **{k: x.cpu() if torch.is_tensor(x)
+                                                          else x for k, x in kw.items()})
+            got = scan.resident_dct_scan(dvals.to(dev), idx.to(dev), **kw)
+            check(torch.equal(got.cpu(), want),
+                  f"resident_dct_scan V={v} n={n} {sorted(kw)}: kernel != plain")
             n_cases += 1
     for width in range(65):
         for n in (1, 2, 8193, 16385, 40000, 70000):
@@ -1158,6 +1182,21 @@ def resident_kernels_check(torch, dev, rng) -> int:
                                     for (_, _, n), o in zip(pages, offs)),
               f"resident_rle_scan_batch {sorted(kw)}: kernel != plain")
         n_cases += 1
+    small = [dct_page(v, n) for v, n in ((1, 37), (257, 65536), (5, 0), (60, 120), (700, 3000),
+                                         (1, 1), (9, 4097))]
+    # the bitset's table, then one with a dictionary a verdict a row takes
+    for cpages in (small, small + [dct_page(32768, 65536)]):
+        gpu = [(v.to(dev), i.to(dev)) for v, i in cpages]
+        for kw in ({"codes": u32(scan.pad_codes_u32(np.array([1, 4, 0xFFFFFFFF], np.uint32)))},
+                   {"codes": u32(np.array([2], np.uint32)), "invert": True},
+                   {"codes": big}, {"lo": 2**31, "hi": 2**32 - 1}):
+            want, offs = scan.resident_dct_scan_batch(cpages, **kw)
+            got, goffs = scan.resident_dct_scan_batch(gpu, **kw)
+            got = got.cpu()
+            check(goffs == offs and all(torch.equal(got[o:o + i.numel()], want[o:o + i.numel()])
+                                        for (_, i), o in zip(cpages, offs)),
+                  f"resident_dct_scan_batch {sorted(kw)} ({len(cpages)} pages): kernel != plain")
+            n_cases += 1
     dpages = []
     for width, n in [(w, 300) for w in range(65)] + [(31, 65536), (17, 70000), (9, 0), (5, 1)]:
         words, first = _dbp_words(np, rng, width, n)
@@ -1270,14 +1309,17 @@ def tier_phase(root: str, inputs: dict, compacted_block_id: str, plan_of,
         return rows, {k: after[k] - before[k] for k in after}
 
     # the resident pass's batched stage 1: the largest batch of each codec,
-    # for the kernels' timing at one search's stage-1 pages
+    # for the kernels' timing at one search's stage-1 pages, and the pages
+    # of each codec its batches took
     batches: dict = {}
+    stage1_pages = {"rle": 0, "dct": 0, "dbp": 0}
     spied = {fn: getattr(scan, fn) for fn in ("resident_in_set_masks", "resident_range_masks")}
 
     def spy(fn):
         def call(entries, *args, **kw):
-            for codec in ("rle", "dbp"):
+            for codec in stage1_pages:
                 group = [e for e in entries if e.codec == codec]
+                stage1_pages[codec] += len(group)
                 if len(group) > len(batches.get(codec, ((),))[0]):
                     batches[codec] = (group, fn, args, kw)
             return spied[fn](entries, *args, **kw)
@@ -1287,6 +1329,11 @@ def tier_phase(root: str, inputs: dict, compacted_block_id: str, plan_of,
     for name in ("cold", "admitting", "resident"):
         if name == "admitting":
             tier.refresh_admission(force=True)
+            # the admission set stays this one for the rest of the phase: a
+            # timed refresh (refresh_s) would admit pages between the
+            # resident pass and its per-page loop, which then would not
+            # see the same residents
+            tier.refresh_s = float("inf")
             with tier._lock:
                 res["admission_set_pages"] = len(tier._admit_keys)
                 res["admission_budget_bytes"] = tier._admit_budget
@@ -1352,15 +1399,18 @@ def tier_phase(root: str, inputs: dict, compacted_block_id: str, plan_of,
     for k in ("hits", "avoided_bytes", "admissions", "admission_h2d_bytes"):
         check(loop[k] == batched[k],
               f"phase 10: the batched search's {k} {batched[k]} != the per-page loop's {loop[k]}")
-    check(loop["resident_rle_scan_batch"] == loop["resident_dbp_scan_batch"] == 0,
+    check(all(loop[f"resident_{c}_scan_batch"] == 0 for c in stage1_pages),
           "phase 10: the per-page loop took a batch")
     res["per_page_loop"] = dict(search_ms=sum(r["ms"] for r in loop_rows), searches=loop_rows,
                                 search_counts=loop)
     launches = {c: (batched[f"resident_{c}_scan"] + batched[f"resident_{c}_scan_batch"],
-                    loop[f"resident_{c}_scan"]) for c in ("rle", "dbp")}
-    res["resident_pass_launches"] = {c: dict(batched=b, per_page_loop=p,
-                                             one_call_a_page=ONE_CALL_A_PAGE[c])
-                                     for c, (b, p) in launches.items()}
+                    loop[f"resident_{c}_scan"]) for c in stage1_pages}
+    res["resident_pass_launches"] = {
+        c: dict(batched=b, per_page_loop=p, one_call_a_page=ONE_CALL_A_PAGE[c],
+                stage1_pages_batched=stage1_pages[c],
+                # the calls a page left in the batched pass: stage 2's
+                stage2_calls=batched[f"resident_{c}_scan"])
+        for c, (b, p) in launches.items()}
     print(f"phase 10 per-page loop: the {len(loop_rows)} searches again with the batched stage "
           f"1 off: answers = oracle = tier off, tier hits {loop['hits']} and avoided "
           f"{loop['avoided_bytes']} B = the batched pass's | "
@@ -1369,12 +1419,17 @@ def tier_phase(root: str, inputs: dict, compacted_block_id: str, plan_of,
           flush=True)
     for c, (b, p) in launches.items():
         print(f"phase 10 resident pass {c} launches: {b} with the batched stage 1 "
-              f"({batched[f'resident_{c}_scan']} a page + {batched[f'resident_{c}_scan_batch']} "
-              f"batched), {p} through the per-page loop, beside the {ONE_CALL_A_PAGE[c]} of "
-              "one call a page", flush=True)
-        check(b < ONE_CALL_A_PAGE[c], f"phase 10: {b} resident {c} launches, not fewer than "
-              f"the {ONE_CALL_A_PAGE[c]} of one call a page")
-    check(set(batches) == {"rle", "dbp"},
+              f"({batched[f'resident_{c}_scan_batch']} batched over {stage1_pages[c]} stage-1 "
+              f"pages + {batched[f'resident_{c}_scan']} a page, from stage 2), {p} through the "
+              f"per-page loop, beside the {ONE_CALL_A_PAGE[c]} of one call a page", flush=True)
+        check(b < p and b < ONE_CALL_A_PAGE[c],
+              f"phase 10: {b} resident {c} launches batched, {p} through the per-page loop, "
+              f"{ONE_CALL_A_PAGE[c]} one call a page")
+        # a batched page saves its call, stage 2 keeps one call a page
+        check(p - b == stage1_pages[c] - batched[f"resident_{c}_scan_batch"],
+              f"phase 10: {c}: the loop's {p} calls less the batched pass's {b} launches != "
+              f"{stage1_pages[c]} stage-1 pages less their batches")
+    check(set(batches) == set(stage1_pages),
           f"phase 10: the resident pass batched only {sorted(batches)}")
     res["batches"] = batches
     cold, admitting, resident = (p["search_counts"] for p in res["passes"])
@@ -1469,20 +1524,22 @@ def time_resident_kernels(torch, tier, batches, lib, stream) -> dict:
         library_ms=path_ms(torch, lambda: torch.repeat_interleave(torch.isin(v64, c64), ln64,
                                                                   output_size=n)))
 
+    # dct: the dictionary's first three entries as the code set, by value
     res_d = largest["dct"]
     dv, idx, n_d = res_d.arrays["values"], res_d.arrays["idx"], int(res_d.meta["n"])
     codes_dct_np = scan.pad_codes_u32(dv[:3].cpu().numpy().view(np.uint32))
-    codes_dct = torch.from_numpy(codes_dct_np.view(np.int32)).to(dev)
-    for kw in ({"codes": codes_dct}, {"codes": codes_dct, "invert": True},
+    codes_dct_h = torch.from_numpy(codes_dct_np.view(np.int32))
+    codes_dct = codes_dct_h.to(dev)
+    for kw in ({"codes": codes_dct_h}, {"codes": codes_dct_h, "invert": True},
                {"lo": 1, "hi": 2**31}):
         check(torch.equal(scan.resident_dct_scan(dv, idx, **kw),
-                          scan._dct_scan_plain(dv, idx, kw.get("codes"), kw.get("invert", False),
-                                               kw.get("lo", 0), kw.get("hi", 0))),
+                          scan._dct_scan_plain(dv, idx, codes_dct if "codes" in kw else None,
+                                               kw.get("invert", False), kw.get("lo", 0),
+                                               kw.get("hi", 0))),
               f"resident_dct_scan at the largest dct page {sorted(kw)}: kernel != plain")
-    verdict = torch.empty(dv.numel(), dtype=torch.uint8, device=dv.device)
-    mask, ms, kl = graph_ms("tt_resident_dct_scan",
-                            (dv.data_ptr(), dv.numel(), idx.data_ptr(), n_d, codes_dct.data_ptr(),
-                             codes_dct.numel(), 0, 0, 0, verdict.data_ptr()), n_d)
+    page_d = (ctypes.c_int64 * 8)(dv.data_ptr(), idx.data_ptr(), dv.numel(), n_d, 0, 0, 0, 0)
+    mask, ms, kl = graph_ms("tt_resident_dct_scan", (page_d, codes_dct_h.data_ptr(),
+                                                     codes_dct_h.numel(), None, 0, 0, 0), n_d)
     check(torch.equal(mask, scan._dct_scan_plain(dv, idx, codes_dct, False, 0, 0)),
           "resident_dct_scan graph launch != plain")
     dv64 = dv.to(torch.int64) & 0xFFFFFFFF
@@ -1538,11 +1595,10 @@ def time_resident_kernels(torch, tier, batches, lib, stream) -> dict:
     for codec, (group, fn, args, kw) in sorted(batches.items()):
         ns = [int(g.meta["n"]) for g in group]
         offs, total = scan._offsets(ns)
-        if codec == "rle":
-            rows = [[g.arrays["values"].data_ptr(), g.arrays["lengths"].data_ptr(),
-                     g.arrays["values"].numel(), nn, 0, 0, off, 0]
-                    for g, nn, off in zip(group, ns, offs)]
-            pages = [(g.arrays["values"], g.arrays["lengths"], nn) for g, nn in zip(group, ns)]
+        rows = np.stack([g.row for g in group])  # the tier's page-table rows
+        rows[:, 6] = offs
+        offs = offs.tolist()
+        if codec in ("rle", "dct"):  # a code set by value, or uint32 bounds
             if fn == "resident_in_set_masks":
                 padded = scan.pad_codes_u32(args[0])
                 bcodes = torch.from_numpy(padded.view(np.int32))
@@ -1550,11 +1606,36 @@ def time_resident_kernels(torch, tier, batches, lib, stream) -> dict:
                 plain_kw = dict(codes=bcodes.to(dev), invert=invert)
                 c_args = (bcodes.data_ptr(), bcodes.numel(), None, 1 if invert else 0, 0, 0)
                 k_codes = bcodes.numel()
+                c_cat = plain_kw["codes"].to(torch.int64) & 0xFFFFFFFF
             else:
                 blo, bhi = int(np.uint32(args[0])), int(np.uint32(args[1]))
                 plain_kw = dict(lo=blo, hi=bhi)
                 c_args = (None, 0, None, 2, blo, bhi)
                 k_codes = 1
+        if codec == "dct":
+            pages = [(g.arrays["values"], g.arrays["idx"]) for g in group]
+            v_all = sum(p[0].numel() for p in pages)
+            plain = lambda: scan._dct_scan_batch_plain(  # noqa: E731
+                pages, plain_kw.get("codes"), plain_kw.get("invert", False),
+                plain_kw.get("lo", 0), plain_kw.get("hi", 0))
+            nbytes = 4 * v_all + 4 * k_codes + 5 * sum(ns)
+            ops = v_all * k_codes + sum(ns)
+            # torch.isin over the concatenated dictionaries, then one gather
+            # by the indices shifted to each page's dictionary (jnp's edges
+            # clamped first)
+            dv_cat = torch.cat([p[0] for p in pages]).to(torch.int64) & 0xFFFFFFFF
+            base = np.cumsum([0] + [p[0].numel() for p in pages[:-1]])
+            gidx = torch.cat([torch.where(p[1] < 0, p[1].to(torch.int64) + p[0].numel(),
+                                          p[1].to(torch.int64)).clamp(0, p[0].numel() - 1) + int(b)
+                              for p, b in zip(pages, base)])
+            if fn == "resident_in_set_masks":
+                library = lambda: torch.isin(dv_cat, c_cat)[gidx]  # noqa: E731
+            else:
+                library = lambda: ((dv_cat >= blo) & (dv_cat <= bhi))[gidx]  # noqa: E731
+            entry = "tt_resident_dct_scan_batch"
+            c_args = (max(p[0].numel() for p in pages),) + c_args
+        elif codec == "rle":
+            pages = [(g.arrays["values"], g.arrays["lengths"], nn) for g, nn in zip(group, ns)]
             plain = lambda: scan._rle_scan_batch_plain(  # noqa: E731
                 pages, plain_kw.get("codes"), plain_kw.get("invert", False),
                 plain_kw.get("lo", 0), plain_kw.get("hi", 0))
@@ -1564,7 +1645,6 @@ def time_resident_kernels(torch, tier, batches, lib, stream) -> dict:
             ln_cat = torch.cat([p[1] for p in pages]).to(torch.int64)
             exact = all(int(p[1].sum()) == p[2] for p in pages)
             if fn == "resident_in_set_masks":
-                c_cat = plain_kw["codes"].to(torch.int64) & 0xFFFFFFFF
                 hit = lambda: torch.isin(v_cat, c_cat)  # noqa: E731
             else:
                 hit = lambda: (v_cat >= blo) & (v_cat <= bhi)  # noqa: E731
@@ -1573,9 +1653,6 @@ def time_resident_kernels(torch, tier, batches, lib, stream) -> dict:
             entry = "tt_resident_rle_scan_batch"
         else:
             blo, bhi = int(args[0]) & (2**64 - 1), int(args[1]) & (2**64 - 1)
-            rows = [[g.arrays["words"].data_ptr(), 0, g.arrays["words"].numel(), nn,
-                     u64_bits(int(g.meta["first"])), int(g.meta["width"]), off, 0]
-                    for g, nn, off in zip(group, ns, offs)]
             pages = [(g.arrays["words"], int(g.meta["first"]), int(g.meta["width"]), nn)
                      for g, nn in zip(group, ns)]
             c_args = (blo, bhi)
@@ -1600,7 +1677,7 @@ def time_resident_kernels(torch, tier, batches, lib, stream) -> dict:
             library = (lambda: (lambda c: (c >= blo) & (c <= chi))(torch.cumsum(e_cat, 0))) \
                 if signed else None
             entry = "tt_resident_dbp_scan_batch"
-        table = torch.tensor(rows, dtype=torch.int64, device=dev)
+        table = torch.from_numpy(rows).to(dev)
         want, _ = plain()
         full = (table.data_ptr(), len(rows), max(ns)) + c_args
         got = getattr(scan, fn)(group, *args, **kw)
@@ -1611,7 +1688,8 @@ def time_resident_kernels(torch, tier, batches, lib, stream) -> dict:
         check(all(torch.equal(bmask[o:o + nn], want[o:o + nn]) for o, nn in zip(offs, ns)),
               f"{entry} graph launch != plain")
         rec = dict(shape=f"{len(group)} {codec} pages of one search's stage 1, {sum(ns)} rows"
-                   + (f", {sum(p[0].numel() for p in pages)} runs" if codec == "rle" else ""),
+                   + (f", {sum(p[0].numel() for p in pages)} runs" if codec == "rle" else "")
+                   + (f", {v_all} dictionary entries" if codec == "dct" else ""),
                    pages=len(group), max_abs_err=0, ms=bms, kernels_a_call=bkl,
                    ms_a_page=bms / len(group),
                    path_ms=path_ms(torch, lambda: getattr(scan, fn)(group, *args, **kw)),
@@ -1858,6 +1936,10 @@ def db_phase(seed: int, a, b, root: str, queries: list, plan_of, shed: bool = Fa
           f"(merge_path auto, sketch plane on {db.device})", flush=True)
     res["after_compaction"] = []
     tier_off = {}  # phase 10 holds the tier's answers to these
+    # phase 10's eighth search: its stage-1 column (name) is dct-coded
+    searches.append(("name=db.query", dict(tags={"name": "db.query"}),
+                     cols["name"] == d.get("db.query")))
+    oracle["name=db.query"] = trace_hex_set(cols["trace_id"][searches[-1][2]])
     for label, kw, _ in searches:
         shared_cache().clear()
         row, r = search(label, kw, 0)
@@ -2865,9 +2947,12 @@ def main() -> int:
     print(f"phase 2 resident scans: {n_resident} cases equal ({time.perf_counter() - t0:.1f} s): "
           "resident_rle_scan at 1 to 3 run tiles, lengths summing below, to and past n (zero-"
           "length runs, NO_MATCH_CODE values), in-set (by value and 300 codes in device "
-          "memory) / inverted / between; resident_dct_scan at 1 to 40,000 entries; "
-          "resident_dbp_scan at every width 0-64 at 1 to 70,000 rows, bounds inside a limb; the batched rle and dbp scans over mixed page tables (no run, n = 0, 20,000 "
-          "runs, every width, 65,536 and 70,000 rows) == plain (timed in phase 10)", flush=True)
+          "memory) / inverted / between; resident_dct_scan at 1 to 40,000 entries and n/2 of "
+          "65,536 rows (codes by value, above the cap, on the card; jnp's index edges); "
+          "resident_dbp_scan at every width 0-64 at 1 to 70,000 rows, bounds inside a limb; "
+          "the batched rle, dct and dbp scans over mixed page tables (no run, n = 0, 20,000 "
+          "runs, 1 to 32,768 entries, every width, 65,536 and 70,000 rows) == plain (timed in "
+          "phase 10)", flush=True)
 
     # ---------------------------------------------------------------- 3 + 4
     reset_launches()
@@ -3244,6 +3329,7 @@ def main() -> int:
         # one launch over a search's stage-1 pages, where the reference
         # runs its per-page jits page by page
         "resident_rle_scan_batch": "tempo_tpu/ops/scan.py:169",
+        "resident_dct_scan_batch": "tempo_tpu/ops/scan.py:186",
         "resident_dbp_scan_batch": "tempo_tpu/ops/scan.py:204",
     }
     line = {"kernels": [

@@ -1089,26 +1089,11 @@ __global__ void __launch_bounds__(kThreads, 4) compiled_count_kernel(
 // dct reads 4 bytes an index and writes a byte a row (its dictionary is
 // small), dbp reads w / 8 bytes a row and writes one; the code set is tiny
 // beside the page. A page is tens of KB, so the launches, not the bytes,
-// decide the time: rle and dbp take one launch a scan, and one launch over
-// a search's pages (the design below, "One launch a scan"). dct (not yet
-// redesigned): dct_verdict_kernel computes the verdict once per dictionary
-// entry (resident_verdict); dct_gather_kernel (a dependent launch) loads its
-// rows' indices as two 16-byte vectors before it waits, then gathers the
-// verdicts, a lane's kPer consecutive rows stored as one 8-byte word
-// (store_mask). An index reads as jnp indexing does: a negative one from
-// the end, one past the end clamped.
+// decide the time: each scan takes one launch a page, and one launch over a
+// search's pages (the designs below, "One launch a scan").
 // ---------------------------------------------------------------------------
 
 constexpr int32_t kModeBetween = 2;
-
-__device__ __forceinline__ bool resident_verdict(uint32_t v, const uint32_t* __restrict__ codes,
-                                                 int32_t n_codes, int32_t mode, uint32_t lo,
-                                                 uint32_t hi) {
-  if (mode == kModeBetween) return v >= lo && v <= hi;
-  bool hit = false;
-  for (int32_t k = 0; k < n_codes; ++k) hit |= __ldg(codes + k) == v;
-  return hit != (mode == 1);
-}
 
 // Store a lane's kPer verdict bytes (bit 8 * k of `bytes`: row i0 + k) to
 // out[i0, min(i0 + kPer, n)).
@@ -1121,44 +1106,8 @@ __device__ __forceinline__ void store_mask(uint8_t* __restrict__ out, int64_t i0
   }
 }
 
-__global__ void __launch_bounds__(kThreads) dct_verdict_kernel(
-    const uint32_t* __restrict__ values, int64_t v_count, const uint32_t* __restrict__ codes,
-    int32_t n_codes, int32_t mode, uint32_t lo, uint32_t hi, uint8_t* __restrict__ verdict) {
-  grid_launch_dependents();
-  const int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (e < v_count) verdict[e] = resident_verdict(values[e], codes, n_codes, mode, lo, hi);
-}
-
-__global__ void __launch_bounds__(kThreads) dct_gather_kernel(const int32_t* __restrict__ idx,
-                                                              int64_t n, const uint8_t* verdict,
-                                                              int64_t v_count,
-                                                              uint8_t* __restrict__ out) {
-  const int64_t i0 = lane_first((int64_t)blockIdx.x * kTile);
-  int32_t ix[kPer];
-  if (i0 + kPer <= n && (reinterpret_cast<uintptr_t>(idx) & 15u) == 0) {
-    const int4 p = __ldg(reinterpret_cast<const int4*>(idx + i0));
-    const int4 q = __ldg(reinterpret_cast<const int4*>(idx + i0) + 1);
-    ix[0] = p.x, ix[1] = p.y, ix[2] = p.z, ix[3] = p.w;
-    ix[4] = q.x, ix[5] = q.y, ix[6] = q.z, ix[7] = q.w;
-  } else {
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) ix[k] = i0 + k < n ? idx[i0 + k] : 0;
-  }
-  grid_dependency_wait();  // the entries' verdicts
-  if (i0 >= n) return;
-  u64 bytes = 0;
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    int64_t e = ix[k] < 0 ? ix[k] + v_count : ix[k];
-    e = e < 0 ? 0 : (e >= v_count ? v_count - 1 : e);
-    bytes |= (u64)verdict[e] << (8 * k);
-  }
-  store_mask(out, i0, n, bytes);
-}
-
-
 // ---------------------------------------------------------------------------
-// One launch a scan: resident_rle_scan and resident_dbp_scan
+// One launch a scan: resident_rle_scan, resident_dct_scan, resident_dbp_scan
 //
 // Each page's scan runs in one launch, in the CTAs of that page (ctas a
 // page, from its rows), with no dependent launch and no
@@ -1168,9 +1117,9 @@ __global__ void __launch_bounds__(kThreads) dct_gather_kernel(const int32_t* __r
 // __grid_constant__): the page itself (a single scan) or the page table's
 // device pointer, the mode and bounds, and a code set of up to kScanCodes
 // codes (a larger one is copied to the card once a call: codes_dev). The
-// CTAs a page: enough for its rows, at most kScanCtas (rle) or kDbpCtas
-// (dbp), and in an rle batch no more than two waves over the card's SMs
-// (scan_ctas).
+// CTAs a page: enough for its rows, at most kScanCtas (rle), kDctCtas (dct)
+// or kDbpCtas (dbp), and in an rle batch no more than two waves over the
+// card's SMs (scan_ctas).
 // - rle: each CTA stages a tile of up to kRunTile runs (values and
 //   lengths, 64 KB) into shared memory by Hopper's 1-D bulk copy (TMA)
 //   completing on an mbarrier (stage_bulk), scans the lengths into starts
@@ -1200,18 +1149,40 @@ __global__ void __launch_bounds__(kThreads) dct_gather_kernel(const int32_t* __r
 //   cut), then each lane adds its deltas onto the carry, compares each
 //   value with [lo, hi] as unsigned 64-bit and writes its kPer bytes as
 //   one 8-byte store. A share of more than one tile cuts its deltas twice.
+// - dct: each CTA takes 2,048-row tiles of one page (a tile a CTA up to
+//   kDctCtas CTAs a page; a larger page loops) and first loads its first
+//   tile's indices, a lane's kPer rows as two 16-byte vectors, so that the
+//   loads are in flight while it builds the page's verdict bitset in
+//   shared memory: a warp loads kDctLoads words of 32 dictionary entries
+//   at once (coalesced), compares each entry with the code set (read
+//   where the launch left it: its parameters, or device memory; no copy)
+//   or the bounds and stores each ballot as one word. Then each lane
+//   gathers its rows' bits (an index reads as jnp indexing does: a
+//   negative one from the end, one past the end clamped) and writes its
+//   kPer bytes as one 8-byte store. No scratch, no second launch. Every
+//   CTA of a page needs the whole bitset, so a dictionary of more than
+//   one round of its warps' loads (kDctBitsetEntries) would put more
+//   serial rounds in front of every store: such a page (a batch, when
+//   one of its pages has one) takes a verdict a row instead, each lane
+//   loading its rows' values from the dictionary by index and comparing
+//   them. (Measured on the H100 with tools/ab_dct_scan.py: from 2,048
+//   entries up a verdict a row beat the bitset, a cluster of up to 16
+//   CTAs splitting it over distributed shared memory, and CTAs of at
+//   least V rows, by 1.2-10x; at 257 entries the bitset won.)
 // ---------------------------------------------------------------------------
 
 constexpr int kScanCodes = 256;                 // codes that go by value
 constexpr int kScanCtas = 8;                    // the most CTAs an rle page
 constexpr int kDbpCtas = 16;                    // the most CTAs a dbp page (a non-portable cluster)
+constexpr int kDctCtas = 32;                    // the most CTAs a dct page (a tile each)
 constexpr int kRunTile = 8192;                  // rle runs a tile: 64 KB of values and lengths
 constexpr int kRleCtaRows = 16 * kThreads;      // rows a CTA expands in one chunk a thread
 constexpr int kPageFields = 8;
 
 // A page of a resident scan, as the wrappers lay it out in 8 int64: rle
-// values, lengths, runs r, rows n, 0, 0, out_off, 0; dbp words, 0, words,
-// rows n, first, width, out_off, 0.
+// values, lengths, runs r, rows n, 0, 0, out_off, 0; dct dictionary, idx,
+// entries v, rows n, 0, 0, out_off, 0; dbp words, 0, words, rows n, first,
+// width, out_off, 0.
 struct ScanPage {
   const uint32_t* a;
   const uint32_t* b;
@@ -1225,8 +1196,8 @@ struct ScanParams {
   ScanPage page;          // the page of a single scan (table null)
   const ScanPage* table;  // a batch's pages in device memory
   uint8_t* out;
-  int32_t ctas, mode, n_codes, unused;
-  uint32_t lo, hi;        // rle bounds
+  int32_t ctas, mode, n_codes, by_row;  // by_row: a dct verdict a row, not a bitset
+  uint32_t lo, hi;        // rle and dct bounds
   u64 lo64, hi64;         // dbp bounds
   const uint32_t* codes_dev;  // the code set in device memory when it exceeds kScanCodes
   uint32_t codes[kScanCodes];
@@ -1242,9 +1213,9 @@ __device__ __forceinline__ const uint32_t* scan_codes(const ScanParams& p, uint3
   return sh;
 }
 
-// A run value's verdict; the first eight codes are compared from registers
-// (c8: the code set's first eight, repeated from its first where it has
-// fewer, which keeps membership), the rest from `codes`.
+// A run value's or a dictionary entry's verdict; the first eight codes are
+// compared from registers (c8: the code set's first eight, repeated from its
+// first where it has fewer, which keeps membership), the rest from `codes`.
 __device__ __forceinline__ bool scan_verdict(const ScanParams& p, const uint32_t* codes,
                                              const uint32_t (&c8)[8], uint32_t v) {
   if (p.mode == kModeBetween) return v >= p.lo && v <= p.hi;
@@ -1577,6 +1548,91 @@ __global__ void __launch_bounds__(T) resident_dbp_kernel(const __grid_constant__
   }
 }
 
+// A lane's kPer indices of rows [i0, i0 + kPer) (rows at or past n read 0):
+// two 16-byte loads where the rows are whole and aligned.
+__device__ __forceinline__ void dct_indices(const int32_t* __restrict__ idx, int64_t i0, int64_t n,
+                                            int32_t (&ix)[kPer]) {
+  if (i0 + kPer <= n && (reinterpret_cast<uintptr_t>(idx + i0) & 15u) == 0) {
+    const int4 a = __ldg(reinterpret_cast<const int4*>(idx + i0));
+    const int4 b = __ldg(reinterpret_cast<const int4*>(idx + i0) + 1);
+    ix[0] = a.x, ix[1] = a.y, ix[2] = a.z, ix[3] = a.w;
+    ix[4] = b.x, ix[5] = b.y, ix[6] = b.z, ix[7] = b.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) ix[k] = i0 + k < n ? __ldg(idx + i0 + k) : 0;
+  }
+}
+
+constexpr int kDctLoads = 4;  // dictionary words a warp loads for the bitset
+// The most entries a page's bitset holds: one round of a CTA's warps'
+// loads; a larger dictionary takes a verdict a row.
+constexpr int kDctBitsetEntries = 32 * kWarps * kDctLoads;
+
+// A dct page's scan (see "One launch a scan"); dynamic shared memory: the
+// verdict bitset, cdiv(v, 32) words (none when p.by_row).
+__global__ void __launch_bounds__(kThreads)
+    resident_dct_kernel(const __grid_constant__ ScanParams p) {
+  extern __shared__ uint4 dct_sm4[];
+  uint32_t* bits = reinterpret_cast<uint32_t*>(dct_sm4);
+  const int c = (int)(blockIdx.x % (unsigned)p.ctas);
+  const ScanPage pg = scan_page(p, blockIdx.x / (unsigned)p.ctas);
+  const int32_t v = (int32_t)pg.count;  // the host caps a dictionary at 2^31 - 1 entries
+  const int64_t n = pg.n;
+  const int tiles = (int)cdiv(n, kTile);
+  if (c >= tiles) return;
+  const int32_t* idx = reinterpret_cast<const int32_t*>(pg.b);
+  int32_t ix[kPer];
+  dct_indices(idx, lane_first((int64_t)c * kTile), n, ix);
+  // the code set where the launch left it: its parameters, or device memory
+  const uint32_t* codes = p.codes_dev ? p.codes_dev : p.codes;
+  uint32_t c8[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) c8[k] = p.n_codes > 0 ? codes[k < p.n_codes ? k : 0] : 0u;
+  if (!p.by_row) {  // v <= kDctBitsetEntries: warp k loads words k, k + kWarps, ...
+    const int lane = threadIdx.x & 31, words = (v + 31) >> 5;
+    uint32_t val[kDctLoads];
+#pragma unroll
+    for (int j = 0; j < kDctLoads; ++j) {
+      const int e = ((int)(threadIdx.x >> 5) + j * kWarps) * 32 + lane;
+      val[j] = e < v ? __ldg(pg.a + e) : 0u;
+    }
+#pragma unroll
+    for (int j = 0; j < kDctLoads; ++j) {
+      const int w = (int)(threadIdx.x >> 5) + j * kWarps;
+      const bool hit = w * 32 + lane < v && scan_verdict(p, codes, c8, val[j]);
+      const uint32_t word = __ballot_sync(0xffffffffu, hit);
+      if (lane == 0 && w < words) bits[w] = word;
+    }
+    __syncthreads();
+  }
+  uint8_t* out = p.out + pg.out_off;
+  for (int t = c; t < tiles; t += p.ctas) {
+    const int64_t i0 = lane_first((int64_t)t * kTile);
+    if (t != c) dct_indices(idx, i0, n, ix);
+    if (i0 >= n || v == 0) continue;  // v == 0: no row (a page of rows has a dictionary)
+    int32_t e[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      e[k] = ix[k] < 0 ? ix[k] + v : ix[k];
+      e[k] = e[k] < 0 ? 0 : (e[k] >= v ? v - 1 : e[k]);
+    }
+    u64 bytes = 0;
+    if (p.by_row) {
+      uint32_t val[kPer];
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) val[k] = __ldg(pg.a + e[k]);
+#pragma unroll
+      for (int k = 0; k < kPer; ++k)
+        bytes |= (u64)scan_verdict(p, codes, c8, val[k]) << (8 * k);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kPer; ++k)
+        bytes |= (u64)((bits[e[k] >> 5] >> (e[k] & 31)) & 1u) << (8 * k);
+    }
+    store_mask(out, i0, n, bytes);
+  }
+}
+
 constexpr size_t kRleSmem = 2 * (size_t)kRunTile * 4;
 
 // Launch `kernel` over n_pages pages of prm.ctas CTAs of `threads` each (a
@@ -1621,29 +1677,61 @@ int scan_ctas(int64_t max_n, int64_t rows_a_cta, int64_t n_pages, int most, bool
   return (int)(c < 1 ? 1 : (c > most ? most : c));
 }
 
-// The rle scan of one page (page on the host) or of a page table (table in
-// device memory); see tt_resident_rle_scan.
+// The parameters of an rle or dct scan of one page (page on the host) or
+// of a page table (table in device memory), its code set by value when it
+// fits; false when an argument is out of range.
+bool code_params(ScanParams* prm, const int64_t* page, const void* table, int64_t max_n,
+                 const void* codes, int32_t n_codes, const void* codes_dev, int32_t mode,
+                 uint32_t lo, uint32_t hi, void* out) {
+  if (max_n > INT32_MAX || mode < 0 || mode > kModeBetween) return false;
+  if (mode != kModeBetween && n_codes > kScanCodes && codes_dev == nullptr) return false;
+  memset(prm, 0, sizeof(ScanParams));
+  if (page) memcpy(&prm->page, page, sizeof(ScanPage));
+  prm->table = (const ScanPage*)table;
+  prm->out = (uint8_t*)out;
+  prm->mode = mode;
+  prm->n_codes = mode == kModeBetween ? 0 : n_codes;
+  prm->lo = lo;
+  prm->hi = hi;
+  prm->codes_dev = (const uint32_t*)codes_dev;
+  if (codes_dev == nullptr && prm->n_codes > 0)
+    memcpy(prm->codes, codes, 4 * (size_t)prm->n_codes);
+  return true;
+}
+
+// The rle scan of one page or of a page table; see tt_resident_rle_scan.
 int rle_scan(const int64_t* page, const void* table, int32_t n_pages, int64_t max_n,
              const void* codes, int32_t n_codes, const void* codes_dev, int32_t mode, uint32_t lo,
              uint32_t hi, void* out, int32_t* launched, void* stream) {
   *launched = 0;
   if (n_pages == 0 || max_n == 0) return 0;
-  if (max_n > INT32_MAX || mode < 0 || mode > kModeBetween) return (int)cudaErrorInvalidValue;
-  if (mode != kModeBetween && n_codes > kScanCodes && codes_dev == nullptr)
+  ScanParams prm;
+  if (!code_params(&prm, page, table, max_n, codes, n_codes, codes_dev, mode, lo, hi, out))
     return (int)cudaErrorInvalidValue;
-  ScanParams prm = {};
-  if (page) memcpy(&prm.page, page, sizeof(ScanPage));
-  prm.table = (const ScanPage*)table;
-  prm.out = (uint8_t*)out;
   prm.ctas = scan_ctas(max_n, kRleCtaRows, n_pages, kScanCtas, true);
-  prm.mode = mode;
-  prm.n_codes = mode == kModeBetween ? 0 : n_codes;
-  prm.lo = lo;
-  prm.hi = hi;
-  prm.codes_dev = (const uint32_t*)codes_dev;
-  if (codes_dev == nullptr && prm.n_codes > 0) memcpy(prm.codes, codes, 4 * (size_t)prm.n_codes);
   const cudaError_t err =
       scan_launch(resident_rle_kernel, prm, n_pages, kRleSmem, false, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  *launched = 1;
+  return 0;
+}
+
+// The dct scan of one page or of a page table (max_v: the most entries of
+// a page's dictionary); see tt_resident_dct_scan.
+int dct_scan(const int64_t* page, const void* table, int32_t n_pages, int64_t max_n,
+             int64_t max_v, const void* codes, int32_t n_codes, const void* codes_dev,
+             int32_t mode, uint32_t lo, uint32_t hi, void* out, int32_t* launched, void* stream) {
+  *launched = 0;
+  if (n_pages == 0 || max_n == 0) return 0;
+  ScanParams prm;
+  if (max_v < 1 || max_v > INT32_MAX ||
+      !code_params(&prm, page, table, max_n, codes, n_codes, codes_dev, mode, lo, hi, out))
+    return (int)cudaErrorInvalidValue;
+  prm.by_row = max_v > kDctBitsetEntries;
+  prm.ctas = (int)std::min<int64_t>(cdiv(max_n, kTile), kDctCtas);
+  const size_t smem = prm.by_row ? 0 : (size_t)cdiv(max_v, 32) * 4;
+  const cudaError_t err =
+      scan_launch(resident_dct_kernel, prm, n_pages, smem, false, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   *launched = 1;
   return 0;
@@ -1870,30 +1958,31 @@ int tt_resident_rle_scan_batch(const void* table, int32_t n_pages, int64_t max_n
                   launched, stream);
 }
 
-// The most codes a resident rle scan takes by value.
+// The most codes a resident rle or dct scan takes by value.
 int tt_resident_scan_codes(void) { return kScanCodes; }
 
-// values: (v_count,) uint32 dictionary; idx: (n,) int32; codes: (n_codes,)
-// uint32 (modes 0 and 1); verdict: (v_count,) uint8 scratch; out: (n,) uint8
-// row mask. *launched: the kernels launched (2).
-int tt_resident_dct_scan(const void* values, int64_t v_count, const void* idx, int64_t n,
-                         const void* codes, int32_t n_codes, int32_t mode, uint32_t lo,
-                         uint32_t hi, void* verdict, void* out, int32_t* launched, void* stream) {
-  *launched = 0;
-  if (n == 0) return 0;
-  if (v_count == 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  dct_verdict_kernel<<<(unsigned)cdiv(v_count, kThreads), kThreads, 0, st>>>(
-      (const uint32_t*)values, v_count, (const uint32_t*)codes, n_codes, mode, lo, hi,
-      (uint8_t*)verdict);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ++*launched;
-  err = launch_dependent(true, dct_gather_kernel, dim3((unsigned)cdiv(n, kTile)), 0, st,
-                         (const int32_t*)idx, n, (const uint8_t*)verdict, v_count, (uint8_t*)out);
-  if (err != cudaSuccess) return (int)err;
-  ++*launched;
-  return 0;
+// page: 8 int64 on the host, a dct page in ScanPage's layout (dictionary,
+// idx, v >= 1 entries, n <= INT32_MAX rows, 0, 0, 0, 0; idx int32, read as
+// jnp indexing reads it); codes, mode, lo, hi and out as
+// tt_resident_rle_scan. *launched: the kernels launched (1, or 0 when n ==
+// 0).
+int tt_resident_dct_scan(const int64_t* page, const void* codes, int32_t n_codes,
+                         const void* codes_dev, int32_t mode, uint32_t lo, uint32_t hi, void* out,
+                         int32_t* launched, void* stream) {
+  return dct_scan(page, nullptr, 1, page[3], page[2], codes, n_codes, codes_dev, mode, lo, hi,
+                  out, launched, stream);
+}
+
+// table: n_pages x 8 int64 dct pages in device memory, each with its mask's
+// offset in out (a multiple of 16; a page of rows has a dictionary); max_n,
+// max_v: the most rows and dictionary entries of a page; the rest as
+// tt_resident_dct_scan. *launched: 1, or 0 when there is no row.
+int tt_resident_dct_scan_batch(const void* table, int32_t n_pages, int64_t max_n, int64_t max_v,
+                               const void* codes, int32_t n_codes, const void* codes_dev,
+                               int32_t mode, uint32_t lo, uint32_t hi, void* out,
+                               int32_t* launched, void* stream) {
+  return dct_scan(nullptr, table, n_pages, max_n, max_v, codes, n_codes, codes_dev, mode, lo, hi,
+                  out, launched, stream);
 }
 
 // page: 8 int64 on the host, a dbp page in ScanPage's layout (words, 0,

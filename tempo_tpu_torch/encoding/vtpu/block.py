@@ -764,16 +764,16 @@ class VtpuBackendBlock:
 
     def _resident_stage1(self, live: list, col: str, preds, req) -> dict:
         """{index in live: serve} for the live row groups whose stage-1
-        predicate page (on `col`) the device tier already holds: rle pages
-        for a code set, rle and dbp pages for the duration range, their
-        masks from one batched scan a codec
+        predicate page (on `col`) the device tier already holds: rle and
+        dct pages for a code set, rle, dct and dbp pages for the duration
+        range, their masks from one batched scan a codec
         (ops/scan.resident_in_set_masks / resident_range_masks). serve()
         returns the mask and counts the tier's get and avoided bytes where
         the per-page serve would, when _search_row_group reaches the page,
         so the tier's counters and LRU order stay the loop's; it returns
-        None for a page evicted since the batch. Pages not
-        resident, and dct pages, are left to _search_row_group, which
-        admits and serves them as it does; this admits nothing."""
+        None for a page evicted since the batch. Pages not resident are
+        left to _search_row_group, which admits and serves them as it
+        does; this admits nothing."""
         from tempo_tpu_torch.encoding.vtpu.colcache import shared_device_tier
         from tempo_tpu_torch.ops import scan
 
@@ -783,7 +783,7 @@ class VtpuBackendBlock:
         if tier is None:
             return {}
         in_set = bool(preds["span_eq"])
-        codecs = ("rle",) if in_set else ("rle", "dbp")
+        codecs = ("rle", "dct") if in_set else ("rle", "dct", "dbp")
         found = []
         for i, rg in enumerate(live):
             enc = self.encoded_column(rg, col) if rg.n_spans else None

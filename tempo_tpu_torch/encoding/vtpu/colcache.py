@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from tempo_tpu_torch.config_sections import DeviceTierConfig
+from tempo_tpu_torch.ops.scan import page_row
 from tempo_tpu_torch.util import usage
 
 
@@ -218,7 +219,7 @@ class _Resident:
     """One resident entry: device tensors of an ENCODED page form plus
     the host-side metadata needed to scan it without re-reading."""
 
-    __slots__ = ("codec", "arrays", "meta", "nbytes", "host_bytes")
+    __slots__ = ("codec", "arrays", "meta", "nbytes", "host_bytes", "row")
 
     def __init__(self, codec: str, arrays: dict, meta: dict,
                  host_bytes: int):
@@ -229,6 +230,8 @@ class _Resident:
         # what one host-path serve of this page would have shipped h2d —
         # the per-hit "transfer bytes avoided" increment
         self.host_bytes = int(host_bytes)
+        # the page's row of a batched scan's page table, built once here
+        self.row = page_row(codec, arrays, self.meta)
 
 
 class DeviceTier:

@@ -51,8 +51,10 @@ _SIGNATURES = {
     "tt_resident_rle_scan_batch": [_P, _I32, _I64, _P, _I32, _P, _I32, ctypes.c_uint32,
                                    ctypes.c_uint32, _P, ctypes.POINTER(_I32), _P],
     "tt_resident_scan_codes": [],
-    "tt_resident_dct_scan": [_P, _I64, _P, _I64, _P, _I32, _I32, ctypes.c_uint32,
-                             ctypes.c_uint32, _P, _P, ctypes.POINTER(_I32), _P],
+    "tt_resident_dct_scan": [_P, _P, _I32, _P, _I32, ctypes.c_uint32, ctypes.c_uint32, _P,
+                             ctypes.POINTER(_I32), _P],
+    "tt_resident_dct_scan_batch": [_P, _I32, _I64, _I64, _P, _I32, _P, _I32, ctypes.c_uint32,
+                                   ctypes.c_uint32, _P, ctypes.POINTER(_I32), _P],
     "tt_resident_dbp_scan": [_P, _U64, _U64, _P, ctypes.POINTER(_I32), _P],
     "tt_resident_dbp_scan_batch": [_P, _I32, _I64, _U64, _U64, _P, ctypes.POINTER(_I32), _P],
 }

@@ -19,10 +19,12 @@ its plain PyTorch version:
   resident_dbp_scan  the dbp delta decode with the unsigned 64-bit range
                      compare fused in; only the mask is written.
 
-resident_rle_scan and resident_dbp_scan take one launch a page, and their
-batched forms (resident_rle_scan_batch, resident_dbp_scan_batch) one
-launch over a page table, each page's mask at its offset of one buffer;
-the batches' plain versions loop over the pages' plain versions.
+Each takes one launch a page, and its batched form
+(resident_rle_scan_batch, resident_dct_scan_batch,
+resident_dbp_scan_batch) one launch over a page table, each page's mask
+at its offset of one buffer; the batches' plain versions loop over the
+pages' plain versions. The tier keeps each resident page's row of that
+table from its admission (page_row).
 
 A wrapper takes the plain version only for tensors that lie on the CPU;
 for CUDA tensors it launches its kernels or raises, and counts the calls
@@ -127,7 +129,7 @@ def dict_codes_matching(entries: list, predicate) -> np.ndarray:
 # membership is np.isin bit for bit even against pathological values.
 
 _IN_SET, _NOT_IN_SET, _BETWEEN = 0, 1, 2
-_PAGE_FIELDS = 8  # a page of an rle or dbp scan: int64 x 8 (csrc/codec_kernels.cu ScanPage)
+_PAGE_FIELDS = 8  # a page of a resident scan: int64 x 8 (csrc/codec_kernels.cu ScanPage)
 
 
 def _mode(codes, invert: bool) -> int:
@@ -207,10 +209,6 @@ def _launch(kernel: str, wrapper, entry: str, out: torch.Tensor, *args) -> torch
     return out
 
 
-def _codes_arg(codes: torch.Tensor | None):
-    return (None, 0) if codes is None else (codes.data_ptr(), codes.numel())
-
-
 def _as_codes(codes) -> torch.Tensor | None:
     """A code set as a 1-D int32 tensor of uint32 bits: a tensor as it
     is, a numpy array or sequence as a CPU tensor."""
@@ -221,15 +219,17 @@ def _as_codes(codes) -> torch.Tensor | None:
     return torch.from_numpy(np.asarray(codes).astype(np.uint32).view(np.int32).reshape(-1))
 
 
-def _rle_codes(codes: torch.Tensor | None, device: torch.device):
+def _scan_codes(codes: torch.Tensor | None, device: torch.device):
     """(host pointer, device pointer, count, keep) of a code set for the
-    rle kernel: a CPU code set of at most tt_resident_scan_codes() codes
-    goes by value in the launch, a larger one is copied to the card once,
-    one already on the card is read there. `keep` holds the tensors until
-    the launch is enqueued."""
+    rle and dct kernels: a CPU code set of at most
+    tt_resident_scan_codes() codes goes by value in the launch, a larger
+    one is copied to the card once, one already on the card is read
+    there. `keep` holds the tensors until the launch is enqueued."""
     if codes is None:
         return None, None, 0, None
     if codes.device.type == "cuda":
+        if codes.device != device or not codes.is_contiguous():
+            raise ValueError("codes: contiguous, on the scanned page's device")
         return None, codes.data_ptr(), codes.numel(), codes
     codes = codes.contiguous()
     if codes.numel() <= _build.lib().tt_resident_scan_codes():
@@ -263,7 +263,7 @@ def resident_rle_scan(values: torch.Tensor, lengths: torch.Tensor, n: int,
     out = torch.empty(n, dtype=torch.bool, device=values.device)
     page = (ctypes.c_int64 * _PAGE_FIELDS)(values.data_ptr(), lengths.data_ptr(), r, n,
                                            0, 0, 0, 0)
-    codes_h, codes_d, k, _keep = _rle_codes(codes, values.device)
+    codes_h, codes_d, k, _keep = _scan_codes(codes, values.device)
     return _launch("resident_rle_scan", resident_rle_scan, "tt_resident_rle_scan", out, page,
                    codes_h, k, codes_d, _mode(codes, invert), lo, hi)
 
@@ -272,28 +272,29 @@ resident_rle_scan.launches = 0
 resident_rle_scan.kernel_launches = 0
 
 
-def resident_dct_scan(values: torch.Tensor, idx: torch.Tensor,
-                      codes: torch.Tensor | None = None, invert: bool = False,
-                      lo: int = 0, hi: int = 0) -> torch.Tensor:
+def resident_dct_scan(values: torch.Tensor, idx: torch.Tensor, codes=None,
+                      invert: bool = False, lo: int = 0, hi: int = 0) -> torch.Tensor:
     """(n,) bool row mask of a dct page: values (V,) uint32 dictionary as
-    int32 bits, idx (n,) int32; the verdict once per dictionary entry,
-    then gathered by idx. On the card: the entries' verdicts, the
-    gather (a programmatic dependent launch)."""
-    tensors = (values, idx) + (() if codes is None else (codes,))
-    route = _check("resident_dct_scan", *tensors)
+    int32 bits, idx (n,) int32; `codes` as resident_rle_scan's, else lo <=
+    value <= hi (uint32); the verdict once per dictionary entry, then
+    gathered by idx. On the card: one launch, the code set by value (a
+    CPU set of up to tt_resident_scan_codes() codes)."""
+    route = _check("resident_dct_scan", values, idx)
+    codes = _as_codes(codes)
     n = idx.numel()
     if n and values.numel() == 0:
         raise ValueError("resident_dct_scan: rows without a dictionary")
     if route == "cpu":
-        return _dct_scan_plain(values, idx, codes, invert, lo, hi)
+        return _dct_scan_plain(values, idx, None if codes is None else codes.cpu(), invert,
+                               lo, hi)
     out = torch.empty(n, dtype=torch.bool, device=values.device)
     if n == 0:
         return out
-    verdict = torch.empty(max(1, values.numel()), dtype=torch.uint8, device=values.device)
-    codes_p, n_codes = _codes_arg(codes)
-    return _launch("resident_dct_scan", resident_dct_scan, "tt_resident_dct_scan", out,
-                   values.data_ptr(), values.numel(), idx.data_ptr(), n, codes_p, n_codes,
-                   _mode(codes, invert), lo, hi, verdict.data_ptr())
+    page = (ctypes.c_int64 * _PAGE_FIELDS)(values.data_ptr(), idx.data_ptr(), values.numel(), n,
+                                           0, 0, 0, 0)
+    codes_h, codes_d, k, _keep = _scan_codes(codes, values.device)
+    return _launch("resident_dct_scan", resident_dct_scan, "tt_resident_dct_scan", out, page,
+                   codes_h, k, codes_d, _mode(codes, invert), lo, hi)
 
 
 resident_dct_scan.launches = 0
@@ -336,44 +337,79 @@ resident_dbp_scan.kernel_launches = 0
 # batched scans: one launch over a page table
 # ---------------------------------------------------------------------------
 
-def _offsets(ns: list[int]) -> tuple[list[int], int]:
+def _offsets(ns) -> tuple[np.ndarray, int]:
     """Each page's mask offset in the batch's buffer (16-byte aligned, so
     the kernel's row stores stay whole) and the buffer's size."""
-    offs, total = [], 0
-    for n in ns:
-        offs.append(total)
-        total += -(-n // 16) * 16
-    return offs, total
+    sizes = -(-np.asarray(ns, np.int64) // 16) * 16
+    return np.cumsum(sizes) - sizes, int(sizes.sum())
 
 
-def _batch_launch(kernel: str, wrapper, entry: str, rows: list, ns: list[int],
-                  device: torch.device, *args) -> tuple[torch.Tensor, list[int]]:
-    """Copy the page table to the card (pinned, on the current stream) and
-    launch `entry` over it into one buffer; returns (buffer, offsets)."""
-    offs, total = _offsets(ns)
-    for row, off in zip(rows, offs):
-        row[6] = off
-    table_h = torch.tensor(rows, dtype=torch.int64).pin_memory()
+def page_row(codec: str, arrays: dict, meta: dict) -> np.ndarray | None:
+    """A resident page's row of the batched scans' page table (ScanPage:
+    8 int64, the mask's offset 0), or None for a codec without a resident
+    scan: rle values, lengths, runs, n; dct dictionary, idx, entries, n;
+    dbp words, 0, words, n, first (uint64 bits), width."""
+    n = int(meta.get("n", 0))
+    if codec == "rle":
+        a, b = arrays["values"], arrays["lengths"]
+        row = [a.data_ptr(), b.data_ptr(), a.numel(), n, 0, 0]
+    elif codec == "dct":
+        a, b = arrays["values"], arrays["idx"]
+        row = [a.data_ptr(), b.data_ptr(), a.numel(), n, 0, 0]
+    elif codec == "dbp":
+        w = arrays["words"]
+        row = [w.data_ptr(), 0, w.numel(), n, _u64_bits(int(meta["first"])), int(meta["width"])]
+    else:
+        return None
+    return np.array(row + [0, 0], np.int64)
+
+
+def _batch_launch(kernel: str, wrapper, entry: str, rows: np.ndarray, device: torch.device,
+                  *args) -> tuple[torch.Tensor, list[int]]:
+    """Launch `entry` over the page table `rows` ((pages, 8) int64, rows n
+    in field 3) into one buffer; returns (buffer, offsets). The table goes
+    to the card in one pinned copy on the current stream, each page's
+    offset written into field 6 on the way: a pinned block of its own a
+    call, which the host allocator hands out again only once the copy is
+    done, so concurrent callers never share one."""
+    offs, total = _offsets(rows[:, 3])
+    table_h = torch.empty(rows.shape, dtype=torch.int64, pin_memory=True)
+    t = table_h.numpy()
+    t[:] = rows
+    t[:, 6] = offs
     table = table_h.to(device, non_blocking=True)
     out = torch.empty(total, dtype=torch.bool, device=device)
-    _launch(kernel, wrapper, entry, out, table.data_ptr(), len(rows), max(ns), *args)
-    return out, offs
+    _launch(kernel, wrapper, entry, out, table.data_ptr(), len(rows), int(rows[:, 3].max()),
+            *args)
+    return out, offs.tolist()
+
+
+def _batch_plain(pages, ns, scan_page) -> tuple[torch.Tensor, list[int]]:
+    """The plain version of a batch of pages of ns rows: each page's
+    scan_page(page) at its offset of one buffer (zeros where it is None)."""
+    offs, total = _offsets(ns)
+    out = torch.zeros(total, dtype=torch.bool, device=pages[0][0].device)
+    for page, n, off in zip(pages, ns, offs):
+        mask = scan_page(page) if n else None
+        if mask is not None:
+            out[off:off + n] = mask
+    return out, offs.tolist()
 
 
 def _rle_scan_batch_plain(pages, codes, invert, lo, hi) -> tuple[torch.Tensor, list[int]]:
-    offs, total = _offsets([n for _, _, n in pages])
-    out = torch.zeros(total, dtype=torch.bool, device=pages[0][0].device)
-    for (values, lengths, n), off in zip(pages, offs):
-        if values.numel() and n:
-            out[off:off + n] = _rle_scan_plain(values, lengths, n, codes, invert, lo, hi)
-    return out, offs
+    return _batch_plain(  # a page of no run: no row in the set
+        pages, [n for _, _, n in pages],
+        lambda p: _rle_scan_plain(p[0], p[1], p[2], codes, invert, lo, hi)
+        if p[0].numel() else None)
 
 
 def resident_rle_scan_batch(pages: list, codes=None, invert: bool = False, lo: int = 0,
-                            hi: int = 0) -> tuple[torch.Tensor, list[int]]:
+                            hi: int = 0, rows: np.ndarray | None = None
+                            ) -> tuple[torch.Tensor, list[int]]:
     """resident_rle_scan over many pages [(values, lengths, n)] on one
     device in one launch: (buffer, offsets), page i's mask at
-    buffer[offsets[i]:offsets[i] + n_i], equal to its resident_rle_scan."""
+    buffer[offsets[i]:offsets[i] + n_i], equal to its resident_rle_scan.
+    rows: the pages' page_row rows stacked, where the caller keeps them."""
     if not pages:
         raise ValueError("resident_rle_scan_batch: no page")
     route = _check("resident_rle_scan_batch", *(t for v, ln, _ in pages for t in (v, ln)))
@@ -382,10 +418,12 @@ def resident_rle_scan_batch(pages: list, codes=None, invert: bool = False, lo: i
         return _rle_scan_batch_plain(pages, None if codes is None else codes.cpu(), invert,
                                      lo, hi)
     device = pages[0][0].device
-    rows = [[v.data_ptr(), ln.data_ptr(), v.numel(), n, 0, 0, 0, 0] for v, ln, n in pages]
-    codes_h, codes_d, k, _keep = _rle_codes(codes, device)
+    if rows is None:
+        rows = np.stack([page_row("rle", {"values": v, "lengths": ln}, {"n": n})
+                         for v, ln, n in pages])
+    codes_h, codes_d, k, _keep = _scan_codes(codes, device)
     return _batch_launch("resident_rle_scan_batch", resident_rle_scan_batch,
-                         "tt_resident_rle_scan_batch", rows, [n for _, _, n in pages], device,
+                         "tt_resident_rle_scan_batch", rows, device,
                          codes_h, k, codes_d, _mode(codes, invert), lo, hi)
 
 
@@ -393,16 +431,50 @@ resident_rle_scan_batch.launches = 0
 resident_rle_scan_batch.kernel_launches = 0
 
 
+def _dct_scan_batch_plain(pages, codes, invert, lo, hi) -> tuple[torch.Tensor, list[int]]:
+    return _batch_plain(pages, [idx.numel() for _, idx in pages],
+                        lambda p: _dct_scan_plain(p[0], p[1], codes, invert, lo, hi))
+
+
+def resident_dct_scan_batch(pages: list, codes=None, invert: bool = False, lo: int = 0,
+                            hi: int = 0, rows: np.ndarray | None = None
+                            ) -> tuple[torch.Tensor, list[int]]:
+    """resident_dct_scan over many pages [(values, idx)] on one device in
+    one launch: (buffer, offsets) as resident_rle_scan_batch, each page's
+    mask equal to its resident_dct_scan."""
+    if not pages:
+        raise ValueError("resident_dct_scan_batch: no page")
+    route = _check("resident_dct_scan_batch", *(t for p in pages for t in p))
+    if any(idx.numel() and not values.numel() for values, idx in pages):
+        raise ValueError("resident_dct_scan_batch: rows without a dictionary")
+    codes = _as_codes(codes)
+    if route == "cpu":
+        return _dct_scan_batch_plain(pages, None if codes is None else codes.cpu(), invert,
+                                     lo, hi)
+    device = pages[0][0].device
+    if rows is None:
+        rows = np.stack([page_row("dct", {"values": v, "idx": i}, {"n": i.numel()})
+                         for v, i in pages])
+    codes_h, codes_d, k, _keep = _scan_codes(codes, device)
+    return _batch_launch("resident_dct_scan_batch", resident_dct_scan_batch,
+                         "tt_resident_dct_scan_batch", rows, device, int(rows[:, 2].max()),
+                         codes_h, k, codes_d, _mode(codes, invert), lo, hi)
+
+
+resident_dct_scan_batch.launches = 0
+resident_dct_scan_batch.kernel_launches = 0
+
+
 def _dbp_scan_batch_plain(pages, lo, hi) -> tuple[torch.Tensor, list[int]]:
-    offs, total = _offsets([n for _, _, _, n in pages])
-    out = torch.zeros(total, dtype=torch.bool, device=pages[0][0].device)
-    for (words, first, width, n), off in zip(pages, offs):
-        f, w = _dbp_first_width(first, width, words.device)
-        out[off:off + n] = _dbp_scan_plain(words, f, w, n, lo, hi)
-    return out, offs
+    def one(p):
+        f, w = _dbp_first_width(p[1], p[2], p[0].device)
+        return _dbp_scan_plain(p[0], f, w, p[3], lo, hi)
+
+    return _batch_plain(pages, [p[3] for p in pages], one)
 
 
-def resident_dbp_scan_batch(pages: list, lo: int, hi: int) -> tuple[torch.Tensor, list[int]]:
+def resident_dbp_scan_batch(pages: list, lo: int, hi: int, rows: np.ndarray | None = None
+                            ) -> tuple[torch.Tensor, list[int]]:
     """resident_dbp_scan over many pages [(words, first, width, n)] on one
     device in one launch: (buffer, offsets) as resident_rle_scan_batch."""
     if not pages:
@@ -412,11 +484,12 @@ def resident_dbp_scan_batch(pages: list, lo: int, hi: int) -> tuple[torch.Tensor
     route = _check("resident_dbp_scan_batch", *(p[0] for p in pages))
     if route == "cpu":
         return _dbp_scan_batch_plain(pages, lo, hi)
-    rows = [[w.data_ptr(), 0, w.numel(), n, _u64_bits(first), width, 0, 0]
-            for w, first, width, n in pages]
+    if rows is None:
+        rows = np.stack([page_row("dbp", {"words": w}, {"n": n, "first": first, "width": width})
+                         for w, first, width, n in pages])
     return _batch_launch("resident_dbp_scan_batch", resident_dbp_scan_batch,
-                         "tt_resident_dbp_scan_batch", rows, [p[3] for p in pages],
-                         pages[0][0].device, lo & (2**64 - 1), hi & (2**64 - 1))
+                         "tt_resident_dbp_scan_batch", rows, pages[0][0].device,
+                         lo & (2**64 - 1), hi & (2**64 - 1))
 
 
 resident_dbp_scan_batch.launches = 0
@@ -426,11 +499,6 @@ resident_dbp_scan_batch.kernel_launches = 0
 # ---------------------------------------------------------------------------
 # serving: masks of resident entries (colcache._Resident) as numpy arrays
 # ---------------------------------------------------------------------------
-
-
-def _codes_tensor(codes: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A uint32 code set as the int32 tensor the dct scan takes."""
-    return torch.from_numpy(codes.view(np.int32).copy()).to(device)
 
 
 def _home(out: torch.Tensor) -> torch.Tensor:
@@ -474,18 +542,15 @@ def resident_in_set_mask(res, codes: np.ndarray,
     if n == 0:
         return np.zeros(0, bool)
     a = res.arrays
-    dev = a["values"].device
-    padded = pad_codes_u32(codes)
+    padded = torch.from_numpy(pad_codes_u32(codes).view(np.int32))  # by value in the launch
     if res.codec == "rle":
         def fn():
-            return resident_rle_scan(a["values"], a["lengths"], n,
-                                     codes=torch.from_numpy(padded.view(np.int32)),
+            return resident_rle_scan(a["values"], a["lengths"], n, codes=padded,
                                      invert=bool(invert))
     else:
         def fn():
-            return resident_dct_scan(a["values"], a["idx"],
-                                     codes=_codes_tensor(padded, dev), invert=bool(invert))
-    return _serve(f"resident_{res.codec}_scan", res, fn, h2d=padded.nbytes)
+            return resident_dct_scan(a["values"], a["idx"], codes=padded, invert=bool(invert))
+    return _serve(f"resident_{res.codec}_scan", res, fn, h2d=padded.numel() * 4)
 
 
 def resident_range_mask(res, lo, hi) -> np.ndarray | None:
@@ -513,15 +578,17 @@ def resident_range_mask(res, lo, hi) -> np.ndarray | None:
 
 
 def _serve_batch(kernel: str, entries: list, fn, h2d: int) -> list[np.ndarray]:
-    """One batched scan over resident entries: one dispatch, the buffer
-    home in one copy; returns each entry's mask (a view of it). The page
-    table ships with the code set or bounds."""
+    """One batched scan over resident entries: fn(rows) with the entries'
+    page table rows stacked, one dispatch, the buffer home in one copy;
+    returns each entry's mask (a view of it). The page table ships with the
+    code set or bounds."""
     from tempo_tpu_torch.util.devicetiming import count_transfer
 
     dev = next(iter(entries[0].arrays.values())).device
+    rows = np.stack([r.row for r in entries]) if dev.type == "cuda" else None
 
     def run():
-        out, offs = fn()
+        out, offs = fn(rows)
         return _home(out), offs
 
     buf, offs = _dispatch(kernel, dev, run)
@@ -532,46 +599,73 @@ def _serve_batch(kernel: str, entries: list, fn, h2d: int) -> list[np.ndarray]:
     return [flat[o:o + int(r.meta["n"])] for r, o in zip(entries, offs)]
 
 
+def _by_codec(entries: list, codecs: tuple, what: str) -> dict:
+    """{codec: [index in entries]} in the entries' order; raises on a codec
+    outside `codecs`."""
+    groups: dict = {}
+    for i, r in enumerate(entries):
+        if r.codec not in codecs:
+            names = ", ".join(codecs[:-1]) + " and " + codecs[-1]
+            raise ValueError(f"{what}: {names} entries only, not {r.codec}")
+        groups.setdefault(r.codec, []).append(i)
+    return groups
+
+
+def _pages(codec: str, group: list) -> list:
+    """The batched scan's pages of resident entries of one codec."""
+    if codec == "rle":
+        return [(r.arrays["values"], r.arrays["lengths"], int(r.meta["n"])) for r in group]
+    if codec == "dct":
+        return [(r.arrays["values"], r.arrays["idx"]) for r in group]
+    return [(r.arrays["words"], int(r.meta["first"]), int(r.meta["width"]), int(r.meta["n"]))
+            for r in group]
+
+
 def resident_in_set_masks(entries: list, codes: np.ndarray,
                           invert: bool = False) -> list[np.ndarray]:
-    """resident_in_set_mask of many resident rle entries on one device in
-    one launch (resident_rle_scan_batch): one mask per entry, each equal
-    to the entry's own. A dct entry takes resident_in_set_mask."""
-    if any(r.codec != "rle" for r in entries):
-        raise ValueError("resident_in_set_masks: rle entries only")
-    if not entries:
-        return []
-    padded = pad_codes_u32(codes)
-    pages = [(r.arrays["values"], r.arrays["lengths"], int(r.meta["n"])) for r in entries]
-    return _serve_batch("resident_rle_scan", entries, lambda: resident_rle_scan_batch(
-        pages, codes=torch.from_numpy(padded.view(np.int32)), invert=bool(invert)),
-        h2d=padded.nbytes)
+    """resident_in_set_mask of many resident rle and dct entries on one
+    device: one launch a codec (resident_rle_scan_batch,
+    resident_dct_scan_batch), one mask per entry in their order, each equal
+    to the entry's own."""
+    groups = _by_codec(entries, ("rle", "dct"), "resident_in_set_masks")
+    out: list = [None] * len(entries)
+    padded = torch.from_numpy(pad_codes_u32(codes).view(np.int32))
+    batch = {"rle": resident_rle_scan_batch, "dct": resident_dct_scan_batch}
+    for codec, idx in groups.items():
+        group = [entries[i] for i in idx]
+        pages = _pages(codec, group)
+        masks = _serve_batch(f"resident_{codec}_scan", group,
+                             lambda rows, batch_fn=batch[codec], pages=pages: batch_fn(
+                                 pages, codes=padded, invert=bool(invert), rows=rows),
+                             h2d=padded.numel() * 4)
+        for i, m in zip(idx, masks):
+            out[i] = m
+    return out
 
 
 def resident_range_masks(entries: list, lo, hi) -> list[np.ndarray]:
-    """resident_range_mask of many resident rle and dbp entries on one
+    """resident_range_mask of many resident rle, dct and dbp entries on one
     device: one launch a codec (resident_rle_scan_batch,
-    resident_dbp_scan_batch), one mask per entry in their order, each
-    equal to the entry's own. A dct entry takes resident_range_mask."""
-    if any(r.codec not in ("rle", "dbp") for r in entries):
-        raise ValueError("resident_range_masks: rle and dbp entries only")
+    resident_dct_scan_batch, resident_dbp_scan_batch), one mask per entry in
+    their order, each equal to the entry's own."""
+    groups = _by_codec(entries, ("rle", "dct", "dbp"), "resident_range_masks")
     out: list = [None] * len(entries)
-    rle = [i for i, r in enumerate(entries) if r.codec == "rle"]
-    dbp = [i for i, r in enumerate(entries) if r.codec == "dbp"]
-    if rle:
-        lo32, hi32 = int(np.uint32(lo)), int(np.uint32(hi))
-        group = [entries[i] for i in rle]
-        pages = [(r.arrays["values"], r.arrays["lengths"], int(r.meta["n"])) for r in group]
-        masks = _serve_batch("resident_rle_scan", group, lambda: resident_rle_scan_batch(
-            pages, lo=lo32, hi=hi32), h2d=0)
-        for i, m in zip(rle, masks):
-            out[i] = m
-    if dbp:
-        group = [entries[i] for i in dbp]
-        pages = [(r.arrays["words"], int(r.meta["first"]), int(r.meta["width"]),
-                  int(r.meta["n"])) for r in group]
-        masks = _serve_batch("resident_dbp_scan", group, lambda: resident_dbp_scan_batch(
-            pages, int(lo) & (2**64 - 1), int(hi) & (2**64 - 1)), h2d=16)
-        for i, m in zip(dbp, masks):
+    lo32, hi32 = int(np.uint32(lo)), int(np.uint32(hi))
+    lo64, hi64 = int(lo) & (2**64 - 1), int(hi) & (2**64 - 1)
+    for codec, idx in groups.items():
+        group = [entries[i] for i in idx]
+        pages = _pages(codec, group)
+
+        def fn(rows, codec=codec, pages=pages):
+            if codec == "rle":
+                return resident_rle_scan_batch(pages, lo=lo32, hi=hi32, rows=rows)
+            if codec == "dct":
+                return resident_dct_scan_batch(pages, lo=lo32, hi=hi32, rows=rows)
+            return resident_dbp_scan_batch(pages, lo64, hi64, rows=rows)
+
+        # dbp's four bound limbs ship as the reference's (4,) uint32 array
+        # does, here by value in the launch
+        masks = _serve_batch(f"resident_{codec}_scan", group, fn, h2d=16 if codec == "dbp" else 0)
+        for i, m in zip(idx, masks):
             out[i] = m
     return out

@@ -220,16 +220,22 @@ def test_serving_batches_equal_per_page_and_jax(seed):
 def test_batch_wrappers_refuse_and_count_no_cpu_launch():
     rng = np.random.default_rng(800)
     tents, _ = _entries(rng)
-    before = (scan.resident_rle_scan_batch.launches, scan.resident_dbp_scan_batch.launches)
-    scan.resident_range_masks(tents, 0, 9)
-    assert (scan.resident_rle_scan_batch.launches,
-            scan.resident_dbp_scan_batch.launches) == before
-    with pytest.raises(ValueError, match="rle entries only"):
-        scan.resident_in_set_masks([e for e in tents if e.codec == "dbp"], np.array([1]))
     dct = colcache._Resident("dct", {"values": _t32([1]), "idx": torch.zeros(3, dtype=torch.int32)},
                              {"n": 3}, 0)
-    with pytest.raises(ValueError, match="rle and dbp entries only"):
-        scan.resident_range_masks([dct], 0, 1)
+    batches = (scan.resident_rle_scan_batch, scan.resident_dct_scan_batch,
+               scan.resident_dbp_scan_batch)
+    before = [b.launches for b in batches]
+    masks = scan.resident_range_masks(tents + [dct], 0, 9)
+    assert np.array_equal(masks[-1], scan.resident_range_mask(dct, 0, 9))
+    (served,) = scan.resident_in_set_masks([dct], np.array([1]))
+    assert np.array_equal(served, scan.resident_in_set_mask(dct, np.array([1])))
+    assert [b.launches for b in batches] == before
+    # a codec with no resident scan of its kind is refused
+    with pytest.raises(ValueError, match="rle and dct entries only"):
+        scan.resident_in_set_masks([e for e in tents if e.codec == "dbp"], np.array([1]))
+    tail = colcache._Resident("tail", {"values": _t32([1])}, {"n": 1}, 0)
+    with pytest.raises(ValueError, match="rle, dct and dbp entries only"):
+        scan.resident_range_masks([tail], 0, 1)
     with pytest.raises(ValueError, match="no page"):
         scan.resident_rle_scan_batch([])
     with pytest.raises(ValueError, match="width"):
@@ -244,7 +250,7 @@ def test_batch_wrappers_refuse_and_count_no_cpu_launch():
 
 SEARCHES = {
     "service": dict(tags={"service": "alpha"}, limit=0),
-    "service gamma": dict(tags={"service": "gamma"}, limit=0),  # dct pages: no batch
+    "service gamma": dict(tags={"service": "gamma"}, limit=0),
     "multi-tag": dict(tags={"service": "beta", "name": "op-c", "http.method": "GET"}, limit=0),
     "min duration": dict(min_duration_ns=10**8, limit=0),
     "max duration": dict(max_duration_ns=10**4, limit=0),
@@ -327,7 +333,7 @@ def test_unbounded_search_batched_stage1_equals_loop_and_jax(tiered, monkeypatch
         monkeypatch.setattr(scan, fn, spy)
     batched, batched_delta, batched_avoided = _pass(jblk, tblk, kw)
     assert batched_delta["admissions"] == 0 and batched_delta["hits"] > 0
-    assert bool(calls) == (name != "service gamma") and all(calls)
+    assert calls and all(calls)
     monkeypatch.setattr(VtpuBackendBlock, "_resident_stage1", lambda self, *a, **k: {})
     n_calls = len(calls)
     loop, loop_delta, loop_avoided = _pass(jblk, tblk, kw)
