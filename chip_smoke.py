@@ -7,12 +7,15 @@ Phases, one line each (any failure exits non-zero):
 
 0. device: card name, count, torch/CUDA versions, nvidia-smi name and
    power limit;
-1. build: nvcc builds csrc/kernels.cu (the three Pallas kernels' ports)
-   and csrc/codec_kernels.cu (the batched rle_change_mask and dbp_pack of
+1. build: nvcc builds csrc/kernels.cu (the three Pallas kernels' ports),
+   csrc/codec_kernels.cu (the batched rle_change_mask and dbp_pack of
    the device page encode, dbp_decode of the device page decode,
    compiled_metrics of the compiled query tier and the device tier's
    resident_rle_scan, resident_dct_scan and resident_dbp_scan, each also
-   batched over page tables), one nvcc a source, in
+   batched over page tables) and csrc/graph_sketch_kernels.cu
+   (hll_update and cm_update, the sketch updates of compaction, the block
+   writer and the generator's service graphs, and root_path_sums, the
+   critical path's pointer doubling), one nvcc a source, in
    parallel, and ptxas reports each kernel's registers,
    static shared memory and spills;
 2. kernels: each CUDA kernel against its plain PyTorch version on the
@@ -37,9 +40,14 @@ Phases, one line each (any failure exits non-zero):
    launches in one graph, on those inputs and on a copy with four query
    lanes, against the bound of the fused program's work; the resident
    scans after phase 10, at the largest resident page of each codec,
-   and the batched ones at one search's stage-1 pages of each codec);
+   and the batched ones at one search's stage-1 pages of each codec; the
+   sketch kernels at the compaction step's 2**22 keys and at a generator
+   push of 4,096 edge keys, root_path_sums at 2**21 spans in chains of 8
+   and of 2,048, with the graph_critical_path dispatch around it);
 3. compaction: the flagship step (entry.entry) at 2**22 rows, bit-equal
-   between the card and the CPU;
+   between the card and the CPU, timed in turns with the same step whose
+   HLL and count-min updates are their torch-op versions (chip_smoke's
+   own copy of the step), which must be bit-equal too;
 4. metrics: three TraceQL query_range queries over 2**22 synthetic spans
    through the port's plan -> eval_batch -> accumulator -> wire ->
    matrix pipeline, equal between the card and the CPU, with each
@@ -146,13 +154,31 @@ Phases, one line each (any failure exits non-zero):
    fewer; dct's by the stage-1 pages its batches took, its stage-2 calls
    printed apart). The resident scans are then timed at the
    largest resident page of each codec and the batched ones at the
-   resident pass's largest stage-1 batch of each codec.
+   resident pass's largest stage-1 batch of each codec;
+11. generator and graph: a fresh App(device="cuda") with the defaults
+   (the metrics-generator on) and the same App on the CPU; 2**17 spans
+   of make_graph_batch traces (8 services, 8 spans a trace, 10% errors)
+   pushed over HTTP as 32 OTLP protobuf requests to each, and to a card
+   App with the generator off (push spans/s with and without it); the
+   card's span-metrics and service-graph series against a numpy oracle
+   and the CPU App's, its HLL and count-min registers and distinct-edge
+   estimate against the CPU App's; /flush, one block of 2**20
+   make_graph_batch spans written on the card and copied to the CPU
+   App; /api/graph/dependencies, /api/graph/critical-path (by=service,
+   by=name) and /api/graph/walks (seed 7) on both, equal field for field
+   (wall-clock and byte stats aside), with each route's ms and the
+   root_path_sums calls and kernel launches. Past 900 s before it the
+   generator-off App is shed.
 
 Phases 3-4 are the main path, phase 5 the scan path, phase 6 the block
 path, phase 7 the storage engine's path, phase 8 the server's path and
 phase 9 the standing engine's (seg_bincount at the cuts' folds and in
 query_range, the page-encode kernels at its flush, compiled_metrics) and
-phase 10 the device tier's (the three resident scans, compiled_metrics):
+phase 10 the device tier's (the three resident scans, compiled_metrics)
+and phase 11 the generator's and the graph plane's (hll_update,
+cm_update, root_path_sums, and the page-encode kernels of its flushes;
+the sketch kernels also run on phases 3 and 6-9: compaction, every card
+block write and every push through the generator):
 each is run with the kernels' launch counts set to 0 just before it,
 and every kernel of the path must have launched (phases 6-8 each
 rle_change_mask, dbp_pack and seg_bincount, each page-encode kernel at
@@ -162,9 +188,10 @@ on the card; phase 8 also compiled_metrics, and never dbp_decode, which
 the compiled tier fuses into its count). The script then prints
 one JSON line of per-kernel and per-phase numbers (phase 6's under
 "blocks", phase 7's under "db", phase 8's under "app", phase 9's under
-"standing", phase 10's under "tier"; "shed" names the depth a slow host
-cut: phase 7's warm unbounded repeats past 250 s before it, phase 8's
-interpreter runs past 420 s before it), the nvidia-smi
+"standing", phase 10's under "tier", phase 11's under "graph"; "shed"
+names the depth a slow host cut: phase 7's warm unbounded repeats past
+250 s before it, phase 8's interpreter runs past 420 s before it, phase
+11's generator-off push past 900 s before it), the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Without a CUDA
 device it exits 1 and prints no result. It imports nothing of JAX or of
 tempo_tpu.
@@ -356,6 +383,7 @@ def chain_parents(batch):
 CODEC_KERNELS = ("rle_change_mask", "dbp_pack", "dbp_decode", "compiled_metrics")
 RESIDENT_KERNELS = ("resident_rle_scan", "resident_dct_scan", "resident_dbp_scan",
                     "resident_rle_scan_batch", "resident_dct_scan_batch", "resident_dbp_scan_batch")
+GRAPH_SKETCH_KERNELS = ("hll_update", "cm_update", "root_path_sums")
 # the resident scans' calls in phase 10's resident pass when every page
 # took its own call (rle and dbp: PR 10's 2-3 kernels a call; dct: the
 # per-page loop's with name=db.query, 8 of them stage 2's): what the
@@ -367,14 +395,17 @@ def launch_counters():
     """name -> the wrapper whose `launches` counts that kernel's launches."""
     from tempo_tpu_torch.compiled import program
     from tempo_tpu_torch.ops import encode as tenc
+    from tempo_tpu_torch.ops import graph as ops_graph
     from tempo_tpu_torch.ops import pallas_kernels as pk
-    from tempo_tpu_torch.ops import scan
+    from tempo_tpu_torch.ops import scan, sketch
 
     return {"seg_bincount": pk.seg_bincount, "in_set_scan": pk.in_set_scan,
             "u64_range_scan": pk.u64_range_scan, "rle_change_mask": tenc.rle_change_mask,
             "dbp_pack": tenc.dbp_pack, "dbp_decode": pk.dbp_decode_limbs,
             "compiled_metrics": program.compiled_metrics,
-            **{k: getattr(scan, k) for k in RESIDENT_KERNELS}}
+            **{k: getattr(scan, k) for k in RESIDENT_KERNELS},
+            "hll_update": sketch.hll_update, "cm_update": sketch.cm_update,
+            "root_path_sums": ops_graph.root_path_sums}
 
 
 def reset_launches() -> None:
@@ -1083,6 +1114,231 @@ def _dbp_words(np, rng, width: int, n: int, n_words: int = 0):
     if n_words > len(words):
         words = np.concatenate([words, np.zeros(n_words - len(words), np.uint32)])
     return words, int(rng.integers(0, 2**63))
+
+
+# integer operations a key for the sketch kernels' bounds: fnv1a over 16
+# bytes (shift, mask, xor, multiply a byte), 9 a fmix32, the index mask and
+# the update; count-min takes a fmix32, a mask and an add for each row
+HASH_OPS = 16 * 4
+HLL_OPS = HASH_OPS + 2 * 9 + 4
+CM_OPS_A_ROW = 12
+
+
+def torch_op_step(tids, sids, valid, plans) -> dict:
+    """parallel/compaction.local_compaction_step with the HLL and
+    count-min updates as their plain torch versions (the step before the
+    sketch kernels), for the A/B of phase 3 in one call."""
+    import torch
+
+    from tempo_tpu_torch.ops import bloom, merge, sketch
+
+    plan = merge.merge_spans(tids, sids, valid)
+    perm, keep = plan["perm"].to(torch.int64), plan["keep"]
+    st = tids[perm]
+    trace_first = merge.first_occurrence_mask(
+        st.to(torch.int64), valid[perm] if valid is not None else None) & keep
+    words = bloom.build(st, plans.bloom, valid=trace_first)
+    regs = sketch._hll_update_plain(sketch.hll_init(plans.hll, st.device), st, plans.hll,
+                                    valid=trace_first)
+    counts = sketch._cm_update_plain(sketch.cm_init(plans.cm, st.device), st, plans.cm,
+                                     valid=keep)
+    return {"perm": plan["perm"], "keep": keep, "n_rows": plan["n_rows"],
+            "n_traces": plan["n_traces"], "bloom": words, "hll": regs, "cm": counts}
+
+
+def graph_sketch_kernels_check(torch, dev, rng, lib, stream) -> tuple[int, dict]:
+    """Phase 2: hll_update, cm_update and root_path_sums on the card
+    against their plain versions on the card, bit for bit, and timed.
+    The sketches at the compaction step's shape (2**22 trace-ID rows of
+    the entry's inputs in merge order, int64 limbs, `valid` the step's
+    masks: each trace's first surviving row for HLL, every surviving row
+    for count-min), with u32 weights, at p = 4 and p = 18 (global atomics),
+    a count-min of 8 x 8,192 (global atomics), at the block writer's
+    shape (2**17 int32 IDs) and at two generator pushes (64 and 4,096
+    edge keys of the demo's services); the root sums over 2**21 spans as
+    chains of depth 8 and 2,048, a forest with roots scattered through it
+    and one with parent cycles. Returns (cases held, timing records)."""
+    import numpy as np
+
+    from tempo_tpu_torch.entry import entry
+    from tempo_tpu_torch.graph import edge_hash_limbs
+    from tempo_tpu_torch.model.synth import SERVICES
+    from tempo_tpu_torch.ops import _build, merge, sketch
+    from tempo_tpu_torch.ops import graph as ops_graph
+    from tempo_tpu_torch.ops.hashing import MASK32
+    from tempo_tpu_torch.ops.pallas_kernels import u32_bits
+
+    n_cases = 0
+    recs = {}
+
+    _, (tids, sids, valid) = entry(device=dev, n_rows=1 << 22)
+    plan = merge.merge_spans(tids, sids, valid)
+    perm, keep = plan["perm"].to(torch.int64), plan["keep"]
+    st = tids[perm].contiguous()
+    first = (merge.first_occurrence_mask(st, valid[perm]) & keep).contiguous()
+    del tids, sids, plan, perm
+    pairs = rng.integers(0, len(SERVICES), (4096, 2))
+    edges = torch.from_numpy(np.stack([edge_hash_limbs(SERVICES[a], SERVICES[b])
+                                       for a, b in pairs]).view(np.int32)).to(dev)
+    writer_ids = torch.from_numpy(
+        rng.integers(0, 2**32, (1 << 17, 4), dtype=np.uint32).view(np.int32)).to(dev)
+
+    def hll_case(label, keys, p, v):
+        want = sketch._hll_update_plain(sketch.hll_init(p, dev), keys, p, v)
+        got = sketch.hll_update(sketch.hll_init(p, dev), keys, p, v)
+        check(torch.equal(got, want), f"hll_update {label}: kernel != plain")
+
+    def cm_case(label, keys, p, w, v):
+        start = torch.from_numpy(rng.integers(0, 2**32, (p.depth, p.width))).to(dev)
+        want = sketch._cm_update_plain(start, keys, p, w, v)
+        got = sketch.cm_update(start, keys, p, w, v)
+        check(torch.equal(got, want), f"cm_update {label}: kernel != plain")
+
+    hp, cp = sketch.HLLPlan(12), sketch.CMPlan(4, 1 << 12)
+    w32 = torch.from_numpy(rng.integers(0, 2**32, st.shape[0])).to(dev)
+    for label, keys, v in (("compaction 2^22 int64", st, first), ("compaction all rows", st, None),
+                           ("writer 2^17 int32", writer_ids, None), ("push 64", edges[:64], None),
+                           ("push 4096", edges, None), ("one key", edges[:1], None)):
+        # every row of the 2^22 at the shared-memory and the global size
+        for prec in (12, 18) if v is None and keys is st else (4, 12, 14, 15, 18):
+            hll_case(f"{label} p={prec}", keys, sketch.HLLPlan(prec), v)
+            n_cases += 1
+    for label, keys, v in (("compaction 2^22 int64", st, keep), ("push 64", edges[:64], None),
+                           ("push 4096", edges, None), ("writer 2^17 int32", writer_ids, None)):
+        for p in (cp, sketch.CMPlan(1, 1 << 4), sketch.CMPlan(8, 1 << 13)):
+            cm_case(f"{label} {p.depth}x{p.width}", keys, p, None, v)
+            n_cases += 1
+        cm_case(f"{label} weighted", keys, cp, w32[: keys.shape[0]], v)
+        n_cases += 1
+
+    def sketch_record(kind, label, keys, p, v, w=None):
+        """kernel / path / plain / library times and the bound at one shape."""
+        n = keys.shape[0]
+        limb_bytes = keys.element_size()
+        n_valid = n if v is None else int(v.sum())
+        vb = None if v is None else v.to(torch.bool).contiguous()
+        wb = None if w is None else u32_bits(w).contiguous()
+        if kind == "hll":
+            out = sketch.hll_init(p, dev)
+
+            def launch():
+                _build.check(lib.tt_hll_update(keys.data_ptr(), 4, limb_bytes,
+                                               None if vb is None else vb.data_ptr(), n, p.m,
+                                               out.data_ptr(), stream()), "hll_update")
+            path = path_ms(torch, lambda: sketch.hll_update(out, keys, p, v))
+            plain = path_ms(torch, lambda: sketch._hll_update_plain(out, keys, p, v))
+            # one scatter-max of the ranks by register (the hashing done
+            # before: the library call computes the fold, not the hashes)
+            base = sketch.hashing.fnv1a_32(keys)
+            idx = sketch.hashing.fmix32(base, 0x2545F491) & (p.m - 1)
+            rho = sketch._clz32(sketch.hashing.fmix32(base, 0x27220A95)) + 1
+            if v is not None:
+                idx, rho = idx[v], rho[v]
+            regs = torch.zeros(p.m, dtype=torch.int64, device=dev)
+            lib_ms = path_ms(torch, lambda: regs.scatter_reduce_(0, idx, rho, "amax"))
+            # the function reads the keys of the valid rows only (the
+            # kernel tests the mask before it hashes; an int64 row is one
+            # 32-byte sector), the mask once and the registers in and out
+            nbytes = n_valid * 4 * limb_bytes + (0 if v is None else n) + 2 * p.m * 8
+            ops = n_valid * HLL_OPS
+            counters = p.m
+        else:
+            out = sketch.cm_init(p, dev)
+
+            def launch():
+                _build.check(lib.tt_cm_update(keys.data_ptr(), 4, limb_bytes,
+                                              None if wb is None else wb.data_ptr(),
+                                              None if vb is None else vb.data_ptr(), n, p.depth,
+                                              p.width, (sketch.CM_SEED * 31) & MASK32,
+                                              out.data_ptr(), stream()), "cm_update")
+            path = path_ms(torch, lambda: sketch.cm_update(out, keys, p, w, v))
+            plain = path_ms(torch, lambda: sketch._cm_update_plain(out, keys, p, w, v))
+            # one index_add_ of the weights by counter (the hashing done before)
+            cells = (torch.arange(p.depth, device=dev)[:, None] * p.width
+                     + sketch._cm_indices(keys, p)).reshape(-1)
+            ones = torch.ones(cells.shape[0], dtype=torch.int64, device=dev)
+            flat = torch.zeros(p.depth * p.width, dtype=torch.int64, device=dev)
+            lib_ms = path_ms(torch, lambda: flat.index_add_(0, cells, ones))
+            # keys and weights of the valid rows only, as for HLL
+            nbytes = (n_valid * 4 * limb_bytes + (0 if v is None else n)
+                      + (0 if w is None else 4 * n_valid) + 2 * p.depth * p.width * 8)
+            ops = n_valid * (HASH_OPS + p.depth * CM_OPS_A_ROW)
+            counters = p.depth * p.width
+        ms = kernel_ms(torch, [launch])
+        bnd, by = bound_ms(nbytes, ops)
+        rec = dict(shape=f"{label}: N={n} ({n_valid} valid), {limb_bytes}-byte limbs, "
+                         f"{counters} counters", max_abs_err=0, ms=ms, path_ms=path,
+                   plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib_ms)
+        recs.setdefault(f"{kind}_update", {})[label] = rec
+        print(f"phase 2 {kind}_update {label}: equal | kernel {ms:.5f} ms ({bnd / ms:.0%} of "
+              f"bound), path {path:.4f} ms, plain {plain:.4f} ms, library {lib_ms:.4f} ms "
+              f"({'scatter_reduce_ amax' if kind == 'hll' else 'index_add_'} of the hashed "
+              f"keys), bound {bnd:.5f} ms ({by}; {rec['shape']})", flush=True)
+
+    sketch_record("hll", "compaction", st, hp, first)
+    sketch_record("hll", "generator push", edges, hp, None)
+    sketch_record("hll", "p=18 compaction", st, sketch.HLLPlan(18), first)
+    sketch_record("cm", "compaction", st, cp, keep)
+    sketch_record("cm", "generator push", edges, cp, None)
+    sketch_record("cm", "weighted compaction", st, cp, keep, w32)
+    del st, first, keep, w32
+
+    # ---- root_path_sums over 2**21 spans
+    n = 1 << 21
+    row = np.arange(n)
+    forest = np.where(rng.random(n) < 0.02, -1, rng.integers(0, n, n))
+    forest = np.where(forest >= row, -1, forest)
+    cycles = forest.copy()
+    k = rng.choice(n, 4096, replace=False)
+    cycles[k] = k[::-1]
+    shapes = {"chains depth 8": np.where(row % 8 == 0, -1, row - 1),
+              "chains depth 2048": np.where(row % 2048 == 0, -1, row - 1),
+              "forest": forest, "cycles": cycles}
+    rounds = ops_graph._n_rounds(n)
+    for label, parent in shapes.items():
+        s = rng.integers(0, 2**63, n)
+        p_d = torch.from_numpy(parent.astype(np.int32)).to(dev)
+        s_d = torch.from_numpy(s).to(dev)
+        want = ops_graph._root_path_sums_plain(p_d, s_d, rounds)
+        got = ops_graph.root_path_sums(p_d, s_d)
+        check(torch.equal(got, want), f"root_path_sums {label}: kernel != plain")
+        if label == "cycles":  # the numpy host arm takes seconds at 2^21
+            host = ops_graph.root_path_sums_host(parent, s.view(np.uint64))
+            check(np.array_equal(got.cpu().numpy().view(np.uint64), host),
+                  f"root_path_sums {label}: kernel != the host arm")
+        n_cases += 1
+        if not label.startswith("chains"):
+            continue
+        bufs = [torch.empty_like(p_d), torch.empty_like(s_d), torch.empty_like(p_d),
+                torch.empty_like(s_d)]
+        launched = ctypes.c_int32(0)
+
+        def launch():
+            _build.check(lib.tt_root_path_sums(p_d.data_ptr(), s_d.data_ptr(), n, rounds,
+                                               *(b.data_ptr() for b in bufs),
+                                               ctypes.byref(launched), stream()),
+                         "root_path_sums")
+        ms = kernel_ms(torch, [launch], k=8)
+        path = path_ms(torch, lambda: ops_graph.root_path_sums(p_d, s_d), reps=9)
+        plain = path_ms(torch, lambda: ops_graph._root_path_sums_plain(p_d, s_d, rounds), reps=5)
+        dispatch = path_ms(torch, lambda: ops_graph.root_path_sums_device(
+            parent, s.view(np.uint64), dev), reps=5, warmup=1)
+        # the rounds this input needs: the host arm's, which stop once every
+        # pointer is -1 (the kernel runs all `rounds`, as the JAX arm does)
+        depth = int(label.split()[-1])
+        needed = int(np.ceil(np.log2(depth))) + 1
+        bnd, by = bound_ms(20 * n, n * needed * 4)
+        recs.setdefault("root_path_sums", {})[label] = dict(
+            shape=f"n={n}, {label}, {rounds} rounds ({launched.value} launches a call; "
+                  f"{needed} needed)", max_abs_err=0, ms=ms, path_ms=path, plain_ms=plain,
+            dispatch_ms=dispatch, bound_ms=bnd, bound_by=by, library_ms=None,
+            kernels_a_call=launched.value)
+        print(f"phase 2 root_path_sums {label}: equal | kernel {ms:.4f} ms ({bnd / ms:.1%} of "
+              f"bound, {launched.value} launches a call), path {path:.4f} ms, plain {plain:.4f} "
+              f"ms, the graph_critical_path dispatch (copies in and out) {dispatch:.4f} ms, "
+              f"library none (no one torch call does pointer doubling), bound {bnd:.5f} ms "
+              f"({by}; 20 B a span)", flush=True)
+    return n_cases, recs
 
 
 def resident_kernels_check(torch, dev, rng) -> int:
@@ -2712,6 +2968,301 @@ def standing_phase(seed: int, root: str, queries: list) -> dict:
     return res
 
 
+def _graph_norm(raw: bytes) -> dict:
+    """A /api/graph/* document without its wall-clock and byte stats."""
+    doc = json.loads(raw)
+    doc["stats"] = {k: v for k, v in (doc.get("stats") or {}).items()
+                    if k not in ("stageSeconds", "deviceDispatches", "elapsedMs",
+                                 "inspectedBytes", "decodedBytes")}
+    return doc
+
+
+def _generator_oracle(batches: list) -> dict:
+    """(metric name, labels) -> (count, bucket counts, sum) of the
+    span-metrics and service-graph series that the generator must hold
+    after taking `batches`, computed with numpy and a dict of span IDs,
+    independently of modules/generator."""
+    import numpy as np
+
+    from tempo_tpu_torch.modules.generator import servicegraphs as sg
+    from tempo_tpu_torch.modules.generator import spanmetrics as sm
+
+    out: dict = {}
+
+    def add(name, labels, bounds, secs):
+        secs = np.asarray(secs, np.float64)
+        b = np.bincount(np.searchsorted(np.asarray(bounds), secs, side="left"),
+                        minlength=len(bounds) + 1)
+        have = out.setdefault((name, labels), [0, np.zeros(len(bounds) + 1, np.int64), 0.0])
+        have[0] += len(secs)
+        have[1] += b
+        have[2] += float(secs.sum())
+
+    for batch in batches:
+        c, d = batch.cols, batch.dictionary
+        secs = c["duration_nano"].astype(np.float64) / 1e9
+        keys = np.stack([c["service"], c["name"], c["kind"].astype(np.uint32),
+                         c["status_code"].astype(np.uint32)], axis=1)
+        uniq, inv = np.unique(keys, axis=0, return_inverse=True)
+        for g, (svc, name, kind, status) in enumerate(uniq):
+            labels = (("service", d[int(svc)]), ("span_name", d[int(name)]),
+                      ("span_kind", sm.KIND_NAMES[int(kind)]),
+                      ("status_code", sm.STATUS_NAMES[int(status)]))
+            add(sm.LATENCY, labels, sm.DEFAULT_BOUNDS, secs[inv.ravel() == g])
+        by_id = {(c["trace_id"][r].tobytes(), c["span_id"][r].tobytes()): r
+                 for r in range(batch.num_spans)}
+        for r in np.flatnonzero(c["kind"] == 2):  # SERVER
+            p = by_id.get((c["trace_id"][r].tobytes(), c["parent_span_id"][r].tobytes()))
+            if p is None or c["kind"][p] != 3 or c["service"][p] == c["service"][r]:
+                continue
+            labels = (("client", d[int(c["service"][p])]), ("server", d[int(c["service"][r])]))
+            add(sg.REQ_SECONDS, labels, sg.DEFAULT_BOUNDS, [secs[r]])
+            if c["status_code"][r] == 2:
+                add(sg.REQ_FAILED, labels, [], [0.0])
+    return out
+
+
+def graph_phase(seed: int, root: str, shed: bool = False) -> dict:
+    """Phase 11, the metrics-generator and the graph plane at full width:
+    a fresh App(device="cuda") with the defaults (the generator on; the
+    live-trace cap raised for the 16,384 traces of the push), and beside
+    it the same App on the CPU, behind TempoServers on 127.0.0.1. 2**17
+    spans of make_graph_batch traces (8 services, 8 spans a trace, 10%
+    errors) are pushed over HTTP as 32 OTLP protobuf requests to each,
+    and to a card App with the generator off for the push rate without
+    it (`shed` drops that App: a slow host's depth cut). The card's
+    generator series must equal a numpy oracle over the same spans and
+    the CPU App's series, its service-graph sketches and distinct-edge
+    estimate the CPU App's. Then /flush, one block of 2**20
+    make_graph_batch spans written into the card App's backend and
+    copied into the CPU App's, and /api/graph/dependencies,
+    /api/graph/critical-path (by=service and by=name) and
+    /api/graph/walks (seed 7) asked of both: the documents equal field
+    for field (wall-clock and byte stats aside), the edge and trace
+    totals equal the generator's construction. Returns its numbers."""
+    import http.client
+    import shutil
+
+    import numpy as np
+
+    from tempo_tpu_torch.api.server import TempoServer
+    from tempo_tpu_torch.app import App, AppConfig
+    from tempo_tpu_torch.db import DBConfig
+    from tempo_tpu_torch.model import synth
+    from tempo_tpu_torch.model.trace import batch_to_traces
+    from tempo_tpu_torch.modules.generator import servicegraphs as sg
+    from tempo_tpu_torch.modules.generator import spanmetrics as sm
+    from tempo_tpu_torch.modules.overrides import Limits
+    from tempo_tpu_torch.ops import graph as ops_graph
+    from tempo_tpu_torch.ops import sketch
+    from tempo_tpu_torch.receivers import otlp
+
+    tenant = "single-tenant"
+    t_phase = time.perf_counter()
+    res: dict = {"requests": {}}
+    pushed = [synth.make_graph_batch(512, 8, seed=seed * 1000 + 1100 + i, error_rate=0.1)
+              for i in range(32)]
+    bodies = [otlp.encode_traces_request(batch_to_traces(b)) for b in pushed]
+    n_pushed = sum(b.num_spans for b in pushed)
+    n_push_traces = 512 * len(pushed)
+
+    def make(sub, device, **kw):
+        app = App(AppConfig(db=DBConfig(backend="local",
+                                        backend_path=os.path.join(root, sub, "blocks"),
+                                        wal_path=os.path.join(root, sub, "wal")),
+                            limits=Limits(max_traces_per_user=1 << 16), **kw), device=device)
+        server = TempoServer(app, host="127.0.0.1", port=0).start()
+        return app, server, http.client.HTTPConnection("127.0.0.1", server.port, timeout=600)
+
+    def request(conn, kind, method, path, body=None, headers=None):
+        t0 = time.perf_counter()
+        conn.request(method, path, body=body, headers=headers or {})
+        r = conn.getresponse()
+        out = r.read()
+        res["requests"].setdefault(kind, []).append((time.perf_counter() - t0) * 1e3)
+        return r.status, out
+
+    def push_all(conn, kind):
+        t0 = time.perf_counter()
+        for body in bodies:
+            status, _ = request(conn, kind, "POST", "/v1/traces", body,
+                             {"Content-Type": "application/x-protobuf"})
+            check(status == 200, f"phase 11 {kind}: HTTP {status}")
+        return time.perf_counter() - t0
+
+    apps = {}
+    try:
+        apps["card"] = make("card", "cuda")
+        apps["cpu"] = make("cpu", "cpu")
+        card, cpu = apps["card"][0], apps["cpu"][0]
+        ledger = JobLedger(card)
+        check(card.generator is not None and card.generator.device.type == "cuda",
+              "phase 11: the card App runs no generator on the card")
+        status, body = request(apps["card"][2], "ring", "GET", "/metrics-generator/ring")
+        check(status == 200 and [i["id"] for i in json.loads(body)["instances"]]
+              == ["generator-0"], f"phase 11 /metrics-generator/ring: {body[:200]!r}")
+
+        # ------------------------------------------------------------ push
+        l0 = (sketch.hll_update.launches, sketch.cm_update.launches)
+        res["push_s"] = push_all(apps["card"][2], "push")
+        res["push_sketch_launches"] = {"hll_update": sketch.hll_update.launches - l0[0],
+                                       "cm_update": sketch.cm_update.launches - l0[1]}
+        res["push_spans_per_s"] = n_pushed / res["push_s"]
+        check(all(v == len(bodies) for v in res["push_sketch_launches"].values()),
+              f"phase 11 push: sketch launches {res['push_sketch_launches']}, one each a push")
+        if shed:
+            res["push_spans_per_s_generator_off"] = None
+        else:
+            apps["off"] = make("off", "cuda", generator_enabled=False)
+            res["push_s_generator_off"] = push_all(apps["off"][2], "push, generator off")
+            res["push_spans_per_s_generator_off"] = n_pushed / res["push_s_generator_off"]
+            off = apps.pop("off")
+            off[2].close()
+            off[1].stop()
+            off[0].shutdown()
+        push_all(apps["cpu"][2], "push, cpu")
+        print(f"phase 11 push: {n_pushed} spans ({n_push_traces} make_graph_batch traces) in "
+              f"{len(bodies)} OTLP requests | card App {res['push_spans_per_s']:.0f} spans/s "
+              f"with the generator ({res['push_sketch_launches']} sketch launches), "
+              + ("generator off: shed" if shed else
+                 f"{res['push_spans_per_s_generator_off']:.0f} spans/s with it off (same bodies, "
+                 "same call)"), flush=True)
+
+        # ------------------------------------------------ generator series
+        def series(app):
+            inst = app.generator.instance(tenant)
+            return {(s.name, s.labels): s.value for s in inst.registry.collect()}, inst
+        (cs, cinst), (hs, hinst) = series(card), series(cpu)
+        expired = {k: v for k, v in cs.items() if k[0] == sg.EXPIRED_TOTAL}
+        cs_det = {k: v for k, v in cs.items() if k[0] != sg.EXPIRED_TOTAL}
+        hs_det = {k: v for k, v in hs.items() if k[0] != sg.EXPIRED_TOTAL}
+        check(cs_det == hs_det, "phase 11: the card's generator series != the CPU App's")
+        csg, hsg = cinst.processors[1], hinst.processors[1]
+        check(csg.hll.device.type == "cuda" and torch_equal(csg.hll, hsg.hll)
+              and torch_equal(csg.cm, hsg.cm), "phase 11: the card's sketches != the CPU App's")
+        est = (csg.distinct_edges_estimate(), hsg.distinct_edges_estimate())
+        check(est[0] == est[1], f"phase 11: distinct_edges_estimate card {est[0]} != cpu {est[1]}")
+        unpaired = int(sum(expired.values())) + len(csg.pending_clients) + len(csg.pending_servers)
+        check(unpaired == 2 * n_push_traces,
+              f"phase 11: {unpaired} unpaired spans, not each trace's root server and last client")
+        oracle = _generator_oracle(pushed)
+        n_checked = 0
+        for (name, labels), (count, buckets, total) in oracle.items():
+            if name == sg.REQ_FAILED:
+                check(cs.get((name, labels)) == count, f"phase 11: {name} {labels}")
+                n_checked += 1
+                continue
+            bounds = sg.DEFAULT_BOUNDS if name == sg.REQ_SECONDS else sm.DEFAULT_BOUNDS
+            cum = np.cumsum(buckets)
+            for i, b in enumerate(bounds):
+                check(cs.get((f"{name}_bucket", labels + (("le", str(b)),))) == cum[i],
+                      f"phase 11: {name} bucket le={b} {labels}")
+            check(cs.get((f"{name}_bucket", labels + (("le", "+Inf"),))) == count
+                  and cs.get((f"{name}_count", labels)) == count
+                  and abs(cs.get((f"{name}_sum", labels)) - total) <= 1e-9 * max(1.0, total),
+                  f"phase 11: {name} count/sum {labels}")
+            if name == sg.REQ_SECONDS:
+                check(cs.get((sg.REQ_TOTAL, labels)) == count, f"phase 11: {sg.REQ_TOTAL} {labels}")
+            else:
+                check(cs.get(("traces_spanmetrics_calls_total", labels)) == count,
+                      f"phase 11: calls_total {labels}")
+            n_checked += 1
+        res["generator"] = dict(series=len(cs), series_checked=n_checked,
+                                distinct_edges_estimate=est[0],
+                                edges_emitted=csg.edges_emitted, unpaired=unpaired)
+        print(f"phase 11 generator: {len(cs)} series ({n_checked} span-metrics and service-graph "
+              f"families checked against a numpy oracle over the pushed spans; every series but "
+              f"the expiry split == the CPU App's), {csg.edges_emitted} edges, HLL and count-min "
+              f"on the card == the CPU App's, distinct_edges_estimate {est[0]:.4f} == CPU; "
+              f"{unpaired} unpaired spans (root servers and last clients)", flush=True)
+
+        # --------------------------------------------- flush, a 2**20 block
+        for k in ("card", "cpu"):
+            status, _ = request(apps[k][2], f"flush {k}", "POST", "/flush")
+            check(status == 204, f"phase 11 flush {k}: HTTP {status}")
+        big = synth.make_graph_batch(1 << 17, 8, seed=seed * 1000 + 1200, error_rate=0.1)
+        t0 = time.perf_counter()
+        meta = card.db.write_batch(tenant, big, block_id=str(uuid.UUID(int=seed + 11)))
+        res["block_write_ms"] = (time.perf_counter() - t0) * 1e3
+        shutil.copytree(os.path.join(root, "card", "blocks", tenant, meta.block_id),
+                        os.path.join(root, "cpu", "blocks", tenant, meta.block_id))
+        cpu.db.poll_now()
+        card.db.poll_now()
+        metas = [sorted(m.total_spans for m in a.db.blocklist.metas(tenant)) for a in (card, cpu)]
+        check(metas[0] == metas[1] and sum(metas[0]) == n_pushed + big.num_spans,
+              f"phase 11: blocks {metas}")
+        n_traces = n_push_traces + (1 << 17)
+        print(f"phase 11 blocks: /flush (a {n_pushed}-span block each) and one block of "
+              f"{big.num_spans} spans written on the card in {res['block_write_ms']:.0f} ms, "
+              f"copied to the CPU App", flush=True)
+
+        # -------------------------------------------------- graph routes
+        routes = [("dependencies", "/api/graph/dependencies"),
+                  ("critical-path", "/api/graph/critical-path?by=service"),
+                  ("critical-path by name", "/api/graph/critical-path?by=name"),
+                  ("walks", "/api/graph/walks?seed=7&walks=64&steps=8")]
+        res["routes"] = {}
+        for label, path in routes:
+            # a hedged job of the request before may still be running: its
+            # launches must not count as this request's
+            ledger.start(f"phase 11 {label}")
+            r0 = ops_graph.root_path_sums.launches
+            k0 = ops_graph.root_path_sums.kernel_launches
+            status, body = request(apps["card"][2], label, "GET", path)
+            jobs = ledger.settle(f"phase 11 {label}")
+            launched = ops_graph.root_path_sums.launches - r0
+            status_c, body_c = request(apps["cpu"][2], label + " (cpu)", "GET", path)
+            check(status == status_c == 200, f"phase 11 {label}: HTTP {status} / {status_c}")
+            doc, doc_c = _graph_norm(body), _graph_norm(body_c)
+            check(doc == doc_c, f"phase 11 {label}: the card's document != the CPU App's")
+            raw = json.loads(body)
+            res["routes"][label] = dict(ms=res["requests"][label][-1],
+                                        cpu_ms=res["requests"][label + " (cpu)"][-1],
+                                        root_path_sums_launches=launched,
+                                        kernel_launches=ops_graph.root_path_sums.kernel_launches - k0,
+                                        device_dispatches=raw["stats"].get("deviceDispatches"),
+                                        jobs=jobs["jobs"], hedged=jobs["hedged"])
+            # one graph_critical_path dispatch, one root_path_sums call, a
+            # block of a critical-path job (hedged copies included); none
+            # in the dependency and walk jobs
+            check(launched == jobs["dispatches"]
+                  and raw["stats"].get("deviceDispatches") == jobs["reported"],
+                  f"phase 11 {label}: {launched} root_path_sums calls, the jobs report "
+                  f"{jobs}, the response {raw['stats'].get('deviceDispatches')}")
+            if label.startswith("critical-path"):
+                check(doc["traces"] == n_traces and launched >= 2
+                      and json.loads(body_c)["stats"].get("deviceDispatches", 0) == 0,
+                      f"phase 11 {label}: {doc['traces']} traces, {launched} root_path_sums "
+                      f"calls")
+            elif label == "dependencies":
+                check(sum(e["count"] for e in doc["edges"]) == 3 * n_traces
+                      and doc["unpairedSpans"] == 2 * n_traces,
+                      f"phase 11 dependencies: {sum(e['count'] for e in doc['edges'])} edges, "
+                      f"{doc['unpairedSpans']} unpaired")
+            else:
+                check(len(doc["walks"]) == 64 and doc["edges"] > 0, "phase 11 walks")
+            print(f"phase 11 {path}: card == CPU App | card {res['routes'][label]['ms']:.0f} ms, "
+                  f"CPU {res['routes'][label]['cpu_ms']:.0f} ms, {launched} root_path_sums calls "
+                  f"({res['routes'][label]['kernel_launches']} kernel launches; {jobs['jobs']} jobs, "
+                  f"{jobs['hedged']} hedged)", flush=True)
+    finally:
+        for app, server, conn in apps.values():
+            conn.close()
+            server.stop()
+            app.shutdown()
+    reqs = {k: dict(n=len(v), p50_ms=statistics.median(v), max_ms=max(v))
+            for k, v in res["requests"].items()}
+    res["requests"] = reqs
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(a.cpu(), b.cpu()))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2954,28 +3505,57 @@ def main() -> int:
           "runs, 1 to 32,768 entries, every width, 65,536 and 70,000 rows) == plain (timed in "
           "phase 10)", flush=True)
 
+    t0 = time.perf_counter()
+    n_graph_sketch, graph_sketch_times = graph_sketch_kernels_check(torch, dev, rng, lib, stream)
+    graph_sketch_s = time.perf_counter() - t0
+    print(f"phase 2 graph and sketch kernels: {n_graph_sketch} cases equal "
+          f"({graph_sketch_s:.1f} s): hll_update at p 4/12/14/15/18 (shared-memory "
+          "registers to p = 14, global atomics above; p 12/18 over every row) and cm_update at "
+          "4x4096, 1x16 and 8x8192 (global atomics), with weights, over the compaction step's "
+          "2^22 int64 keys (valid: each trace's first surviving row / every surviving row), "
+          "2^17 int32 block-writer IDs, 1, 64 and 4,096 edge keys; root_path_sums over 2^21 "
+          "spans (chains of 8 and 2,048, a forest, parent cycles) == plain (the cycles also "
+          "== the host arm)", flush=True)
+
     # ---------------------------------------------------------------- 3 + 4
     reset_launches()
 
     fn, ex = entry(device="cuda", n_rows=1 << 22)
+    plans = fn.keywords["plans"]
     out = fn(*ex)  # first call: allocator and library warm-up
+    plain_out = torch_op_step(*ex, plans)
     torch.cuda.synchronize()
-    step_s = []
-    for _ in range(3):
+    step_s, plain_step_s = [], []
+    # the step with the sketch kernels and the torch-op step before them,
+    # in turns: torch ops, kernels, kernels, torch ops, ...
+    for which in "pkkppk":
         t0 = time.perf_counter()
-        out = fn(*ex)
+        if which == "k":
+            out = fn(*ex)
+        else:
+            plain_out = torch_op_step(*ex, plans)
         torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
+        (step_s if which == "k" else plain_step_s).append(time.perf_counter() - t0)
     fn_cpu, ex_cpu = entry(device="cpu", n_rows=1 << 22)
     t0 = time.perf_counter()
     ref = fn_cpu(*ex_cpu)
     cpu_s = time.perf_counter() - t0
     for key in ("perm", "keep", "n_rows", "n_traces", "bloom", "hll", "cm"):
         check(torch.equal(out[key].cpu(), ref[key]), f"compaction {key}: cuda != cpu")
+        check(torch.equal(plain_out[key].cpu(), ref[key]),
+              f"compaction {key}: the torch-op step != cpu")
+    lc = launch_counters()
+    step_launches = {k: lc[k].launches for k in ("hll_update", "cm_update")}
+    check(all(v > 0 for v in step_launches.values()),
+          f"compaction: the sketch kernels did not launch ({step_launches})")
     print(f"phase 3 compaction: 2^22 rows, n_rows={int(out['n_rows'])} "
           f"n_traces={int(out['n_traces'])}, cuda == cpu on perm/keep/n_rows/n_traces/bloom/"
-          f"hll/cm | step {statistics.median(step_s) * 1e3:.2f} ms (median of 3; "
-          f"{', '.join(f'{s * 1e3:.2f}' for s in step_s)}), cpu {cpu_s * 1e3:.0f} ms", flush=True)
+          f"hll/cm (the step with the sketch kernels and the torch-op step) | step "
+          f"{statistics.median(step_s) * 1e3:.2f} ms with the sketch kernels (median of 3; "
+          f"{', '.join(f'{s * 1e3:.2f}' for s in step_s)}), "
+          f"{statistics.median(plain_step_s) * 1e3:.2f} ms with their torch-op versions ("
+          f"{', '.join(f'{s * 1e3:.2f}' for s in plain_step_s)}; same call, in turns), "
+          f"cpu {cpu_s * 1e3:.0f} ms | sketch launches {step_launches}", flush=True)
 
     def run_query(q, device):
         plan = plan_of(q)
@@ -3155,7 +3735,7 @@ def main() -> int:
     # ---------------------------------------------------------------- 6
     # the block path: seg_bincount (queries) and the page-encode kernels
     # (the card's writes and compactions)
-    block_kernels = ("seg_bincount", "rle_change_mask", "dbp_pack")
+    block_kernels = ("seg_bincount", "rle_change_mask", "dbp_pack", "hll_update")
     reset_launches()
     t0 = time.perf_counter()
     before_s = t0 - t_script
@@ -3196,7 +3776,7 @@ def main() -> int:
     # a slow host sheds phase 7's warm unbounded repeats (timing only):
     # phases 7-9 take about 290 s, so past 250 s here the script would
     # pass 540 s
-    elapsed = time.perf_counter() - t_script
+    elapsed = phases_0_6_s = time.perf_counter() - t_script
     shed = elapsed > 250
     print(f"phase 7 depth: phases 0-6 took {elapsed:.1f} s -> "
           + ("the warm unbounded repeats shed" if shed else "nothing shed"), flush=True)
@@ -3230,6 +3810,9 @@ def main() -> int:
                     recorded, shed=elapsed > 420)
     app["launches"] = read_launches()
     app["page_encode_dispatches"] = STATS.dispatches.get("page_encode", 0) - d0
+    # (the generator takes every push, but make_batch's traces stay in one
+    # service each: they pair no service-graph edge, so the sketch kernels
+    # launch here for the flush's block sketch only; phase 11 drives them)
     for k in block_kernels + ("compiled_metrics",):
         check(app["launches"][k] > 0, f"server path: {k} never launched")
     # the compiled tier fuses the dbp decode: dbp_decode is on the scan path only
@@ -3272,7 +3855,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_standing_") as standing_root:
         standing = standing_phase(seed, standing_root, queries)
     standing["launches"] = read_launches()
-    standing_kernels = ("seg_bincount", "rle_change_mask", "dbp_pack", "compiled_metrics")
+    standing_kernels = ("seg_bincount", "rle_change_mask", "dbp_pack", "compiled_metrics",
+                        "hll_update")
     for k in standing_kernels:
         check(standing["launches"][k] > 0, f"standing path: {k} never launched")
     check(standing["launches"]["seg_bincount"] >= standing["dispatches"],
@@ -3280,7 +3864,7 @@ def main() -> int:
     print(f"phase 9 standing: {standing['phase_s']:.1f} s, launches on the standing path: "
           f"{standing['launches']} ({standing['dispatches']} of seg_bincount's at the cuts' "
           "folds, the rest query_range's)", flush=True)
-    for k in standing_kernels:
+    for k in ("seg_bincount", "rle_change_mask", "dbp_pack", "compiled_metrics"):
         kernels[k]["launches_standing_path"] = standing["launches"][k]
 
     # ---------------------------------------------------------------- 10
@@ -3311,10 +3895,41 @@ def main() -> int:
     colcache.configure_device_tier(None, device="cuda")
     db_dir.cleanup()
 
+    # ---------------------------------------------------------------- 11
+    # a slow host sheds phase 11's generator-off App (its push rate only):
+    # phase 11 takes about 100 s, so past 900 s here the script would pass
+    # 1,000 s
+    elapsed = time.perf_counter() - t_script
+    shed11 = elapsed > 900
+    if shed11:
+        sheds.append("phase 11 push with the generator off")
+    print(f"phase 11 depth: phases 0-10 took {elapsed:.1f} s -> "
+          + ("the generator-off push shed" if shed11 else "nothing shed"), flush=True)
+    reset_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_") as graph_root:
+        graph = graph_phase(seed, graph_root, shed=shed11)
+    graph["launches"] = read_launches()
+    for k in GRAPH_SKETCH_KERNELS + ("rle_change_mask", "dbp_pack"):
+        check(graph["launches"][k] > 0, f"generator and graph path: {k} never launched")
+    print(f"phase 11 generator and graph: {graph['phase_s']:.1f} s, launches on the path: "
+          f"{graph['launches']}", flush=True)
+    for k in GRAPH_SKETCH_KERNELS:
+        rec = graph_sketch_times[k]
+        main_rec = rec["chains depth 8" if k == "root_path_sums" else "compaction"]
+        kernels[k] = dict(main_rec, launches=graph["launches"][k],
+                          shapes={label: r for label, r in rec.items()})
+    for k in ("hll_update", "cm_update"):
+        kernels[k]["launches_compaction_step"] = step_launches[k]
+        for phase_name, ph in (("block", blocks), ("db", db), ("app", app),
+                               ("standing", standing)):
+            kernels[k][f"launches_{phase_name}_path"] = ph["launches"][k]
+
     source = {k: "tempo_tpu_torch/csrc/kernels.cu"
               for k in ("seg_bincount", "in_set_scan", "u64_range_scan")}
     source.update({k: "tempo_tpu_torch/csrc/codec_kernels.cu"
                    for k in CODEC_KERNELS + RESIDENT_KERNELS})
+    source.update({k: "tempo_tpu_torch/csrc/graph_sketch_kernels.cu"
+                   for k in GRAPH_SKETCH_KERNELS})
     replaces = {
         "seg_bincount": "tempo_tpu/ops/pallas_kernels.py:194",
         "in_set_scan": "tempo_tpu/ops/pallas_kernels.py:55",
@@ -3331,14 +3946,21 @@ def main() -> int:
         "resident_rle_scan_batch": "tempo_tpu/ops/scan.py:169",
         "resident_dct_scan_batch": "tempo_tpu/ops/scan.py:186",
         "resident_dbp_scan_batch": "tempo_tpu/ops/scan.py:204",
+        # jitted programs of the reference, none a pallas_call
+        "hll_update": "tempo_tpu/ops/sketch.py:55",
+        "cm_update": "tempo_tpu/ops/sketch.py:117",
+        "root_path_sums": "tempo_tpu/ops/graph.py:106",
     }
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": source[k], "replaces": replaces[k], **kernels[k]}
         for k in ("seg_bincount", "in_set_scan", "u64_range_scan") + CODEC_KERNELS
-        + RESIDENT_KERNELS
+        + RESIDENT_KERNELS + GRAPH_SKETCH_KERNELS
     ], "ptxas": ptxas, "compaction_step_ms": statistics.median(step_s) * 1e3,
+        "compaction_step_torch_op_sketch_ms": statistics.median(plain_step_s) * 1e3,
         "query_ms": query_ms, "blocks": blocks, "db": db, "app": app, "standing": standing,
-        "tier": tier, "shed": sheds, "script_s": time.perf_counter() - t_script}
+        "tier": tier, "graph": graph, "shed": sheds, "phases_0_6_s": phases_0_6_s,
+        "phase_2_graph_sketch_s": graph_sketch_s,
+        "script_s": time.perf_counter() - t_script}
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -3,9 +3,11 @@
 Port of tempo_tpu/__main__.py (reference: cmd/tempo/main.go — flags +
 YAML config with envsubst, config sanity warnings, then the app). The
 single-binary `-target=all` composition runs every role in-process on
-the CUDA device; `-device cpu` runs it on the host. `-config.verify`
+the CUDA device, the metrics-generator among them (on by default, as in
+the reference); `-device cpu` runs it on the host. `-config.verify`
 validates and exits. The gRPC, Jaeger UDP and Kafka receivers wait for
-a later slice: a config that turns one on is refused.
+a later slice (ROADMAP Queue 1 item 8): a config that turns one on is
+refused, as App refuses every other section whose module is not ported.
 """
 
 from __future__ import annotations

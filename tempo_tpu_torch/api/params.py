@@ -7,8 +7,8 @@ startPage, pagesToSearch, version, size, footerSize — the sub-request a
 frontend shard sends a querier), ParseTraceID from the /api/traces/{id}
 path, and ValidateAndSanitizeRequest:428.
 
-Port of tempo_tpu/api/params.py, with the standing-query read request;
-without the graph request types (their slice).
+Port of tempo_tpu/api/params.py, with the standing-query read request
+and the graph request (GraphRequest, parse_graph_request).
 """
 
 from __future__ import annotations
@@ -303,6 +303,46 @@ def parse_query_range_request(qs: dict, now_s: int | None = None) -> QueryRangeR
         raise BadRequest("maxSeries must be positive")
     if req.exemplars < 0:
         raise BadRequest("exemplars must be non-negative")
+    return req
+
+
+@dataclass
+class GraphRequest:
+    query: str = ""
+    start_s: int = 0
+    end_s: int = 0
+    by: str = "service"  # critical-path attribution: service | name
+    # walk sampler knobs (graph/walks.py)
+    walks: int = 32
+    steps: int = 6
+    seed: int = 0
+    window_s: int = 0
+    start_node: str | None = None
+
+
+def parse_graph_request(qs: dict) -> GraphRequest:
+    """Params of the /api/graph/* endpoints: optional TraceQL spanset
+    filter `q` selecting the root set, optional start/end (unix s), and
+    the critical-path/walk knobs. An empty q means every trace in range."""
+    req = GraphRequest()
+    req.query = _first(qs, "q") or _first(qs, "query")
+    req.start_s, req.end_s, _ = parse_time_range(
+        _first(qs, "start", "0"), _first(qs, "end", "0"))
+    req.by = _first(qs, "by", "service")
+    try:
+        req.walks = int(_first(qs, "walks", "32"))
+        req.steps = int(_first(qs, "steps", "6"))
+        req.seed = int(_first(qs, "seed", "0"))
+        req.window_s = int(_first(qs, "window", "0"))
+    except ValueError as e:
+        raise BadRequest(str(e)) from None
+    if req.walks < 0 or req.walks > 4096:
+        raise BadRequest("walks must be in [0, 4096]")
+    if req.steps < 1 or req.steps > 256:
+        raise BadRequest("steps must be in [1, 256]")
+    if req.window_s < 0:
+        raise BadRequest("window must be non-negative")
+    req.start_node = _first(qs, "from") or None
     return req
 
 

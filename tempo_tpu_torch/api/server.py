@@ -16,6 +16,7 @@ Port of tempo_tpu/api/server.py for the single binary. Routes:
   GET  /api/search/tag/{n}/values
   GET  /api/metrics/query_range   TraceQL metrics (Prometheus matrix)
   POST/GET/DELETE /api/metrics/standing[/{id}[/state]]  standing queries
+  GET  /api/graph/dependencies|critical-path|walks  trace-graph analytics
   GET  /api/query-insights   per-query records + the compiled tier's cache stats
   GET  /api/echo             frontend liveness ("echo")
   POST /flush /shutdown
@@ -62,8 +63,6 @@ _UNPORTED_ROUTES = (
     (("/api/traces",), (), "the Jaeger thrift receiver", _Q1_2),
     ((), ("/rpc/", "/kv/"), "inter-role RPC and the ring KV (microservices mode)", _Q1_2),
     (("/memberlist",), (), "the ring KV (netkv)", _Q1_2),
-    (("/api/graph/dependencies", "/api/graph/critical-path", "/api/graph/walks"), (),
-     "the graph/ analytics", _Q1_3),
     ((api_params.PATH_RCA, "/status/rca"), (api_params.PATH_RCA + "/",), "rca", _Q1_3),
     (("/status/slo",), (), "the SLO engine", _Q1_3),
     (("/status/profile", "/status/profile/device"), (), "util/profiling", _Q1_3),
@@ -325,6 +324,10 @@ class _Handler(BaseHTTPRequestHandler):
             return self._search(qs)
         if path == api_params.PATH_METRICS_QUERY_RANGE:
             return self._query_range(qs)
+        if path in (api_params.PATH_GRAPH_DEPENDENCIES,
+                    api_params.PATH_GRAPH_CRITICAL_PATH,
+                    api_params.PATH_GRAPH_WALKS):
+            return self._graph(path, qs)
         if path == api_params.PATH_SEARCH_TAGS:
             self._send_json(200, {"tagNames": app.search_tags(org_id=self._org_id())})
             return 200
@@ -374,7 +377,7 @@ class _Handler(BaseHTTPRequestHandler):
         if path in ("/ingester/ring", "/distributor/ring", "/compactor/ring",
                     "/metrics-generator/ring"):
             if path == "/metrics-generator/ring":
-                ring = None  # the generator is not ported (App refuses it)
+                ring = app.generator_ring
             elif path == "/compactor/ring":
                 # the compactor's OWN ring (job-hash sharding), not the
                 # data ring — None when compaction runs unsharded
@@ -615,6 +618,37 @@ class _Handler(BaseHTTPRequestHandler):
         self._send_json(200, otlp.encode_traces_json([trace]))
         return 200
 
+    def _graph(self, path: str, qs: dict) -> int:
+        """Trace-graph analytics (tempo_tpu_torch/graph): stored-block service
+        dependencies, device critical paths, and seeded temporal random
+        walks, with a TraceQL spanset filter selecting the root set."""
+        req = api_params.parse_graph_request(qs)
+        org = self._org_id()
+        t0 = time.monotonic()
+        try:
+            if path == api_params.PATH_GRAPH_DEPENDENCIES:
+                doc = self.app.graph_dependencies(
+                    req.query, req.start_s, req.end_s, org_id=org)
+            elif path == api_params.PATH_GRAPH_CRITICAL_PATH:
+                doc = self.app.graph_critical_path(
+                    req.query, req.start_s, req.end_s, by=req.by, org_id=org)
+            else:
+                doc = self.app.graph_walks(
+                    req.query, req.start_s, req.end_s, org_id=org,
+                    walks=req.walks, steps=req.steps, seed=req.seed,
+                    window_s=req.window_s, start_node=req.start_node)
+        except ValueError as e:
+            # the graph plane's contract (same as search/query_range):
+            # ValueError = unsupported root filter / window / admission
+            # guidance, a client error end to end
+            raise BadRequest(str(e)) from e
+        stats = doc.setdefault("stats", {})
+        stats["elapsedMs"] = int((time.monotonic() - t0) * 1000)
+        for k in ("inspectedBytes", "decodedBytes"):
+            stats[k] = str(stats.get(k, 0))
+        self._send_json(200, doc)
+        return 200
+
     def _query_range(self, qs: dict) -> int:
         """TraceQL metrics: Prometheus-compatible query_range matrix
         (reference: api.PathMetricsQueryRange + the Prometheus HTTP API
@@ -719,6 +753,9 @@ _ENDPOINTS = [
     "GET /api/metrics/standing/{id}",
     "GET /api/metrics/standing/{id}/state",
     "DELETE /api/metrics/standing/{id}",
+    "GET /api/graph/dependencies",
+    "GET /api/graph/critical-path",
+    "GET /api/graph/walks",
     "GET /api/query-insights",
     "GET /api/echo",
     "GET /ready",

@@ -4,9 +4,11 @@ Port of tempo_tpu/app.py for `target=all` (reference: cmd/tempo/app,
 the module manager DAG modules.go:369-423): every role in-process over
 one ring and one storage engine. `App(cfg, device=None)` resolves the
 device once (CUDA unless "cpu" is passed; raises without CUDA) and
-hands it to every TempoDB it builds and to the standing-query engine,
-so the blocks' sketch plane, the metrics accumulator and the standing
-fold run on that device from any worker or cut thread.
+hands it to every TempoDB it builds, to the standing-query engine and
+to the metrics-generator, so the blocks' sketch plane, the metrics
+accumulator, the standing fold, the service graphs' sketches and the
+graph queries' critical paths run on that device from any worker or
+cut thread.
 
 AppConfig keeps every field of the reference. Features whose modules
 wait for later slices raise NotImplementedError naming their ROADMAP
@@ -38,6 +40,7 @@ from tempo_tpu_torch.encoding.common import SearchRequest
 from tempo_tpu_torch.modules.compactor_module import CompactorModule
 from tempo_tpu_torch.modules.distributor import Distributor
 from tempo_tpu_torch.modules.frontend import Frontend, FrontendConfig
+from tempo_tpu_torch.modules.generator import Generator
 from tempo_tpu_torch.modules.ingester import Ingester, IngesterConfig
 from tempo_tpu_torch.modules.overrides import Limits, Overrides
 from tempo_tpu_torch.modules.querier import Querier
@@ -65,14 +68,17 @@ ROLES = (
 _Q1_2 = "ROADMAP Queue 1 item 2 (single binary: microservices and the other roles)"
 _Q1_3 = "ROADMAP Queue 1 item 3 (query and ingest slices)"
 _Q1_4B = "ROADMAP Queue 1 item 4b (the ingest tail)"
+_Q1_7 = ("ROADMAP Queue 1 item 7 (microservices mode: the generator's remote write, "
+         "modules/generator/storage)")
 # (switched on?, what, ROADMAP item) for every feature of the reference
 # whose module the port does not carry yet
 _UNPORTED = (
     (lambda c: (c.target or "all") != "all",
      lambda c: f"target={c.target!r} (microservices mode)", _Q1_2),
-    (lambda c: c.generator_enabled, lambda c: "the metrics-generator", _Q1_2),
+    # modules/generator/storage (with util/snappy) comes with microservices
+    # mode
     (lambda c: c.remote_write is not None and bool(c.remote_write.endpoint),
-     lambda c: "generator remote_write", _Q1_2),
+     lambda c: "generator remote_write", _Q1_7),
     (lambda c: bool(c.forwarders), lambda c: "distributor forwarders", _Q1_2),
     (lambda c: c.usage_stats is not None and getattr(c.usage_stats, "enabled", False),
      lambda c: "usage_report", _Q1_2),
@@ -137,7 +143,7 @@ class AppConfig:
     replication_factor: int = 1
     n_ingesters: int = 1  # in-process ingesters (tests use >1 to exercise RF)
     query_workers: int = 4
-    generator_enabled: bool = False  # the reference's default is True
+    generator_enabled: bool = True
     # remote-write of generator metrics (reference: modules/generator/storage);
     # None or an endpoint-less config disables shipping
     remote_write: "RemoteWriteConfig | None" = None
@@ -221,6 +227,8 @@ class App:
         self.target = "all"
         self.overrides = Overrides(cfg.limits, cfg.overrides_path)
         self.ingesters: dict = {}
+        self.generator_ring = None
+        self.generator = None
         self._heartbeat_stops = []
         self._registered: list = []  # (ring, instance_id) to unregister on shutdown
         # built BEFORE the ingesters so the cut path holds a stable
@@ -271,8 +279,20 @@ class App:
             self._registered.append((self.ring, iid))
             self._heartbeat_stops.append(self.ring.start_heartbeat(iid, period_s=self._hb_period()))
 
+        gen_clients = {}
+        if cfg.generator_enabled:
+            self.generator_ring = Ring(MemoryKV(), replication_factor=1)
+            self.generator = Generator(self.overrides, instance_id="generator-0",
+                                       device=self.device)
+            self.generator_ring.register("generator-0")
+            gen_clients["generator-0"] = self.generator
+            self._heartbeat_stops.append(self.generator_ring.start_heartbeat(
+                "generator-0", period_s=self._hb_period()))
+
         self.distributor = Distributor(self.ring, ingester_clients=self.ingesters,
-                                       overrides=self.overrides)
+                                       overrides=self.overrides,
+                                       generator_ring=self.generator_ring,
+                                       generator_clients=gen_clients)
         self.querier = Querier(self.db, self.ring, ingester_clients=self.ingesters)
         self.broker = JobBroker()
         self.workers = LocalWorkerPool(self.broker, self.querier, cfg.query_workers,
@@ -360,6 +380,29 @@ class App:
             max_series=max_series, exemplars=exemplars,
         )
 
+    def graph_dependencies(self, q: str = "", start_s: int = 0, end_s: int = 0,
+                           org_id=None) -> dict:
+        """Stored-block service-dependency graph over a TraceQL-selected
+        root set (the live generator's edges, but over months of blocks)."""
+        return self._require(self.frontend, "queries").graph_dependencies(
+            self.resolve_tenant(org_id), q, start_s, end_s
+        )
+
+    def graph_critical_path(self, q: str = "", start_s: int = 0, end_s: int = 0,
+                            by: str = "service", org_id=None) -> dict:
+        """Per-trace longest self-time paths, attributed by service or
+        span name — "where does p99 actually go" over any spanset."""
+        return self._require(self.frontend, "queries").graph_critical_path(
+            self.resolve_tenant(org_id), q, start_s, end_s, by=by
+        )
+
+    def graph_walks(self, q: str = "", start_s: int = 0, end_s: int = 0,
+                    org_id=None, **kw) -> dict:
+        """Seeded temporal random walks over the aggregated service graph."""
+        return self._require(self.frontend, "queries").graph_walks(
+            self.resolve_tenant(org_id), q, start_s, end_s, **kw
+        )
+
     def search_tags(self, org_id=None) -> list[str]:
         """Reference: /api/search/tags is proxied by the frontend straight
         to queriers (no sharding middleware)."""
@@ -424,6 +467,8 @@ class App:
         states = {"target": self.target}
         for name in ("distributor", "querier", "frontend", "compactor"):
             states[name] = "Running"
+        if self.generator is not None:
+            states["generator"] = "Running"
         if self.standing is not None:
             states["standing"] = "Running"
         for iid in self.ingesters:

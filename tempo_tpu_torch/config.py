@@ -11,9 +11,8 @@ usage_report) so a Tempo operator's mental model carries over.
 
 Port of tempo_tpu/config.py: the same YAML gives the same dataclasses.
 The sections of modules not ported yet come from config_sections, and
-two defaults differ from the reference (`metrics_generator.enabled`
-starts off, `storage.trace.analytics_scan_s` is 0); App refuses each
-unported section that is switched on.
+one default differs from the reference (`storage.trace.analytics_scan_s`
+is 0); App refuses each unported section that is switched on.
 """
 
 from __future__ import annotations
@@ -184,7 +183,7 @@ def parse_config(text: str, env: dict | None = None) -> Config:
         raise ConfigError(f"distributor.{next(iter(dist))}: unknown config key")
 
     gen = doc.pop("metrics_generator", {}) or {}
-    app.generator_enabled = bool(gen.pop("enabled", False))
+    app.generator_enabled = bool(gen.pop("enabled", True))
     rw = gen.pop("remote_write", None)
     if rw:
         app.remote_write = _from_dict(

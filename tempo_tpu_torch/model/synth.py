@@ -11,6 +11,9 @@ Two paths:
   trace from its seed and compare (vulture semantics).
 - `make_batch` — direct columnar generation at benchmark scale (millions
   of spans without object overhead).
+- `make_graph_batch` — columnar traces whose spans form parent chains
+  with client/server hops across services (the service graphs and the
+  critical path need them).
 """
 
 from __future__ import annotations
@@ -18,11 +21,13 @@ from __future__ import annotations
 import numpy as np
 
 from tempo_tpu_torch.model.columnar import (
+    ATTR_COLUMNS,
     SCOPE_SPAN,
     VT_INT,
     VT_STR,
     Dictionary,
     SpanBatch,
+    _empty_cols,
 )
 from tempo_tpu_torch.model.trace import (
     KIND_CLIENT,
@@ -138,4 +143,58 @@ def make_batch(
     }
     attrs["attr_str"] = np.where(attrs["attr_vtype"] == VT_STR, attrs["attr_str"], 0).astype(np.uint32)
     batch = SpanBatch(cols=cols, attrs=attrs, dictionary=d)
+    return batch.sorted_by_trace()
+
+
+def make_graph_batch(
+    n_traces: int,
+    spans_per_trace: int,
+    seed: int = 0,
+    base_time_ns: int = 1_700_000_000 * 10**9,
+    error_rate: float = 0.1,
+) -> SpanBatch:
+    """Columnar traces with REAL parent chains and cross-service
+    client/server hops (make_batch's parents are random ids, so it pairs
+    no service-graph edges). Each trace is one call chain: span i's
+    parent is span i-1; even hops are SERVER spans entering service
+    i//2, odd hops the CLIENT call out of it — exactly the pairing rule
+    the service-graphs processor and the stored-block aggregation share.
+    Durations nest (children strictly inside parents), so critical-path
+    self times are all positive and hand-checkable."""
+    rng = np.random.default_rng(seed)
+    k = spans_per_trace
+    n = n_traces * k
+    d = Dictionary()
+    svc_codes = np.array([d.add(s) for s in SERVICES], dtype=np.uint32)
+    name_codes = np.array([d.add(s) for s in OP_NAMES], dtype=np.uint32)
+    tid = rng.integers(0, 2**32, size=(n_traces, 4), dtype=np.uint32)
+    hop = np.tile(np.arange(k, dtype=np.int64), n_traces)
+    # per-trace random service rotation so many distinct edges exist
+    rot = np.repeat(rng.integers(0, len(SERVICES), size=n_traces), k)
+    svc_idx = (hop // 2 + rot) % len(svc_codes)
+    sid = rng.integers(1, 2**32, size=(n, 2), dtype=np.uint32)
+    parent = np.zeros((n, 2), np.uint32)
+    not_root = hop > 0
+    parent[not_root] = sid[np.flatnonzero(not_root) - 1]
+    # nested timing: each child starts 1ms into its parent and runs
+    # (k - hop) * 10ms, so self time is 10ms-ish everywhere
+    start = (base_time_ns + np.repeat(rng.integers(0, 10**9, size=n_traces), k)
+             + hop * 1_000_000).astype(np.uint64)
+    duration = ((k - hop) * 10_000_000 + rng.integers(0, 10**6, size=n)).astype(np.uint64)
+    failed = rng.random(n) < error_rate
+    cols = {
+        "trace_id": np.repeat(tid, k, axis=0),
+        "span_id": sid,
+        "parent_span_id": parent,
+        "start_unix_nano": start,
+        "duration_nano": duration,
+        "kind": np.where(hop % 2 == 0, KIND_SERVER, KIND_CLIENT).astype(np.uint8),
+        "status_code": np.where(failed, 2, 0).astype(np.uint8),
+        "name": rng.choice(name_codes, size=n).astype(np.uint32),
+        "service": svc_codes[svc_idx],
+        "http_status": np.where(failed, 500, 200).astype(np.uint16),
+        "http_method": np.zeros(n, np.uint32),
+        "http_url": np.zeros(n, np.uint32),
+    }
+    batch = SpanBatch(cols=cols, attrs=_empty_cols(ATTR_COLUMNS), dictionary=d)
     return batch.sorted_by_trace()

@@ -7,9 +7,9 @@ are columnar end-to-end, so "regroup by trace ID" is an argsort over the
 token array, and the per-ingester payload is a serialized columnar
 segment (format.serialize_batch), not proto bytes.
 
-Port of tempo_tpu/modules/distributor.py without the metrics-generator
-tee and the forwarder tee (their slices; App refuses
-`generator_enabled` and `forwarders`).
+Port of tempo_tpu/modules/distributor.py with the metrics-generator tee
+and without the forwarder tee (ROADMAP Queue 1 item 7; App refuses
+`forwarders`).
 """
 
 from __future__ import annotations
@@ -78,6 +78,7 @@ class Distributor:
     _EVICT_PERIOD_S = 60.0
 
     def __init__(self, ring, ingester_clients: dict, overrides,
+                 generator_ring=None, generator_clients: dict | None = None,
                  instance_id: str = "distributor-0",
                  governor: "resource.ResourceGovernor | None" = None):
         """ingester_clients: instance_id -> object with
@@ -85,6 +86,8 @@ class Distributor:
         self.ring = ring
         self.clients = ingester_clients
         self.overrides = overrides
+        self.generator_ring = generator_ring
+        self.generator_clients = generator_clients or {}
         self.instance_id = instance_id
         self.governor = governor or resource.governor()
         self.metrics = DistributorMetrics()
@@ -259,6 +262,8 @@ class Distributor:
                     )
                 raise IOError(f"push failed: {errs}")
 
+        self._send_to_generators(tenant, batch)
+
     # ------------------------------------------------------------------
     def _group_by_replica(self, tenant: str, batch: SpanBatch) -> dict[str, SpanBatch]:
         """Group span rows by destination ingester: token per trace ID,
@@ -281,3 +286,26 @@ class Distributor:
             mask = np.isin(inverse, trace_idxs)
             out[instance_id] = batch.select(np.flatnonzero(mask))
         return out
+
+    def _send_to_generators(self, tenant: str, batch: SpanBatch) -> None:
+        if not self.generator_ring or not self.generator_clients:
+            return
+        size = self.overrides.for_tenant(tenant).metrics_generator_ring_size
+        targets = self.generator_ring.shuffle_shard(tenant, size)
+        if not targets:
+            return
+        # single-assignment by trace token within the shard
+        tid = batch.cols["trace_id"]
+        tokens = hashing.np_token_for_ids(tenant, tid)
+        idx = tokens % np.uint32(len(targets))
+        for i, inst in enumerate(targets):
+            client = self.generator_clients.get(inst.instance_id)
+            if client is None:
+                continue
+            rows = np.flatnonzero(idx == i)
+            if len(rows) == 0:
+                continue
+            try:
+                client.push_segment(tenant, fmt.serialize_batch(batch.select(rows)))
+            except Exception:
+                log.exception("generator push failed (non-fatal)")

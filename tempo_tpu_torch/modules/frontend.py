@@ -14,8 +14,8 @@ boundary is the broker seam (the reference's httpgrpc boundary).
 
 Port of tempo_tpu/modules/frontend.py: find by ID, search, query_range
 and TraceQL, with the compiled tier's verdicts (its search-shape ledger
-and the query_range roll-up) on the query-insights records. Not here
-yet: the graph endpoints (the graph/ slice).
+and the query_range roll-up) on the query-insights records, and the
+graph endpoints (dependencies, critical path, walks).
 """
 
 from __future__ import annotations
@@ -635,6 +635,130 @@ class Frontend:
             mat["failedShards"] = failed
             mat.setdefault("stats", {})["failedShards"] = failed
         return mat
+
+    # ------------------------------------------------------------------
+    # trace-graph analytics: /api/graph/{dependencies,critical-path,walks}
+    # — a full query vertical riding the same machinery as search/
+    # query_range (admission, job sharding, hedging, retry taxonomy,
+    # failed-shard budget, stage waterfall, cost vector). Partials are
+    # integer edge/critical-path wires (tempo_tpu_torch/graph), so the merged
+    # result is bit-identical at ANY shard count.
+    def graph_dependencies(self, tenant: str, q: str = "", start_s: int = 0,
+                           end_s: int = 0) -> dict:
+        from tempo_tpu_torch import graph
+
+        wire, failed, stats = self._graph_fanout(
+            tenant, "dependencies", "deps", q, start_s, end_s)
+        doc = graph.finalize_deps(wire)
+        return self._graph_doc(doc, failed, stats)
+
+    def graph_critical_path(self, tenant: str, q: str = "", start_s: int = 0,
+                            end_s: int = 0, by: str = "service") -> dict:
+        from tempo_tpu_torch import graph
+
+        if by not in graph.CP_BY:
+            raise ValueError(
+                f"unknown critical-path grouping {by!r} (have {graph.CP_BY})")
+        wire, failed, stats = self._graph_fanout(
+            tenant, "critical-path", "cp", q, start_s, end_s, by=by)
+        doc = graph.finalize_cp(wire)
+        return self._graph_doc(doc, failed, stats)
+
+    def graph_walks(self, tenant: str, q: str = "", start_s: int = 0,
+                    end_s: int = 0, walks: int = 32, steps: int = 6,
+                    seed: int = 0, window_s: int = 0,
+                    start_node: str | None = None) -> dict:
+        """Temporal random walks over the aggregated edge list: the deps
+        fan-out supplies the graph, then the seeded splitmix64 sampler
+        replays bit-identically for the same (edges, seed) — exploration
+        you can cite in an incident doc."""
+        from tempo_tpu_torch import graph
+        from tempo_tpu_torch.graph import walks as walks_mod
+
+        wire, failed, stats = self._graph_fanout(
+            tenant, "walks", "deps", q, start_s, end_s)
+        doc = walks_mod.sample_walks(
+            wire["edges"], seed=seed, walks=walks, steps=steps,
+            window_s=window_s, start=start_node)
+        doc["edges"] = len(wire["edges"])
+        return self._graph_doc(doc, failed, stats)
+
+    @staticmethod
+    def _graph_doc(doc: dict, failed: int, stats: dict) -> dict:
+        doc.setdefault("stats", {}).update(stats)
+        doc["status"] = "partial" if failed else "success"
+        if failed:
+            doc["failedShards"] = failed
+            doc["stats"]["failedShards"] = failed
+        return doc
+
+    def _graph_fanout(self, tenant: str, what: str, want: str, q: str,
+                      start_s: int, end_s: int, by: str = "service"):
+        """Shared fan-out for the three graph endpoints: returns the
+        merged wire, the failed-shard count within budget, and the
+        request's waterfall/stat rollup."""
+        from tempo_tpu_torch import graph
+
+        kind_label = what.replace("-", "_")
+        with stagetimings.request() as st, usage.attribute(tenant, "graph"), \
+                insights.LOG.observe(tenant, f"graph_{kind_label}",
+                                     insights.normalize_query(q or "{}")) as rec:
+            with tracing.span(f"frontend/graph_{kind_label}", tenant=tenant, q=q):
+                wire, failed = self._graph_traced(
+                    tenant, q, start_s, end_s, want, by)
+            if failed:
+                rec["status"] = "partial"
+                rec["failedShards"] = failed
+            graph.graph_queries_total.inc(kind=kind_label)
+            stats = dict(wire.pop("stats", {}) or {})
+            w = st.to_wire()
+            stats["stageSeconds"] = w["stageSeconds"]
+            stats["deviceDispatches"] = w["deviceDispatches"]
+            st.observe("graph")
+            return wire, failed, stats
+
+    def _graph_traced(self, tenant: str, q: str, start_s: int, end_s: int,
+                      want: str, by: str):
+        from tempo_tpu_torch import graph
+
+        # parse up front: a malformed/unsupported root filter is a
+        # client error and must fail before any job is sharded
+        graph.parse_root_filter(q)
+        now = time.time()
+        ing_cutoff = now - self.cfg.query_ingesters_until_s
+        common = {"q": q, "start": start_s, "end": end_s, "want": want, "by": by}
+        descs = []
+        if not end_s or end_s >= ing_cutoff:
+            descs.append({"kind": "graph_recent", **common})
+        metas = [
+            m for m in self.db.blocklist.metas(tenant)
+            if (not start_s or m.end_time >= start_s)
+            and (not end_s or m.start_time <= end_s)
+        ]
+        est_bytes = 0
+        group, size = [], 0
+        for m in metas:
+            group.append(m.block_id)
+            size += max(m.size_bytes, 1)
+            est_bytes += max(m.size_bytes, 1)
+            if size >= self.cfg.target_bytes_per_job:
+                descs.append({"kind": "graph_blocks", "block_ids": group, **common})
+                group, size = [], 0
+        if group:
+            descs.append({"kind": "graph_blocks", "block_ids": group, **common})
+
+        # protected only when confined to the recent window (the search
+        # rule: touching `now` alone doesn't protect a scan)
+        protected = bool(start_s and start_s >= ing_cutoff)
+        with self._admit(tenant, est_bytes, protected=protected, what="graph"):
+            results, errors = self._run_jobs(tenant, descs)
+        failed = self._settle(tenant, len(descs), results, errors)
+        merged = graph.new_deps_wire() if want == "deps" else graph.new_cp_wire(by)
+        merge = graph.merge_deps_wire if want == "deps" else graph.merge_cp_wire
+        with stagetimings.stage("merge"):
+            for r in results:
+                merge(merged, r.get("wire"))
+        return merged, failed
 
     # ------------------------------------------------------------------
     def traceql(self, tenant: str, query: str, start_s=0, end_s=0, limit=20,

@@ -13,8 +13,9 @@ compiled tier claiming simple-count plans over blocks first
 serverless external endpoints (ROADMAP Queue 1 item 3), the result cache
 (Queue 1 item 1.2; App refuses `db.result_cache.enabled`), the live-tail
 hook of the device tier's ingest tail (Queue 1 item 4b), the mesh search
-and metrics (Queue 1 item 12), the multi-query search seam (its caller is
-the standing tier) and the graph jobs (the graph/ slice).
+and metrics (Queue 1 item 12) and the multi-query search seam (its
+caller is the standing tier). The graph jobs (graph_recent,
+graph_blocks) sum their critical paths on the DB's device.
 """
 
 from __future__ import annotations
@@ -247,6 +248,85 @@ class Querier:
                     tenant, block_ids, q, start_s, end_s, step_s,
                     max_series=max_series, exemplars=exemplars)
         return out
+
+    # ------------------------------------------------------------------
+    # trace-graph analytics (service dependencies / critical paths)
+    # ------------------------------------------------------------------
+    def graph_recent(self, tenant: str, q: str, start_s: int, end_s: int,
+                     want: str, by: str = "service") -> dict:
+        """Graph partials over not-yet-flushed ingester data (live trace
+        segments + WAL head blocks), the recent-window complement of
+        graph_blocks — same disjointness contract as search_recent. The
+        critical path's root sums run on the DB's device."""
+        from tempo_tpu_torch import graph
+
+        pipeline = graph.parse_root_filter(q)
+        wire = (graph.new_deps_wire() if want == "deps"
+                else graph.new_cp_wire(by))
+        for batch in self._live_batches(tenant):
+            rows = graph.batch_graph_rows(batch, pipeline, start_s, end_s)
+            if rows is None:
+                continue
+            if want == "deps":
+                graph.deps_partial(rows, batch.dictionary, wire=wire)
+            else:
+                graph.cp_partial(rows, batch.dictionary, by=by, wire=wire,
+                                 device=self.db.device,
+                                 bucket_for=self.db.cfg.block.bucket_for)
+        return wire
+
+    def graph_blocks(self, tenant: str, block_ids: list, q: str, start_s: int,
+                     end_s: int, want: str, by: str = "service") -> dict:
+        """One frontend graph job = a batch of backend blocks. Each block
+        commits its partial only after evaluating WHOLE (the metrics-path
+        contract: integer partials have no dedupe, so a block deleted
+        mid-scan must contribute nothing — its spans live on in the
+        compaction output that replaced it)."""
+        from tempo_tpu_torch import graph
+
+        pipeline = graph.parse_root_filter(q)
+        wire = (graph.new_deps_wire() if want == "deps"
+                else graph.new_cp_wire(by))
+        # (the reference reads and fills its result cache here, a block's
+        # graph partial keyed by query, window, want and by; resultcache/
+        # is not ported: ROADMAP Queue 1 item 5)
+        for bid in block_ids:
+            try:
+                meta = self.db.backend.block_meta(tenant, bid)
+            except NotFound:
+                log.warning("graph job: block %s deleted mid-query", bid)
+                continue
+
+            def run(meta=meta):
+                blk = self.db.encoding_for(meta.version).open_block(
+                    meta, self.db.backend, self.db.cfg.block)
+                stats = {"inspectedBlocks": 1}
+                rows = graph.collect_block_rows(
+                    blk, pipeline, start_s, end_s, stats=stats)
+                sub = (graph.new_deps_wire() if want == "deps"
+                       else graph.new_cp_wire(by))
+                if rows is not None:
+                    if want == "deps":
+                        graph.deps_partial(rows, blk.dictionary(), wire=sub)
+                    else:
+                        graph.cp_partial(rows, blk.dictionary(), by=by,
+                                         wire=sub, device=self.db.device,
+                                         bucket_for=self.db.cfg.block.bucket_for)
+                stats["inspectedBytes"] = blk.bytes_read
+                stats["decodedBytes"] = getattr(blk, "decoded_bytes", 0)
+                sub["stats"] = {**sub["stats"], **stats}
+                return sub
+
+            try:
+                sub = self.db.guard_block(tenant, bid, run)
+            except NotFound:
+                log.warning("graph job: block %s deleted mid-query", bid)
+                continue
+            if want == "deps":
+                graph.merge_deps_wire(wire, sub)
+            else:
+                graph.merge_cp_wire(wire, sub)
+        return wire
 
     def search_tags(self, tenant: str) -> list[str]:
         """Tag names in live ingester data AND backend blocks. The

@@ -1,6 +1,7 @@
 """Port of tempo_tpu/modules/ring.py for the single binary (host code):
-the ring over MemoryKV. FileKV (the one-host KV of microservices mode)
-and shuffle sharding (the generator's) wait for their slices.
+the ring over MemoryKV, with the generator's shuffle sharding. FileKV
+(the one-host KV of microservices mode) waits for its slice (ROADMAP
+Queue 1 item 7).
 
 Consistent-hash ring + membership.
 
@@ -201,6 +202,15 @@ class Ring:
         stop._thread = t
         t.start()
         return stop
+
+    def shuffle_shard(self, key: str, size: int) -> list[InstanceDesc]:
+        """Deterministic per-tenant subset (reference: generator shuffle-
+        sharding, modules/distributor/distributor.go:447)."""
+        healthy = sorted(self.healthy_instances(), key=lambda i: i.instance_id)
+        if size <= 0 or size >= len(healthy):
+            return healthy
+        rng = random.Random(key)
+        return sorted(rng.sample(healthy, size), key=lambda i: i.instance_id)
 
     def owns(self, instance_id: str, job_hash: int) -> bool:
         """Work-sharding ownership: does instance own this job token?

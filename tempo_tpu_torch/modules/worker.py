@@ -16,15 +16,17 @@ Descriptor kinds:
   traceql        {q, start, end, limit}
   metrics_recent {q, start, end, step, max_series, exemplars}
   metrics_blocks {block_ids, q, start, end, step, max_series, exemplars}
+  graph_recent   {q, start, end, want: deps|cp, by}
+  graph_blocks   {block_ids, q, start, end, want: deps|cp, by}
 Results are JSON-safe dicts; traces travel as b64 OTLP protobuf;
 metrics partials travel in HostAccumulator.to_wire form (sparse
 per-series bin counts + exemplars + stats) tagged with the job's
 window start so the frontend can offset bins into the parent grid.
 
 Port of tempo_tpu/modules/worker.py for the single binary: the broker,
-the in-process pool and execute_job. The graph job kinds wait for the
-graph/ slice and RemoteWorker (the querier role's HTTP long-poll) for
-microservices mode (ROADMAP Queue 1 item 2).
+the in-process pool and execute_job, every job kind. RemoteWorker (the
+querier role's HTTP long-poll) waits for microservices mode (ROADMAP
+Queue 1 item 7, cited as "Queue 1 item 2").
 """
 
 from __future__ import annotations
@@ -133,6 +135,17 @@ def _execute_job(querier, tenant: str, desc: dict) -> dict:
         else:
             wire = querier.query_range_blocks(tenant, desc["block_ids"], desc["q"], **kw)
         return {"wire": wire, "start": desc["start"]}
+    if kind in ("graph_recent", "graph_blocks"):
+        kw = dict(
+            q=desc.get("q", ""), start_s=desc.get("start", 0),
+            end_s=desc.get("end", 0), want=desc.get("want", "deps"),
+            by=desc.get("by", "service"),
+        )
+        if kind == "graph_recent":
+            wire = querier.graph_recent(tenant, **kw)
+        else:
+            wire = querier.graph_blocks(tenant, desc["block_ids"], **kw)
+        return {"wire": wire}
     if kind == "traceql":
         stats: dict = {}
         hits = querier.traceql(

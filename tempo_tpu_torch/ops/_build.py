@@ -1,6 +1,8 @@
 """Build and load the port's CUDA kernels (csrc/kernels.cu: the three
 Pallas kernels; csrc/codec_kernels.cu: the codec's page encode, the
-compiled query tier and the device tier's resident scans).
+compiled query tier and the device tier's resident scans;
+csrc/graph_sketch_kernels.cu: the HLL and count-min updates and the
+critical path's pointer doubling).
 
 nvcc compiles each source into a shared library with a plain C
 interface, tagged with a hash of the source, under tempo_tpu_torch/_build/
@@ -23,7 +25,7 @@ import subprocess
 import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = ("kernels.cu", "codec_kernels.cu")
+SOURCES = ("kernels.cu", "codec_kernels.cu", "graph_sketch_kernels.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -57,6 +59,9 @@ _SIGNATURES = {
                                    ctypes.c_uint32, _P, ctypes.POINTER(_I32), _P],
     "tt_resident_dbp_scan": [_P, _U64, _U64, _P, ctypes.POINTER(_I32), _P],
     "tt_resident_dbp_scan_batch": [_P, _I32, _I64, _U64, _U64, _P, ctypes.POINTER(_I32), _P],
+    "tt_hll_update": [_P, _I32, _I32, _P, _I64, _I32, _P, _P],
+    "tt_cm_update": [_P, _I32, _I32, _P, _P, _I64, _I32, _I32, ctypes.c_uint32, _P, _P],
+    "tt_root_path_sums": [_P, _P, _I32, _I32, _P, _P, _P, _P, ctypes.POINTER(_I32), _P],
 }
 
 
@@ -105,8 +110,9 @@ def build() -> list[str]:
 
 
 def _kernel_name(mangled: str) -> str:
-    """`_ZN<len><namespace><len><name>[ILb1ELb0EE | ILi256EE]...` -> `name`,
-    `name<1,0>` or `name<256>`."""
+    """`_ZN<len><namespace><len><name>[ILb1ELb0EE | ILi256EE | IjLb1ELb0EE]...`
+    -> `name`, `name<1,0>`, `name<256>` or `name<u32,1,0>` (j: unsigned int,
+    y: unsigned long long)."""
     m = re.match(r"_ZN(\d+)", mangled)
     if not m:
         return mangled
@@ -115,8 +121,12 @@ def _kernel_name(mangled: str) -> str:
     if not m:
         return mangled
     name = rest[m.end():m.end() + int(m.group(1))]
-    tmpl = re.match(r"I((?:L[bi]\d+E)+)E", rest[m.end() + int(m.group(1)):])
-    return f"{name}<{','.join(re.findall(r'L[bi](\d+)E', tmpl.group(1)))}>" if tmpl else name
+    tmpl = re.match(r"I((?:[jy]|L[bi]\d+E)+)E", rest[m.end() + int(m.group(1)):])
+    if not tmpl:
+        return name
+    args = [{"j": "u32", "y": "u64"}.get(a, a[2:-1])
+            for a in re.findall(r"[jy]|L[bi]\d+E", tmpl.group(1))]
+    return f"{name}<{','.join(args)}>"
 
 
 def ptxas_report() -> dict:

@@ -5,6 +5,15 @@ hll_estimate, CMPlan, cm_update, cm_merge, cm_query, HistogramPlan,
 np_hist_quantile). uint32 state rides in int64 tensors; count-min
 counts wrap mod 2**32 like the uint32 JAX counters.
 
+hll_update and cm_update are hand-written CUDA kernels on the card
+(csrc/graph_sketch_kernels.cu, built at first use by ops/_build.py):
+each wrapper takes its plain PyTorch version (_hll_update_plain,
+_cm_update_plain) only for tensors on the CPU, launches the kernel for
+CUDA tensors or raises, and counts the calls that launched in
+`<wrapper>.launches`. Both return what the plain versions return, bit
+for bit: the registers and counters are integers, and max and add do
+not depend on the order the atomics run in.
+
 Torch has no count-leading-zeros, so `_clz32` finds the bit length with
 a five-step binary search on shifts, which is exact for every uint32.
 The scatter-max and scatter-add send masked lanes to one trash slot past
@@ -13,13 +22,17 @@ the end, which is cut off afterwards (JAX: mode="drop").
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from tempo_tpu_torch.ops import hashing
+from tempo_tpu_torch.ops import _build, hashing
 from tempo_tpu_torch.ops.hashing import MASK32
+from tempo_tpu_torch.ops.pallas_kernels import _stream, u32_bits
+
+CM_SEED = 0x5BD1E995  # count-min hash streams: fmix32 seeds CM_SEED * 31 + i
 
 # ---------------------------------------------------------------------------
 # HyperLogLog
@@ -55,9 +68,9 @@ def _clz32(x: torch.Tensor) -> torch.Tensor:
     return 32 - (n + (y != 0).to(torch.int64))
 
 
-def hll_update(regs: torch.Tensor, limbs: torch.Tensor, p: HLLPlan,
-               valid: torch.Tensor | None = None) -> torch.Tensor:
-    """Fold a batch of keys into the register array (scatter-max)."""
+def _hll_update_plain(regs: torch.Tensor, limbs: torch.Tensor, p: HLLPlan,
+                      valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of hll_update: scatter-max of clz(h_rank) + 1."""
     base = hashing.fnv1a_32(limbs)
     h_idx = hashing.fmix32(base, seed=0x2545F491)
     h_rho = hashing.fmix32(base, seed=0x27220A95)
@@ -68,6 +81,61 @@ def hll_update(regs: torch.Tensor, limbs: torch.Tensor, p: HLLPlan,
     out = torch.cat([regs.to(torch.int64), regs.new_zeros(1, dtype=torch.int64)])
     out.scatter_reduce_(0, idx, rho, reduce="amax", include_self=True)
     return out[: p.m]
+
+
+def _kernel_inputs(kernel: str, limbs: torch.Tensor, valid: torch.Tensor | None,
+                   *others: torch.Tensor) -> tuple:
+    """(limbs, limb bytes, valid) as the sketch kernels read them: the
+    keys as 4-byte uint32 bits (int32 or uint32 tensors) or as int64
+    holding uint32 values, row-major; valid as contiguous bool. Raises on
+    what the kernels do not take."""
+    if limbs.ndim != 2:
+        raise ValueError(f"{kernel}: limbs must be (N, L)")
+    if valid is not None and valid.shape != limbs.shape[:1]:
+        raise ValueError(f"{kernel}: valid and limbs differ in rows")
+    for t in (valid, *others):
+        if t is not None and t.device != limbs.device:
+            raise ValueError(f"{kernel}: tensors on {t.device} and {limbs.device}")
+    if limbs.dtype in (torch.int32, torch.uint32):
+        limbs, nbytes = limbs.contiguous(), 4
+    elif limbs.dtype == torch.int64:
+        limbs, nbytes = limbs.contiguous(), 8
+    else:
+        limbs, nbytes = (limbs.to(torch.int64) & MASK32).contiguous(), 8
+    if valid is not None:
+        valid = valid.to(torch.bool).contiguous()
+    return limbs, nbytes, valid
+
+
+def hll_update(regs: torch.Tensor, limbs: torch.Tensor, p: HLLPlan,
+               valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Fold a batch of keys into the register array (scatter-max).
+
+    regs: (m,) int64; limbs: (N, L) integer keys of uint32 values; valid:
+    (N,) bool or None. Returns new (m,) int64 registers on regs' device:
+    the plain version for CPU tensors, the hll_update kernel for CUDA
+    tensors (one launch; none for N = 0)."""
+    if limbs.device.type == "cpu":
+        return _hll_update_plain(regs, limbs, p, valid)
+    if limbs.device.type != "cuda":
+        raise ValueError(f"hll_update: no kernel for device {limbs.device}")
+    if regs.shape != (p.m,):
+        raise ValueError(f"hll_update: regs must be ({p.m},)")
+    limbs, nbytes, valid = _kernel_inputs("hll_update", limbs, valid, regs)
+    out = regs.to(torch.int64, copy=True)
+    if limbs.shape[0] == 0:
+        return out
+    with torch.cuda.device(out.device):
+        err = _build.lib().tt_hll_update(
+            limbs.data_ptr(), limbs.shape[1], nbytes,
+            None if valid is None else valid.data_ptr(), limbs.shape[0], p.m,
+            out.data_ptr(), _stream(out))
+    _build.check(err, "hll_update")
+    hll_update.launches += 1
+    return out
+
+
+hll_update.launches = 0
 
 
 def hll_merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -120,14 +188,14 @@ def cm_init(p: CMPlan, device) -> torch.Tensor:
 
 
 def _cm_indices(limbs: torch.Tensor, p: CMPlan) -> torch.Tensor:
-    hs = hashing.hash_streams(limbs, p.depth, seed=0x5BD1E995)
+    hs = hashing.hash_streams(limbs, p.depth, seed=CM_SEED)
     return hs & (p.width - 1)  # (depth, N)
 
 
-def cm_update(counts: torch.Tensor, limbs: torch.Tensor, p: CMPlan,
-              weights: torch.Tensor | None = None,
-              valid: torch.Tensor | None = None) -> torch.Tensor:
-    """Scatter-add a batch of keys (optionally weighted) into the sketch."""
+def _cm_update_plain(counts: torch.Tensor, limbs: torch.Tensor, p: CMPlan,
+                     weights: torch.Tensor | None = None,
+                     valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of cm_update: depth scatter-adds, mod 2**32."""
     idx = _cm_indices(limbs, p)  # (depth, N)
     n = limbs.shape[0]
     if weights is None:
@@ -141,6 +209,47 @@ def cm_update(counts: torch.Tensor, limbs: torch.Tensor, p: CMPlan,
     out = counts.reshape(-1).to(torch.int64).clone()
     out.index_add_(0, flat, w.expand(p.depth, n).reshape(-1))
     return (out & MASK32).view(p.depth, p.width)
+
+
+def cm_update(counts: torch.Tensor, limbs: torch.Tensor, p: CMPlan,
+              weights: torch.Tensor | None = None,
+              valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Scatter-add a batch of keys (optionally weighted) into the sketch.
+
+    counts: (depth, width) int64 holding uint32 values; limbs: (N, L)
+    integer keys of uint32 values; weights: (N,) integers, masked to 32
+    bits (1 a row when None); valid: (N,) bool or None. Returns new
+    counters, which wrap mod 2**32: the plain version for CPU tensors,
+    the cm_update kernel for CUDA tensors (one launch; none for N = 0)."""
+    if limbs.device.type == "cpu":
+        return _cm_update_plain(counts, limbs, p, weights, valid)
+    if limbs.device.type != "cuda":
+        raise ValueError(f"cm_update: no kernel for device {limbs.device}")
+    if counts.shape != (p.depth, p.width):
+        raise ValueError(f"cm_update: counts must be ({p.depth}, {p.width})")
+    limbs, nbytes, valid = _kernel_inputs("cm_update", limbs, valid, counts,
+                                          *(() if weights is None else (weights,)))
+    if weights is not None:
+        if weights.shape != limbs.shape[:1]:
+            raise ValueError("cm_update: weights and limbs differ in rows")
+        weights = u32_bits(weights).contiguous()
+    # the kernel adds into each counter's low 32-bit word: the high words
+    # must start at zero
+    out = (counts.to(torch.int64) & MASK32).contiguous()
+    if limbs.shape[0] == 0:
+        return out
+    with torch.cuda.device(out.device):
+        err = _build.lib().tt_cm_update(
+            limbs.data_ptr(), limbs.shape[1], nbytes,
+            None if weights is None else weights.data_ptr(),
+            None if valid is None else valid.data_ptr(), limbs.shape[0], p.depth, p.width,
+            ctypes.c_uint32((CM_SEED * 31) & MASK32), out.data_ptr(), _stream(out))
+    _build.check(err, "cm_update")
+    cm_update.launches += 1
+    return out
+
+
+cm_update.launches = 0
 
 
 def cm_merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -10,9 +10,8 @@ in-process ingesters; then the refusals (429 on the rate limit,
 TraceTooLarge and MaxLiveTraces, 400 on bad TraceQL, 404 on a route the
 port does not serve yet). The port runs with device="cpu".
 
-The JAX App runs with the feature the port does not carry off (the
-metrics-generator), with the standing-query engine on in both (the
-default), its storage engine pinned to one device (compaction_device_shards=1: the JAX tests run on
+Both Apps run the metrics-generator and the standing-query engine (the
+defaults), the JAX App with its storage engine pinned to one device (compaction_device_shards=1: the JAX tests run on
 an 8-device CPU mesh whose sharded search is the multi-GPU slice), and
 its storage analytics scan off. ReadAhead prefetch, hedged requests and
 all but one query worker are off in both, so every answer reads the
@@ -112,7 +111,7 @@ class AppPair:
         self.japp = JApp(JAppConfig(
             db=jdb, ingester=JIngesterConfig(), limits=JLimits(**(limits or {})),
             frontend=JFrontendConfig(hedge_after_s=0),
-            generator_enabled=False, **kw, **(jax_kw or {})))
+            **kw, **(jax_kw or {})))
         self.tapp = None
         self.servers = []
         try:
@@ -337,7 +336,9 @@ SCENARIOS = {
 def test_push_flush_compact_over_http(make_pair, scenario):
     kw = SCENARIOS[scenario]
     pair = make_pair(**kw)
-    orgs = ["acme", "globex"] if kw.get("multitenancy_enabled") else [None]
+    # tenant names of no other test file: the reference charges
+    # process-wide usage counters per tenant
+    orgs = ["org-a", "org-b"] if kw.get("multitenancy_enabled") else [None]
     tenants = orgs if orgs != [None] else ["single-tenant"]
     pushed = {org: push_all(pair, org, seed=k) for k, org in enumerate(orgs)}
     for org in orgs:  # live data: served by the ingesters
@@ -377,12 +378,11 @@ def test_status_pages(make_pair):
     (_, _, jb), (_, _, tb) = pair.both("GET", "/status/endpoints")
     served = json.loads(tb)["endpoints"]
     assert served == [e for e in json.loads(jb)["endpoints"] if e in served]
-    assert len(served) == 29
+    assert len(served) == 32
     assert _request(pair.servers[1].url, "GET", "/status")[2] == tb
-    # defaults and diff differ only where the port's defaults do: the
-    # metrics-generator, which it does not carry, starts off, and the
+    # defaults and diff differ only where the port's default does: the
     # storage analytics scan is 0 (App refuses it switched on)
-    port_defaults = {("generator_enabled",), ("db", "analytics_scan_s")}
+    port_defaults = {("db", "analytics_scan_s")}
 
     def drop(doc):
         for path in port_defaults:
@@ -471,7 +471,7 @@ def test_bad_requests_400(idle_pair, path):
 @pytest.mark.parametrize("method,path", [
     ("POST", "/api/v2/spans"),
     ("POST", "/api/traces"),
-    ("GET", "/api/graph/dependencies"),
+    ("GET", "/memberlist"),
     ("GET", "/status/profile"),
     ("GET", "/api/rca"),
     ("GET", "/status/storage"),

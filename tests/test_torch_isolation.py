@@ -8,7 +8,8 @@ engine, WAL replay, compaction) on the CPU, encodes pages through the
 device page-encode arm forced on the CPU, serves the single binary
 (App + TempoServer: one OTLP push, /flush, the trace read back by ID and
 by search, a simple-count query_range through the compiled tier,
-/api/query-insights, /status/device's page-heat ledger, and a standing
+/api/query-insights, /status/device's page-heat ledger, the
+metrics-generator's series and the graph routes over a second push, and a standing
 query registered, folded at the flush's cut and read against query_range
 over HTTP) on the CPU, and an
 entry point called
@@ -51,7 +52,12 @@ SCRIPT = BLOCK + textwrap.dedent(r"""
     assert len(names) >= 64, names
     for name in ("tempo_tpu_torch.compiled.executor", "tempo_tpu_torch.compiled.program",
                  "tempo_tpu_torch.ops.encode", "tempo_tpu_torch.parallel.search",
-                 "tempo_tpu_torch.standing.engine", "tempo_tpu_torch.util.pageheat"):
+                 "tempo_tpu_torch.standing.engine", "tempo_tpu_torch.util.pageheat",
+                 "tempo_tpu_torch.graph", "tempo_tpu_torch.graph.walks",
+                 "tempo_tpu_torch.ops.graph", "tempo_tpu_torch.modules.generator",
+                 "tempo_tpu_torch.modules.generator.registry",
+                 "tempo_tpu_torch.modules.generator.spanmetrics",
+                 "tempo_tpu_torch.modules.generator.servicegraphs"):
         assert name in names, name
     for name, mod in sys.modules.items():
         assert mod is None or not (name == "tempo_tpu" or name.startswith("tempo_tpu.") or name == "jax"
@@ -186,6 +192,16 @@ SCRIPT = BLOCK + textwrap.dedent(r"""
         assert sorted(map(str, standing)) == sorted(map(str, json.loads(body)["data"]["result"]))
         status, body = http("GET", "/status/standing")
         assert json.loads(body)["foldSpans"] == 60
+        graph_traces = batch_to_traces(synth.make_graph_batch(10, 6, seed=7))
+        assert http("POST", "/v1/traces", otlp.encode_traces_request(graph_traces),
+                    {"Content-Type": "application/x-protobuf"})[0] == 200
+        calls = sum(s.value for s in app.generator.collect("single-tenant")
+                    if s.name == "traces_spanmetrics_calls_total")
+        assert calls == 60 + 60 + 60
+        status, body = http("GET", "/api/graph/dependencies")
+        assert status == 200 and json.loads(body)["edges"]
+        status, body = http("GET", "/api/graph/critical-path?by=name")
+        assert status == 200 and json.loads(body)["traces"] >= 10
     finally:
         srv.stop()
         app.shutdown()

@@ -139,7 +139,7 @@ class Pair:
         self.j = JApp(JAppConfig(
             db=JDBConfig(backend="local", backend_path=jr + "/blocks", wal_path=jr + "/wal",
                          compaction_device_shards=1, analytics_scan_s=0),
-            generator_enabled=False, standing=JStandingConfig(**self.standing),
+            standing=JStandingConfig(**self.standing),
             limits=JLimits(**self.limits), **self.kw))
         self.t = App(AppConfig(
             db=DBConfig(backend="local", backend_path=tr + "/blocks", wal_path=tr + "/wal",
@@ -745,7 +745,6 @@ def test_status_standing_when_disabled(make_pair):
 ])
 def test_check_config_warnings(yaml_text):
     j, t = jparse_config(yaml_text), parse_config(yaml_text)
-    j.app.generator_enabled = t.app.generator_enabled  # the port's one default apart
     jw, tw = jcheck_config(j), check_config(t)
     assert jw == tw
     want = (t.app.multitenancy_enabled and t.app.standing.enabled
