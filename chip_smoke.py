@@ -41,9 +41,13 @@ Phases, one line each (any failure exits non-zero):
    lanes, against the bound of the fused program's work; the resident
    scans after phase 10, at the largest resident page of each codec,
    and the batched ones at one search's stage-1 pages of each codec; the
-   sketch kernels at the compaction step's 2**22 keys and at a generator
-   push of 4,096 edge keys, root_path_sums at 2**21 spans in chains of 8
-   and of 2,048, with the graph_critical_path dispatch around it);
+   sketch kernels at the compaction step's 2**22 keys, at a generator
+   push of 4,096 edge keys and hll_update at a block writer's flush of
+   8,192 IDs; root_path_sums at 2**21 spans in chains of 8 and of 2,048
+   a launch a round, and given the trace segments in one launch in chains
+   of 8 and of 2,048, in-trace cycles and around a trace of three tiles,
+   with the graph_critical_path dispatch around each, with and without
+   the segments at the chains);
 3. compaction: the flagship step (entry.entry) at 2**22 rows, bit-equal
    between the card and the CPU, timed in turns with the same step whose
    HLL and count-min updates are their torch-op versions (chip_smoke's
@@ -167,8 +171,9 @@ Phases, one line each (any failure exits non-zero):
    App; /api/graph/dependencies, /api/graph/critical-path (by=service,
    by=name) and /api/graph/walks (seed 7) on both, equal field for field
    (wall-clock and byte stats aside), with each route's ms and the
-   root_path_sums calls and kernel launches. Past 900 s before it the
-   generator-off App is shed.
+   root_path_sums calls and kernel launches (one launch a critical-path
+   call: the segmented kernel). Past 900 s before it the generator-off
+   App is shed.
 
 Phases 3-4 are the main path, phase 5 the scan path, phase 6 the block
 path, phase 7 the storage engine's path, phase 8 the server's path and
@@ -1155,9 +1160,12 @@ def graph_sketch_kernels_check(torch, dev, rng, lib, stream) -> tuple[int, dict]
     for count-min), with u32 weights, at p = 4 and p = 18 (global atomics),
     a count-min of 8 x 8,192 (global atomics), at the block writer's
     shape (2**17 int32 IDs) and at two generator pushes (64 and 4,096
-    edge keys of the demo's services); the root sums over 2**21 spans as
+    edge keys of the demo's services) and a block writer's flush (8,192
+    and 8,193 IDs); the root sums over 2**21 spans a launch a round, as
     chains of depth 8 and 2,048, a forest with roots scattered through it
-    and one with parent cycles. Returns (cases held, timing records)."""
+    and one with parent cycles, and given the trace segments (one launch
+    over whole traces, and its pinned dispatch) as trace_forests makes
+    them. Returns (cases held, timing records)."""
     import numpy as np
 
     from tempo_tpu_torch.entry import entry
@@ -1198,7 +1206,9 @@ def graph_sketch_kernels_check(torch, dev, rng, lib, stream) -> tuple[int, dict]
     w32 = torch.from_numpy(rng.integers(0, 2**32, st.shape[0])).to(dev)
     for label, keys, v in (("compaction 2^22 int64", st, first), ("compaction all rows", st, None),
                            ("writer 2^17 int32", writer_ids, None), ("push 64", edges[:64], None),
-                           ("push 4096", edges, None), ("one key", edges[:1], None)):
+                           ("push 4096", edges, None), ("one key", edges[:1], None),
+                           ("flush 8192 int32", writer_ids[:8192], None),
+                           ("flush 8193 int32", writer_ids[:8193], None)):
         # every row of the 2^22 at the shared-memory and the global size
         for prec in (12, 18) if v is None and keys is st else (4, 12, 14, 15, 18):
             hll_case(f"{label} p={prec}", keys, sketch.HLLPlan(prec), v)
@@ -1277,6 +1287,7 @@ def graph_sketch_kernels_check(torch, dev, rng, lib, stream) -> tuple[int, dict]
 
     sketch_record("hll", "compaction", st, hp, first)
     sketch_record("hll", "generator push", edges, hp, None)
+    sketch_record("hll", "block-writer flush", writer_ids[:8192].contiguous(), hp, None)
     sketch_record("hll", "p=18 compaction", st, sketch.HLLPlan(18), first)
     sketch_record("cm", "compaction", st, cp, keep)
     sketch_record("cm", "generator push", edges, cp, None)
@@ -1338,7 +1349,95 @@ def graph_sketch_kernels_check(torch, dev, rng, lib, stream) -> tuple[int, dict]
               f"ms, the graph_critical_path dispatch (copies in and out) {dispatch:.4f} ms, "
               f"library none (no one torch call does pointer doubling), bound {bnd:.5f} ms "
               f"({by}; 20 B a span)", flush=True)
+
+    # ---- root_path_sums given the trace segments: one launch over whole traces
+    tile = 8192  # the rows a CTA holds in shared memory (kRpsTile)
+    for label, (parent, firsts, needed) in trace_forests(np, n, rng, tile).items():
+        s = rng.integers(0, 2**63, n)
+        p_d = torch.from_numpy(parent.astype(np.int32)).to(dev)
+        s_d = torch.from_numpy(s).to(dev)
+        f_d = torch.from_numpy(firsts.astype(np.int32)).to(dev)
+        want = ops_graph._root_path_sums_plain(p_d, s_d, rounds)
+        got = ops_graph.root_path_sums(p_d, s_d, firsts=f_d)
+        check(torch.equal(got, want), f"root_path_sums {label}: segmented kernel != plain")
+        got_h = ops_graph.root_path_sums_device(parent, s.view(np.uint64), dev, firsts=firsts)
+        check(np.array_equal(got_h, want.cpu().numpy().view(np.uint64)),
+              f"root_path_sums {label}: the pinned dispatch != plain")
+        n_cases += 2
+        out = torch.empty_like(s_d)
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        scratch = torch.empty(4 * n, dtype=torch.int64, device=dev)
+        launched = ctypes.c_int32(0)
+
+        def launch():
+            _build.check(lib.tt_root_path_sums_segmented(
+                p_d.data_ptr(), s_d.data_ptr(), f_d.data_ptr(), n, len(firsts), rounds,
+                out.data_ptr(), scratch.data_ptr(), flag.data_ptr(), ctypes.byref(launched),
+                stream()), "root_path_sums")
+        ms = kernel_ms(torch, [launch], k=16)
+        check(int(flag.item()) == 0 and torch.equal(out, want),
+              f"root_path_sums {label}: the timed launches != plain")
+        path = path_ms(torch, lambda: ops_graph.root_path_sums(p_d, s_d, firsts=f_d), reps=9)
+        plain = path_ms(torch, lambda: ops_graph._root_path_sums_plain(p_d, s_d, rounds), reps=5)
+        dispatch = path_ms(torch, lambda: ops_graph.root_path_sums_device(
+            parent, s.view(np.uint64), dev, firsts=firsts), reps=9, warmup=2)
+        before = (path_ms(torch, lambda: ops_graph.root_path_sums_device(
+            parent, s.view(np.uint64), dev), reps=5, warmup=1)
+                  if label.startswith("traces chains") else None)
+        # parents and self times in, the sums out, and the int32 trace starts
+        bnd, by = bound_ms(20 * n + 4 * len(firsts), n * needed * 4)
+        recs.setdefault("root_path_sums", {})[label] = dict(
+            shape=f"n={n}, {label}, {len(firsts)} traces, up to {rounds} rounds ({needed} "
+                  f"needed), firsts given", max_abs_err=0, ms=ms, path_ms=path,
+            plain_ms=plain, dispatch_ms=dispatch, dispatch_ms_without_firsts=before,
+            bound_ms=bnd, bound_by=by, library_ms=None, kernels_a_call=launched.value)
+        print(f"phase 2 root_path_sums {label} (firsts given): equal | kernel {ms:.5f} ms "
+              f"({bnd / ms:.1%} of bound, {launched.value} launch a call), path {path:.4f} ms, "
+              f"plain {plain:.4f} ms, the graph_critical_path dispatch {dispatch:.4f} ms "
+              f"(pinned, one copy each way)"
+              + ("" if before is None else f", without firsts {before:.4f} ms (pageable copies, "
+                 f"{rounds} launches)")
+              + f", library none, bound {bnd:.5f} ms ({by}; 20 B a span, 4 B a trace)",
+              flush=True)
     return n_cases, recs
+
+
+def trace_forests(np, n: int, rng, tile: int) -> dict:
+    """label -> (parent rows, firsts, rounds needed) of n trace-sorted spans,
+    every parent inside its own trace: chains of 8 and of 2,048, random
+    in-trace forests (1 to 300 spans a trace, parents before or after the
+    child) with two-cycles inside traces, and chains of 8 around one
+    trace of three tiles, a chain through its rows in random order."""
+    from tempo_tpu_torch.ops import graph as ops_graph
+
+    row = np.arange(n)
+    out = {}
+    for depth in (8, 2048):
+        out[f"traces chains depth {depth}"] = (
+            np.where(row % depth == 0, -1, row - 1), np.arange(0, n, depth),
+            int(np.ceil(np.log2(depth))) + 1)
+    sizes = rng.integers(1, 301, n // 2)
+    firsts = np.concatenate([[0], np.cumsum(sizes)])[:-1]
+    firsts = firsts[firsts < n]
+    ends = np.append(firsts[1:], n)
+    seg = np.repeat(np.arange(len(firsts)), ends - firsts)
+    lo, size = firsts[seg], (ends - firsts)[seg]
+    order = np.lexsort((rng.random(n), seg))  # each trace's rows in random order
+    k = row - lo
+    parent = np.full(n, -1, np.int64)
+    parent[order] = np.where(k > 0, order[lo + (rng.random(n) * k).astype(np.int64)], -1)
+    a = rng.choice(n, n // 64, replace=False)
+    a = a[size[a] >= 2]
+    b = lo[a] + (a - lo[a] + 1 + rng.integers(0, 1 << 30, len(a)) % (size[a] - 1)) % size[a]
+    parent[a], parent[b] = b, a
+    out["traces in-trace cycles"] = (parent, firsts, ops_graph._n_rounds(n))
+    big, at = 3 * tile, (n // 2) & ~7  # both multiples of 8: the chains after it line up
+    parent = np.where(row % 8 == 0, -1, row - 1)
+    order = at + rng.permutation(big)
+    parent[order] = np.append(-1, order[:-1])
+    firsts = np.concatenate([np.arange(0, at, 8), [at], np.arange(at + big, n, 8)])
+    out["traces over the tile"] = (parent, firsts, int(np.ceil(np.log2(big))) + 1)
+    return out
 
 
 def resident_kernels_check(torch, dev, rng) -> int:
@@ -3230,10 +3329,12 @@ def graph_phase(seed: int, root: str, shed: bool = False) -> dict:
                   f"phase 11 {label}: {launched} root_path_sums calls, the jobs report "
                   f"{jobs}, the response {raw['stats'].get('deviceDispatches')}")
             if label.startswith("critical-path"):
+                # each call is the segmented kernel's one launch
                 check(doc["traces"] == n_traces and launched >= 2
+                      and res["routes"][label]["kernel_launches"] == launched
                       and json.loads(body_c)["stats"].get("deviceDispatches", 0) == 0,
                       f"phase 11 {label}: {doc['traces']} traces, {launched} root_path_sums "
-                      f"calls")
+                      f"calls, {res['routes'][label]['kernel_launches']} kernel launches")
             elif label == "dependencies":
                 check(sum(e["count"] for e in doc["edges"]) == 3 * n_traces
                       and doc["unpairedSpans"] == 2 * n_traces,
@@ -3513,9 +3614,11 @@ def main() -> int:
           "registers to p = 14, global atomics above; p 12/18 over every row) and cm_update at "
           "4x4096, 1x16 and 8x8192 (global atomics), with weights, over the compaction step's "
           "2^22 int64 keys (valid: each trace's first surviving row / every surviving row), "
-          "2^17 int32 block-writer IDs, 1, 64 and 4,096 edge keys; root_path_sums over 2^21 "
-          "spans (chains of 8 and 2,048, a forest, parent cycles) == plain (the cycles also "
-          "== the host arm)", flush=True)
+          "2^17 int32 block-writer IDs, a flush's 8,192 and 8,193, 1, 64 and 4,096 edge keys; "
+          "root_path_sums over 2^21 spans (chains of 8 and 2,048, a forest, parent cycles; the "
+          "cycles also == the host arm) a launch a round, and given the trace segments in one "
+          "launch (chains of 8 and 2,048, in-trace cycles, a trace of three tiles; the pinned "
+          "dispatch too) == plain", flush=True)
 
     # ---------------------------------------------------------------- 3 + 4
     reset_launches()
@@ -3915,7 +4018,7 @@ def main() -> int:
           f"{graph['launches']}", flush=True)
     for k in GRAPH_SKETCH_KERNELS:
         rec = graph_sketch_times[k]
-        main_rec = rec["chains depth 8" if k == "root_path_sums" else "compaction"]
+        main_rec = rec["traces chains depth 8" if k == "root_path_sums" else "compaction"]
         kernels[k] = dict(main_rec, launches=graph["launches"][k],
                           shapes={label: r for label, r in rec.items()})
     for k in ("hll_update", "cm_update"):

@@ -22,7 +22,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 #include <algorithm>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -104,21 +108,59 @@ __device__ __forceinline__ uint32_t key_hash(const T* __restrict__ limbs, int wi
 //
 // What bounds it on this card: the bytes of the keys, 16 a row (32 for int64
 // limbs) and 1 of `valid`. At the compaction step's 2**22 rows that is 71 MB,
-// 21 us of HBM; the hashing is ~60 integer operations a row, 4 us. Every row
+// 21 us of HBM; the hashing is ~86 integer operations a row, 5 us. Every row
 // ends in one max into a register that many rows share (4,096 registers at
 // the default p = 12), and max updates to one address of device memory are
 // serialised in L2.
 //
-// Design: each block folds its rows (a grid-stride loop, so a warp's loads
-// are contiguous) into a private copy of the registers in shared memory, with
-// a read before the atomic so that a row that cannot raise its register
-// issues none; then it merges every non-zero register into the output with
-// one 64-bit atomicMax. The grid keeps at least kUpdatesPerCounter rows for
-// each register a block zeroes and merges. Registers that do not fit
-// (p > 14) take one global atomicMax a row in the same kernel. max is
-// associative and commutative, so the order of the atomics cannot change the
-// registers: the result is bit-equal to the plain version's scatter-max.
+// Design: the grid is sized by the rows alone: one row a thread up to two
+// CTAs an SM, so a block writer's flush of 8,192 IDs spreads over 32 CTAs
+// and a push of 4,096 edge keys over 16; past that each thread takes rows a
+// grid apart, kHllRowsInFlight at a time, all their `valid` bytes and then
+// all their keys loaded before it hashes any (the warp's loads of one row
+// slot are contiguous). Each CTA folds into a private copy of the registers
+// in shared memory, with a read before the atomic so that a row that cannot
+// raise its register issues none. The CTAs of a thread-block cluster (up to
+// kHllCluster) then merge through distributed shared memory: CTA c of the
+// cluster owns registers [c m / K, (c + 1) m / K), maxes them over its
+// peers' copies and issues one global 64-bit atomicMax for each non-zero
+// one, so the global atomics fall by the cluster's size. Registers that do
+// not fit (p > 14) take one global atomicMax a row in the same kernel. max
+// is associative and commutative, so the order of the atomics cannot change
+// the registers: the result is bit-equal to the plain version's scatter-max.
 // ---------------------------------------------------------------------------
+
+constexpr int kHllRowsInFlight = 2;  // rows a thread loads before it hashes any
+constexpr int kHllCtasPerSm = 4;     // the grid's cap, with one row a thread below it
+constexpr int kHllCluster = 8;       // CTAs that merge their private registers together
+
+// The four uint32 limbs of row r of a quad-form key array (see key_hash).
+__device__ __forceinline__ uint4 load_quad(const uint32_t* __restrict__ limbs, int64_t r) {
+  return reinterpret_cast<const uint4*>(limbs)[r];
+}
+
+__device__ __forceinline__ uint4 load_quad(const u64* __restrict__ limbs, int64_t r) {
+  const ulonglong2 a = reinterpret_cast<const ulonglong2*>(limbs)[2 * r];
+  const ulonglong2 b = reinterpret_cast<const ulonglong2*>(limbs)[2 * r + 1];
+  return make_uint4((uint32_t)a.x, (uint32_t)a.y, (uint32_t)b.x, (uint32_t)b.y);
+}
+
+__device__ __forceinline__ uint32_t hash_quad(uint4 v) {
+  return fnv_word(fnv_word(fnv_word(fnv_word(kFnvOffset, v.x), v.y), v.z), v.w);
+}
+
+// Bit u: row r0 + u * stride exists and is valid (all rows when valid is
+// null).
+__device__ __forceinline__ uint32_t hll_rows(const uint8_t* __restrict__ valid, int64_t n,
+                                             int64_t r0, int64_t stride) {
+  uint32_t ok = 0;
+#pragma unroll
+  for (int u = 0; u < kHllRowsInFlight; ++u) {
+    const int64_t r = r0 + u * stride;
+    if (r < n && (valid == nullptr || valid[r] != 0)) ok |= 1u << u;
+  }
+  return ok;
+}
 
 template <typename T, bool kQuad, bool kPrivate>
 __global__ void __launch_bounds__(kThreads)
@@ -131,23 +173,48 @@ hll_update_kernel(const T* __restrict__ limbs, int width, const uint8_t* __restr
     __syncthreads();
   }
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < n; r += stride) {
-    if (valid != nullptr && !valid[r]) continue;
-    const uint32_t base = key_hash<T, kQuad>(limbs, width, r);
-    const uint32_t idx = fmix32(base, kHllIndexSeed) & mask;
-    const uint32_t rho = (uint32_t)__clz((int)fmix32(base, kHllRankSeed)) + 1u;
-    if (kPrivate) {
-      if (priv[idx] < rho) atomicMax(&priv[idx], rho);
-    } else {
-      atomicMax(&regs[idx], (long long)rho);
+  const int64_t step = kHllRowsInFlight * stride;
+  int64_t r0 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  uint32_t ok = hll_rows(valid, n, r0, stride);
+  for (; r0 < n; r0 += step) {
+    uint4 key[kHllRowsInFlight];
+    if constexpr (kQuad) {
+#pragma unroll
+      for (int u = 0; u < kHllRowsInFlight; ++u)
+        if (ok >> u & 1u) key[u] = load_quad(limbs, r0 + u * stride);
     }
+    const uint32_t next = hll_rows(valid, n, r0 + step, stride);  // loads while this hashes
+#pragma unroll
+    for (int u = 0; u < kHllRowsInFlight; ++u) {
+      if (!(ok >> u & 1u)) continue;
+      uint32_t base;
+      if constexpr (kQuad) {
+        base = hash_quad(key[u]);
+      } else {
+        base = key_hash<T, false>(limbs, width, r0 + u * stride);
+      }
+      const uint32_t idx = fmix32(base, kHllIndexSeed) & mask;
+      const uint32_t rho = (uint32_t)__clz((int)fmix32(base, kHllRankSeed)) + 1u;
+      if (kPrivate) {
+        if (priv[idx] < rho) atomicMax(&priv[idx], rho);
+      } else {
+        atomicMax(&regs[idx], (long long)rho);
+      }
+    }
+    ok = next;
   }
   if (kPrivate) {
-    __syncthreads();
-    for (uint32_t i = threadIdx.x; i < m; i += blockDim.x) {
-      const uint32_t v = priv[i];
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // every copy of the cluster is whole
+    const uint32_t k = cluster.num_blocks();
+    const uint32_t per = m / k;  // m and k are powers of two, m >= 16 >= k
+    const uint32_t lo = cluster.block_rank() * per;
+    for (uint32_t i = lo + threadIdx.x; i < lo + per; i += blockDim.x) {
+      uint32_t v = 0;
+      for (uint32_t q = 0; q < k; ++q) v = max(v, cluster.map_shared_rank(priv, q)[i]);
       if (v != 0) atomicMax(&regs[i], (long long)v);
     }
+    cluster.sync();  // no CTA leaves while a peer still reads its copy
   }
 }
 
@@ -231,17 +298,42 @@ cudaError_t sketch_grid(K kernel, int64_t n, int64_t updates, int64_t counters, 
   return cudaSuccess;
 }
 
+// hll_update's launch: one row a thread up to kHllCtasPerSm CTAs an SM (a
+// grid-stride loop past that), and with private registers a cluster of up to
+// kHllCluster CTAs, the grid rounded up to whole clusters.
 template <typename T, bool kQuad, bool kPrivate>
 cudaError_t launch_hll(const void* limbs, int width, const uint8_t* valid, int64_t n,
                        uint32_t m, long long* regs, cudaStream_t st) {
   const size_t smem = kPrivate ? m * sizeof(uint32_t) : 0;
   auto kernel = hll_update_kernel<T, kQuad, kPrivate>;
-  unsigned blocks = 1;
-  cudaError_t err = sketch_grid(kernel, n, n, m, smem, &blocks);
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int occ = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads, smem);
   if (err != cudaSuccess) return err;
-  hll_update_kernel<T, kQuad, kPrivate><<<blocks, kThreads, smem, st>>>(
-      (const T*)limbs, width, valid, n, m - 1, regs);
-  return cudaGetLastError();
+  const int64_t cap = (int64_t)std::max(std::min(occ, kHllCtasPerSm), 1) * sm_count();
+  int64_t blocks = std::max<int64_t>(std::min(cdiv(n, kThreads), cap), 1);
+  unsigned cluster = 1;
+  if (kPrivate) {
+    while (cluster < (unsigned)kHllCluster && 2 * cluster <= blocks) cluster *= 2;
+    blocks = cdiv(blocks, cluster) * cluster;
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned)blocks);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = kPrivate ? 1 : 0;
+  err = cudaLaunchKernelEx(&config, kernel, (const T*)limbs, width, valid, n, m - 1, regs);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename T, bool kQuad, bool kPrivate>
@@ -276,15 +368,40 @@ cudaError_t launch_cm(const void* limbs, int width, const uint32_t* weights,
 // span), gathers them at the parent (12 B, mostly from L2: parents lie in
 // the same trace, a few rows away) and writes them (12 B); ceil(log2 n) + 1
 // rounds, 22 at n = 2**21. The least the card must move for the function is
-// parent and self time in, the sums out: 20 B a span.
+// parent and self time in, the sums out: 20 B a span (and 4 B a trace start
+// for the segmented form).
 //
-// Design: one launch a round, each reading one pair of buffers and writing
-// the other (ping-pong), so that no round reads a value of its own round: an
-// in-place update would race. Every round runs, as in the JAX arm; once every
-// pointer is -1 a round only copies. A parent index outside [-1, n) is taken
-// as a root instead of being read out of bounds (the wrapper's host arm
-// raises on one). A later design may keep each trace's rounds in shared
-// memory, since traces are contiguous segments and parents stay inside them.
+// Two designs, one entry point each:
+//
+// tt_root_path_sums: one launch a round, each reading one pair of buffers
+// and writing the other (ping-pong), so that no round reads a value of its
+// own round: an in-place update would race. Every round runs, as in the JAX
+// arm; once every pointer is -1 a round only copies. A parent index outside
+// [-1, n) is taken as a root instead of being read out of bounds. It serves
+// callers that know no trace segments.
+//
+// tt_root_path_sums_segmented, for callers that pass the traces' first rows
+// (`firsts`, ascending from 0, every parent inside its own trace, as
+// ops/graph.parent_row_join makes them): one launch over whole traces. CTA k
+// takes the traces whose first row lies in rows [k W, (k + 1) W) (W =
+// kRpsWindow; it finds them in `firsts` with one cooperative search and a
+// forward scan, while cp.async copies the window's parents and self times
+// into shared memory), loads the rest of its last trace, runs the rounds
+// there and writes the sums once: 20 B a span through HBM, against 36 B a
+// round. Each thread keeps its kRpsSlots spans' pointer and sum in
+// registers; a round gathers every live span's step from the tile, a
+// barrier, then publishes the new values, and a second barrier
+// (__syncthreads_or) also tells whether any pointer is still live: about
+// six shared-memory wavefronts a live warp of spans a round. The CTA stops
+// once every pointer of its traces is -1, since later rounds are no-ops; a
+// trace with a parent cycle never gets there and runs all `rounds`, whose
+// count its sums (mod 2**64) depend on. A run of traces longer than the
+// tile (kRpsTile rows from row k W: any trace of more than W + 1 spans may
+// be one) runs in the same launch, its CTA doing the rounds in global
+// scratch over those rows alone (one CTA's gathers: slow for a deep trace
+// of tens of thousands of spans). A parent outside its trace, or `firsts`
+// not ascending from 0 below n, sets *flag (the wrapper raises) and is
+// never followed out of its CTA's rows.
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kThreads)
@@ -302,6 +419,279 @@ root_path_round_kernel(const int32_t* __restrict__ p_in, const u64* __restrict__
   }
   acc_out[i] = a;
   p_out[i] = p;
+}
+
+constexpr int kRpsThreads = 512;
+constexpr int kRpsSlots = 16;                          // spans a thread holds through a round
+constexpr int kRpsTile = kRpsThreads * kRpsSlots;      // rows a CTA keeps in shared memory
+constexpr int kRpsWindow = kRpsTile / 2;               // rows whose trace starts a CTA takes
+constexpr int kRpsWords = kRpsTile / 32;               // the tile's trace-start bitmap
+constexpr int kRpsGather = 8;                          // gathers in flight a thread past the tile
+constexpr size_t kRpsSmem = (size_t)kRpsTile * (sizeof(u64) + sizeof(int32_t)) +
+                            2 * kRpsWords * sizeof(uint32_t);
+
+// A 16-byte copy from device to shared memory that runs on while the thread
+// goes on (cp.async), and the wait for all of the thread's copies.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(smem)),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The first t in [a, b) with f[t] >= x (b if none), f ascending: every
+// thread of the block probes one of blockDim.x evenly spaced rows, and the
+// count of those below x narrows [a, b) to one gap, two or three rounds for
+// a million traces. Every thread of the block calls it and gets the answer.
+__device__ int64_t block_lower_bound(const int32_t* __restrict__ f, int64_t a, int64_t b,
+                                     int32_t x) {
+  while (b - a > (int64_t)blockDim.x) {
+    const int64_t step = (b - a + blockDim.x - 1) / blockDim.x;
+    const int64_t pos = a + (int64_t)threadIdx.x * step;
+    const int c = __syncthreads_count(pos < b && f[pos] < x);
+    if (c == 0) return a;
+    b = min(b, a + (int64_t)c * step);  // f[a + (c - 1) step] < x <= f[a + c step]
+    a += (int64_t)(c - 1) * step + 1;
+  }
+  const int64_t pos = a + threadIdx.x;
+  return a + __syncthreads_count(pos < b && f[pos] < x);
+}
+
+// The trace of row x of the tile, counted from the tile's first start:
+// starts at or before x.
+__device__ __forceinline__ uint32_t tile_trace(const uint32_t* bits, const uint32_t* rank,
+                                               int32_t x) {
+  return rank[x >> 5] + __popc(bits[x >> 5] & (0xFFFFFFFFu >> (31 - (x & 31))));
+}
+
+// The rounds of rows [r0, r1) in global memory, for a run longer than the
+// tile: the parents checked against their traces (firsts[t0, t1), by binary
+// search), then ping-pong between two halves of `scratch` (2 n records),
+// one block barrier a round, and the sums into `out`. A record holds a
+// span's sum (.x) and pointer (.y), so that a gather is one 16-byte load:
+// one CTA's gathers are bound by the misses it can keep in flight. No other
+// CTA touches these rows.
+__device__ void rps_global_run(const int32_t* __restrict__ parent,
+                               const u64* __restrict__ self_ns,
+                               const int32_t* __restrict__ firsts, int64_t t0, int64_t t1,
+                               int32_t n, int32_t r0, int32_t r1, int32_t rounds, u64* out,
+                               ulonglong2* scratch, int32_t* flag) {
+  ulonglong2* src = scratch;
+  ulonglong2* dst = scratch + n;
+  for (int32_t i = r0 + threadIdx.x; i < r1; i += blockDim.x) {
+    const int32_t p = parent[i];
+    int32_t q = -1;
+    if (p >= 0) {
+      int64_t a = t0, b = t1;  // the last trace starting at or before i
+      while (b - a > 1) {
+        const int64_t mid = (a + b) / 2;
+        if (firsts[mid] <= i) a = mid; else b = mid;
+      }
+      const int32_t lo = firsts[a], hi = a + 1 < t1 ? firsts[a + 1] : r1;
+      if (p >= lo && p < hi) q = p; else *flag = 1;
+    }
+    src[i] = make_ulonglong2(self_ns[i], (u64)(uint32_t)q);
+  }
+  __syncthreads();
+  for (int32_t k = 0; k < rounds; ++k) {
+    int live = 0;
+    // kRpsGather spans a thread at a time, every load before any store, so
+    // that their gathers (L2 round trips) are in flight together
+    for (int32_t b = r0 + threadIdx.x; b < r1; b += kRpsGather * blockDim.x) {
+      ulonglong2 v[kRpsGather];
+#pragma unroll
+      for (int u = 0; u < kRpsGather; ++u) {
+        const int32_t i = b + u * (int32_t)blockDim.x;
+        v[u] = i < r1 ? src[i] : make_ulonglong2(0, (u64)0xFFFFFFFFu);
+      }
+#pragma unroll
+      for (int u = 0; u < kRpsGather; ++u) {
+        const int32_t q = (int32_t)(uint32_t)v[u].y;
+        if (q >= 0) {
+          const ulonglong2 g = src[q];
+          v[u].x += g.x;
+          v[u].y = g.y;
+          live |= (int32_t)(uint32_t)g.y >= 0;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kRpsGather; ++u) {
+        const int32_t i = b + u * (int32_t)blockDim.x;
+        if (i < r1) dst[i] = v[u];
+      }
+    }
+    ulonglong2* t = src; src = dst; dst = t;
+    if (!__syncthreads_or(live)) break;
+  }
+  for (int32_t i = r0 + threadIdx.x; i < r1; i += blockDim.x) out[i] = src[i].x;
+}
+
+__global__ void __launch_bounds__(kRpsThreads, 2)
+root_path_segmented_kernel(const int32_t* __restrict__ parent, const u64* __restrict__ self_ns,
+                           const int32_t* __restrict__ firsts, int32_t n, int32_t n_traces,
+                           int32_t rounds, bool vec, u64* out, ulonglong2* scratch,
+                           int32_t* flag) {
+  extern __shared__ __align__(16) unsigned char rps_smem[];
+  u64* sacc = reinterpret_cast<u64*>(rps_smem);             // [kRpsTile] self times, then sums
+  int32_t* sp = reinterpret_cast<int32_t*>(sacc + kRpsTile);  // [kRpsTile] pointers, tile rows
+  uint32_t* bits = reinterpret_cast<uint32_t*>(sp + kRpsTile);  // trace starts in the tile
+  uint32_t* rank = bits + kRpsWords;                           // starts before each word
+  __shared__ int32_t edge[2];                                  // the run's first and end rows
+  const int tid = threadIdx.x;
+  const int64_t T = n_traces;
+
+  // this CTA's share of the check that firsts ascend from 0 below n (n > 0)
+  {
+    if (T == 0 && blockIdx.x == 0 && tid == 0) *flag = 1;
+    const int64_t a = (int64_t)blockIdx.x * T / gridDim.x;
+    const int64_t b = (int64_t)(blockIdx.x + 1) * T / gridDim.x;
+    for (int64_t t = a + tid; t < b; t += blockDim.x) {
+      const int32_t f = firsts[t];
+      if (f < 0 || f >= n || (t == 0 && f != 0) || (t + 1 < T && firsts[t + 1] <= f)) *flag = 1;
+    }
+  }
+  const int32_t lo = (int32_t)blockIdx.x * kRpsWindow;
+  const int32_t hi = (int32_t)min((int64_t)n, (int64_t)lo + kRpsWindow);
+  // the window's rows [lo, pre) start on their way to the tile (tile row =
+  // row - lo; lo is a multiple of 4, so tile and global rows share their
+  // 16-byte alignment) while the search below runs
+  const int32_t pre = vec ? hi & ~3 : lo;
+  for (int32_t v = (lo >> 2) + tid; v < (pre >> 2); v += blockDim.x)
+    cp_async16(sp + 4 * v - lo, parent + 4 * v);
+  for (int32_t v = (lo >> 1) + tid; v < (pre >> 1); v += blockDim.x)
+    cp_async16(sacc + 2 * v - lo, self_ns + 2 * v);
+  // the traces that start in [lo, hi): from t0, a chunk of firsts a pass,
+  // their starts marked in the tile's bitmap
+  for (int i = tid; i < kRpsWords; i += blockDim.x) bits[i] = 0;
+  const int64_t t0 = block_lower_bound(firsts, 0, T, lo);  // its barriers order the zeroing
+  int64_t cnt = 0;
+  for (;;) {
+    const int64_t t = t0 + cnt + tid;
+    const int32_t f = t < T ? firsts[t] : n;
+    const bool in = t < T && f < hi;
+    if (in && f >= lo) atomicOr(&bits[(f - lo) >> 5], 1u << ((f - lo) & 31));
+    if (cnt == 0 && tid == 0) edge[0] = f;
+    const int c = __syncthreads_count(in);
+    if (tid == c && c < (int)blockDim.x) edge[1] = f;  // the first start past the window
+    cnt += c;
+    if (c < (int)blockDim.x || cnt > kRpsWindow) break;
+  }
+  __syncthreads();
+  const int32_t r0 = edge[0], r1 = edge[1];
+  const bool bad = cnt > kRpsWindow || r0 < lo || r1 > n || r1 <= r0;  // firsts do not ascend
+  if (cnt == 0 || bad || r1 - lo > kRpsTile) {
+    cp_async_wait_all();  // no copy outlives its CTA
+    if (cnt == 0) return;  // no trace starts here: the rows belong to an earlier CTA's run
+    if (bad) {
+      if (tid == 0) *flag = 1;
+    } else {
+      rps_global_run(parent, self_ns, firsts, t0, t0 + cnt, n, r0, r1, rounds, out, scratch,
+                     flag);
+    }
+    return;
+  }
+
+  // the run's rows past the prefetch, 16 bytes a load where the pointers allow
+  const int32_t L = r1 - r0, x0 = r0 - lo;
+  const int32_t rest = max(r0, pre);
+  if (vec) {
+    const int32_t a4 = rest >> 2, b4 = r1 >> 2, a2 = rest >> 1, b2 = r1 >> 1;
+    for (int32_t v = a4 + tid; v < b4; v += blockDim.x)
+      reinterpret_cast<int4*>(sp)[v - (lo >> 2)] = reinterpret_cast<const int4*>(parent)[v];
+    for (int32_t v = a2 + tid; v < b2; v += blockDim.x)
+      reinterpret_cast<ulonglong2*>(sacc)[v - (lo >> 1)] =
+          reinterpret_cast<const ulonglong2*>(self_ns)[v];
+    const int32_t i = max(rest, b4 * 4) + tid;  // the last rows past the 16-byte ones
+    if (i < r1) sp[i - lo] = parent[i];
+    if (tid == 0 && (r1 & 1) && r1 - 1 >= rest) sacc[r1 - 1 - lo] = self_ns[r1 - 1];
+  } else {
+    for (int32_t i = rest + tid; i < r1; i += blockDim.x) {
+      sp[i - lo] = parent[i];
+      sacc[i - lo] = self_ns[i];
+    }
+  }
+  // rank[w]: trace starts in the words before w (one warp's scan)
+  if (tid < 32) {
+    constexpr int kPer = kRpsWords / 32;
+    uint32_t c[kPer], sum = 0;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      c[j] = __popc(bits[tid * kPer + j]);
+      sum += c[j];
+    }
+    uint32_t incl = sum;
+#pragma unroll
+    for (int d = 1; d < 32; d *= 2) {
+      const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+      if (tid >= d) incl += y;
+    }
+    uint32_t run = incl - sum;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      rank[tid * kPer + j] = run;
+      run += c[j];
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  // every parent inside its own trace, made a tile row (-1: a root); each
+  // thread keeps its spans' pointer and sum in registers from here on
+  u64 acc[kRpsSlots];
+  int32_t ptr[kRpsSlots];
+#pragma unroll
+  for (int j = 0; j < kRpsSlots; ++j) {
+    const int32_t o = tid + j * kRpsThreads;
+    ptr[j] = -1;
+    if (o < L) {
+      const int32_t x = x0 + o;
+      const int32_t p = sp[x];
+      acc[j] = sacc[x];
+      if (p >= 0) {
+        if (p >= r0 && p < r1 && tile_trace(bits, rank, p - lo) == tile_trace(bits, rank, x))
+          ptr[j] = p - lo;
+        else
+          *flag = 1;
+      }
+      sp[x] = ptr[j];
+    }
+  }
+  __syncthreads();
+  // a round: gather every live span's step from the tile, a barrier, then
+  // publish the new values (a second barrier, which also counts the live)
+  for (int32_t k = 0; k < rounds; ++k) {
+    uint32_t moved = 0;
+    int live = 0;
+#pragma unroll
+    for (int j = 0; j < kRpsSlots; ++j) {
+      const int32_t q = ptr[j];
+      if (q >= 0) {
+        acc[j] += sacc[q];
+        ptr[j] = sp[q];
+        moved |= 1u << j;
+        live |= ptr[j] >= 0;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kRpsSlots; ++j) {
+      if (moved >> j & 1u) {
+        const int32_t x = x0 + tid + j * kRpsThreads;
+        sacc[x] = acc[j];
+        sp[x] = ptr[j];
+      }
+    }
+    if (!__syncthreads_or(live)) break;
+  }
+  // the sums out, once: a warp's slot is 32 consecutive rows
+#pragma unroll
+  for (int j = 0; j < kRpsSlots; ++j) {
+    const int32_t o = tid + j * kRpsThreads;
+    if (o < L) out[r0 + o] = acc[j];
+  }
 }
 
 }  // namespace
@@ -382,6 +772,33 @@ int tt_root_path_sums(const void* parent, const void* self_ns, int32_t n, int32_
     p_in = p_out;
     acc_in = acc_out;
   }
+  return 0;
+}
+
+
+// parent: (n,) int32, -1 at a root; self_ns: (n,) uint64 bits; firsts:
+// (n_traces,) int32, each trace's first row, ascending from 0; out: (n,)
+// uint64 sums; scratch: 32 n bytes, 16-byte aligned, for runs longer than
+// a CTA's tile; flag: an int32 the caller zeroed, set to 1 on a parent
+// outside its trace or firsts that do not ascend from 0 below n. One
+// launch; *launched: kernels launched.
+int tt_root_path_sums_segmented(const void* parent, const void* self_ns, const void* firsts,
+                                int32_t n, int32_t n_traces, int32_t rounds, void* out,
+                                void* scratch, void* flag, int32_t* launched, void* stream) {
+  *launched = 0;
+  if (n <= 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(root_path_segmented_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kRpsSmem);
+  if (err != cudaSuccess) return (int)err;
+  const bool vec = (((uintptr_t)parent | (uintptr_t)self_ns) & 15) == 0;
+  root_path_segmented_kernel<<<(unsigned)cdiv(n, kRpsWindow), kRpsThreads, kRpsSmem,
+                               (cudaStream_t)stream>>>(
+      (const int32_t*)parent, (const u64*)self_ns, (const int32_t*)firsts, n, n_traces, rounds,
+      vec, (u64*)out, (ulonglong2*)scratch, (int32_t*)flag);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  *launched = 1;
   return 0;
 }
 

@@ -62,6 +62,8 @@ _SIGNATURES = {
     "tt_hll_update": [_P, _I32, _I32, _P, _I64, _I32, _P, _P],
     "tt_cm_update": [_P, _I32, _I32, _P, _P, _I64, _I32, _I32, ctypes.c_uint32, _P, _P],
     "tt_root_path_sums": [_P, _P, _I32, _I32, _P, _P, _P, _P, ctypes.POINTER(_I32), _P],
+    "tt_root_path_sums_segmented": [_P, _P, _P, _I32, _I32, _I32, _P, _P, _P,
+                                    ctypes.POINTER(_I32), _P],
 }
 
 

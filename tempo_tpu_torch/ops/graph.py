@@ -11,18 +11,23 @@ path sums have three arms that give the same uint64 sums bit for bit:
 - _root_path_sums_plain: the same rounds as torch ops, every round run
   (the reference's jitted device arm did the same with two uint32 limbs
   and a carry; int64 adds wrap mod 2**64 exactly as the limbs do);
-- the root_path_sums kernel: CUDA C++ (csrc/graph_sketch_kernels.cu),
-  one launch a round over ping-pong buffers.
+- the root_path_sums kernels: CUDA C++ (csrc/graph_sketch_kernels.cu).
+  Given the traces' first rows (`firsts`), one launch over whole traces,
+  their rounds in shared memory (tt_root_path_sums_segmented); without
+  them one launch a round over ping-pong buffers (tt_root_path_sums).
 
 root_path_sums, the wrapper, takes the plain version only for tensors on
-the CPU and launches the kernel for CUDA tensors or raises; it counts
-its calls that launched in `root_path_sums.launches` and its kernel
-launches in `root_path_sums.kernel_launches`.
+the CPU and launches a kernel for CUDA tensors or raises; it counts its
+calls that launched in `root_path_sums.launches` and its kernel launches
+in `root_path_sums.kernel_launches`. With `firsts`, every parent must lie
+in its own trace segment: the CPU arm checks that with torch ops, the
+kernel sets an error flag, and both raise ValueError.
 
 The arm follows the device the caller passes (the querier passes its
-DB's device): a CUDA device runs the kernel under
-timed_dispatch("graph_critical_path"), the CPU or no device the host
-arm. TEMPO_TPU_GRAPH_DEVICE=0 forces the host arm, as in the reference.
+DB's device): a CUDA device runs the segmented kernel under
+timed_dispatch("graph_critical_path") (critical_path passes its
+segments), the CPU or no device the host arm. TEMPO_TPU_GRAPH_DEVICE=0
+forces the host arm, as in the reference.
 The reference picks by its backend instead (device_enabled(): a TPU).
 """
 
@@ -128,31 +133,92 @@ def _root_path_sums_plain(parent: torch.Tensor, self_ns: torch.Tensor,
     return acc
 
 
+def _check_segments(parent: torch.Tensor, firsts: torch.Tensor) -> None:
+    """Raise unless `firsts` ascend strictly from 0 below n and every
+    parent (>= 0) lies in its own span's trace segment: what the
+    segmented kernel flags."""
+    n = parent.shape[0]
+    f = firsts.to(torch.int64)
+    if n == 0:
+        return
+    if len(f) == 0 or int(f[0]) != 0 or bool((f[1:] <= f[:-1]).any()) or int(f[-1]) >= n:
+        raise ValueError("root_path_sums: firsts must ascend strictly from 0 below n")
+    seg = torch.searchsorted(f, torch.arange(n, device=f.device), right=True) - 1
+    ends = torch.cat([f[1:], f.new_tensor([n])])
+    p = parent.to(torch.int64)
+    if bool(((p >= 0) & ((p < f[seg]) | (p >= ends[seg]))).any()):
+        raise ValueError("root_path_sums: a parent outside its trace segment")
+
+
+def _launch_segmented(parent: torch.Tensor, self_ns: torch.Tensor, firsts: torch.Tensor,
+                      rounds: int, out: torch.Tensor, flag: torch.Tensor) -> None:
+    """One launch of the segmented kernel on the current stream: the sums
+    into `out` ((n,) int64), a bad parent or bad `firsts` into `flag`
+    (an int32 word the caller zeroed). Counts the call and its launch."""
+    n = parent.shape[0]
+    # two records of 16 B a span, for a run longer than a CTA's tile
+    scratch = torch.empty(4 * n, dtype=torch.int64, device=parent.device)
+    launched = ctypes.c_int32(0)
+    with torch.cuda.device(parent.device):
+        err = _build.lib().tt_root_path_sums_segmented(
+            parent.data_ptr(), self_ns.data_ptr(), firsts.data_ptr(), n, firsts.shape[0],
+            rounds, out.data_ptr(), scratch.data_ptr(), flag.data_ptr(), ctypes.byref(launched),
+            torch.cuda.current_stream(parent.device).cuda_stream)
+    _build.check(err, "root_path_sums")
+    root_path_sums.launches += 1 if launched.value else 0
+    root_path_sums.kernel_launches += launched.value
+
+
 def root_path_sums(parent: torch.Tensor, self_ns: torch.Tensor,
-                   rounds: int | None = None) -> torch.Tensor:
+                   rounds: int | None = None,
+                   firsts: torch.Tensor | None = None) -> torch.Tensor:
     """Sum of self times over each span and its ancestors, by `rounds`
     (default _n_rounds(n)) pointer-doubling rounds. parent: (n,) int32,
     -1 at a root and otherwise in [0, n); self_ns: (n,) int64 holding
     uint64 bits, on parent's device. Returns (n,) int64 holding the
-    uint64 sums (mod 2**64). The plain version for CPU tensors; for CUDA
-    tensors the root_path_sums kernel, one launch a round, or a raise."""
+    uint64 sums (mod 2**64).
+
+    firsts (optional, on parent's device): the (T,) first rows of the
+    trace segments, ascending from 0; every parent must lie in its own
+    span's segment, or this raises ValueError. The result is the same
+    with or without them.
+
+    The plain version for CPU tensors; for CUDA tensors a kernel or a
+    raise: with `firsts` the segmented kernel (one launch; the wrapper
+    reads its error flag, which waits for it), without them one launch
+    a round."""
     if parent.ndim != 1 or self_ns.shape != parent.shape:
         raise ValueError("root_path_sums: parent and self_ns must be (n,)")
+    if firsts is not None and firsts.ndim != 1:
+        raise ValueError("root_path_sums: firsts must be (T,)")
     n = parent.shape[0]
     if rounds is None:
         rounds = _n_rounds(n)
     if parent.device.type == "cpu":
+        if firsts is not None:
+            _check_segments(parent, firsts)
         return _root_path_sums_plain(parent, self_ns, rounds)
     if parent.device.type != "cuda":
         raise ValueError(f"root_path_sums: no kernel for device {parent.device}")
-    if self_ns.device != parent.device:
-        raise ValueError(f"root_path_sums: tensors on {self_ns.device} and {parent.device}")
+    for t in (self_ns, firsts):
+        if t is not None and t.device != parent.device:
+            raise ValueError(f"root_path_sums: tensors on {t.device} and {parent.device}")
     if parent.dtype != torch.int32 or self_ns.dtype not in (torch.int64, torch.uint64):
         raise TypeError("root_path_sums: parent int32, self_ns int64 or uint64")
     if n >= 2**31:
         raise ValueError("root_path_sums: n must be below 2**31")
     parent, self_ns = parent.contiguous(), self_ns.contiguous()
-    if n == 0 or rounds < 1:
+    if n == 0:
+        return self_ns.view(torch.int64).clone()
+    if firsts is not None:
+        out = torch.empty(n, dtype=torch.int64, device=parent.device)
+        flag = torch.zeros(1, dtype=torch.int32, device=parent.device)
+        _launch_segmented(parent, self_ns, firsts.to(torch.int32).contiguous(), rounds, out,
+                          flag)
+        if int(flag.item()):
+            raise ValueError(SEGMENT_FAULT)
+        return out
+    if rounds < 1:
         return self_ns.view(torch.int64).clone()
     p_a, p_b = torch.empty_like(parent), torch.empty_like(parent)
     acc_a = torch.empty(n, dtype=torch.int64, device=parent.device)
@@ -173,29 +239,82 @@ def root_path_sums(parent: torch.Tensor, self_ns: torch.Tensor,
 root_path_sums.launches = 0
 root_path_sums.kernel_launches = 0
 
+SEGMENT_FAULT = ("root_path_sums: a parent outside its trace segment, or firsts not "
+                 "ascending strictly from 0 below n")
+
+
+def _words(count: int, itemsize: int) -> int:
+    """int64 words holding `count` items of `itemsize` bytes, rounded up
+    to an even count so that the next section starts 16-byte aligned."""
+    w = -(-count * itemsize // 8)
+    return w + (w & 1)
+
+
+def _segmented_dispatch(parent: np.ndarray, self_ns: np.ndarray, firsts: np.ndarray,
+                        dev: torch.device, rounds: int) -> np.ndarray:
+    """The segmented kernel's dispatch on a CUDA device: parents, self
+    times and firsts packed into one pinned buffer and copied in once on
+    the current stream, one launch, the error flag and the sums copied
+    back once into pinned memory, then a wait on that stream."""
+    n, t = len(parent), len(firsts)
+    ws, wp, wf = _words(n, 8), _words(n, 4), _words(t, 4)
+    f_at = ws + wp + wf  # the flag word, then a pad word, then the sums
+    host = torch.empty(f_at + 2, dtype=torch.int64, pin_memory=True)
+    h = host.numpy()
+    h[:n] = np.asarray(self_ns).view(np.int64)
+    np.copyto(h[ws:ws + wp].view(np.int32)[:n], parent, casting="unsafe")
+    np.copyto(h[ws + wp:f_at].view(np.int32)[:t], firsts, casting="unsafe")
+    h[f_at:] = 0
+    buf = torch.empty(f_at + 2 + n, dtype=torch.int64, device=dev)
+    buf[:f_at + 2].copy_(host, non_blocking=True)
+    i32 = buf[:f_at].view(torch.int32)
+    _launch_segmented(i32[2 * ws:2 * ws + n], buf[:n], i32[2 * (ws + wp):2 * (ws + wp) + t],
+                      rounds, buf[f_at + 2:], buf[f_at:f_at + 1].view(torch.int32))
+    back = torch.empty(n + 2, dtype=torch.int64, pin_memory=True)
+    back.copy_(buf[f_at:], non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(dev))
+    done.synchronize()
+    out = back.numpy()
+    if out[0] != 0:
+        raise ValueError(SEGMENT_FAULT)
+    return out[2:].view(np.uint64)
+
 
 def root_path_sums_device(parent: np.ndarray, self_ns: np.ndarray, device,
-                          bucket_for=None) -> np.ndarray:
+                          bucket_for=None, firsts: np.ndarray | None = None) -> np.ndarray:
     """The torch arm of root_path_sums_host on `device`, as one
-    `graph_critical_path` dispatch: one host-to-device copy of parents
-    and self times, every doubling round (the kernel on a CUDA device),
-    one copy back. `bucket_for` is the reference's signature: it padded
-    to a bucket shape for XLA's shape cache, which the CUDA arm does not
-    need, so it is ignored."""
+    `graph_critical_path` dispatch. With `firsts` (the traces' first
+    rows, ascending from 0; every parent inside its trace, or this
+    raises) on a CUDA device: one copy in and one copy back through
+    pinned memory and the segmented kernel, one launch, waiting on the
+    current stream only. Without them: pageable copies and one launch a
+    round. On the CPU the plain version. `bucket_for` is the reference's
+    signature: it padded to a bucket shape for XLA's shape cache, which
+    the CUDA arm does not need, so it is ignored."""
     from tempo_tpu_torch.util.devicetiming import count_transfer, timed_dispatch
 
     del bucket_for
     n = len(parent)
     if n == 0:
         return np.empty(0, np.uint64)
+    dev = torch.device(device)
+    rounds = _n_rounds(n)
+    if firsts is not None and dev.type == "cuda":
+        out = timed_dispatch("graph_critical_path", _segmented_dispatch, parent, self_ns,
+                             firsts, dev, rounds, device=dev,
+                             stream=torch.cuda.current_stream(dev))
+        count_transfer("graph_critical_path", h2d=n * 12 + len(firsts) * 4, d2h=n * 8)
+        return out
     if parent.max(initial=-1) >= n:
         raise ValueError("root_path_sums_device: a parent index past the spans")
-    dev = torch.device(device)
     p_h = torch.from_numpy(np.ascontiguousarray(parent, np.int32))
     s_h = torch.from_numpy(np.ascontiguousarray(self_ns, np.uint64).view(np.int64))
+    f_h = None if firsts is None else torch.from_numpy(np.asarray(firsts, np.int64))
 
     def run():
-        out = root_path_sums(p_h.to(dev), s_h.to(dev), _n_rounds(n))
+        out = root_path_sums(p_h.to(dev), s_h.to(dev), rounds,
+                             firsts=None if f_h is None else f_h.to(dev))
         return out.cpu().numpy().view(np.uint64)
 
     out = timed_dispatch("graph_critical_path", run, device=dev)
@@ -238,7 +357,8 @@ def critical_path(parent: np.ndarray, duration: np.ndarray, seg: np.ndarray,
         return self_ns, np.zeros(0, bool), np.empty(0, np.uint64)
     arm = _arm(device)
     if arm is not None:
-        acc = root_path_sums_device(parent, self_ns, arm, bucket_for=bucket_for)
+        acc = root_path_sums_device(parent, self_ns, arm, bucket_for=bucket_for,
+                                    firsts=firsts)
     else:
         acc = root_path_sums_host(parent, self_ns)
     # segmented argmax: first row reaching the segment max

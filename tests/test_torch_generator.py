@@ -342,18 +342,22 @@ def _cuda() -> torch.device:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", [4, 12, 14, 15, 18])
-@pytest.mark.parametrize("n", [1, 64, 4096, (1 << 20) + 3])
-@pytest.mark.parametrize("form", ["int32", "int64", "int32-offset", "masked"])
+# across the grid's edges (one row a thread, 256 a CTA, two CTAs an SM)
+# and the cluster's (1 to 8 CTAs): a push, a block writer's flush, one
+# row past it, a block's IDs, the compaction step's rows
+@pytest.mark.parametrize("n", [1, 64, 255, 256, 4096, 8192, 8193, 1 << 17, (1 << 20) + 3,
+                               1 << 22])
+@pytest.mark.parametrize("form", ["int32", "int64", "int32-offset", "masked", "int64-masked"])
 def test_hll_kernel_equals_plain(precision, n, form):
     dev = _cuda()
     p = sketch.HLLPlan(precision)
     rng = np.random.default_rng(n + precision)
     k = rng.integers(0, 2**32, (n + 1, 4), np.uint32)
     k[:4] = [[0] * 4, [0xFFFFFFFF] * 4, [0, 0xFFFFFFFF] * 2, [0xFFFFFFFF, 0] * 2][: min(4, n + 1)]
-    keys = (torch.from_numpy(k.astype(np.int64)) if form == "int64"
+    keys = (torch.from_numpy(k.astype(np.int64)) if form.startswith("int64")
             else torch.from_numpy(k.view(np.int32)))
     keys = keys[1:] if form == "int32-offset" else keys[:n]
-    valid = torch.from_numpy(rng.random(n) > 0.4) if form == "masked" else None
+    valid = torch.from_numpy(rng.random(n) > 0.4) if form.endswith("masked") else None
     start = torch.from_numpy(rng.integers(0, 20, p.m)).to(torch.int64)
     want = sketch.hll_update(start, keys, p, valid=valid)
     before = sketch.hll_update.launches

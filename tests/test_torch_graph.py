@@ -14,8 +14,12 @@ The served routes are asked of the two Apps of tests/test_torch_app.py's
 AppPair (the port on the CPU, its host arm) over the same OTLP pushes,
 before and after /flush (graph_recent, then graph_blocks); the documents
 compare field for field, their wall-clock stats (stageSeconds,
-deviceDispatches, elapsedMs) and byte counts aside. The `cuda` cases hold
-the root_path_sums kernel against its plain version on the card.
+deviceDispatches, elapsedMs) and byte counts aside. The root path sums
+given the trace segments (`firsts`) are held against the reference's
+arms on trace-sorted forests, and a parent outside its segment must
+raise. The `cuda` cases hold both root_path_sums kernels (a launch a
+round, and the segmented one launch) against the plain version on the
+card.
 """
 
 import json
@@ -179,6 +183,116 @@ def test_critical_path_cycle_terminates():
     got = ops_graph.critical_path(pr, dur, seg, np.array([0]), device="cpu")
     want = jops_graph.critical_path(pr, dur, seg, np.array([0]), device=False)
     assert got[1].any() and all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+def _trace_forest(kind: str, n: int, rng) -> tuple[np.ndarray, np.ndarray]:
+    """(parent rows, firsts) of n trace-sorted spans, every parent inside
+    its own trace: chains of `depth` ("chains-8"), random in-trace forests
+    whose parents lie before or after the child ("random"), the same with
+    in-trace two-cycles ("cycles"), single-span traces ("singles"), one
+    trace that is a chain through its rows in random order ("one-trace"),
+    or traces of 1 to 2**17 spans, some over a CTA's 8,192-row tile
+    ("mixed")."""
+    if kind.startswith("chains-"):
+        sizes = np.full(-(-n // int(kind.split("-")[1])), int(kind.split("-")[1]))
+    elif kind == "singles":
+        sizes = np.ones(n, np.int64)
+    elif kind == "one-trace":
+        sizes = np.array([n])
+    elif kind == "mixed":
+        r = rng.random(n // 8 + 2)
+        sizes = np.where(r < 0.9, rng.integers(1, 64, len(r)),
+                         np.where(r < 0.99, rng.integers(3000, 20000, len(r)), 1 << 17))
+    else:
+        sizes = rng.integers(1, 300, n // 2 + 1)
+    firsts = np.concatenate([[0], np.cumsum(sizes)])[:-1]
+    firsts = firsts[firsts < n]
+    ends = np.append(firsts[1:], n)
+    seg = np.repeat(np.arange(len(firsts)), ends - firsts)
+    row = np.arange(n)
+    lo = firsts[seg]
+    if kind.startswith("chains-"):
+        return np.where(row == lo, -1, row - 1), firsts
+    # each trace's rows in random order; each takes a parent earlier in that
+    # order (the whole order, a chain, for "one-trace"), the first a root
+    perm = np.lexsort((rng.random(n), seg))
+    k = row - lo
+    j = k - 1 if kind == "one-trace" else (rng.random(n) * k).astype(np.int64)
+    parent = np.full(n, -1, np.int64)
+    parent[perm] = np.where(k > 0, perm[lo + j], -1)
+    if kind == "cycles":
+        size = (ends - firsts)[seg]
+        a = rng.choice(n, max(1, n // 20))
+        a = a[size[a] >= 2]
+        b = lo[a] + (a - lo[a] + 1 + rng.integers(0, 1 << 30, len(a)) % (size[a] - 1)) % size[a]
+        parent[a], parent[b] = b, a
+    return parent, firsts
+
+
+def _segmented(parent: np.ndarray, self_ns: np.ndarray, firsts: np.ndarray) -> np.ndarray:
+    out = ops_graph.root_path_sums(torch.from_numpy(parent.astype(np.int32)),
+                                   torch.from_numpy(self_ns.astype(np.uint64).view(np.int64)),
+                                   firsts=torch.from_numpy(firsts))
+    return out.numpy().view(np.uint64)
+
+
+@pytest.mark.parametrize("kind,n", [("chains-8", 2000), ("random", 3000), ("cycles", 3000),
+                                    ("singles", 700), ("one-trace", 1 << 16)])
+def test_root_sums_with_firsts_equal(kind, n):
+    """root_path_sums(..., firsts=...) on the CPU against the reference's
+    host arm and its jitted limb arm, exactly; cycles wrap mod 2**64."""
+    rng = np.random.default_rng(n)
+    parent, firsts = _trace_forest(kind, n, rng)
+    s = rng.integers(0, 2**63 if kind == "cycles" else 2**40, n).astype(np.uint64)
+    want = jops_graph.root_path_sums_host(parent, s)
+    assert np.array_equal(_segmented(parent, s, firsts), want)
+    assert np.array_equal(_jax_limbs(parent, s), want)
+    assert np.array_equal(ops_graph.root_path_sums_device(parent, s, "cpu", firsts=firsts), want)
+    if kind == "cycles":
+        assert (want < s).any()  # a sum did wrap
+
+
+@pytest.mark.parametrize("fault", ["other-trace", "past-n", "firsts-from-1", "firsts-unsorted"])
+def test_root_sums_segment_faults_raise(fault):
+    """A parent outside its trace segment, or firsts that do not ascend
+    from 0, raise on the CPU arm as the kernel's error flag does."""
+    parent, firsts = _trace_forest("chains-8", 400, np.random.default_rng(3))
+    if fault == "other-trace":
+        parent[100] = 90  # row 100 starts its trace at 96
+    elif fault == "past-n":
+        parent[100] = 400
+    elif fault == "firsts-from-1":
+        firsts = firsts + 1
+    else:
+        firsts[[7, 8]] = firsts[[8, 7]]
+    s = np.ones(400, np.uint64)
+    with pytest.raises(ValueError, match="root_path_sums"):
+        _segmented(parent, s, firsts)
+    with pytest.raises(ValueError, match="root_path_sums"):
+        ops_graph.root_path_sums_device(parent, s, "cpu", firsts=firsts)
+
+
+@pytest.mark.parametrize("by", ["service", "name"])
+def test_critical_path_passes_firsts(by, monkeypatch):
+    """cp_partial and critical_path hand their trace segments to the
+    device arm, whose sums still give the reference's wires."""
+    seen = []
+    real = ops_graph.root_path_sums_device
+
+    def spy(parent, self_ns, device, bucket_for=None, firsts=None):
+        seen.append(firsts)
+        return real(parent, self_ns, device, bucket_for=bucket_for, firsts=firsts)
+
+    monkeypatch.delenv("TEMPO_TPU_GRAPH_DEVICE", raising=False)
+    monkeypatch.setattr(ops_graph, "root_path_sums_device", spy)
+    monkeypatch.setattr(ops_graph, "_arm", lambda device: torch.device("cpu"))
+    jb = jsynth.make_graph_batch(70, 9, seed=8)
+    tb = synth.make_graph_batch(70, 9, seed=8)
+    jsub = jgraph.cp_partial(_cols(jb, jgraph), jb.dictionary, by=by, device=True)
+    tsub = tgraph.cp_partial(_cols(tb, tgraph), tb.dictionary, by=by, device="cpu")
+    assert jsub == tsub
+    _, _, firsts = trace_segmentation(tb.cols["trace_id"])
+    assert len(seen) == 1 and np.array_equal(seen[0], firsts)
 
 
 def test_graph_arm_follows_device(monkeypatch):
@@ -398,6 +512,43 @@ def test_root_path_sums_kernel_equals_plain(kind, n):
     assert torch.equal(got.cpu(), want)
     assert np.array_equal(ops_graph.root_path_sums_device(parent, s.view(np.uint64), dev),
                           want.numpy().view(np.uint64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["chains-8", "chains-2048", "mixed", "cycles"])
+@pytest.mark.parametrize("n", [1, 7, 1 << 16, (1 << 21) - 3])
+def test_root_path_sums_segmented_kernel_equals_plain(kind, n):
+    """The segmented kernel (one launch over whole traces) against the
+    plain version on the CPU: traces of 1 to 2**17 spans, some past a
+    CTA's tile, and in-trace cycles; then the pinned dispatch, and a
+    parent outside its trace raising."""
+    dev = _cuda()
+    rng = np.random.default_rng(n + len(kind))
+    parent, firsts = _trace_forest(kind, n, rng)
+    s = rng.integers(0, 2**63, n, dtype=np.int64)  # sums wrap mod 2**64
+    p_d = torch.from_numpy(parent.astype(np.int32)).to(dev)
+    s_d, f_d = torch.from_numpy(s).to(dev), torch.from_numpy(firsts).to(dev)
+    before = (ops_graph.root_path_sums.launches, ops_graph.root_path_sums.kernel_launches)
+    got = ops_graph.root_path_sums(p_d, s_d, firsts=f_d)
+    assert (ops_graph.root_path_sums.launches, ops_graph.root_path_sums.kernel_launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = ops_graph.root_path_sums(torch.from_numpy(parent.astype(np.int32)),
+                                    torch.from_numpy(s))
+    assert torch.equal(got.cpu(), want)
+    assert np.array_equal(
+        ops_graph.root_path_sums_device(parent, s.view(np.uint64), dev, firsts=firsts),
+        want.numpy().view(np.uint64))
+    # views one element in: rows off their 16-byte alignment (scalar loads)
+    p_off = torch.cat([p_d.new_zeros(1), p_d])[1:]
+    s_off = torch.cat([s_d.new_zeros(1), s_d])[1:]
+    assert torch.equal(ops_graph.root_path_sums(p_off, s_off, firsts=f_d).cpu(), want)
+    with pytest.raises(ValueError, match="outside its trace segment"):
+        ops_graph.root_path_sums(p_d, s_d, firsts=f_d[:0])
+    if len(firsts) > 1:
+        bad = parent.copy()
+        bad[firsts[1]] = firsts[1] - 1  # the second trace's root into the first trace
+        with pytest.raises(ValueError, match="outside its trace segment"):
+            ops_graph.root_path_sums_device(bad, s.view(np.uint64), dev, firsts=firsts)
 
 
 @pytest.mark.cuda
