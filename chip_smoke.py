@@ -1158,11 +1158,13 @@ def graph_sketch_kernels_check(torch, dev, rng, lib, stream) -> tuple[int, dict]
     the entry's inputs in merge order, int64 limbs, `valid` the step's
     masks: each trace's first surviving row for HLL, every surviving row
     for count-min), with u32 weights, at p = 4 and p = 18 (global atomics),
-    a count-min of 8 x 8,192 (global atomics), at the block writer's
-    shape (2**17 int32 IDs) and at two generator pushes (64 and 4,096
-    edge keys of the demo's services) and a block writer's flush (8,192
-    and 8,193 IDs); the root sums over 2**21 spans a launch a round, as
-    chains of depth 8 and 2,048, a forest with roots scattered through it
+    a count-min of 8 x 8,192 (global atomics), the step's keys as sorted
+    traces of 8 spans and with every row invalid for count-min, at the
+    block writer's shape (2**17 int32 IDs) and at two generator pushes (64
+    and 4,096 edge keys of the demo's services; count-min also at 1, 31,
+    33, 257 and 4,096 keys with weights near 2**32) and a block writer's
+    flush (8,192 and 8,193 IDs); the root sums over 2**21 spans a launch
+    a round, as chains of depth 8 and 2,048, a forest with roots scattered through it
     and one with parent cycles, and given the trace segments (one launch
     over whole traces, and its pinned dispatch) as trace_forests makes
     them. Returns (cases held, timing records)."""
@@ -1213,13 +1215,23 @@ def graph_sketch_kernels_check(torch, dev, rng, lib, stream) -> tuple[int, dict]
         for prec in (12, 18) if v is None and keys is st else (4, 12, 14, 15, 18):
             hll_case(f"{label} p={prec}", keys, sketch.HLLPlan(prec), v)
             n_cases += 1
-    for label, keys, v in (("compaction 2^22 int64", st, keep), ("push 64", edges[:64], None),
-                           ("push 4096", edges, None), ("writer 2^17 int32", writer_ids, None)):
+    # the step's keys as sorted traces of 8 spans (a warp's lanes add to
+    # the same counters), weights near 2**32 (their sums wrap)
+    sorted8 = st[torch.arange(st.shape[0], device=dev) // 8 * 8].contiguous()
+    near = torch.from_numpy(rng.integers(2**32 - 2**20, 2**32, 4096)).to(dev)
+    cm_inputs = [("compaction 2^22 int64", st, None, keep),
+                 ("compaction weighted", st, w32, keep),
+                 ("sorted traces of 8", sorted8, None, keep),
+                 ("every row invalid", st, None, torch.zeros_like(keep)),
+                 ("push 64", edges[:64], None, None), ("push 4096", edges, None, None),
+                 ("push 4096 weights near 2^32", edges, near, None),
+                 ("writer 2^17 int32", writer_ids, None, None)]
+    cm_inputs += [(f"push n={k} weights near 2^32", edges[:k], near[:k], None)
+                  for k in (1, 31, 33, 257)]
+    for label, keys, w, v in cm_inputs:
         for p in (cp, sketch.CMPlan(1, 1 << 4), sketch.CMPlan(8, 1 << 13)):
-            cm_case(f"{label} {p.depth}x{p.width}", keys, p, None, v)
+            cm_case(f"{label} {p.depth}x{p.width}", keys, p, w, v)
             n_cases += 1
-        cm_case(f"{label} weighted", keys, cp, w32[: keys.shape[0]], v)
-        n_cases += 1
 
     def sketch_record(kind, label, keys, p, v, w=None):
         """kernel / path / plain / library times and the bound at one shape."""
@@ -1292,7 +1304,9 @@ def graph_sketch_kernels_check(torch, dev, rng, lib, stream) -> tuple[int, dict]
     sketch_record("cm", "compaction", st, cp, keep)
     sketch_record("cm", "generator push", edges, cp, None)
     sketch_record("cm", "weighted compaction", st, cp, keep, w32)
-    del st, first, keep, w32
+    sketch_record("cm", "sorted traces of 8", sorted8, cp, keep)
+    sketch_record("cm", "8x8192 compaction", st, sketch.CMPlan(8, 1 << 13), keep)
+    del st, first, keep, w32, sorted8
 
     # ---- root_path_sums over 2**21 spans
     n = 1 << 21
@@ -1632,6 +1646,11 @@ def tier_phase(root: str, inputs: dict, compacted_block_id: str, plan_of,
     tier = colcache.configure_device_tier(DeviceTierConfig(budget_mb=1024), device=device)
     check(tier is colcache.shared_device_tier() and tier.device.type == device,
           f"phase 10: the tier is not on {device}")
+    # the admission set changes only at the admitting pass's forced refresh:
+    # a timed one (every refresh_s) would admit pages inside a cold pass
+    # slower than refresh_s, or between the resident pass and its per-page
+    # loop, which then would not see the same residents
+    tier.refresh_s = float("inf")
     colcache.shared_cache().clear()
     print(f"phase 10 tier: DeviceTier on {tier.device}, {tier.budget_bytes >> 20} MB, over "
           f"block {compacted_block_id} ({metas[0].total_spans} spans)", flush=True)
@@ -1684,11 +1703,6 @@ def tier_phase(root: str, inputs: dict, compacted_block_id: str, plan_of,
     for name in ("cold", "admitting", "resident"):
         if name == "admitting":
             tier.refresh_admission(force=True)
-            # the admission set stays this one for the rest of the phase: a
-            # timed refresh (refresh_s) would admit pages between the
-            # resident pass and its per-page loop, which then would not
-            # see the same residents
-            tier.refresh_s = float("inf")
             with tier._lock:
                 res["admission_set_pages"] = len(tier._admit_keys)
                 res["admission_budget_bytes"] = tier._admit_budget
@@ -3611,10 +3625,13 @@ def main() -> int:
     graph_sketch_s = time.perf_counter() - t0
     print(f"phase 2 graph and sketch kernels: {n_graph_sketch} cases equal "
           f"({graph_sketch_s:.1f} s): hll_update at p 4/12/14/15/18 (shared-memory "
-          "registers to p = 14, global atomics above; p 12/18 over every row) and cm_update at "
-          "4x4096, 1x16 and 8x8192 (global atomics), with weights, over the compaction step's "
-          "2^22 int64 keys (valid: each trace's first surviving row / every surviving row), "
-          "2^17 int32 block-writer IDs, a flush's 8,192 and 8,193, 1, 64 and 4,096 edge keys; "
+          "registers to p = 14, global atomics above; p 12/18 over every row) over the "
+          "compaction step's 2^22 int64 keys (valid: each trace's first surviving row), 2^17 "
+          "int32 block-writer IDs, a flush's 8,192 and 8,193, 1, 64 and 4,096 edge keys; "
+          "cm_update at 4x4096, 1x16 and 8x8192 (global atomics) over the step's keys (valid: "
+          "every surviving row; with u32 weights; as sorted traces of 8; every row invalid), "
+          "the writer's IDs, 64 and 4,096 edge keys, and 1, 31, 33, 257 and 4,096 with "
+          "weights near 2^32 whose sums wrap; "
           "root_path_sums over 2^21 spans (chains of 8 and 2,048, a forest, parent cycles; the "
           "cycles also == the host arm) a launch a round, and given the trace segments in one "
           "launch (chains of 8 and 2,048, in-trace cycles, a trace of three tiles; the pinned "

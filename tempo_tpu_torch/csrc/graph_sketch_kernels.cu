@@ -39,9 +39,6 @@ constexpr uint32_t kHllRankSeed = 0x27220A95u;
 // (HLL to p = 14, count-min to depth x width = 16,384 counters: the defaults
 // are p = 12 and 4 x 4,096); a larger sketch takes global atomics
 constexpr int kPrivateBytes = 64 * 1024;
-// a block zeroes and merges its private copy once, so it takes at least
-// this many updates for each counter of the copy
-constexpr int64_t kUpdatesPerCounter = 4;
 
 using u64 = unsigned long long;
 
@@ -53,6 +50,16 @@ int sm_count() {
 }
 
 int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
+// The cluster a grid of *blocks CTAs launches in: the largest power of two
+// up to `most` that the grid fills; *blocks is rounded up to a whole number
+// of clusters.
+unsigned grid_cluster(int64_t* blocks, unsigned most) {
+  unsigned k = 1;
+  while (k < most && 2 * (int64_t)k <= *blocks) k *= 2;
+  *blocks = cdiv(*blocks, k) * k;
+  return k;
+}
 
 // ---------------------------------------------------------------------------
 // hashing, as tempo_tpu/ops/hashing.py: fnv1a-32 over the big-endian bytes
@@ -77,23 +84,14 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h, uint32_t seed) {
 
 // The key of row r: `limbs` holds n rows of `width` limbs, each limb 4 bytes
 // (uint32 bits) or 8 bytes (an int64 holding a uint32 value: its low 32 bits,
-// as the plain version's `& 0xFFFFFFFF`). kQuad: 4 limbs a row and the rows
-// 16-byte aligned, so a row is one or two 16-byte loads.
-template <typename T, bool kQuad>
+// as the plain version's `& 0xFFFFFFFF`). Keys of 4 limbs whose rows are
+// 16-byte aligned (the quad form) load as one or two 16-byte loads instead
+// (load_quad, hash_quad).
+template <typename T>
 __device__ __forceinline__ uint32_t key_hash(const T* __restrict__ limbs, int width, int64_t r) {
   uint32_t h = kFnvOffset;
-  if constexpr (kQuad && sizeof(T) == 4) {
-    const uint4 v = reinterpret_cast<const uint4*>(limbs)[r];
-    h = fnv_word(fnv_word(fnv_word(fnv_word(h, v.x), v.y), v.z), v.w);
-  } else if constexpr (kQuad) {
-    const ulonglong2 a = reinterpret_cast<const ulonglong2*>(limbs)[2 * r];
-    const ulonglong2 b = reinterpret_cast<const ulonglong2*>(limbs)[2 * r + 1];
-    h = fnv_word(fnv_word(fnv_word(fnv_word(h, (uint32_t)a.x), (uint32_t)a.y),
-                          (uint32_t)b.x), (uint32_t)b.y);
-  } else {
-    const T* row = limbs + r * width;
-    for (int i = 0; i < width; ++i) h = fnv_word(h, (uint32_t)row[i]);
-  }
+  const T* row = limbs + r * width;
+  for (int i = 0; i < width; ++i) h = fnv_word(h, (uint32_t)row[i]);
   return h;
 }
 
@@ -134,7 +132,7 @@ constexpr int kHllRowsInFlight = 2;  // rows a thread loads before it hashes any
 constexpr int kHllCtasPerSm = 4;     // the grid's cap, with one row a thread below it
 constexpr int kHllCluster = 8;       // CTAs that merge their private registers together
 
-// The four uint32 limbs of row r of a quad-form key array (see key_hash).
+// The four uint32 limbs of row r of a quad-form key array.
 __device__ __forceinline__ uint4 load_quad(const uint32_t* __restrict__ limbs, int64_t r) {
   return reinterpret_cast<const uint4*>(limbs)[r];
 }
@@ -149,13 +147,14 @@ __device__ __forceinline__ uint32_t hash_quad(uint4 v) {
   return fnv_word(fnv_word(fnv_word(fnv_word(kFnvOffset, v.x), v.y), v.z), v.w);
 }
 
-// Bit u: row r0 + u * stride exists and is valid (all rows when valid is
-// null).
-__device__ __forceinline__ uint32_t hll_rows(const uint8_t* __restrict__ valid, int64_t n,
-                                             int64_t r0, int64_t stride) {
+// Bit u (u < kRows): row r0 + u * stride exists and is valid (all rows when
+// valid is null).
+template <int kRows>
+__device__ __forceinline__ uint32_t live_rows(const uint8_t* __restrict__ valid, int64_t n,
+                                              int64_t r0, int64_t stride) {
   uint32_t ok = 0;
 #pragma unroll
-  for (int u = 0; u < kHllRowsInFlight; ++u) {
+  for (int u = 0; u < kRows; ++u) {
     const int64_t r = r0 + u * stride;
     if (r < n && (valid == nullptr || valid[r] != 0)) ok |= 1u << u;
   }
@@ -175,7 +174,7 @@ hll_update_kernel(const T* __restrict__ limbs, int width, const uint8_t* __restr
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const int64_t step = kHllRowsInFlight * stride;
   int64_t r0 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  uint32_t ok = hll_rows(valid, n, r0, stride);
+  uint32_t ok = live_rows<kHllRowsInFlight>(valid, n, r0, stride);
   for (; r0 < n; r0 += step) {
     uint4 key[kHllRowsInFlight];
     if constexpr (kQuad) {
@@ -183,7 +182,8 @@ hll_update_kernel(const T* __restrict__ limbs, int width, const uint8_t* __restr
       for (int u = 0; u < kHllRowsInFlight; ++u)
         if (ok >> u & 1u) key[u] = load_quad(limbs, r0 + u * stride);
     }
-    const uint32_t next = hll_rows(valid, n, r0 + step, stride);  // loads while this hashes
+    // the next rows' mask loads while these hash
+    const uint32_t next = live_rows<kHllRowsInFlight>(valid, n, r0 + step, stride);
 #pragma unroll
     for (int u = 0; u < kHllRowsInFlight; ++u) {
       if (!(ok >> u & 1u)) continue;
@@ -191,7 +191,7 @@ hll_update_kernel(const T* __restrict__ limbs, int width, const uint8_t* __restr
       if constexpr (kQuad) {
         base = hash_quad(key[u]);
       } else {
-        base = key_hash<T, false>(limbs, width, r0 + u * stride);
+        base = key_hash(limbs, width, r0 + u * stride);
       }
       const uint32_t idx = fmix32(base, kHllIndexSeed) & mask;
       const uint32_t rho = (uint32_t)__clz((int)fmix32(base, kHllRankSeed)) + 1u;
@@ -218,86 +218,6 @@ hll_update_kernel(const T* __restrict__ limbs, int width, const uint8_t* __restr
   }
 }
 
-// ---------------------------------------------------------------------------
-// cm_update
-//
-// Replaces the jitted ops/sketch.cm_update of the reference
-// (tempo_tpu/ops/sketch.py:117-133): every row whose `valid` is true adds its
-// uint32 weight (1 when `weights` is null) to one counter in each of `depth`
-// rows of the sketch, column fmix32(fnv1a(key), seed * 31 + i) & (width - 1)
-// in row i; the counters wrap mod 2**32.
-//
-// The counters are int64 tensors holding uint32 values. The kernel adds into
-// the low 32-bit word of each (the card is little-endian) with 32-bit
-// atomics, which wrap mod 2**32 and never carry into the high word; the
-// wrapper hands it counters already masked to 32 bits, so the high words stay
-// zero and the result is the plain version's (counts + sum) & 0xFFFFFFFF.
-//
-// What bounds it: the keys' bytes as for hll_update, and depth adds a row into
-// a few thousand hot counters. Design as hll_update's: a private copy of the
-// counters in shared memory (64 KB at the default 4 x 4,096), depth
-// shared-memory adds a row, then one global add for each non-zero counter of
-// the copy; a sketch over 16,384 counters adds straight into the output.
-// Integer adds commute, so the counts are exact whatever the order.
-// ---------------------------------------------------------------------------
-
-template <typename T, bool kQuad, bool kPrivate>
-__global__ void __launch_bounds__(kThreads)
-cm_update_kernel(const T* __restrict__ limbs, int width, const uint32_t* __restrict__ weights,
-                 const uint8_t* __restrict__ valid, int64_t n, int depth, uint32_t col_mask,
-                 uint32_t seed0, uint32_t* __restrict__ counts) {
-  extern __shared__ uint32_t priv[];
-  const uint32_t cols = col_mask + 1;
-  const uint32_t cells = (uint32_t)depth * cols;
-  if (kPrivate) {
-    for (uint32_t i = threadIdx.x; i < cells; i += blockDim.x) priv[i] = 0;
-    __syncthreads();
-  }
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < n; r += stride) {
-    if (valid != nullptr && !valid[r]) continue;
-    const uint32_t w = weights == nullptr ? 1u : weights[r];
-    if (w == 0) continue;
-    const uint32_t base = key_hash<T, kQuad>(limbs, width, r);
-    for (int i = 0; i < depth; ++i) {
-      const uint32_t cell = (uint32_t)i * cols + (fmix32(base, seed0 + (uint32_t)i) & col_mask);
-      if (kPrivate) {
-        atomicAdd(&priv[cell], w);
-      } else {
-        atomicAdd(&counts[2 * (size_t)cell], w);  // the int64 counter's low word
-      }
-    }
-  }
-  if (kPrivate) {
-    __syncthreads();
-    for (uint32_t i = threadIdx.x; i < cells; i += blockDim.x) {
-      const uint32_t v = priv[i];
-      if (v != 0) atomicAdd(&counts[2 * (size_t)i], v);
-    }
-  }
-}
-
-// Blocks for a sketch kernel over n rows making `updates` counter updates:
-// at least one row a thread, at most what the card holds at once, and, with
-// a private copy of `counters` counters, only as many blocks as keep
-// kUpdatesPerCounter updates for each counter a block zeroes and merges.
-template <typename K>
-cudaError_t sketch_grid(K kernel, int64_t n, int64_t updates, int64_t counters, size_t smem,
-                        unsigned* blocks) {
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  int occ = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  int64_t g = std::min<int64_t>(cdiv(n, kThreads), (int64_t)std::max(occ, 1) * sm_count());
-  if (smem > 0) g = std::min(g, cdiv(updates, kUpdatesPerCounter * counters));
-  *blocks = (unsigned)std::max<int64_t>(g, 1);
-  return cudaSuccess;
-}
-
 // hll_update's launch: one row a thread up to kHllCtasPerSm CTAs an SM (a
 // grid-stride loop past that), and with private registers a cluster of up to
 // kHllCluster CTAs, the grid rounded up to whole clusters.
@@ -315,11 +235,7 @@ cudaError_t launch_hll(const void* limbs, int width, const uint8_t* valid, int64
   if (err != cudaSuccess) return err;
   const int64_t cap = (int64_t)std::max(std::min(occ, kHllCtasPerSm), 1) * sm_count();
   int64_t blocks = std::max<int64_t>(std::min(cdiv(n, kThreads), cap), 1);
-  unsigned cluster = 1;
-  if (kPrivate) {
-    while (cluster < (unsigned)kHllCluster && 2 * cluster <= blocks) cluster *= 2;
-    blocks = cdiv(blocks, cluster) * cluster;
-  }
+  const unsigned cluster = kPrivate ? grid_cluster(&blocks, kHllCluster) : 1;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3((unsigned)blocks);
   config.blockDim = dim3(kThreads);
@@ -336,19 +252,230 @@ cudaError_t launch_hll(const void* limbs, int width, const uint8_t* valid, int64
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// cm_update
+//
+// Replaces the jitted ops/sketch.cm_update of the reference
+// (tempo_tpu/ops/sketch.py:117-133): every row whose `valid` is true adds its
+// uint32 weight (1 when `weights` is null) to one counter in each of `depth`
+// rows of the sketch, column fmix32(fnv1a(key), seed * 31 + i) & (width - 1)
+// in row i; the counters wrap mod 2**32.
+//
+// The counters are int64 tensors holding uint32 values. The kernel adds into
+// the low 32-bit word of each (the card is little-endian) with 32-bit
+// atomics, which wrap mod 2**32 and never carry into the high word; the
+// wrapper hands it counters already masked to 32 bits, so the high words stay
+// zero and the result is the plain version's (counts + sum) & 0xFFFFFFFF.
+//
+// What bounds it on this card: the valid rows' keys, as for hll_update (32 B
+// an int64 row: 109 MB, 33 us of HBM at the compaction step's 3,407,872
+// valid rows), and depth adds a row into a few thousand hot counters.
+//
+// Design, hll_update's levers, resized for count-min's 64-KB copies:
+// - the grid is sized by the rows alone: one row a thread up to
+//   kCmCtasPerSm CTAs an SM, a grid-stride loop past that. Each private
+//   copy costs 64 KB to zero and merge, so the CTAs that keep one are
+//   large: kCmThreads threads (kThreads without a copy); two of 1,024
+//   fill an SM's threads and take 128 KB of shared memory;
+// - a thread hashes its row while the next row's weight and key, and the
+//   `valid` byte of the row after it, load;
+// - each CTA adds into a private copy of the counters in shared memory,
+//   and the CTAs of a thread-block cluster (up to kCmCluster: the largest
+//   that keeps 7/8 of the CTAs that fit unclustered, by
+//   cudaOccupancyMaxActiveClusters) merge through distributed shared
+//   memory: CTA c owns the cells [c s, (c + 1) s), s the cells over the
+//   cluster's size rounded up to four so that the merge reads 16 bytes at
+//   a time (the cells past depth x width stay zero), sums them over its
+//   peers' copies and issues one global add for each non-zero sum, so the
+//   global adds fall by the cluster's size;
+// - a sketch over kPrivateBytes, or rows that make fewer than
+//   kCmPrivateUpdates updates a counter (a push of 4,096 keys: its CTAs
+//   would each zero and merge 16,384 counters to add a few hundred), add
+//   straight into the output instead.
+// Integer adds mod 2**32 commute and associate, so the counters are exact
+// whatever the order and the grouping of the adds.
+// ---------------------------------------------------------------------------
+
+constexpr int kCmThreads = 1024;      // a CTA's threads with a private copy (kThreads without)
+constexpr int kCmCtasPerSm = 2;       // the grid's cap, with one row a thread below it
+constexpr int kCmCluster = 8;         // the largest cluster whose CTAs merge their copies
+constexpr int kCmPrivateUpdates = 2;  // updates a counter below which the adds go global
+
+// The weight of row r (1 when weights is null; 0 when the row is not live)
+// and, in the quad form, its key.
+template <typename T, bool kQuad>
+__device__ __forceinline__ void cm_row(const T* __restrict__ limbs,
+                                       const uint32_t* __restrict__ weights, bool live, int64_t r,
+                                       uint4& key, uint32_t& w) {
+  w = !live ? 0u : weights == nullptr ? 1u : weights[r];
+  if constexpr (kQuad) key = live ? load_quad(limbs, r) : make_uint4(0, 0, 0, 0);
+}
+
+template <typename T, bool kQuad, bool kPrivate>
+__global__ void __launch_bounds__(kPrivate ? kCmThreads : kThreads)
+cm_update_kernel(const T* __restrict__ limbs, int width, const uint32_t* __restrict__ weights,
+                 const uint8_t* __restrict__ valid, int64_t n, int depth, uint32_t col_mask,
+                 uint32_t seed0, uint32_t span, uint32_t* __restrict__ counts) {
+  extern __shared__ __align__(16) uint32_t cm_priv[];  // kPrivate: the cluster's size x span
+  const uint32_t cols = col_mask + 1;
+  if (kPrivate) {
+    uint4* words = reinterpret_cast<uint4*>(cm_priv);
+    const uint32_t quads = cg::this_cluster().num_blocks() * span / 4;
+    for (uint32_t i = threadIdx.x; i < quads; i += blockDim.x) words[i] = make_uint4(0, 0, 0, 0);
+    __syncthreads();
+  }
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  uint4 key = make_uint4(0, 0, 0, 0);
+  uint32_t w;
+  cm_row<T, kQuad>(limbs, weights, live_rows<1>(valid, n, r, stride), r, key, w);
+  uint32_t ok = live_rows<1>(valid, n, r + stride, stride);
+  for (; r < n; r += stride) {
+    // the next row's weight and key, and the mask after it, load while this
+    // row hashes
+    uint4 next_key = make_uint4(0, 0, 0, 0);
+    uint32_t next_w;
+    cm_row<T, kQuad>(limbs, weights, ok, r + stride, next_key, next_w);
+    ok = live_rows<1>(valid, n, r + 2 * stride, stride);
+    if (w != 0) {
+      uint32_t base;
+      if constexpr (kQuad) {
+        base = hash_quad(key);
+      } else {
+        base = key_hash(limbs, width, r);
+      }
+      for (int i = 0; i < depth; ++i) {
+        const uint32_t cell = (uint32_t)i * cols + (fmix32(base, seed0 + (uint32_t)i) & col_mask);
+        if (kPrivate) {
+          atomicAdd(&cm_priv[cell], w);
+        } else {
+          atomicAdd(&counts[2 * (size_t)cell], w);  // the int64 counter's low word
+        }
+      }
+    }
+    key = next_key;
+    w = next_w;
+  }
+  if (kPrivate) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // every copy of the cluster is whole
+    const uint32_t k = cluster.num_blocks();
+    const uint32_t lo = cluster.block_rank() * span;
+    for (uint32_t i = lo + 4 * threadIdx.x; i < lo + span; i += 4 * blockDim.x) {
+      uint4 v = make_uint4(0, 0, 0, 0);
+      for (uint32_t q = 0; q < k; ++q) {
+        const uint4 c = *reinterpret_cast<const uint4*>(cluster.map_shared_rank(cm_priv, q) + i);
+        v.x += c.x;
+        v.y += c.y;
+        v.z += c.z;
+        v.w += c.w;
+      }
+      // a cell past depth x width sums to zero, so it is never added
+      if (v.x != 0) atomicAdd(&counts[2 * (size_t)i], v.x);
+      if (v.y != 0) atomicAdd(&counts[2 * (size_t)i + 2], v.y);
+      if (v.z != 0) atomicAdd(&counts[2 * (size_t)i + 4], v.z);
+      if (v.w != 0) atomicAdd(&counts[2 * (size_t)i + 6], v.w);
+    }
+    cluster.sync();  // no CTA leaves while a peer still reads its copy
+  }
+}
+
+// Cells of a private copy that each CTA of a cluster of k merges.
+uint32_t cm_span(int64_t cells, unsigned k) { return (uint32_t)(cdiv(cdiv(cells, k), 4) * 4); }
+
+// The private kernel's grid on one device for a sketch of `cells` counters:
+// the CTAs that run at once (kCmCtasPerSm an SM at most) and the cluster
+// they merge in, the largest up to kCmCluster that keeps 7/8 of them.
+struct CmFit {
+  int dev = -1;
+  int64_t cells = -1;
+  int64_t cap = 0;
+  unsigned cluster = 1;
+};
+
+template <typename K>
+cudaError_t cm_fit(K kernel, int dev, int64_t cells, CmFit* fit) {
+  // the most any sketch's copies take (kPrivateBytes and a cluster's
+  // rounding, 16 B a CTA), so that no size lowers it under another's launch
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kPrivateBytes + 16 * kCmCluster);
+  const int64_t most_ctas = (int64_t)kCmCtasPerSm * sm_count();
+  CmFit got;
+  int64_t alone = 0;
+  for (unsigned k = 1; err == cudaSuccess && k <= (unsigned)kCmCluster; k *= 2) {
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(k);
+    config.blockDim = dim3(kCmThreads);
+    config.dynamicSmemBytes = (size_t)k * cm_span(cells, k) * sizeof(uint32_t);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = k;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+    const int64_t ctas = std::min((int64_t)clusters * k, most_ctas) / k * k;
+    if (k == 1) alone = ctas;
+    if (err == cudaSuccess && ctas > 0 && 8 * ctas >= 7 * alone) {
+      got.cap = ctas;
+      got.cluster = k;
+    }
+  }
+  if (err != cudaSuccess) return err;
+  if (got.cap == 0) return cudaErrorInvalidConfiguration;
+  got.dev = dev;
+  got.cells = cells;
+  *fit = got;
+  return cudaSuccess;
+}
+
+// cm_update's launch: one row a thread up to kCmCtasPerSm CTAs an SM (a
+// grid-stride loop past that), and with a private copy a cluster of up to
+// CmFit's size, the grid a whole number of clusters.
 template <typename T, bool kQuad, bool kPrivate>
 cudaError_t launch_cm(const void* limbs, int width, const uint32_t* weights,
                       const uint8_t* valid, int64_t n, int depth, uint32_t cols, uint32_t seed0,
                       uint32_t* counts, cudaStream_t st) {
-  const int64_t cells = (int64_t)depth * cols;
-  const size_t smem = kPrivate ? cells * sizeof(uint32_t) : 0;
   auto kernel = cm_update_kernel<T, kQuad, kPrivate>;
-  unsigned blocks = 1;
-  cudaError_t err = sketch_grid(kernel, n, n * depth, cells, smem, &blocks);
+  const int threads = kPrivate ? kCmThreads : kThreads;
+  const int64_t cells = (int64_t)depth * cols;
+  int64_t cap = 0;
+  unsigned most = 1;
+  cudaError_t err = cudaSuccess;
+  if (kPrivate) {
+    thread_local CmFit fit;  // for the last device and sketch size this thread launched
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess && (fit.dev != dev || fit.cells != cells))
+      err = cm_fit(kernel, dev, cells, &fit);
+    cap = fit.cap;
+    most = fit.cluster;
+  } else {
+    int occ = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, threads, 0);
+    cap = (int64_t)std::max(std::min(occ, kCmCtasPerSm), 1) * sm_count();
+  }
   if (err != cudaSuccess) return err;
-  cm_update_kernel<T, kQuad, kPrivate><<<blocks, kThreads, smem, st>>>(
-      (const T*)limbs, width, weights, valid, n, depth, cols - 1, seed0, counts);
-  return cudaGetLastError();
+  int64_t blocks = std::max<int64_t>(std::min(cdiv(n, threads), cap), 1);
+  const unsigned cluster = grid_cluster(&blocks, most);  // cap is a whole number of `most`
+  const uint32_t span = kPrivate ? cm_span(cells, cluster) : 0;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned)blocks);
+  config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = (size_t)cluster * span * sizeof(uint32_t);
+  config.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = kPrivate ? 1 : 0;
+  err = cudaLaunchKernelEx(&config, kernel, (const T*)limbs, width, weights, valid, n, depth,
+                           cols - 1, seed0, span, counts);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -735,7 +862,11 @@ int tt_cm_update(const void* limbs, int32_t width, int32_t limb_bytes, const voi
   const uint8_t* v = (const uint8_t*)valid;
   uint32_t* c = (uint32_t*)counts;
   const bool quad = width == 4 && ((uintptr_t)limbs & 15) == 0;
-  const bool priv = (size_t)depth * cols * sizeof(uint32_t) <= (size_t)kPrivateBytes;
+  // a private copy when the sketch fits and the rows make enough updates a
+  // counter to pay for its zeroing and merge
+  const int64_t cells = (int64_t)depth * cols;
+  const bool priv = cells * (int64_t)sizeof(uint32_t) <= kPrivateBytes &&
+                    n * depth >= kCmPrivateUpdates * cells;
   cudaError_t err;
 #define TT_CM(T, Q, P) launch_cm<T, Q, P>(limbs, width, w, v, n, depth, (uint32_t)cols, seed0, c, st)
   if (limb_bytes == 4) {

@@ -7,10 +7,16 @@ IDs, and every answer is compared exactly — found traces, search
 responses field by field, TraceQL results on both the vectorized branch
 and the object engine, tag sets, blocklists, and the bytes of blocks
 written by write_batch, write_wal_block and compact_once. The one
-`cuda` test runs the flow with device="cuda" against device="cpu"."""
+`cuda` test runs the flow with device="cuda" against device="cpu".
+Where bytes carry gzip's header clock (a WAL segment's dictionary), the
+test pins that clock for both packages."""
 
+import gzip
+import json
 import os
+import struct
 import time
+import types
 import uuid
 
 import numpy as np
@@ -37,6 +43,7 @@ from tempo_tpu_torch.db.pool import JobPool
 from tempo_tpu_torch.encoding.common import BlockConfig, SearchRequest
 from tempo_tpu_torch.encoding.vtpu import colcache
 from tempo_tpu_torch.encoding.vtpu.codec import CorruptPage
+from tempo_tpu_torch.encoding.vtpu.format import MAGIC
 from tempo_tpu_torch.model import synth
 from tempo_tpu_torch.model import trace as tr
 from tempo_tpu_torch.model.columnar import SpanBatch
@@ -486,7 +493,41 @@ def test_transient_error_aborts_poll():
         jdb.poll_now()
 
 
-def test_wal_append_replay_and_write_wal_block_match_jax(tmp_path):
+def _gzip_clock(monkeypatch, t: int) -> None:
+    """Pin the time that gzip writes into each header (both packages gzip
+    a WAL segment's dictionary with mtime = now)."""
+    monkeypatch.setattr(gzip, "time", types.SimpleNamespace(time=lambda: t))
+
+
+def test_wal_segments_differ_in_the_gzip_clock_alone(tmp_path, monkeypatch):
+    """Why the segment comparison below pins gzip's clock: a segment ends
+    in its gzipped dictionary, whose header holds the second it was
+    written, so the same batch appended a second later differs in that
+    header's mtime and nowhere else."""
+    pair = DBPair(tmp_path)
+    batch = _batch(60, n_traces=40)
+    segs = []
+    for db, b, t in ((pair.j, to_jax(batch), 1_700_000_000), (pair.t, batch, 1_700_000_001),
+                     (pair.t, batch, 1_700_000_000)):
+        _gzip_clock(monkeypatch, t)
+        blk = db.wal.new_block("tenant")
+        blk.append(b)
+        (name,) = os.listdir(blk.path)
+        with open(os.path.join(blk.path, name), "rb") as f:
+            segs.append(f.read())
+    jax_seg, later, same = segs
+    assert same == jax_seg and len(later) == len(jax_seg)
+    hlen = struct.unpack("<I", jax_seg[len(MAGIC):len(MAGIC) + 4])[0]
+    dict_len = json.loads(jax_seg[len(MAGIC) + 4:len(MAGIC) + 4 + hlen])["dict_len"]
+    mtime = len(jax_seg) - dict_len + 4  # gzip: magic, method, flags, then mtime (u32 LE)
+    assert [i for i in range(len(later)) if later[i] != jax_seg[i]] == [mtime]
+    assert struct.unpack("<I", later[mtime:mtime + 4])[0] == 1_700_000_001
+
+
+def test_wal_append_replay_and_write_wal_block_match_jax(tmp_path, monkeypatch):
+    # the segments' bytes hold gzip's clock: appends on either side of a
+    # second's edge would differ there (the test above)
+    _gzip_clock(monkeypatch, 1_700_000_000)
     pair = DBPair(tmp_path)
     parts = [_batch(60 + k, n_traces=40, minute=k) for k in range(3)]
     jblk, tblk = pair.j.wal.new_block("tenant"), pair.t.wal.new_block("tenant")

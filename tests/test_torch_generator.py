@@ -371,19 +371,36 @@ def test_hll_kernel_equals_plain(precision, n, form):
 @pytest.mark.cuda
 @pytest.mark.parametrize("plan", [(4, 1 << 12), (1, 1 << 4), (4, 1 << 14), (8, 1 << 13)],
                          ids=lambda p: f"{p[0]}x{p[1]}")
-@pytest.mark.parametrize("n", [1, 64, 4096, (1 << 20) + 3])
-@pytest.mark.parametrize("form", ["int32", "int64", "weighted", "masked-weighted"])
+# across a warp's, a CTA's and the private copy's edges (2 updates a counter)
+@pytest.mark.parametrize("n", [1, 31, 33, 64, 257, 4096, 8193, (1 << 20) + 3])
+@pytest.mark.parametrize("form", ["int32", "int64", "weighted", "masked-weighted", "hot-weighted",
+                                  "sorted-masked", "sorted-int64"])
 def test_cm_kernel_equals_plain(plan, n, form):
+    """Random keys, each repeated once; `hot`: 64 distinct keys in random
+    order (a push's edge keys), weights near 2**32 so that the sums wrap;
+    `sorted`: runs of 1-16 equal keys side by side (a compaction's spans
+    of one trace), a mask dropping whole runs."""
     dev = _cuda()
     p = sketch.CMPlan(*plan)
     rng = np.random.default_rng(n + plan[1])
     k = rng.integers(0, 2**32, (n, 4), np.uint32)
     k[n // 2:] = k[: n - n // 2]
-    keys = torch.from_numpy(k.astype(np.int64)) if form == "int64" \
+    if form.startswith("hot"):
+        k = k[rng.integers(0, min(n, 64), n)]
+    elif form.startswith("sorted"):
+        k = np.repeat(k, rng.integers(1, 17, n), axis=0)[:n]
+    keys = torch.from_numpy(k.astype(np.int64)) if "int64" in form \
         else torch.from_numpy(k.view(np.int32))
-    w = (torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32).astype(np.int64))
-         if "weighted" in form else None)  # sums wrap mod 2**32
+    if form == "hot-weighted":  # sums wrap mod 2**32
+        w = torch.from_numpy(rng.integers(2**32 - 2**20, 2**32, n))
+    elif "weighted" in form:
+        w = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32).astype(np.int64))
+    else:
+        w = None
     valid = torch.from_numpy(rng.random(n) > 0.3) if "masked" in form else None
+    if form == "sorted-masked":
+        head = np.r_[True, (k[1:] != k[:-1]).any(1)]
+        valid = torch.from_numpy((rng.random(n) > 0.3)[np.cumsum(head) - 1])
     start = torch.from_numpy(rng.integers(0, 2**32, (p.depth, p.width), dtype=np.int64))
     want = sketch.cm_update(start, keys, p, weights=w, valid=valid)
     got = sketch.cm_update(start.to(dev), keys.to(dev), p,

@@ -227,6 +227,42 @@ def test_cm_update(weighted, masked):
     eq(jsketch.cm_merge(jc, jc), sketch.cm_merge(tc, tc))
 
 
+def _cm_keys(form: str, n: int, rng) -> np.ndarray:
+    """(n, 4) uint32 keys: `hot`, drawn from 64 distinct keys in random
+    order (a generator push's edge keys); `sorted`, runs of 1-16 equal
+    keys side by side (a compaction's spans of one trace)."""
+    if form == "hot":
+        return _limbs(64, 9)[rng.integers(0, 64, n)]
+    runs = rng.integers(1, 17, n)
+    return np.repeat(_limbs(n, 10), runs, axis=0)[:n]
+
+
+@pytest.mark.parametrize("form", ["hot", "sorted"])
+@pytest.mark.parametrize("weights", ["ones", "wrap"])
+@pytest.mark.parametrize("mask", ["all", "drop-runs"])
+def test_cm_update_hot_and_sorted_keys(form, weights, mask):
+    """4,096 keys of which a warp's rows share many (the shapes the
+    kernel's cases hold on the card): weights near 2**32 whose sums wrap,
+    and masks that drop whole runs of equal keys (and single rows)."""
+    jp = jsketch.CMPlan(4, 1 << 12)
+    p = convert.cm_plan(jp)
+    rng = np.random.default_rng(12)
+    ids = _cm_keys(form, 4096, rng)
+    w = rng.integers(2**32 - 2**20, 2**32, 4096, np.uint32) if weights == "wrap" else None
+    valid = None
+    if mask == "drop-runs":
+        head = np.r_[True, (ids[1:] != ids[:-1]).any(1)]
+        valid = (rng.random(4096) > 0.1)[np.cumsum(head) - 1] & (rng.random(4096) > 0.05)
+        assert 0 < valid.sum() < 4096
+    jc = jsketch.cm_update(jsketch.cm_init(jp), jnp.asarray(ids), jp,
+                           weights=None if w is None else jnp.asarray(w),
+                           valid=None if valid is None else jnp.asarray(valid))
+    tc = sketch.cm_update(sketch.cm_init(p, "cpu"), T(ids), p,
+                          weights=None if w is None else T(w),
+                          valid=None if valid is None else T(valid))
+    eq(jc, tc)
+
+
 def test_histogram_quantile():
     jp = jsketch.HistogramPlan()
     p = convert.histogram_plan(jp)
