@@ -15,8 +15,10 @@ Phases, one line each (any failure exits non-zero):
    batched over page tables) and csrc/graph_sketch_kernels.cu
    (hll_update and cm_update, the sketch updates of compaction, the block
    writer and the generator's service graphs, and root_path_sums, the
-   critical path's pointer doubling), one nvcc a source, in
-   parallel, and ptxas reports each kernel's registers,
+   critical path's pointer doubling) and csrc/tail_kernels.cu (tail_fold
+   and tail_scan, the ingest tail's standing fold and live-tail search
+   mask), one nvcc a source, in parallel, and ptxas reports each
+   kernel's registers,
    static shared memory and spills;
 2. kernels: each CUDA kernel against its plain PyTorch version on the
    card, bit for bit, at the main path's shapes and at edge shapes (the
@@ -172,8 +174,31 @@ Phases, one line each (any failure exits non-zero):
    by=name) and /api/graph/walks (seed 7) on both, equal field for field
    (wall-clock and byte stats aside), with each route's ms and the
    root_path_sums calls and kernel launches (one launch a critical-path
-   call: the segmented kernel). Past 900 s before it the generator-off
-   App is shed.
+   call: the segmented kernel). Past 750 s before it the generator-off
+   App is shed;
+12. ingest tail and status planes: (a) App(device="cuda") with a
+   1,024-MB device tier, 64 MB of it the ingest tail, and App(device=
+   "cpu") with the tail off, each behind a TempoServer; phase 9's 16
+   standing queries and four more that lower onto the parked columns
+   (the lowered ones printed) registered on the card App; phase 9's 2**17
+   spans pushed to both as 32 OTLP requests, cut every 8: each cut parks
+   one tail entry, each lowered query folds through one tail_fold launch
+   a cut and never seg_bincount, and after each cut every standing read
+   equals query_range and a CPU StandingEngine's counts over the same cut
+   batches; eight live-tail /api/search requests (name, service,
+   http.method, http.url, status, min/max duration, an absent value, an
+   attribute-table tag) equal the CPU App's, tail_scan launching once a
+   parked segment (never for the last two); standing_fold and
+   live_tail_scan h2d stays at a few KB a dispatch while the avoided
+   bytes climb; after /flush, /status/storage?refresh=1 equals the
+   port's own scan on the CPU over a copy of the backend,
+   /status/profile?seconds=1 returns stacks and /status/profile/device?
+   seconds=2, around a fifth cut's fold, a trace whose device events
+   name the hand kernels. (b) one cut of 786,432 spans parked on the card
+   through park_cut (2**20 rows, 46 MB): every lowered query through
+   resident_fold on the card == the plain version == eval_batch, the
+   eight masks == plain == the host loop, and both kernels timed as in
+   phase 2 beside their path, plain and torch-chain times and bound.
 
 Phases 3-4 are the main path, phase 5 the scan path, phase 6 the block
 path, phase 7 the storage engine's path, phase 8 the server's path and
@@ -181,7 +206,9 @@ phase 9 the standing engine's (seg_bincount at the cuts' folds and in
 query_range, the page-encode kernels at its flush, compiled_metrics) and
 phase 10 the device tier's (the three resident scans, compiled_metrics)
 and phase 11 the generator's and the graph plane's (hll_update,
-cm_update, root_path_sums, and the page-encode kernels of its flushes;
+cm_update, root_path_sums, and the page-encode kernels of its flushes)
+and phase 12 (a) the ingest tail's (tail_fold, tail_scan, and
+seg_bincount for the queries that do not lower;
 the sketch kernels also run on phases 3 and 6-9: compaction, every card
 block write and every push through the generator):
 each is run with the kernels' launch counts set to 0 just before it,
@@ -193,10 +220,11 @@ on the card; phase 8 also compiled_metrics, and never dbp_decode, which
 the compiled tier fuses into its count). The script then prints
 one JSON line of per-kernel and per-phase numbers (phase 6's under
 "blocks", phase 7's under "db", phase 8's under "app", phase 9's under
-"standing", phase 10's under "tier", phase 11's under "graph"; "shed"
-names the depth a slow host cut: phase 7's warm unbounded repeats past
-250 s before it, phase 8's interpreter runs past 420 s before it, phase
-11's generator-off push past 900 s before it), the nvidia-smi
+"standing", phase 10's under "tier", phase 11's under "graph", phase
+12's under "tail"; "shed" names the depth a slow host cut: phase 7's
+warm unbounded repeats past 250 s before it, phase 8's interpreter runs
+past 420 s before it, phase 11's generator-off push past 750 s before
+it; phase 12 sheds nothing), the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Without a CUDA
 device it exits 1 and prints no result. It imports nothing of JAX or of
 tempo_tpu.
@@ -389,6 +417,7 @@ CODEC_KERNELS = ("rle_change_mask", "dbp_pack", "dbp_decode", "compiled_metrics"
 RESIDENT_KERNELS = ("resident_rle_scan", "resident_dct_scan", "resident_dbp_scan",
                     "resident_rle_scan_batch", "resident_dct_scan_batch", "resident_dbp_scan_batch")
 GRAPH_SKETCH_KERNELS = ("hll_update", "cm_update", "root_path_sums")
+TAIL_KERNELS = ("tail_fold", "tail_scan")
 # the resident scans' calls in phase 10's resident pass when every page
 # took its own call (rle and dbp: PR 10's 2-3 kernels a call; dct: the
 # per-page loop's with name=db.query, 8 of them stage 2's): what the
@@ -401,6 +430,7 @@ def launch_counters():
     from tempo_tpu_torch.compiled import program
     from tempo_tpu_torch.ops import encode as tenc
     from tempo_tpu_torch.ops import graph as ops_graph
+    from tempo_tpu_torch.ops import ingest_tail
     from tempo_tpu_torch.ops import pallas_kernels as pk
     from tempo_tpu_torch.ops import scan, sketch
 
@@ -410,7 +440,8 @@ def launch_counters():
             "compiled_metrics": program.compiled_metrics,
             **{k: getattr(scan, k) for k in RESIDENT_KERNELS},
             "hll_update": sketch.hll_update, "cm_update": sketch.cm_update,
-            "root_path_sums": ops_graph.root_path_sums}
+            "root_path_sums": ops_graph.root_path_sums,
+            "tail_fold": ingest_tail.tail_fold, "tail_scan": ingest_tail.tail_scan}
 
 
 def reset_launches() -> None:
@@ -3378,6 +3409,639 @@ def torch_equal(a, b) -> bool:
     return bool(torch.equal(a.cpu(), b.cpu()))
 
 
+# lowered standing queries phase 12 adds to phase 9's sixteen
+TAIL_EXTRA = [
+    '{ resource.service.name = "cart" } | rate() by (name)',
+    "{ span.http.status_code >= 500 } | count_over_time()",
+    '{ name != "db.query" && span.http.method = "GET" } | rate() by (resource.service.name)',
+    '{ span.http.url != "http://svc/3" } | count_over_time() by (span.http.method)',
+]
+# phase 12's live-tail searches: (tags, minDuration, maxDuration, tail_scan launches a
+# resident segment); an absent value answers empty before any launch, an
+# attribute-table tag takes the host loop
+TAIL_SEARCHES = [
+    ({"name": "db.query"}, None, None, 1),
+    ({"service.name": "cart"}, None, None, 1),
+    ({"service.name": "cart", "http.method": "GET"}, None, None, 1),
+    ({"http.url": "http://svc/3"}, None, None, 1),
+    ({"http.status_code": "500"}, None, None, 1),
+    ({"service.name": "frontend"}, "100ms", "900ms", 1),
+    ({"service.name": "nope"}, None, None, 0),
+    ({"region": "v7"}, None, None, 0),
+]
+
+
+def _search_key(raw: bytes) -> tuple:
+    """A search response's hits (sorted) and inspected traces."""
+    doc = json.loads(raw)
+    hits = sorted(json.dumps(t, sort_keys=True) for t in doc["traces"])
+    return hits, doc["metrics"].get("inspectedTraces")
+
+
+def _host_tail_mask(np, batch, tags: dict, mn: int, mx: int):
+    """The querier's host loop over one segment's dedicated columns, for
+    the masks of phase 12 (b); None for a tag of the attribute table."""
+    cols, d = batch.cols, batch.dictionary
+    where = {"name": "name", "service.name": "service", "service": "service",
+             "http.method": "http_method", "http.url": "http_url"}
+    mask = np.ones(batch.num_spans, bool)
+    for k, v in tags.items():
+        if k == "http.status_code":
+            mask &= cols["http_status"] == int(v)
+        elif k in where:
+            code = d.get(v)
+            mask &= (cols[where[k]] == code) if code is not None else False
+        else:
+            return None
+    if mn:
+        mask &= cols["duration_nano"] >= np.uint64(mn)
+    if mx:
+        mask &= cols["duration_nano"] <= np.uint64(mx)
+    return mask
+
+
+def _without_clock(doc: dict) -> dict:
+    """A /status/storage document without its wall-clock fields; each
+    tenant's block ages (now less end time) apart, returned beside it."""
+    doc = {k: v for k, v in doc.items() if k not in ("scannedAt", "scanSeconds")}
+    tenants = {t: dict(r) for t, r in doc["tenants"].items()}
+    ages = {t: r.pop("ageSecondsDistribution") for t, r in tenants.items()}
+    return dict(doc, tenants=tenants), ages
+
+
+def tail_phase(seed: int, root: str, queries: list, device: str = "cuda",
+               n_requests: int = 32) -> dict:
+    """Phase 12 (a), the ingest tail and the status planes over HTTP.
+    App(device) with a 1,024-MB device tier whose ingest-tail share is 64
+    MB, and App(device="cpu") with the tail off, each behind a TempoServer
+    over its own local backend. Phase 9's 16 standing queries and four
+    more that lower onto the parked columns are registered on the card
+    App; phase 9's 2**17 spans go to both as 32 OTLP requests, cut every
+    8. Each cut parks one tail entry; each lowered query folds through one
+    tail_fold launch a cut and never seg_bincount (whose launches at a cut
+    are the other queries' folds); after each cut every standing read
+    equals query_range on the same App, and a CPU StandingEngine folding
+    the same cut batches holds the same counts. Eight live-tail searches
+    before /flush equal the CPU App's (tail_scan launches once a resident
+    segment, never for an absent value or an attribute-table tag), the
+    standing_fold and live_tail_scan h2d stays at a few KB a dispatch
+    while their avoided bytes climb; after /flush, /status/storage?
+    refresh=1 equals the port's own analysis on the CPU over a copy of
+    the backend; /status/profile returns stacks; /status/profile/device,
+    taken around a fifth cut's fold, returns a trace whose device events
+    name the hand kernels. The CPU App's cuts park nothing (its
+    instances see no tier: the tier is process-wide and the card App's).
+    Returns its numbers."""
+    import copy
+    import shutil
+    import threading
+    from http.client import HTTPConnection
+
+    from tempo_tpu_torch.api.server import TempoServer
+    from tempo_tpu_torch.app import App, AppConfig
+    from tempo_tpu_torch.compiled import cache as compiled_cache
+    from tempo_tpu_torch.config_sections import DeviceTierConfig
+    from tempo_tpu_torch.db import DBConfig, TempoDB
+    from tempo_tpu_torch.db.analytics import StorageScanner
+    from tempo_tpu_torch.encoding.vtpu import colcache
+    from tempo_tpu_torch.metrics_engine import compile_metrics_plan
+    from tempo_tpu_torch.model import synth
+    from tempo_tpu_torch.model.trace import batch_to_traces
+    from tempo_tpu_torch.ops import ingest_tail
+    from tempo_tpu_torch.ops import pallas_kernels as pk
+    from tempo_tpu_torch.receivers import otlp
+    from tempo_tpu_torch.standing import StandingEngine
+    from tempo_tpu_torch.util import profiling
+    from tempo_tpu_torch.util.devicetiming import STATS
+
+    compiled_cache.shape_cache().clear()
+    tenant = "single-tenant"
+    t_phase = time.perf_counter()
+    res: dict = {"requests": {}}
+    now_min = int(time.time()) // 60 * 60
+    start, end, step = now_min - 45 * 60, now_min + 60, 60
+    regs = ([(q, None, None) for q in queries] + [(q, None, None) for q in SIMPLE_COUNT]
+            + STANDING_EXTRA + [(q, None, None) for q in TAIL_EXTRA])
+    lowered = [ingest_tail.lower_fold_plan(compile_metrics_plan(q, start, end, step))
+               is not None for q, _, _ in regs]
+    res["lowered"] = [q for (q, _, _), low in zip(regs, lowered) if low]
+    check(all(lowered[-len(TAIL_EXTRA):]), "phase 12: a query of TAIL_EXTRA does not lower")
+
+    def db_cfg(name):
+        return DBConfig(backend="local", backend_path=os.path.join(root, name, "blocks"),
+                        wal_path=os.path.join(root, name, "wal"))
+
+    # the CPU App first: App start installs the process-wide tier, the card's last
+    cpu_app = App(AppConfig(db=db_cfg("cpu")), device="cpu")
+    app = App(AppConfig(db=db_cfg("card"), device_tier=DeviceTierConfig(
+        budget_mb=1024, ingest_tail_budget_mb=64)), device=device)
+    tier = colcache.shared_device_tier()
+    check(tier is not None and tier.device == app.device
+          and tier.ingest_tail_budget_bytes == 64 << 20,
+          f"phase 12: the tier {tier and tier.stats()} is not the card App's")
+    servers = [TempoServer(a, host="127.0.0.1", port=0).start() for a in (app, cpu_app)]
+    conns = [HTTPConnection("127.0.0.1", s.port, timeout=600) for s in servers]
+    eng = app.standing
+    ledger = JobLedger(app)
+    cpu_eng = StandingEngine(device="cpu")
+    applies: list = []
+    folded: list = []
+    orig_apply, orig_fold = eng._apply_counts, eng.fold
+
+    def apply_counts(q, plan, live, bin_offset):
+        applies.append((q.id, len(live)))
+        orig_apply(q, plan, live, bin_offset)
+
+    def fold(t, batch, seg_key=None):
+        t0 = time.perf_counter()
+        orig_fold(t, batch, seg_key=seg_key)
+        folded.append(dict(ms=(time.perf_counter() - t0) * 1e3, spans=batch.num_spans,
+                           key=batch._tail_key))
+        # the same cut on the CPU engine, without its tail key: the host fold
+        plain = copy.copy(batch)
+        plain._tail_key = None
+        cpu_eng.fold(t, plain)
+
+    eng._apply_counts, eng.fold = apply_counts, fold
+    # each resident fold's bytes (the other queries' seg_bincount folds
+    # ship their slots under the same standing_fold name)
+    tail_folds: list = []
+    orig_resident = ingest_tail.resident_fold
+
+    def resident_fold(*a, **k):
+        before = (STATS.h2d.get("standing_fold", 0), STATS.d2h.get("standing_fold", 0))
+        out = orig_resident(*a, **k)
+        if out is not None:
+            tail_folds.append((STATS.h2d.get("standing_fold", 0) - before[0],
+                               STATS.d2h.get("standing_fold", 0) - before[1]))
+        return out
+
+    ingest_tail.resident_fold = resident_fold
+
+    def http(kind, method, path, body=None, headers=None, c=0):
+        t0 = time.perf_counter()
+        conns[c].request(method, path, body=body, headers=headers or {})
+        r = conns[c].getresponse()
+        out = r.read()
+        res["requests"].setdefault(kind, []).append((time.perf_counter() - t0) * 1e3)
+        return r.status, out
+
+    def cut_cpu():
+        for ing in cpu_app.ingesters.values():
+            for inst in list(ing.instances.values()):
+                inst._device_tier = lambda: None
+                inst.cut_complete_traces(immediate=True)
+
+    try:
+        ids = []
+        for q, alert, deviation in regs:
+            body = {"q": q, "step": step, "window": 3600, "maxSeries": 64}
+            if alert:
+                body["alert"] = alert
+            if deviation:
+                body["deviation"] = deviation
+            status, out = http("register", "POST", "/api/metrics/standing",
+                               json.dumps(body).encode(), {"Content-Type": "application/json"})
+            check(status == 200, f"phase 12 register {q}: HTTP {status} {out[:200]!r}")
+            ids.append(json.loads(out)["id"])
+        cpu_qs = [cpu_eng.register(tenant, q, step, 3600, alert=alert, max_series=64,
+                                   deviation=deviation) for q, alert, deviation in regs]
+        for qid in ids:  # the first reads rebuild (an empty store)
+            check(http("first read", "GET", f"/api/metrics/standing/{qid}")[0] == 200,
+                  f"phase 12 first read {qid}")
+        low_ids = {qid for qid, low in zip(ids, lowered) if low}
+        print(f"phase 12 tail: App(device={device!r}) with a 1,024-MB device tier, 64 MB of "
+              f"it the ingest tail, beside App(device='cpu') with the tail off | {len(ids)} "
+              f"standing queries, {len(low_ids)} lower onto the parked columns: "
+              f"{res['lowered']}", flush=True)
+
+        def read_all(label):
+            window = {"start": start, "end": end, "step": step}
+            for qid, (q, _, _) in zip(ids, regs):
+                status, body = http("standing read", "GET", f"/api/metrics/standing/{qid}?"
+                                    + urllib.parse.urlencode(window))
+                check(status == 200, f"phase 12 {label} standing read {q}: HTTP {status}, "
+                      f"{body[:300]!r}")
+                got = _matrix_key(json.loads(body)["data"]["result"])
+                status, body = http("query_range", "GET", "/api/metrics/query_range?"
+                                    + urllib.parse.urlencode(dict(window, q=q)))
+                check(status == 200 and got == _matrix_key(json.loads(body)["data"]["result"]),
+                      f"phase 12 {label}: standing read {q} != query_range")
+            for qid, cq in zip(ids, cpu_qs):
+                gq = eng.get(tenant, qid)
+                keyed = []
+                for q_ in (gq, cq):
+                    key_of = {s_: k for k, s_ in q_.series.slots.items()}
+                    keyed.append({(key_of[s_], b, k): n for (s_, b, k), n in q_.counts.items()})
+                check(keyed[0] == keyed[1],
+                      f"phase 12 {label}: card counts of {gq.query} != the CPU engine's")
+
+        bodies = []
+        for i in range(n_requests + 4):  # 4 cuts of n_requests / 4, then a fifth cut
+            minute = (now_min - 40 * 60 + 60 * i if i < n_requests
+                      else now_min - 7 * 60 + 60 * (i - n_requests))
+            batch = chain_parents(synth.make_batch(512, 8, seed=seed * 1000 + 900 + i,
+                                                   base_time_ns=minute * 10**9, n_attrs_per_span=1))
+            bodies.append(otlp.encode_traces_request(batch_to_traces(batch)))
+        pb = {"Content-Type": "application/x-protobuf"}
+        per_cut = n_requests // 4
+        res["cuts"] = []
+        h2d0 = {k: STATS.h2d.get(k, 0) for k in ("standing_fold", "live_tail_scan")}
+        d0 = {k: STATS.dispatches.get(k, 0) for k in ("standing_fold", "live_tail_scan")}
+        avoided = [STATS.avoided.get("standing_fold", 0)]
+        for c in range(4):
+            for body in bodies[per_cut * c: per_cut * (c + 1)]:
+                for i in (0, 1):
+                    status, _ = http("push", "POST", "/v1/traces", body, pb, c=i)
+                    check(status == 200, f"phase 12 push: HTTP {status}")
+            ledger.start(f"phase 12 cut {c + 1}")
+            entries0 = tier.stats()["tail_entries"]
+            n_apply, l0 = len(applies), (ingest_tail.tail_fold.launches, pk.seg_bincount.launches)
+            for ing in app.ingesters.values():
+                for inst in list(ing.instances.values()):
+                    inst.cut_complete_traces(immediate=True)
+            launched = (ingest_tail.tail_fold.launches - l0[0], pk.seg_bincount.launches - l0[1])
+            cut_cpu()
+            cut_applies = applies[n_apply:]
+            check(tier.stats()["tail_entries"] == entries0 + 1 and folded[-1]["key"] is not None,
+                  f"phase 12 cut {c + 1}: the cut did not park ({tier.stats()})")
+            check(launched[0] == len(low_ids), f"phase 12 cut {c + 1}: {launched[0]} tail_fold "
+                  f"launches for {len(low_ids)} lowered queries")
+            check(not any(qid in low_ids for qid, _ in cut_applies),
+                  f"phase 12 cut {c + 1}: a lowered query folded through seg_bincount")
+            check(launched[1] == sum(1 for _, rows in cut_applies if rows),
+                  f"phase 12 cut {c + 1}: {launched[1]} seg_bincount launches for "
+                  f"{len(cut_applies)} host folds")
+            avoided.append(STATS.avoided.get("standing_fold", 0))
+            check(avoided[-1] > avoided[-2], f"phase 12 cut {c + 1}: no standing_fold bytes avoided")
+            read_all(f"cut {c + 1}")
+            res["cuts"].append(dict(spans=folded[-1]["spans"], fold_ms=folded[-1]["ms"],
+                                    tail_fold=launched[0], seg_bincount=launched[1]))
+            print(f"phase 12 cut {c + 1}: {folded[-1]['spans']} spans parked "
+                  f"({tier.stats()['tail_bytes']} B of tails resident) and folded into "
+                  f"{len(ids)} queries in {folded[-1]['ms']:.1f} ms: {launched[0]} tail_fold "
+                  f"launches (the lowered queries), {launched[1]} seg_bincount (the rest) | "
+                  f"{len(ids)} standing reads == query_range == the CPU engine's counts",
+                  flush=True)
+        # live-tail searches, card App (the tail) against the CPU App (host loop)
+        res["searches"] = []
+        for tags, mn, mx, per_seg in TAIL_SEARCHES:
+            params = {"tags": " ".join(f"{k}={v}" for k, v in tags.items()), "limit": 100_000}
+            if mn:
+                params["minDuration"] = mn
+            if mx:
+                params["maxDuration"] = mx
+            path = "/api/search?" + urllib.parse.urlencode(params)
+            ledger.start("phase 12 search")
+            s0 = (ingest_tail.tail_scan.launches, STATS.avoided.get("live_tail_scan", 0))
+            got = [http("live-tail search", "GET", path, c=i) for i in (0, 1)]
+            ledger.idle("phase 12 search")
+            scans = ingest_tail.tail_scan.launches - s0[0]
+            check(got[0][0] == got[1][0] == 200, f"phase 12 search {tags}: HTTP "
+                  f"{got[0][0]} / {got[1][0]}")
+            card, cpu = _search_key(got[0][1]), _search_key(got[1][1])
+            check(card == cpu, f"phase 12 search {tags} {mn} {mx}: the card App != the CPU App")
+            # one launch a parked segment a copy of the recent job (a slow
+            # host's hedged copy scans again)
+            check(scans == 0 if per_seg == 0 else scans >= 4 and scans % 4 == 0,
+                  f"phase 12 search {tags}: {scans} tail_scan launches over 4 parked segments")
+            res["searches"].append(dict(tags=tags, min=mn, max=mx, hits=len(card[0]),
+                                        tail_scan=scans, ms=res["requests"]["live-tail search"][-2],
+                                        avoided=STATS.avoided.get("live_tail_scan", 0) - s0[1]))
+        print("phase 12 live-tail searches: " + "; ".join(
+            f"{s['tags']}{' ' + str(s['min']) if s['min'] else ''}"
+            f"{' ' + str(s['max']) if s['max'] else ''} -> {s['hits']} traces, {s['tail_scan']} "
+            f"tail_scan, {s['ms']:.1f} ms" for s in res["searches"])
+            + " | each == the CPU App (tail off)", flush=True)
+        n_disp = STATS.dispatches.get("live_tail_scan", 0) - d0["live_tail_scan"]
+        res["live_tail_scan_dispatches"] = n_disp
+        res["live_tail_scan_h2d_a_dispatch"] = ((STATS.h2d.get("live_tail_scan", 0)
+                                                 - h2d0["live_tail_scan"]) / max(1, n_disp))
+        res["live_tail_scan_avoided"] = STATS.avoided.get("live_tail_scan", 0)
+        res["tail_folds"] = len(tail_folds)
+        res["tail_fold_h2d_max"] = max(h for h, _ in tail_folds)
+        res["tail_fold_d2h_max"] = max(d_ for _, d_ in tail_folds)
+        res["standing_fold_h2d_a_dispatch"] = ((STATS.h2d.get("standing_fold", 0)
+                                                - h2d0["standing_fold"])
+                                               / max(1, STATS.dispatches.get("standing_fold", 0)
+                                                     - d0["standing_fold"]))
+        res["standing_fold_avoided_by_cut"] = avoided
+        check(len(tail_folds) == 4 * len(low_ids) and res["tail_fold_h2d_max"] < 16 << 10
+              and n_disp > 0 and res["live_tail_scan_h2d_a_dispatch"] < 16 << 10,
+              f"phase 12: {len(tail_folds)} resident folds, {res['tail_fold_h2d_max']} B h2d at "
+              f"most; live_tail_scan {res['live_tail_scan_h2d_a_dispatch']:.0f} B a dispatch")
+        print(f"phase 12 transfer: {len(tail_folds)} resident folds (tail_fold), "
+              f"{res['tail_fold_h2d_max']} B h2d and {res['tail_fold_d2h_max']} B d2h each at "
+              f"most (every standing_fold dispatch, the seg_bincount folds' slots included: "
+              f"{res['standing_fold_h2d_a_dispatch']:.0f} B h2d on average), standing_fold "
+              f"bytes avoided {avoided} after cuts 0-4 | live_tail_scan {n_disp} dispatches, "
+              f"{res['live_tail_scan_h2d_a_dispatch']:.0f} B h2d a dispatch, "
+              f"{res['live_tail_scan_avoided']} B avoided", flush=True)
+
+        # /flush, then /status/storage against the port's own scan on the CPU
+        status, _ = http("flush", "POST", "/flush")
+        check(status == 204, f"phase 12 flush: HTTP {status}")
+        app.db.poll_now()
+        status, body = http("status storage", "GET", "/status/storage?refresh=1")
+        check(status == 200, f"phase 12 /status/storage: HTTP {status}")
+        served, served_ages = _without_clock(json.loads(body))
+        shutil.copytree(os.path.join(root, "card", "blocks"), os.path.join(root, "copy", "blocks"))
+        cdb = TempoDB(db_cfg("copy"), device="cpu")
+        try:
+            cdb.poll_now()
+            mine, my_ages = _without_clock(StorageScanner(cdb).scan_once())
+        finally:
+            cdb.shutdown()
+        check(served == mine and served["fleet"]["blocks"] >= 1,
+              "phase 12: /status/storage != the CPU scan of a copy of the backend")
+        check(all(abs(served_ages[t][k] - my_ages[t][k]) <= 2 for t in my_ages
+                  for k in my_ages[t] if k not in ("count", "sum")),
+              f"phase 12: block ages {served_ages} vs {my_ages}")
+        res["storage"] = served["fleet"]
+        print(f"phase 12 /status/storage?refresh=1 == the port's scan on the CPU over a copy of "
+              f"the backend: {json.dumps(served['fleet'])}", flush=True)
+        status, body = http("status profile", "GET", "/status/profile?seconds=1")
+        check(status == 200 and b"## hottest frames" in body and b"thread-samples" in body,
+              f"phase 12 /status/profile: HTTP {status}")
+        # the device window around a fifth cut's fold. The process's first
+        # window spends seconds starting CUPTI before it records (8.3 s on
+        # the H100 machine), so a first short window takes that cost
+        status, body = http("status profile device (first)", "GET",
+                            "/status/profile/device?seconds=0.1")
+        check(status == 200 and json.loads(body)["supported"] is True,
+              f"phase 12 first /status/profile/device: HTTP {status} {body[:300]!r}")
+        res["profile_device_first_ms"] = res["requests"]["status profile device (first)"][-1]
+        window: dict = {}
+
+        def capture():
+            c = HTTPConnection("127.0.0.1", servers[0].port, timeout=600)
+            try:
+                c.request("GET", "/status/profile/device?seconds=2")
+                r = c.getresponse()
+                window["status"], window["body"] = r.status, r.read()
+            finally:
+                c.close()
+
+        for body in bodies[n_requests:]:
+            check(http("push", "POST", "/v1/traces", body, pb)[0] == 200, "phase 12 push 5")
+        th = threading.Thread(target=capture)
+        th.start()
+        time.sleep(0.5)
+        l0 = ingest_tail.tail_fold.launches
+        for ing in app.ingesters.values():
+            for inst in list(ing.instances.values()):
+                inst.cut_complete_traces(immediate=True)
+        th.join(timeout=120)
+        check(not th.is_alive() and window.get("status") == 200,
+              f"phase 12 /status/profile/device: {window.get('status')}")
+        doc = json.loads(window["body"])
+        check(doc["supported"] is True and profiling.TRACE_FILE in doc["files"]
+              and "transferLedger" in doc, f"phase 12 /status/profile/device: {doc}")
+        with open(os.path.join(doc["dir"], profiling.TRACE_FILE)) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+        ours = [k for k in kernels if any(s in k for s in (
+            "tail_fold_kernel", "tail_scan_kernel", "seg_bincount", "hll_update", "cm_update",
+            "rle_change_mask", "dbp_pack", "compiled_", "resident_", "root_path"))]
+        check(ingest_tail.tail_fold.launches > l0 and any("tail_fold_kernel" in k for k in ours),
+              f"phase 12: the device window names no tail_fold_kernel ({kernels[:20]})")
+        res["profile_kernels"] = ours
+        res["profile_device_events"] = sum(1 for e in events if e.get("cat") == "kernel")
+        print(f"phase 12 /status/profile/device?seconds=2 around a fifth cut's fold: "
+              f"supported, {len(events)} trace events, {res['profile_device_events']} kernel "
+              f"events; the hand kernels named: {ours} (the process's first window, 0.1 s: "
+              f"{res['profile_device_first_ms']:.0f} ms) | /status/profile?seconds=1: stacks",
+              flush=True)
+    finally:
+        eng._apply_counts, eng.fold = orig_apply, orig_fold
+        ingest_tail.resident_fold = orig_resident
+        for c in conns:
+            c.close()
+        for s in servers:
+            s.stop()
+        for a in (app, cpu_app):
+            a.shutdown()
+        colcache.configure_device_tier(None, device=device)
+    reqs = {k: dict(n=len(v), p50_ms=statistics.median(v), max_ms=max(v))
+            for k, v in res["requests"].items()}
+    res["requests"] = reqs
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def u32_bytes_read(torch, col, rows) -> int:
+    """The bytes a kernel fetches of the u32 column `col` when it loads only
+    the rows where the bool tensor `rows` (over col's first rows) holds: 32 B
+    for each 32-byte sector, from the column's own address, that holds one
+    such row."""
+    lead = torch.zeros((col.data_ptr() % 32) // 4, dtype=torch.bool, device=rows.device)
+    m = torch.cat([lead, rows])
+    m = torch.cat([m, m.new_zeros(-m.numel() % 8)])
+    return 32 * int(m.view(-1, 8).any(1).sum())
+
+
+def tail_full_width(torch, dev, lib, stream, seed: int, lowered: list) -> dict:
+    """Phase 12 (b): one cut of 786,432 spans (the largest the reference
+    sizes the tail for under the default 256-MB live pool: ~33 MB at 44 B
+    a span) parked through park_cut on the card, 2**20 rows padded. Every
+    lowered query through resident_fold on the card == on a CPU tier (the
+    plain version) == eval_batch (the host path); the eight masks of
+    TAIL_SEARCHES on the card == on the CPU tier == the host loop. Then
+    both kernels timed at one fold and one scan of this cut: device time
+    alone (a CUDA graph of 48 launches over three copies of the parked
+    columns, median of 7), path time (the wrapper), the plain version on
+    the card, the torch chain (searchsorted + bincount for the fold, the
+    elementwise compares for the scan) and the bound. Returns the two
+    kernels' records."""
+    import ctypes
+
+    import numpy as np
+
+    from tempo_tpu_torch.encoding.common import SearchRequest
+    from tempo_tpu_torch.encoding.vtpu import colcache
+    from tempo_tpu_torch.metrics_engine import SeriesTable, compile_metrics_plan, eval_batch
+    from tempo_tpu_torch.model import synth
+    from tempo_tpu_torch.ops import _build
+    from tempo_tpu_torch.ops import ingest_tail
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 1200)
+    n_spans = 786_432
+    now_min = int(time.time()) // 60 * 60
+    batch = synth.make_batch(n_spans // 8, 8, seed=seed * 1000 + 1200)
+    batch.cols["start_unix_nano"] = ((now_min - 40 * 60) * 10**9 + rng.integers(
+        0, 40 * 60 * 10**9, n_spans)).astype(np.uint64)
+    tiers = [colcache.DeviceTier(256 << 20, ingest_tail_budget_bytes=64 << 20, device=d)
+             for d in (dev, "cpu")]
+    keys = [ingest_tail.park_cut(t, "single-tenant", "full:0", batch) for t in tiers]
+    check(None not in keys and tiers[0].stats()["tail_bytes"] == 44 << 20,
+          f"phase 12 (b): the cut did not park whole ({tiers[0].stats()})")
+    start, end, step = now_min - 45 * 60, now_min + 60, 60
+    d = batch.dictionary
+    for q in lowered:
+        plan = compile_metrics_plan(q, start, end, step, max_series=64)
+        fp = ingest_tail.lower_fold_plan(plan)
+        out = []
+        for tier, key in zip(tiers, keys):
+            series = SeriesTable(64)
+            got = ingest_tail.resident_fold(plan, fp, batch, d, series, tier=tier, key=key)
+            key_of = {s: k for k, s in series.slots.items()}
+            out.append({(key_of[s], b): c for (s, b), c in got.items()})
+        series = SeriesTable(64)
+        r = eval_batch(plan, batch, d, series)
+        flats, counts = np.unique(r.slots[r.slots >= 0], return_counts=True)
+        key_of = {s: k for k, s in series.slots.items()}
+        host = {(key_of[int(f) // plan.n_bins], int(f) % plan.n_bins): int(c)
+                for f, c in zip(flats, counts)}
+        check(out[0] == out[1] == host and host, f"phase 12 (b) {q}: card / plain / host differ")
+    for tags, mn, mx, _ in TAIL_SEARCHES:
+        mn_ns = int(float(mn[:-2]) * 10**6) if mn else 0
+        mx_ns = int(float(mx[:-2]) * 10**6) if mx else 0
+        batch._tail_key = keys[0]
+        req = SearchRequest(tags=tags, min_duration_ns=mn_ns, max_duration_ns=mx_ns)
+        masks = [ingest_tail.tail_search_mask(batch, req, tier=t) for t in tiers]
+        want = _host_tail_mask(np, batch, tags, mn_ns, mx_ns)
+        check(all((m is None) == (want is None) for m in masks)
+              and (want is None or all(np.array_equal(m, want) for m in masks)),
+              f"phase 12 (b) mask {tags}: card / plain / host differ")
+    check_s = time.perf_counter() - t0
+    print(f"phase 12 (b): one cut of {n_spans} spans parked on the card "
+          f"({tiers[0].stats()['tail_bytes']} B, 2^20 rows) | {len(lowered)} lowered queries "
+          f"through resident_fold on the card == the plain version (a CPU tier) == eval_batch; "
+          f"{len(TAIL_SEARCHES)} masks == plain == the host loop ({check_s:.1f} s)", flush=True)
+
+    entry = tiers[0].get(keys[0])
+    arrays = entry.arrays
+    p = arrays["service"].numel()
+    copies = [arrays] + [{k: v.clone() for k, v in arrays.items()} for _ in range(2)]
+    recs = {}
+
+    # the fold: the first TAIL_EXTRA query at this cut
+    q = TAIL_EXTRA[0]
+    plan = compile_metrics_plan(q, start, end, step, max_series=64)
+    fp = ingest_tail.lower_fold_plan(plan)
+    _lits, preds, uvals_real, uvals, lo, hi = ingest_tail.fold_args(plan, fp, batch, d)
+    nb = plan.n_bins
+    consts = ingest_tail.fold_consts(uvals, lo, hi, dev)
+    counts = [torch.zeros(len(uvals) * (len(lo) - 1), dtype=torch.int32, device=dev)
+              for _ in copies]
+    descs = [ingest_tail.fold_descriptor(a, n_spans, preds, fp.by_col, len(uvals), len(lo), nb,
+                                         consts, c)[0] for a, c in zip(copies, counts)]
+
+    def fold_launch(desc):
+        def go():
+            _build.check(lib.tt_tail_fold(ctypes.addressof(desc), stream()), "tail_fold")
+        return go
+
+    want = ingest_tail.tail_fold(arrays, n_spans, preds, fp.by_col, uvals, lo, hi, nb)
+    counts[0].zero_()
+    fold_launch(descs[0])()
+    check(torch.equal(counts[0], want), "tail_fold at the full-width shape: the C entry != wrapper")
+    ms = kernel_ms(torch, [fold_launch(x) for x in descs])
+    path = path_ms(torch, lambda: ingest_tail.tail_fold(arrays, n_spans, preds, fp.by_col, uvals,
+                                                        lo, hi, nb))
+    plain = path_ms(torch, lambda: ingest_tail._tail_fold_plain(arrays, n_spans, preds, fp.by_col,
+                                                                uvals, lo, hi, nb), reps=5)
+    check(torch.equal(ingest_tail._tail_fold_plain(arrays, n_spans, preds, fp.by_col, uvals, lo,
+                                                   hi, nb), want),
+          "tail_fold at the full-width shape: kernel != plain")
+    # the torch chain: the predicates, searchsorted over the edges and the
+    # by() codes, one bincount
+    m32 = 0xFFFFFFFF
+    u = {k: v.to(torch.int64) & m32 for k, v in arrays.items()}
+    t_ns = (u["start_hi"] << 32) | u["start_lo"]
+    edges = torch.from_numpy(((hi[: nb + 1].astype(np.int64) << 32)
+                              | lo[: nb + 1].astype(np.int64))).to(dev)
+    uv = torch.from_numpy(uvals.astype(np.int64)).to(dev)
+    rows = torch.arange(p, device=dev)
+    b_pad, length = len(lo) - 1, len(uvals) * (len(lo) - 1)
+
+    def chain():
+        m = rows < n_spans
+        for col, op, lit in preds:
+            m = m & (u[col] == lit if op == "=" else u[col] != lit) & (u[col] != 0)
+        b = torch.searchsorted(edges, t_ns, right=True) - 1
+        idx = torch.searchsorted(uv, u[fp.by_col], right=True) - 1
+        flat = torch.where(m & (b >= 0) & (b < nb), idx * b_pad + b, length)
+        return torch.bincount(flat, minlength=length + 1)[:length]
+
+    check(torch.equal(chain().to(torch.int32), want), "tail_fold: the torch chain != the kernel")
+    lib_ms = path_ms(torch, chain)
+    # the bound counts what this cut's rows make the kernel fetch: a
+    # predicate's column at the sectors of the rows that passed the ones
+    # before it, the time limbs at the rows that passed them all, the by()
+    # column at those whose bin is in range; the constants and the counts
+    log2 = lambda x: max(1, int(x).bit_length() - 1)  # noqa: E731
+    keep = torch.ones(n_spans, dtype=torch.bool, device=dev)
+    nbytes, ops = consts.numel() * 4 + 4 * length, 0
+    for col, op, lit in preds:
+        nbytes += u32_bytes_read(torch, arrays[col], keep)
+        ops += 2 * int(keep.sum())
+        c = u[col][:n_spans]
+        keep = keep & ingest_tail._CMP[op](c, lit) & (c != 0)
+    nbytes += sum(u32_bytes_read(torch, arrays[k], keep) for k in ("start_lo", "start_hi"))
+    b = torch.searchsorted(edges, t_ns[:n_spans], right=True) - 1
+    binned = keep & (b >= 0) & (b < nb)
+    nbytes += u32_bytes_read(torch, arrays[fp.by_col], binned)
+    ops += int(keep.sum()) * (2 * log2(len(lo)) + 4) + int(binned.sum()) * (2 * log2(len(uvals)) + 2)
+    bnd, by = bound_ms(nbytes, ops)
+    fold_rows = int(binned.sum())
+    recs["tail_fold"] = dict(
+        shape=f"{q}: n={n_spans} (p={p}), {len(preds)} predicates, by {fp.by_col} over "
+              f"{len(uvals_real)} codes (u_pad {len(uvals)}), {nb} bins (e_pad {len(lo)}); "
+              f"{fold_rows} rows counted, {nbytes} B fetched",
+        max_abs_err=0, ms=ms, path_ms=path, plain_ms=plain, bound_ms=bnd, bound_by=by,
+        library_ms=lib_ms)
+
+    # the scan: service + duration bounds
+    tags, mn_ns, mx_ns = {"service.name": "frontend"}, 100 * 10**6, 900 * 10**6
+    eq = [("service", d.get("frontend"))]
+    outs = [torch.empty(p, dtype=torch.uint8, device=dev) for _ in copies]
+    sdescs = [ingest_tail.scan_descriptor(a, n_spans, eq, None, mn_ns, mx_ns, o)
+              for a, o in zip(copies, outs)]
+
+    def scan_launch(desc):
+        def go():
+            _build.check(lib.tt_tail_scan(ctypes.addressof(desc), stream()), "tail_scan")
+        return go
+
+    swant = ingest_tail.tail_scan(arrays, n_spans, eq, None, mn_ns, mx_ns)
+    scan_launch(sdescs[0])()
+    check(torch.equal(outs[0].view(torch.bool), swant)
+          and torch.equal(ingest_tail._tail_scan_plain(arrays, n_spans, eq, None, mn_ns, mx_ns),
+                          swant), "tail_scan at the full-width shape: kernel != plain")
+    sms = kernel_ms(torch, [scan_launch(x) for x in sdescs])
+    spath = path_ms(torch, lambda: ingest_tail.tail_scan(arrays, n_spans, eq, None, mn_ns, mx_ns))
+    splain = path_ms(torch, lambda: ingest_tail._tail_scan_plain(arrays, n_spans, eq, None, mn_ns,
+                                                                 mx_ns))
+    dur = (u["dur_hi"] << 32) | u["dur_lo"]
+
+    def scan_chain():
+        return (rows < n_spans) & (u["service"] == eq[0][1]) & (dur >= mn_ns) & (dur <= mx_ns)
+
+    check(torch.equal(scan_chain(), swant), "tail_scan: the elementwise chain != the kernel")
+    slib = path_ms(torch, scan_chain)
+    # the service column in full, the duration limbs at the sectors of
+    # the rows it passes, the p-byte mask
+    svc = u["service"][:n_spans] == eq[0][1]
+    sbytes = 4 * n_spans + p + sum(u32_bytes_read(torch, arrays[k], svc)
+                                   for k in ("dur_lo", "dur_hi"))
+    sbnd, sby = bound_ms(sbytes, 2 * n_spans + 6 * int(svc.sum()))
+    recs["tail_scan"] = dict(
+        shape=f"service.name=frontend minDuration=100ms maxDuration=900ms: n={n_spans} (p={p}); "
+              f"{int(svc.sum())} rows of the service, {sbytes} B fetched",
+        max_abs_err=0, ms=sms, path_ms=spath, plain_ms=splain, bound_ms=sbnd, bound_by=sby,
+        library_ms=slib)
+    del copies, counts, outs
+    for k, r in recs.items():
+        print(f"phase 12 (b) {k} timing ({r['shape']}): kernel {r['ms']:.5f} ms "
+              f"({r['bound_ms'] / r['ms']:.0%} of bound), path {r['path_ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {fmt_ms(r['library_ms'])}, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']})", flush=True)
+    recs["tail_fold"]["phase_b_s"] = time.perf_counter() - t0
+    return recs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4017,10 +4681,10 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 11
     # a slow host sheds phase 11's generator-off App (its push rate only):
-    # phase 11 takes about 100 s, so past 900 s here the script would pass
-    # 1,000 s
+    # phases 11-12 take about 250 s, so past 750 s here the script would
+    # pass 1,000 s
     elapsed = time.perf_counter() - t_script
-    shed11 = elapsed > 900
+    shed11 = elapsed > 750
     if shed11:
         sheds.append("phase 11 push with the generator off")
     print(f"phase 11 depth: phases 0-10 took {elapsed:.1f} s -> "
@@ -4044,12 +4708,26 @@ def main() -> int:
                                ("standing", standing)):
             kernels[k][f"launches_{phase_name}_path"] = ph["launches"][k]
 
+    # ---------------------------------------------------------------- 12
+    reset_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tail_") as tail_root:
+        tail = tail_phase(seed, tail_root, queries)
+    tail["launches"] = read_launches()
+    for k in TAIL_KERNELS + ("seg_bincount",):
+        check(tail["launches"][k] > 0, f"ingest tail path: {k} never launched")
+    print(f"phase 12 ingest tail and status planes: {tail['phase_s']:.1f} s, launches on the "
+          f"path: {tail['launches']}", flush=True)
+    for k, rec in tail_full_width(torch, dev, lib, stream, seed, tail["lowered"]).items():
+        kernels[k] = dict(rec, launches=tail["launches"][k])
+    kernels["seg_bincount"]["launches_tail_path"] = tail["launches"]["seg_bincount"]
+
     source = {k: "tempo_tpu_torch/csrc/kernels.cu"
               for k in ("seg_bincount", "in_set_scan", "u64_range_scan")}
     source.update({k: "tempo_tpu_torch/csrc/codec_kernels.cu"
                    for k in CODEC_KERNELS + RESIDENT_KERNELS})
     source.update({k: "tempo_tpu_torch/csrc/graph_sketch_kernels.cu"
                    for k in GRAPH_SKETCH_KERNELS})
+    source.update({k: "tempo_tpu_torch/csrc/tail_kernels.cu" for k in TAIL_KERNELS})
     replaces = {
         "seg_bincount": "tempo_tpu/ops/pallas_kernels.py:194",
         "in_set_scan": "tempo_tpu/ops/pallas_kernels.py:55",
@@ -4070,15 +4748,17 @@ def main() -> int:
         "hll_update": "tempo_tpu/ops/sketch.py:55",
         "cm_update": "tempo_tpu/ops/sketch.py:117",
         "root_path_sums": "tempo_tpu/ops/graph.py:106",
+        "tail_fold": "tempo_tpu/ops/ingest_tail.py:234",
+        "tail_scan": "tempo_tpu/ops/ingest_tail.py:410",
     }
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": source[k], "replaces": replaces[k], **kernels[k]}
         for k in ("seg_bincount", "in_set_scan", "u64_range_scan") + CODEC_KERNELS
-        + RESIDENT_KERNELS + GRAPH_SKETCH_KERNELS
+        + RESIDENT_KERNELS + GRAPH_SKETCH_KERNELS + TAIL_KERNELS
     ], "ptxas": ptxas, "compaction_step_ms": statistics.median(step_s) * 1e3,
         "compaction_step_torch_op_sketch_ms": statistics.median(plain_step_s) * 1e3,
         "query_ms": query_ms, "blocks": blocks, "db": db, "app": app, "standing": standing,
-        "tier": tier, "graph": graph, "shed": sheds, "phases_0_6_s": phases_0_6_s,
+        "tier": tier, "graph": graph, "tail": tail, "shed": sheds, "phases_0_6_s": phases_0_6_s,
         "phase_2_graph_sketch_s": graph_sketch_s,
         "script_s": time.perf_counter() - t_script}
     print(json.dumps(line))

@@ -21,7 +21,8 @@ Port of tempo_tpu/api/server.py for the single binary. Routes:
   GET  /api/echo             frontend liveness ("echo")
   POST /flush /shutdown
   GET  /ready /metrics /status[/config|/runtime_config|/services|
-       /endpoints|/buildinfo|/standing|/device] and the ring pages
+       /endpoints|/buildinfo|/standing|/device|/storage] and the ring pages
+  GET  /status/profile[/device]  host stack sampler; torch.profiler window
 Every other route of the reference answers 404 naming the ROADMAP item
 that ports it (_UNPORTED_ROUTES).
 """
@@ -53,7 +54,6 @@ VERSION = "0.1.0"
 
 log = logging.getLogger(__name__)
 
-_Q1_2A = "ROADMAP Queue 1 item 1.2 (db/analytics)"
 _Q1_2 = "ROADMAP Queue 1 item 2 (single binary: microservices and the other roles)"
 _Q1_3 = "ROADMAP Queue 1 item 3 (query and ingest slices)"
 # (exact paths, path prefixes, what, ROADMAP item) of the reference's
@@ -65,8 +65,6 @@ _UNPORTED_ROUTES = (
     (("/memberlist",), (), "the ring KV (netkv)", _Q1_2),
     ((api_params.PATH_RCA, "/status/rca"), (api_params.PATH_RCA + "/",), "rca", _Q1_3),
     (("/status/slo",), (), "the SLO engine", _Q1_3),
-    (("/status/profile", "/status/profile/device"), (), "util/profiling", _Q1_3),
-    (("/status/storage",), (), "the storage analytics", _Q1_2A),
 )
 
 
@@ -526,6 +524,49 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_json(200, pageheat.device_report(
                 budgets_bytes=budgets, top=top))
             return 200
+        if path == "/status/storage":
+            # storage-health rollup (reference: tempo-cli analyse blocks,
+            # served live): codec mix + compression, zone-map coverage,
+            # compaction debt/payoff per tenant. Served from the periodic
+            # scanner's last pass when fresh; ?refresh=1 forces a scan.
+            scanner = app.storage_scanner
+            if scanner is None:
+                from tempo_tpu_torch.db.analytics import StorageScanner
+
+                scanner = app.storage_scanner = StorageScanner(app.db)
+            refresh = qs.get("refresh", ["0"])[0] not in ("0", "", "false")
+            self._send_json(200, scanner.report(max_age_s=0 if refresh else None))
+            return 200
+        if path == "/status/profile":
+            # sampling CPU profile of all threads (reference analog:
+            # net/http/pprof, cmd/tempo/main.go:57,90). ?fmt=collapsed
+            # emits semicolon-folded stacks + counts
+            from tempo_tpu_torch.util.profiling import sample_profile
+
+            try:
+                seconds = float(qs.get("seconds", ["2"])[0])
+                hz = int(qs.get("hz", ["100"])[0])
+            except ValueError as e:
+                raise BadRequest(f"bad profile params: {e}") from e
+            fmt_ = qs.get("fmt", ["text"])[0]
+            if fmt_ not in ("text", "collapsed"):
+                raise BadRequest(f"unknown profile fmt {fmt_!r} (have text|collapsed)")
+            self._send(200, sample_profile(seconds, hz, fmt=fmt_).encode(),
+                       "text/plain; charset=utf-8")
+            return 200
+        if path == "/status/profile/device":
+            # bounded device profiler capture on the App's device
+            # (torch.profiler; the reference runs jax.profiler): reports
+            # the trace directory, {"supported": false} when the
+            # profiler cannot run
+            from tempo_tpu_torch.util.profiling import capture_device_profile
+
+            try:
+                seconds = float(qs.get("seconds", ["1"])[0])
+            except ValueError as e:
+                raise BadRequest(f"bad profile params: {e}") from e
+            self._send_json(200, capture_device_profile(seconds, device=app.device))
+            return 200
         if path == "/status/standing":
             # operator view of the standing-query engine: registration
             # and fold totals plus the per-tenant cut-delta counters
@@ -765,8 +806,11 @@ _ENDPOINTS = [
     "GET /status/config",
     "GET /status/services",
     "GET /status/endpoints",
+    "GET /status/profile",
+    "GET /status/profile/device",
     "GET /status/device",
     "GET /status/standing",
+    "GET /status/storage",
     "GET /status/runtime_config",
     "POST /flush",
     "POST /shutdown",

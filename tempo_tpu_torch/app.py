@@ -4,11 +4,14 @@ Port of tempo_tpu/app.py for `target=all` (reference: cmd/tempo/app,
 the module manager DAG modules.go:369-423): every role in-process over
 one ring and one storage engine. `App(cfg, device=None)` resolves the
 device once (CUDA unless "cpu" is passed; raises without CUDA) and
-hands it to every TempoDB it builds, to the standing-query engine and
-to the metrics-generator, so the blocks' sketch plane, the metrics
-accumulator, the standing fold, the service graphs' sketches and the
-graph queries' critical paths run on that device from any worker or
-cut thread.
+hands it to every TempoDB it builds, to the device tier, to the
+standing-query engine and to the metrics-generator, so the blocks'
+sketch plane, the metrics accumulator, the standing fold, the ingest
+tail parked at each cut (with its resident fold and live-tail scan), the
+service graphs' sketches and the graph queries' critical paths run on
+that device from any worker or cut thread. On target all it starts the
+storage analytics scanner (db/analytics) every
+`storage.trace.analytics_scan_s`, as the reference does.
 
 AppConfig keeps every field of the reference. Features whose modules
 wait for later slices raise NotImplementedError naming their ROADMAP
@@ -67,7 +70,6 @@ ROLES = (
 
 _Q1_2 = "ROADMAP Queue 1 item 2 (single binary: microservices and the other roles)"
 _Q1_3 = "ROADMAP Queue 1 item 3 (query and ingest slices)"
-_Q1_4B = "ROADMAP Queue 1 item 4b (the ingest tail)"
 _Q1_7 = ("ROADMAP Queue 1 item 7 (microservices mode: the generator's remote write, "
          "modules/generator/storage)")
 # (switched on?, what, ROADMAP item) for every feature of the reference
@@ -86,19 +88,11 @@ _UNPORTED = (
     (lambda c: c.rca.enabled, lambda c: "rca", _Q1_3),
     (lambda c: c.slo.enabled, lambda c: "slo", _Q1_3),
     (lambda c: c.vulture.enabled, lambda c: "vulture", _Q1_3),
-    (lambda c: c.device_tier.ingest_tail_budget_mb > 0,
-     lambda c: "device_tier.ingest_tail_budget_mb > 0", _Q1_4B),
     (lambda c: c.db.result_cache.enabled, lambda c: "storage.trace.result_cache",
      "ROADMAP Queue 1 item 1.2 (resultcache/)"),
     (lambda c: c.db.cache != "none", lambda c: f"storage.trace.cache={c.db.cache!r}",
      "ROADMAP Queue 1 item 1.2 (cache/)"),
-    (lambda c: c.db.analytics_scan_s > 0, lambda c: "storage.trace.analytics_scan_s > 0",
-     "ROADMAP Queue 1 item 1.2 (db/analytics)"),
 )
-
-
-def _env_mb(name: str) -> int:
-    return int(os.environ.get(name, "0") or "0")
 
 
 def _result_cache_env_on() -> bool:
@@ -111,8 +105,6 @@ def _result_cache_env_on() -> bool:
 # (switched on?, what, ROADMAP item) for every environment switch with
 # which the reference turns on a feature whose module the port lacks
 _UNPORTED_ENV = (
-    (lambda: _env_mb("TEMPO_TPU_INGEST_TAIL_MB") > 0, "TEMPO_TPU_INGEST_TAIL_MB > 0",
-     _Q1_4B),
     (_result_cache_env_on, "TEMPO_TPU_RESULT_CACHE=on",
      "ROADMAP Queue 1 item 1.2 (resultcache/)"),
 )
@@ -240,6 +232,8 @@ class App:
         )
         self._build_all()
         self._maybe_standing_attach()
+        self.storage_scanner = None
+        self._maybe_storage_scanner()
         self._maybe_pageheat_exporter()
 
     # ------------------------------------------------------------------
@@ -314,6 +308,17 @@ class App:
         snap_dir = self.cfg.db.wal_path or "wal"
         self.standing.attach(db=self.db, ingesters=self.ingesters,
                              snapshot_dir=snap_dir)
+
+    def _maybe_storage_scanner(self):
+        """Storage-health analytics (db/analytics): the periodic scan runs
+        beside the compactor that creates the debt it measures;
+        /status/storage computes on demand when it is off."""
+        if self.cfg.db.analytics_scan_s <= 0:
+            return
+        from tempo_tpu_torch.db.analytics import StorageScanner
+
+        self.storage_scanner = StorageScanner(
+            self.db, interval_s=self.cfg.db.analytics_scan_s)
 
     def _maybe_pageheat_exporter(self):
         """Device data-movement export (util/pageheat): refresh the
@@ -456,6 +461,8 @@ class App:
             ing.start_loop()
         self.db.enable_polling()
         self.compactor.start()
+        if self.storage_scanner is not None:
+            self.storage_scanner.start()
         self.pageheat_exporter.start()
 
     def sweep_all(self, immediate: bool = False):
@@ -491,5 +498,7 @@ class App:
             self.standing.stop()
         self.workers.stop()
         self.compactor.stop()
+        if self.storage_scanner is not None:
+            self.storage_scanner.stop()
         self.pageheat_exporter.stop()
         self.db.shutdown()

@@ -9,10 +9,10 @@ reference's section names (server, distributor, ingester, storage,
 compactor, querier, query_frontend, metrics_generator, overrides,
 usage_report) so a Tempo operator's mental model carries over.
 
-Port of tempo_tpu/config.py: the same YAML gives the same dataclasses.
-The sections of modules not ported yet come from config_sections, and
-one default differs from the reference (`storage.trace.analytics_scan_s`
-is 0); App refuses each unported section that is switched on.
+Port of tempo_tpu/config.py: the same YAML gives the same dataclasses,
+with the reference's defaults. The sections of modules not ported yet
+come from config_sections; App refuses each unported section that is
+switched on.
 """
 
 from __future__ import annotations
@@ -286,6 +286,11 @@ def check_config(cfg: Config) -> list[str]:
             "ingester.max_block_bytes exceeds resource.wal_head_bytes: a single head "
             "block can push the process to critical pressure before it is cut"
         )
+    if 0 < app.db.analytics_scan_s < app.db.blocklist_poll_s:
+        warnings.append(
+            "storage.trace.analytics_scan_s is shorter than blocklist_poll_s: "
+            "scans between polls re-walk an unchanged blocklist for nothing"
+        )
     resident_cap = app.frontend.target_bytes_per_job * max(1, app.frontend.query_shards)
     if 0 < app.resource.inflight_query_bytes < 2 * resident_cap:
         warnings.append(
@@ -369,6 +374,30 @@ def check_config(cfg: Config) -> list[str]:
             "re-ships the columns the encoder just had in HBM — give the "
             "tier a budget (with an ingest_tail share) or drop the override"
         )
+    tail_mb = app.device_tier.ingest_tail_budget_mb
+    if tail_mb > 0:
+        if tail_mb > app.device_tier.budget_mb:
+            warnings.append(
+                f"device_tier.ingest_tail_budget_mb ({tail_mb}) exceeds "
+                f"device_tier.budget_mb ({app.device_tier.budget_mb}): the "
+                "tail share is carved OUT of the tier budget, never added "
+                "to it — an inverted hierarchy that evicts every hot page "
+                "to park tails which then shed first anyway"
+            )
+        # parked tail per cut ~ 44 bytes/span of the cut batch; an
+        # immediate (pressure) cut can cut the whole live-trace pool at
+        # once, so a tail budget under ~1/8 of that pool churns: each
+        # cut evicts the previous cut before any query sees it resident
+        live_bytes = app.resource.live_trace_bytes
+        if 0 < live_bytes and (tail_mb << 20) < live_bytes // 8:
+            warnings.append(
+                f"device_tier.ingest_tail_budget_mb ({tail_mb}) cannot hold "
+                "one maximum cut (resource.live_trace_bytes "
+                f"{live_bytes >> 20} MB cut at once parks ~"
+                f"{live_bytes >> 23} MB of columns): tails evict each other "
+                "before standing folds or live-tail search hit them — size "
+                "the share to at least live_trace_bytes/8"
+            )
     # -- compiled-query tier ----------------------------------------------
     if app.compiled.enabled and app.multitenancy_enabled \
             and app.compiled.max_shapes <= 0:

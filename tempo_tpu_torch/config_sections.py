@@ -4,9 +4,9 @@ The port reads the same YAML into the same dataclasses as tempo_tpu
 (config.py), so every section keeps every field of the reference. The
 modules behind these sections wait for later slices; App raises
 NotImplementedError, naming the ROADMAP item, when one is switched on.
-One default differs from the reference: `storage.trace.analytics_scan_s`
-is 0 (the storage analytics scan is not ported). (`standing:` is the
-ported engine's own StandingConfig, in tempo_tpu_torch/standing/engine.py.)
+Every default is the reference's. (`standing:` is the ported engine's
+own StandingConfig, in tempo_tpu_torch/standing/engine.py;
+`device_tier:` is served, with its ingest-tail share.)
 
 Copies of: encoding/vtpu/colcache.DeviceTierConfig,
 modules/forwarder.ForwarderConfig, modules/generator/storage.

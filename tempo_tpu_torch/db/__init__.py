@@ -88,9 +88,12 @@ class DBConfig:
     # are deleted by sweep_orphans once they stay meta-less this long —
     # long enough that no healthy in-flight write is still mid-block
     orphan_grace_s: float = 900.0
-    # storage-health analytics scan period (db/analytics, not ported:
-    # App refuses > 0; the reference's default is 600)
-    analytics_scan_s: float = 0.0
+    # storage-health analytics (db/analytics.StorageScanner): period of
+    # the background pass exporting zone-map coverage / compaction-debt
+    # gauges and caching /status/storage. 0 disables the background
+    # scan (the endpoint then computes on demand). App starts it on
+    # target all.
+    analytics_scan_s: float = 600.0
     # shard-partial result cache (resultcache/, not ported: App refuses
     # enabled)
     result_cache: ResultCacheConfig = field(default_factory=ResultCacheConfig)

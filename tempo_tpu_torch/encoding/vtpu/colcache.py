@@ -38,8 +38,8 @@ levels, MORE aggressively than the host tier: at PRESSURE the device
 tier drops to a quarter (host halves), at CRITICAL it sheds completely
 (host keeps an eighth) — device memory yields first, host cache second,
 and only then does ingest refuse. The ingest tail's half of the tier
-(`park_tail`) is here, but nothing parks a tail until ops/ingest_tail is
-ported (ROADMAP Queue 1 item 4b).
+(`park_tail`, under the `ingest_tail_budget_mb` share, shed first) holds
+each cut the ingester parks through ops/ingest_tail.park_cut.
 """
 
 from __future__ import annotations

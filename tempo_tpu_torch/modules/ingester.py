@@ -2,10 +2,10 @@
 
 Port of tempo_tpu/modules/ingester.py, with the standing-query fold at
 each cut and its read/replay seams (`standing_live_batches`,
-`standing_wal_batches`, `standing_flushed_since`). Not here yet: the
-device tier's ingest tail (the cut parked on the card, tail keys on live
-segments; ROADMAP Queue 1 item 4b; App refuses
-`device_tier.ingest_tail_budget_mb > 0`).
+`standing_wal_batches`, `standing_flushed_since`), and the device tier's
+ingest tail: each cut parked on the tier's device under its WAL segment's
+key (`ops/ingest_tail.park_cut`), the key stamped on every WAL segment
+that `live_batches` and `wal_segment_batches` hand out.
 
 Reference: modules/ingester (instance.go:98 per-tenant instance with
 mutex-guarded live-trace map, CutCompleteTraces:240, CutBlockIfReady:275,
@@ -224,14 +224,28 @@ class TenantInstance:
         except BaseException:
             wal_pool.sub(cut_bytes)  # append failed: nothing to account
             raise
-        # the device tier parks the cut on the card here (ingest_tail.park_cut;
-        # ROADMAP Queue 1 item 4b)
+        # park the just-cut columns on the device under the WAL segment's
+        # identity: the standing fold below and live-tail search then
+        # evaluate where the data already sits. No tier or a zero tail
+        # share parks nothing (host paths); a failure to park raises.
+        tail_key = None
+        tier = self._device_tier()
+        if tier is not None:
+            from tempo_tpu_torch.ops import ingest_tail
+
+            tail_key = ingest_tail.park_cut(tier, self.tenant, seg_key, batch)
+        batch._tail_key = tail_key
         # standing-query fold: evaluate every registered query against
         # ONLY this cut's spans — O(delta), outside the instance lock
         # (the engine serializes itself), and never fatal to the cut
         if self.standing is not None:
             self.standing.fold(self.tenant, batch, seg_key=seg_key)
         return len(cut)
+
+    def _device_tier(self):
+        from tempo_tpu_torch.encoding.vtpu import colcache
+
+        return colcache.shared_device_tier()
 
     def cut_block_if_ready(self, now: float | None = None, immediate: bool = False):
         """Head block -> completing (reference: instance.go:275)."""
@@ -395,14 +409,19 @@ class TenantInstance:
         return combine_traces(parts)
 
     def live_batches(self) -> list[SpanBatch]:
-        """All not-yet-flushed columnar data (for SearchRecent)."""
+        """All not-yet-flushed columnar data (for SearchRecent). WAL
+        segments are annotated with their device-tail key (the same
+        "<block_id>:<seg>" identity the cut path parked under) so the
+        querier's live-tail scan can find the resident copy."""
+        from tempo_tpu_torch.ops import ingest_tail
+
         with self.lock:
             segs = [seg for lt in self.live.values() for seg in lt.segments]
             wal_blocks = [self.head] + list(self.completing)
-        # the device tier stamps each WAL segment's tail key here
-        # (ROADMAP Queue 1 item 4b)
         for blk in wal_blocks:
-            segs.extend(blk.iter_batches())
+            for i, seg in blk.iter_batches_keyed():
+                seg._tail_key = ingest_tail.tail_key(self.tenant, f"{blk.block_id}:{i}")
+                segs.append(seg)
         return segs
 
     def live_only_batches(self) -> list[SpanBatch]:
@@ -419,10 +438,17 @@ class TenantInstance:
         in-flight fold can never double-count one segment. Keys come
         from the on-disk segment numbers, so a skipped corrupt segment
         cannot shift later segments onto the wrong fold keys."""
+        from tempo_tpu_torch.ops import ingest_tail
+
         with self.lock:
             wal_blocks = [self.head] + list(self.completing)
-        return [(f"{blk.block_id}:{i}", batch)
-                for blk in wal_blocks for i, batch in blk.iter_batches_keyed()]
+        out = []
+        for blk in wal_blocks:
+            for i, batch in blk.iter_batches_keyed():
+                seg_key = f"{blk.block_id}:{i}"
+                batch._tail_key = ingest_tail.tail_key(self.tenant, seg_key)
+                out.append((seg_key, batch))
+        return out
 
 
 class Ingester:

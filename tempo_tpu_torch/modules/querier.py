@@ -9,12 +9,13 @@ Port of tempo_tpu/modules/querier.py on one device: find by ID, search
 data (host accumulator) and over blocks (evaluate_block into the
 accumulator of the DB's device: seg_bincount on the card), with the
 compiled tier claiming simple-count plans over blocks first
-(query_range_blocks, query_range_blocks_multi). Not here yet: the
-serverless external endpoints (ROADMAP Queue 1 item 3), the result cache
-(Queue 1 item 1.2; App refuses `db.result_cache.enabled`), the live-tail
-hook of the device tier's ingest tail (Queue 1 item 4b), the mesh search
-and metrics (Queue 1 item 12) and the multi-query search seam (its
-caller is the standing tier). The graph jobs (graph_recent,
+(query_range_blocks, query_range_blocks_multi), and the live-tail hook
+of the device tier's ingest tail (a parked WAL segment's search mask by
+`ops/ingest_tail.tail_search_mask`). Not here yet: the serverless
+external endpoints (ROADMAP Queue 1 item 3), the result cache (Queue 1
+item 1.2; App refuses `db.result_cache.enabled`), the mesh search and
+metrics (Queue 1 item 12) and the multi-query search seam (its caller
+is the standing tier). The graph jobs (graph_recent,
 graph_blocks) sum their critical paths on the DB's device.
 """
 
@@ -396,7 +397,19 @@ def _search_batch(batch: SpanBatch, req: SearchRequest) -> SearchResponse:
     if n == 0:
         return resp
     d = batch.dictionary
-    # the resident-tail scan (ops/ingest_tail) goes here: ROADMAP Queue 1 item 4b
+    # resident-tail path: a just-cut WAL segment whose columns are parked
+    # on the device (ops/ingest_tail) gets its span mask computed where
+    # the data sits — None means "not resident or a tag needs the
+    # attribute table", and the host loop below runs unchanged. A failed
+    # scan raises (the reference logs it and takes the host loop).
+    if getattr(batch, "_tail_key", None) is not None:
+        from tempo_tpu_torch.ops import ingest_tail
+
+        device_mask = ingest_tail.tail_search_mask(batch, req)
+        if device_mask is not None:
+            if not device_mask.any():
+                return resp
+            return _segment_hits(batch, device_mask, req, resp)
     mask = np.ones(n, bool)
     for k, v in req.tags.items():
         v = str(v)

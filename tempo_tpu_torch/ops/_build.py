@@ -2,7 +2,8 @@
 Pallas kernels; csrc/codec_kernels.cu: the codec's page encode, the
 compiled query tier and the device tier's resident scans;
 csrc/graph_sketch_kernels.cu: the HLL and count-min updates and the
-critical path's pointer doubling).
+critical path's pointer doubling; csrc/tail_kernels.cu: the ingest
+tail's standing fold and live-tail search mask).
 
 nvcc compiles each source into a shared library with a plain C
 interface, tagged with a hash of the source, under tempo_tpu_torch/_build/
@@ -25,7 +26,7 @@ import subprocess
 import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = ("kernels.cu", "codec_kernels.cu", "graph_sketch_kernels.cu")
+SOURCES = ("kernels.cu", "codec_kernels.cu", "graph_sketch_kernels.cu", "tail_kernels.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -64,6 +65,9 @@ _SIGNATURES = {
     "tt_root_path_sums": [_P, _P, _I32, _I32, _P, _P, _P, _P, ctypes.POINTER(_I32), _P],
     "tt_root_path_sums_segmented": [_P, _P, _P, _I32, _I32, _I32, _P, _P, _P,
                                     ctypes.POINTER(_I32), _P],
+    # a pointer to the host descriptor, then the stream
+    "tt_tail_fold": [_P, _P],
+    "tt_tail_scan": [_P, _P],
 }
 
 

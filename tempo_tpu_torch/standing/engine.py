@@ -8,12 +8,13 @@ query and cut), on the CPU through the reference's host arm
 (`np.unique`); the counts are equal either way. A failure of the card's
 arm is not the reference's dirty-and-rebuild case: the query is marked
 failed and its reads answer HTTP 500 (StandingFoldFailed), so a host
-rebuild never stands in for a broken kernel. Not here, each waiting
-for its ROADMAP Queue 1 item: the resident-tail fold over the cut parked
-on the card (item 4, the device tier: `ops/ingest_tail`), and the
-result-cache arm of the rebuild (item 5, `resultcache/`; App refuses
-`result_cache.enabled`, so the reference takes the cold arm under the
-same config).
+rebuild never stands in for a broken kernel. A cut parked on the
+device by the ingest tail (`ops/ingest_tail`) folds there for a plan that
+lowers onto the parked columns (one `tail_fold` launch a query and cut);
+its failure marks the query failed too. Not here, waiting for ROADMAP
+Queue 1 item 5: the result-cache arm of the rebuild (`resultcache/`; App
+refuses `result_cache.enabled`, so the reference takes the cold arm
+under the same config).
 
 Every dashboard refresh and alert rule re-running `query_range` is
 O(re-scan); but the engine's range-vector partial is one associative
@@ -147,7 +148,7 @@ class UnknownStandingQuery(KeyError):
 class StandingFoldFailed(RuntimeError):
     """The card's fold arm failed for a query: `seg_bincount` did not
     build or launch, a copy failed, or the plan's slots exceed
-    `MAX_SLOTS`. Unlike a host-side evaluation error (the query is marked
+    `MAX_SLOTS`; or the resident tail's fold (`tail_fold`) failed. Unlike a host-side evaluation error (the query is marked
     dirty and the next read rebuilds it on the host), the query is marked
     failed: a host rebuild would serve a right answer over a broken
     kernel. Its reads and state answer HTTP 500 until a restart, whose
@@ -583,13 +584,37 @@ class StandingEngine:
                 q.dirty = True
             return
         plan = rules_mod.window_plan(q.template, start, int(n_bins))
-        # the resident-tail fold over the cut parked on the card comes with
-        # the device tier's ingest tail (ROADMAP Queue 1 item 4b, ops/ingest_tail)
+        # resident-tail path: when this cut's columns are parked on the
+        # device (ops/ingest_tail) and the plan lowers onto them, fold
+        # where the data sits — h2d is the literals, bin edges and by()
+        # codes, never the columns. A miss (not resident, not lowerable)
+        # takes eval_batch below, which gives the same counts; a failure
+        # raises StandingFoldFailed (the reference takes the host path).
+        tail_key = getattr(batch, "_tail_key", None)
+        fold_plan = None
+        if tail_key is not None:
+            from tempo_tpu_torch.ops import ingest_tail
+
+            fold_plan = ingest_tail.lower_fold_plan(plan)
         with q.lock:
-            res = eval_batch(plan, batch, dictionary, q.series)
-            live = res.slots[res.slots >= 0]
-            if len(live):
-                self._apply_counts(q, plan, live, start // step)
+            delta = None
+            if fold_plan is not None:
+                try:
+                    delta = ingest_tail.resident_fold(
+                        plan, fold_plan, batch, dictionary, q.series, key=tail_key)
+                except Exception as e:
+                    raise StandingFoldFailed(
+                        f"standing query {q.id}: tail_fold on {self.device}: "
+                        f"{type(e).__name__}: {e}") from e
+            if delta is not None:
+                for (slot, b), c in delta.items():
+                    key = (slot, start // step + b, 0)
+                    q.counts[key] = q.counts.get(key, 0) + c
+            else:
+                res = eval_batch(plan, batch, dictionary, q.series)
+                live = res.slots[res.slots >= 0]
+                if len(live):
+                    self._apply_counts(q, plan, live, start // step)
             self._prune(q, now)
             self._eval_alert(q, now)
             self._eval_deviation(q, now)

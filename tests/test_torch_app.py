@@ -13,7 +13,8 @@ port does not serve yet). The port runs with device="cpu".
 Both Apps run the metrics-generator and the standing-query engine (the
 defaults), the JAX App with its storage engine pinned to one device (compaction_device_shards=1: the JAX tests run on
 an 8-device CPU mesh whose sharded search is the multi-GPU slice), and
-its storage analytics scan off. ReadAhead prefetch, hedged requests and
+both with their periodic storage analytics scan off (/status/storage
+then scans on demand, in both). ReadAhead prefetch, hedged requests and
 all but one query worker are off in both, so every answer reads the
 same bytes on every run. The compiled query tier is on in both (the
 default), each with a fresh shape cache per test, so hit/miss verdicts
@@ -107,7 +108,7 @@ class AppPair:
                         compaction_device_shards=1, analytics_scan_s=0)
         tdb = DBConfig(backend="local", backend_path=self.roots[1] + "/blocks",
                        wal_path=self.roots[1] + "/wal", block=BlockConfig(**BLOCK),
-                       compaction_device_shards=1)
+                       compaction_device_shards=1, analytics_scan_s=0)
         self.japp = JApp(JAppConfig(
             db=jdb, ingester=JIngesterConfig(), limits=JLimits(**(limits or {})),
             frontend=JFrontendConfig(hedge_after_s=0),
@@ -378,24 +379,11 @@ def test_status_pages(make_pair):
     (_, _, jb), (_, _, tb) = pair.both("GET", "/status/endpoints")
     served = json.loads(tb)["endpoints"]
     assert served == [e for e in json.loads(jb)["endpoints"] if e in served]
-    assert len(served) == 32
+    assert len(served) == 35
     assert _request(pair.servers[1].url, "GET", "/status")[2] == tb
-    # defaults and diff differ only where the port's default does: the
-    # storage analytics scan is 0 (App refuses it switched on)
-    port_defaults = {("db", "analytics_scan_s")}
-
-    def drop(doc):
-        for path in port_defaults:
-            d = doc
-            for k in path[:-1]:
-                d = d.get(k, {})
-            d.pop(path[-1], None)
-            if len(path) > 1 and doc.get(path[0]) == {}:
-                del doc[path[0]]  # a diff section left empty
-        return doc
-
+    # the port's defaults are the reference's, so its diff is too
     for mode in ("defaults", "diff"):
-        pair.same_config(f"/status/config?mode={mode}", norm=drop)
+        pair.same_config(f"/status/config?mode={mode}")
     assert pair.same("GET", "/status/config?mode=bogus")[0] == 400
     # /metrics: the deterministic counters move by the same amounts
     before = [_counters(b) for _, _, b in pair.both("GET", "/metrics")]
@@ -472,9 +460,7 @@ def test_bad_requests_400(idle_pair, path):
     ("POST", "/api/v2/spans"),
     ("POST", "/api/traces"),
     ("GET", "/memberlist"),
-    ("GET", "/status/profile"),
     ("GET", "/api/rca"),
-    ("GET", "/status/storage"),
     ("GET", "/status/slo"),
     ("POST", "/rpc/v1/worker/pull"),
     ("GET", "/kv/v1/ring"),

@@ -15,8 +15,9 @@ field for field:
   the tier on and off, and its 400s;
 - simple-count query_range through the compiled tier, the third dispatch
   served from the resident stack in both packages;
-- the ingest tail is still refused, by config and by environment, naming
-  ROADMAP Queue 1 item 4b, while TEMPO_TPU_DEVICE_TIER_MB starts a tier.
+- the ingest tail starts, by config and by environment, with its share
+  of a tier on the App's device, and a cut parks there; as does a tier
+  that TEMPO_TPU_DEVICE_TIER_MB starts.
 
 Tolerance: exact; every count and mask is an integer or a boolean.
 """
@@ -40,6 +41,7 @@ from tempo_tpu_torch.config_sections import DeviceTierConfig
 from tempo_tpu_torch.db import DBConfig
 from tempo_tpu_torch.encoding.vtpu import colcache
 from tempo_tpu_torch.encoding.vtpu import wal
+from tempo_tpu_torch.model import synth
 from tempo_tpu_torch.util import devicetiming, pageheat
 
 from test_torch_app import (  # noqa: F401 (_no_prefetch: the pair's autouse fixture)
@@ -257,16 +259,29 @@ def test_simple_count_query_range_from_resident_stacks(tier_pair):
 
 
 @pytest.mark.parametrize("how", ["config", "env"])
-def test_ingest_tail_still_refused(tmp_path, monkeypatch, how):
+def test_ingest_tail_starts_on_the_apps_device(tmp_path, monkeypatch, how):
     cfg = AppConfig(db=DBConfig(backend="local", backend_path=str(tmp_path / "b"),
-                                wal_path=str(tmp_path / "w")))
+                                wal_path=str(tmp_path / "w")), generator_enabled=False)
     if how == "config":
         cfg.device_tier = DeviceTierConfig(budget_mb=64, ingest_tail_budget_mb=8)
     else:
+        monkeypatch.setenv("TEMPO_TPU_DEVICE_TIER_MB", "64")
         monkeypatch.setenv("TEMPO_TPU_INGEST_TAIL_MB", "8")
-    with pytest.raises(NotImplementedError,
-                       match=r"not ported yet \(ROADMAP Queue 1 item 4b \(the ingest tail\)\)"):
-        App(cfg, device="cpu")
+    app = App(cfg, device="cpu")
+    try:
+        tier = colcache.shared_device_tier()
+        assert tier.ingest_tail_budget_bytes == 8 << 20 and tier.device == app.device
+        app.push_traces(synth.make_traces(8, seed=3, spans_per_trace=4))
+        for ing in app.ingesters.values():
+            for inst in ing.instances.values():
+                inst.cut_complete_traces(immediate=True)
+        st = tier.stats()
+        assert st["tail_entries"] == 1 and 0 < st["tail_bytes"] <= 8 << 20
+        (row,) = [r for r in colcache.device_tier_report()["residentPages"]
+                  if r.get("keyspace") == "ingest_tail"]
+        assert row["codec"] == "tail" and row["tenant"] == "single-tenant"
+    finally:
+        app.shutdown()
 
 
 def test_env_switch_starts_a_tier_on_the_apps_device(tmp_path, monkeypatch):

@@ -1,13 +1,14 @@
 """The port's config tree against the JAX package's.
 
 The same YAML must give equal config dataclasses in both packages
-(field for field, nested sections and lists included) and the same
-check_config warnings for the sections the port serves. One default differs by design and is
-named here: the storage analytics scan is 0 — App refuses it switched
-on, as it refuses every other section whose module is not ported yet,
-naming its ROADMAP item, and every environment switch with which the
-reference turns such a module on. The metrics-generator starts on, as in
-the reference, and App serves it (its remote write stays refused).
+(field for field, nested sections and lists included, defaults alike)
+and the same check_config warnings for the sections the port serves.
+App refuses every section whose module is not ported yet, naming its
+ROADMAP item, and every environment switch with which the reference
+turns such a module on. The metrics-generator starts on, as in the
+reference, and App serves it (its remote write stays refused); so are
+the storage analytics scan (600 s by default) and the device tier's
+ingest-tail share, by config and by TEMPO_TPU_INGEST_TAIL_MB.
 """
 
 import dataclasses
@@ -82,21 +83,8 @@ query_workers: 3
 ring_heartbeat_timeout_s: 12.5
 """
 
-# (path, the port's default) where the defaults differ by design
-PORT_DEFAULTS = {("db", "analytics_scan_s"): 0.0}
-
-
 def _doc(cfg) -> dict:
     return dataclasses.asdict(cfg)
-
-
-def _drop_port_defaults(doc: dict) -> dict:
-    for path in PORT_DEFAULTS:
-        d = doc["app"]
-        for k in path[:-1]:
-            d = d[k]
-        del d[path[-1]]
-    return doc
 
 
 def test_full_yaml_equal():
@@ -114,13 +102,8 @@ def test_full_yaml_equal():
 ])
 def test_defaults_equal_but_the_named_four(yaml_text):
     j, t = jconfig.parse_config(yaml_text), config.parse_config(yaml_text)
-    jd, td = _doc(j), _doc(t)
-    for path, port_default in PORT_DEFAULTS.items():
-        d = td["app"]
-        for k in path[:-1]:
-            d = d[k]
-        assert d[path[-1]] == port_default
-    assert _drop_port_defaults(jd) == _drop_port_defaults(td)
+    assert _doc(j) == _doc(t)
+    assert t.app.db.analytics_scan_s == 600.0
 
 
 @pytest.mark.parametrize("bad", [
@@ -167,24 +150,16 @@ WARN_YAMLS = [
     # multitenant cluster, alone and beside the compiled tier's warning
     "multitenancy_enabled: true\ncompiled:\n  max_shapes: 64\n",
     "multitenancy_enabled: true\nstanding:\n  max_queries_per_tenant: 0\n",
+    # the storage analytics scan shorter than the blocklist poll
+    "storage:\n  trace:\n    analytics_scan_s: 60\n",
+    "storage:\n  trace:\n    analytics_scan_s: 30\n    blocklist_poll_s: 10\n"
+    "ingester:\n  complete_block_timeout_s: 5\n",
 ]
-
-
-def _align_port_defaults(j, t):
-    """The JAX config with the features of PORT_DEFAULTS set as the
-    port's config has them (the YAML's value where it sets one, else the port's
-    default), so both check the same feature settings."""
-    for path in PORT_DEFAULTS:
-        jd, td = j.app, t.app
-        for k in path[:-1]:
-            jd, td = getattr(jd, k), getattr(td, k)
-        setattr(jd, path[-1], getattr(td, path[-1]))
 
 
 @pytest.mark.parametrize("yaml_text", WARN_YAMLS)
 def test_check_config_warnings_equal(yaml_text):
     j, t = jconfig.parse_config(yaml_text), config.parse_config(yaml_text)
-    _align_port_defaults(j, t)
     jw, tw = jconfig.check_config(j), config.check_config(t)
     assert jw == tw and tw
 
@@ -198,6 +173,11 @@ TIER_WARNINGS = [
     ("device_tier:\n  budget_mb: 64\n", {"TEMPO_TPU_HBM_BYTES": "1000"}),
     ("device_tier:\n  budget_mb: 512\n", {"TEMPO_TPU_COLCACHE_MB": "64"}),
     ("", {"TEMPO_TPU_DEVICE_ENCODE": "1"}),
+    # the ingest tail's share: above the tier's budget, below an eighth
+    # of the live-trace pool, and both
+    ("device_tier:\n  budget_mb: 64\n  ingest_tail_budget_mb: 128\n", {}),
+    ("device_tier:\n  budget_mb: 512\n  ingest_tail_budget_mb: 8\n", {}),
+    ("device_tier:\n  budget_mb: 4\n  ingest_tail_budget_mb: 8\n", {}),
 ]
 
 
@@ -209,7 +189,6 @@ def test_device_tier_warnings_equal(case, monkeypatch):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     j, t = jconfig.parse_config(yaml_text), config.parse_config(yaml_text)
-    _align_port_defaults(j, t)
     jw, tw = jconfig.check_config(j), config.check_config(t)
     assert jw == tw and any("device_tier" in w or "DEVICE_ENCODE" in w for w in tw)
 
@@ -217,7 +196,6 @@ def test_device_tier_warnings_equal(case, monkeypatch):
 @pytest.mark.parametrize("yaml_text", ["", FULL_YAML])
 def test_check_config_quiet_equal(yaml_text):
     j, t = jconfig.parse_config(yaml_text), config.parse_config(yaml_text)
-    _align_port_defaults(j, t)
     assert jconfig.check_config(j) == config.check_config(t)
 
 
@@ -231,10 +209,8 @@ UNPORTED = {
     "rca:\n  enabled: true\n": "rca",
     "slo:\n  enabled: true\n": "slo",
     "vulture:\n  enabled: true\n": "vulture",
-    "device_tier:\n  budget_mb: 64\n  ingest_tail_budget_mb: 8\n": "ingest_tail_budget_mb",
     "storage:\n  trace:\n    result_cache:\n      enabled: true\n": "result_cache",
     "storage:\n  trace:\n    cache: memory\n": "cache='memory'",
-    "storage:\n  trace:\n    analytics_scan_s: 600\n": "analytics_scan_s",
 }
 
 
@@ -303,7 +279,6 @@ def test_compiled_section_equal(yaml_text, tmp_path):
     uncapped, and App starts with it (the tier is served)."""
     j, t = jconfig.parse_config(yaml_text), config.parse_config(yaml_text)
     assert _doc(j)["app"]["compiled"] == _doc(t)["app"]["compiled"]
-    _align_port_defaults(j, t)
     assert jconfig.check_config(j) == config.check_config(t)
     assert not any("compiled" in w for w in config.check_config(t))
     t.app.db.backend_path = str(tmp_path / "blocks")
@@ -313,8 +288,6 @@ def test_compiled_section_equal(yaml_text, tmp_path):
 
 # env switch -> (what the refusal names, the ROADMAP item it cites)
 UNPORTED_ENV = {
-    ("TEMPO_TPU_INGEST_TAIL_MB", "8"): ("TEMPO_TPU_INGEST_TAIL_MB",
-                                        "ROADMAP Queue 1 item 4b (the ingest tail)"),
     ("TEMPO_TPU_RESULT_CACHE", "on"): ("TEMPO_TPU_RESULT_CACHE", "ROADMAP Queue 1 item 1.2"),
     ("TEMPO_TPU_RESULT_CACHE", "force"): ("TEMPO_TPU_RESULT_CACHE", "ROADMAP Queue 1 item 1.2"),
 }
@@ -340,4 +313,44 @@ def test_env_switches_off_start(env, tmp_path, monkeypatch):
     monkeypatch.setenv(*env)
     path = tmp_path / "tempo.yaml"
     path.write_text(f"storage:\n  trace:\n    backend_path: {tmp_path}/blocks\n")
+    assert tmain.main(["-config.file", str(path), "-config.verify"]) == 0
+
+
+# the sections and environment switches that earlier slices refused, now
+# served: the storage analytics scan and the device tier's ingest tail
+SERVED = [
+    ("storage:\n  trace:\n    analytics_scan_s: 600\n", {}),
+    ("device_tier:\n  budget_mb: 64\n  ingest_tail_budget_mb: 8\n", {}),
+    ("", {"TEMPO_TPU_DEVICE_TIER_MB": "64", "TEMPO_TPU_INGEST_TAIL_MB": "8"}),
+]
+
+
+@pytest.mark.parametrize("case", SERVED, ids=lambda c: c[0].replace("\n", " ") + str(c[1]))
+def test_analytics_and_ingest_tail_served(case, tmp_path, monkeypatch):
+    """App starts the storage scanner on the configured period and a
+    device tier with its tail share on the App's device; -config.verify
+    accepts the same file."""
+    from tempo_tpu_torch.encoding.vtpu import colcache
+
+    yaml_text, env = case
+    monkeypatch.setattr(colcache, "_shared_device", None)
+    monkeypatch.setattr(colcache, "_tier_device", None)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    t = config.parse_config(yaml_text)
+    t.app.db.backend_path = str(tmp_path / "blocks")
+    t.app.db.wal_path = str(tmp_path / "wal")
+    app = App(t.app, device="cpu")
+    try:
+        assert app.storage_scanner is not None and app.storage_scanner.interval_s == 600.0
+        tier = colcache.shared_device_tier()
+        if "analytics" in yaml_text:
+            assert tier is None
+        else:
+            assert tier.ingest_tail_budget_bytes == 8 << 20 and tier.device == app.device
+    finally:
+        app.shutdown()
+    path = tmp_path / "tempo.yaml"
+    path.write_text(yaml_text + f"storage:\n  trace:\n    backend_path: {tmp_path}/blocks\n"
+                    if "storage" not in yaml_text else yaml_text)
     assert tmain.main(["-config.file", str(path), "-config.verify"]) == 0

@@ -4,11 +4,13 @@ compaction entry and one metrics query on the CPU, writes two vtpu1
 blocks, finds a trace by ID, compacts the blocks and queries the output
 on the CPU, drives the storage engine (TempoDB: write, find, tag search,
 tag names, TraceQL search on the vectorized branch and the object
-engine, WAL replay, compaction) on the CPU, encodes pages through the
+engine, WAL replay, compaction) on the CPU, parks a batch in a CPU tier
+and scans it (the ingest tail), encodes pages through the
 device page-encode arm forced on the CPU, serves the single binary
 (App + TempoServer: one OTLP push, /flush, the trace read back by ID and
 by search, a simple-count query_range through the compiled tier,
-/api/query-insights, /status/device's page-heat ledger, the
+/api/query-insights, /status/device's page-heat ledger,
+/status/storage, /status/profile and /status/profile/device, the
 metrics-generator's series and the graph routes over a second push, and a standing
 query registered, folded at the flush's cut and read against query_range
 over HTTP) on the CPU, and an
@@ -57,7 +59,9 @@ SCRIPT = BLOCK + textwrap.dedent(r"""
                  "tempo_tpu_torch.ops.graph", "tempo_tpu_torch.modules.generator",
                  "tempo_tpu_torch.modules.generator.registry",
                  "tempo_tpu_torch.modules.generator.spanmetrics",
-                 "tempo_tpu_torch.modules.generator.servicegraphs"):
+                 "tempo_tpu_torch.modules.generator.servicegraphs",
+                 "tempo_tpu_torch.ops.ingest_tail", "tempo_tpu_torch.db.analytics",
+                 "tempo_tpu_torch.util.profiling"):
         assert name in names, name
     for name, mod in sys.modules.items():
         assert mod is None or not (name == "tempo_tpu" or name.startswith("tempo_tpu.") or name == "jax"
@@ -125,6 +129,13 @@ SCRIPT = BLOCK + textwrap.dedent(r"""
     assert db.write_wal_block("t", replayed).total_spans == b1.num_spans
     assert db.compact_once("t") == 1 and len(db.blocklist.metas("t")) == 1
 
+    from tempo_tpu_torch.encoding.vtpu.colcache import DeviceTier
+    from tempo_tpu_torch.ops import ingest_tail
+    tier = DeviceTier(8 << 20, ingest_tail_budget_bytes=4 << 20, device="cpu")
+    b1._tail_key = ingest_tail.park_cut(tier, "t", "b:0", b1)
+    assert ingest_tail.tail_search_mask(b1, SearchRequest(tags={"service.name": "cart"}),
+                                        tier=tier).any()
+
     import os
     from tempo_tpu_torch.encoding.vtpu import codec, lightweight
     from tempo_tpu_torch.ops import encode as device_encode
@@ -171,6 +182,12 @@ SCRIPT = BLOCK + textwrap.dedent(r"""
         assert status == 200 and json.loads(body)["compiled"]["misses"] >= 1
         status, body = http("GET", "/status/device")
         assert status == 200 and json.loads(body)["pageHeat"]["totalShips"] >= 1
+        status, body = http("GET", "/status/storage?refresh=1")
+        assert status == 200 and json.loads(body)["fleet"]["blocks"] >= 1
+        status, body = http("GET", "/status/profile/device?seconds=0.1")
+        assert status == 200 and json.loads(body)["supported"]
+        status, body = http("GET", "/status/profile?seconds=0.1&fmt=collapsed")
+        assert status == 200
         import time
         q = "{ } | rate() by (resource.service.name)"
         status, body = http("POST", "/api/metrics/standing",
