@@ -3569,11 +3569,13 @@ def tail_phase(seed: int, root: str, queries: list, device: str = "cuda",
     orig_resident = ingest_tail.resident_fold
 
     def resident_fold(*a, **k):
-        before = (STATS.h2d.get("standing_fold", 0), STATS.d2h.get("standing_fold", 0))
+        before = (STATS.h2d.get("standing_fold", 0), STATS.d2h.get("standing_fold", 0),
+                  STATS.seconds.get("standing_fold", 0.0))
         out = orig_resident(*a, **k)
         if out is not None:
             tail_folds.append((STATS.h2d.get("standing_fold", 0) - before[0],
-                               STATS.d2h.get("standing_fold", 0) - before[1]))
+                               STATS.d2h.get("standing_fold", 0) - before[1],
+                               (STATS.seconds.get("standing_fold", 0.0) - before[2]) * 1e3))
         return out
 
     ingest_tail.resident_fold = resident_fold
@@ -3657,6 +3659,7 @@ def tail_phase(seed: int, root: str, queries: list, device: str = "cuda",
             ledger.start(f"phase 12 cut {c + 1}")
             entries0 = tier.stats()["tail_entries"]
             n_apply, l0 = len(applies), (ingest_tail.tail_fold.launches, pk.seg_bincount.launches)
+            n_resident = len(tail_folds)
             for ing in app.ingesters.values():
                 for inst in list(ing.instances.values()):
                     inst.cut_complete_traces(immediate=True)
@@ -3675,14 +3678,18 @@ def tail_phase(seed: int, root: str, queries: list, device: str = "cuda",
             avoided.append(STATS.avoided.get("standing_fold", 0))
             check(avoided[-1] > avoided[-2], f"phase 12 cut {c + 1}: no standing_fold bytes avoided")
             read_all(f"cut {c + 1}")
+            # the lowered folds' standing_fold dispatches (tail_fold), by host clock
+            lowered_ms = sum(ms for _, _, ms in tail_folds[n_resident:])
             res["cuts"].append(dict(spans=folded[-1]["spans"], fold_ms=folded[-1]["ms"],
+                                    lowered_dispatch_ms=lowered_ms,
                                     tail_fold=launched[0], seg_bincount=launched[1]))
             print(f"phase 12 cut {c + 1}: {folded[-1]['spans']} spans parked "
                   f"({tier.stats()['tail_bytes']} B of tails resident) and folded into "
-                  f"{len(ids)} queries in {folded[-1]['ms']:.1f} ms: {launched[0]} tail_fold "
-                  f"launches (the lowered queries), {launched[1]} seg_bincount (the rest) | "
-                  f"{len(ids)} standing reads == query_range == the CPU engine's counts",
-                  flush=True)
+                  f"{len(ids)} queries in {folded[-1]['ms']:.1f} ms, of it "
+                  f"{lowered_ms:.2f} ms in the {launched[0]} lowered folds' standing_fold "
+                  f"dispatches: {launched[0]} tail_fold launches (the lowered queries), "
+                  f"{launched[1]} seg_bincount (the rest) | {len(ids)} standing reads == "
+                  f"query_range == the CPU engine's counts", flush=True)
         # live-tail searches, card App (the tail) against the CPU App (host loop)
         res["searches"] = []
         for tags, mn, mx, per_seg in TAIL_SEARCHES:
@@ -3719,8 +3726,8 @@ def tail_phase(seed: int, root: str, queries: list, device: str = "cuda",
                                                  - h2d0["live_tail_scan"]) / max(1, n_disp))
         res["live_tail_scan_avoided"] = STATS.avoided.get("live_tail_scan", 0)
         res["tail_folds"] = len(tail_folds)
-        res["tail_fold_h2d_max"] = max(h for h, _ in tail_folds)
-        res["tail_fold_d2h_max"] = max(d_ for _, d_ in tail_folds)
+        res["tail_fold_h2d_max"] = max(h for h, _, _ in tail_folds)
+        res["tail_fold_d2h_max"] = max(d_ for _, d_, _ in tail_folds)
         res["standing_fold_h2d_a_dispatch"] = ((STATS.h2d.get("standing_fold", 0)
                                                 - h2d0["standing_fold"])
                                                / max(1, STATS.dispatches.get("standing_fold", 0)
@@ -3851,17 +3858,15 @@ def tail_full_width(torch, dev, lib, stream, seed: int, lowered: list) -> dict:
     alone (a CUDA graph of 48 launches over three copies of the parked
     columns, median of 7), path time (the wrapper), the plain version on
     the card, the torch chain (searchsorted + bincount for the fold, the
-    elementwise compares for the scan) and the bound. Returns the two
-    kernels' records."""
-    import ctypes
-
+    elementwise compares for the scan) and the bound; the same at one
+    phase 12 (a) cut's size (32,768 spans, under each record's "shapes").
+    Returns the two kernels' records."""
     import numpy as np
 
     from tempo_tpu_torch.encoding.common import SearchRequest
     from tempo_tpu_torch.encoding.vtpu import colcache
     from tempo_tpu_torch.metrics_engine import SeriesTable, compile_metrics_plan, eval_batch
     from tempo_tpu_torch.model import synth
-    from tempo_tpu_torch.ops import _build
     from tempo_tpu_torch.ops import ingest_tail
 
     t0 = time.perf_counter()
@@ -3910,23 +3915,62 @@ def tail_full_width(torch, dev, lib, stream, seed: int, lowered: list) -> dict:
           f"through resident_fold on the card == the plain version (a CPU tier) == eval_batch; "
           f"{len(TAIL_SEARCHES)} masks == plain == the host loop ({check_s:.1f} s)", flush=True)
 
-    entry = tiers[0].get(keys[0])
-    arrays = entry.arrays
+    recs = time_tail_kernels(torch, dev, lib, stream, tiers[0].get(keys[0]).arrays, batch,
+                             (start, end, step))
+    # one phase 12 (a) cut's size: 32,768 spans, parked the same way
+    cut = synth.make_batch(4096, 8, seed=seed * 1000 + 1201)
+    cut.cols["start_unix_nano"] = ((now_min - 40 * 60) * 10**9 + rng.integers(
+        0, 40 * 60 * 10**9, cut.num_spans)).astype(np.uint64)
+    cut_tier = colcache.DeviceTier(256 << 20, ingest_tail_budget_bytes=64 << 20, device=dev)
+    cut_key = ingest_tail.park_cut(cut_tier, "single-tenant", "cut:0", cut)
+    check(cut_key is not None, "phase 12 (b): the 32,768-span cut did not park")
+    for k, r in time_tail_kernels(torch, dev, lib, stream, cut_tier.get(cut_key).arrays, cut,
+                                  (start, end, step)).items():
+        recs[k]["shapes"] = {f"cut of {cut.num_spans}": r}
+    del tiers, cut_tier
+    recs["tail_fold"]["phase_b_s"] = time.perf_counter() - t0
+    return recs
+
+
+def time_tail_kernels(torch, dev, lib, stream, arrays: dict, batch, window: tuple) -> dict:
+    """Both tail kernels timed at one fold (TAIL_EXTRA[0] over `window`) and
+    one scan (service.name=frontend, 100ms-900ms) of the cut `batch`
+    parked as `arrays` on the card: device time alone (a CUDA graph of 48
+    launches of the C entry point over three copies of the parked columns,
+    median of 7; the fold's entry point zeroes its counts), path time (the
+    wrapper), the plain version on the card, the torch chain
+    (searchsorted + bincount for the fold, the elementwise compares for the
+    scan) and the bound, with bytes from u32_bytes_read. Each is held
+    against the plain version and the chain first. Returns the two
+    kernels' records."""
+    import ctypes
+
+    import numpy as np
+
+    from tempo_tpu_torch.metrics_engine import compile_metrics_plan
+    from tempo_tpu_torch.ops import _build
+    from tempo_tpu_torch.ops import ingest_tail
+
+    n_spans, d = batch.num_spans, batch.dictionary
     p = arrays["service"].numel()
     copies = [arrays] + [{k: v.clone() for k, v in arrays.items()} for _ in range(2)]
     recs = {}
 
     # the fold: the first TAIL_EXTRA query at this cut
     q = TAIL_EXTRA[0]
-    plan = compile_metrics_plan(q, start, end, step, max_series=64)
+    plan = compile_metrics_plan(q, *window, max_series=64)
     fp = ingest_tail.lower_fold_plan(plan)
     _lits, preds, uvals_real, uvals, lo, hi = ingest_tail.fold_args(plan, fp, batch, d)
     nb = plan.n_bins
-    consts = ingest_tail.fold_consts(uvals, lo, hi, dev)
+    edges_u64 = ingest_tail._edges_u64(lo, hi)
     counts = [torch.zeros(len(uvals) * (len(lo) - 1), dtype=torch.int32, device=dev)
               for _ in copies]
-    descs = [ingest_tail.fold_descriptor(a, n_spans, preds, fp.by_col, len(uvals), len(lo), nb,
-                                         consts, c)[0] for a, c in zip(copies, counts)]
+    descs = []
+    for a, c in zip(copies, counts):
+        desc, staged = ingest_tail.fold_descriptor(a, n_spans, preds, fp.by_col, uvals, edges_u64,
+                                                   nb, c)
+        check(staged is None, "tail_fold: the timed fold's constants do not fit by value")
+        descs.append(desc)
 
     def fold_launch(desc):
         def go():
@@ -3934,7 +3978,7 @@ def tail_full_width(torch, dev, lib, stream, seed: int, lowered: list) -> dict:
         return go
 
     want = ingest_tail.tail_fold(arrays, n_spans, preds, fp.by_col, uvals, lo, hi, nb)
-    counts[0].zero_()
+    counts[0].fill_(-1)  # the entry point zeroes them
     fold_launch(descs[0])()
     check(torch.equal(counts[0], want), "tail_fold at the full-width shape: the C entry != wrapper")
     ms = kernel_ms(torch, [fold_launch(x) for x in descs])
@@ -3944,7 +3988,7 @@ def tail_full_width(torch, dev, lib, stream, seed: int, lowered: list) -> dict:
                                                                 uvals, lo, hi, nb), reps=5)
     check(torch.equal(ingest_tail._tail_fold_plain(arrays, n_spans, preds, fp.by_col, uvals, lo,
                                                    hi, nb), want),
-          "tail_fold at the full-width shape: kernel != plain")
+          f"tail_fold at {n_spans} rows: kernel != plain")
     # the torch chain: the predicates, searchsorted over the edges and the
     # by() codes, one bincount
     m32 = 0xFFFFFFFF
@@ -3973,7 +4017,7 @@ def tail_full_width(torch, dev, lib, stream, seed: int, lowered: list) -> dict:
     # column at those whose bin is in range; the constants and the counts
     log2 = lambda x: max(1, int(x).bit_length() - 1)  # noqa: E731
     keep = torch.ones(n_spans, dtype=torch.bool, device=dev)
-    nbytes, ops = consts.numel() * 4 + 4 * length, 0
+    nbytes, ops = edges_u64.nbytes + uvals.nbytes + 4 * length, 0
     for col, op, lit in preds:
         nbytes += u32_bytes_read(torch, arrays[col], keep)
         ops += 2 * int(keep.sum())
@@ -3994,7 +4038,7 @@ def tail_full_width(torch, dev, lib, stream, seed: int, lowered: list) -> dict:
         library_ms=lib_ms)
 
     # the scan: service + duration bounds
-    tags, mn_ns, mx_ns = {"service.name": "frontend"}, 100 * 10**6, 900 * 10**6
+    mn_ns, mx_ns = 100 * 10**6, 900 * 10**6
     eq = [("service", d.get("frontend"))]
     outs = [torch.empty(p, dtype=torch.uint8, device=dev) for _ in copies]
     sdescs = [ingest_tail.scan_descriptor(a, n_spans, eq, None, mn_ns, mx_ns, o)
@@ -4009,7 +4053,7 @@ def tail_full_width(torch, dev, lib, stream, seed: int, lowered: list) -> dict:
     scan_launch(sdescs[0])()
     check(torch.equal(outs[0].view(torch.bool), swant)
           and torch.equal(ingest_tail._tail_scan_plain(arrays, n_spans, eq, None, mn_ns, mx_ns),
-                          swant), "tail_scan at the full-width shape: kernel != plain")
+                          swant), f"tail_scan at {n_spans} rows: kernel != plain")
     sms = kernel_ms(torch, [scan_launch(x) for x in sdescs])
     spath = path_ms(torch, lambda: ingest_tail.tail_scan(arrays, n_spans, eq, None, mn_ns, mx_ns))
     splain = path_ms(torch, lambda: ingest_tail._tail_scan_plain(arrays, n_spans, eq, None, mn_ns,
@@ -4038,7 +4082,6 @@ def tail_full_width(torch, dev, lib, stream, seed: int, lowered: list) -> dict:
               f"({r['bound_ms'] / r['ms']:.0%} of bound), path {r['path_ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {fmt_ms(r['library_ms'])}, bound "
               f"{r['bound_ms']:.5f} ms ({r['bound_by']})", flush=True)
-    recs["tail_fold"]["phase_b_s"] = time.perf_counter() - t0
     return recs
 
 

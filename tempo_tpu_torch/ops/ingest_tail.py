@@ -49,6 +49,7 @@ and compared on both limbs.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -91,7 +92,14 @@ _ABSENT = np.uint32(0xFFFFFFFF)
 _MAX_FOLD_BINS = 2048
 _MAX_FOLD_SERIES = 4096
 _MAX_SCAN_EQ = 5  # name, service.name, service, http.method, http.url
-_MAX_DESC_PREDS = 16  # predicates passed by value; more go through a device array
+# the fold's constants passed by value in its descriptor (tail::FoldDesc);
+# a fold with more predicates, edges or by() codes stages them on the card
+_MAX_DESC_PREDS = 16
+_VAL_EDGES = 128
+_VAL_CODES = 128
+# a thread's pinned buffer for the staged constants: the largest fold's
+# edges and codes (2,048 x 8 B + 4,096 x 4 B), predicates aside
+_STAGING_BYTES = 32 << 10
 
 
 def _pow2(n: int) -> int:
@@ -307,23 +315,35 @@ class _Pred(ctypes.Structure):
 class _FoldDesc(ctypes.Structure):
     """tail::FoldDesc of csrc/tail_kernels.cu, passed to the kernel by value."""
 
-    _fields_ = [("preds", _Pred * _MAX_DESC_PREDS), ("more", ctypes.c_void_p),
-                ("t_lo", ctypes.c_void_p), ("t_hi", ctypes.c_void_p), ("by", ctypes.c_void_p),
+    _fields_ = [("t_lo", ctypes.c_void_p), ("t_hi", ctypes.c_void_p), ("by", ctypes.c_void_p),
                 ("consts", ctypes.c_void_p), ("counts", ctypes.c_void_p),
                 ("n_preds", ctypes.c_int32), ("n", ctypes.c_int32), ("e_pad", ctypes.c_int32),
                 ("u_pad", ctypes.c_int32), ("nb_real", ctypes.c_int32),
-                ("shared_hist", ctypes.c_int32)]
+                ("quads_per_cta", ctypes.c_int32), ("shared_hist", ctypes.c_int32),
+                ("preds", _Pred * _MAX_DESC_PREDS), ("edges", ctypes.c_uint64 * _VAL_EDGES),
+                ("uvals", ctypes.c_uint32 * _VAL_CODES)]
+
+
+def _check_aligned(kernel: str, arrays: dict, names: list) -> None:
+    """The kernels load 4 rows at a time (16 bytes): every column they
+    read starts on a 16-byte boundary, as each parked column does."""
+    for k in names:
+        if arrays[k].data_ptr() % 16:
+            raise ValueError(f"{kernel}: parked column {k} is not 16-byte aligned")
 
 
 def _parked_columns(kernel: str, arrays: dict, names: list) -> list:
     """The named parked columns, checked as the kernels read them: one
-    CUDA device, int32 (uint32 bits), contiguous, the same rows."""
+    CUDA device, int32 (uint32 bits), contiguous, the same rows, a
+    multiple of 8 of them."""
     cols = [arrays[k] for k in names]
     p, dev = cols[0].numel(), cols[0].device
     for k, c in zip(names, cols):
         if c.device != dev or c.dtype != torch.int32 or not c.is_contiguous() or c.numel() != p:
             raise ValueError(f"{kernel}: parked column {k} is {c.dtype} {tuple(c.shape)} on "
                              f"{c.device}, not int32 ({p},) on {dev}")
+    if p % 8:
+        raise ValueError(f"{kernel}: {p} parked rows, not a multiple of 8")
     return cols
 
 
@@ -331,41 +351,46 @@ def tail_fold(arrays: dict, n: int, preds: list, by_col: str | None, uvals: np.n
               edges_lo: np.ndarray, edges_hi: np.ndarray, nb_real: int) -> torch.Tensor:
     """Count the first `n` parked rows into (by-index, bin) cells.
 
-    arrays: the parked columns (int32 tensors of uint32 values, p rows);
-    preds: [(column, op, u32 literal)], ANDed, each also requiring the
-    column non-zero; edges_lo/hi: the bin edges (uint32 limbs, ascending,
-    padded with u64 max, e_pad of them); uvals: the by() codes (uint32,
-    ascending, padded with 0xFFFFFFFF; one zero without by()). A row's
-    bin is the number of edges <= its start less one, kept when in
-    [0, nb_real); its cell idx * (e_pad - 1) + bin, idx the number of
-    uvals <= its by() code less one. Returns len(uvals) * (e_pad - 1)
+    arrays: the parked columns (int32 tensors of uint32 values, p rows,
+    16-byte aligned); preds: [(column, op, u32 literal)], ANDed, each also
+    requiring the column non-zero; edges_lo/hi: the bin edges (uint32
+    limbs, ascending, padded with u64 max, e_pad of them); uvals: the by()
+    codes (uint32, ascending, padded with 0xFFFFFFFF; one zero without
+    by()). A row's bin is the number of edges <= its start less one, kept
+    when in [0, nb_real); its cell idx * (e_pad - 1) + bin, idx the number
+    of uvals <= its by() code less one. Returns len(uvals) * (e_pad - 1)
     int32 counts on the columns' device: the plain version for CPU
     tensors, one tail_fold launch for CUDA tensors (none for n = 0)."""
-    edges = (edges_hi.astype(np.uint64) << np.uint64(32)) | edges_lo.astype(np.uint64)
-    if len(edges) < 2 or len(edges_hi) != len(edges) or np.any(edges[1:] < edges[:-1]):
+    if len(edges_lo) < 2 or len(edges_hi) != len(edges_lo):
         raise ValueError("tail_fold: the bin edges must ascend, two at least")
-    if not 0 <= nb_real < len(edges) or np.any(uvals[1:] < uvals[:-1]):
+    edges = _edges_u64(edges_lo, edges_hi)
+    if not (edges[1:] >= edges[:-1]).all():
+        raise ValueError("tail_fold: the bin edges must ascend, two at least")
+    if not 0 <= nb_real < len(edges) or not (uvals[1:] >= uvals[:-1]).all():
         raise ValueError("tail_fold: nb_real out of range or the by() codes do not ascend")
+    names = ([col for col, _, _ in preds] + ["start_lo", "start_hi"]
+             + ([by_col] if by_col is not None else []))
+    _check_aligned("tail_fold", arrays, names)
     dev = arrays["start_lo"].device
     if dev.type == "cpu":
         return _tail_fold_plain(arrays, n, preds, by_col, uvals, edges_lo, edges_hi, nb_real)
     if dev.type != "cuda":
         raise ValueError(f"tail_fold: no kernel for device {dev}")
-    names = ([col for col, _, _ in preds] + ["start_lo", "start_hi"]
-             + ([by_col] if by_col is not None else []))
     cols = _parked_columns("tail_fold", arrays, names)
     if not 0 <= n <= cols[0].numel():
         raise ValueError(f"tail_fold: n={n} outside the {cols[0].numel()} parked rows")
-    e_pad, u_pad = len(edges_lo), len(uvals)
-    counts = torch.zeros(u_pad * (e_pad - 1), dtype=torch.int32, device=dev)
     if n == 0:
-        return counts
-    # the only host input: the edges and the by() codes, one copy
-    consts = fold_consts(uvals, edges_lo, edges_hi, dev)
-    # _more (the predicates past the descriptor's 16) lives until the launch
-    desc, _more = fold_descriptor(arrays, n, preds, by_col, u_pad, e_pad, nb_real, consts,
-                                  counts)
+        return torch.zeros(len(uvals) * (len(edges) - 1), dtype=torch.int32, device=dev)
+    # the kernel's entry point zeroes the counts
+    counts = torch.empty(len(uvals) * (len(edges) - 1), dtype=torch.int32, device=dev)
+    desc, staged = fold_descriptor(arrays, n, preds, by_col, uvals, edges, nb_real, counts)
     with torch.cuda.device(dev):
+        if staged is not None:
+            # the constants past the descriptor's room: one copy from this
+            # thread's pinned buffer, alive (the caching allocator's stream
+            # order) until the launch below has read it
+            on_card = _stage(staged, dev)
+            desc.consts = on_card.data_ptr()
         err = _build.lib().tt_tail_fold(ctypes.addressof(desc), _stream(counts))
     _build.check(err, "tail_fold")
     tail_fold.launches += 1
@@ -375,35 +400,80 @@ def tail_fold(arrays: dict, n: int, preds: list, by_col: str | None, uvals: np.n
 tail_fold.launches = 0
 
 
-def fold_consts(uvals: np.ndarray, edges_lo: np.ndarray, edges_hi: np.ndarray,
-                device) -> torch.Tensor:
-    """edges_lo, edges_hi and uvals as one int32 tensor on `device`, the
-    layout tail_fold_kernel reads."""
-    both = np.concatenate([edges_lo, edges_hi, uvals]).astype(np.uint32).view(np.int32)
-    return torch.from_numpy(both).to(device)
+def _edges_u64(edges_lo: np.ndarray, edges_hi: np.ndarray) -> np.ndarray:
+    """The edges as u64 from their limbs, written into the halves of each
+    little-endian word (cheaper than shifts on a fold's few edges)."""
+    edges = np.empty(len(edges_lo), np.uint64)
+    limbs = edges.view(np.uint32).reshape(-1, 2)
+    limbs[:, 0] = edges_lo
+    limbs[:, 1] = edges_hi
+    return edges
 
 
-def fold_descriptor(arrays: dict, n: int, preds: list, by_col: str | None, u_pad: int,
-                    e_pad: int, nb_real: int, consts: torch.Tensor,
-                    counts: torch.Tensor) -> tuple:
-    """(the kernel's descriptor, the device array of predicates past the
-    16 it holds by value, or None). The caller keeps the array alive
-    until the launch is enqueued."""
-    desc = _FoldDesc(n_preds=len(preds), n=n, e_pad=e_pad, u_pad=u_pad, nb_real=nb_real,
-                     t_lo=arrays["start_lo"].data_ptr(), t_hi=arrays["start_hi"].data_ptr(),
-                     by=None if by_col is None else arrays[by_col].data_ptr(),
-                     consts=consts.data_ptr(), counts=counts.data_ptr())
-    more = None
-    if len(preds) > _MAX_DESC_PREDS:
-        # Pred {col, lit, op} as two 64-bit words each
-        words = np.array([[arrays[col].data_ptr(), int(lit) | (_OP_CODES[op] << 32)]
-                          for col, op, lit in preds], np.uint64).view(np.int64)
-        more = torch.from_numpy(words).to(counts.device)
-        desc.more = more.data_ptr()
-    else:
-        for j, (col, op, lit) in enumerate(preds):
-            desc.preds[j] = _Pred(arrays[col].data_ptr(), int(lit), _OP_CODES[op])
-    return desc, more
+def fold_consts(arrays: dict, preds: list, uvals: np.ndarray, edges: np.ndarray) -> np.ndarray:
+    """The constants as tail_fold_kernel reads them from the card when they
+    do not fit the descriptor, as bytes: the edges as u64 (e_pad of them),
+    the by() codes as u32 (u_pad, padded to 8 bytes), then each predicate
+    as its column's address, its u32 literal and its operator code (16
+    bytes, tail::Pred)."""
+    codes = np.zeros(-(-len(uvals) // 2) * 2, np.uint32)
+    codes[: len(uvals)] = uvals
+    words = np.array([[arrays[col].data_ptr(), int(lit) | (_OP_CODES[op] << 32)]
+                      for col, op, lit in preds], np.uint64).reshape(-1, 2)
+    return np.concatenate([np.ascontiguousarray(edges, np.uint64).view(np.uint8),
+                           codes.view(np.uint8), words.view(np.uint8).ravel()])
+
+
+def fold_descriptor(arrays: dict, n: int, preds: list, by_col: str | None, uvals: np.ndarray,
+                    edges: np.ndarray, nb_real: int, counts: torch.Tensor) -> tuple:
+    """(the kernel's descriptor, None) when the edges (u64), the by() codes
+    and the predicates fit it: they travel by value. Else (the descriptor,
+    fold_consts' bytes): the caller copies the bytes to the card and sets
+    the descriptor's `consts` to them."""
+    e_pad, u_pad = len(edges), len(uvals)
+    desc = _FoldDesc()
+    desc.n_preds, desc.n, desc.nb_real = len(preds), n, nb_real
+    desc.e_pad, desc.u_pad = e_pad, u_pad
+    desc.t_lo, desc.t_hi = arrays["start_lo"].data_ptr(), arrays["start_hi"].data_ptr()
+    desc.by = None if by_col is None else arrays[by_col].data_ptr()
+    desc.counts = counts.data_ptr()
+    if e_pad > _VAL_EDGES or u_pad > _VAL_CODES or len(preds) > _MAX_DESC_PREDS:
+        return desc, fold_consts(arrays, preds, uvals, edges)
+    np.frombuffer(desc.edges, np.uint64)[:e_pad] = edges
+    np.frombuffer(desc.uvals, np.uint32)[:u_pad] = uvals
+    for j, (col, op, lit) in enumerate(preds):
+        desc.preds[j] = _Pred(arrays[col].data_ptr(), int(lit), _OP_CODES[op])
+    return desc, None
+
+
+class _Staging(threading.local):
+    """A thread's pinned host buffer a device for the fold's staged
+    constants, and the event of its last copy out: the buffer is
+    rewritten only once that copy has finished."""
+
+    def __init__(self):
+        self.slots: dict = {}  # device -> (pinned buffer, event)
+
+
+_STAGING = _Staging()
+
+
+def _stage(data: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """`data` (uint8) on `dev` (the current device) in one copy on the
+    current stream from this thread's pinned buffer."""
+    buf, event = _STAGING.slots.get(dev, (None, None))
+    if event is not None:
+        event.synchronize()
+    if buf is None or buf.numel() < data.nbytes:
+        buf = torch.empty(max(data.nbytes, _STAGING_BYTES), dtype=torch.uint8, pin_memory=True)
+        event = torch.cuda.Event()
+        _STAGING.slots[dev] = (buf, event)
+    host = buf[: data.nbytes]
+    host.numpy()[:] = data
+    out = torch.empty(data.nbytes, dtype=torch.uint8, device=dev)
+    out.copy_(host, non_blocking=True)
+    event.record()
+    return out
 
 
 def fold_args(plan, fold_plan: FoldPlan, batch, dictionary):
@@ -568,7 +638,8 @@ class _ScanDesc(ctypes.Structure):
 
 def tail_scan(arrays: dict, n: int, eq: list, status: int | None, min_ns: int,
               max_ns: int) -> torch.Tensor:
-    """The live-tail span mask over p parked rows: row < n, each
+    """The live-tail span mask over p parked rows (16-byte aligned
+    columns; on the card p a multiple of 8): row < n, each
     (column, code) of `eq` equal, http_status == status (None: no
     status tag), min_ns <= duration <= max_ns (0: no bound; two u32
     limbs). Returns a (p,) bool tensor on the columns' device: the plain
@@ -579,13 +650,14 @@ def tail_scan(arrays: dict, n: int, eq: list, status: int | None, min_ns: int,
         raise ValueError(f"tail_scan: status {status} is not a u32")
     if not (0 <= min_ns < 2**64 and 0 <= max_ns < 2**64):
         raise ValueError("tail_scan: duration bounds must be u64")
+    names = (["service"] + [col for col, _ in eq] + (["http_status"] if status is not None else [])
+             + (["dur_lo", "dur_hi"] if min_ns or max_ns else []))
+    _check_aligned("tail_scan", arrays, names)
     dev = arrays["service"].device
     if dev.type == "cpu":
         return _tail_scan_plain(arrays, n, eq, status, min_ns, max_ns)
     if dev.type != "cuda":
         raise ValueError(f"tail_scan: no kernel for device {dev}")
-    names = (["service"] + [col for col, _ in eq] + (["http_status"] if status is not None else [])
-             + (["dur_lo", "dur_hi"] if min_ns or max_ns else []))
     cols = _parked_columns("tail_scan", arrays, names)
     p = cols[0].numel()
     if not 0 <= n <= p:

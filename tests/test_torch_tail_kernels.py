@@ -4,14 +4,18 @@
 On the CPU: each plain version against a numpy oracle written row by row
 from the reference's definition (a row's bin is the number of edges <=
 its start less one, on two u32 limbs; its by() index the number of codes
-<= its code less one), and the wrappers' refusals. On the card (`cuda`,
-skipped here): each kernel against its plain version, bit for bit, over
-parked columns of 1 to 2**20 rows, every operator, predicates by value
-and through the device array (more than 16), by() over 1 to 4,096 codes,
-2 to 4,096 edges (private histograms and global atomics), the launch
-counts; the resident fold on a card tier against a CPU tier's; and the
-device profile window, whose trace names the kernels. This file imports
-no JAX.
+<= its code less one), the fold's descriptor (its constants by value, or
+the staged layout past the descriptor's room), and the wrappers'
+refusals (a column that is not 16-byte aligned among them). On the card
+(`cuda`, skipped here): each kernel against its plain version, bit for
+bit, over parked columns of 1 to 2**20 rows, every operator, predicates
+by value and staged (more than 16), by() over 1 to 4,096 codes, 2 to
+4,096 edges (private histograms and global atomics), the launch counts;
+row counts at each side of a thread's and a CTA's rows, p = 8, cuts of
+make_batch traces, every row passing and none, edges and codes at each
+side of the by-value limit, two threads staging at once; the resident
+fold on a card tier against a CPU tier's; and the device profile window,
+whose trace names the kernels. This file imports no JAX.
 """
 
 import json
@@ -159,6 +163,74 @@ def test_wrappers_refuse_bad_inputs():
         ingest_tail.tail_scan(meta, 60, [], None, 0, 0)
 
 
+@pytest.mark.parametrize("e_pad,u_pad,n_preds", [
+    (8, 1, 0), (64, 8, 1), (128, 128, 16),  # by value
+    (256, 8, 1), (64, 256, 2), (64, 8, 17), (2048, 4096, 3),  # staged
+])
+def test_fold_descriptor_by_value_and_staged_layout(e_pad, u_pad, n_preds):
+    """The descriptor carries the edges (u64), the by() codes and the
+    predicates by value when they fit (128 edges, 128 codes, 16
+    predicates), the same values fold_consts lays out for the card;
+    past that it carries none and hands back fold_consts' bytes."""
+    cols = _tensors(_parked(np.random.default_rng(e_pad + u_pad), 64, 60, 10**18, 10**9), "cpu")
+    lo, hi = _edges(10**18, 10**9, e_pad - 2)
+    assert len(lo) == e_pad
+    uvals = np.full(u_pad, 0xFFFFFFFF, np.uint32)
+    uvals[: u_pad // 2 + 1] = np.arange(u_pad // 2 + 1) * 3
+    names = ("service", "name", "http_status", "http_url")
+    preds = [(names[j % 4], OPS[j % 6], 7 * j + 1) for j in range(n_preds)]
+    edges = ingest_tail._edges_u64(lo, hi)
+    counts = torch.zeros(u_pad * (e_pad - 1), dtype=torch.int32)
+    desc, staged = ingest_tail.fold_descriptor(cols, 60, preds, "name", uvals, edges, e_pad - 3,
+                                               counts)
+    assert (desc.n, desc.e_pad, desc.u_pad, desc.n_preds, desc.nb_real) == (
+        60, e_pad, u_pad, n_preds, e_pad - 3)
+    assert (desc.t_lo, desc.t_hi, desc.by, desc.counts) == (
+        cols["start_lo"].data_ptr(), cols["start_hi"].data_ptr(), cols["name"].data_ptr(),
+        counts.data_ptr())
+    assert desc.consts is None
+    layout = ingest_tail.fold_consts(cols, preds, uvals, edges)
+    # the staged layout: edges, codes padded to 8 bytes, 16 bytes a predicate
+    code_bytes = 4 * u_pad + (4 * u_pad) % 8
+    assert layout.dtype == np.uint8 and layout.nbytes == 8 * e_pad + code_bytes + 16 * n_preds
+    assert np.array_equal(layout[: 8 * e_pad].view(np.uint64),
+                          (hi.astype(np.uint64) << np.uint64(32)) | lo)
+    assert np.array_equal(layout[8 * e_pad: 8 * e_pad + 4 * u_pad].view(np.uint32), uvals)
+    words = layout[8 * e_pad + code_bytes:].view(np.uint64).reshape(-1, 2)
+    want = [(cols[c].data_ptr(), lit | (ingest_tail._OP_CODES[op] << 32)) for c, op, lit in preds]
+    assert [tuple(int(x) for x in w) for w in words] == want
+    by_value = (e_pad <= 128 and u_pad <= 128 and n_preds <= 16)
+    assert (staged is None) == by_value
+    if by_value:
+        assert list(desc.edges[:e_pad]) == list(layout[: 8 * e_pad].view(np.uint64))
+        assert list(desc.uvals[:u_pad]) == list(uvals)
+        assert [(desc.preds[j].col, desc.preds[j].lit | (desc.preds[j].op << 32))
+                for j in range(n_preds)] == want
+    else:
+        assert np.array_equal(staged, layout)
+        assert not any(desc.edges) and not any(desc.uvals)
+
+
+@pytest.mark.parametrize("kernel,col", [("fold", "start_lo"), ("fold", "start_hi"),
+                                        ("fold", "name"), ("fold", "service"),
+                                        ("scan", "service"), ("scan", "http_method"),
+                                        ("scan", "http_status"), ("scan", "dur_hi")])
+def test_wrappers_refuse_unaligned_columns(kernel, col):
+    """The kernels load 4 rows (16 bytes) at a time: a column that does not
+    start on a 16-byte boundary is refused, on any device, never folded or
+    scanned some other way."""
+    cols = _tensors(_parked(np.random.default_rng(1), 64, 60, 10**18, 10**9), "cpu")
+    cols[col] = torch.cat([cols[col][:1], cols[col]])[1:]  # 4 bytes past a boundary
+    assert cols[col].data_ptr() % 16 == 4
+    lo, hi = _edges(10**18, 10**9, 4)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        if kernel == "fold":
+            ingest_tail.tail_fold(cols, 60, [("service", "=", 3)], "name",
+                                  _uvals(cols["name"].numpy()[:60]), lo, hi, 4)
+        else:
+            ingest_tail.tail_scan(cols, 60, [("http_method", 2)], 200, 1, 1 << 40)
+
+
 # ---------------------------------------------------------------------------
 # the kernels on the card
 # ---------------------------------------------------------------------------
@@ -174,7 +246,7 @@ def test_tail_fold_kernel_equals_plain(n, case, nb):
     p = ingest_tail._pow2(n)
     t0, step = ((1 << 32) * 409_600_000) - 7 * 10**9, 10**9
     cols = _parked(rng, p, n, t0, step * nb)
-    if case == len(FOLD_CASES):  # 17 predicates: the descriptor's device array
+    if case == len(FOLD_CASES):  # 17 predicates: the staged constants
         preds = [("http_status", op, 300) for op in (">", ">=", "!=")] * 5 + [
             ("service", "!=", 99), ("name", "<", 11)]
         by_col = "name"
@@ -304,3 +376,160 @@ def test_device_profile_window_names_the_kernels():
     with open(os.path.join(doc["dir"], profiling.TRACE_FILE)) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"}
     assert any("tail_fold_kernel" in x for x in names) and any("tail_scan_kernel" in x for x in names)
+
+
+# the kernels' edges at each side: a fold thread's round (16 rows) and a fold
+# CTA's (4,096 rows), a multiple of a scan thread's run (4 or 8 rows); the
+# row count under which a fold's grid drops below one CTA an SM on a 132-SM
+# card (132 x 128); a phase 12 (a) cut
+EDGE_NS = [15, 16, 17, 4095, 4096, 4097, 16_895, 16_897, 32_768]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", EDGE_NS)
+@pytest.mark.parametrize("case", [0, 1, 2, 6])
+def test_tail_fold_kernel_edges_equal_plain(n, case):
+    dev = _cuda()
+    rng = np.random.default_rng(7 * n + case)
+    t0, step, nb = ((1 << 32) * 409_600_000) - 7 * 10**9, 10**9, 46
+    cols = _parked(rng, ingest_tail._pow2(n), n, t0, step * nb)
+    preds, by_col = FOLD_CASES[case]
+    lo, hi = _edges(t0, step, nb)
+    uvals = _uvals(cols[by_col][:n]) if by_col else np.zeros(1, np.uint32)
+    got = ingest_tail.tail_fold(_tensors(cols, dev), n, preds, by_col, uvals, lo, hi, nb)
+    want = ingest_tail.tail_fold(_tensors(cols, "cpu"), n, preds, by_col, uvals, lo, hi, nb)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 3, 7, 8, 1023, 1025] + EDGE_NS)
+@pytest.mark.parametrize("eq,status,mn,mx", [
+    ([("service", 3)], None, 0, 0),
+    ([("service", 1), ("name", 1)], 404, 1 << 20, 1 << 33),
+])
+def test_tail_scan_kernel_edges_equal_plain(n, eq, status, mn, mx):
+    """n at each side of a thread's run and of a CTA's round (1,024 rows
+    of 4-row runs), p = 8, and rows [n, p) written 0."""
+    dev = _cuda()
+    rng = np.random.default_rng(n + 11)
+    cols = _parked(rng, ingest_tail._pow2(n), n, 10**18, 10**9)
+    got = ingest_tail.tail_scan(_tensors(cols, dev), n, eq, status, mn, mx)
+    want = ingest_tail.tail_scan(_tensors(cols, "cpu"), n, eq, status, mn, mx)
+    assert got.shape == (ingest_tail._pow2(n),) and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["all", "none"])
+def test_tail_kernels_every_row_or_none(which):
+    """Every row passing (defined columns, edges around every start, a
+    duration bound every row meets) and no row passing."""
+    dev = _cuda()
+    n = 100_003
+    rng = np.random.default_rng(5)
+    t0, step, nb = 10**18, 10**9, 20
+    cols = _parked(rng, ingest_tail._pow2(n), n, t0, step * nb)
+    t = t0 + rng.integers(0, step * nb, n).astype(np.uint64)  # every start in a bin
+    cols["start_lo"][:n] = (t & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    cols["start_hi"][:n] = (t >> np.uint64(32)).astype(np.uint32)
+    lo, hi = _edges(t0, step, nb)
+    lit = 1 if which == "all" else 99
+    preds = [("kind", ">=" if which == "all" else "=", lit)]
+    uvals = _uvals(cols["service"][:n])
+    got = ingest_tail.tail_fold(_tensors(cols, dev), n, preds, "service", uvals, lo, hi, nb)
+    want = ingest_tail.tail_fold(_tensors(cols, "cpu"), n, preds, "service", uvals, lo, hi, nb)
+    assert torch.equal(got.cpu(), want) and int(want.sum()) == (n if which == "all" else 0)
+    eq = [] if which == "all" else [("service", 99)]
+    got = ingest_tail.tail_scan(_tensors(cols, dev), n, eq, None, 0, 1 << 40)
+    want = ingest_tail.tail_scan(_tensors(cols, "cpu"), n, eq, None, 0, 1 << 40)
+    assert torch.equal(got.cpu(), want) and int(want.sum()) == (n if which == "all" else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [
+    '{ resource.service.name = "cart" } | rate() by (name)',
+    "{} | count_over_time() by (resource.service.name)",
+    '{ span.http.status_code >= 200 } | count_over_time() by (span.http.url)',
+])
+def test_tail_fold_make_batch_hot_cells(q):
+    """Rows from synth.make_batch, parked through park_cut: the spans of a
+    trace share a service and a minute, so neighbouring rows add into the
+    same cell; the card's fold == the plain version's over the same cut."""
+    dev = _cuda()
+    batch = synth.make_batch(4096, 8, seed=17)
+    t0 = int(batch.cols["start_unix_nano"].min()) // 10**9
+    plan = compile_metrics_plan(q, t0 - 60, t0 + 3600, 60)
+    fp = ingest_tail.lower_fold_plan(plan)
+    assert fp is not None
+    args = ingest_tail.fold_args(plan, fp, batch, batch.dictionary)
+    _lits, preds, _real, uvals, lo, hi = args
+    out = []
+    for device in (dev, "cpu"):
+        tier = colcache.DeviceTier(256 << 20, ingest_tail_budget_bytes=128 << 20, device=device)
+        key = ingest_tail.park_cut(tier, "t", "b:0", batch)
+        arrays = tier.get(key).arrays
+        out.append(ingest_tail.tail_fold(arrays, batch.num_spans, preds, fp.by_col, uvals, lo, hi,
+                                         plan.n_bins).cpu())
+    assert torch.equal(out[0], out[1]) and int(out[1].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,n_codes", [(126, 128), (127, 128), (126, 129), (127, 129)])
+def test_tail_fold_by_value_limit(nb, n_codes):
+    """Edges and by() codes at each side of the descriptor's room (e_pad
+    128 / 256, u_pad 128 / 256): both arms of the constants, by value and
+    staged, against the plain version."""
+    dev = _cuda()
+    n = 50_000
+    rng = np.random.default_rng(nb + n_codes)
+    t0, step = 10**18, 10**8
+    cols = _parked(rng, ingest_tail._pow2(n), n, t0, step * nb)
+    cols["http_url"][:n] = rng.integers(1, n_codes + 1, n)
+    lo, hi = _edges(t0, step, nb)
+    uvals = _uvals(cols["http_url"][:n])
+    assert (len(lo), len(uvals)) == (128 if nb == 126 else 256, 128 if n_codes == 128 else 256)
+    preds = [("service", "!=", 3)]
+    desc, staged = ingest_tail.fold_descriptor(
+        _tensors(cols, "cpu"), n, preds, "http_url", uvals, ingest_tail._edges_u64(lo, hi), nb,
+        torch.zeros(1, dtype=torch.int32))
+    assert (staged is None) == (nb == 126 and n_codes == 128)
+    got = ingest_tail.tail_fold(_tensors(cols, dev), n, preds, "http_url", uvals, lo, hi, nb)
+    want = ingest_tail.tail_fold(_tensors(cols, "cpu"), n, preds, "http_url", uvals, lo, hi, nb)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_tail_fold_threads_staged_at_once():
+    """Two threads fold at once, both through the staged arm (each its own
+    pinned buffer) with constants of different sizes, each 40 times: every
+    fold == its plain version, so no copy overwrote constants a launch
+    still had to read."""
+    import threading
+
+    dev = _cuda()
+    t0, step = ((1 << 32) * 409_600_000) - 7 * 10**9, 10**9
+    jobs = []
+    for n, nb, n_codes in ((3000, 200, 40), (1 << 18, 2046, 4000)):
+        rng = np.random.default_rng(n)
+        cols = _parked(rng, ingest_tail._pow2(n), n, t0, step * nb)
+        cols["http_url"][:n] = rng.integers(1, n_codes + 1, n)
+        lo, hi = _edges(t0, step, nb)
+        uvals = _uvals(cols["http_url"][:n])
+        args = (n, [("http_status", "!=", 404)], "http_url", uvals, lo, hi, nb)
+        want = ingest_tail.tail_fold(_tensors(cols, "cpu"), *args)
+        jobs.append((_tensors(cols, dev), args, want))
+    errors = []
+
+    def run(arrays, args, want):
+        try:
+            for _ in range(40):
+                got = ingest_tail.tail_fold(arrays, *args)
+                assert torch.equal(got.cpu(), want)
+        except Exception as e:  # noqa: BLE001 - reported by the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=job) for job in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
