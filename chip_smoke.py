@@ -198,7 +198,31 @@ Phases, one line each (any failure exits non-zero):
    through park_cut (2**20 rows, 46 MB): every lowered query through
    resident_fold on the card == the plain version == eval_batch, the
    eight masks == plain == the host loop, and both kernels timed as in
-   phase 2 beside their path, plain and torch-chain times and bound.
+   phase 2 beside their path, plain and torch-chain times and bound;
+13. the result cache, the backend cache and the incident plane: (a) a
+   card App with `storage.trace.result_cache` on and `cache: memory`
+   and a second card App with TEMPO_TPU_RESULT_CACHE=0, each over a copy
+   of phase 6's two card-written 2**20-span blocks and phase 11's
+   2**20-span graph block, asked over HTTP phase 4's three query_range
+   queries, phase 7's seven tag searches (unbounded), a critical path
+   and the dependency graph: a cold pass, a repeat (no seg_bincount or
+   root_path_sums launch, 0 B inspected), a repeat after 2**17 spans
+   pushed in 32 OTLP requests and /flushed into a third block (only it
+   recomputes), and a pass of the query_range and graph requests under
+   TEMPO_TPU_FAULTS=corrupt=1.0,seed=7 (every entry damaged, counted and
+   recomputed); every answer bit-equal to the cache-off App's, the
+   result-cache counters and the insights verdicts (store, hit, store)
+   as the reference's; ms (split by request kind), launches and
+   device-to-host bytes a pass printed; four standing queries over
+   2**17 recent spans on a third App (the result cache's remote tier a
+   loopback memcached), crashed and restarted twice: the second
+   restart's rebuilds replay every block's cached row log and every read
+   equals the reads before the crashes and a cache-off App's; (b) a card
+   App and a CPU App with slo, rca and vulture on run the reference's
+   campaign under TEMPO_TPU_FAULTS=notfound=1.0,seed=7: one incident
+   each, backend_fault at tier aged, equal apart from ids and clocks;
+   none fault-free; /api/rca, /api/rca/{id}, /status/rca and /status/slo
+   equal on both.
 
 Phases 3-4 are the main path, phase 5 the scan path, phase 6 the block
 path, phase 7 the storage engine's path, phase 8 the server's path and
@@ -208,7 +232,10 @@ phase 10 the device tier's (the three resident scans, compiled_metrics)
 and phase 11 the generator's and the graph plane's (hll_update,
 cm_update, root_path_sums, and the page-encode kernels of its flushes)
 and phase 12 (a) the ingest tail's (tail_fold, tail_scan, and
-seg_bincount for the queries that do not lower;
+seg_bincount for the queries that do not lower) and phase 13 the result
+cache's (seg_bincount and root_path_sums on the cache-on App's misses,
+counted over its passes alone, none on its hits, and the page-encode
+kernels at its flush;
 the sketch kernels also run on phases 3 and 6-9: compaction, every card
 block write and every push through the generator):
 each is run with the kernels' launch counts set to 0 just before it,
@@ -221,10 +248,11 @@ the compiled tier fuses into its count). The script then prints
 one JSON line of per-kernel and per-phase numbers (phase 6's under
 "blocks", phase 7's under "db", phase 8's under "app", phase 9's under
 "standing", phase 10's under "tier", phase 11's under "graph", phase
-12's under "tail"; "shed" names the depth a slow host cut: phase 7's
+12's under "tail", phase 13's under "resultcache"; "shed" names the depth a slow host cut: phase 7's
 warm unbounded repeats past 250 s before it, phase 8's interpreter runs
 past 420 s before it, phase 11's generator-off push past 750 s before
-it; phase 12 sheds nothing), the nvidia-smi
+it, phase 13's after-push searches past 800 s before it; phase 12
+sheds nothing), the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Without a CUDA
 device it exits 1 and prints no result. It imports nothing of JAX or of
 tempo_tpu.
@@ -237,6 +265,7 @@ import ctypes
 import gzip
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3166,7 +3195,7 @@ def _generator_oracle(batches: list) -> dict:
     return out
 
 
-def graph_phase(seed: int, root: str, shed: bool = False) -> dict:
+def graph_phase(seed: int, root: str, shed: bool = False, keep: str | None = None) -> dict:
     """Phase 11, the metrics-generator and the graph plane at full width:
     a fresh App(device="cuda") with the defaults (the generator on; the
     live-trace cap raised for the 16,384 traces of the push), and beside
@@ -3183,7 +3212,9 @@ def graph_phase(seed: int, root: str, shed: bool = False) -> dict:
     /api/graph/critical-path (by=service and by=name) and
     /api/graph/walks (seed 7) asked of both: the documents equal field
     for field (wall-clock and byte stats aside), the edge and trace
-    totals equal the generator's construction. Returns its numbers."""
+    totals equal the generator's construction. `keep`: a blocks root that
+    gets a copy of the 2**20-span block (phase 13's graph block). Returns
+    its numbers."""
     import http.client
     import shutil
 
@@ -3328,8 +3359,9 @@ def graph_phase(seed: int, root: str, shed: bool = False) -> dict:
         t0 = time.perf_counter()
         meta = card.db.write_batch(tenant, big, block_id=str(uuid.UUID(int=seed + 11)))
         res["block_write_ms"] = (time.perf_counter() - t0) * 1e3
-        shutil.copytree(os.path.join(root, "card", "blocks", tenant, meta.block_id),
-                        os.path.join(root, "cpu", "blocks", tenant, meta.block_id))
+        for dst in [os.path.join(root, "cpu", "blocks")] + ([keep] if keep else []):
+            shutil.copytree(os.path.join(root, "card", "blocks", tenant, meta.block_id),
+                            os.path.join(dst, tenant, meta.block_id))
         cpu.db.poll_now()
         card.db.poll_now()
         metas = [sorted(m.total_spans for m in a.db.blocklist.metas(tenant)) for a in (card, cpu)]
@@ -4085,6 +4117,614 @@ def time_tail_kernels(torch, dev, lib, stream, arrays: dict, batch, window: tupl
     return recs
 
 
+class LoopbackMemcached:
+    """A memcached text-protocol server on 127.0.0.1 in this process (set
+    and get only): the remote tier that outlives an App's crash, as a
+    deployment's memcached does."""
+
+    def __init__(self):
+        import socket
+        import threading
+
+        self.data: dict = {}
+        self.sock = socket.socket()
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.listen(8)
+        self.addr = f"127.0.0.1:{self.sock.getsockname()[1]}"
+        threading.Thread(target=self._accept, daemon=True).start()
+
+    def _accept(self):
+        import threading
+
+        while True:
+            try:
+                conn, _ = self.sock.accept()
+            except OSError:
+                return
+            threading.Thread(target=self._serve, args=(conn,), daemon=True).start()
+
+    def _serve(self, conn):
+        f = conn.makefile("rb")
+        try:
+            while True:
+                line = f.readline()
+                if not line:
+                    return
+                parts = line.split()
+                if parts[0] == b"set":
+                    val = f.read(int(parts[4]))
+                    f.read(2)
+                    self.data[parts[1]] = val
+                    conn.sendall(b"STORED\r\n")
+                elif parts[0] == b"get":
+                    out = bytearray()
+                    for k in parts[1:]:
+                        v = self.data.get(k)
+                        if v is not None:
+                            out += b"VALUE %s 0 %d\r\n%s\r\n" % (k, len(v), v)
+                    conn.sendall(bytes(out) + b"END\r\n")
+        except OSError:
+            return
+        finally:
+            conn.close()
+
+    def close(self):
+        self.sock.close()
+
+
+# phase 13's seven unbounded tag searches: phase 7's, over HTTP
+RC_SEARCHES = [
+    ("service=cart", {"tags": "service=cart"}),
+    ("service=cart name=db.query", {"tags": "service=cart name=db.query"}),
+    ("http.status_code=500", {"tags": "http.status_code=500"}),
+    ("region=v7", {"tags": "region=v7"}),
+    ("duration>=990ms", {"minDuration": "990ms"}),
+    ("window", {"start": BASE_S + 8 * 60, "end": BASE_S + 16 * 60}),
+    ("service=no-such-service", {"tags": "service=no-such-service"}),
+]
+# past this many seconds of phases 0-12, phase 13 sheds its after-push
+# searches: the worst phases 0-12 recorded (909.5 s, a slow host) plus
+# phase 13 with that shed stay well inside the 1,200-s limit
+SHED13_S = 800
+RC_GRAPH = [("dependencies", "/api/graph/dependencies"),
+            ("critical-path", "/api/graph/critical-path?by=service")]
+# phase 13's standing queries: four of phase 9's, two served from
+# step-partial rows and two from span rows
+RC_STANDING = ["{ } | rate() by (resource.service.name)",
+               "{ status = error } | count_over_time() by (name)",
+               "{ } | histogram_over_time(duration)",
+               "{ } | quantile_over_time(duration, 0.9) by (name)"]
+
+
+def resultcache_phase(seed: int, root: str, queries: list, plan_of, shed: bool = False) -> dict:
+    """Phase 13 (a), the result cache and the backend cache at full width:
+    root/src/blocks holds copies of phase 6's two card-written 2**20-span
+    blocks (tenant smoke) and of phase 11's 2**20-span make_graph_batch
+    block (tenant single-tenant). A card App with the result cache on
+    and `cache: memory`, and a second card App over another copy with
+    TEMPO_TPU_RESULT_CACHE=0 around its requests, both with hedging off
+    and every query's insights recorded, are asked over HTTP phase 4's
+    three query_range queries, phase 7's seven tag searches (unbounded),
+    one /api/graph/critical-path and one /api/graph/dependencies, in
+    passes: cold (each block recomputed through the card and stored),
+    repeat (every block a hit: no seg_bincount or root_path_sums launch,
+    inspectedBytes 0), after 2**17 spans pushed as 32 OTLP requests and
+    /flushed into a third block (the old blocks hit, the new one
+    recomputes), and the query_range and graph requests once more under
+    TEMPO_TPU_FAULTS=corrupt=1.0,seed=7 (every fetched entry damaged,
+    detected and recomputed; damaged search entries are held against
+    the JAX package in tests/test_torch_resultcache.py). Every answer is
+    bit-equal to the cache-off App's; the result-cache counters and
+    /api/query-insights's verdicts move as the reference's do. Then four
+    standing queries on a third App (cache: memcached on a loopback
+    server) over 2**17 recent spans, crashed and restarted twice: the
+    second restart's rebuilds replay the stored row logs, and every read
+    equals the first rebuild's and a cache-off App's. `shed` (a slow
+    host's depth cut) drops the seven searches from both Apps' after-push
+    passes, a repeat of the repeat pass's search hits and the cold
+    pass's search misses. Returns its numbers, with the launches of the
+    cache-on App's passes (`launches_path`) apart from the cache-off
+    App's (`launches_control`)."""
+    import http.client
+
+    from tempo_tpu_torch import resultcache as rc_mod
+    from tempo_tpu_torch.api.server import TempoServer
+    from tempo_tpu_torch.app import App, AppConfig
+    from tempo_tpu_torch.db import DBConfig
+    from tempo_tpu_torch.encoding.vtpu.colcache import shared_cache
+    from tempo_tpu_torch.model import synth
+    from tempo_tpu_torch.model.trace import batch_to_traces
+    from tempo_tpu_torch.modules.frontend import FrontendConfig
+    from tempo_tpu_torch.modules.overrides import Limits
+    from tempo_tpu_torch.receivers import otlp
+    from tempo_tpu_torch.resultcache import ResultCacheConfig
+    from tempo_tpu_torch.util.devicetiming import STATS
+
+    t_phase = time.perf_counter()
+    res: dict = {"passes": {}}
+    smoke, gtenant = "smoke", "single-tenant"
+    kinds = rc_mod.RC_KINDS
+
+    def counts() -> dict:
+        return {kind: {name: c.value(kind=kind) for name, c in (
+            ("hits", rc_mod.rc_hits), ("misses", rc_mod.rc_misses),
+            ("negative", rc_mod.rc_negative), ("stores", rc_mod.rc_stores),
+            ("corrupt", rc_mod.rc_corrupt), ("bytes_saved", rc_mod.rc_bytes_saved))}
+            for kind in kinds}
+
+    def delta(after: dict, before: dict) -> dict:
+        return {k: {n: after[k][n] - before[k][n] for n in after[k]} for k in after}
+
+    def make_app(name: str, cache_on: bool):
+        app_root = os.path.join(root, name)
+        shutil.copytree(os.path.join(root, "src", "blocks"), os.path.join(app_root, "blocks"))
+        app = App(AppConfig(
+            db=DBConfig(backend="local", backend_path=os.path.join(app_root, "blocks"),
+                        wal_path=os.path.join(app_root, "wal"), cache="memory",
+                        # both tiers sized for the unbounded searches'
+                        # partials (~100 MB of JSON over the two blocks;
+                        # each tier's default is 64 MB)
+                        cache_options={"max_bytes": 1 << 30},
+                        result_cache=ResultCacheConfig(enabled=cache_on, max_bytes=1 << 30)),
+            # every query recorded in the insights ring, none logged as slow
+            frontend=FrontendConfig(hedge_after_s=0, insights_sample_every=1,
+                                    insights_slow_threshold_s=3600.0),
+            limits=Limits(max_traces_per_user=1 << 16), multitenancy_enabled=True,
+            generator_enabled=False), device="cuda")
+        server = TempoServer(app, host="127.0.0.1", port=0).start()
+        app.db.poll_now()
+        return app, server, http.client.HTTPConnection("127.0.0.1", server.port, timeout=900)
+
+    apps = {"on": make_app("on", True), "off": make_app("off", False)}
+    on_app = apps["on"][0]
+    check(on_app.device.type == "cuda" and on_app.db.result_cache.enabled()
+          and type(on_app.db.backend.raw).__name__ == "CachedBackend",
+          f"phase 13: the cache-on App runs on {on_app.device}")
+    check(not apps["off"][0].db.result_cache.enabled(), "phase 13: the cache-off App caches")
+    n_blocks = {t: len(on_app.db.blocklist.metas(t)) for t in (smoke, gtenant)}
+    check(n_blocks == {smoke: 2, gtenant: 1}, f"phase 13: blocks {n_blocks}")
+
+    def request(which: str, method: str, path: str, tenant: str, body=None, headers=None):
+        conn = apps[which][2]
+        # the cache-off App's requests run with the kill switch set
+        if which == "off":
+            os.environ["TEMPO_TPU_RESULT_CACHE"] = "0"
+        try:
+            conn.request(method, path, body=body,
+                         headers={"X-Scope-OrgID": tenant, **(headers or {})})
+            r = conn.getresponse()
+            return r.status, r.read()
+        finally:
+            os.environ.pop("TEMPO_TPU_RESULT_CACHE", None)
+
+    def ask_all(which: str, searches: bool = True) -> tuple[dict, dict, dict]:
+        """Every request of a pass: (answers, the bytes each reports
+        inspected, the ms each took from the request to its parsed
+        answer)."""
+        answers, inspected, ms = {}, {}, {}
+        for q in queries:
+            plan = plan_of(q)
+            t0 = time.perf_counter()
+            status, body = request(which, "GET", "/api/metrics/query_range?" + urllib.parse.urlencode(
+                {"q": q, "start": plan.start_s, "end": plan.end_s, "step": plan.step_s,
+                 "maxSeries": plan.max_series}), smoke)
+            doc = json.loads(body)
+            ms["qr " + q] = (time.perf_counter() - t0) * 1e3
+            check(status == 200 and doc["data"]["result"], f"phase 13 {which} query_range {q}: "
+                  f"HTTP {status}")
+            answers["qr " + q] = doc["data"]["result"]
+            inspected["qr " + q] = int(doc["metrics"].get("inspectedBytes", 0))
+        for label, params in RC_SEARCHES if searches else ():
+            t0 = time.perf_counter()
+            status, body = request(which, "GET", "/api/search?" + urllib.parse.urlencode(
+                {**params, "limit": 10**7}), smoke)
+            doc = json.loads(body)
+            ms["search " + label] = (time.perf_counter() - t0) * 1e3
+            check(status == 200, f"phase 13 {which} search {label}: HTTP {status}")
+            answers["search " + label] = doc["traces"]
+            inspected["search " + label] = int(doc["metrics"].get("inspectedBytes", 0))
+        for label, path in RC_GRAPH:
+            t0 = time.perf_counter()
+            status, body = request(which, "GET", path, gtenant)
+            doc = json.loads(body)
+            ms[label] = (time.perf_counter() - t0) * 1e3
+            check(status == 200, f"phase 13 {which} {label}: HTTP {status}")
+            # the answer without its cost stats (a hit inspects nothing)
+            answers[label] = {k: v for k, v in doc.items() if k != "stats"}
+            inspected[label] = int(doc["stats"].get("inspectedBytes", 0))
+        return answers, inspected, ms
+
+    def run_pass(which: str, label: str, searches: bool = True) -> dict:
+        # the host column cache is process-wide: emptied before every
+        # pass, so each App's recompute reads its blocks from its backend
+        shared_cache().clear()
+        l0 = read_launches()
+        d0 = sum(STATS.d2h.values())
+        c0 = counts()
+        t0 = time.perf_counter()
+        answers, inspected, req_ms = ask_all(which, searches)
+        launches = {k: n - l0[k] for k, n in read_launches().items()}
+        rec = dict(ms=(time.perf_counter() - t0) * 1e3,
+                   split_ms={kind: sum(v for k, v in req_ms.items() if k.startswith(pre))
+                             for kind, pre in (("query_range", "qr "), ("search", "search "),
+                                               ("graph", ("dependencies", "critical-path")))},
+                   request_ms=req_ms, launches=launches,
+                   seg_bincount=launches["seg_bincount"],
+                   root_path_sums=launches["root_path_sums"],
+                   d2h_bytes=sum(STATS.d2h.values()) - d0, rc=delta(counts(), c0),
+                   inspected_bytes=sum(inspected.values()))
+        res["passes"][f"{which} {label}"] = rec
+        print(f"phase 13 pass {which} {label}: {rec['ms']:.0f} ms ("
+              + ", ".join(f"{k} {v:.0f}" for k, v in rec["split_ms"].items())
+              + f"), seg_bincount "
+              f"{rec['seg_bincount']} / root_path_sums {rec['root_path_sums']} launches, "
+              f"{rec['d2h_bytes']} B device-to-host, {rec['inspected_bytes']} B inspected | "
+              "result cache " + ", ".join(
+                  f"{k} " + "/".join(f"{int(v)}" for v in rec["rc"][k].values())
+                  for k in ("search", "metrics", "graph"))
+              + " (hits/misses/negative/stores/corrupt/bytes saved)", flush=True)
+        return answers, inspected, rec
+
+    def same(a: dict, b: dict, what: str) -> None:
+        for k in b:
+            check(a[k] == b[k], f"phase 13 {what}: {k} differs from the cache-off App's")
+
+    def lookups() -> dict:
+        """A pass's result-cache lookups by kind: one a block a request
+        asks about (a search with a window only the blocks it overlaps)."""
+        metas = on_app.db.blocklist.metas(smoke)
+        n = {"metrics": 0, "search": 0,
+             "graph": len(RC_GRAPH) * len(on_app.db.blocklist.metas(gtenant))}
+        for q in queries:
+            # the frontend's step-aligned time shards, each a job over the
+            # blocks it overlaps (the fingerprint holds the shard's window)
+            plan = plan_of(q)
+            per = -(-plan.n_bins // max(1, min(on_app.frontend.cfg.query_shards, plan.n_bins)))
+            for b in range(0, plan.n_bins, per):
+                w0 = plan.start_s + b * plan.step_s
+                w1 = min(plan.end_s, w0 + per * plan.step_s)
+                n["metrics"] += sum(1 for m in metas if m.end_time >= w0 and m.start_time <= w1)
+        for _, params in RC_SEARCHES:
+            lo, hi = params.get("start", 0), params.get("end", 0)
+            n["search"] += sum(1 for m in metas if not lo or (m.end_time >= lo
+                                                              and m.start_time <= hi))
+        return n
+
+    def insights_verdicts() -> list:
+        status, body = request("on", "GET", "/api/query-insights?limit=1000", smoke)
+        recs = [r for r in json.loads(body)["insights"]
+                if r.get("kind") == "query_range" and r.get("resultCache")]
+        return [r["resultCache"] for r in sorted(recs, key=lambda r: r.get("ts", 0))]
+
+    try:
+        # ------------------------------------------------ cold and repeat
+        want, _, off_rec = run_pass("off", "before the push")
+        check(off_rec["seg_bincount"] > 0 and off_rec["root_path_sums"] > 0
+              and all(v == 0 for k in kinds for v in off_rec["rc"][k].values()),
+              "phase 13: the cache-off App did not recompute, or touched the result cache")
+        cold, cold_inspected, rec = run_pass("on", "cold")
+        same(cold, want, "cold pass")
+        check(rec["seg_bincount"] > 0 and rec["root_path_sums"] > 0,
+              f"phase 13 cold pass: {rec['seg_bincount']} seg_bincount, "
+              f"{rec['root_path_sums']} root_path_sums launches")
+        before_push = lookups()
+        for kind, n in before_push.items():
+            r = rec["rc"][kind]
+            check(r["misses"] == n and r["stores"] == n and r["hits"] == 0,
+                  f"phase 13 cold pass {kind}: {r} for {n} lookups")
+        hit, hit_inspected, rec = run_pass("on", "repeat")
+        same(hit, want, "repeat pass")
+        check(rec["seg_bincount"] == 0 and rec["root_path_sums"] == 0,
+              f"phase 13 repeat pass: {rec['seg_bincount']} seg_bincount, "
+              f"{rec['root_path_sums']} root_path_sums launches")
+        check(all(v == 0 for v in hit_inspected.values()),
+              f"phase 13 repeat pass: inspected bytes {hit_inspected}")
+        for kind, n in before_push.items():
+            r = rec["rc"][kind]
+            saved = sum(v for k, v in cold_inspected.items()
+                        if k.split(" ")[0] == {"metrics": "qr", "search": "search"}.get(kind, k))
+            if kind == "graph":
+                saved = sum(cold_inspected[k] for k, _ in RC_GRAPH)
+            check(r["hits"] + r["negative"] == n and r["misses"] == 0 and r["stores"] == 0
+                  and r["bytes_saved"] == saved,
+                  f"phase 13 repeat pass {kind}: {r} for {n} lookups, {saved} B inspected cold")
+
+        # ------------------------------------------------ push, repeat
+        pushed = [chain_parents(synth.make_batch(512, 8, seed=seed * 1000 + 1300 + i,
+                                                 base_time_ns=(BASE_S + 60 * (40 + i // 2)) * 10**9,
+                                                 n_attrs_per_span=1))
+                  for i in range(32)]
+        old_ids = {m.block_id for m in on_app.db.blocklist.metas(smoke)}
+        t0 = time.perf_counter()
+        for p in pushed:
+            status, _ = request("on", "POST", "/v1/traces", smoke,
+                                otlp.encode_traces_request(batch_to_traces(p)),
+                                {"Content-Type": "application/x-protobuf"})
+            check(status == 200, f"phase 13 push: HTTP {status}")
+        status, _ = request("on", "POST", "/flush", smoke)
+        res["push_s"] = time.perf_counter() - t0
+        (new_meta,) = [m for m in on_app.db.blocklist.metas(smoke) if m.block_id not in old_ids]
+        n_pushed = sum(p.num_spans for p in pushed)
+        check(status == 204 and new_meta.total_spans == n_pushed,
+              f"phase 13 flush: HTTP {status}, {new_meta.total_spans} spans flushed")
+        # the cache-off App's copy of the backend gets the flushed block
+        shutil.copytree(os.path.join(root, "on", "blocks", smoke, new_meta.block_id),
+                        os.path.join(root, "off", "blocks", smoke, new_meta.block_id))
+        apps["off"][0].db.poll_now()
+        check(len(apps["off"][0].db.blocklist.metas(smoke)) == 3, "phase 13: the copied block")
+        print(f"phase 13 push: {n_pushed} spans in 32 OTLP requests, /flush -> a third block "
+              f"({res['push_s']:.1f} s, {n_pushed / res['push_s']:.0f} spans/s), copied into the "
+              "cache-off App's backend", flush=True)
+        want2, _, _ = run_pass("off", "after the push", searches=not shed)
+        push, _, rec = run_pass("on", "after the push", searches=not shed)
+        same(push, want2, "after-push pass")
+        check(rec["seg_bincount"] > 0 and rec["root_path_sums"] == 0,
+              f"phase 13 after-push pass: {rec['seg_bincount']} seg_bincount, "
+              f"{rec['root_path_sums']} root_path_sums launches")
+        after_push = lookups()
+        for kind, n in after_push.items():
+            r = rec["rc"][kind]
+            if shed and kind == "search":
+                check(all(v == 0 for v in r.values()), f"phase 13 after-push pass {kind}: {r}")
+                continue
+            new = n - before_push[kind]
+            check(r["hits"] + r["negative"] == n - new and r["misses"] == new
+                  and r["stores"] == new, f"phase 13 after-push pass {kind}: {r}")
+        verdicts = insights_verdicts()
+        check(verdicts[:3 * len(queries)] == ["store"] * len(queries) + ["hit"] * len(queries)
+              + ["store"] * len(queries),
+              f"phase 13: /api/query-insights verdicts {verdicts}")
+        res["verdicts"] = verdicts
+
+        # ------------------------------------------------ damaged entries
+        os.environ["TEMPO_TPU_FAULTS"] = "corrupt=1.0,seed=7"
+        try:
+            damaged, _, rec = run_pass("on", "under TEMPO_TPU_FAULTS=corrupt=1.0,seed=7",
+                                       searches=False)
+        finally:
+            del os.environ["TEMPO_TPU_FAULTS"]
+        same({k: want2[k] for k in damaged}, damaged, "corrupt pass")
+        check(rec["seg_bincount"] > 0 and rec["root_path_sums"] > 0,
+              "phase 13 corrupt pass: the damaged entries were not recomputed on the card")
+        for kind, n in after_push.items():
+            r = rec["rc"][kind]
+            n = 0 if kind == "search" else n
+            check(r["corrupt"] == n and r["misses"] == n and r["hits"] == 0,
+                  f"phase 13 corrupt pass {kind}: {r} for {n} lookups")
+        print(f"phase 13 (a): every answer of the four passes == the cache-off App's; "
+              f"query_range verdicts {verdicts[:4 * len(queries)]}", flush=True)
+    finally:
+        os.environ.pop("TEMPO_TPU_RESULT_CACHE", None)
+        for app, server, conn in apps.values():
+            conn.close()
+            server.stop()
+            app.shutdown()
+
+    for which in ("on", "off"):
+        res["launches_path" if which == "on" else "launches_control"] = {
+            k: sum(rec["launches"][k] for label, rec in res["passes"].items()
+                   if label.split(" ")[0] == which) for k in launch_counters()}
+    res["standing"] = _standing_restarts(seed, root)
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def _standing_restarts(seed: int, root: str) -> dict:
+    """Phase 13's standing part: 2**17 spans stamped over the 32 minutes
+    that end 8 minutes before now, flushed into blocks; four standing
+    queries registered (their rebuilds log each block's rows into the
+    result cache on a loopback memcached); the App crashed (ingesters
+    stopped without a flush) and restarted on the same paths twice; the
+    second restart's rebuilds replay every block's row log (hits, no
+    miss), and every read equals the reads before the crash and a
+    cache-off App's over a copy of the backend."""
+    from tempo_tpu_torch import resultcache as rc_mod
+    from tempo_tpu_torch.app import App, AppConfig
+    from tempo_tpu_torch.db import DBConfig
+    from tempo_tpu_torch.model import synth
+    from tempo_tpu_torch.modules.overrides import Limits
+    from tempo_tpu_torch.resultcache import ResultCacheConfig
+
+    mc = LoopbackMemcached()
+    out: dict = {}
+    now_min = int(time.time()) // 60 * 60
+    start, end = now_min - 45 * 60, now_min - 7 * 60
+
+    def cfg(path: str, cache_on: bool):
+        return AppConfig(db=DBConfig(
+            backend="local", backend_path=os.path.join(path, "blocks"),
+            wal_path=os.path.join(path, "wal"), cache="memcached",
+            cache_options={"addresses": [mc.addr]},
+            result_cache=ResultCacheConfig(enabled=cache_on)), generator_enabled=False,
+            # 16,384 traces live until the flush: above the default cap
+            limits=Limits(max_traces_per_user=1 << 16))
+
+    def reads(app, ids) -> list:
+        return [app.standing_read(qid, start_s=start, end_s=end)["result"] for qid in ids]
+
+    def crash(app):
+        for stop in app._heartbeat_stops:
+            stop.set()
+        for ing in app.ingesters.values():
+            ing.stop(flush=False)
+        app.workers.stop()
+        app.compactor.stop()
+        app.db.shutdown()
+
+    path = os.path.join(root, "standing")
+    t0 = time.perf_counter()
+    try:
+        app = App(cfg(path, True), device="cuda")
+        for i in range(32):
+            base = now_min - (40 - i) * 60
+            app.push_spans(chain_parents(synth.make_batch(
+                512, 8, seed=seed * 1000 + 1400 + i, base_time_ns=base * 10**9)))
+        for ing in app.ingesters.values():
+            ing.flush_all()
+        app.db.poll_now()
+        n_blocks = len(app.db.blocklist.metas("single-tenant"))
+        check(n_blocks >= 1, "phase 13 standing: no block flushed")
+        ids = [app.standing_register({"q": q, "step": 60, "window": 3600})["id"]
+               for q in RC_STANDING]
+        first = reads(app, ids)
+        check(all(first), "phase 13 standing: an empty read")
+        out["push_and_register_s"] = time.perf_counter() - t0
+        rebuilds = []
+        for k in range(2):
+            crash(app)
+            c0 = {n: c.value(kind="standing") for n, c in (("hits", rc_mod.rc_hits),
+                                                          ("misses", rc_mod.rc_misses))}
+            t1 = time.perf_counter()
+            app = App(cfg(path, True), device="cuda")
+            ms = (time.perf_counter() - t1) * 1e3
+            got = reads(app, ids)
+            d = {n: c.value(kind="standing") - c0[n] for n, c in (("hits", rc_mod.rc_hits),
+                                                                 ("misses", rc_mod.rc_misses))}
+            rebuilds.append(dict(restart_ms=ms, **d))
+            check(got == first, f"phase 13 standing restart {k + 1}: reads != before the crash")
+        check(rebuilds[1]["misses"] == 0 and rebuilds[1]["hits"] == n_blocks * len(ids),
+              f"phase 13 standing: the second restart's rebuilds {rebuilds[1]}, "
+              f"{n_blocks} blocks x {len(ids)} queries")
+        app.shutdown()
+        # the cache-off App: a copy of the blocks and of the registrations
+        off_path = os.path.join(root, "standing_off")
+        shutil.copytree(os.path.join(path, "blocks"), os.path.join(off_path, "blocks"))
+        os.makedirs(os.path.join(off_path, "wal"))
+        shutil.copy(os.path.join(path, "wal", "standing.json"),
+                    os.path.join(off_path, "wal", "standing.json"))
+        os.environ["TEMPO_TPU_RESULT_CACHE"] = "0"
+        try:
+            off = App(cfg(off_path, False), device="cuda")
+            got_off = reads(off, ids)
+            off.shutdown()
+        finally:
+            del os.environ["TEMPO_TPU_RESULT_CACHE"]
+        check(got_off == first, "phase 13 standing: the cache-off App's reads differ")
+    finally:
+        mc.close()
+    out.update(blocks=n_blocks, queries=len(ids), rebuilds=rebuilds,
+               phase_s=time.perf_counter() - t0)
+    print(f"phase 13 standing: {len(ids)} standing queries over {n_blocks} blocks of recent "
+          f"spans; crash and restart x2 ({rebuilds[0]['restart_ms']:.0f} / "
+          f"{rebuilds[1]['restart_ms']:.0f} ms, standing row logs hit/missed "
+          f"{rebuilds[0]['hits']}/{rebuilds[0]['misses']} then {rebuilds[1]['hits']}/"
+          f"{rebuilds[1]['misses']}); every read == the reads before the crashes == a cache-off "
+          f"App's", flush=True)
+    return out
+
+
+def incident_phase(root: str) -> dict:
+    """Phase 13 (b), the incident plane: a card App and a CPU App, each
+    with slo (the vulture-read objective), rca and vulture enabled, run
+    the reference's campaign (one SLO evaluation, an aged-tier vulture
+    probe written and swept into a block, its metrics read back, a
+    second evaluation a minute later) under TEMPO_TPU_FAULTS=notfound=
+    1.0,seed=7: each opens exactly one incident, cause backend_fault at
+    tier aged, the records equal apart from ids and clocks; the
+    fault-free arm opens none; /api/rca, /api/rca/{id}, /status/rca and
+    /status/slo answer the same on both Apps' servers. The metric
+    registry is the process's, so the second App is built after the
+    first App's campaign (its engines' baselines then start there) and
+    /status/slo is compared without its cumulative raw counts."""
+    import urllib.request
+
+    from tempo_tpu_torch.api.server import TempoServer
+    from tempo_tpu_torch.app import App, AppConfig
+    from tempo_tpu_torch.db import DBConfig
+    from tempo_tpu_torch.rca import RCAConfig
+    from tempo_tpu_torch.util.slo import SLOConfig, SLOObjective
+    from tempo_tpu_torch.vulture import InProcessClient, Vulture, VultureConfig
+
+    t_phase = time.perf_counter()
+    clocks = ("id", "openedAt", "attributionSeconds", "at", "evaluatedAt", "enqueuedWall",
+              "ts", "window", "elapsedMs", "insights", "usageDelta", "cumulative")
+
+    def norm(doc):
+        if isinstance(doc, dict):
+            return {k: norm(v) for k, v in doc.items() if k not in clocks}
+        if isinstance(doc, list):
+            return [norm(v) for v in doc]
+        return doc
+
+    def get(url, path):
+        with urllib.request.urlopen(url + path, timeout=300) as r:
+            return r.status, json.loads(r.read())
+
+    out: dict = {}
+    labels = ("card", "host")
+    for arm in ("notfound", "fault-free"):
+        if arm == "notfound":
+            os.environ["TEMPO_TPU_FAULTS"] = "notfound=1.0,seed=7"
+        apps, servers, drives, incidents = {}, {}, {}, {}
+        now = int(time.time())
+        try:
+            for label, dev in zip(labels, ("cuda", "cpu")):
+                path = os.path.join(root, f"{arm}-{label}")
+                app = apps[label] = App(AppConfig(
+                    db=DBConfig(backend="local", backend_path=os.path.join(path, "blocks"),
+                                wal_path=os.path.join(path, "wal"), analytics_scan_s=0),
+                    generator_enabled=False,
+                    slo=SLOConfig(enabled=True, eval_interval_s=3600,
+                                  objectives=[SLOObjective("vulture-read", "vulture", 0.999)]),
+                    rca=RCAConfig(enabled=True), vulture=VultureConfig(enabled=True)),
+                    device=dev)
+                servers[label] = TempoServer(app, host="127.0.0.1", port=0).start()
+                check(app.device.type == dev and app.vulture is not None
+                      and app.rca is not None and app.slo_engine is not None,
+                      f"phase 13 {label}: the incident plane is off")
+                t0 = time.time()
+                app.slo_engine.evaluate(now=t0)
+                v = Vulture(InProcessClient(app), write_backoff_s=10)
+                info = v.write_once(now - 7200)
+                app.sweep_all(immediate=True)
+                try:
+                    app.db.poll_now()
+                except Exception:  # noqa: BLE001 — a faulted poll is part of the campaign
+                    pass
+                ok = v.check_metrics(now, tier="aged", info=info)
+                app.slo_engine.evaluate(now=t0 + 60)
+                drives[label] = (ok, dict(v.error_counts))
+                n = app.rca._queue.qsize()
+                if arm == "notfound":
+                    check(n == 1, f"phase 13 {arm} {label}: {n} triggers")
+                    incidents[label] = app.rca.process_trigger(app.rca._queue.get_nowait())
+                else:
+                    check(n == 0 and app.rca_list() == [],
+                          f"phase 13 {arm} {label}: {n} triggers")
+            check(drives["card"] == drives["host"] and drives["card"][0] is (arm != "notfound"),
+                  f"phase 13 {arm}: the vulture's verdicts {drives}")
+            if arm == "notfound":
+                f = incidents["card"]["finding"]
+                check((f["cause"], f["tier"], f["suppressed"]) == ("backend_fault", "aged", False),
+                      f"phase 13 incident: {f}")
+                check(norm(incidents["card"]) == norm(incidents["host"]),
+                      "phase 13: the card App's incident != the CPU App's")
+                out["finding"] = f
+            for p in ["/api/rca", "/status/rca", "/status/slo"] + (
+                    ["/api/rca/{id}"] if arm == "notfound" else []):
+                docs = {}
+                for label, srv in servers.items():
+                    q = p.replace("{id}", incidents.get(label, {}).get("id", ""))
+                    status, docs[label] = get(srv.url, q)
+                    check(status == 200, f"phase 13 {arm} {label} {q}: HTTP {status}")
+                check(norm(docs["card"]) == norm(docs["host"]),
+                      f"phase 13 {arm} {p}: the card App's document != the CPU App's")
+            out[arm] = dict(incidents=len(incidents), vulture_errors={
+                f"{kind} {tier}": n for (kind, tier), n in drives["card"][1].items()})
+        finally:
+            os.environ.pop("TEMPO_TPU_FAULTS", None)
+            for srv in servers.values():
+                srv.stop()
+            for app in apps.values():
+                app.shutdown()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 13 (b) incidents: under notfound=1.0,seed=7 one incident on each App, cause "
+          f"{out['finding']['cause']} at tier {out['finding']['tier']} ({out['finding']['details']})"
+          f", card == CPU; the fault-free arm opens none; /api/rca, /api/rca/{{id}}, /status/rca "
+          f"and /status/slo equal on both ({out['phase_s']:.1f} s)", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4573,6 +5213,10 @@ def main() -> int:
                                   encode_batches)
     blocks["launches"] = read_launches()
     blocks["page_encode_dispatches"] = STATS.dispatches.get("page_encode", 0) - d0
+    # phase 13's backend: copies of the two card-written blocks, taken
+    # before phase 7 compacts them
+    rc_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_rc_")
+    shutil.copytree(os.path.join(db_dir.name, "blocks"), os.path.join(rc_dir.name, "src", "blocks"))
     for k in block_kernels:
         check(blocks["launches"][k] > 0, f"block path: {k} never launched")
     blocks["phase_s"] = time.perf_counter() - t0
@@ -4734,7 +5378,8 @@ def main() -> int:
           + ("the generator-off push shed" if shed11 else "nothing shed"), flush=True)
     reset_launches()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_") as graph_root:
-        graph = graph_phase(seed, graph_root, shed=shed11)
+        graph = graph_phase(seed, graph_root, shed=shed11,
+                            keep=os.path.join(rc_dir.name, "src", "blocks"))
     graph["launches"] = read_launches()
     for k in GRAPH_SKETCH_KERNELS + ("rle_change_mask", "dbp_pack"):
         check(graph["launches"][k] > 0, f"generator and graph path: {k} never launched")
@@ -4763,6 +5408,35 @@ def main() -> int:
     for k, rec in tail_full_width(torch, dev, lib, stream, seed, tail["lowered"]).items():
         kernels[k] = dict(rec, launches=tail["launches"][k])
     kernels["seg_bincount"]["launches_tail_path"] = tail["launches"]["seg_bincount"]
+
+    # ---------------------------------------------------------------- 13
+    # a slow host sheds both Apps' after-push searches (repeats of the
+    # repeat pass's hits and the cold pass's misses; SHED13_S)
+    elapsed = time.perf_counter() - t_script
+    shed13 = elapsed > SHED13_S
+    if shed13:
+        sheds.append("phase 13 searches of the after-push passes")
+    print(f"phase 13 depth: phases 0-12 took {elapsed:.1f} s -> "
+          + ("the after-push searches shed" if shed13 else "nothing shed"), flush=True)
+    reset_launches()
+    rc = resultcache_phase(seed, rc_dir.name, queries, plan_of, shed=shed13)
+    rc["launches"] = read_launches()
+    rc_dir.cleanup()
+    # the cache-on App's misses launch the query kernels; the phase's
+    # flushes the page-encode kernels
+    for k in ("seg_bincount", "root_path_sums"):
+        check(rc["launches_path"][k] > 0, f"result cache path: {k} never launched")
+    for k in ("rle_change_mask", "dbp_pack"):
+        check(rc["launches"][k] > 0, f"result cache path: {k} never launched")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_incident_") as incident_root:
+        rc["incident"] = incident_phase(incident_root)
+    print(f"phase 13 result cache, backend cache and incident plane: {rc['phase_s']:.1f} s "
+          f"+ {rc['incident']['phase_s']:.1f} s, launches of the cache-on App's passes: "
+          f"{rc['launches_path']}, of the cache-off App's: {rc['launches_control']}, of the "
+          f"whole phase: {rc['launches']}", flush=True)
+    for k in ("seg_bincount", "root_path_sums"):
+        kernels[k]["launches_resultcache_path"] = rc["launches_path"][k]
+        kernels[k]["launches_resultcache_control"] = rc["launches_control"][k]
 
     source = {k: "tempo_tpu_torch/csrc/kernels.cu"
               for k in ("seg_bincount", "in_set_scan", "u64_range_scan")}
@@ -4801,7 +5475,8 @@ def main() -> int:
     ], "ptxas": ptxas, "compaction_step_ms": statistics.median(step_s) * 1e3,
         "compaction_step_torch_op_sketch_ms": statistics.median(plain_step_s) * 1e3,
         "query_ms": query_ms, "blocks": blocks, "db": db, "app": app, "standing": standing,
-        "tier": tier, "graph": graph, "tail": tail, "shed": sheds, "phases_0_6_s": phases_0_6_s,
+        "tier": tier, "graph": graph, "tail": tail, "resultcache": rc, "shed": sheds,
+        "phases_0_6_s": phases_0_6_s,
         "phase_2_graph_sketch_s": graph_sketch_s,
         "script_s": time.perf_counter() - t_script}
     print(json.dumps(line))

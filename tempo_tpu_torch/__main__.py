@@ -63,17 +63,18 @@ def main(argv=None) -> int:
         return 0
 
     app = App(cfg.app, device=args.device)
+    stop = threading.Event()
+    # lets the HTTP /shutdown handler terminate this process after its
+    # drain (reference ShutdownHandler semantics); set before the
+    # listener opens, so a /shutdown that follows the first /ready is
+    # never answered "not terminating"
+    app.on_shutdown_request = stop.set
     server = TempoServer(
         app, host=cfg.server.http_listen_address, port=cfg.server.http_listen_port
     ).start()
     app.start_loops()
     log.info("tempo-tpu up: target=%s device=%s listening on %s",
              cfg.target, app.device, server.url)
-
-    stop = threading.Event()
-    # lets the HTTP /shutdown handler terminate this process after its
-    # drain (reference ShutdownHandler semantics)
-    app.on_shutdown_request = stop.set
 
     def handle(sig, frame):
         log.info("signal %s: shutting down", sig)

@@ -55,7 +55,6 @@ VERSION = "0.1.0"
 log = logging.getLogger(__name__)
 
 _Q1_2 = "ROADMAP Queue 1 item 2 (single binary: microservices and the other roles)"
-_Q1_3 = "ROADMAP Queue 1 item 3 (query and ingest slices)"
 # (exact paths, path prefixes, what, ROADMAP item) of the reference's
 # routes that this port does not serve yet
 _UNPORTED_ROUTES = (
@@ -63,8 +62,6 @@ _UNPORTED_ROUTES = (
     (("/api/traces",), (), "the Jaeger thrift receiver", _Q1_2),
     ((), ("/rpc/", "/kv/"), "inter-role RPC and the ring KV (microservices mode)", _Q1_2),
     (("/memberlist",), (), "the ring KV (netkv)", _Q1_2),
-    ((api_params.PATH_RCA, "/status/rca"), (api_params.PATH_RCA + "/",), "rca", _Q1_3),
-    (("/status/slo",), (), "the SLO engine", _Q1_3),
 )
 
 
@@ -202,7 +199,9 @@ class _Handler(BaseHTTPRequestHandler):
             if p.endswith("/state"):
                 return api_params.PATH_METRICS_STANDING + "/{id}/state"
             return api_params.PATH_METRICS_STANDING + "/{id}"
-        if p.startswith(("/rpc/", "/kv/", api_params.PATH_RCA + "/")):
+        if p.startswith(api_params.PATH_RCA + "/"):
+            return api_params.PATH_RCA + "/{incidentID}"
+        if p.startswith(("/rpc/", "/kv/")):
             return "{unported}"
         return p
 
@@ -366,6 +365,9 @@ class _Handler(BaseHTTPRequestHandler):
                 "compiled": compiled_cache.shape_cache().stats(),
             })
             return 200
+        if path == api_params.PATH_RCA or path.startswith(
+                api_params.PATH_RCA + "/"):
+            return self._rca(path)
         if path == api_params.PATH_ECHO:
             self._send(200, b"echo", "text/plain; charset=utf-8")
             return 200
@@ -576,6 +578,26 @@ class _Handler(BaseHTTPRequestHandler):
             else:
                 self._send_json(200, {"enabled": True, **eng.status()})
             return 200
+        if path == "/status/rca":
+            # auto-RCA engine rollup: incidents held, suppressed count,
+            # pending trigger queue depth
+            eng = getattr(app, "rca", None)
+            if eng is None:
+                self._send_json(200, {"enabled": False})
+            else:
+                self._send_json(200, {"enabled": True, **eng.status()})
+            return 200
+        if path == "/status/slo":
+            # the burn-rate SLO engine's accounting document (util/slo):
+            # per objective, the cumulative good/total the SLIs derive
+            # from, every window's burn rate, error-budget spend over
+            # the 3d window, and which multi-window alerts are burning
+            eng = getattr(app, "slo_engine", None)
+            if eng is None:
+                self._send_json(200, {"enabled": False})
+            else:
+                self._send_json(200, eng.status())
+            return 200
         self._send_error(404, "not found")
         return 404
 
@@ -644,6 +666,35 @@ class _Handler(BaseHTTPRequestHandler):
             # the card's fold arm failed: no host rebuild stands in for it
             self._send_error(500, str(e))
             return 500
+
+    # -- auto-RCA incidents --------------------------------------------
+    def _rca(self, path: str) -> int:
+        """GET /api/rca (newest-first summaries) and
+        GET /api/rca/{incidentID} (the full finding + evidence bundle).
+        Tenant-scoped: a tenant sees its own incidents plus global
+        (process-level SLO) ones, and a foreign tenant's incident id is
+        indistinguishable from absent."""
+        from tempo_tpu_torch.rca import UnknownIncident
+
+        app, org = self.app, self._org_id()
+        tail = path[len(api_params.PATH_RCA):].strip("/")
+        if not tail:
+            eng = getattr(app, "rca", None)
+            if eng is None:
+                self._send_json(200, {"enabled": False, "incidents": []})
+                return 200
+            self._send_json(200, {"enabled": True,
+                                  "incidents": app.rca_list(org_id=org)})
+            return 200
+        if "/" in tail:
+            self._send_error(404, "not found")
+            return 404
+        try:
+            self._send_json(200, app.rca_get(tail, org_id=org))
+            return 200
+        except UnknownIncident:
+            self._send_error(404, "no such incident")
+            return 404
 
     # -- query handlers ------------------------------------------------
     def _trace_by_id(self, tail: str, qs: dict) -> int:
@@ -798,6 +849,8 @@ _ENDPOINTS = [
     "GET /api/graph/critical-path",
     "GET /api/graph/walks",
     "GET /api/query-insights",
+    "GET /api/rca",
+    "GET /api/rca/{incidentID}",
     "GET /api/echo",
     "GET /ready",
     "GET /metrics",
@@ -809,6 +862,8 @@ _ENDPOINTS = [
     "GET /status/profile",
     "GET /status/profile/device",
     "GET /status/device",
+    "GET /status/rca",
+    "GET /status/slo",
     "GET /status/standing",
     "GET /status/storage",
     "GET /status/runtime_config",

@@ -11,19 +11,21 @@ tail parked at each cut (with its resident fold and live-tail scan), the
 service graphs' sketches and the graph queries' critical paths run on
 that device from any worker or cut thread. On target all it starts the
 storage analytics scanner (db/analytics) every
-`storage.trace.analytics_scan_s`, as the reference does.
+`storage.trace.analytics_scan_s`, as the reference does, and, when their
+sections enable them, the in-process vulture (vulture.py), the burn-rate
+SLO engine (util/slo) and the auto-RCA engine (rca/), which subscribes
+to the SLO engine's page burns and the standing engine's deviations.
 
 AppConfig keeps every field of the reference. Features whose modules
 wait for later slices raise NotImplementedError naming their ROADMAP
 item when switched on, by config or by the environment switch with
 which the reference turns them on; none is silently ignored (see
-_UNPORTED and _UNPORTED_ENV).
+_UNPORTED).
 """
 
 from __future__ import annotations
 
 import logging
-import os
 from dataclasses import dataclass, field
 
 import torch
@@ -31,12 +33,7 @@ import torch
 from tempo_tpu_torch import device as _device
 from tempo_tpu_torch.compiled import cache as compiled_cache
 from tempo_tpu_torch.compiled.cache import CompiledConfig
-from tempo_tpu_torch.config_sections import (
-    DeviceTierConfig,
-    RCAConfig,
-    SLOConfig,
-    VultureConfig,
-)
+from tempo_tpu_torch.config_sections import DeviceTierConfig
 from tempo_tpu_torch.db import DBConfig, TempoDB
 from tempo_tpu_torch.encoding.vtpu.colcache import configure_device_tier
 from tempo_tpu_torch.encoding.common import SearchRequest
@@ -49,9 +46,11 @@ from tempo_tpu_torch.modules.overrides import Limits, Overrides
 from tempo_tpu_torch.modules.querier import Querier
 from tempo_tpu_torch.modules.ring import MemoryKV, Ring
 from tempo_tpu_torch.modules.worker import JobBroker, LocalWorkerPool
+from tempo_tpu_torch.rca import RCAConfig, RCAEngine
 from tempo_tpu_torch.standing import StandingConfig, StandingEngine
-from tempo_tpu_torch.util import resource, tracing
+from tempo_tpu_torch.util import resource, slo, tracing
 from tempo_tpu_torch.util.circuit import CircuitBreaker
+from tempo_tpu_torch.vulture import VultureConfig
 
 log = logging.getLogger(__name__)
 
@@ -69,7 +68,6 @@ ROLES = (
 )
 
 _Q1_2 = "ROADMAP Queue 1 item 2 (single binary: microservices and the other roles)"
-_Q1_3 = "ROADMAP Queue 1 item 3 (query and ingest slices)"
 _Q1_7 = ("ROADMAP Queue 1 item 7 (microservices mode: the generator's remote write, "
          "modules/generator/storage)")
 # (switched on?, what, ROADMAP item) for every feature of the reference
@@ -85,42 +83,16 @@ _UNPORTED = (
     (lambda c: c.usage_stats is not None and getattr(c.usage_stats, "enabled", False),
      lambda c: "usage_report", _Q1_2),
     (lambda c: c.self_tracing.enabled, lambda c: "self_tracing", _Q1_2),
-    (lambda c: c.rca.enabled, lambda c: "rca", _Q1_3),
-    (lambda c: c.slo.enabled, lambda c: "slo", _Q1_3),
-    (lambda c: c.vulture.enabled, lambda c: "vulture", _Q1_3),
-    (lambda c: c.db.result_cache.enabled, lambda c: "storage.trace.result_cache",
-     "ROADMAP Queue 1 item 1.2 (resultcache/)"),
-    (lambda c: c.db.cache != "none", lambda c: f"storage.trace.cache={c.db.cache!r}",
-     "ROADMAP Queue 1 item 1.2 (cache/)"),
-)
-
-
-def _result_cache_env_on() -> bool:
-    """TEMPO_TPU_RESULT_CACHE forcing the cache on, parsed as the
-    reference's resultcache._env_state parses it."""
-    v = os.environ.get("TEMPO_TPU_RESULT_CACHE", "").strip().lower()
-    return v in ("1", "true", "yes", "force", "on")
-
-
-# (switched on?, what, ROADMAP item) for every environment switch with
-# which the reference turns on a feature whose module the port lacks
-_UNPORTED_ENV = (
-    (_result_cache_env_on, "TEMPO_TPU_RESULT_CACHE=on",
-     "ROADMAP Queue 1 item 1.2 (resultcache/)"),
 )
 
 
 def refuse_unported(cfg: "AppConfig") -> None:
     """Raise NotImplementedError for the first unported feature that
-    `cfg` or the environment switches on."""
+    `cfg` switches on."""
     for on, what, item in _UNPORTED:
         if on(cfg):
             raise NotImplementedError(
                 f"tempo_tpu_torch: {what(cfg)} is not ported yet ({item})")
-    for on, what, item in _UNPORTED_ENV:
-        if on():
-            raise NotImplementedError(
-                f"tempo_tpu_torch: {what} is not ported yet ({item})")
 
 
 @dataclass
@@ -174,7 +146,7 @@ class AppConfig:
     vulture: "VultureConfig" = field(default_factory=VultureConfig)
     # burn-rate SLO engine (util/slo.py): SLIs over this process's own
     # counters -> tempo_tpu_slo_* gauges + /status/slo
-    slo: "SLOConfig" = field(default_factory=SLOConfig)
+    slo: "slo.SLOConfig" = field(default_factory=slo.SLOConfig)
     # standing-query engine (tempo_tpu_torch/standing): registered query_range
     # queries fold each ingest cut's delta into per-query accumulators
     # (O(new spans) per evaluation); lives beside the ingesters
@@ -235,6 +207,23 @@ class App:
         self.storage_scanner = None
         self._maybe_storage_scanner()
         self._maybe_pageheat_exporter()
+        self.vulture = None
+        self._maybe_vulture()
+        self.slo_engine = slo.SLOEngine(cfg.slo) if cfg.slo.enabled else None
+        self.rca = None
+        self._maybe_rca()
+
+    def _maybe_rca(self):
+        """Auto-RCA incident engine: subscribes to the SLO evaluator's
+        page-burn transitions and the standing engine's deviation fires.
+        Evidence collection runs queries through this App's frontend."""
+        if not self.cfg.rca.enabled:
+            return
+        self.rca = RCAEngine(self.cfg.rca, self)
+        if self.slo_engine is not None:
+            self.slo_engine.subscribe(self.rca.on_slo_burn)
+        if self.standing is not None:
+            self.standing.subscribe_deviations(self.rca.on_deviation)
 
     # ------------------------------------------------------------------
     def _hb_period(self) -> float:
@@ -308,6 +297,23 @@ class App:
         snap_dir = self.cfg.db.wal_path or "wal"
         self.standing.attach(db=self.db, ingesters=self.ingesters,
                              snapshot_dir=snap_dir)
+
+    def _maybe_vulture(self):
+        """In-process prober on the all-in-one target (the reference
+        runs tempo-vulture as a sidecar; a single binary can dogfood it
+        directly — vulture.enabled in config)."""
+        if not self.cfg.vulture.enabled:
+            return
+        from tempo_tpu_torch.vulture import InProcessClient, Vulture
+
+        # with multitenancy on, an org-less push/query would 401 every
+        # probe
+        client = InProcessClient(
+            self,
+            tenant=self.cfg.vulture.tenant if self.cfg.multitenancy_enabled
+            else None,
+        )
+        self.vulture = Vulture(client, cfg=self.cfg.vulture)
 
     def _maybe_storage_scanner(self):
         """Storage-health analytics (db/analytics): the periodic scan runs
@@ -455,6 +461,19 @@ class App:
     def standing_delete(self, qid: str, org_id=None) -> None:
         self._standing().delete(self.resolve_tenant(org_id), qid)
 
+    # -- auto-RCA incidents -----------------------------------------------
+    def rca_list(self, org_id=None) -> list[dict]:
+        """GET /api/rca: newest-first incident summaries — the tenant's
+        own plus global (process-level SLO) incidents."""
+        return self._require(self.rca, "rca incidents").list(
+            self.resolve_tenant(org_id))
+
+    def rca_get(self, incident_id: str, org_id=None) -> dict:
+        """GET /api/rca/{incidentID}: the full incident record (finding
+        + evidence bundle)."""
+        return self._require(self.rca, "rca incidents").get(
+            incident_id, self.resolve_tenant(org_id))
+
     # -- lifecycle -------------------------------------------------------
     def start_loops(self):
         for ing in self.ingesters.values():
@@ -464,6 +483,12 @@ class App:
         if self.storage_scanner is not None:
             self.storage_scanner.start()
         self.pageheat_exporter.start()
+        if self.vulture is not None:
+            self.vulture.start()
+        if self.slo_engine is not None:
+            self.slo_engine.start()
+        if self.rca is not None:
+            self.rca.start()
 
     def sweep_all(self, immediate: bool = False):
         """Deterministic maintenance for tests/drives."""
@@ -472,17 +497,27 @@ class App:
 
     def service_states(self) -> dict:
         states = {"target": self.target}
-        for name in ("distributor", "querier", "frontend", "compactor"):
-            states[name] = "Running"
-        if self.generator is not None:
-            states["generator"] = "Running"
-        if self.standing is not None:
-            states["standing"] = "Running"
+        for name in ("distributor", "querier", "frontend", "compactor",
+                     "generator", "vulture", "slo_engine", "standing",
+                     "rca"):
+            if getattr(self, name) is not None:
+                states[name] = "Running"
         for iid in self.ingesters:
             states[iid] = "Running"
         return states
 
     def shutdown(self):
+        # the RCA worker goes down FIRST: its evidence collection runs
+        # queries against the app being dismantled
+        if self.rca is not None:
+            self.rca.stop()
+        # the prober and SLO engine go down BEFORE the rings: a check
+        # racing the half-dismantled app would record phantom data-loss
+        # errors into the very counters alerting watches
+        if self.vulture is not None:
+            self.vulture.stop()
+        if self.slo_engine is not None:
+            self.slo_engine.stop()
         for stop in self._heartbeat_stops:
             stop.set()
         for ring, iid in self._registered:

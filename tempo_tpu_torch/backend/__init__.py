@@ -1,9 +1,12 @@
 """Storage backends: the raw byte-object store contract, the typed block
-layer over it, the filesystem and in-memory backends, the tenant index
-and the retry taxonomy. Port of tempo_tpu/backend; the cloud backends
-(GCS/S3/Azure) and fault injection (`FaultInjectingBackend` with
-`TEMPO_TPU_FAULTS`) arrive with later slices.
+layer over it, the filesystem and in-memory backends, the tenant index,
+the retry taxonomy, seeded fault injection (`FaultInjectingBackend`,
+armed by `TEMPO_TPU_FAULTS`) and the caching decorator
+(`backend/cache.CachedBackend`). Port of tempo_tpu/backend; the cloud
+backends (GCS/S3/Azure) arrive with ROADMAP Queue 1 item 9.
 """
+
+import logging
 
 from tempo_tpu_torch.backend.base import (  # noqa: F401
     BlockMeta,
@@ -13,6 +16,11 @@ from tempo_tpu_torch.backend.base import (  # noqa: F401
     TypedBackend,
     bloom_name,
 )
+from tempo_tpu_torch.backend.faults import (  # noqa: F401
+    FaultInjectingBackend,
+    FaultPlan,
+    retryable_error,
+)
 from tempo_tpu_torch.backend.local import LocalBackend  # noqa: F401
 from tempo_tpu_torch.backend.mock import MockBackend  # noqa: F401
 
@@ -20,7 +28,28 @@ from tempo_tpu_torch.backend.mock import MockBackend  # noqa: F401
 def make_raw_backend(kind: str, options: dict | None = None) -> RawBackend:
     """Backend factory (reference: tempodb.New backend selection,
     tempodb/tempodb.go:133-170; tempo_tpu/backend/__init__.py:25-80).
-    The cloud backends are not ported yet and raise."""
+    The cloud backends are not ported yet and raise.
+
+    TEMPO_TPU_FAULTS (e.g. "read=0.01,corrupt=0.001,seed=7") wraps the
+    result in a FaultInjectingBackend — the operator chaos knob; see
+    backend/faults.py."""
+    return _maybe_inject_faults(_make_raw_backend(kind, options))
+
+
+def _maybe_inject_faults(raw: RawBackend) -> RawBackend:
+    from tempo_tpu_torch.backend import faults
+
+    plan = faults.env_plan()
+    if plan is not None:
+        logging.getLogger(__name__).warning(
+            "TEMPO_TPU_FAULTS is armed — backend %s runs behind fault injection",
+            type(raw).__name__,
+        )
+        return FaultInjectingBackend(raw, plan)
+    return raw
+
+
+def _make_raw_backend(kind: str, options: dict | None = None) -> RawBackend:
     options = options or {}
     if kind == "local":
         return LocalBackend(options.get("path", "blocks"))
@@ -29,5 +58,5 @@ def make_raw_backend(kind: str, options: dict | None = None) -> RawBackend:
     if kind in ("s3", "gcs", "azure"):
         raise NotImplementedError(
             f"tempo_tpu_torch: the {kind} backend is not ported yet "
-            "(have local|mock)")
+            "(have local|mock; ROADMAP Queue 1 item 9)")
     raise ValueError(f"unknown backend {kind!r} (have local|mock|s3|gcs|azure)")

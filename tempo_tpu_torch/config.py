@@ -10,9 +10,10 @@ compactor, querier, query_frontend, metrics_generator, overrides,
 usage_report) so a Tempo operator's mental model carries over.
 
 Port of tempo_tpu/config.py: the same YAML gives the same dataclasses,
-with the reference's defaults. The sections of modules not ported yet
-come from config_sections; App refuses each unported section that is
-switched on.
+with the reference's defaults and the reference's check_config
+warnings. The sections of modules not ported yet come from
+config_sections; App refuses each unported section that is switched
+on.
 """
 
 from __future__ import annotations
@@ -25,24 +26,24 @@ from dataclasses import dataclass, field
 
 import yaml
 
-from tempo_tpu_torch import config_sections
 from tempo_tpu_torch.app import AppConfig
 from tempo_tpu_torch.compiled.cache import CompiledConfig
 from tempo_tpu_torch.config_sections import (
     DeviceTierConfig,
     ForwarderConfig,
-    RCAConfig,
     RemoteWriteConfig,
     UsageStatsConfig,
-    VultureConfig,
 )
 from tempo_tpu_torch.db import DBConfig
 from tempo_tpu_torch.modules.frontend import FrontendConfig
 from tempo_tpu_torch.modules.ingester import IngesterConfig
 from tempo_tpu_torch.modules.overrides import Limits
+from tempo_tpu_torch.rca import RCAConfig
 from tempo_tpu_torch.standing import StandingConfig
+from tempo_tpu_torch.util import slo as slo_mod
 from tempo_tpu_torch.util.resource import ResourceConfig
 from tempo_tpu_torch.util.tracing import SelfTracingConfig
+from tempo_tpu_torch.vulture import VultureConfig
 
 log = logging.getLogger(__name__)
 
@@ -219,9 +220,9 @@ def parse_config(text: str, env: dict | None = None) -> Config:
     if not isinstance(slo_doc, dict):
         raise ConfigError("slo: expected a mapping")
     obj_list = slo_doc.pop("objectives", []) or []
-    app.slo = _from_dict(config_sections.SLOConfig, slo_doc, "slo")
+    app.slo = _from_dict(slo_mod.SLOConfig, slo_doc, "slo")
     app.slo.objectives = [
-        _from_dict(config_sections.SLOObjective, o, f"slo.objectives[{i}]")
+        _from_dict(slo_mod.SLOObjective, o, f"slo.objectives[{i}]")
         for i, o in enumerate(obj_list)
     ]
 
@@ -250,14 +251,18 @@ def load_config(path: str, env: dict | None = None) -> Config:
 
 def check_config(cfg: Config) -> list[str]:
     """Footgun warnings (reference: CheckConfig config.go:125-170) —
-    never fatal, always loud. Only the sections the port serves are
-    checked; the warnings of a refused section come with its slice."""
+    never fatal, always loud. The warnings of a refused section (the
+    generator's remote write, self_tracing) come with its slice."""
     warnings = []
     app = cfg.app
     if app.replication_factor > app.n_ingesters:
         warnings.append(
             f"replication_factor ({app.replication_factor}) > n_ingesters "
             f"({app.n_ingesters}): every push will fail quorum"
+        )
+    if app.db.backend in ("s3", "gcs", "azure") and app.db.cache == "none":
+        warnings.append(
+            "cloud backend without a cache: every bloom test pays an object-store round trip"
         )
     if app.db.block.bloom_fp > 0.05:
         warnings.append(
@@ -298,6 +303,36 @@ def check_config(cfg: Config) -> list[str]:
             f"ceiling ({resident_cap} bytes = query_shards x target_bytes_per_job): "
             "two concurrent broad queries cannot both be admitted"
         )
+    # -- continuous-verification plane ----------------------------------
+    vulture_armed = app.vulture.enabled or cfg.target == "vulture"
+    if vulture_armed:
+        # the aged tier exists to pin POST-COMPACTION blocks: a probe
+        # must be old enough that its block was cut from the WAL head
+        # AND swept through at least one compaction window before the
+        # aged check picks it — otherwise "aged" silently re-tests the
+        # recent tier and compaction bugs go unwatched
+        compaction_cycle_s = (app.ingester.max_block_duration_s
+                              + app.db.compaction.window_s)
+        if app.vulture.aged_min_age_s < compaction_cycle_s:
+            warnings.append(
+                f"vulture.aged_min_age_s ({app.vulture.aged_min_age_s}s) is "
+                "shorter than one block-cut + compaction cycle "
+                f"(ingester.max_block_duration_s + compaction window = "
+                f"{compaction_cycle_s:g}s): aged-tier probes will not "
+                "outlive a compaction cycle and cannot pin that tier"
+            )
+        if app.vulture.retention_s <= app.vulture.aged_min_age_s:
+            warnings.append(
+                f"vulture.retention_s ({app.vulture.retention_s}s) <= "
+                f"aged_min_age_s ({app.vulture.aged_min_age_s}s): the aged "
+                "tier window is empty and aged checks will never run"
+            )
+        if app.vulture.write_backoff_s > app.vulture.recent_min_age_s:
+            warnings.append(
+                f"vulture.write_backoff_s ({app.vulture.write_backoff_s}s) "
+                f"exceeds recent_min_age_s ({app.vulture.recent_min_age_s}s): "
+                "some cycles have no fresh-tier probe to check"
+            )
     # -- standing queries + step-partial downsampling tier ---------------
     if app.standing.enabled and app.multitenancy_enabled \
             and app.standing.max_queries_per_tenant <= 0:
@@ -419,4 +454,54 @@ def check_config(cfg: Config) -> list[str]:
                 "already oversubscribes — shrink the budget below the "
                 "headroom before enabling compiled execution"
             )
+    # -- result cache ------------------------------------------------------
+    if app.db.result_cache.enabled and app.db.cache == "none":
+        warnings.append(
+            "storage.trace.result_cache is enabled with cache: none — the "
+            "cache is in-process-LRU only, so replicas never share partials "
+            "and every restart starts cold (point cache: at the memcached/"
+            "redis pool the shard partials should ride)"
+        )
+    if app.db.result_cache.enabled and app.db.result_cache.negative and \
+            os.environ.get("TEMPO_TPU_ZONEMAPS", "").lower() in (
+                "0", "false", "no"):
+        warnings.append(
+            "result_cache.negative is on while TEMPO_TPU_ZONEMAPS disables "
+            "zone maps: provable-emptiness comes from zone/window pruning, "
+            "so no veto can ever be cached (stats-less legacy blocks have "
+            "the same blind spot) — the negative tier silently never fires"
+        )
+    if app.slo.enabled:
+        for obj in (app.slo.objectives or slo_mod.default_objectives()):
+            if obj.sli not in slo_mod.SLI_SOURCES:
+                warnings.append(
+                    f"slo objective {obj.name!r} references unknown SLI "
+                    f"source {obj.sli!r} (have "
+                    f"{sorted(slo_mod.SLI_SOURCES)}): it will never leave 100%"
+                )
+            elif obj.sli in ("vulture", "freshness") and not vulture_armed:
+                warnings.append(
+                    f"slo objective {obj.name!r} consumes the {obj.sli} SLI "
+                    "but no vulture runs in this process "
+                    "(vulture.enabled=false): its counters will stay empty"
+                )
+            if not (0.0 < obj.objective < 1.0):
+                warnings.append(
+                    f"slo objective {obj.name!r} target {obj.objective} is "
+                    "outside (0, 1): burn rates are undefined"
+                )
+    # -- auto-RCA incident engine -----------------------------------------
+    if app.rca.enabled and not app.slo.enabled:
+        warnings.append(
+            "rca is enabled without slo: the fast-burn trigger never "
+            "fires, so incidents only open on standing-query deviations "
+            "(enable slo for the full closed loop)"
+        )
+    if app.rca.enabled and not app.standing.enabled:
+        warnings.append(
+            "rca is enabled without standing: the deviation trigger never "
+            "fires, so anomalies cannot open incidents BEFORE the SLO "
+            "burns (enable standing and register queries with a "
+            "deviation: section)"
+        )
     return warnings

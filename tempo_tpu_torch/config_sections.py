@@ -5,15 +5,14 @@ The port reads the same YAML into the same dataclasses as tempo_tpu
 modules behind these sections wait for later slices; App raises
 NotImplementedError, naming the ROADMAP item, when one is switched on.
 Every default is the reference's. (`standing:` is the ported engine's
-own StandingConfig, in tempo_tpu_torch/standing/engine.py;
-`device_tier:` is served, with its ingest-tail share.)
+own StandingConfig, in tempo_tpu_torch/standing/engine.py, and
+`rca:`, `slo:`, `vulture:` and `storage.trace.result_cache:` are their
+ported modules' own; `device_tier:` is served, with its ingest-tail
+share.)
 
 Copies of: encoding/vtpu/colcache.DeviceTierConfig,
 modules/forwarder.ForwarderConfig, modules/generator/storage.
-RemoteWriteConfig, rca/engine.RCAConfig,
-usagestats.UsageStatsConfig, util/slo.SLOObjective + SLOConfig,
-vulture.VultureConfig and
-resultcache.ResultCacheConfig.
+RemoteWriteConfig and usagestats.UsageStatsConfig.
 """
 
 from __future__ import annotations
@@ -57,20 +56,6 @@ class RemoteWriteConfig:
     max_wal_bytes: int = 64 << 20
 
 
-@dataclass
-class RCAConfig:
-    """`rca:` — the auto-RCA incident engine."""
-
-    enabled: bool = False
-    max_incidents: int = 64
-    cooldown_s: float = 300.0
-    window_s: float = 600.0
-    walks: int = 64
-    walk_steps: int = 6
-    walk_seed: int = 0
-    insights_limit: int = 20
-    queue_max: int = 16
-
 
 @dataclass
 class UsageStatsConfig:
@@ -79,51 +64,3 @@ class UsageStatsConfig:
     path: str = "/usage-stats"
     report_interval_s: float = 4 * 3600.0
     timeout_s: float = 10.0
-
-
-@dataclass
-class SLOObjective:
-    name: str
-    sli: str
-    objective: float = 0.999
-    threshold_s: float = 0.0
-
-
-@dataclass
-class SLOConfig:
-    """`slo:` — the burn-rate SLO engine."""
-
-    enabled: bool = False
-    eval_interval_s: float = 15.0
-    fast_burn: float = 14.4
-    slow_burn: float = 6.0
-    objectives: list = field(default_factory=list)
-
-
-@dataclass
-class VultureConfig:
-    """`vulture:` — the continuous-verification prober."""
-
-    enabled: bool = False
-    target: str = ""
-    query_target: str = ""
-    tenant: str = "single-tenant"
-    write_backoff_s: int = 10
-    read_backoff_s: int = 10
-    search_backoff_s: int = 30
-    metrics_backoff_s: int = 60
-    retention_s: int = 14400
-    recent_min_age_s: int = 60
-    aged_min_age_s: int = 5400
-    freshness_slo_s: float = 10.0
-    metrics_step_s: int = 5
-    handoff_grace_s: float = 0.0
-
-
-@dataclass
-class ResultCacheConfig:
-    """`storage.trace.result_cache:` — the shard-partial result cache."""
-
-    enabled: bool = False
-    max_bytes: int = 64 << 20
-    negative: bool = True

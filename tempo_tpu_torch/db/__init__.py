@@ -5,11 +5,11 @@ Port of tempo_tpu/db/__init__.py on one device. TempoDB takes `device`
 block writer and the compactor, whose sketch plane (bloom + HLL) runs
 there; search, find and TraceQL run on the host, as the reference's do
 on one device. Not ported yet, and refused rather than ignored: the
-mesh paths (`compaction_device_shards` > 1 or several cards, Queue 1
-item 4) and the backend cache (`cache` other than "none", the cache/
-slice). The config keeps the fields of the shard-partial result cache
-and the storage analytics, which App refuses to switch on until their
-slice (ROADMAP Queue 1 item 1.2).
+mesh paths (`compaction_device_shards` > 1 or several cards, ROADMAP
+Queue 1 item 12). The backend cache (`cache`: none | memory | memcached |
+redis, optionally write-behind) wraps only a backend the DB builds
+itself, and the shard-partial result cache (`result_cache`,
+tempo_tpu_torch/resultcache) borrows its client as the remote tier.
 
 Reference: tempodb/tempodb.go:69-102 (Reader/Writer/Compactor interface),
 :109-258 (readerWriter: backend selection, CompleteBlock, WriteBlock,
@@ -37,7 +37,6 @@ import torch
 from tempo_tpu_torch import device as _device
 from tempo_tpu_torch import encoding as encoding_registry
 from tempo_tpu_torch.backend import TypedBackend, make_raw_backend
-from tempo_tpu_torch.config_sections import ResultCacheConfig
 from tempo_tpu_torch.db.blocklist import Blocklist, Poller
 from tempo_tpu_torch.db.compaction import CompactionConfig, CompactionDriver
 from tempo_tpu_torch.db.pool import JobPool
@@ -49,6 +48,7 @@ from tempo_tpu_torch.encoding.common import (
     SearchResponse,
 )
 from tempo_tpu_torch.model.trace import Trace, combine_traces
+from tempo_tpu_torch.resultcache import ResultCache, ResultCacheConfig
 from tempo_tpu_torch.util import metrics, tracing
 
 log = logging.getLogger(__name__)
@@ -65,7 +65,7 @@ class DBConfig:
     backend: str = "local"  # local | mock | s3 | gcs | azure
     backend_path: str = ""
     backend_options: dict = field(default_factory=dict)  # cloud backend config kwargs
-    cache: str = "none"  # none only until the cache/ slice (reference: none | memory | memcached | redis)
+    cache: str = "none"  # none | memory | memcached | redis (reference: backend cache decorator)
     cache_options: dict = field(default_factory=dict)
     cache_background_writes: bool = False
     wal_path: str = ""
@@ -94,8 +94,7 @@ class DBConfig:
     # scan (the endpoint then computes on demand). App starts it on
     # target all.
     analytics_scan_s: float = 600.0
-    # shard-partial result cache (resultcache/, not ported: App refuses
-    # enabled)
+    # shard-partial result cache + negative cache (tempo_tpu_torch/resultcache)
     result_cache: ResultCacheConfig = field(default_factory=ResultCacheConfig)
 
 
@@ -108,6 +107,7 @@ class TempoDB:
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         self.device = dev
+        self._cache_client = None
         if raw_backend is None:
             options = dict(cfg.backend_options)
             if cfg.backend == "local":
@@ -115,11 +115,35 @@ class TempoDB:
                     "path", cfg.backend_path or os.path.join(os.getcwd(), "blocks")
                 )
             raw_backend = make_raw_backend(cfg.backend, options)
+            # cache wraps only a backend we own — injected backends (the
+            # app sharing one store across ingesters) arrive pre-wrapped
             if cfg.cache != "none":
-                raise NotImplementedError(
-                    f"tempo_tpu_torch: backend cache {cfg.cache!r} is not ported "
-                    "yet (the cache/ slice); use cache='none'")
+                from tempo_tpu_torch.backend.cache import CachedBackend
+                from tempo_tpu_torch.cache import (
+                    BackgroundCache,
+                    LRUCache,
+                    MemcachedCache,
+                    RedisCache,
+                )
+
+                if cfg.cache == "memory":
+                    cache_client = LRUCache(**cfg.cache_options)
+                elif cfg.cache == "memcached":
+                    cache_client = MemcachedCache(**cfg.cache_options)
+                elif cfg.cache == "redis":
+                    cache_client = RedisCache(**cfg.cache_options)
+                else:
+                    raise ValueError(f"unknown cache {cfg.cache!r} (have none|memory|memcached|redis)")
+                if cfg.cache_background_writes:
+                    cache_client = BackgroundCache(cache_client)
+                self._cache_client = cache_client
+                raw_backend = CachedBackend(raw_backend, cache_client)
         self.backend = TypedBackend(raw_backend)
+        # built even over an injected backend: the remote tier is simply
+        # absent then (local LRU only) — an injected store shares pages,
+        # not necessarily a cache client
+        self.result_cache = ResultCache(cfg.result_cache,
+                                        remote=self._cache_client)
         self.blocklist = Blocklist(quarantine_threshold=cfg.quarantine_threshold)
         self._orphan_seen: dict[tuple[str, str], float] = {}
         self._orphan_lock = threading.Lock()
@@ -667,6 +691,11 @@ class TempoDB:
         if self._poll_thread:
             self._poll_thread.join(timeout=5)
             self._poll_thread = None
+        self.result_cache.stop()
+        if self._cache_client is not None:
+            # drains write-behind queues and closes memcached sockets
+            self._cache_client.stop()
+            self._cache_client = None
 
 
 def _fatal(errors) -> list:

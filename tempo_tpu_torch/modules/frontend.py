@@ -318,9 +318,7 @@ class Frontend:
         ("usage") riding the job results into this query's accumulators
         — the same shard-wise partial merge the search/metrics responses
         use. The merged cost vector settles under (tenant, kind) when
-        the request's usage.attribute scope exits. (The reference also
-        notes the result cache's verdict here; that cache is not
-        ported.)"""
+        the request's usage.attribute scope exits."""
         acc = stagetimings.active()
         uv = usage.active()
         for r in results:
@@ -328,6 +326,24 @@ class Frontend:
                 acc.merge_wire(r.get("stages"))
             if uv is not None:
                 uv.merge_wire(r.get("usage"))
+        if uv is None:
+            return
+        # the query's result-cache verdict rides the insight record:
+        # any recompute dominates ("store" if at least one partial was
+        # written back, else plain "miss"), a fully-served query is
+        # "hit", and "negative" only when vetoes alone answered it.
+        # None (cache disabled / kind not cached) leaves the field off.
+        snap = uv.snapshot()
+        if snap.get("result_cache_misses", 0) > 0:
+            verdict = ("store" if snap.get("result_cache_stores", 0) > 0
+                       else "miss")
+        elif snap.get("result_cache_hits", 0) > 0:
+            verdict = "hit"
+        elif snap.get("result_cache_negative", 0) > 0:
+            verdict = "negative"
+        else:
+            verdict = None
+        insights.note(resultCache=verdict)
 
     def _settle(self, tenant: str, n_shards: int, results: list, errors: list) -> int:
         """Apply the failed-shard budget to a query's terminal errors.

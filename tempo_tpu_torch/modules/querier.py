@@ -11,9 +11,13 @@ accumulator of the DB's device: seg_bincount on the card), with the
 compiled tier claiming simple-count plans over blocks first
 (query_range_blocks, query_range_blocks_multi), and the live-tail hook
 of the device tier's ingest tail (a parked WAL segment's search mask by
-`ops/ingest_tail.tail_search_mask`). Not here yet: the serverless
-external endpoints (ROADMAP Queue 1 item 3), the result cache (Queue 1
-item 1.2; App refuses `db.result_cache.enabled`), the mesh search and
+`ops/ingest_tail.tail_search_mask`). With the result cache on
+(tempo_tpu_torch/resultcache), search, query_range and graph jobs reuse
+each block's cached partial and recompute only the blocks they miss,
+through the same device path as with the cache off; a query_range
+block's partial comes from a standalone accumulator of its own, and the
+cached tier outranks the compiled tier. Not here yet: the serverless
+external endpoints (ROADMAP Queue 1 item 11), the mesh search and
 metrics (Queue 1 item 12) and the multi-query search seam (its caller
 is the standing tier). The graph jobs (graph_recent,
 graph_blocks) sum their critical paths on the DB's device.
@@ -103,10 +107,59 @@ class Querier:
 
     def search_block_batch(self, tenant: str, block_ids: list, req: SearchRequest) -> SearchResponse:
         """One frontend job = a batch of blocks, scanned serially like the
-        reference's per-job loop on one device."""
+        reference's per-job loop on one device; with the result cache on,
+        each block's response is reused from (and written back to) it."""
+        rc = self.db.result_cache
+        if rc.enabled():
+            return self._search_block_batch_cached(tenant, block_ids, req, rc)
         resp = SearchResponse()
         for block_id in block_ids:
             resp.merge(self.db.search_block(tenant, block_id, req), limit=req.limit)
+        return resp
+
+    def _search_block_batch_cached(self, tenant: str, block_ids: list,
+                                   req: SearchRequest, rc) -> SearchResponse:
+        """Per-block search with shard-partial reuse (tempo_tpu/
+        resultcache): blocks are immutable and the per-block scan
+        deterministic, so each block's response caches under
+        (block, normalized shape + literals). A provably-empty block
+        (impossible predicate or every row group zone-pruned — zero
+        traces inspected, not merely zero matches) caches a negative
+        veto, so repeats skip the block open entirely."""
+        from tempo_tpu_torch import resultcache as rc_mod
+        from tempo_tpu_torch.util import queryshape
+
+        fp = rc_mod.fingerprint(
+            queryshape.search_shape(req),
+            queryshape.query_literals(req.query or ""),
+            sorted((req.tags or {}).items()),
+            int(req.min_duration_ns), int(req.max_duration_ns),
+            int(req.start_seconds), int(req.end_seconds), int(req.limit))
+        resp = SearchResponse()
+        for block_id in block_ids:
+            doc = rc.get(tenant, block_id, "search", fp)
+            if doc is not None:
+                if doc.get("neg"):
+                    continue  # veto: no meta fetch, no block open
+                hit = SearchResponse.from_dict(doc["w"])
+                # the stored cost stats describe the COLD compute — a
+                # hit did none of that work (rc.get already credited the
+                # saved bytes); the result content merges unchanged
+                hit.inspected_bytes = hit.decoded_bytes = 0
+                hit.inspected_traces = hit.inspected_blocks = 0
+                hit.pruned_row_groups = hit.coalesced_reads = 0
+                resp.merge(hit, limit=req.limit)
+                continue
+            sub = self.db.search_block(tenant, block_id, req)
+            if sub.status == "complete" and not sub.failed_shards:
+                if (not sub.traces and sub.inspected_traces == 0
+                        and rc.negative_enabled()):
+                    rc.put_negative(tenant, block_id, "search", fp,
+                                    bytes_saved=sub.inspected_bytes)
+                else:
+                    rc.put(tenant, block_id, "search", fp, sub.to_dict(),
+                           bytes_saved=sub.inspected_bytes)
+            resp.merge(sub, limit=req.limit)
         return resp
 
     # ------------------------------------------------------------------
@@ -154,6 +207,19 @@ class Querier:
                 metas.append(self.db.backend.block_meta(tenant, bid))
             except NotFound:  # deleted mid-query: benign; other errors
                 log.warning("metrics job: block %s deleted mid-query", bid)
+        # result cache (tempo_tpu_torch/resultcache): per-block integer-add
+        # partials are reusable verbatim because blocks are immutable —
+        # this tier outranks the compiled tier below (which fuses blocks
+        # into one launch and so produces nothing per-block-cacheable).
+        # Returns None only on a series-cap overflow, where per-block
+        # evaluation can diverge from the shared-table cold path —
+        # exactness over economy: fall through and recompute cold.
+        if self.db.result_cache.enabled():
+            wire = self._query_range_blocks_cached(
+                tenant, metas, plan, query, start_s, end_s, step_s,
+                max_series, exemplars)
+            if wire is not None:
+                return wire
         # step-partial downsampling tier (standing/rules.py): a plan a
         # configured rule can answer exactly reads pre-bucketed count
         # pages row-group-wise instead of span columns — span-column
@@ -212,6 +278,126 @@ class Querier:
         # interpreter — insights aggregate this per query
         wire["compiledShape"] = "fallback"
         return wire
+
+    def _query_range_blocks_cached(self, tenant: str, metas: list, plan,
+                                   query: str, start_s: int, end_s: int,
+                                   step_s: int, max_series: int,
+                                   exemplars: int) -> dict | None:
+        """query_range over blocks with shard-partial reuse: every block
+        evaluates into a STANDALONE accumulator (own series table, on the
+        DB's device: seg_bincount on the card) whose
+        wire caches under (block, normalized shape + literals + window);
+        block wires then fold through merge_wire — the same integer-add
+        seam the frontend uses, so merge order never changes results. A
+        block with zero spans inspected (dictionary-miss impossibility
+        or every row group zone/window-pruned) caches a negative veto
+        that skips the open entirely on repeats.
+
+        Exactness guard: per-block series tables can overflow the
+        max_series cap differently than the cold shared table. If any
+        wire reports dropped series, or the merged key set exceeds the
+        cap, returns None — the caller recomputes through the cold
+        tiers, bit-identically, and nothing wrong was cached (wires are
+        per-block facts either way)."""
+        from tempo_tpu_torch import resultcache as rc_mod
+        from tempo_tpu_torch.metrics_engine import (
+            evaluate_block,
+            make_accumulator,
+            merge_wire,
+            new_wire,
+        )
+        from tempo_tpu_torch.standing import rules as sp_rules
+        from tempo_tpu_torch.util import queryshape
+
+        rc = self.db.result_cache
+        # same hybrid choice as the cold host path: the step-partial
+        # evaluator falls back per row group on legacy data by itself
+        sp_rule = (sp_rules.match_rule(plan,
+                                       sp_rules.block_rules(self.db.cfg.block))
+                   if all(m.version == "vtpu1" for m in metas) else None)
+        fp = rc_mod.fingerprint(
+            queryshape.metrics_shape(query),
+            queryshape.query_literals(query),
+            int(start_s), int(end_s), int(step_s),
+            int(max_series), int(exemplars))
+        wires = []
+        overflow = False
+        for m in metas:
+            doc = rc.get(tenant, m.block_id, "metrics", fp)
+            if doc is not None:
+                if doc.get("neg"):
+                    continue  # veto: no open, no fetch
+                w = dict(doc["w"])
+                # cost stats describe the cold compute (saved bytes are
+                # credited by rc.get); only the correctness stat stays
+                w["stats"] = {
+                    "seriesDropped": int(
+                        (doc["w"].get("stats") or {}).get("seriesDropped", 0))
+                }
+                if w["stats"]["seriesDropped"]:
+                    overflow = True
+                wires.append(w)
+                continue
+            sub = make_accumulator(plan, device=self.db.device)
+
+            def run(meta=m, sub=sub):
+                blk = self.db.encoding_for(meta.version).open_block(
+                    meta, self.db.backend, self.db.cfg.block)
+                sub.stats["inspectedBlocks"] += 1
+                if sp_rule is not None:
+                    sp_rules.evaluate_block_hybrid(plan, sp_rule, blk, sub)
+                else:
+                    evaluate_block(plan, blk, sub)
+                sub.stats["inspectedBytes"] += blk.bytes_read
+                sub.stats["decodedBytes"] += getattr(blk, "decoded_bytes", 0)
+
+            try:
+                self.db.guard_block(tenant, m.block_id, run)
+            except NotFound:
+                log.warning("metrics job: block %s deleted mid-query",
+                            m.block_id)
+                continue
+            w = sub.to_wire()
+            saved = int(w["stats"].get("inspectedBytes", 0))
+            if w["stats"].get("seriesDropped", 0):
+                overflow = True
+            if (not w["series"] and not w["exemplars"]
+                    and w["stats"].get("inspectedSpans", 0) == 0
+                    and rc.negative_enabled()):
+                rc.put_negative(tenant, m.block_id, "metrics", fp,
+                                bytes_saved=saved)
+            else:
+                rc.put(tenant, m.block_id, "metrics", fp, w,
+                       bytes_saved=saved)
+            wires.append(w)
+        merged = new_wire()
+        for w in wires:
+            merge_wire(merged, w, plan, 0)
+        if overflow or len(merged["series"]) > plan.max_series:
+            log.warning("result cache: series cap overflow for %r; "
+                        "recomputing cold", query)
+            return None
+        # merged state -> to_wire form. Key order: merged["series"]
+        # insertion order is first-nonzero-appearance across blocks in
+        # meta order, which (under the cap guard above) equals the cold
+        # shared table's first-seen slot order; bins re-sort ascending.
+        # finalize_matrix sorts keys anyway — this keeps the wire itself
+        # identical, not just the final matrix.
+        series_out = [
+            {"key": key,
+             "bins": [[int(i), int(bins[i])] for i in sorted(bins)]}
+            for key, bins in merged["series"].items()
+        ]
+        return {
+            "series": series_out,
+            "exemplars": [
+                {"key": key, **ex}
+                for key, exs in merged["exemplars"].items()
+                for ex in exs
+            ],
+            "stats": merged["stats"],
+            "compiledShape": "fallback",
+        }
 
     def query_range_blocks_multi(self, tenant: str, block_ids: list,
                                  queries: list, start_s: int, end_s: int,
@@ -282,16 +468,43 @@ class Querier:
         commits its partial only after evaluating WHOLE (the metrics-path
         contract: integer partials have no dedupe, so a block deleted
         mid-scan must contribute nothing — its spans live on in the
-        compaction output that replaced it)."""
+        compaction output that replaced it). A cached partial skips the
+        block and its critical path's root sums."""
         from tempo_tpu_torch import graph
 
         pipeline = graph.parse_root_filter(q)
         wire = (graph.new_deps_wire() if want == "deps"
                 else graph.new_cp_wire(by))
-        # (the reference reads and fills its result cache here, a block's
-        # graph partial keyed by query, window, want and by; resultcache/
-        # is not ported: ROADMAP Queue 1 item 5)
+        # result cache: a block's graph partial is a pure function of
+        # (block, query, window, want, by) — the same reuse contract as
+        # the metrics partials (run() below already returns a standalone
+        # JSON-safe wire, which is exactly the cacheable unit)
+        rc = self.db.result_cache
+        rc_fp = None
+        if rc.enabled():
+            from tempo_tpu_torch import resultcache as rc_mod
+            from tempo_tpu_torch.util import queryshape
+
+            rc_fp = rc_mod.fingerprint(
+                "graph|" + queryshape.normalize_query(q or ""),
+                queryshape.query_literals(q or ""),
+                want, by, int(start_s), int(end_s))
         for bid in block_ids:
+            if rc_fp is not None:
+                doc = rc.get(tenant, bid, "graph", rc_fp)
+                if doc is not None and not doc.get("neg"):
+                    sub = doc["w"]
+                    # cost stats describe the cold compute; the saved
+                    # bytes were credited by rc.get
+                    sub["stats"] = {**sub.get("stats", {}),
+                                    "inspectedBlocks": 0,
+                                    "inspectedBytes": 0,
+                                    "decodedBytes": 0}
+                    if want == "deps":
+                        graph.merge_deps_wire(wire, sub)
+                    else:
+                        graph.merge_cp_wire(wire, sub)
+                    continue
             try:
                 meta = self.db.backend.block_meta(tenant, bid)
             except NotFound:
@@ -323,6 +536,9 @@ class Querier:
             except NotFound:
                 log.warning("graph job: block %s deleted mid-query", bid)
                 continue
+            if rc_fp is not None:
+                rc.put(tenant, bid, "graph", rc_fp, sub,
+                       bytes_saved=int(sub["stats"].get("inspectedBytes", 0)))
             if want == "deps":
                 graph.merge_deps_wire(wire, sub)
             else:

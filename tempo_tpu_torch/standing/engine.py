@@ -11,10 +11,10 @@ failed and its reads answer HTTP 500 (StandingFoldFailed), so a host
 rebuild never stands in for a broken kernel. A cut parked on the
 device by the ingest tail (`ops/ingest_tail`) folds there for a plan that
 lowers onto the parked columns (one `tail_fold` launch a query and cut);
-its failure marks the query failed too. Not here, waiting for ROADMAP
-Queue 1 item 5: the result-cache arm of the rebuild (`resultcache/`; App
-refuses `result_cache.enabled`, so the reference takes the cold arm
-under the same config).
+its failure marks the query failed too. With the result cache on, a
+rebuild reads each stored vtpu1 block's contribution as a cached row log
+that does not depend on the rebuild's window (`_rebuild_block_logged`,
+`_replay_block_rows`), as the reference does.
 
 Every dashboard refresh and alert rule re-running `query_range` is
 O(re-scan); but the engine's range-vector partial is one associative
@@ -963,16 +963,47 @@ class StandingEngine:
         rules = rules_mod.block_rules(block_cfg)
         from tempo_tpu_torch.backend.faults import with_retries
 
+        rc = self.db.result_cache
+        rc_fp = (rc_fingerprint(q) if rc.enabled() else None)
         for m in metas:
             if m.end_time < w_lo:
                 continue
             try:
                 def one(meta=m):
-                    # the result-cache arm (a vtpu1 block's contribution
-                    # cached as a row log) comes with resultcache/
-                    # (ROADMAP Queue 1 item 5); App refuses the cache
+                    # result cache (tempo_tpu/resultcache): a vtpu1
+                    # block's standing contribution is cached as a
+                    # w_lo-INDEPENDENT row log — the window filter
+                    # applies at replay, so one entry serves every
+                    # rebuild regardless of when it runs
+                    use_rc = (rc_fp is not None
+                              and getattr(meta, "version", "") == "vtpu1")
+                    if use_rc:
+                        doc = rc.get(q.tenant, str(meta.block_id),
+                                     "standing", rc_fp)
+                        if doc is not None and not doc.get("neg"):
+                            scratch: dict[tuple, int] = {}
+                            n = self._replay_block_rows(
+                                q, doc["w"], w_lo, scratch, tmp_series)
+                            for k, c in scratch.items():
+                                tmp_counts[k] = tmp_counts.get(k, 0) + c
+                            return n, True
                     blk = self.db.encoding_for(meta.version).open_block(
                         meta, self.db.backend, block_cfg)
+                    if use_rc:
+                        # full-compute row log, committed via the SAME
+                        # replay a hit takes (warm-miss ≡ hit ≡ cold)
+                        log_doc, blk_ok = self._rebuild_block_logged(
+                            q, blk, rules)
+                        scratch = {}
+                        n = self._replay_block_rows(
+                            q, log_doc, w_lo, scratch, tmp_series)
+                        for k, c in scratch.items():
+                            tmp_counts[k] = tmp_counts.get(k, 0) + c
+                        if blk_ok:
+                            rc.put(q.tenant, str(meta.block_id), "standing",
+                                   rc_fp, log_doc,
+                                   bytes_saved=int(blk.bytes_read))
+                        return n, blk_ok
                     # a block that half-folded before a transient fault
                     # must contribute nothing twice: count into a scratch
                     # dict, commit only on success
@@ -1031,6 +1062,101 @@ class StandingEngine:
                     q, batch, batch.dictionary or blk.dictionary(),
                     tmp_counts, tmp_series)
         return n_partial, ok
+
+    def _rebuild_block_logged(self, q: StandingQuery, blk,
+                              rules) -> tuple[dict, bool]:
+        """One vtpu1 block -> a w_lo-independent row log for the result
+        cache: every (series key, standing bin, bucket, count) the block
+        can EVER contribute, tagged with the filter facts a replay needs
+        (the partial row's t0; the owning row group's end_s). No window
+        filter runs here — one log serves every future rebuild, filtered
+        at replay exactly where the cold path filters.
+
+        Row order is the replay-order contract: partial rows in stored
+        table order, span rows in ascending local-slot order (np.unique's
+        flat order) per row group — both identical to the sequence in
+        which the cold path first touches each key, so replaying through
+        a shared SeriesTable assigns the same slots the cold rebuild
+        would (the unbounded local table below only names keys; the
+        shared table's cap applies at replay)."""
+        from tempo_tpu_torch.metrics_engine import SeriesTable
+
+        rows: list = []
+        prgs: list = []
+        ok = True
+        step = q.step_s
+        local = SeriesTable(1 << 30)
+        rule = rules_mod.match_rule(q.template, rules)
+        for rg in blk.index().row_groups:
+            rg_end = int(rg.end_s)
+            if rule is not None and rules_mod.rg_has_partial(rg, rule):
+                name = rules_mod.page_name(rule.name)
+                table = blk.read_columns(rg, [name])[name]
+                keys = rg.partials[rule.name]["series"]
+                for row in table.reshape(-1, 4).astype(np.int64):
+                    t0 = int(row[1]) * rule.step_s
+                    rows.append([keys[int(row[0])], t0 // step, int(row[2]),
+                                 int(row[3]), t0, rg_end])
+                prgs.append(rg_end)
+                continue
+            for batch in _rg_batches(blk, rg):
+                ok &= self._log_batch(q, batch,
+                                      batch.dictionary or blk.dictionary(),
+                                      local, rows, rg_end)
+        return {"rows": rows, "prgs": prgs}, ok
+
+    def _log_batch(self, q: StandingQuery, batch, dictionary, local_series,
+                   rows: list, rg_end: int) -> bool:
+        """_rebuild_batch's twin that appends loggable rows instead of
+        committing counts (span rows carry t0=-1: the cold path filters
+        spans per row group, never per bin)."""
+        from tempo_tpu_torch.metrics_engine import eval_batch
+
+        n = batch.num_spans
+        if n == 0:
+            return True
+        t = batch.cols["start_unix_nano"].astype(np.int64)
+        t_lo = max(0, int(t.min()) // 10**9)
+        step = q.step_s
+        start = (t_lo // step) * step
+        n_bins = (int(t.max()) // (step * 10**9)) - (start // step) + 1
+        if n_bins <= 0 or n_bins > rules_mod.WRITE_MAX_BINS:
+            return False
+        plan = rules_mod.window_plan(q.template, start, int(n_bins))
+        res = eval_batch(plan, batch, dictionary, local_series)
+        live = res.slots[res.slots >= 0]
+        if not len(live):
+            return True
+        flats, counts = np.unique(live, return_counts=True)
+        nb, nk = plan.n_bins, plan.n_buckets
+        by_slot = {s: k for k, s in local_series.slots.items()}
+        for f, c in zip(flats, counts):
+            s = int(f) // (nb * nk)
+            rem = int(f) % (nb * nk)
+            rows.append([by_slot[s], start // step + rem // nk, rem % nk,
+                         int(c), -1, rg_end])
+        return True
+
+    def _replay_block_rows(self, q: StandingQuery, doc: dict, w_lo: int,
+                           tmp_counts: dict, tmp_series) -> int:
+        """Fold a cached row log into a rebuild's temp accumulator,
+        applying exactly the cold path's filters: row groups that end
+        before the window are skipped whole, partial rows additionally
+        filter on their own t0, and the shared series table's cap drops
+        overflow keys in first-encounter order. Returns the number of
+        partial-served row groups still inside the window (the
+        n_partial the cold path would report)."""
+        for key, qbin, bucket, count, t0, rg_end in doc.get("rows", ()):
+            if rg_end < w_lo:
+                continue
+            if t0 >= 0 and t0 < w_lo:
+                continue
+            s = tmp_series.slot_of(key)
+            if s < 0:
+                continue
+            k = (s, int(qbin), int(bucket))
+            tmp_counts[k] = tmp_counts.get(k, 0) + int(count)
+        return sum(1 for e in doc.get("prgs", ()) if e >= w_lo)
 
     def _rebuild_batch(self, q: StandingQuery, batch, dictionary,
                        tmp_counts: dict, tmp_series) -> bool:
@@ -1168,6 +1294,17 @@ def _add_flat_counts(counts_dict: dict, plan, bin_offset: int,
     for i in range(len(flats)):
         key = (int(sslot[i]), int(abs_bin[i]), int(bucket[i]))
         counts_dict[key] = counts_dict.get(key, 0) + int(counts[i])
+
+
+def rc_fingerprint(q: StandingQuery) -> str:
+    """Result-cache fingerprint of a standing query's block partials:
+    the raw query text (the registration identity — standing queries
+    are few and operator-controlled, so no literal-stripping indirection)
+    plus the grid parameters the row log's bins are computed against."""
+    from tempo_tpu_torch import resultcache as rc_mod
+
+    return rc_mod.fingerprint("standing|" + q.query, int(q.step_s),
+                              int(q.max_series))
 
 
 def _rg_batches(blk, rg):

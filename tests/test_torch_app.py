@@ -379,7 +379,7 @@ def test_status_pages(make_pair):
     (_, _, jb), (_, _, tb) = pair.both("GET", "/status/endpoints")
     served = json.loads(tb)["endpoints"]
     assert served == [e for e in json.loads(jb)["endpoints"] if e in served]
-    assert len(served) == 35
+    assert len(served) == 39
     assert _request(pair.servers[1].url, "GET", "/status")[2] == tb
     # the port's defaults are the reference's, so its diff is too
     for mode in ("defaults", "diff"):
@@ -460,8 +460,8 @@ def test_bad_requests_400(idle_pair, path):
     ("POST", "/api/v2/spans"),
     ("POST", "/api/traces"),
     ("GET", "/memberlist"),
-    ("GET", "/api/rca"),
-    ("GET", "/status/slo"),
+    ("POST", "/api/v1/spans"),
+    ("POST", "/rpc/v1/ingester/push"),
     ("POST", "/rpc/v1/worker/pull"),
     ("GET", "/kv/v1/ring"),
 ])

@@ -4,16 +4,16 @@ The same YAML must give equal config dataclasses in both packages
 (field for field, nested sections and lists included, defaults alike)
 and the same check_config warnings for the sections the port serves.
 App refuses every section whose module is not ported yet, naming its
-ROADMAP item, and every environment switch with which the reference
-turns such a module on. The metrics-generator starts on, as in the
-reference, and App serves it (its remote write stays refused); so are
-the storage analytics scan (600 s by default) and the device tier's
-ingest-tail share, by config and by TEMPO_TPU_INGEST_TAIL_MB.
+ROADMAP item. The metrics-generator starts on, as in the reference, and
+App serves it (its remote write stays refused); so are the storage
+analytics scan (600 s by default), the device tier's ingest-tail share
+(by config and by TEMPO_TPU_INGEST_TAIL_MB), the result cache (by
+config and by TEMPO_TPU_RESULT_CACHE), the backend cache, and the
+incident plane (rca, slo, vulture).
 """
 
 import dataclasses
 
-import re
 
 import pytest
 
@@ -206,11 +206,6 @@ UNPORTED = {
     "distributor:\n  forwarders:\n    - {name: m, endpoint: http://c:4318}\n": "forwarders",
     "usage_report:\n  enabled: true\n": "usage_report",
     "self_tracing:\n  enabled: true\n": "self_tracing",
-    "rca:\n  enabled: true\n": "rca",
-    "slo:\n  enabled: true\n": "slo",
-    "vulture:\n  enabled: true\n": "vulture",
-    "storage:\n  trace:\n    result_cache:\n      enabled: true\n": "result_cache",
-    "storage:\n  trace:\n    cache: memory\n": "cache='memory'",
 }
 
 
@@ -226,6 +221,56 @@ def test_unported_sections_refused(yaml_text, tmp_path):
     path.write_text(yaml_text)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         tmain.main(["-config.file", str(path), "-config.verify"])
+
+
+# the sections that earlier slices refused, now served by the modules
+# they switch on (member of App or of its DB that each one builds)
+SERVED_SECTIONS = {
+    "rca:\n  enabled: true\n": lambda app: app.rca is not None,
+    "slo:\n  enabled: true\n": lambda app: app.slo_engine is not None,
+    "vulture:\n  enabled: true\n": lambda app: app.vulture is not None,
+    "storage:\n  trace:\n    result_cache:\n      enabled: true\n":
+        lambda app: app.db.result_cache.enabled(),
+    "storage:\n  trace:\n    cache: memory\n":
+        lambda app: type(app.db.backend.raw).__name__ == "CachedBackend",
+}
+
+
+@pytest.mark.parametrize("yaml_text", sorted(SERVED_SECTIONS))
+def test_formerly_refused_sections_served(yaml_text, tmp_path, monkeypatch):
+    """Each section parses as in the reference, gives the reference's
+    check_config warnings, and App starts the module it switches on;
+    -config.verify accepts the file."""
+    monkeypatch.delenv("TEMPO_TPU_RESULT_CACHE", raising=False)
+    j, t = jconfig.parse_config(yaml_text), config.parse_config(yaml_text)
+    assert _doc(j) == _doc(t)
+    assert jconfig.check_config(j) == config.check_config(t)
+    t.app.db.backend_path = str(tmp_path / "blocks")
+    t.app.db.wal_path = str(tmp_path / "wal")
+    app = App(t.app, device="cpu")
+    try:
+        assert SERVED_SECTIONS[yaml_text](app)
+    finally:
+        app.shutdown()
+    path = tmp_path / "tempo.yaml"
+    path.write_text(yaml_text + f"storage:\n  trace:\n    backend_path: {tmp_path}/blocks\n"
+                    if "storage" not in yaml_text else yaml_text)
+    assert tmain.main(["-config.file", str(path), "-config.verify"]) == 0
+
+
+@pytest.mark.parametrize("yaml_text", [
+    "rca:\n  enabled: true\nslo:\n  enabled: true\n",
+    "slo:\n  enabled: true\n  objectives:\n    - {name: v, sli: vulture}\n    - {name: x, sli: nope, objective: 1.5}\n",
+    "vulture:\n  enabled: true\n  aged_min_age_s: 60\n  retention_s: 30\n  write_backoff_s: 120\n",
+    "storage:\n  trace:\n    backend: s3\n",
+    "storage:\n  trace:\n    cache: memory\n    result_cache:\n      enabled: true\n",
+])
+def test_incident_and_cache_warnings_equal(yaml_text, monkeypatch):
+    monkeypatch.setenv("TEMPO_TPU_ZONEMAPS", "0")
+    j, t = jconfig.parse_config(yaml_text), config.parse_config(yaml_text)
+    assert _doc(j) == _doc(t)
+    jw, tw = jconfig.check_config(j), config.check_config(t)
+    assert jw == tw and tw
 
 
 @pytest.mark.parametrize("yaml_text,enabled", [
@@ -286,24 +331,26 @@ def test_compiled_section_equal(yaml_text, tmp_path):
     App(t.app, device="cpu").shutdown()
 
 
-# env switch -> (what the refusal names, the ROADMAP item it cites)
-UNPORTED_ENV = {
-    ("TEMPO_TPU_RESULT_CACHE", "on"): ("TEMPO_TPU_RESULT_CACHE", "ROADMAP Queue 1 item 1.2"),
-    ("TEMPO_TPU_RESULT_CACHE", "force"): ("TEMPO_TPU_RESULT_CACHE", "ROADMAP Queue 1 item 1.2"),
-}
+@pytest.mark.parametrize("value", ["on", "force"])
+def test_result_cache_env_switch_served(value, tmp_path, monkeypatch):
+    """TEMPO_TPU_RESULT_CACHE forces the result cache on over a config
+    that leaves it off, as in the reference; -config.verify accepts it."""
+    from tempo_tpu import resultcache as jrc
 
-
-@pytest.mark.parametrize("env", sorted(UNPORTED_ENV), ids=lambda e: "=".join(e))
-def test_unported_env_switches_refused(env, tmp_path, monkeypatch):
-    """An environment switch with which the reference turns on a module
-    the port lacks is refused at App start, naming its ROADMAP item."""
-    monkeypatch.setenv(*env)
+    monkeypatch.setenv("TEMPO_TPU_RESULT_CACHE", value)
     path = tmp_path / "tempo.yaml"
     path.write_text(f"storage:\n  trace:\n    backend_path: {tmp_path}/blocks\n")
-    what, item = UNPORTED_ENV[env]
-    with pytest.raises(NotImplementedError, match=re.escape(item)) as e:
-        tmain.main(["-config.file", str(path), "-config.verify"])
-    assert what in str(e.value) and "not ported yet" in str(e.value)
+    assert tmain.main(["-config.file", str(path), "-config.verify"]) == 0
+    t = config.parse_config(path.read_text())
+    t.app.db.wal_path = str(tmp_path / "wal")
+    assert not t.app.db.result_cache.enabled
+    app = App(t.app, device="cpu")
+    try:
+        assert app.db.result_cache.enabled()
+        assert app.db.result_cache.enabled() == jrc.ResultCache(
+            jrc.ResultCacheConfig(enabled=False)).enabled()
+    finally:
+        app.shutdown()
 
 
 @pytest.mark.parametrize("env", [("TEMPO_TPU_DEVICE_TIER_MB", "0"), ("TEMPO_TPU_INGEST_TAIL_MB", "0"),

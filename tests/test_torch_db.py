@@ -686,8 +686,9 @@ def test_unported_paths_raise(tmp_path):
     for kind in ("s3", "gcs", "azure"):
         with pytest.raises(NotImplementedError):
             make_raw_backend(kind)
-    with pytest.raises(NotImplementedError):
-        TempoDB(DBConfig(backend="mock", cache="memory"), device="cpu")
+    cached = TempoDB(DBConfig(backend="mock", cache="memory"), device="cpu")
+    assert type(cached.backend.raw).__name__ == "CachedBackend"
+    cached.shutdown()
     db = TempoDB(DBConfig(backend="mock", compaction_device_shards=2), device="cpu")
     for method in (db.compaction_mesh, db.mesh_searcher, db.mesh_metrics_evaluator):
         with pytest.raises(NotImplementedError):

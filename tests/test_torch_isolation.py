@@ -13,7 +13,8 @@ by search, a simple-count query_range through the compiled tier,
 /status/storage, /status/profile and /status/profile/device, the
 metrics-generator's series and the graph routes over a second push, and a standing
 query registered, folded at the flush's cut and read against query_range
-over HTTP) on the CPU, and an
+over HTTP, a query_range answered twice through the result cache over
+the memory backend cache, /api/rca and /status/slo) on the CPU, and an
 entry point called
 without a device raises when CUDA is absent. `python -m tempo_tpu_torch` verifies
 a config and serves HTTP until /shutdown with the same imports blocked."""
@@ -61,7 +62,12 @@ SCRIPT = BLOCK + textwrap.dedent(r"""
                  "tempo_tpu_torch.modules.generator.spanmetrics",
                  "tempo_tpu_torch.modules.generator.servicegraphs",
                  "tempo_tpu_torch.ops.ingest_tail", "tempo_tpu_torch.db.analytics",
-                 "tempo_tpu_torch.util.profiling"):
+                 "tempo_tpu_torch.util.profiling", "tempo_tpu_torch.resultcache",
+                 "tempo_tpu_torch.cache", "tempo_tpu_torch.cache.client",
+                 "tempo_tpu_torch.backend.cache", "tempo_tpu_torch.rca",
+                 "tempo_tpu_torch.rca.classify", "tempo_tpu_torch.rca.engine",
+                 "tempo_tpu_torch.util.slo", "tempo_tpu_torch.util.traceinfo",
+                 "tempo_tpu_torch.vulture"):
         assert name in names, name
     for name, mod in sys.modules.items():
         assert mod is None or not (name == "tempo_tpu" or name.startswith("tempo_tpu.") or name == "jax"
@@ -152,9 +158,15 @@ SCRIPT = BLOCK + textwrap.dedent(r"""
     from tempo_tpu_torch.model.trace import batch_to_traces
     from tempo_tpu_torch.receivers import otlp
 
+    from tempo_tpu_torch import resultcache
+    from tempo_tpu_torch.rca import RCAConfig
+    from tempo_tpu_torch.util.slo import SLOConfig
+
     root = tempfile.mkdtemp()
     app = App(AppConfig(db=DBConfig(backend="local", backend_path=root + "/blocks",
-                                    wal_path=root + "/wal")), device="cpu")
+                                    wal_path=root + "/wal", cache="memory"),
+                        rca=RCAConfig(enabled=True), slo=SLOConfig(enabled=True)),
+              device="cpu")
     srv = TempoServer(app).start()
     try:
         def http(method, path, body=None, headers=None):
@@ -180,6 +192,21 @@ SCRIPT = BLOCK + textwrap.dedent(r"""
         assert status == 200 and json.loads(body)["data"]["result"]
         status, body = http("GET", "/api/query-insights")
         assert status == 200 and json.loads(body)["compiled"]["misses"] >= 1
+        os.environ["TEMPO_TPU_RESULT_CACHE"] = "force"
+        cached_q = "{ } | rate() by (resource.service.name)"
+        answers = []
+        for _ in range(2):
+            status, body = http("GET", "/api/metrics/query_range?" + urllib.parse.urlencode(
+                {"q": cached_q, "start": t_s - 60, "end": t_s + 600, "step": 60}))
+            assert status == 200
+            answers.append(json.loads(body)["data"]["result"])
+        del os.environ["TEMPO_TPU_RESULT_CACHE"]
+        assert answers[0] and answers[0] == answers[1]
+        assert resultcache.rc_hits.value(kind="metrics") >= 1
+        status, body = http("GET", "/api/rca")
+        assert status == 200 and json.loads(body) == {"enabled": True, "incidents": []}
+        status, body = http("GET", "/status/slo")
+        assert status == 200 and json.loads(body)["objectives"]
         status, body = http("GET", "/status/device")
         assert status == 200 and json.loads(body)["pageHeat"]["totalShips"] >= 1
         status, body = http("GET", "/status/storage?refresh=1")
