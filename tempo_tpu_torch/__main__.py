@@ -4,10 +4,14 @@ Port of tempo_tpu/__main__.py (reference: cmd/tempo/main.go — flags +
 YAML config with envsubst, config sanity warnings, then the app). The
 single-binary `-target=all` composition runs every role in-process on
 the CUDA device, the metrics-generator among them (on by default, as in
-the reference); `-device cpu` runs it on the host. `-config.verify`
-validates and exits. The gRPC, Jaeger UDP and Kafka receivers wait for
-a later slice (ROADMAP Queue 1 item 8): a config that turns one on is
-refused, as App refuses every other section whose module is not ported.
+the reference); any other `-target` of app.ROLES runs one role of
+microservices mode, which finds its peers through the YAML's top-level
+`ring_kv_path` or `ring_kv_url` and advertises `advertise_addr` (a
+querier pulls jobs from `frontend_address`). `-device cpu` runs on the
+host. `-config.verify` validates and exits. The gRPC, Jaeger UDP and
+Kafka receivers wait for a later slice (ROADMAP Queue 1 item 8, cited
+as item 2): a config that turns one on is refused, as App refuses every
+other section whose module is not ported.
 """
 
 from __future__ import annotations
@@ -54,8 +58,8 @@ def main(argv=None) -> int:
             or srv.jaeger_agent_binary_port or srv.kafka.brokers:
         raise NotImplementedError(
             "tempo_tpu_torch: the gRPC, Jaeger UDP and Kafka receivers are not "
-            "ported yet (ROADMAP Queue 1 item 2 (single binary: microservices "
-            "and the other roles))")
+            "ported yet (ROADMAP Queue 1 item 2 (single binary: the other "
+            "receivers))")
     cfg.app.target = cfg.target
     refuse_unported(cfg.app)
     if args.verify:

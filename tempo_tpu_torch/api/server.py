@@ -8,7 +8,7 @@ conventional ports; here every protocol rides the main listener, keyed
 by path). stdlib ThreadingHTTPServer — no external HTTP framework in
 the image.
 
-Port of tempo_tpu/api/server.py for the single binary. Routes:
+Port of tempo_tpu/api/server.py for every target. Routes:
   POST /v1/traces            OTLP http (protobuf or json, gzip/deflate)
   GET  /api/traces/{id}      trace by ID (OTLP json; protobuf if Accept'd)
   GET  /api/search           tag search (tags=logfmt) or TraceQL (q=...)
@@ -23,6 +23,8 @@ Port of tempo_tpu/api/server.py for the single binary. Routes:
   GET  /ready /metrics /status[/config|/runtime_config|/services|
        /endpoints|/buildinfo|/standing|/device|/storage] and the ring pages
   GET  /status/profile[/device]  host stack sampler; torch.profiler window
+  /rpc/v1/*                  inter-role RPC of microservices mode (modules/rpc)
+  GET/POST /kv/v1/{name}     the ring KV (modules/netkv); GET /memberlist its names
 Every other route of the reference answers 404 naming the ROADMAP item
 that ports it (_UNPORTED_ROUTES).
 """
@@ -54,21 +56,19 @@ VERSION = "0.1.0"
 
 log = logging.getLogger(__name__)
 
-_Q1_2 = "ROADMAP Queue 1 item 2 (single binary: microservices and the other roles)"
-# (exact paths, path prefixes, what, ROADMAP item) of the reference's
-# routes that this port does not serve yet
+_Q1_2 = "ROADMAP Queue 1 item 2 (single binary: the other receivers)"
+# (exact paths, what, ROADMAP item) of the reference's routes that this
+# port does not serve yet
 _UNPORTED_ROUTES = (
-    (("/api/v2/spans", "/api/v1/spans"), (), "the Zipkin receiver", _Q1_2),
-    (("/api/traces",), (), "the Jaeger thrift receiver", _Q1_2),
-    ((), ("/rpc/", "/kv/"), "inter-role RPC and the ring KV (microservices mode)", _Q1_2),
-    (("/memberlist",), (), "the ring KV (netkv)", _Q1_2),
+    (("/api/v2/spans", "/api/v1/spans"), "the Zipkin receiver", _Q1_2),
+    (("/api/traces",), "the Jaeger thrift receiver", _Q1_2),
 )
 
 
 def _unported_route(method: str, path: str) -> str | None:
     """404 message for a reference route the port does not serve yet."""
-    for exact, prefixes, what, item in _UNPORTED_ROUTES:
-        if path in exact or path.startswith(prefixes):
+    for exact, what, item in _UNPORTED_ROUTES:
+        if path in exact:
             if path == "/api/traces" and method != "POST":
                 continue  # GET /api/traces/{id} is served; the bare path is not a route
             return f"{path}: {what} is not ported yet ({item})"
@@ -108,6 +108,11 @@ def _config_dict(cfg) -> dict:
 class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
     server_version = "tempo-tpu/" + VERSION
+    # a response goes out as two writes (headers, then body): with Nagle
+    # on, the body waits for the ACK of the headers, which a keep-alive
+    # client delays by ~40 ms, so every request after a connection's
+    # first would take 40 ms — the pooled inter-role clients' every call
+    disable_nagle_algorithm = True
 
     # set by server factory
     app = None
@@ -201,21 +206,24 @@ class _Handler(BaseHTTPRequestHandler):
             return api_params.PATH_METRICS_STANDING + "/{id}"
         if p.startswith(api_params.PATH_RCA + "/"):
             return api_params.PATH_RCA + "/{incidentID}"
-        if p.startswith(("/rpc/", "/kv/")):
-            return "{unported}"
+        if p.startswith("/rpc/v1/worker/result/"):
+            return "/rpc/v1/worker/result/{jobID}"
+        if p.startswith("/rpc/v1/ingester/trace/"):
+            return "/rpc/v1/ingester/trace/{traceID}"
         return p
 
     # paths that poll/long-poll constantly: a root span per request
     # would flood the dogfood tenant with noise traces (the reference
     # similarly leaves health/metrics endpoints uninstrumented)
-    _UNTRACED = ("/metrics", "/ready")
+    _UNTRACED = ("/metrics", "/ready", "/rpc/v1/worker/pull")
 
     def _traced_handle(self, method: str, url, route: str) -> int:
         """Extract the inbound W3C traceparent (reference: the server's
         otelhttp middleware) and open one server span per request, so an
         instrumented client's push/query and our internal RPC hops land
         in one coherent trace."""
-        if not tracing.TRACER.enabled or route in self._UNTRACED:
+        if (not tracing.TRACER.enabled or route in self._UNTRACED
+                or url.path.startswith("/kv/")):
             return self._handle(method, url)
         with tracing.remote_context(self.headers.get(tracing.TRACEPARENT_HEADER)):
             with tracing.span(f"http/{method} {route}", route=route) as s:
@@ -255,8 +263,8 @@ class _Handler(BaseHTTPRequestHandler):
             code = 429
             self._send_error(429, str(e))
         except RoleUnavailable as e:
-            # endpoint exists but this process doesn't serve it (or the
-            # port does not serve it yet)
+            # endpoint exists but this process's target doesn't serve it
+            # (or the port does not serve it yet)
             code = 404
             self._send_error(404, str(e))
         except Exception:
@@ -275,6 +283,55 @@ class _Handler(BaseHTTPRequestHandler):
         msg = _unported_route(method, path)
         if msg is not None:
             raise RoleUnavailable(msg)
+
+        # ring KV service (reference: the memberlist/consul/etcd KV every
+        # ring shares, cmd/tempo/app/modules.go:297-325) — revisioned CAS
+        # + long-poll watch, served by any role
+        if path.startswith("/kv/v1/"):
+            name = path[len("/kv/v1/"):]
+            if not name or "/" in name:
+                self._send_error(404, "bad kv name")
+                return 404
+            if method not in ("GET", "POST"):
+                self._send_error(405, "method not allowed")
+                return 405
+            svc = app.kv_service
+            if method == "GET":
+                wait = qs.get("wait_revision", [None])[0]
+                timeout = float(qs.get("timeout", ["25"])[0])
+                rev, data = svc.read(
+                    name,
+                    wait_revision=int(wait) if wait is not None else None,
+                    timeout_s=min(timeout, 60.0),
+                )
+                self._send_json(200, {"revision": rev, "data": data})
+                return 200
+            doc = json.loads(self._body())
+            ok, cur = svc.cas(name, int(doc["revision"]), doc["data"])
+            if ok:
+                self._send_json(200, {"revision": cur})
+                return 200
+            self._send_json(409, {"revision": cur})
+            return 409
+
+        # inter-role RPC (reference: the gRPC services Pusher/Querier +
+        # frontend Process stream; here /rpc/v1/* on the same listener)
+        if path.startswith("/rpc/"):
+            rpc = getattr(app, "rpc", None)
+            if rpc is None:
+                self._send_error(404, "no rpc surface")
+                return 404
+            if path.startswith("/rpc/v1/worker/"):
+                # worker pull/result are tenant-less by design: a querier
+                # serves EVERY tenant's jobs and each job descriptor
+                # carries its own tenant — requiring an org id here would
+                # 401 the long-poll the moment multitenancy turns on
+                tenant = ""
+            else:
+                tenant = app.resolve_tenant(self._org_id())
+            code, ctype, payload = rpc.handle(method, path, tenant, self._body())
+            self._send(code, payload, ctype)
+            return code
 
         # ingest
         if method == "POST" and path == receivers.OTLP_HTTP_PATH:
@@ -348,6 +405,9 @@ class _Handler(BaseHTTPRequestHandler):
         if path == api_params.PATH_QUERY_INSIGHTS:
             # the query-insights ring (util/insights): sampled + slow/
             # error-triggered per-query records, tenant-scoped
+            if app.frontend is None:
+                raise RoleUnavailable(
+                    f"this process (target={app.target}) serves no queries")
             from tempo_tpu_torch.compiled import cache as compiled_cache
             from tempo_tpu_torch.util import insights as insights_mod
 
@@ -370,6 +430,12 @@ class _Handler(BaseHTTPRequestHandler):
             return self._rca(path)
         if path == api_params.PATH_ECHO:
             self._send(200, b"echo", "text/plain; charset=utf-8")
+            return 200
+
+        if path == "/memberlist":
+            # KV-store debug view (reference memberlist status page): the
+            # names every ring/seed shares plus their revisions
+            self._send_json(200, {"stores": app.kv_service.summary()})
             return 200
 
         # ring + membership status pages (reference: GET /{role}/ring and
@@ -531,11 +597,15 @@ class _Handler(BaseHTTPRequestHandler):
             # served live): codec mix + compression, zone-map coverage,
             # compaction debt/payoff per tenant. Served from the periodic
             # scanner's last pass when fresh; ?refresh=1 forces a scan.
+            db = app.db
+            if db is None:
+                raise RoleUnavailable(
+                    f"this process (target={app.target}) has no storage engine")
             scanner = app.storage_scanner
             if scanner is None:
                 from tempo_tpu_torch.db.analytics import StorageScanner
 
-                scanner = app.storage_scanner = StorageScanner(app.db)
+                scanner = app.storage_scanner = StorageScanner(db)
             refresh = qs.get("refresh", ["0"])[0] not in ("0", "", "false")
             self._send_json(200, scanner.report(max_age_s=0 if refresh else None))
             return 200
@@ -873,6 +943,7 @@ _ENDPOINTS = [
     "GET /distributor/ring",
     "GET /compactor/ring",
     "GET /metrics-generator/ring",
+    "GET /memberlist",
 ]
 
 

@@ -1,20 +1,28 @@
-"""App wiring — the single-binary composition on one device.
+"""App wiring — single-binary and per-role composition on one device.
 
-Port of tempo_tpu/app.py for `target=all` (reference: cmd/tempo/app,
-the module manager DAG modules.go:369-423): every role in-process over
-one ring and one storage engine. `App(cfg, device=None)` resolves the
-device once (CUDA unless "cpu" is passed; raises without CUDA) and
-hands it to every TempoDB it builds, to the device tier, to the
-standing-query engine and to the metrics-generator, so the blocks'
-sketch plane, the metrics accumulator, the standing fold, the ingest
-tail parked at each cut (with its resident fold and live-tail scan), the
-service graphs' sketches and the graph queries' critical paths run on
-that device from any worker or cut thread. On target all it starts the
+Port of tempo_tpu/app.py (reference: cmd/tempo/app, the module manager
+DAG modules.go:369-423). target="all" builds every role in-process over
+one ring and one storage engine. Any other target of ROLES builds ONE
+role; roles find each other through the ring KV (ring_kv_path: FileKV
+on one host; ring_kv_url: modules/netkv's KV served on a role's own
+listener) and talk over the /rpc/v1 HTTP protocol (modules/rpc), the
+reference's gRPC seam, with the reference's bytes on the wire.
+
+`App(cfg, device=None)` resolves the device once (CUDA unless "cpu" is
+passed; raises without CUDA, whatever the target) and hands it to every
+TempoDB it builds, to the device tier, to the standing-query engine and
+to the metrics-generator, so the blocks' sketch plane, the metrics
+accumulator, the standing fold, the ingest tail parked at each cut (with
+its resident fold and live-tail scan), the service graphs' sketches and
+the graph queries' critical paths run on that device from any worker,
+cut or remote-worker thread. On target all and compactor it starts the
 storage analytics scanner (db/analytics) every
 `storage.trace.analytics_scan_s`, as the reference does, and, when their
-sections enable them, the in-process vulture (vulture.py), the burn-rate
-SLO engine (util/slo) and the auto-RCA engine (rca/), which subscribes
-to the SLO engine's page burns and the standing engine's deviations.
+sections enable them, the in-process vulture (vulture.py; the sidecar
+on target=vulture), the burn-rate SLO engine (util/slo), the auto-RCA
+engine (rca/), which subscribes to the SLO engine's page burns and the
+standing engine's deviations, and the generator's remote write
+(modules/generator/storage).
 
 AppConfig keeps every field of the reference. Features whose modules
 wait for later slices raise NotImplementedError naming their ROADMAP
@@ -41,11 +49,19 @@ from tempo_tpu_torch.modules.compactor_module import CompactorModule
 from tempo_tpu_torch.modules.distributor import Distributor
 from tempo_tpu_torch.modules.frontend import Frontend, FrontendConfig
 from tempo_tpu_torch.modules.generator import Generator
+from tempo_tpu_torch.modules.generator.storage import RemoteWriteStorage
 from tempo_tpu_torch.modules.ingester import Ingester, IngesterConfig
+from tempo_tpu_torch.modules.netkv import KVService
 from tempo_tpu_torch.modules.overrides import Limits, Overrides
 from tempo_tpu_torch.modules.querier import Querier
-from tempo_tpu_torch.modules.ring import MemoryKV, Ring
-from tempo_tpu_torch.modules.worker import JobBroker, LocalWorkerPool
+from tempo_tpu_torch.modules.ring import FileKV, MemoryKV, Ring
+from tempo_tpu_torch.modules.rpc import (
+    RemoteGenerator,
+    RemoteIngester,
+    RingClientPool,
+    RPCHandler,
+)
+from tempo_tpu_torch.modules.worker import JobBroker, LocalWorkerPool, RemoteWorker
 from tempo_tpu_torch.rca import RCAConfig, RCAEngine
 from tempo_tpu_torch.standing import StandingConfig, StandingEngine
 from tempo_tpu_torch.util import resource, slo, tracing
@@ -67,22 +83,15 @@ ROLES = (
     "vulture",
 )
 
-_Q1_2 = "ROADMAP Queue 1 item 2 (single binary: microservices and the other roles)"
-_Q1_7 = ("ROADMAP Queue 1 item 7 (microservices mode: the generator's remote write, "
-         "modules/generator/storage)")
+_Q1_7B = ("ROADMAP Queue 1 item 7b (the forwarders, the usage_report reporter and "
+          "the self-tracing export)")
 # (switched on?, what, ROADMAP item) for every feature of the reference
 # whose module the port does not carry yet
 _UNPORTED = (
-    (lambda c: (c.target or "all") != "all",
-     lambda c: f"target={c.target!r} (microservices mode)", _Q1_2),
-    # modules/generator/storage (with util/snappy) comes with microservices
-    # mode
-    (lambda c: c.remote_write is not None and bool(c.remote_write.endpoint),
-     lambda c: "generator remote_write", _Q1_7),
-    (lambda c: bool(c.forwarders), lambda c: "distributor forwarders", _Q1_2),
+    (lambda c: bool(c.forwarders), lambda c: "distributor forwarders", _Q1_7B),
     (lambda c: c.usage_stats is not None and getattr(c.usage_stats, "enabled", False),
-     lambda c: "usage_report", _Q1_2),
-    (lambda c: c.self_tracing.enabled, lambda c: "self_tracing", _Q1_2),
+     lambda c: "usage_report", _Q1_7B),
+    (lambda c: c.self_tracing.enabled, lambda c: "self_tracing", _Q1_7B),
 )
 
 
@@ -172,6 +181,9 @@ class RoleUnavailable(RuntimeError):
 class App:
     def __init__(self, cfg: AppConfig, device=None):
         refuse_unported(cfg)
+        target = cfg.target or "all"
+        if target not in ROLES:
+            raise ValueError(f"unknown target {target!r} (have {ROLES})")
         dev = _device.resolve(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -183,40 +195,67 @@ class App:
         self.governor = resource.configure(cfg.resource)
         # install (or disable) the device-resident hot tier on this App's
         # device; it binds to the governor lazily, so order relative to
-        # configure() is free
+        # configure() is free. The tier is process-wide: role Apps that
+        # share a process share it, as in the reference
         configure_device_tier(cfg.device_tier, device=self.device)
         # apply the compiled-tier section (and register its counters on
         # the boot path, so /metrics exposes them before the first query)
         compiled_cache.configure(cfg.compiled)
-        self.target = "all"
+        self.target = target
+
+        # members default to absent; the role builder fills its slice
+        self.db = None
         self.overrides = Overrides(cfg.limits, cfg.overrides_path)
-        self.ingesters: dict = {}
+        self.ring = None
         self.generator_ring = None
+        self.ingesters: dict = {}
         self.generator = None
+        self.distributor = None
+        self.querier = None
+        self.broker = None
+        self.workers = None
+        self.remote_worker = None
+        self.frontend = None
+        self.compactor = None
+        self.remote_write_storage = None
+        self.storage_scanner = None
+        self.pageheat_exporter = None
+        self.rpc = None
         self._heartbeat_stops = []
         self._registered: list = []  # (ring, instance_id) to unregister on shutdown
+        # every role serves the ring KV on its HTTP listener; peers point
+        # ring_kv_url at whichever role is designated (reference: one
+        # KVInitService shared by all rings, modules.go:297-325)
+        self.kv_service = KVService()
+        self._net_kvs: list = []
+        self.vulture = None
+        self.slo_engine = None
         # built BEFORE the ingesters so the cut path holds a stable
-        # reference; storage/WAL wiring attaches after the build
+        # reference; storage/WAL wiring attaches after the role build
         self.standing = (
             StandingEngine(cfg.standing, overrides=self.overrides,
                            governor=self.governor, device=self.device)
-            if cfg.standing.enabled else None
+            if cfg.standing.enabled and target in ("all", "ingester") else None
         )
-        self._build_all()
+        if target == "all":
+            self._build_all()
+        else:
+            self._build_role(target)
         self._maybe_standing_attach()
-        self.storage_scanner = None
         self._maybe_storage_scanner()
         self._maybe_pageheat_exporter()
-        self.vulture = None
         self._maybe_vulture()
-        self.slo_engine = slo.SLOEngine(cfg.slo) if cfg.slo.enabled else None
+        if cfg.slo.enabled:
+            self.slo_engine = slo.SLOEngine(cfg.slo)
         self.rca = None
         self._maybe_rca()
 
     def _maybe_rca(self):
         """Auto-RCA incident engine: subscribes to the SLO evaluator's
         page-burn transitions and the standing engine's deviation fires.
-        Evidence collection runs queries through this App's frontend."""
+        Evidence collection runs queries through this App's frontend, so
+        the all-in-one target is the natural host; other roles get the
+        triggers they can serve evidence for."""
         if not self.cfg.rca.enabled:
             return
         self.rca = RCAEngine(self.cfg.rca, self)
@@ -229,6 +268,29 @@ class App:
     def _hb_period(self) -> float:
         return min(10.0, max(0.5, self.cfg.ring_heartbeat_timeout_s / 3))
 
+    def _ring_kv(self, suffix: str = ""):
+        if self.cfg.ring_kv_url == "local":
+            from tempo_tpu_torch.modules.netkv import LocalKV
+
+            return LocalKV(self.kv_service, f"ring{suffix}")
+        if self.cfg.ring_kv_url:
+            from tempo_tpu_torch.modules.netkv import HttpKV
+
+            kv = HttpKV(self.cfg.ring_kv_url, f"ring{suffix}")
+            self._net_kvs.append(kv)
+            return kv
+        if not self.cfg.ring_kv_path:
+            raise ValueError(
+                f"target={self.target} requires ring_kv_path or ring_kv_url"
+            )
+        return FileKV(self.cfg.ring_kv_path + suffix)
+
+    def _instance_id(self, default: str) -> str:
+        return self.cfg.instance_id or default
+
+    def _make_db(self) -> TempoDB:
+        return TempoDB(self.cfg.db, device=self.device)
+
     def _query_breaker(self):
         """Shared breaker around query-job execution: a sustained
         backend outage opens it after 10 consecutive job failures
@@ -238,10 +300,17 @@ class App:
         return CircuitBreaker(name="query-backend", failure_threshold=10,
                               reset_timeout_s=5.0)
 
+    def _maybe_remote_write(self):
+        """The generator's series leave by Prometheus remote write when
+        metrics_generator.remote_write names an endpoint."""
+        rw = self.cfg.remote_write
+        if rw is not None and rw.endpoint:
+            self.remote_write_storage = RemoteWriteStorage(rw)
+
     # ------------------------------------------------------------------
     def _build_all(self):
         cfg = self.cfg
-        self.db = TempoDB(cfg.db, device=self.device)
+        self.db = self._make_db()
         kv = MemoryKV()
         self.ring = Ring(kv, replication_factor=cfg.replication_factor,
                          heartbeat_timeout_s=cfg.ring_heartbeat_timeout_s)
@@ -271,6 +340,7 @@ class App:
             gen_clients["generator-0"] = self.generator
             self._heartbeat_stops.append(self.generator_ring.start_heartbeat(
                 "generator-0", period_s=self._hb_period()))
+            self._maybe_remote_write()
 
         self.distributor = Distributor(self.ring, ingester_clients=self.ingesters,
                                        overrides=self.overrides,
@@ -282,6 +352,110 @@ class App:
                                        breaker=self._query_breaker())
         self.frontend = Frontend(self.broker, self.db, cfg.frontend, self.overrides)
         self.compactor = CompactorModule(self.db, ring=None)
+        self.rpc = RPCHandler(
+            ingester=next(iter(self.ingesters.values()), None),
+            generator=self.generator,
+            broker=self.broker,
+        )
+
+    # ------------------------------------------------------------------
+    def _build_role(self, role: str):
+        cfg = self.cfg
+        if role == "ingester":
+            iid = self._instance_id("ingester-0")
+            sub_cfg = DBConfig(**{**cfg.db.__dict__})
+            sub_cfg.wal_path = (cfg.db.wal_path or "wal") + f"/{iid}"
+            self.db = TempoDB(sub_cfg, device=self.device)
+            ing = Ingester(self.db, self.overrides, cfg.ingester, instance_id=iid,
+                           standing=self.standing)
+            self.ingesters[iid] = ing
+            self.ring = Ring(self._ring_kv(), replication_factor=cfg.replication_factor,
+                             heartbeat_timeout_s=cfg.ring_heartbeat_timeout_s)
+            self.ring.register(iid, addr=cfg.advertise_addr)
+            self._registered.append((self.ring, iid))
+            self._heartbeat_stops.append(self.ring.start_heartbeat(iid, period_s=self._hb_period()))
+            self.rpc = RPCHandler(ingester=ing)
+            return
+
+        if role == "metrics-generator":
+            gid = self._instance_id("generator-0")
+            self.generator = Generator(self.overrides, instance_id=gid, device=self.device)
+            self.generator_ring = Ring(self._ring_kv("-generator"), replication_factor=1)
+            self.generator_ring.register(gid, addr=cfg.advertise_addr)
+            self._registered.append((self.generator_ring, gid))
+            self._heartbeat_stops.append(self.generator_ring.start_heartbeat(gid, period_s=self._hb_period()))
+            self._maybe_remote_write()
+            self.rpc = RPCHandler(generator=self.generator)
+            return
+
+        if role == "distributor":
+            self.ring = Ring(self._ring_kv(), replication_factor=cfg.replication_factor,
+                             heartbeat_timeout_s=cfg.ring_heartbeat_timeout_s)
+            gen_clients = {}
+            if cfg.generator_enabled:
+                self.generator_ring = Ring(self._ring_kv("-generator"), replication_factor=1)
+                gen_clients = RingClientPool(self.generator_ring, RemoteGenerator)
+            self.distributor = Distributor(
+                self.ring,
+                ingester_clients=RingClientPool(self.ring, RemoteIngester),
+                overrides=self.overrides,
+                generator_ring=self.generator_ring,
+                generator_clients=gen_clients,
+            )
+            self.rpc = RPCHandler()
+            return
+
+        if role == "querier":
+            self.db = self._make_db()
+            self.ring = Ring(self._ring_kv(), replication_factor=cfg.replication_factor,
+                             heartbeat_timeout_s=cfg.ring_heartbeat_timeout_s)
+            self.querier = Querier(
+                self.db, self.ring, ingester_clients=RingClientPool(self.ring, RemoteIngester)
+            )
+            if cfg.frontend_address:
+                self.remote_worker = RemoteWorker(
+                    cfg.frontend_address, self.querier, n_threads=cfg.query_workers,
+                    breaker=self._query_breaker(),
+                ).start()
+            self.rpc = RPCHandler()
+            return
+
+        if role == "query-frontend":
+            self.db = self._make_db()
+            self.broker = JobBroker()
+            self.frontend = Frontend(self.broker, self.db, cfg.frontend, self.overrides)
+            self.rpc = RPCHandler(broker=self.broker)
+            return
+
+        if role == "compactor":
+            self.db = self._make_db()
+            self.compactor = CompactorModule(self.db, ring=None)
+            self.rpc = RPCHandler()
+            return
+
+        if role == "vulture":
+            # sidecar deployment (reference: cmd/tempo-vulture beside the
+            # cluster): pushes to vulture.target over OTLP/HTTP and reads
+            # via vulture.query_target (frontend) — its own /metrics
+            # listener exports the tempo_vulture_* families prometheus
+            # scrapes, and slo.enabled here judges exactly those
+            from tempo_tpu_torch.vulture import HTTPClient, Vulture
+
+            vcfg = cfg.vulture
+            target = vcfg.target or cfg.frontend_address
+            if not target:
+                raise ValueError(
+                    "target=vulture requires vulture.target (cluster base URL)")
+            client = HTTPClient(
+                target,
+                tenant=vcfg.tenant if cfg.multitenancy_enabled else None,
+                query_url=vcfg.query_target or None,
+            )
+            self.vulture = Vulture(client, cfg=vcfg)
+            self.rpc = RPCHandler()
+            return
+
+        raise AssertionError(role)
 
     def _maybe_standing_attach(self):
         """Late wiring of the standing engine: storage for restart
@@ -302,7 +476,7 @@ class App:
         """In-process prober on the all-in-one target (the reference
         runs tempo-vulture as a sidecar; a single binary can dogfood it
         directly — vulture.enabled in config)."""
-        if not self.cfg.vulture.enabled:
+        if self.target != "all" or not self.cfg.vulture.enabled:
             return
         from tempo_tpu_torch.vulture import InProcessClient, Vulture
 
@@ -316,9 +490,13 @@ class App:
         self.vulture = Vulture(client, cfg=self.cfg.vulture)
 
     def _maybe_storage_scanner(self):
-        """Storage-health analytics (db/analytics): the periodic scan runs
-        beside the compactor that creates the debt it measures;
-        /status/storage computes on demand when it is off."""
+        """Storage-health analytics (db/analytics): the periodic scan
+        runs on compaction-owning roles — one fleet scanner per
+        deployment, beside the one compactor that creates the debt it
+        measures. /status/storage on any db-holding role still computes
+        on demand."""
+        if self.db is None or self.target not in ("all", "compactor"):
+            return
         if self.cfg.db.analytics_scan_s <= 0:
             return
         from tempo_tpu_torch.db.analytics import StorageScanner
@@ -330,8 +508,10 @@ class App:
         """Device data-movement export (util/pageheat): refresh the
         per-budget miss-ratio gauges on an interval and, when
         TEMPO_TPU_PAGEHEAT_EXPORT_DIR is set, write the ledger snapshot
-        `cli analyse device` replays. Runs where the block reads happen:
-        this process owns the storage engine."""
+        `cli analyse device` replays. Runs wherever block reads happen —
+        any role that owns a storage engine."""
+        if self.db is None:
+            return
         from tempo_tpu_torch.util.pageheat import PageHeatExporter
 
         self.pageheat_exporter = PageHeatExporter()
@@ -478,11 +658,16 @@ class App:
     def start_loops(self):
         for ing in self.ingesters.values():
             ing.start_loop()
-        self.db.enable_polling()
-        self.compactor.start()
+        if self.db is not None:
+            self.db.enable_polling()
+        if self.compactor is not None:
+            self.compactor.start()
+        if self.remote_write_storage is not None and self.generator is not None:
+            self.remote_write_storage.start_loop(self.generator)
         if self.storage_scanner is not None:
             self.storage_scanner.start()
-        self.pageheat_exporter.start()
+        if self.pageheat_exporter is not None:
+            self.pageheat_exporter.start()
         if self.vulture is not None:
             self.vulture.start()
         if self.slo_engine is not None:
@@ -511,9 +696,9 @@ class App:
         # queries against the app being dismantled
         if self.rca is not None:
             self.rca.stop()
-        # the prober and SLO engine go down BEFORE the rings: a check
-        # racing the half-dismantled app would record phantom data-loss
-        # errors into the very counters alerting watches
+        # the prober and SLO engine go down BEFORE the rings/KVs: a
+        # check racing the half-dismantled app would record phantom
+        # data-loss errors into the very counters alerting watches
         if self.vulture is not None:
             self.vulture.stop()
         if self.slo_engine is not None:
@@ -525,15 +710,27 @@ class App:
                 ring.unregister(iid)
             except Exception:
                 log.exception("ring unregister failed for %s", iid)
+        for kv in self._net_kvs:  # after unregister, which needs the KV
+            kv.close()
+        if self.remote_worker is not None:
+            self.remote_worker.stop()
         for ing in self.ingesters.values():
             ing.stop(flush=True)
         if self.standing is not None:
             # after the ingester drain: the final cuts' folds land first,
             # then registrations + state snapshot to the WAL dir
             self.standing.stop()
-        self.workers.stop()
-        self.compactor.stop()
+        if self.workers is not None:
+            self.workers.stop()
+        elif self.broker is not None:
+            self.broker.stop()
+        if self.compactor is not None:
+            self.compactor.stop()
+        if self.remote_write_storage is not None:
+            self.remote_write_storage.stop()
         if self.storage_scanner is not None:
             self.storage_scanner.stop()
-        self.pageheat_exporter.stop()
-        self.db.shutdown()
+        if self.pageheat_exporter is not None:
+            self.pageheat_exporter.stop()
+        if self.db is not None:
+            self.db.shutdown()

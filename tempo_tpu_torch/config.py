@@ -31,11 +31,11 @@ from tempo_tpu_torch.compiled.cache import CompiledConfig
 from tempo_tpu_torch.config_sections import (
     DeviceTierConfig,
     ForwarderConfig,
-    RemoteWriteConfig,
     UsageStatsConfig,
 )
 from tempo_tpu_torch.db import DBConfig
 from tempo_tpu_torch.modules.frontend import FrontendConfig
+from tempo_tpu_torch.modules.generator.storage import RemoteWriteConfig
 from tempo_tpu_torch.modules.ingester import IngesterConfig
 from tempo_tpu_torch.modules.overrides import Limits
 from tempo_tpu_torch.rca import RCAConfig
@@ -251,8 +251,8 @@ def load_config(path: str, env: dict | None = None) -> Config:
 
 def check_config(cfg: Config) -> list[str]:
     """Footgun warnings (reference: CheckConfig config.go:125-170) —
-    never fatal, always loud. The warnings of a refused section (the
-    generator's remote write, self_tracing) come with its slice."""
+    never fatal, always loud. The warnings of a refused section
+    (self_tracing) come with its slice."""
     warnings = []
     app = cfg.app
     if app.replication_factor > app.n_ingesters:
@@ -280,6 +280,8 @@ def check_config(cfg: Config) -> list[str]:
             "ingester.complete_block_timeout_s < storage.trace.blocklist_poll_s: "
             "queriers may miss traces between ingester handoff and blocklist poll"
         )
+    if app.remote_write is not None and app.remote_write.endpoint and not app.generator_enabled:
+        warnings.append("metrics_generator.remote_write set but the generator is disabled")
     if app.resource.hard_watermark <= app.resource.soft_watermark:
         warnings.append(
             f"resource.hard_watermark ({app.resource.hard_watermark}) <= soft_watermark "

@@ -11,13 +11,14 @@ ported modules' own; `device_tier:` is served, with its ingest-tail
 share.)
 
 Copies of: encoding/vtpu/colcache.DeviceTierConfig,
-modules/forwarder.ForwarderConfig, modules/generator/storage.
-RemoteWriteConfig and usagestats.UsageStatsConfig.
+modules/forwarder.ForwarderConfig and usagestats.UsageStatsConfig.
+(`metrics_generator.remote_write:` is the ported
+modules/generator/storage.RemoteWriteConfig.)
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 
 @dataclass
@@ -42,19 +43,6 @@ class ForwarderConfig:
     queue_size: int = 256
     workers: int = 1
     timeout_s: float = 10.0
-
-
-@dataclass
-class RemoteWriteConfig:
-    endpoint: str = ""
-    path: str = "/api/v1/write"
-    headers: dict = field(default_factory=dict)
-    wal_dir: str = ""
-    send_interval_s: float = 15.0
-    max_retries: int = 3
-    timeout_s: float = 10.0
-    max_wal_bytes: int = 64 << 20
-
 
 
 @dataclass

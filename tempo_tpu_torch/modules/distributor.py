@@ -8,7 +8,7 @@ token array, and the per-ingester payload is a serialized columnar
 segment (format.serialize_batch), not proto bytes.
 
 Port of tempo_tpu/modules/distributor.py with the metrics-generator tee
-and without the forwarder tee (ROADMAP Queue 1 item 7; App refuses
+and without the forwarder tee (ROADMAP Queue 1 item 7b; App refuses
 `forwarders`).
 """
 

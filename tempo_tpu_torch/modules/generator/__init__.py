@@ -12,10 +12,9 @@ with the HLL/count-min device sketches (BASELINE.json config 3).
 
 Port of tempo_tpu/modules/generator/__init__.py. The generator takes a
 torch `device` (the App's; CUDA unless the caller passes "cpu") on
-which every tenant's service-graph sketches live. Remote write
-(modules/generator/storage) is not ported: App refuses
-`metrics_generator.remote_write` (ROADMAP Queue 1 item 7, microservices
-mode, whose refusals cite "Queue 1 item 2").
+which every tenant's service-graph sketches live. Its series leave by
+Prometheus remote write through modules/generator/storage when
+`metrics_generator.remote_write` names an endpoint.
 """
 
 from __future__ import annotations

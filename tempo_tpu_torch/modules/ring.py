@@ -1,7 +1,8 @@
-"""Port of tempo_tpu/modules/ring.py for the single binary (host code):
-the ring over MemoryKV, with the generator's shuffle sharding. FileKV
-(the one-host KV of microservices mode) waits for its slice (ROADMAP
-Queue 1 item 7).
+"""Port of tempo_tpu/modules/ring.py (host code): the ring with the
+generator's shuffle sharding, over MemoryKV (target=all), FileKV (the
+one-host KV of microservices mode: a cross-process flock around each
+read-modify-write and an atomic rewrite) or modules/netkv's HttpKV and
+LocalKV.
 
 Consistent-hash ring + membership.
 
@@ -17,7 +18,9 @@ any networked KV can implement the same 3-method interface.
 from __future__ import annotations
 
 import bisect
+import fcntl
 import json
+import os
 import random
 import threading
 import time
@@ -65,6 +68,41 @@ class MemoryKV(KVStore):
         with self._lock:
             self._data = mutate(json.loads(json.dumps(self._data)) if self._data else {})
             return self._data
+
+
+class FileKV(KVStore):
+    """Shared-file ring state for multi-process single-host clusters
+    (the reference's e2e topology without docker)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._lock = threading.Lock()
+
+    def get(self):
+        try:
+            with open(self.path) as f:
+                return json.load(f)
+        except (FileNotFoundError, json.JSONDecodeError):
+            return {}
+
+    def update(self, mutate):
+        # cross-process flock around the read-modify-write: without it two
+        # processes registering concurrently each write a state containing
+        # only themselves and the last writer wins
+        with self._lock:
+            lockpath = f"{self.path}.lock"
+            with open(lockpath, "w") as lockf:
+                fcntl.flock(lockf, fcntl.LOCK_EX)
+                try:
+                    cur = self.get()
+                    new = mutate(cur)
+                    tmp = f"{self.path}.tmp.{os.getpid()}"
+                    with open(tmp, "w") as f:
+                        json.dump(new, f)
+                    os.replace(tmp, self.path)
+                    return new
+                finally:
+                    fcntl.flock(lockf, fcntl.LOCK_UN)
 
 
 NUM_TOKENS = 128

@@ -23,10 +23,10 @@ metrics partials travel in HostAccumulator.to_wire form (sparse
 per-series bin counts + exemplars + stats) tagged with the job's
 window start so the frontend can offset bins into the parent grid.
 
-Port of tempo_tpu/modules/worker.py for the single binary: the broker,
-the in-process pool and execute_job, every job kind. RemoteWorker (the
-querier role's HTTP long-poll) waits for microservices mode (ROADMAP
-Queue 1 item 7, cited as "Queue 1 item 2").
+Port of tempo_tpu/modules/worker.py: the broker, the in-process pool,
+execute_job (every job kind) and RemoteWorker, the querier role's HTTP
+long-poll of microservices mode. A job runs on the querier's TempoDB
+device in either pool; its result crosses JSON as the reference's does.
 """
 
 from __future__ import annotations
@@ -372,5 +372,86 @@ class LocalWorkerPool:
     def stop(self) -> None:
         self._stop.set()
         self.broker.stop()
+        for t in self.threads:
+            t.join(timeout=2)
+
+
+class RemoteWorker:
+    """Querier-side: long-polls a frontend over HTTP, executes jobs on
+    the local querier, posts results (reference: modules/querier/worker
+    DNS-discovers frontends and opens Process streams)."""
+
+    def __init__(self, frontend_url: str, querier, n_threads: int = 2,
+                 result_post_retries: int = 2, breaker=None):
+        from tempo_tpu_torch.backend.httpclient import PooledHTTPClient
+
+        self.client = PooledHTTPClient(frontend_url, timeout_s=30.0, max_retries=0)
+        self.querier = querier
+        self.result_post_retries = result_post_retries
+        self.breaker = breaker  # shared CircuitBreaker; see LocalWorkerPool
+        self._stop = threading.Event()
+        self.threads = [
+            threading.Thread(target=self._run, daemon=True, name=f"remote-worker-{i}")
+            for i in range(n_threads)
+        ]
+
+    def start(self) -> "RemoteWorker":
+        for t in self.threads:
+            t.start()
+        return self
+
+    def _run(self) -> None:
+        import json
+
+        while not self._stop.is_set():
+            try:
+                status, body, _ = self.client.request(
+                    "POST", "/rpc/v1/worker/pull", body=b"{}", ok=(200, 204)
+                )
+                if status == 204 or not body:
+                    continue
+                job = json.loads(body)
+                job_id, tenant, desc = job["job_id"], job["tenant"], job["desc"]
+                try:
+                    if self.breaker is not None:
+                        result = self.breaker.run(
+                            lambda: execute_job(self.querier, tenant, desc)
+                        )
+                    else:
+                        result = execute_job(self.querier, tenant, desc)
+                    out = {"result": result}
+                except Exception as e:  # noqa: BLE001
+                    out = {"error": f"{type(e).__name__}: {e}"}
+                self._post_result(job_id, json.dumps(out).encode())
+            except Exception as e:  # frontend down: back off and retry
+                if not self._stop.is_set():
+                    log.debug("worker poll failed: %s", e)
+                    self._stop.wait(0.5)
+
+    def _post_result(self, job_id: str, body: bytes) -> None:
+        """POST a computed result with a few retries: one connection blip
+        here would otherwise throw away a finished job — the lease would
+        expire and the whole job be recomputed elsewhere, which is the
+        expensive path, not the cheap one."""
+        last: Exception | None = None
+        for attempt in range(self.result_post_retries + 1):
+            try:
+                self.client.request(
+                    "POST",
+                    f"/rpc/v1/worker/result/{job_id}",
+                    headers={"Content-Type": "application/json"},
+                    body=body,
+                    ok=(200, 404),  # 404: lease expired, someone else ran it
+                )
+                return
+            except Exception as e:  # noqa: BLE001 — transport-level only
+                last = e
+                if attempt < self.result_post_retries and not self._stop.is_set():
+                    self._stop.wait(min(0.1 * (2 ** attempt), 1.0))
+        log.warning("result POST for %s failed after %d attempts: %s",
+                    job_id, self.result_post_retries + 1, last)
+
+    def stop(self) -> None:
+        self._stop.set()
         for t in self.threads:
             t.join(timeout=2)

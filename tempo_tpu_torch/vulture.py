@@ -1,7 +1,6 @@
 """Port of tempo_tpu/vulture.py (host code): `Vulture` with the
-in-process client (`InProcessClient`) on target=all. The HTTP client
-and the `-target=vulture` sidecar need backend/httpclient and come with
-microservices mode (ROADMAP Queue 1 item 7).
+in-process client (`InProcessClient`) on target=all and the HTTP client
+(`HTTPClient`) of the `-target=vulture` sidecar.
 
 Vulture — continuous blackbox verification across storage tiers.
 
@@ -33,8 +32,10 @@ one structured line carrying the probe's traceparent, so one failed
 check is one `_self_` trace when self-tracing is armed.
 
 Clients are pluggable: InProcessClient drives an App directly (the
-all-in-one deployment); any object with the same five methods (push,
-query, search, traceql, query_range) can stand in for it.
+all-in-one deployment), HTTPClient drives a remote tempo_tpu_torch
+server over the OTLP push + query HTTP API, byte-for-byte the way an
+external vulture process would (`-target=vulture` builds exactly that
+sidecar).
 
 Known transient the prober legitimately surfaces (not a prober bug):
 spans sit invisible to `query_range` for up to blocklist_poll_s right
@@ -64,6 +65,7 @@ import json
 import logging
 import threading
 import time
+import urllib.parse
 from dataclasses import dataclass
 
 from tempo_tpu_torch.encoding.common import SearchRequest
@@ -177,6 +179,98 @@ class InProcessClient:
         doc = self.app.query_range(query, start_s, end_s, step_s,
                                    org_id=self.tenant)
         return doc.get("result", [])
+
+
+class HTTPClient:
+    """Drives a tempo_tpu_torch server over HTTP (OTLP push + query API).
+
+    query_url: optional separate base for the read side (a sidecar
+    typically writes to the distributor and reads via the frontend)."""
+
+    def __init__(self, base_url: str, tenant: str | None = None,
+                 query_url: str | None = None):
+        from tempo_tpu_torch.backend.httpclient import PooledHTTPClient
+
+        self.client = PooledHTTPClient(base_url)
+        self.query_client = (
+            PooledHTTPClient(query_url) if query_url and query_url != base_url
+            else self.client
+        )
+        self.tenant = tenant
+
+    def _headers(self, extra=None) -> dict:
+        h = dict(extra or {})
+        if self.tenant:
+            h["X-Scope-OrgID"] = self.tenant
+        return h
+
+    def push(self, traces) -> None:
+        from tempo_tpu_torch.receivers import otlp
+
+        self.client.request(
+            "POST",
+            "/v1/traces",
+            headers=self._headers({"Content-Type": "application/x-protobuf"}),
+            body=otlp.encode_traces_request(traces),
+            ok=(200,),
+        )
+
+    def query(self, trace_id: bytes):
+        from tempo_tpu_torch.backend.httpclient import HTTPError
+        from tempo_tpu_torch.receivers import otlp
+
+        try:
+            _, body, _ = self.query_client.request(
+                "GET",
+                f"/api/traces/{trace_id.hex()}",
+                headers=self._headers({"Accept": "application/protobuf"}),
+                ok=(200,),
+            )
+        except HTTPError as e:
+            if e.status == 404:
+                return None
+            raise
+        traces = otlp.decode_traces_request(body)
+        return traces[0] if traces else None
+
+    def search(self, req: SearchRequest) -> list[str]:
+        tags = " ".join(f"{k}={v}" for k, v in req.tags.items())
+        qs = {"tags": tags, "limit": str(req.limit or 20)}
+        if req.start_seconds:
+            qs["start"] = str(req.start_seconds)
+        if req.end_seconds:
+            qs["end"] = str(req.end_seconds)
+        _, body, _ = self.query_client.request(
+            "GET",
+            "/api/search?" + urllib.parse.urlencode(qs),
+            headers=self._headers(),
+            ok=(200,),
+        )
+        return [t["traceID"] for t in json.loads(body).get("traces", [])]
+
+    def traceql(self, query: str, start_s: int, end_s: int,
+                limit: int = 20) -> list[str]:
+        qs = {"q": query, "limit": str(limit),
+              "start": str(start_s), "end": str(end_s)}
+        _, body, _ = self.query_client.request(
+            "GET",
+            "/api/search?" + urllib.parse.urlencode(qs),
+            headers=self._headers(),
+            ok=(200,),
+        )
+        return [t["traceID"] for t in json.loads(body).get("traces", [])]
+
+    def query_range(self, query: str, start_s: int, end_s: int,
+                    step_s: int) -> list[dict]:
+        qs = {"q": query, "start": str(start_s), "end": str(end_s),
+              "step": str(step_s)}
+        _, body, _ = self.query_client.request(
+            "GET",
+            "/api/metrics/query_range?" + urllib.parse.urlencode(qs),
+            headers=self._headers(),
+            ok=(200,),
+        )
+        return json.loads(body).get("data", {}).get("result", [])
 
 
 class Vulture:

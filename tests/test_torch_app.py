@@ -379,7 +379,7 @@ def test_status_pages(make_pair):
     (_, _, jb), (_, _, tb) = pair.both("GET", "/status/endpoints")
     served = json.loads(tb)["endpoints"]
     assert served == [e for e in json.loads(jb)["endpoints"] if e in served]
-    assert len(served) == 39
+    assert len(served) == 40
     assert _request(pair.servers[1].url, "GET", "/status")[2] == tb
     # the port's defaults are the reference's, so its diff is too
     for mode in ("defaults", "diff"):
@@ -459,16 +459,31 @@ def test_bad_requests_400(idle_pair, path):
 @pytest.mark.parametrize("method,path", [
     ("POST", "/api/v2/spans"),
     ("POST", "/api/traces"),
-    ("GET", "/memberlist"),
     ("POST", "/api/v1/spans"),
-    ("POST", "/rpc/v1/ingester/push"),
-    ("POST", "/rpc/v1/worker/pull"),
-    ("GET", "/kv/v1/ring"),
 ])
 def test_unported_routes_404(idle_pair, method, path):
     status, _, body = _request(idle_pair.servers[1].url, method, path,
                                b"" if method == "POST" else None)
     assert status == 404 and b"ROADMAP Queue 1 item" in body and b"not ported yet" in body
+
+
+@pytest.mark.parametrize("method,path,status", [
+    ("GET", "/memberlist", 200),
+    ("POST", "/rpc/v1/ingester/push", 500),
+    ("POST", "/rpc/v1/worker/pull", 204),
+    ("GET", "/kv/v1/ring", 200),
+])
+def test_microservices_routes_served(idle_pair, method, path, status, monkeypatch):
+    """The routes of microservices mode (the ring KV, /memberlist, the
+    inter-role RPC), 404 until the port served them, answer as the
+    reference's on target=all: an empty push is a segment that does not
+    parse (500), an idle worker pull times out (204)."""
+    for app in (idle_pair.japp, idle_pair.tapp):
+        monkeypatch.setattr(app.rpc, "pull_timeout_s", 0.2)
+    (js, _, jb), (ts, _, tb) = idle_pair.both(method, path, b"" if method == "POST" else None)
+    assert js == ts == status
+    if status == 200:
+        assert json.loads(jb) == json.loads(tb)
 
 
 def test_malformed_otlp_400(idle_pair):

@@ -200,9 +200,6 @@ def test_check_config_quiet_equal(yaml_text):
 
 
 UNPORTED = {
-    "target: querier\n": "target='querier'",
-    "metrics_generator:\n  remote_write:\n    endpoint: http://p:9090\n":
-        "generator remote_write is not ported yet (ROADMAP Queue 1 item 7",
     "distributor:\n  forwarders:\n    - {name: m, endpoint: http://c:4318}\n": "forwarders",
     "usage_report:\n  enabled: true\n": "usage_report",
     "self_tracing:\n  enabled: true\n": "self_tracing",
@@ -221,6 +218,53 @@ def test_unported_sections_refused(yaml_text, tmp_path):
     path.write_text(yaml_text)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         tmain.main(["-config.file", str(path), "-config.verify"])
+
+
+# the sections of microservices mode, refused until the port served them:
+# each parses as in the reference and App builds what it names
+MICROSERVICES_SECTIONS = {
+    "target: querier\nring_kv_path: {root}/ring.json\n":
+        lambda app: app.target == "querier" and app.querier is not None
+        and app.frontend is None and app.ring is not None,
+    "target: ingester\nring_kv_path: {root}/ring.json\ninstance_id: ingester-3\n":
+        lambda app: list(app.ingesters) == ["ingester-3"] and app.standing is not None,
+    "metrics_generator:\n  remote_write:\n    endpoint: http://p:9090\n    wal_dir: {root}/rw\n":
+        lambda app: app.remote_write_storage is not None,
+    "target: metrics-generator\nring_kv_path: {root}/ring.json\nmetrics_generator:\n"
+    "  remote_write:\n    endpoint: http://p:9090\n    wal_dir: {root}/rw\n":
+        lambda app: app.generator is not None and app.remote_write_storage is not None,
+}
+
+
+@pytest.mark.parametrize("yaml_text", sorted(MICROSERVICES_SECTIONS))
+def test_microservices_sections_served(yaml_text, tmp_path):
+    """A role target and the generator's remote write parse as in the
+    reference, give its check_config warnings, build on the CPU, and
+    pass -config.verify."""
+    text = yaml_text.replace("{root}", str(tmp_path))
+    j, t = jconfig.parse_config(text), config.parse_config(text)
+    assert _doc(j) == _doc(t) and j.target == t.target
+    assert jconfig.check_config(j) == config.check_config(t)
+    t.app.target = t.target
+    t.app.db.backend_path = str(tmp_path / "blocks")
+    t.app.db.wal_path = str(tmp_path / "wal")
+    app = App(t.app, device="cpu")
+    try:
+        assert MICROSERVICES_SECTIONS[yaml_text](app)
+    finally:
+        app.shutdown()
+    path = tmp_path / "tempo.yaml"
+    path.write_text(text + f"storage:\n  trace:\n    backend_path: {tmp_path}/blocks\n")
+    assert tmain.main(["-config.file", str(path), "-config.verify"]) == 0
+
+
+@pytest.mark.parametrize("yaml_text", [
+    "metrics_generator:\n  enabled: false\n  remote_write:\n    endpoint: http://p:9090\n",
+    "target: vulture\n",
+])
+def test_microservices_warnings_equal(yaml_text):
+    j, t = jconfig.parse_config(yaml_text), config.parse_config(yaml_text)
+    assert jconfig.check_config(j) == config.check_config(t)
 
 
 # the sections that earlier slices refused, now served by the modules

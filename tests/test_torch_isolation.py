@@ -330,3 +330,84 @@ def test_main_verifies_and_serves(tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+
+
+MICROSERVICES_SCRIPT = BLOCK + textwrap.dedent(r"""
+    import tempfile
+
+    from tempo_tpu_torch.backend.httpclient import HedgeConfig, HTTPError, PooledHTTPClient, retriable
+    from tempo_tpu_torch.modules import netkv, rpc, worker
+    from tempo_tpu_torch.modules.generator import storage
+    from tempo_tpu_torch.modules.ring import FileKV, Ring
+    from tempo_tpu_torch.util import snappy
+    from tempo_tpu_torch.vulture import HTTPClient
+
+    data = b"span.kind=server " * 100
+    assert snappy.decompress(snappy.compress(data)) == data
+    svc = netkv.KVService()
+    assert svc.cas("ring", 0, {"a": 1}) == (True, 1)
+    path = tempfile.mkdtemp() + "/ring.json"
+    Ring(FileKV(path)).register("ingester-0", addr="http://x")
+    assert list(FileKV(path).get()) == ["ingester-0"]
+    assert retriable(HTTPError(503, b"", "/x")) and HedgeConfig().hedge_up_to == 2
+    assert worker.RemoteWorker and rpc.RingClientPool and storage.RemoteWriteStorage
+    for name, mod in sys.modules.items():
+        assert mod is None or not (name == "tempo_tpu" or name.startswith("tempo_tpu.")
+                                   or name == "jax" or name.startswith("jax.")), name
+    print("microservices ok")
+""")
+
+
+def test_microservices_modules_run_with_jax_and_tempo_tpu_blocked():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", MICROSERVICES_SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "microservices ok" in proc.stdout
+
+
+def test_main_runs_an_ingester_role(tmp_path):
+    """`python -m tempo_tpu_torch -target=ingester -device cpu` verifies
+    its config and serves the role (ring KV, /rpc/v1, /memberlist) with
+    jax and tempo_tpu blocked, until /shutdown."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+    cfg = tmp_path / "tempo.yaml"
+    cfg.write_text(f"server:\n  http_listen_port: {port}\n  log_level: warn\n"
+                   f"storage:\n  trace:\n    backend: local\n"
+                   f"    backend_path: {tmp_path}/blocks\n    wal_path: {tmp_path}/wal\n"
+                   f"ring_kv_url: local\nadvertise_addr: {url}\ninstance_id: ingester-7\n")
+    args = ["-config.file", str(cfg), "-target=ingester", "-device", "cpu"]
+    out, err = _run_main(args + ["-config.verify"]).communicate(timeout=120)
+    assert out == "config ok\n", err[-2000:]
+
+    proc = _run_main(args)
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            try:
+                with urllib.request.urlopen(url + "/ready", timeout=5) as r:
+                    assert r.read() == b"ready"
+                break
+            except OSError:
+                assert proc.poll() is None and time.monotonic() < deadline, proc.stderr.read()
+                time.sleep(0.2)
+        with urllib.request.urlopen(url + "/status/services") as r:
+            assert json.loads(r.read())["target"] == "ingester"
+        with urllib.request.urlopen(url + "/kv/v1/ring") as r:
+            ring = json.loads(r.read())["data"]
+        assert ring["ingester-7"]["addr"] == url
+        with urllib.request.urlopen(url + "/rpc/v1/ingester/live") as r:
+            assert r.status == 200 and r.read() == b""
+        with urllib.request.urlopen(url + "/memberlist") as r:
+            assert json.loads(r.read())["stores"]["ring"]["keys"] == ["ingester-7"]
+        req = urllib.request.Request(url + "/shutdown", data=b"", method="POST")
+        with urllib.request.urlopen(req) as r:
+            assert r.read() == b"shutdown job acknowledged"
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
