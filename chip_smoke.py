@@ -66,19 +66,18 @@ Phases, one line each (any failure exits non-zero):
 6. blocks: the vtpu1 block lifecycle at a compactor job's size. Two
    blocks of 2**20 spans (131,072 traces x 8 spans each; 1/8 of the
    second block's traces are copies of the first's) are written with
-   their bloom and HLL built on the card; the first again on the CPU,
-   and the CPU takes the second as a copy of the card's (every stored
-   object byte-equal); 250 present and 250 absent trace IDs are found by
-   ID in both backends (equal answers; the card's writes run the device
-   page encode, which must have encoded rle, dbp and dct pages in one
+   their bloom and HLL built on the card, and the CPU takes both as
+   copies of the card's; 250 present and 250 absent trace IDs are found
+   by ID in the card's backend (the card's writes run the device page
+   encode, which must have encoded rle, dbp and dct pages in one
    page-encode dispatch a row group, at most one launch of each kernel a
-   dispatch, the CPU's the host encoders), one 2**17-span block is
-   written on the card with the device encode and with
-   TEMPO_TPU_DEVICE_ENCODE=0 and on the CPU (all three byte-equal), the
-   two blocks are compacted
-   with the merge plan and the sketch plane on the card and on the CPU
-   (byte-equal outputs, one trace per distinct ID) and with the native
-   k-way merge plan (the host figure), and the phase-4 queries run
+   dispatch), one 2**17-span block is written on the card with the
+   device encode and with TEMPO_TPU_DEVICE_ENCODE=0 and on the CPU with
+   the host encoders (all three byte-equal), the two blocks are
+   compacted with the merge plan and the sketch plane on the card and on
+   the CPU (byte-equal outputs, one trace per distinct ID; phase 7's
+   compact_once runs the native k-way plan on the card over copies of
+   the same blocks), and the phase-4 queries run
    through evaluate_block over the compacted block, card accumulator
    against CPU accumulator. Each trace's spans form a parent chain;
 7. db: the storage engine. TempoDB(device="cuda") opens a local backend
@@ -243,7 +242,32 @@ Phases, one line each (any failure exits non-zero):
    push spans/s, flush and compaction ms, p50 and max ms a request kind,
    launches a role step and the second querier's dispatches from its
    /status/device. Past SHED14_S of phases 0-13 the vulture and the
-   finds after the kill are shed.
+   finds after the kill are shed;
+15. receivers and tees: one App(device="cuda") with multitenancy behind a
+   TempoServer, the Jaeger agent on a compact and a binary UDP port, a
+   Kafka receiver against a broker scripted here (Metadata, ListOffsets,
+   Fetch), the gRPC server where grpcio is installed (else the same
+   payloads through the port's gRPC decoders and App.push_traces; the
+   line `grpc_transport: "grpcio"` or `"absent"` says which), a forwarder
+   for tenant fwd to a second card App's /v1/traces, usage_report to a
+   loopback sink and self_tracing on (one trace in ten); 2**17 spans of
+   phase 11's make_graph_batch stream (stamped in the last hour) in
+   512-span units, round robin over twelve carriers: Zipkin v2 JSON and
+   v1 thrift and Jaeger thrift over HTTP, the agent's compact and binary
+   datagrams (at most 65,000 B each), Kafka OTLP records uncompressed,
+   gzip, snappy and, where the native library linked, zstd, and OTLP,
+   Jaeger and OpenCensus over gRPC, written by the script's own encoders
+   where the port has none; a target=all App on the CPU takes the same
+   messages through the same decoders in the same order. The generator's
+   series of both tenants, 250 present and 250 absent finds over the live
+   traces, then after /flush a tag search and phase 4's three query_range
+   over the flushed blocks, equal the CPU App's; the second App holds
+   every forwarded span, 100 forwarded traces whole; the sink got one
+   usage report with the reference's keys, under the cluster seed stored
+   at SEED_KEY; a `_self_` search finds distributor/push. Prints spans/s
+   a carrier, flush ms, p50 and max ms a request kind and the launches.
+   Past SHED15_S of phases 0-14 the forwarder and self-tracing checks are
+   shed.
 
 Phases 3-4 are the main path, phase 5 the scan path, phase 6 the block
 path, phase 7 the storage engine's path, phase 8 the server's path and
@@ -259,7 +283,10 @@ counted over its passes alone, none on its hits, and the page-encode
 kernels at its flush) and phase 14 the cluster's (seg_bincount on both
 queriers, the page-encode kernels and hll_update at the ingesters' flush
 and the compactor's merge, hll_update and cm_update in the generator
-role at each push, root_path_sums at the critical path;
+role at each push, root_path_sums at the critical path) and phase 15 the
+receivers' (hll_update and cm_update at the generator tee's pushes,
+rle_change_mask, dbp_pack and hll_update at the flush, seg_bincount at
+query_range;
 the sketch kernels also run on phases 3 and 6-9: compaction, every card
 block write and every push through the generator):
 each is run with the kernels' launch counts set to 0 just before it,
@@ -275,10 +302,14 @@ one JSON line of per-kernel and per-phase numbers (phase 6's under
 12's under "tail", phase 13's under "resultcache", phase 14's under
 "cluster", with every kernel's phase-14 launches in this process under
 "launches_cluster_path" and the second querier's seg_bincount and
-root_path_sums under "launches_cluster_querier_1"; "shed" names the depth a slow host cut: phase
+root_path_sums under "launches_cluster_querier_1"; phase 15's under
+"receivers", with every kernel's launches there under
+"launches_receivers_path", and its gRPC transport under
+"grpc_transport"; "shed" names the depth a slow host cut: phase
 8's interpreter runs past 420 s before it, phase 11's generator-off push
 past 750 s before it, phase 13's after-push searches past 800 s before
 it, phase 14's vulture and finds after the kill past SHED14_S before
+it, phase 15's forwarder and self-tracing checks past SHED15_S before
 it; phase 12 sheds nothing), the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Without a CUDA
 device it exits 1 and prints no result. It imports nothing of JAX or of
@@ -294,6 +325,7 @@ import json
 import os
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -1006,12 +1038,12 @@ def blocks_phase(seed: int, queries: list, plan_of, db_root: str, encode_batches
             encode_batches.append(list(plans))
             return real_prepared(plans, device, staging)
 
-        # the card writes A and B; the CPU writes A and the first 2**17
-        # spans of A (held against the card's write of the same spans in
-        # the encode arm below), and takes B as a copy of the card's block
+        # the card writes A and B; the CPU writes the first 2**17 spans of
+        # A (held against the card's write of the same spans in the encode
+        # arm below), and takes A and B as copies of the card's blocks
         small = a.select(np.arange(1 << 17))
         block_ids["small"] = str(uuid.uuid4())
-        writes = {"cuda": (("a", a), ("b", b)), "cpu": (("a", a), ("small", small))}
+        writes = {"cuda": (("a", a), ("b", b)), "cpu": (("small", small),)}
         for dev in devices:
             pages0 = {c: tenc.device_encode_pages_total.value(codec=c) for c in LIGHT}
             k1, k2 = tenc.rle_change_mask.launches, tenc.dbp_pack.launches
@@ -1052,11 +1084,8 @@ def blocks_phase(seed: int, queries: list, plan_of, db_root: str, encode_batches
                   f"groups ({launched[0] / rgs:.2f} / {launched[1] / rgs:.2f} launches a row "
                   f"group)", flush=True)
         print(f"phase 6 write walls: card (device encode) {write_s['cuda a']:.2f} / "
-              f"{write_s['cuda b']:.2f} s, cpu (host encode) {write_s['cpu a']:.2f} s (a) / "
-              f"{write_s['cpu small']:.2f} s (2^17 spans)", flush=True)
-        check_same_blocks(block_objects(roots["cuda"], tenant, block_ids["a"]),
-                          block_objects(roots["cpu"], tenant, block_ids["a"]),
-                          "block a written on cuda vs cpu")
+              f"{write_s['cuda b']:.2f} s, cpu (host encode) {write_s['cpu small']:.2f} s "
+              "(2^17 spans)", flush=True)
         for k in "ab":
             check(metas["cuda", k].total_objects == len(ids[k]), f"block {k}: n_traces")
         res["write_ms"] = {k: v * 1e3 for k, v in write_s.items()}
@@ -1080,18 +1109,18 @@ def blocks_phase(seed: int, queries: list, plan_of, db_root: str, encode_batches
         check_same_blocks(block_objects(roots["cuda"], tenant, block_ids["small"]),
                           block_objects(roots["cpu"], tenant, block_ids["small"]),
                           "2**17-span block written on cuda vs cpu")
-        print("phase 6 write: block a (2^20 spans) and a 2^17-span block byte-equal between "
-              "cuda and cpu (data.bin, bloom shards, meta.json; index and dictionary "
-              "gunzipped); block b reaches the cpu backend as a copy of the card's",
-              flush=True)
+        print("phase 6 write: a 2^17-span block byte-equal between cuda and cpu (data.bin, "
+              "bloom shards, meta.json; index and dictionary gunzipped); blocks a and b reach "
+              "the cpu backend as copies of the card's", flush=True)
         res["arm_2e17_ms"] = {k: v[0] * 1e3 for k, v in arm.items()}
         print(f"phase 6 encode arm: a 2^17-span block written on the card in "
               f"{arm['device encode'][0] * 1e3:.0f} ms with the device encode, "
               f"{arm['host encode'][0] * 1e3:.0f} ms with TEMPO_TPU_DEVICE_ENCODE=0: byte-equal",
               flush=True)
         enc = default_encoding()
-        enc.copy_block(metas["cuda", "b"], backends["cuda"], backends["cpu"])
-        metas["cpu", "b"] = metas["cuda", "b"]
+        for k in "ab":
+            enc.copy_block(metas["cuda", k], backends["cuda"], backends["cpu"])
+            metas["cpu", k] = metas["cuda", k]
         # phase 7's backend: the card-written objects, copied as files
         db_backend = TypedBackend(LocalBackend(db_root))
         for k in "ab":
@@ -1116,25 +1145,25 @@ def blocks_phase(seed: int, queries: list, plan_of, db_root: str, encode_batches
                 out.append(None if t is None else (t.trace_id, repr(t.batches)))
             return out, (time.perf_counter() - t0) / len(limbs_list) * 1e3
 
+        # (the cpu backend holds copies of the card's blocks: the card's
+        # answers alone are held against the generated traces)
         found, find_ms = {}, {}
-        for dev in devices:
-            found[dev, "present"], find_ms[f"{dev} present"] = find_all(dev, present)
-            found[dev, "absent"], find_ms[f"{dev} absent"] = find_all(dev, absent)
-        for kind in ("present", "absent"):
-            check(found["cuda", kind] == found["cpu", kind],
-                  f"find {kind}: cuda-written blocks answer unlike cpu-written ones")
+        found["cuda", "present"], find_ms["cuda present"] = find_all("cuda", present)
+        found["cuda", "absent"], find_ms["cuda absent"] = find_all("cuda", absent)
         for limbs, hit in zip(present, found["cuda", "present"]):
             check(hit is not None and hit[0] == limbs.astype(">u4").tobytes()
                   and hit[1].count("Span(") == 8, "find: a present trace was not found whole")
         check(all(hit is None for hit in found["cuda", "absent"]), "find: an absent ID was found")
-        print(f"phase 6 find: 250 present found whole, 250 absent -> None, equal between "
-              f"cuda- and cpu-written blocks | {find_ms['cuda present']:.2f} ms a present ID, "
+        print(f"phase 6 find: 250 present found whole, 250 absent -> None in the card-written "
+              f"blocks | {find_ms['cuda present']:.2f} ms a present ID, "
               f"{find_ms['cuda absent']:.3f} ms an absent one (two blocks each)", flush=True)
         res["find_ms"] = find_ms
 
         # -------------------------------------------------------- compact
         outs, compact_s = {}, {}
-        for dev, path in (("cuda", "device"), ("cpu", "device"), ("cuda", "auto")):
+        # (phase 7's compact_once runs merge_path auto on the card over
+        # copies of the same two blocks)
+        for dev, path in (("cuda", "device"), ("cpu", "device")):
             pages0 = {c: tenc.device_encode_pages_total.value(codec=c) for c in LIGHT}
             k1, k2 = tenc.rle_change_mask.launches, tenc.dbp_pack.launches
             d0 = STATS.dispatches.get("page_encode", 0)
@@ -1168,13 +1197,13 @@ def blocks_phase(seed: int, queries: list, plan_of, db_root: str, encode_batches
                 check(pads, f"compaction on {dev}: the merge plan never ran on the device")
             res.setdefault("sketch_bytes", {})[f"{dev} {path}"] = {
                 "h2d": sk.h2d_bytes, "d2h": sk.d2h_bytes, "updates": sk.launches}
-        ref = block_objects(roots["cpu"], tenant, outs["cpu", "device"].block_id, drop_id=True)
-        for dev, path in (("cuda", "device"), ("cuda", "auto")):
-            check_same_blocks(block_objects(roots[dev], tenant, outs[dev, path].block_id,
-                                            drop_id=True), ref,
-                              f"compacted block ({dev}, {path}) vs (cpu, device)")
-        print("phase 6 compact: outputs byte-equal between cuda and cpu (merge_path device) "
-              "and the native plan (auto)", flush=True)
+        check_same_blocks(block_objects(roots["cuda"], tenant, outs["cuda", "device"].block_id,
+                                        drop_id=True),
+                          block_objects(roots["cpu"], tenant, outs["cpu", "device"].block_id,
+                                        drop_id=True),
+                          "compacted block (cuda, device) vs (cpu, device)")
+        print("phase 6 compact: outputs byte-equal between cuda and cpu (merge_path device)",
+              flush=True)
         res["compact_ms"] = {k: v * 1e3 for k, v in compact_s.items()}
 
         # ---------------------------------------------------------- query
@@ -2350,7 +2379,9 @@ def db_phase(seed: int, a, b, root: str, queries: list, plan_of) -> dict:
          trace_hex_set(cols["trace_id"][svc_cart & (dur > 100_000_000)])),
         ("{ span.http.status_code = 500 } | count() > 1", 0,
          per_trace_count(cols["http_status"] == 500)),
-        ("{ } | by(resource.service.name)", 20, None),
+        # by() over one service's spans: grouping every span of both
+        # blocks took a fifth of the phase
+        ('{ resource.service.name = "cart" } | by(name)', 20, None),
         (STRUCTURAL, 0, None),
     ]
 
@@ -5416,6 +5447,1033 @@ def cluster_phase(seed: int, root: str, queries: list, shed: bool = False) -> di
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the other receivers and the ingest tees
+# ---------------------------------------------------------------------------
+
+# past this many seconds of phases 0-14, phase 15 sheds its forwarder and
+# self-tracing checks (never a receiver)
+SHED15_S = 1060
+RX_TENANT, FWD_TENANT = "rx", "fwd"
+# the keys of a usage report (tempo_tpu/usagestats.py Reporter.build_report)
+USAGE_REPORT_KEYS = ("clusterID", "createdAt", "interval", "target", "version", "os",
+                     "metrics", "timestamp")
+_KIND_NAME = {2: "server", 3: "client", 4: "producer", 5: "consumer"}
+
+
+def _u64(b: bytes) -> int:
+    return int.from_bytes(b.rjust(8, b"\x00")[-8:], "big")
+
+
+def _i64(u: int) -> int:
+    return u - (1 << 64) if u >= 1 << 63 else u
+
+
+def _tag_str(v) -> str:
+    return v.hex() if isinstance(v, bytes) else str(v)
+
+
+def _resource_groups(traces) -> list:
+    """(resource, spans) of a unit's traces, one group a distinct resource
+    in first-seen order: the unit a Jaeger Batch or an OpenCensus request
+    carries (each holds one process or node)."""
+    groups: dict = {}
+    for t in traces:
+        for res, spans in t.batches:
+            key = json.dumps(res, sort_keys=True, default=str)
+            groups.setdefault(key, (res, []))[1].extend(spans)
+    return list(groups.values())
+
+
+def zipkin_v2_json(traces) -> bytes:
+    """POST /api/v2/spans body: Zipkin v2 JSON (times in microseconds,
+    tags as strings, the resource's service as localEndpoint)."""
+    kinds = {2: "SERVER", 3: "CLIENT", 4: "PRODUCER", 5: "CONSUMER"}
+    out = []
+    for t in traces:
+        for res, spans in t.batches:
+            for s in spans:
+                z = {"traceId": s.trace_id.hex(), "id": s.span_id.hex(), "name": s.name,
+                     "timestamp": s.start_unix_nano // 1000,
+                     "duration": s.duration_nano // 1000,
+                     "localEndpoint": {"serviceName": str(res.get("service.name", ""))}}
+                if any(s.parent_span_id):
+                    z["parentId"] = s.parent_span_id.hex()
+                if s.kind in kinds:
+                    z["kind"] = kinds[s.kind]
+                tags = {k: _tag_str(v) for k, v in s.attributes.items()}
+                if s.status_code == 2:
+                    tags["error"] = "true"
+                if tags:
+                    z["tags"] = tags
+                out.append(z)
+    return json.dumps(out).encode()
+
+
+class ThriftOut:
+    """The Thrift binary protocol's writers that the carriers need."""
+
+    def __init__(self):
+        self.b = bytearray()
+
+    def field(self, ttype: int, fid: int) -> None:
+        self.b += bytes([ttype]) + fid.to_bytes(2, "big", signed=True)
+
+    def i32(self, fid: int, v: int) -> None:
+        self.field(8, fid)
+        self.b += v.to_bytes(4, "big", signed=True)
+
+    def i64(self, fid: int, v: int) -> None:
+        self.field(10, fid)
+        self.b += _i64(v & (2**64 - 1)).to_bytes(8, "big", signed=True)
+
+    def double(self, fid: int, v: float) -> None:
+        self.field(4, fid)
+        self.b += struct.pack(">d", v)
+
+    def boolean(self, fid: int, v: bool) -> None:
+        self.field(2, fid)
+        self.b.append(1 if v else 0)
+
+    def binary(self, fid: int, v) -> None:
+        raw = v.encode() if isinstance(v, str) else bytes(v)
+        self.field(11, fid)
+        self.b += len(raw).to_bytes(4, "big") + raw
+
+    def list_begin(self, fid: int, etype: int, n: int) -> None:
+        self.field(15, fid)
+        self.b += bytes([etype]) + n.to_bytes(4, "big")
+
+    def struct_begin(self, fid: int) -> None:
+        self.field(12, fid)
+
+    def stop(self) -> None:
+        self.b.append(0)
+
+
+def _zipkin_endpoint(w: ThriftOut, fid: int, service: str) -> None:
+    w.struct_begin(fid)
+    w.i32(1, 0x7F000001)
+    w.field(6, 2)
+    w.b += (0).to_bytes(2, "big")
+    w.binary(3, service)
+    w.stop()
+
+
+def zipkin_v1_thrift(traces) -> bytes:
+    """POST /api/v1/spans body (application/x-thrift): a Thrift-binary
+    list of zipkincore Spans. A client span carries cs/cr annotations, a
+    server span sr/ss, both on the service's endpoint; tags are STRING
+    binary annotations on the same endpoint (a span with neither gets an
+    `lc` annotation naming its service)."""
+    w = ThriftOut()
+    spans = [(str(res.get("service.name", "")), s) for t in traces for res, ss in t.batches
+             for s in ss]
+    w.b += bytes([12]) + len(spans).to_bytes(4, "big")
+    for svc, s in spans:
+        start_us, dur_us = s.start_unix_nano // 1000, s.duration_nano // 1000
+        w.i64(1, _u64(s.trace_id[8:]))
+        w.binary(3, s.name)
+        w.i64(4, _u64(s.span_id))
+        if any(s.parent_span_id):
+            w.i64(5, _u64(s.parent_span_id))
+        annos = {3: ("cs", "cr"), 2: ("sr", "ss")}.get(s.kind, ())
+        if annos:
+            w.list_begin(6, 12, 2)
+            for ts, value in zip((start_us, start_us + dur_us), annos):
+                w.i64(1, ts)
+                w.binary(2, value)
+                _zipkin_endpoint(w, 3, svc)
+                w.stop()
+        tags = {k: _tag_str(v) for k, v in s.attributes.items()}
+        if s.status_code == 2:
+            tags["error"] = "true"
+        if not tags and not annos:
+            tags = {"lc": svc}
+        if tags:
+            w.list_begin(8, 12, len(tags))
+            for k, v in tags.items():
+                w.binary(1, k)
+                w.binary(2, v)
+                w.i32(3, 6)  # STRING
+                _zipkin_endpoint(w, 4, svc)
+                w.stop()
+        w.i64(10, start_us)
+        w.i64(11, dur_us)
+        w.i64(12, _u64(s.trace_id[:8]))
+        w.stop()
+    return bytes(w.b)
+
+
+def _jaeger_tag(w: ThriftOut, key: str, v) -> None:
+    """jaeger.thrift Tag {1 key, 2 vType, 3 vStr | 4 vDouble | 5 vBool |
+    6 vLong | 7 vBinary}."""
+    w.binary(1, key)
+    if isinstance(v, bool):
+        w.i32(2, 2)
+        w.boolean(5, v)
+    elif isinstance(v, int) and -(1 << 63) <= v < 1 << 63:
+        w.i32(2, 3)
+        w.i64(6, v)
+    elif isinstance(v, float):
+        w.i32(2, 1)
+        w.double(4, v)
+    elif isinstance(v, bytes):
+        w.i32(2, 4)
+        w.binary(7, v)
+    else:
+        w.i32(2, 0)
+        w.binary(3, str(v))
+    w.stop()
+
+
+def _span_tags(s) -> dict:
+    """A span's attributes plus the tags that carry its kind and error
+    status in Jaeger's models."""
+    tags = dict(s.attributes)
+    if s.kind in _KIND_NAME:
+        tags["span.kind"] = _KIND_NAME[s.kind]
+    if s.status_code == 2:
+        tags["error"] = True
+    return tags
+
+
+def jaeger_thrift_batch(res: dict, spans) -> bytes:
+    """A jaeger.thrift Batch in the binary protocol: the POST /api/traces
+    body, and the argument of the binary agent's emitBatch."""
+    w = ThriftOut()
+    w.struct_begin(1)  # Process
+    w.binary(1, str(res.get("service.name", "")))
+    ptags = {k: v for k, v in res.items() if k != "service.name"}
+    if ptags:
+        w.list_begin(2, 12, len(ptags))
+        for k, v in ptags.items():
+            _jaeger_tag(w, k, v)
+    w.stop()
+    w.list_begin(2, 12, len(spans))
+    for s in spans:
+        w.i64(1, _u64(s.trace_id[8:]))
+        w.i64(2, _u64(s.trace_id[:8]))
+        w.i64(3, _u64(s.span_id))
+        w.i64(4, _u64(s.parent_span_id or b""))
+        w.binary(5, s.name)
+        w.i32(7, 1)  # flags: sampled
+        w.i64(8, s.start_unix_nano // 1000)
+        w.i64(9, s.duration_nano // 1000)
+        tags = _span_tags(s)
+        if tags:
+            w.list_begin(10, 12, len(tags))
+            for k, v in tags.items():
+                _jaeger_tag(w, k, v)
+        w.stop()
+    w.stop()
+    return bytes(w.b)
+
+
+def jaeger_agent_binary(res: dict, spans, seqid: int = 0) -> bytes:
+    """One binary-protocol Agent.emitBatch datagram (a jaeger client's
+    packet to the agent's port 6832): the strict message header, then
+    the args struct {1: Batch}."""
+    name = b"emitBatch"
+    return ((0x80010004).to_bytes(4, "big") + len(name).to_bytes(4, "big") + name
+            + seqid.to_bytes(4, "big", signed=True) + bytes([12, 0, 1])
+            + jaeger_thrift_batch(res, spans) + b"\x00")
+
+
+def jaeger_post_spans(res: dict, spans) -> bytes:
+    """jaeger.api_v2 PostSpansRequest {1: Batch {1: Process, 2: Span*}}
+    (model.proto), the body of CollectorService/PostSpans."""
+    from tempo_tpu_torch.receivers import protowire as pw
+
+    def kv(key, v) -> bytes:
+        out = bytearray()
+        pw.put_str_field(out, 1, key)
+        if isinstance(v, bool):
+            pw.put_varint_field(out, 2, 1)
+            pw.put_varint_field(out, 4, int(v))
+        elif isinstance(v, int) and -(1 << 63) <= v < 1 << 63:
+            pw.put_varint_field(out, 2, 2)
+            pw.put_varint_field(out, 5, v & (2**64 - 1))
+        elif isinstance(v, float):
+            pw.put_varint_field(out, 2, 3)
+            pw.put_double_field(out, 6, v)
+        elif isinstance(v, bytes):
+            pw.put_varint_field(out, 2, 4)
+            pw.put_bytes_field(out, 7, v)
+        else:
+            pw.put_str_field(out, 3, str(v))
+        return bytes(out)
+
+    def ts(ns: int) -> bytes:
+        out = bytearray()
+        pw.put_varint_field(out, 1, ns // 10**9)
+        pw.put_varint_field(out, 2, ns % 10**9)
+        return bytes(out)
+
+    process = bytearray()
+    pw.put_str_field(process, 1, str(res.get("service.name", "")))
+    for k, v in res.items():
+        if k != "service.name":
+            pw.put_bytes_field(process, 2, kv(k, v))
+    batch = bytearray()
+    pw.put_bytes_field(batch, 1, bytes(process))
+    for s in spans:
+        sp = bytearray()
+        pw.put_bytes_field(sp, 1, s.trace_id)
+        pw.put_bytes_field(sp, 2, s.span_id)
+        pw.put_str_field(sp, 3, s.name)
+        if any(s.parent_span_id or b""):
+            ref = bytearray()
+            pw.put_bytes_field(ref, 1, s.trace_id)
+            pw.put_bytes_field(ref, 2, s.parent_span_id)
+            pw.put_bytes_field(sp, 4, bytes(ref))  # ref_type CHILD_OF (0) omitted
+        pw.put_bytes_field(sp, 6, ts(s.start_unix_nano))
+        pw.put_bytes_field(sp, 7, ts(s.duration_nano))
+        for k, v in _span_tags(s).items():
+            pw.put_bytes_field(sp, 8, kv(k, v))
+        pw.put_bytes_field(batch, 2, bytes(sp))
+    req = bytearray()
+    pw.put_bytes_field(req, 1, bytes(batch))
+    return bytes(req)
+
+
+def opencensus_export(res: dict, spans) -> bytes:
+    """opencensus.proto.agent.trace.v1 ExportTraceServiceRequest {1 node,
+    2 spans, 3 resource}: the node names the service, the resource's other
+    attributes ride as string labels; a server span is kind 1, a client
+    span 2; an error span carries status code 2."""
+    from tempo_tpu_torch.receivers import protowire as pw
+
+    def sub(build) -> bytes:
+        out = bytearray()
+        build(out)
+        return bytes(out)
+
+    def truncatable(v: str) -> bytes:
+        return sub(lambda o: pw.put_str_field(o, 1, v))
+
+    def ts(ns: int) -> bytes:
+        return sub(lambda o: (pw.put_varint_field(o, 1, ns // 10**9),
+                                 pw.put_varint_field(o, 2, ns % 10**9)))
+
+    def attr_value(v) -> bytes:
+        out = bytearray()
+        if isinstance(v, bool):
+            pw.put_varint_field(out, 3, int(v))
+        elif isinstance(v, int) and -(1 << 63) <= v < 1 << 63:
+            pw.put_varint_field(out, 2, v & (2**64 - 1))
+        elif isinstance(v, float):
+            pw.put_double_field(out, 4, v)
+        else:
+            pw.put_bytes_field(out, 1, truncatable(_tag_str(v)))
+        return bytes(out)
+
+    req = bytearray()
+    svc_info = sub(lambda o: pw.put_str_field(o, 1, str(res.get("service.name", ""))))
+    pw.put_bytes_field(req, 1, sub(lambda o: pw.put_bytes_field(o, 3, svc_info)))
+    for s in spans:
+        sp = bytearray()
+        pw.put_bytes_field(sp, 1, s.trace_id)
+        pw.put_bytes_field(sp, 2, s.span_id)
+        if any(s.parent_span_id or b""):
+            pw.put_bytes_field(sp, 3, s.parent_span_id)
+        pw.put_bytes_field(sp, 4, truncatable(s.name))
+        pw.put_bytes_field(sp, 5, ts(s.start_unix_nano))
+        pw.put_bytes_field(sp, 6, ts(s.start_unix_nano + s.duration_nano))
+        if s.attributes:
+            amap = bytearray()
+            for k, v in s.attributes.items():
+                entry = bytearray()
+                pw.put_str_field(entry, 1, k)
+                pw.put_bytes_field(entry, 2, attr_value(v))
+                pw.put_bytes_field(amap, 1, bytes(entry))
+            pw.put_bytes_field(sp, 7, bytes(amap))
+        if s.status_code == 2:
+            pw.put_bytes_field(sp, 11, sub(lambda o: pw.put_varint_field(o, 1, 2)))
+        if s.kind in (2, 3):
+            pw.put_varint_field(sp, 14, 1 if s.kind == 2 else 2)
+        pw.put_bytes_field(req, 2, bytes(sp))
+    labels = {k: v for k, v in res.items() if k != "service.name"}
+    if labels:
+        resource = bytearray()
+        for k, v in labels.items():
+            entry = bytearray()
+            pw.put_str_field(entry, 1, k)
+            pw.put_str_field(entry, 2, _tag_str(v))
+            pw.put_bytes_field(resource, 2, bytes(entry))
+        pw.put_bytes_field(req, 3, bytes(resource))
+    return bytes(req)
+
+
+class ScriptedBroker:
+    """A one-broker Kafka cluster in the script's own lines, speaking what
+    the port's KafkaReceiver asks without a consumer group: Metadata v1,
+    ListOffsets v1 and Fetch v4 over partition 0 of one topic. produce()
+    appends one magic-2 record batch (the port's encoder); a fetch with
+    nothing past its offset waits up to the request's max_wait_ms, as a
+    broker does, instead of answering at once."""
+
+    def __init__(self, topic: str = "traces"):
+        import socket
+        import threading
+
+        self.topic = topic
+        self.batches: list = []  # (base offset, records, batch bytes)
+        self.next_offset = 0
+        self.fetches = 0
+        self.closed = False
+        self.cond = threading.Condition()
+        self.sock = socket.socket()
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.listen(4)
+        self.addr = f"127.0.0.1:{self.sock.getsockname()[1]}"
+        self._conns: list = []
+        threading.Thread(target=self._accept, daemon=True).start()
+
+    def produce(self, values: list, codec: int = 0) -> None:
+        from tempo_tpu_torch.receivers import kafka
+
+        with self.cond:
+            raw = kafka.encode_record_batch(self.next_offset, values, codec=codec)
+            self.batches.append((self.next_offset, len(values), raw))
+            self.next_offset += len(values)
+            self.cond.notify_all()
+
+    def close(self) -> None:
+        with self.cond:
+            self.closed = True
+            self.cond.notify_all()
+        self.sock.close()
+        for c in self._conns:
+            c.close()
+
+    def _accept(self) -> None:
+        import threading
+
+        while True:
+            try:
+                conn, _ = self.sock.accept()
+            except OSError:
+                return
+            self._conns.append(conn)
+            threading.Thread(target=self._serve, args=(conn,), daemon=True).start()
+
+    @staticmethod
+    def _str(s) -> bytes:
+        if s is None:
+            return (-1).to_bytes(2, "big", signed=True)
+        raw = s.encode()
+        return len(raw).to_bytes(2, "big") + raw
+
+    def _serve(self, conn) -> None:
+        def read(n: int):
+            buf = bytearray()
+            while len(buf) < n:
+                chunk = conn.recv(n - len(buf))
+                if not chunk:
+                    return None
+                buf += chunk
+            return bytes(buf)
+
+        try:
+            while True:
+                head = read(4)
+                msg = None if head is None else read(struct.unpack(">i", head)[0])
+                if msg is None:
+                    return
+                api, _ver, corr, n = struct.unpack_from(">hhih", msg, 0)
+                body = msg[10 + max(n, 0):]
+                if api == 3:
+                    out = self._metadata()
+                elif api == 2:
+                    out = self._list_offsets()
+                elif api == 1:
+                    out = self._fetch(body)
+                else:
+                    return
+                resp = struct.pack(">i", corr) + out
+                conn.sendall(struct.pack(">i", len(resp)) + resp)
+        except OSError:
+            return
+
+    def _metadata(self) -> bytes:
+        host, port = self.addr.rsplit(":", 1)
+        return (struct.pack(">ii", 1, 0) + self._str(host) + struct.pack(">i", int(port))
+                + self._str(None) + struct.pack(">ii", 0, 1) + struct.pack(">h", 0)
+                + self._str(self.topic) + b"\x00"
+                + struct.pack(">ihiiiiii", 1, 0, 0, 0, 1, 0, 1, 0))
+
+    def _list_offsets(self) -> bytes:
+        earliest = self.batches[0][0] if self.batches else self.next_offset
+        return (struct.pack(">i", 1) + self._str(self.topic)
+                + struct.pack(">iihqq", 1, 0, 0, -1, earliest))
+
+    def _fetch(self, body: bytes) -> bytes:
+        _replica, max_wait_ms = struct.unpack_from(">ii", body, 0)
+        pos = 17
+        (n_topics,) = struct.unpack_from(">i", body, pos)
+        (n,) = struct.unpack_from(">h", body, pos + 4)
+        pos += 6 + n
+        _n_parts, part, offset, max_bytes = struct.unpack_from(">iiqi", body, pos)
+        deadline = time.monotonic() + max_wait_ms / 1e3
+        with self.cond:
+            self.fetches += 1
+            while self.next_offset <= offset and not self.closed:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    break
+                self.cond.wait(left)
+            data = bytearray()
+            for base, count, raw in self.batches:
+                if base + count > offset and (not data or len(data) + len(raw) <= max_bytes):
+                    data += raw
+            hw = self.next_offset
+        return (struct.pack(">ii", 0, n_topics) + self._str(self.topic)
+                + struct.pack(">iihqqi", 1, part, 0, hw, hw, 0)
+                + struct.pack(">i", len(data)) + bytes(data))
+
+
+class UsageSink:
+    """A loopback stats sink recording each POST (path, JSON body)."""
+
+    def __init__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        sink = self
+        self.posts: list = []
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, fmt, *args):
+                pass
+
+            def do_POST(self):  # noqa: N802
+                body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+                sink.posts.append((self.path, json.loads(body)))
+                self.send_response(204)
+                self.end_headers()
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        threading.Thread(target=self.httpd.serve_forever, daemon=True).start()
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+# the carriers, in the order phase 15 feeds them; each unit of 512 spans
+# goes to one, round robin
+HTTP_CARRIERS = ("zipkin-v2-json", "zipkin-v1-thrift", "jaeger-thrift-http")
+UDP_CARRIERS = ("jaeger-agent-compact", "jaeger-agent-binary")
+KAFKA_CARRIERS = ("kafka-none", "kafka-gzip", "kafka-snappy", "kafka-zstd")
+GRPC_CARRIERS = ("grpc-otlp", "grpc-jaeger", "grpc-opencensus")
+MAX_DATAGRAM = 65_000
+
+
+def _split_datagrams(encode, res: dict, spans: list) -> list:
+    """One datagram a resource group, halved until each fits the Jaeger
+    client's 65,000-byte limit."""
+    buf = encode(res, spans)
+    if len(buf) <= MAX_DATAGRAM or len(spans) == 1:
+        return [buf]
+    half = len(spans) // 2
+    return _split_datagrams(encode, res, spans[:half]) + _split_datagrams(encode, res, spans[half:])
+
+
+def carrier_messages(carrier: str, traces: list) -> list:
+    """The messages that carry one unit of traces on `carrier`: (transport,
+    target, content type or codec, payload). A Jaeger Batch and an
+    OpenCensus request hold one process each, so those carriers send one
+    message a resource group (an OpenCensus unit as one stream)."""
+    from tempo_tpu_torch import receivers
+    from tempo_tpu_torch.receivers import grpc_server, jaeger, kafka, otlp
+
+    thrift = "application/x-thrift"
+    if carrier == "zipkin-v2-json":
+        return [("http", receivers.ZIPKIN_PATH, "application/json", zipkin_v2_json(traces))]
+    if carrier == "zipkin-v1-thrift":
+        return [("http", receivers.ZIPKIN_V1_PATH, thrift, zipkin_v1_thrift(traces))]
+    groups = _resource_groups(traces)
+    if carrier == "jaeger-thrift-http":
+        return [("http", receivers.JAEGER_THRIFT_PATH, thrift, jaeger_thrift_batch(res, spans))
+                for res, spans in groups]
+    if carrier in UDP_CARRIERS:
+        if carrier == "jaeger-agent-compact":
+            def encode(res, spans):
+                ptags = {k: v for k, v in res.items() if k != "service.name"}
+                return jaeger.encode_agent_batch_compact(str(res.get("service.name", "")),
+                                                         spans, process_tags=ptags)
+        else:
+            encode = jaeger_agent_binary
+        return [("udp", carrier, None, d) for res, spans in groups
+                for d in _split_datagrams(encode, res, spans)]
+    if carrier in KAFKA_CARRIERS:
+        codec = {"kafka-none": kafka.CODEC_NONE, "kafka-gzip": kafka.CODEC_GZIP,
+                 "kafka-snappy": kafka.CODEC_SNAPPY, "kafka-zstd": kafka.CODEC_ZSTD}[carrier]
+        return [("kafka", carrier, codec, otlp.encode_traces_request(traces))]
+    if carrier == "grpc-otlp":
+        return [("grpc", grpc_server.OTLP_EXPORT_METHOD, None, otlp.encode_traces_request(traces))]
+    if carrier == "grpc-jaeger":
+        return [("grpc", grpc_server.JAEGER_POST_SPANS_METHOD, None, jaeger_post_spans(res, spans))
+                for res, spans in groups]
+    if carrier == "grpc-opencensus":
+        return [("grpc-stream", grpc_server.OPENCENSUS_EXPORT_METHOD, None,
+                 [opencensus_export(res, spans) for res, spans in groups])]
+    raise SmokeFailure(f"no carrier {carrier!r}")
+
+
+def decode_message(msg) -> list:
+    """The traces a receiver pushes for one message, by the port's
+    decoders (an OpenCensus stream: one push a message, concatenated)."""
+    from tempo_tpu_torch import receivers
+    from tempo_tpu_torch.receivers import grpc_server, jaeger, opencensus, otlp
+
+    transport, target, ctype, payload = msg
+    if transport == "http":
+        return [receivers.decode_http(target, ctype, payload)]
+    if transport == "udp":
+        return [jaeger.decode_agent_datagram(payload)]
+    if transport == "kafka" or target == grpc_server.OTLP_EXPORT_METHOD:
+        return [otlp.decode_traces_request(payload)]
+    if target == grpc_server.JAEGER_POST_SPANS_METHOD:
+        return [grpc_server.decode_post_spans_request(payload)]
+    return [opencensus.decode_export_request(p) for p in payload]
+
+
+def _norm_trace(raw_otlp: bytes) -> list:
+    """A trace's spans as sorted (resource, scope, span) JSON records."""
+    from tempo_tpu_torch.receivers import otlp
+
+    out = []
+    for rs in otlp.encode_traces_json(otlp.decode_traces_request(raw_otlp))["resourceSpans"]:
+        res_ = json.dumps(rs.get("resource", {}), sort_keys=True)
+        for ss in rs.get("scopeSpans", []):
+            scope = json.dumps(ss.get("scope", {}), sort_keys=True)
+            out += [(res_, scope, json.dumps(sp, sort_keys=True)) for sp in ss.get("spans", [])]
+    return sorted(out)
+
+
+def _generator_series(app, tenant: str) -> dict:
+    """A tenant's generator series, the expiry and eviction counter aside
+    (its split depends on the wall clock between pushes)."""
+    from tempo_tpu_torch.modules.generator import servicegraphs as sg
+
+    return {(s.name, s.labels): s.value for s in app.generator.instance(tenant).registry.collect()
+            if s.name != sg.EXPIRED_TOTAL}
+
+
+def receivers_phase(seed: int, root: str, queries: list, shed: bool = False) -> dict:
+    """Phase 15, the other receivers and the ingest tees on the card. One
+    App(device="cuda") with target all and multitenancy, behind a TempoServer,
+    with the Jaeger agent on a compact and a binary UDP port, a Kafka
+    receiver against ScriptedBroker, the gRPC server where grpcio is
+    installed (else the same payloads through the port's gRPC decoders and
+    App.push_traces), a forwarder for tenant `fwd` to a second App's
+    /v1/traces, usage_report to UsageSink and self_tracing on (`shed`
+    drops the forwarder, its App and self-tracing). 32 make_graph_batch
+    batches of 512 traces x 8 spans (2**17 spans of phase 11's stream,
+    stamped in the last hour) go as 512-span units,
+    round robin over the carriers, one after another (tenant `fwd` on
+    the second unit of every four of an HTTP or gRPC carrier, `rx` on the rest); a
+    target=all App on the CPU takes the same messages through the same
+    decoders in the same order. Then /flush; 250 present and 250 absent
+    finds, a tag search, phase 4's three query_range over the flushed
+    blocks and the generator's series, each equal to the CPU App's; the
+    forwarded traces found whole on the second App; one usage report with
+    the reference's keys under the cluster seed; a `_self_` search for
+    distributor/push. Returns its numbers."""
+    import http.client
+    import importlib.util
+    import socket
+    import threading
+
+    import numpy as np
+
+    from tempo_tpu_torch import native, usagestats
+    from tempo_tpu_torch.api.server import TempoServer
+    from tempo_tpu_torch.app import App, AppConfig
+    from tempo_tpu_torch.db import DBConfig
+    from tempo_tpu_torch.model import synth
+    from tempo_tpu_torch.model.trace import batch_to_traces
+    from tempo_tpu_torch.modules.forwarder import ForwarderConfig
+    from tempo_tpu_torch.modules.frontend import FrontendConfig
+    from tempo_tpu_torch.modules.ingester import IngesterConfig
+    from tempo_tpu_torch.modules.overrides import Limits
+    from tempo_tpu_torch.receivers import otlp
+    from tempo_tpu_torch.receivers.kafka import KafkaReceiver
+    from tempo_tpu_torch.receivers.udp import UDPAgentServer
+    from tempo_tpu_torch.usagestats import UsageStatsConfig
+    from tempo_tpu_torch.util import tracing
+
+    t_phase = time.perf_counter()
+    grpc_transport = "grpcio" if importlib.util.find_spec("grpc") is not None else "absent"
+    carriers = list(HTTP_CARRIERS + UDP_CARRIERS + KAFKA_CARRIERS + GRPC_CARRIERS)
+    if native.lib() is None:
+        carriers.remove("kafka-zstd")  # a zstd batch needs the native library, as in the reference
+    res: dict = {"grpc_transport": grpc_transport, "carriers": {}, "requests": {},
+                 "stage_s": {}, "shed": shed}
+    print(f"phase 15 receivers: grpc_transport {grpc_transport}, {len(carriers)} carriers "
+          f"({', '.join(carriers)})", flush=True)
+
+    # ------------------------------------------------------------- data
+    t0 = time.perf_counter()
+    now_min = int(time.time()) // 60 * 60
+    t_data = now_min - 40 * 60
+    units, by_id = [], {}
+    for i in range(32):
+        traces = batch_to_traces(synth.make_graph_batch(
+            512, 8, seed=seed * 1000 + 1500 + i,
+            base_time_ns=(t_data + 60 * (i // 2)) * 10**9, error_rate=0.1))
+        units += [traces[j:j + 64] for j in range(0, len(traces), 64)]
+    plan = []  # (carrier, tenant, messages, spans)
+    seen: dict = {}
+    for u, traces in enumerate(units):
+        carrier = carriers[u % len(carriers)]
+        k = seen[carrier] = seen.get(carrier, -1) + 1
+        tenant = FWD_TENANT if (carrier in HTTP_CARRIERS + GRPC_CARRIERS and k % 4 == 1) \
+            else RX_TENANT
+        for t in traces:
+            by_id[t.trace_id] = (tenant, t)
+        plan.append((carrier, tenant, carrier_messages(carrier, traces),
+                     sum(t.span_count() for t in traces)))
+    plan.sort(key=lambda p: carriers.index(p[0]))  # carrier by carrier, units in order
+    n_spans = sum(p[3] for p in plan)
+    res["stage_s"]["data and encode"] = time.perf_counter() - t0
+    res["spans"] = n_spans
+    print(f"phase 15 data: {n_spans} spans ({len(by_id)} make_graph_batch traces) in "
+          f"{len(plan)} units of 512 spans, {sum(len(p[2]) for p in plan)} messages, encoded in "
+          f"{res['stage_s']['data and encode']:.1f} s", flush=True)
+
+    limits = Limits(max_traces_per_user=1 << 16, ingestion_rate_limit_bytes=1 << 40,
+                    ingestion_burst_size_bytes=1 << 40)
+
+    def cfg(name: str, **kw) -> AppConfig:
+        sub = os.path.join(root, name)
+        return AppConfig(
+            multitenancy_enabled=True, query_workers=2,
+            db=DBConfig(backend="local", backend_path=os.path.join(sub, "blocks"),
+                        wal_path=os.path.join(sub, "wal"), blocklist_poll_s=3600.0,
+                        analytics_scan_s=0),
+            ingester=IngesterConfig(max_trace_idle_s=3600.0, flush_check_period_s=3600.0),
+            frontend=FrontendConfig(hedge_after_s=0), limits=limits, **kw)
+
+    conns: dict = {}
+
+    def request(url, kind, method, path, body=None, headers=None, timed=True):
+        key = (url, threading.get_ident())
+        conn = conns.get(key)
+        if conn is None:
+            host, port = url.rsplit("/", 1)[-1].split(":")
+            conn = conns[key] = http.client.HTTPConnection(host, int(port), timeout=600)
+        t0 = time.perf_counter()
+        try:
+            conn.request(method, path, body=body, headers=headers or {})
+            r = conn.getresponse()
+            out = r.read()
+        except OSError:
+            conns.pop(key).close()
+            raise
+        if timed:
+            res["requests"].setdefault(kind, []).append((time.perf_counter() - t0) * 1e3)
+        return r.status, out
+
+    apps: list = []
+    servers: list = []
+    receivers_up: list = []
+    broker = ScriptedBroker()
+    sink = UsageSink()
+    second = second_srv = channel = None
+    try:
+        # ------------------------------------------------------ the Apps
+        t0 = time.perf_counter()
+        extra = {}
+        if not shed:
+            second = App(cfg("forward-target"), device="cuda")
+            apps.append(second)
+            second_srv = TempoServer(second, host="127.0.0.1", port=0).start()
+            servers.append(second_srv)
+            overrides = os.path.join(root, "overrides.yaml")
+            with open(overrides, "w") as f:
+                f.write(f"overrides:\n  {FWD_TENANT}:\n    forwarders: [card-b]\n"
+                        f"    max_traces_per_user: {1 << 16}\n"
+                        f"    ingestion_rate_limit_bytes: {1 << 40}\n"
+                        f"    ingestion_burst_size_bytes: {1 << 40}\n")
+            extra = dict(forwarders=[ForwarderConfig(name="card-b", endpoint=second_srv.url)],
+                         overrides_path=overrides,
+                         # one trace in ten: every request of the phase traces
+                         # itself, and a find's spans would triple its cost
+                         self_tracing=tracing.SelfTracingConfig(enabled=True,
+                                                                sample_ratio=0.1))
+        app = App(cfg("card", usage_stats=UsageStatsConfig(
+            enabled=True, endpoint=sink.url, report_interval_s=3600.0), **extra), device="cuda")
+        apps.append(app)
+        srv = TempoServer(app, host="127.0.0.1", port=0).start()
+        servers.append(srv)
+        app.start_loops()
+        oracle = App(cfg("cpu"), device="cpu")
+        apps.append(oracle)
+        oracle_srv = TempoServer(oracle, host="127.0.0.1", port=0).start()
+        servers.append(oracle_srv)
+        check(app.device.type == "cuda" and (second is None or second.device.type == "cuda"),
+              f"phase 15: Apps on {app.device} and {None if second is None else second.device}")
+        check(app.can_push_spans() == shed, "phase 15: a forwarder must force the object path")
+        udp = UDPAgentServer(app.push_traces, host="127.0.0.1", compact_port=0, binary_port=0,
+                             org_id=RX_TENANT).start()
+        receivers_up.append(udp)
+        kafka_rx = KafkaReceiver(app.push_traces, [broker.addr], broker.topic,
+                                 org_id=RX_TENANT).start()
+        receivers_up.append(kafka_rx)
+        grpc_mod = None
+        if grpc_transport == "grpcio":
+            import grpc as grpc_mod
+
+            from tempo_tpu_torch.receivers.grpc_server import TraceGrpcServer
+
+            grpc_srv = TraceGrpcServer(app.push_traces, host="127.0.0.1", port=0).start()
+            receivers_up.append(grpc_srv)
+            channel = grpc_mod.insecure_channel(f"127.0.0.1:{grpc_srv.port}")
+        res["start_s"] = time.perf_counter() - t0
+        print(f"phase 15 up: the App on {app.device} (HTTP {srv.url}, Jaeger agent UDP compact "
+              f":{udp.compact_port} binary :{udp.binary_port}, Kafka {broker.addr}"
+              + (f", gRPC :{grpc_srv.port}" if channel is not None else "")
+              + ("" if shed else f"; forwarder to {second_srv.url}, self_tracing on")
+              + f"; usage_report to {sink.url}), the CPU App, in {res['start_s']:.1f} s",
+              flush=True)
+
+        # ------------------------------------------------------- the feed
+        sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        udp_ports = {"jaeger-agent-compact": udp.compact_port,
+                     "jaeger-agent-binary": udp.binary_port}
+
+        def wait_for(cond, what: str, timeout_s: float = 60.0) -> None:
+            t_end = time.monotonic() + timeout_s
+            while not cond():
+                check(time.monotonic() < t_end, f"phase 15: timed out waiting for {what}")
+                time.sleep(0.0005)
+
+        def send_card(carrier: str, tenant: str, msg) -> None:
+            transport, target, ctype, payload = msg
+            if transport == "http":
+                status, body = request(srv.url, carrier, "POST", target, payload,
+                                       {"Content-Type": ctype, "X-Scope-OrgID": tenant})
+                check(status == 202, f"phase 15 {carrier}: HTTP {status} {body[:200]!r}")
+            elif transport == "udp":
+                # one datagram in flight: loopback drops a burst past the
+                # socket's buffer, so each waits for the receiver's count
+                t0 = time.perf_counter()
+                n0 = udp.batches + udp.errors
+                sock.sendto(payload, ("127.0.0.1", udp_ports[target]))
+                wait_for(lambda: udp.batches + udp.errors > n0, f"{carrier} datagram")
+                res["requests"].setdefault(carrier, []).append((time.perf_counter() - t0) * 1e3)
+            elif channel is not None:
+                md = (("x-scope-orgid", tenant),)
+                t0 = time.perf_counter()
+                if transport == "grpc":
+                    channel.unary_unary(target)(payload, metadata=md, timeout=120)
+                else:
+                    replies = list(channel.stream_stream(target)(iter(payload), metadata=md,
+                                                                 timeout=120))
+                    check(len(replies) == len(payload), f"phase 15 {carrier}: {len(replies)} "
+                          f"replies to {len(payload)} messages")
+                res["requests"].setdefault(carrier, []).append((time.perf_counter() - t0) * 1e3)
+            else:
+                # no grpcio: the server's own decoders, then its push
+                t0 = time.perf_counter()
+                for traces in decode_message(msg):
+                    if traces:
+                        app.push_traces(traces, org_id=tenant)
+                res["requests"].setdefault(carrier, []).append((time.perf_counter() - t0) * 1e3)
+
+        for carrier in carriers:
+            mine = [p for p in plan if p[0] == carrier]
+            spans = sum(p[3] for p in mine)
+            t0 = time.perf_counter()
+            if carrier in KAFKA_CARRIERS:
+                want = kafka_rx.records + len(mine)
+                for _, _, msgs, _ in mine:
+                    ((_, _, codec, payload),) = msgs
+                    broker.produce([payload], codec=codec)
+                wait_for(lambda: kafka_rx.records >= want, f"{carrier} records", 120.0)
+                check(kafka_rx.errors == 0, f"phase 15 {carrier}: {kafka_rx.errors} errors")
+            else:
+                for _, tenant, msgs, _ in mine:
+                    for msg in msgs:
+                        send_card(carrier, tenant, msg)
+            secs = time.perf_counter() - t0
+            check(udp.errors == 0, f"phase 15 {carrier}: {udp.errors} datagrams rejected")
+            t0 = time.perf_counter()
+            for _, tenant, msgs, _ in mine:
+                for msg in msgs:
+                    for traces in decode_message(msg):
+                        if traces:
+                            oracle.push_traces(traces, org_id=tenant)
+            res["carriers"][carrier] = dict(units=len(mine), messages=sum(len(p[2]) for p in mine),
+                                            spans=spans, s=secs, spans_per_s=spans / secs,
+                                            cpu_s=time.perf_counter() - t0)
+            print(f"phase 15 {carrier}: {spans} spans in {len(mine)} units, "
+                  f"{res['carriers'][carrier]['messages']} messages -> {spans / secs:.0f} spans/s "
+                  f"on the card App ({secs:.2f} s; the CPU App's decode and push "
+                  f"{res['carriers'][carrier]['cpu_s']:.2f} s)", flush=True)
+        sock.close()
+        check(udp.spans == sum(p[3] for p in plan if p[0] in UDP_CARRIERS),
+              f"phase 15: the agent counted {udp.spans} spans")
+
+        # ------------------------------------- generator, finds and flush
+        for tenant in (RX_TENANT, FWD_TENANT):
+            got, want = _generator_series(app, tenant), _generator_series(oracle, tenant)
+            check(got == want and got, f"phase 15 generator {tenant}: {len(got)} series, the "
+                  f"CPU App's {len(want)}")
+            res.setdefault("generator_series", {})[tenant] = len(got)
+        # the finds read the live traces, one at a time (the two Apps share
+        # this interpreter: more in flight only contend for it)
+        rng = np.random.default_rng(seed + 15)
+        ids = list(by_id)
+        present = [ids[i] for i in rng.choice(len(ids), 250, replace=False)]
+        absent = [bytes(x) for x in rng.integers(0, 2**32, (300, 4), dtype=np.uint32)
+                  .astype(">u4").view(np.uint8).reshape(-1, 16)]
+        absent = [x for x in absent if x not in by_id][:250]
+        t0 = time.perf_counter()
+        for tid in present + absent:
+            tenant = by_id[tid][0] if tid in by_id else RX_TENANT
+            st, body = request(srv.url, "find", "GET", f"/api/traces/{tid.hex()}",
+                               headers={"Accept": "application/protobuf", "X-Scope-OrgID": tenant})
+            want = oracle.find_trace(tid, org_id=tenant)
+            if tid in by_id:
+                check(st == 200 and want is not None
+                      and _norm_trace(body) == _norm_trace(otlp.encode_traces_request([want]))
+                      and want.span_count() == by_id[tid][1].span_count(),
+                      f"phase 15 find {tid.hex()}: HTTP {st}")
+            else:
+                check(st == 404 and want is None, f"phase 15 find absent: HTTP {st}")
+        res["stage_s"]["finds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        st, _ = request(srv.url, "flush", "POST", "/flush")
+        res["flush_ms"] = (time.perf_counter() - t0) * 1e3
+        ost, _ = request(oracle_srv.url, "flush", "POST", "/flush", timed=False)
+        check(st == ost == 204, f"phase 15 /flush: HTTP {st} / {ost}")
+        for a in (app, oracle):
+            a.db.poll_now()
+        print(f"phase 15 generator and finds: {res['generator_series']} series a tenant == the "
+              f"CPU App's; 250 present IDs found whole and 250 absent -> 404 over the live "
+              f"traces ({res['stage_s']['finds']:.1f} s) | /flush {res['flush_ms']:.0f} ms",
+              flush=True)
+
+        def same(kind, path, norm, tenant=RX_TENANT):
+            hdr = {"X-Scope-OrgID": tenant}
+            st, body = request(srv.url, kind, "GET", path, headers=hdr)
+            ost, obody = request(oracle_srv.url, "cpu", "GET", path, headers=hdr, timed=False)
+            check(st == ost == 200, f"phase 15 {path}: HTTP {st} / {ost}")
+            got = norm(body)
+            check(got == norm(obody), f"phase 15 {path}: != the CPU App's")
+            return got
+
+        def matrix(raw):
+            doc = json.loads(raw)
+            check(doc["status"] == "success", f"phase 15 query_range: {doc.get('status')}")
+            return doc["data"]["result"]
+
+        hits = same("search", "/api/search?" + urllib.parse.urlencode(
+            {"tags": "service.name=cart", "limit": 10**6}),
+            lambda raw: sorted(json.loads(raw)["traces"], key=lambda t: t["traceID"]))
+        check(hits, "phase 15 search: no hit")
+        window = dict(start=t_data - 300, end=now_min, step=60)
+        series = {}
+        for q in queries:
+            series[q] = len(same("query_range", "/api/metrics/query_range?"
+                                 + urllib.parse.urlencode(dict(q=q, **window)), matrix))
+            check(series[q], f"phase 15 query_range {q}: no series")
+        print(f"phase 15 reads: service.name=cart ({len(hits)} traces) and the three "
+              f"query_range ({series} series) over the flushed blocks == the CPU App's",
+              flush=True)
+
+        # ----------------------------------------------------- the tees
+        if not shed:
+            fwd = [(tid, t) for tid, (tenant, t) in by_id.items() if tenant == FWD_TENANT]
+            fwd_spans = sum(t.span_count() for _, t in fwd)
+
+            def received() -> float:
+                inst = second.generator.instance(FWD_TENANT) if second.generator else None
+                return 0.0 if inst is None else sum(
+                    s.value for s in inst.registry.collect()
+                    if s.name == "traces_spanmetrics_calls_total")
+
+            t0 = time.perf_counter()
+            wait_for(lambda: received() >= fwd_spans, "the forwarded spans", 120.0)
+            check(received() == fwd_spans, f"phase 15 forwarder: {received()} spans at the "
+                  f"second App, {fwd_spans} sent")
+            wait_s = time.perf_counter() - t0
+            # every span arrived (the span-metrics calls above); 100 traces
+            # found whole, each == the CPU App's
+            for tid, t in fwd[:: max(1, len(fwd) // 100)]:
+                got = second.find_trace(tid, org_id=FWD_TENANT)
+                want = oracle.find_trace(tid, org_id=FWD_TENANT)
+                check(got is not None and got.span_count() == t.span_count()
+                      and _norm_trace(otlp.encode_traces_request([got]))
+                      == _norm_trace(otlp.encode_traces_request([want])),
+                      f"phase 15 forwarder: {tid.hex()} not whole, or not the CPU App's")
+            res["forwarded"] = dict(traces=len(fwd), spans=fwd_spans, wait_s=wait_s,
+                                    s=time.perf_counter() - t0)
+            print(f"phase 15 forwarder: the {fwd_spans} spans of tenant {FWD_TENANT}'s "
+                  f"{len(fwd)} traces at the second App, every 1 in {max(1, len(fwd) // 100)} "
+                  f"found whole == the CPU App's ({wait_s:.1f} s until the last arrived, "
+                  f"{res['forwarded']['s']:.1f} s in all)", flush=True)
+
+            st, body = request(srv.url, "self search", "GET", "/api/search?"
+                               + urllib.parse.urlencode({"tags": "name=distributor/push",
+                                                         "limit": 20}),
+                               headers={"X-Scope-OrgID": tracing.SELF_TENANT})
+            self_hits = json.loads(body)["traces"] if st == 200 else []
+            check(st == 200 and self_hits, f"phase 15 self-tracing: HTTP {st}, "
+                  f"{len(self_hits)} traces")
+            exp = app._self_exporter
+            res["self_tracing"] = dict(
+                hits=len(self_hits), exported=exp.exported_total.value(),
+                dropped={r: exp.dropped_total.value(reason=r)
+                         for r in ("sampled", "rate_limited", "pressure", "push_failed")})
+            print(f"phase 15 self-tracing: {len(self_hits)} `_self_` traces with a "
+                  f"distributor/push span | {res['self_tracing']}", flush=True)
+        else:
+            res["forwarded"] = res["self_tracing"] = "shed"
+
+        check(app.usage_reporter.send_report(), "phase 15 usage_report: the send failed")
+        check(len(sink.posts) == 1 and sink.posts[0][0] == "/usage-stats",
+              f"phase 15 usage_report: {[p for p, _ in sink.posts]}")
+        report = sink.posts[0][1]
+        seed_path = os.path.join(root, "card", "blocks", usagestats.SEED_KEY)
+        with open(seed_path) as f:
+            seed_doc = json.load(f)
+        check(sorted(report) == sorted(USAGE_REPORT_KEYS)
+              and report["clusterID"] == seed_doc["UID"],
+              f"phase 15 usage_report: keys {sorted(report)}, seed {seed_doc}")
+        st, body = request(srv.url, "status", "GET", "/status/usage-stats", timed=False)
+        check(st == 200 and json.loads(body)["clusterID"] == seed_doc["UID"],
+              f"phase 15 /status/usage-stats: HTTP {st}")
+        res["usage_report"] = dict(keys=sorted(report), metrics=len(report["metrics"]))
+        print(f"phase 15 usage_report: one report at the sink, keys {sorted(report)}, "
+              f"{len(report['metrics'])} metrics, the cluster seed at {usagestats.SEED_KEY}",
+              flush=True)
+    finally:
+        t_down = time.perf_counter()
+        if channel is not None:
+            channel.close()
+        for rx in reversed(receivers_up):
+            rx.stop()
+        for s in servers:
+            s.stop()
+        for a in reversed(apps):
+            a.shutdown()
+        broker.close()
+        sink.close()
+        for conn in conns.values():
+            conn.close()
+        res["stage_s"]["teardown"] = time.perf_counter() - t_down
+    res["ms"] = {k: dict(p50=statistics.median(v), max=max(v), n=len(v))
+                 for k, v in res.pop("requests").items()}
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6152,6 +7210,33 @@ def main() -> int:
           f"{cluster['querier_b_dispatches']} | launches on the path {cluster['launches_total']}",
           flush=True)
 
+    # ---------------------------------------------------------------- 15
+    # a slow host sheds phase 15's forwarder and self-tracing checks
+    # (SHED15_S); its receivers always run
+    elapsed = time.perf_counter() - t_script
+    shed15 = elapsed > SHED15_S
+    if shed15:
+        sheds.append("phase 15 forwarder and self-tracing checks")
+    print(f"phase 15 depth: phases 0-14 took {elapsed:.1f} s -> "
+          + ("the forwarder and self-tracing checks shed" if shed15 else "nothing shed"),
+          flush=True)
+    reset_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_receivers_") as receivers_root:
+        receivers = receivers_phase(seed, receivers_root, queries, shed=shed15)
+    receivers["launches"] = read_launches()
+    # the generator tee's sketches at every push, the flush's page encode,
+    # query_range over the flushed blocks
+    for k in ("hll_update", "cm_update", "rle_change_mask", "dbp_pack", "seg_bincount"):
+        check(receivers["launches"][k] > 0, f"receivers path: {k} never launched")
+    for kind, m in receivers["ms"].items():
+        print(f"phase 15 {kind}: p50 {m['p50']:.1f} ms, max {m['max']:.1f} ms over {m['n']} "
+              "requests", flush=True)
+    print(f"grpc_transport: \"{receivers['grpc_transport']}\"", flush=True)
+    print(f"phase 15 receivers and tees: {receivers['phase_s']:.1f} s | "
+          + ", ".join(f"{c} {r['spans_per_s']:.0f}" for c, r in receivers["carriers"].items())
+          + f" spans/s | flush {receivers['flush_ms']:.0f} ms | launches on the path "
+          f"{receivers['launches']}", flush=True)
+
     source = {k: "tempo_tpu_torch/csrc/kernels.cu"
               for k in ("seg_bincount", "in_set_scan", "u64_range_scan")}
     source.update({k: "tempo_tpu_torch/csrc/codec_kernels.cu"
@@ -6184,6 +7269,7 @@ def main() -> int:
     }
     for k in kernels:
         kernels[k]["launches_cluster_path"] = cluster["launches_total"][k]
+        kernels[k]["launches_receivers_path"] = receivers["launches"][k]
     # the second querier's, from its /status/device: one launch a dispatch
     for k, dispatch in (("seg_bincount", "seg_bincount"), ("root_path_sums", "graph_critical_path")):
         kernels[k]["launches_cluster_querier_1"] = cluster["querier_b_dispatches"].get(dispatch, 0)
@@ -6195,7 +7281,7 @@ def main() -> int:
         "compaction_step_torch_op_sketch_ms": statistics.median(plain_step_s) * 1e3,
         "query_ms": query_ms, "blocks": blocks, "db": db, "app": app, "standing": standing,
         "tier": tier, "graph": graph, "tail": tail, "resultcache": rc, "cluster": cluster,
-        "shed": sheds,
+        "receivers": receivers, "grpc_transport": receivers["grpc_transport"], "shed": sheds,
         "phases_0_6_s": phases_0_6_s,
         "phase_2_graph_sketch_s": graph_sketch_s,
         "script_s": time.perf_counter() - t_script}

@@ -8,10 +8,12 @@ the reference); any other `-target` of app.ROLES runs one role of
 microservices mode, which finds its peers through the YAML's top-level
 `ring_kv_path` or `ring_kv_url` and advertises `advertise_addr` (a
 querier pulls jobs from `frontend_address`). `-device cpu` runs on the
-host. `-config.verify` validates and exits. The gRPC, Jaeger UDP and
-Kafka receivers wait for a later slice (ROADMAP Queue 1 item 8, cited
-as item 2): a config that turns one on is refused, as App refuses every
-other section whose module is not ported.
+host. `-config.verify` validates and exits. On target all and
+distributor the receivers that `server:` turns on start beside the HTTP
+listener (start_receivers): OTLP, Jaeger and OpenCensus over gRPC
+(`grpc_listen_port`; needs grpcio), the Jaeger agent over UDP
+(`jaeger_agent_compact_port`, `jaeger_agent_binary_port`) and Kafka
+(`kafka.brokers`); they stop before the App at shutdown.
 """
 
 from __future__ import annotations
@@ -23,8 +25,54 @@ import sys
 import threading
 
 from tempo_tpu_torch.api.server import TempoServer
-from tempo_tpu_torch.app import App, refuse_unported
+from tempo_tpu_torch.app import App
 from tempo_tpu_torch.config import Config, check_config, load_config
+
+log = logging.getLogger("tempo_tpu_torch")
+
+
+def start_receivers(cfg: Config, app: App) -> list:
+    """Start the gRPC, Jaeger agent UDP and Kafka receivers that the
+    config turns on (target all or distributor only), each pushing into
+    `app`; returns them in start order, each with a stop()."""
+    started: list = []
+    if cfg.target not in ("all", "distributor"):
+        return started
+    srv = cfg.server
+    if srv.grpc_listen_port:
+        from tempo_tpu_torch.receivers.grpc_server import TraceGrpcServer
+
+        grpc_server = TraceGrpcServer(
+            app.push_traces, host=srv.http_listen_address, port=srv.grpc_listen_port,
+        ).start()
+        started.append(grpc_server)
+        log.info("OTLP/Jaeger/OpenCensus gRPC receiver on :%d", grpc_server.port)
+    if srv.jaeger_agent_compact_port or srv.jaeger_agent_binary_port:
+        from tempo_tpu_torch.receivers.udp import UDPAgentServer
+
+        udp_rx = UDPAgentServer(
+            app.push_traces,
+            host=srv.http_listen_address,
+            compact_port=srv.jaeger_agent_compact_port or None,
+            binary_port=srv.jaeger_agent_binary_port or None,
+        ).start()
+        started.append(udp_rx)
+        log.info("Jaeger agent UDP receiver on compact:%d binary:%d",
+                 udp_rx.compact_port, udp_rx.binary_port)
+    if srv.kafka.brokers:
+        from tempo_tpu_torch.receivers.kafka import KafkaReceiver
+
+        kafka_rx = KafkaReceiver(
+            app.push_traces,
+            brokers=list(srv.kafka.brokers),
+            topic=srv.kafka.topic,
+            poll_interval_s=srv.kafka.poll_interval_s,
+            group_id=srv.kafka.group_id or None,
+        ).start()
+        started.append(kafka_rx)
+        log.info("Kafka receiver consuming %s from %s (group=%s)",
+                 srv.kafka.topic, srv.kafka.brokers, srv.kafka.group_id or "<none>")
+    return started
 
 
 def main(argv=None) -> int:
@@ -49,19 +97,10 @@ def main(argv=None) -> int:
         level=getattr(logging, cfg.server.log_level.upper(), logging.INFO),
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
     )
-    log = logging.getLogger("tempo_tpu_torch")
 
     for w in check_config(cfg):
         log.warning("config check: %s", w)
-    srv = cfg.server
-    if srv.grpc_listen_port or srv.jaeger_agent_compact_port \
-            or srv.jaeger_agent_binary_port or srv.kafka.brokers:
-        raise NotImplementedError(
-            "tempo_tpu_torch: the gRPC, Jaeger UDP and Kafka receivers are not "
-            "ported yet (ROADMAP Queue 1 item 2 (single binary: the other "
-            "receivers))")
     cfg.app.target = cfg.target
-    refuse_unported(cfg.app)
     if args.verify:
         print("config ok")
         return 0
@@ -76,6 +115,7 @@ def main(argv=None) -> int:
     server = TempoServer(
         app, host=cfg.server.http_listen_address, port=cfg.server.http_listen_port
     ).start()
+    receivers = start_receivers(cfg, app)
     app.start_loops()
     log.info("tempo-tpu up: target=%s device=%s listening on %s",
              cfg.target, app.device, server.url)
@@ -87,6 +127,8 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGTERM, handle)
     signal.signal(signal.SIGINT, handle)
     stop.wait()
+    for rx in reversed(receivers):
+        rx.stop()
     server.stop()
     app.shutdown()
     log.info("tempo-tpu stopped cleanly")

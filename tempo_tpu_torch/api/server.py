@@ -10,6 +10,9 @@ the image.
 
 Port of tempo_tpu/api/server.py for every target. Routes:
   POST /v1/traces            OTLP http (protobuf or json, gzip/deflate)
+  POST /api/v2/spans         Zipkin v2 json (or thrift)
+  POST /api/v1/spans         Zipkin v1 thrift
+  POST /api/traces           Jaeger thrift-binary batch
   GET  /api/traces/{id}      trace by ID (OTLP json; protobuf if Accept'd)
   GET  /api/search           tag search (tags=logfmt) or TraceQL (q=...)
   GET  /api/search/tags      tag names
@@ -25,8 +28,6 @@ Port of tempo_tpu/api/server.py for every target. Routes:
   GET  /status/profile[/device]  host stack sampler; torch.profiler window
   /rpc/v1/*                  inter-role RPC of microservices mode (modules/rpc)
   GET/POST /kv/v1/{name}     the ring KV (modules/netkv); GET /memberlist its names
-Every other route of the reference answers 404 naming the ROADMAP item
-that ports it (_UNPORTED_ROUTES).
 """
 
 from __future__ import annotations
@@ -55,25 +56,6 @@ from tempo_tpu_torch.util.resource import ResourceExhausted
 VERSION = "0.1.0"
 
 log = logging.getLogger(__name__)
-
-_Q1_2 = "ROADMAP Queue 1 item 2 (single binary: the other receivers)"
-# (exact paths, what, ROADMAP item) of the reference's routes that this
-# port does not serve yet
-_UNPORTED_ROUTES = (
-    (("/api/v2/spans", "/api/v1/spans"), "the Zipkin receiver", _Q1_2),
-    (("/api/traces",), "the Jaeger thrift receiver", _Q1_2),
-)
-
-
-def _unported_route(method: str, path: str) -> str | None:
-    """404 message for a reference route the port does not serve yet."""
-    for exact, what, item in _UNPORTED_ROUTES:
-        if path in exact:
-            if path == "/api/traces" and method != "POST":
-                continue  # GET /api/traces/{id} is served; the bare path is not a route
-            return f"{path}: {what} is not ported yet ({item})"
-    return None
-
 
 _req_count = metrics.counter("tempo_request_duration_seconds_total", "HTTP requests by route/status")
 _req_hist = metrics.histogram("tempo_request_duration_seconds", "HTTP request latency")
@@ -264,7 +246,6 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_error(429, str(e))
         except RoleUnavailable as e:
             # endpoint exists but this process's target doesn't serve it
-            # (or the port does not serve it yet)
             code = 404
             self._send_error(404, str(e))
         except Exception:
@@ -279,10 +260,6 @@ class _Handler(BaseHTTPRequestHandler):
         path = url.path.rstrip("/") or "/"
         qs = parse_qs(url.query)
         app = self.app
-
-        msg = _unported_route(method, path)
-        if msg is not None:
-            raise RoleUnavailable(msg)
 
         # ring KV service (reference: the memberlist/consul/etcd KV every
         # ring shares, cmd/tempo/app/modules.go:297-325) — revisioned CAS
@@ -334,31 +311,47 @@ class _Handler(BaseHTTPRequestHandler):
             return code
 
         # ingest
-        if method == "POST" and path == receivers.OTLP_HTTP_PATH:
+        if method == "POST" and path in (
+            receivers.OTLP_HTTP_PATH,
+            receivers.ZIPKIN_PATH,
+            receivers.ZIPKIN_V1_PATH,
+            receivers.JAEGER_THRIFT_PATH,
+        ):
             ct = self.headers.get("Content-Type", "")
             body = self._body()
-            # columnar fast path: OTLP decodes straight into a SpanBatch
-            # (the forwarder tee that needs object traces is not ported)
+            # columnar fast path: OTLP decodes straight into a SpanBatch.
+            # Gated off when a forwarder tee needs object traces;
+            # non-OTLP protocols return None and take the object path
+            batch = None
             try:
-                batch = receivers.decode_http_columnar(path, ct, body)
+                if app.can_push_spans():
+                    batch = receivers.decode_http_columnar(path, ct, body)
+                if batch is None:
+                    traces = receivers.decode_http(path, ct, body)
             except (ValueError, OSError, TypeError, AttributeError, KeyError) as e:
-                # wire/json decode errors and shape-invalid JSON
+                # wire/thrift/json decode errors and shape-invalid JSON
                 raise BadRequest(f"malformed payload: {e}") from e
             try:
-                if batch.num_spans:
-                    app.push_spans(batch, org_id=self._org_id())
+                if batch is not None:
+                    if batch.num_spans:
+                        app.push_spans(batch, org_id=self._org_id())
+                elif traces:
+                    app.push_traces(traces, org_id=self._org_id())
             except ValueError as e:
                 # distributor admission contract: ValueError = the
                 # request can never be admitted (e.g. one batch over
                 # the whole inflight budget) — client error, not 500
                 raise BadRequest(str(e)) from e
-            # OTLP/HTTP: response content type must match the request;
-            # empty ExportTraceServiceResponse = empty proto message
-            if "json" in ct:
-                self._send(200, b"{}")
-            else:
-                self._send(200, b"", "application/x-protobuf")
-            return 200
+            if path == receivers.OTLP_HTTP_PATH:
+                # OTLP/HTTP: response content type must match the request;
+                # empty ExportTraceServiceResponse = empty proto message
+                if "json" in ct:
+                    self._send(200, b"{}")
+                else:
+                    self._send(200, b"", "application/x-protobuf")
+                return 200
+            self._send(202, b"")
+            return 202
 
         # standing queries (tempo_tpu_torch/standing): registration +
         # incremental reads + alert state, tenant-scoped. Served by
@@ -560,9 +553,13 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_json(200, usage_mod.usage_report())
             return 200
         if path == "/status/usage-stats":
-            # the anonymous usage reporter is not ported (its config
-            # section is refused), so no report is ever built
-            self._send_json(200, {"enabled": False})
+            # current anonymous usage report (reference: PathUsageStats,
+            # pkg/api/http.go:61 + pkg/usagestats/reporter.go)
+            rep = app.usage_reporter
+            if rep is None:
+                self._send_json(200, {"enabled": False})
+            else:
+                self._send_json(200, {"enabled": True, **rep.build_report()})
             return 200
         if path == "/status/device":
             # device data-movement plane (util/pageheat + devicetiming):
@@ -905,6 +902,9 @@ class _Handler(BaseHTTPRequestHandler):
 
 _ENDPOINTS = [
     "POST /v1/traces",
+    "POST /api/v2/spans",
+    "POST /api/v1/spans",
+    "POST /api/traces",
     "GET /api/traces/{traceID}",
     "GET /api/search",
     "GET /api/search/tags",
@@ -918,6 +918,7 @@ _ENDPOINTS = [
     "GET /api/graph/dependencies",
     "GET /api/graph/critical-path",
     "GET /api/graph/walks",
+    "GET /api/usage",
     "GET /api/query-insights",
     "GET /api/rca",
     "GET /api/rca/{incidentID}",
@@ -932,6 +933,8 @@ _ENDPOINTS = [
     "GET /status/profile",
     "GET /status/profile/device",
     "GET /status/device",
+    "GET /status/usage",
+    "GET /status/usage-stats",
     "GET /status/rca",
     "GET /status/slo",
     "GET /status/standing",

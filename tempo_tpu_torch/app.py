@@ -22,13 +22,16 @@ sections enable them, the in-process vulture (vulture.py; the sidecar
 on target=vulture), the burn-rate SLO engine (util/slo), the auto-RCA
 engine (rca/), which subscribes to the SLO engine's page burns and the
 standing engine's deviations, and the generator's remote write
-(modules/generator/storage).
+(modules/generator/storage). A distributor tees each push to the
+tenant's forwarders (modules/forwarder) when `forwarders` names some,
+which forces the object ingest path (can_push_spans); `usage_report`
+starts the anonymous usage reporter (usagestats) on target all, and
+`self_tracing` installs util/tracing's SelfTraceExporter: a process
+with a distributor pushes its own finished traces into itself under
+`_self_`, any other role ships them by OTLP/HTTP to
+`self_tracing.endpoint`.
 
-AppConfig keeps every field of the reference. Features whose modules
-wait for later slices raise NotImplementedError naming their ROADMAP
-item when switched on, by config or by the environment switch with
-which the reference turns them on; none is silently ignored (see
-_UNPORTED).
+AppConfig keeps every field of the reference.
 """
 
 from __future__ import annotations
@@ -83,27 +86,6 @@ ROLES = (
     "vulture",
 )
 
-_Q1_7B = ("ROADMAP Queue 1 item 7b (the forwarders, the usage_report reporter and "
-          "the self-tracing export)")
-# (switched on?, what, ROADMAP item) for every feature of the reference
-# whose module the port does not carry yet
-_UNPORTED = (
-    (lambda c: bool(c.forwarders), lambda c: "distributor forwarders", _Q1_7B),
-    (lambda c: c.usage_stats is not None and getattr(c.usage_stats, "enabled", False),
-     lambda c: "usage_report", _Q1_7B),
-    (lambda c: c.self_tracing.enabled, lambda c: "self_tracing", _Q1_7B),
-)
-
-
-def refuse_unported(cfg: "AppConfig") -> None:
-    """Raise NotImplementedError for the first unported feature that
-    `cfg` switches on."""
-    for on, what, item in _UNPORTED:
-        if on(cfg):
-            raise NotImplementedError(
-                f"tempo_tpu_torch: {what(cfg)} is not ported yet ({item})")
-
-
 @dataclass
 class AppConfig:
     target: str = "all"
@@ -123,7 +105,7 @@ class AppConfig:
     # configured forwarders; tenants opt in via overrides `forwarders`
     forwarders: list = field(default_factory=list)  # list[ForwarderConfig]
     # anonymous usage reporting (reference: pkg/usagestats; off by default)
-    usage_stats: "object | None" = None  # config_sections.UsageStatsConfig
+    usage_stats: "object | None" = None  # usagestats.UsageStatsConfig
     # -- microservices mode (any target != all) -------------------------
     instance_id: str = ""  # this process's ring identity
     ring_kv_path: str = ""  # shared ring state file (FileKV) for one-host clusters
@@ -180,7 +162,6 @@ class RoleUnavailable(RuntimeError):
 
 class App:
     def __init__(self, cfg: AppConfig, device=None):
-        refuse_unported(cfg)
         target = cfg.target or "all"
         if target not in ROLES:
             raise ValueError(f"unknown target {target!r} (have {ROLES})")
@@ -217,7 +198,9 @@ class App:
         self.remote_worker = None
         self.frontend = None
         self.compactor = None
+        self.forwarder_manager = None
         self.remote_write_storage = None
+        self.usage_reporter = None
         self.storage_scanner = None
         self.pageheat_exporter = None
         self.rpc = None
@@ -228,6 +211,9 @@ class App:
         # KVInitService shared by all rings, modules.go:297-325)
         self.kv_service = KVService()
         self._net_kvs: list = []
+
+        self._self_exporter = None
+        self._self_export_client = None
         self.vulture = None
         self.slo_engine = None
         # built BEFORE the ingesters so the cut path holds a stable
@@ -242,6 +228,7 @@ class App:
         else:
             self._build_role(target)
         self._maybe_standing_attach()
+        self._maybe_self_tracing()
         self._maybe_storage_scanner()
         self._maybe_pageheat_exporter()
         self._maybe_vulture()
@@ -300,6 +287,14 @@ class App:
         return CircuitBreaker(name="query-backend", failure_threshold=10,
                               reset_timeout_s=5.0)
 
+    def _maybe_forwarders(self):
+        """The distributor's forwarder tee: one queue and worker set a
+        configured forwarder (modules/forwarder)."""
+        if self.cfg.forwarders:
+            from tempo_tpu_torch.modules.forwarder import ForwarderManager
+
+            self.forwarder_manager = ForwarderManager(self.cfg.forwarders, self.overrides)
+
     def _maybe_remote_write(self):
         """The generator's series leave by Prometheus remote write when
         metrics_generator.remote_write names an endpoint."""
@@ -342,10 +337,12 @@ class App:
                 "generator-0", period_s=self._hb_period()))
             self._maybe_remote_write()
 
+        self._maybe_forwarders()
         self.distributor = Distributor(self.ring, ingester_clients=self.ingesters,
                                        overrides=self.overrides,
                                        generator_ring=self.generator_ring,
-                                       generator_clients=gen_clients)
+                                       generator_clients=gen_clients,
+                                       forwarder_manager=self.forwarder_manager)
         self.querier = Querier(self.db, self.ring, ingester_clients=self.ingesters)
         self.broker = JobBroker()
         self.workers = LocalWorkerPool(self.broker, self.querier, cfg.query_workers,
@@ -357,6 +354,7 @@ class App:
             generator=self.generator,
             broker=self.broker,
         )
+        self._maybe_usage_reporter()
 
     # ------------------------------------------------------------------
     def _build_role(self, role: str):
@@ -395,12 +393,14 @@ class App:
             if cfg.generator_enabled:
                 self.generator_ring = Ring(self._ring_kv("-generator"), replication_factor=1)
                 gen_clients = RingClientPool(self.generator_ring, RemoteGenerator)
+            self._maybe_forwarders()
             self.distributor = Distributor(
                 self.ring,
                 ingester_clients=RingClientPool(self.ring, RemoteIngester),
                 overrides=self.overrides,
                 generator_ring=self.generator_ring,
                 generator_clients=gen_clients,
+                forwarder_manager=self.forwarder_manager,
             )
             self.rpc = RPCHandler()
             return
@@ -489,6 +489,52 @@ class App:
         )
         self.vulture = Vulture(client, cfg=self.cfg.vulture)
 
+    def _maybe_self_tracing(self):
+        """Close the dogfood loop: the global tracer exports finished
+        traces into the system's ingest path under the `_self_` tenant,
+        so TraceQL / query_range over `_self_` answers "what is the
+        engine doing to itself". A process with a distributor pushes
+        locally; any other role ships OTLP/HTTP to
+        `self_tracing.endpoint` (a distributor-serving process), so
+        cross-process traces carry every role's spans, not just the
+        distributor's."""
+        cfg = self.cfg.self_tracing
+        if not cfg.enabled:
+            return
+        if self.distributor is not None:
+            dist = self.distributor
+
+            def push(tenant: str, traces) -> None:
+                dist.push_traces(tenant, traces)
+        elif cfg.endpoint:
+            from tempo_tpu_torch.backend.httpclient import PooledHTTPClient
+            from tempo_tpu_torch.receivers import otlp
+
+            # no retries, short timeout: the exporter's contract is
+            # drop-never-amplify, and its re-entrancy guard keeps this
+            # POST itself from spawning spans
+            client = PooledHTTPClient(cfg.endpoint, timeout_s=5.0, max_retries=0)
+            self._self_export_client = client
+
+            def push(tenant: str, traces) -> None:
+                client.request(
+                    "POST", "/v1/traces",
+                    headers={"Content-Type": "application/x-protobuf",
+                             "X-Scope-OrgID": tenant},
+                    body=otlp.encode_traces_request(traces),
+                    ok=(200,),
+                )
+        else:
+            log.warning(
+                "self_tracing enabled but target=%s has no distributor and "
+                "no self_tracing.endpoint: this role will record nothing",
+                self.target,
+            )
+            return
+        self._self_exporter = tracing.SelfTraceExporter(
+            push, cfg, governor=self.governor)
+        tracing.install_exporter(self._self_exporter, cfg.service_name)
+
     def _maybe_storage_scanner(self):
         """Storage-health analytics (db/analytics): the periodic scan
         runs on compaction-owning roles — one fleet scanner per
@@ -515,6 +561,37 @@ class App:
         from tempo_tpu_torch.util.pageheat import PageHeatExporter
 
         self.pageheat_exporter = PageHeatExporter()
+
+    def _maybe_usage_reporter(self):
+        cfg = self.cfg
+        if cfg.usage_stats is not None and getattr(cfg.usage_stats, "enabled", False):
+            from tempo_tpu_torch.usagestats import Reporter
+
+            self.usage_reporter = Reporter(cfg.usage_stats, self.db.backend.raw)
+            self.usage_reporter.register_provider(self._storage_scale_stats)
+
+    def _storage_scale_stats(self) -> dict:
+        """Feature/scale stats for the anonymous usage snapshot
+        (reference: pkg/usagestats Edge/Target entries) — fleet-level
+        storage health, NEVER tenant names: block counts, bytes, codec
+        mix, compression ratio from the analytics scanner's last pass."""
+        scanner = self.storage_scanner
+        last = scanner.last_report() if scanner is not None else None
+        if last is None:
+            return {}
+        fleet = last["fleet"]
+        out = {
+            "storage_blocks": fleet["blocks"],
+            "storage_total_bytes": fleet["totalBytes"],
+            "storage_total_spans": fleet["totalSpans"],
+            "storage_compression_ratio": fleet["compressionRatio"],
+            "storage_zonemap_coverage_ratio": fleet["zonemapCoverageRatio"],
+            "storage_compaction_debt_row_groups": fleet["compactionDebtRowGroups"],
+            "storage_compaction_debt_payoff": fleet["compactionDebtPayoff"],
+        }
+        for codec, pages in fleet["codecPages"].items():
+            out[f"storage_codec_pages_{codec}"] = pages
+        return out
 
     # -- tenant resolution ----------------------------------------------
     def resolve_tenant(self, org_id: str | None) -> str:
@@ -549,6 +626,13 @@ class App:
         self._require(self.distributor, "ingest").push_batch(
             self.resolve_tenant(org_id), batch
         )
+
+    def can_push_spans(self) -> bool:
+        """True when the columnar ingest fast path may be used: a
+        forwarder tee needs object-form traces, so its presence forces
+        the object path."""
+        return (self.distributor is not None
+                and self.distributor.forwarder_manager is None)
 
     def find_trace(self, trace_id: bytes, org_id=None):
         return self._require(self.frontend, "queries").find_trace_by_id(
@@ -664,6 +748,8 @@ class App:
             self.compactor.start()
         if self.remote_write_storage is not None and self.generator is not None:
             self.remote_write_storage.start_loop(self.generator)
+        if self.usage_reporter is not None:
+            self.usage_reporter.start_loop()
         if self.storage_scanner is not None:
             self.storage_scanner.start()
         if self.pageheat_exporter is not None:
@@ -692,6 +778,16 @@ class App:
         return states
 
     def shutdown(self):
+        # detach the dogfood exporter FIRST: a background sweep/flush
+        # must not export into a distributor that is tearing down (and
+        # tests build many apps per process — only OUR exporter is
+        # removed, never a newer app's)
+        if self._self_exporter is not None:
+            tracing.uninstall_exporter(self._self_exporter)
+            self._self_exporter = None
+        if self._self_export_client is not None:
+            self._self_export_client.close()
+            self._self_export_client = None
         # the RCA worker goes down FIRST: its evidence collection runs
         # queries against the app being dismantled
         if self.rca is not None:
@@ -728,6 +824,10 @@ class App:
             self.compactor.stop()
         if self.remote_write_storage is not None:
             self.remote_write_storage.stop()
+        if self.forwarder_manager is not None:
+            self.forwarder_manager.stop()
+        if self.usage_reporter is not None:
+            self.usage_reporter.stop()
         if self.storage_scanner is not None:
             self.storage_scanner.stop()
         if self.pageheat_exporter is not None:

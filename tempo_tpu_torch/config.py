@@ -11,9 +11,7 @@ usage_report) so a Tempo operator's mental model carries over.
 
 Port of tempo_tpu/config.py: the same YAML gives the same dataclasses,
 with the reference's defaults and the reference's check_config
-warnings. The sections of modules not ported yet come from
-config_sections; App refuses each unported section that is switched
-on.
+warnings.
 """
 
 from __future__ import annotations
@@ -28,18 +26,16 @@ import yaml
 
 from tempo_tpu_torch.app import AppConfig
 from tempo_tpu_torch.compiled.cache import CompiledConfig
-from tempo_tpu_torch.config_sections import (
-    DeviceTierConfig,
-    ForwarderConfig,
-    UsageStatsConfig,
-)
+from tempo_tpu_torch.config_sections import DeviceTierConfig
 from tempo_tpu_torch.db import DBConfig
+from tempo_tpu_torch.modules.forwarder import ForwarderConfig
 from tempo_tpu_torch.modules.frontend import FrontendConfig
 from tempo_tpu_torch.modules.generator.storage import RemoteWriteConfig
 from tempo_tpu_torch.modules.ingester import IngesterConfig
 from tempo_tpu_torch.modules.overrides import Limits
 from tempo_tpu_torch.rca import RCAConfig
 from tempo_tpu_torch.standing import StandingConfig
+from tempo_tpu_torch.usagestats import UsageStatsConfig
 from tempo_tpu_torch.util import slo as slo_mod
 from tempo_tpu_torch.util.resource import ResourceConfig
 from tempo_tpu_torch.util.tracing import SelfTracingConfig
@@ -251,8 +247,7 @@ def load_config(path: str, env: dict | None = None) -> Config:
 
 def check_config(cfg: Config) -> list[str]:
     """Footgun warnings (reference: CheckConfig config.go:125-170) —
-    never fatal, always loud. The warnings of a refused section
-    (self_tracing) come with its slice."""
+    never fatal, always loud."""
     warnings = []
     app = cfg.app
     if app.replication_factor > app.n_ingesters:
@@ -292,6 +287,17 @@ def check_config(cfg: Config) -> list[str]:
         warnings.append(
             "ingester.max_block_bytes exceeds resource.wal_head_bytes: a single head "
             "block can push the process to critical pressure before it is cut"
+        )
+    if app.self_tracing.enabled and app.self_tracing.max_spans_per_s > 50_000:
+        warnings.append(
+            f"self_tracing.max_spans_per_s ({app.self_tracing.max_spans_per_s:g}) "
+            "is a large share of typical ingest: the observer should stay a "
+            "rounding error next to user traffic"
+        )
+    if app.self_tracing.enabled and not (0.0 <= app.self_tracing.sample_ratio <= 1.0):
+        warnings.append(
+            f"self_tracing.sample_ratio ({app.self_tracing.sample_ratio}) is "
+            "outside [0, 1]; values clamp to never/always"
         )
     if 0 < app.db.analytics_scan_s < app.db.blocklist_poll_s:
         warnings.append(

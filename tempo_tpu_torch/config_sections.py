@@ -1,19 +1,10 @@
-"""Config sections of modules the port does not carry yet.
+"""The device tier's config section, kept apart from its module.
 
-The port reads the same YAML into the same dataclasses as tempo_tpu
-(config.py), so every section keeps every field of the reference. The
-modules behind these sections wait for later slices; App raises
-NotImplementedError, naming the ROADMAP item, when one is switched on.
-Every default is the reference's. (`standing:` is the ported engine's
-own StandingConfig, in tempo_tpu_torch/standing/engine.py, and
-`rca:`, `slo:`, `vulture:` and `storage.trace.result_cache:` are their
-ported modules' own; `device_tier:` is served, with its ingest-tail
-share.)
+`device_tier:` is served on the App's device with its ingest-tail share;
+its dataclass lives here so that config.py and app.py can read it
+without importing the column cache. Every default is the reference's.
 
-Copies of: encoding/vtpu/colcache.DeviceTierConfig,
-modules/forwarder.ForwarderConfig and usagestats.UsageStatsConfig.
-(`metrics_generator.remote_write:` is the ported
-modules/generator/storage.RemoteWriteConfig.)
+Copy of: encoding/vtpu/colcache.DeviceTierConfig.
 """
 
 from __future__ import annotations
@@ -32,23 +23,3 @@ class DeviceTierConfig:
     refresh_s: float = 30.0
     respect_governor: bool = True
     max_query_batch: int = 8
-
-
-@dataclass
-class ForwarderConfig:
-    name: str = ""
-    backend: str = "otlphttp"
-    endpoint: str = ""
-    path: str = "/v1/traces"
-    queue_size: int = 256
-    workers: int = 1
-    timeout_s: float = 10.0
-
-
-@dataclass
-class UsageStatsConfig:
-    enabled: bool = False
-    endpoint: str = ""
-    path: str = "/usage-stats"
-    report_interval_s: float = 4 * 3600.0
-    timeout_s: float = 10.0

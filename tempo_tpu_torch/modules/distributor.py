@@ -7,9 +7,8 @@ are columnar end-to-end, so "regroup by trace ID" is an argsort over the
 token array, and the per-ingester payload is a serialized columnar
 segment (format.serialize_batch), not proto bytes.
 
-Port of tempo_tpu/modules/distributor.py with the metrics-generator tee
-and without the forwarder tee (ROADMAP Queue 1 item 7b; App refuses
-`forwarders`).
+Port of tempo_tpu/modules/distributor.py, with the metrics-generator
+tee and the forwarder tee.
 """
 
 from __future__ import annotations
@@ -79,7 +78,7 @@ class Distributor:
 
     def __init__(self, ring, ingester_clients: dict, overrides,
                  generator_ring=None, generator_clients: dict | None = None,
-                 instance_id: str = "distributor-0",
+                 forwarder_manager=None, instance_id: str = "distributor-0",
                  governor: "resource.ResourceGovernor | None" = None):
         """ingester_clients: instance_id -> object with
         push_segment(tenant, data: bytes)."""
@@ -88,6 +87,7 @@ class Distributor:
         self.overrides = overrides
         self.generator_ring = generator_ring
         self.generator_clients = generator_clients or {}
+        self.forwarder_manager = forwarder_manager
         self.instance_id = instance_id
         self.governor = governor or resource.governor()
         self.metrics = DistributorMetrics()
@@ -154,6 +154,11 @@ class Distributor:
     def push_traces(self, tenant: str, traces) -> None:
         """Object-form entry (receiver boundary)."""
         self.push_batch(tenant, traces_to_batch(traces))
+        # async tee to per-tenant external forwarders (reference:
+        # generatorForwarder/SendTraces + forwarder Manager, after the
+        # ingester write has been accepted)
+        if self.forwarder_manager is not None:
+            self.forwarder_manager.send(tenant, traces)
 
     def push_batch(self, tenant: str, batch: SpanBatch) -> None:
         if batch.num_spans == 0:

@@ -1,9 +1,11 @@
 """Multi-protocol span receivers — port of tempo_tpu/receivers/__init__.py.
 
-This slice carries OTLP over HTTP (protobuf and JSON, gzip/deflate):
-the columnar fast path straight into a SpanBatch and the object codec.
-The Zipkin, Jaeger and OpenCensus codecs wait for the receivers slice
-(ROADMAP Queue 1 item 2); the HTTP server answers their paths with 404.
+Each protocol has a pure codec (otlp, zipkin, jaeger, opencensus) and
+this shim maps an HTTP request (path + content type + body) to decoded
+Traces for Distributor.push_traces. OTLP also has a columnar fast path
+straight into a SpanBatch; Zipkin and Jaeger thrift take the object
+path. The gRPC, Jaeger agent UDP and Kafka transports are
+grpc_server, udp and kafka.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import json
 import zlib
 
 from tempo_tpu_torch.model.trace import Trace
-from tempo_tpu_torch.receivers import otlp
+from tempo_tpu_torch.receivers import jaeger, otlp, zipkin
 from tempo_tpu_torch.util import metrics
 
 # paths, mirroring the default receiver endpoints
@@ -76,6 +78,16 @@ def _decode_http_object(path: str, content_type: str, body: bytes) -> list[Trace
         if ct == "application/json":
             return otlp.decode_traces_json(json.loads(body or b"{}"))
         return otlp.decode_traces_request(body)
+    if path == ZIPKIN_PATH:
+        if ct in ("application/x-thrift", "application/vnd.apache.thrift.binary"):
+            return zipkin.decode_spans_thrift(body)
+        return zipkin.decode_spans_json(json.loads(body or b"[]"))
+    if path == ZIPKIN_V1_PATH:
+        if ct in ("application/x-thrift", "application/vnd.apache.thrift.binary"):
+            return zipkin.decode_spans_thrift(body)
+        raise UnsupportedPayload("zipkin v1 supports only the thrift carrier here")
+    if path == JAEGER_THRIFT_PATH:
+        return jaeger.decode_batch(body)
     raise UnsupportedPayload(f"no receiver for path {path!r}")
 
 
@@ -88,5 +100,7 @@ __all__ = [
     "decode_http",
     "decode_http_columnar",
     "decompress_body",
+    "jaeger",
     "otlp",
+    "zipkin",
 ]

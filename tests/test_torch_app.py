@@ -7,8 +7,9 @@ questions on both and the answers are compared field for field: before
 and after /flush (the flushed blocks byte for byte), after a compaction,
 with multitenancy on and off, and with replication factor 2 over two
 in-process ingesters; then the refusals (429 on the rate limit,
-TraceTooLarge and MaxLiveTraces, 400 on bad TraceQL, 404 on a route the
-port does not serve yet). The port runs with device="cpu".
+TraceTooLarge and MaxLiveTraces, 400 on bad TraceQL), and the Zipkin and
+Jaeger thrift routes (202, the same finds and blocks). The port runs
+with device="cpu".
 
 Both Apps run the metrics-generator and the standing-query engine (the
 defaults), the JAX App with its storage engine pinned to one device (compaction_device_shards=1: the JAX tests run on
@@ -64,6 +65,7 @@ from tempo_tpu_torch.modules.overrides import Limits
 from tempo_tpu_torch.receivers import otlp
 from tempo_tpu_torch.util import pipeline
 
+import chip_smoke
 from test_torch_blocks import block_objects
 from test_torch_search import chain_parents
 
@@ -378,8 +380,7 @@ def test_status_pages(make_pair):
     # the port lists only the routes it serves, in the reference's order
     (_, _, jb), (_, _, tb) = pair.both("GET", "/status/endpoints")
     served = json.loads(tb)["endpoints"]
-    assert served == [e for e in json.loads(jb)["endpoints"] if e in served]
-    assert len(served) == 40
+    assert served == json.loads(jb)["endpoints"] and len(served) == 46
     assert _request(pair.servers[1].url, "GET", "/status")[2] == tb
     # the port's defaults are the reference's, so its diff is too
     for mode in ("defaults", "diff"):
@@ -461,10 +462,31 @@ def test_bad_requests_400(idle_pair, path):
     ("POST", "/api/traces"),
     ("POST", "/api/v1/spans"),
 ])
-def test_unported_routes_404(idle_pair, method, path):
-    status, _, body = _request(idle_pair.servers[1].url, method, path,
-                               b"" if method == "POST" else None)
-    assert status == 404 and b"ROADMAP Queue 1 item" in body and b"not ported yet" in body
+def test_unported_routes_404(make_pair, method, path):
+    """The Zipkin (v2 JSON, v1 thrift) and Jaeger thrift routes, 404 until
+    the port served them: the same bodies (chip_smoke's carrier encoders;
+    a Jaeger Batch a service) answer 202 on both servers, every trace is
+    found alike, the flushed blocks are byte for byte the JAX App's, and
+    every query route answers alike over them."""
+    pair = make_pair()
+    traces = traces_of(12, 4, seed=21) + batch_to_traces(
+        synth.make_graph_batch(12, 6, seed=22, base_time_ns=(T0 + 60) * 10**9))
+    if path == "/api/v2/spans":
+        bodies = [(chip_smoke.zipkin_v2_json(traces), "application/json")]
+    elif path == "/api/v1/spans":
+        bodies = [(chip_smoke.zipkin_v1_thrift(traces), "application/x-thrift")]
+    else:
+        bodies = [(chip_smoke.jaeger_thrift_batch(res, spans), "application/x-thrift")
+                  for res, spans in chip_smoke._resource_groups(traces)]
+    for body, ct in bodies:
+        status, _ = pair.same(method, path, body, {"Content-Type": ct})
+        assert status == 202
+    ids = [t.trace_id.hex() for t in traces]
+    check_routes(pair, ids, flushed=False)
+    assert pair.same("POST", "/flush")[0] == 204
+    jb, tb = pair.blocks("single-tenant")
+    assert jb == tb and tb
+    check_routes(pair, ids)
 
 
 @pytest.mark.parametrize("method,path,status", [

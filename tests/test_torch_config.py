@@ -2,25 +2,36 @@
 
 The same YAML must give equal config dataclasses in both packages
 (field for field, nested sections and lists included, defaults alike)
-and the same check_config warnings for the sections the port serves.
-App refuses every section whose module is not ported yet, naming its
-ROADMAP item. The metrics-generator starts on, as in the reference, and
-App serves it (its remote write stays refused); so are the storage
-analytics scan (600 s by default), the device tier's ingest-tail share
-(by config and by TEMPO_TPU_INGEST_TAIL_MB), the result cache (by
-config and by TEMPO_TPU_RESULT_CACHE), the backend cache, and the
-incident plane (rca, slo, vulture).
+and the same check_config warnings. The metrics-generator starts on, as
+in the reference, and App serves it with its remote write; so are the
+storage analytics scan (600 s by default), the device tier's ingest-tail
+share (by config and by TEMPO_TPU_INGEST_TAIL_MB), the result cache (by
+config and by TEMPO_TPU_RESULT_CACHE), the backend cache, the incident
+plane (rca, slo, vulture), the ingest tees (forwarders, usage_report,
+self_tracing: App builds what the JAX App builds) and the gRPC, Jaeger
+UDP and Kafka receivers (`python -m tempo_tpu_torch` starts each one
+its `server:` section turns on, and a payload sent to it lands).
 """
 
 import dataclasses
-
+import json
+import socket
+import time
 
 import pytest
 
+import chip_smoke
+from tempo_tpu import __main__ as jmain
 from tempo_tpu import config as jconfig
+from tempo_tpu.app import App as JApp
+from tempo_tpu.receivers import jaeger as jjaeger
+from tempo_tpu.receivers import otlp as jotlp
 from tempo_tpu_torch import __main__ as tmain
-from tempo_tpu_torch import config
+from tempo_tpu_torch import config, usagestats
 from tempo_tpu_torch.app import App
+from tempo_tpu_torch.model import synth
+from tempo_tpu_torch.model.trace import batch_to_traces
+from tempo_tpu_torch.receivers import jaeger, otlp
 
 FULL_YAML = """
 target: all
@@ -119,9 +130,6 @@ def test_same_errors(bad):
     assert str(je.value) == str(te.value)
 
 
-# check_config checks the sections the port serves; the warnings of a
-# refused section come with its slice (test_unported_sections_refused
-# covers those sections)
 WARN_YAMLS = [
     "replication_factor: 3\nn_ingesters: 1\n",
     "replication_factor: 2\nn_ingesters: 1\n",
@@ -154,6 +162,9 @@ WARN_YAMLS = [
     "storage:\n  trace:\n    analytics_scan_s: 60\n",
     "storage:\n  trace:\n    analytics_scan_s: 30\n    blocklist_poll_s: 10\n"
     "ingester:\n  complete_block_timeout_s: 5\n",
+    # self-tracing: a rate bound out of proportion, a ratio outside [0, 1]
+    "self_tracing:\n  enabled: true\n  max_spans_per_s: 60000\n",
+    "self_tracing:\n  enabled: true\n  sample_ratio: 1.5\n",
 ]
 
 
@@ -199,25 +210,47 @@ def test_check_config_quiet_equal(yaml_text):
     assert jconfig.check_config(j) == config.check_config(t)
 
 
+# the ingest tees, refused until the port served them: (section, what
+# App builds for it, the same in both packages)
 UNPORTED = {
-    "distributor:\n  forwarders:\n    - {name: m, endpoint: http://c:4318}\n": "forwarders",
-    "usage_report:\n  enabled: true\n": "usage_report",
-    "self_tracing:\n  enabled: true\n": "self_tracing",
+    "distributor:\n  forwarders:\n    - {name: m, endpoint: http://c:4318}\n":
+        lambda app: (not app.can_push_spans(),
+                     {n: dataclasses.asdict(f.cfg)
+                      for n, f in app.forwarder_manager.forwarders.items()}),
+    "usage_report:\n  enabled: true\n":
+        lambda app: (app.usage_reporter.cfg.enabled, sorted(app.usage_reporter.build_report())),
+    "self_tracing:\n  enabled: true\n":
+        lambda app: dataclasses.asdict(app._self_exporter.cfg),
 }
 
 
 @pytest.mark.parametrize("yaml_text", sorted(UNPORTED))
 def test_unported_sections_refused(yaml_text, tmp_path):
-    cfg = config.parse_config(yaml_text)
-    cfg.app.db.backend_path = str(tmp_path / "blocks")
-    cfg.app.target = cfg.target
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item") as e:
-        App(cfg.app, device="cpu")
-    assert UNPORTED[yaml_text] in str(e.value) and "not ported yet" in str(e.value)
+    """Each tee section parses as in the reference, gives its
+    check_config warnings and passes -config.verify in both packages, and
+    the port's App builds what the JAX App builds: the forwarders (and
+    the object ingest path), the usage reporter (its report's keys, the
+    cluster seed under SEED_KEY), the self-trace exporter."""
+    j, t = jconfig.parse_config(yaml_text), config.parse_config(yaml_text)
+    assert _doc(j) == _doc(t) and jconfig.check_config(j) == config.check_config(t)
+    built = []
+    for name, parsed, app_of in (("jax", j, JApp), ("port", t, lambda c: App(c, device="cpu"))):
+        parsed.app.db.backend_path = str(tmp_path / name / "blocks")
+        parsed.app.db.wal_path = str(tmp_path / name / "wal")
+        parsed.app.target = parsed.target
+        app = app_of(parsed.app)
+        try:
+            built.append(UNPORTED[yaml_text](app))
+        finally:
+            app.shutdown()
+    assert built[0] == built[1] and built[1]
+    if "usage_report" in yaml_text:
+        seed = json.loads((tmp_path / "port" / "blocks" / usagestats.SEED_KEY).read_text())
+        assert sorted(seed) == ["UID", "created_at"]
     path = tmp_path / "tempo.yaml"
-    path.write_text(yaml_text)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        tmain.main(["-config.file", str(path), "-config.verify"])
+    path.write_text(yaml_text + f"storage:\n  trace:\n    backend_path: {tmp_path}/blocks\n")
+    for main in (jmain.main, tmain.main):
+        assert main(["-config.file", str(path), "-config.verify"]) == 0
 
 
 # the sections of microservices mode, refused until the port served them:
@@ -342,13 +375,103 @@ def test_generator_section_served(yaml_text, enabled, tmp_path):
     assert tmain.main(["-config.file", str(path), "-config.verify"]) == 0
 
 
+def _free_port(kind=socket.SOCK_STREAM) -> int:
+    with socket.socket(socket.AF_INET, kind) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _norm(doc: dict) -> list:
+    """An OTLP JSON document's spans with their resources, sorted; each
+    span's attributes sorted by key (stored spans list the well-known
+    columns after the other attributes)."""
+    out = []
+    for rs in doc["resourceSpans"]:
+        for ss in rs["scopeSpans"]:
+            for sp in ss["spans"]:
+                sp = dict(sp, attributes=sorted(sp.get("attributes", []), key=lambda a: a["key"]))
+                out.append(json.dumps([rs["resource"], sp], sort_keys=True))
+    return sorted(out)
+
+
 @pytest.mark.parametrize("server", ["grpc_listen_port: 4317", "jaeger_agent_compact_port: 6831",
                                     "kafka:\n    brokers: [k:9092]"])
 def test_unported_receivers_refused(server, tmp_path):
+    """Each receiver section, refused until the port served it, parses as
+    in the reference and passes -config.verify in both packages; on a
+    free port (the scripted broker for Kafka) `start_receivers` starts
+    the receiver on target all, and a trace sent to it is found in the
+    App as the JAX decoder reads the payload."""
+    text = f"server:\n  {server}\n"
+    j, t = jconfig.parse_config(text), config.parse_config(text)
+    assert _doc(j) == _doc(t) and jconfig.check_config(j) == config.check_config(t)
     path = tmp_path / "tempo.yaml"
-    path.write_text(f"server:\n  {server}\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
-        tmain.main(["-config.file", str(path), "-config.verify"])
+    path.write_text(text + f"storage:\n  trace:\n    backend_path: {tmp_path}/blocks\n")
+    for main in (jmain.main, tmain.main):
+        assert main(["-config.file", str(path), "-config.verify"]) == 0
+
+    traces = batch_to_traces(synth.make_graph_batch(4, 4, seed=9,
+                                                    base_time_ns=1_700_000_000 * 10**9))
+    payload = otlp.encode_traces_request(traces)
+    srv, broker, channel = t.server, None, None
+    if "grpc" in server:
+        grpc = pytest.importorskip("grpc")
+        srv.grpc_listen_port = _free_port()
+    elif "jaeger" in server:
+        srv.jaeger_agent_compact_port = _free_port(socket.SOCK_DGRAM)
+    else:
+        broker = chip_smoke.ScriptedBroker(topic=srv.kafka.topic)
+        srv.kafka.brokers = [broker.addr]
+    t.app.target = t.target
+    t.app.db.backend_path = str(tmp_path / "blocks")
+    t.app.db.wal_path = str(tmp_path / "wal")
+    app = App(t.app, device="cpu")
+    started = tmain.start_receivers(t, app)
+    try:
+        (rx,) = started
+        assert type(rx).__name__ == {"g": "TraceGrpcServer", "j": "UDPAgentServer",
+                                     "k": "KafkaReceiver"}[server[0]]
+        want = []
+        if broker is not None:
+            broker.produce([payload])
+            want = jotlp.decode_traces_request(payload)
+            done = lambda: rx.records == 1  # noqa: E731
+        elif "grpc" in server:
+            channel = grpc.insecure_channel(f"127.0.0.1:{srv.grpc_listen_port}")
+            assert channel.unary_unary("/opentelemetry.proto.collector.trace.v1."
+                                       "TraceService/Export")(payload, timeout=30) == b""
+            want = jotlp.decode_traces_request(payload)
+            done = lambda: rx.requests == 1  # noqa: E731
+        else:
+            with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sock:
+                for res, spans in chip_smoke._resource_groups(traces):
+                    datagram = jaeger.encode_agent_batch_compact(res["service.name"], spans)
+                    n = rx.batches
+                    sock.sendto(datagram, ("127.0.0.1", srv.jaeger_agent_compact_port))
+                    want += jjaeger.decode_agent_datagram(datagram)
+                    deadline = time.monotonic() + 30
+                    while rx.batches == n:
+                        assert time.monotonic() < deadline, "no datagram arrived"
+                        time.sleep(0.005)
+            done = lambda: rx.spans == 16  # noqa: E731
+        deadline = time.monotonic() + 30
+        while not done():
+            assert time.monotonic() < deadline, "the receiver never pushed"
+            time.sleep(0.005)
+        by_id: dict = {}
+        for w in want:
+            by_id.setdefault(w.trace_id, []).append(w)
+        for t_ in traces:
+            got = app.find_trace(t_.trace_id)
+            assert _norm(otlp.encode_traces_json([got])) \
+                == _norm(jotlp.encode_traces_json(by_id[t_.trace_id]))
+    finally:
+        if channel is not None:
+            channel.close()
+        rx.stop()
+        app.shutdown()
+        if broker is not None:
+            broker.close()
 
 
 def test_verify_ok(tmp_path, capsys):

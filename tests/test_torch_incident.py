@@ -25,7 +25,10 @@ raw cumulative counters. The RCA's breaker evidence lists every breaker
 state in the package's registry, and other test files of the worker may
 have left breakers there (the JAX package's overload tests), so the
 campaign runs with each package's breaker-state gauge emptied (restored
-after it): both then hold the breakers their Apps own.
+after it): both then hold the breakers their Apps own. The RCA's insights
+arm reads the process-wide query-insights log, where other test files of
+the worker leave their slow and failed queries, so each test starts with
+both packages' logs emptied.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from tempo_tpu.app import App as JApp, AppConfig as JAppConfig
 from tempo_tpu.db import DBConfig as JDBConfig
 from tempo_tpu import rca as jrca
 from tempo_tpu.util import circuit as jcircuit
+from tempo_tpu.util import insights as jinsights
 from tempo_tpu.util import slo as jslo
 from tempo_tpu.util import traceinfo as jtraceinfo
 from tempo_tpu import vulture as jvulture
@@ -51,6 +55,7 @@ from tempo_tpu_torch.app import App, AppConfig
 from tempo_tpu_torch.db import DBConfig
 from tempo_tpu_torch import rca as trca
 from tempo_tpu_torch.util import circuit as tcircuit
+from tempo_tpu_torch.util import insights as tinsights
 from tempo_tpu_torch.util import slo as tslo
 from tempo_tpu_torch.util import traceinfo as ttraceinfo
 from tempo_tpu_torch import vulture as tvulture
@@ -59,6 +64,12 @@ PKGS = ({"App": JApp, "AppConfig": JAppConfig, "DBConfig": JDBConfig, "rca": jrc
          "slo": jslo, "vulture": jvulture, "Server": JTempoServer},
         {"App": App, "AppConfig": AppConfig, "DBConfig": DBConfig, "rca": trca,
          "slo": tslo, "vulture": tvulture, "Server": TempoServer})
+
+
+@pytest.fixture(autouse=True)
+def _empty_insights():
+    for log in (jinsights.LOG, tinsights.LOG):
+        log.clear()
 
 
 def _spans(trace) -> list:

@@ -9,7 +9,8 @@ and scans it (the ingest tail), encodes pages through the
 device page-encode arm forced on the CPU, serves the single binary
 (App + TempoServer: one OTLP push, /flush, the trace read back by ID and
 by search, a simple-count query_range through the compiled tier,
-/api/query-insights, /status/device's page-heat ledger,
+/api/query-insights, one Zipkin and one Jaeger thrift push, /status/device's
+page-heat ledger,
 /status/storage, /status/profile and /status/profile/device, the
 metrics-generator's series and the graph routes over a second push, and a standing
 query registered, folded at the flush's cut and read against query_range
@@ -17,7 +18,8 @@ over HTTP, a query_range answered twice through the result cache over
 the memory backend cache, /api/rca and /status/slo) on the CPU, and an
 entry point called
 without a device raises when CUDA is absent. `python -m tempo_tpu_torch` verifies
-a config and serves HTTP until /shutdown with the same imports blocked."""
+a config and serves HTTP until /shutdown with the same imports blocked, and
+serves the gRPC, Jaeger agent UDP and Kafka receivers its config turns on."""
 
 import json
 import os
@@ -26,6 +28,7 @@ import subprocess
 import sys
 import textwrap
 import time
+import urllib.error
 import urllib.request
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -67,7 +70,11 @@ SCRIPT = BLOCK + textwrap.dedent(r"""
                  "tempo_tpu_torch.backend.cache", "tempo_tpu_torch.rca",
                  "tempo_tpu_torch.rca.classify", "tempo_tpu_torch.rca.engine",
                  "tempo_tpu_torch.util.slo", "tempo_tpu_torch.util.traceinfo",
-                 "tempo_tpu_torch.vulture"):
+                 "tempo_tpu_torch.vulture", "tempo_tpu_torch.receivers.jaeger",
+                 "tempo_tpu_torch.receivers.zipkin", "tempo_tpu_torch.receivers.udp",
+                 "tempo_tpu_torch.receivers.opencensus", "tempo_tpu_torch.receivers.grpc_server",
+                 "tempo_tpu_torch.receivers.kafka", "tempo_tpu_torch.modules.forwarder",
+                 "tempo_tpu_torch.usagestats"):
         assert name in names, name
     for name, mod in sys.modules.items():
         assert mod is None or not (name == "tempo_tpu" or name.startswith("tempo_tpu.") or name == "jax"
@@ -246,6 +253,19 @@ SCRIPT = BLOCK + textwrap.dedent(r"""
         assert status == 200 and json.loads(body)["edges"]
         status, body = http("GET", "/api/graph/critical-path?by=name")
         assert status == 200 and json.loads(body)["traces"] >= 10
+        import chip_smoke
+        zt = batch_to_traces(synth.make_graph_batch(4, 4, seed=11))
+        jt = batch_to_traces(synth.make_graph_batch(4, 4, seed=12))
+        assert http("POST", "/api/v2/spans", chip_smoke.zipkin_v2_json(zt),
+                    {"Content-Type": "application/json"})[0] == 202
+        for res_, spans_ in chip_smoke._resource_groups(jt):
+            assert http("POST", "/api/traces", chip_smoke.jaeger_thrift_batch(res_, spans_),
+                        {"Content-Type": "application/x-thrift"})[0] == 202
+        for t in zt + jt:
+            status, body = http("GET", "/api/traces/" + t.trace_id.hex(),
+                                None, {"Accept": "application/protobuf"})
+            assert status == 200 and sum(
+                x.span_count() for x in otlp.decode_traces_request(body)) == t.span_count()
     finally:
         srv.stop()
         app.shutdown()
@@ -411,3 +431,98 @@ def test_main_runs_an_ingester_role(tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+
+
+def test_main_serves_the_receivers(tmp_path):
+    """`python -m tempo_tpu_torch -device cpu` with jax and tempo_tpu
+    blocked starts the Jaeger agent UDP (compact and binary), Kafka (the
+    scripted broker here) and, with grpcio installed, gRPC receivers its
+    `server:` section turns on: a trace sent through each is found over
+    HTTP, and /shutdown stops them all and exits 0."""
+    import importlib.util
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from tempo_tpu_torch.model import synth
+    from tempo_tpu_torch.model.trace import batch_to_traces
+    from tempo_tpu_torch.receivers import jaeger, otlp
+
+    def free(kind=socket.SOCK_STREAM):
+        with socket.socket(socket.AF_INET, kind) as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    grpc = importlib.util.find_spec("grpc") is not None
+    port, compact, binary = free(), free(socket.SOCK_DGRAM), free(socket.SOCK_DGRAM)
+    grpc_port = free() if grpc else 0
+    broker = chip_smoke.ScriptedBroker(topic="otlp_spans")
+    url = f"http://127.0.0.1:{port}"
+    cfg = tmp_path / "tempo.yaml"
+    cfg.write_text(f"server:\n  http_listen_port: {port}\n  log_level: warn\n"
+                   f"  grpc_listen_port: {grpc_port}\n  jaeger_agent_compact_port: {compact}\n"
+                   f"  jaeger_agent_binary_port: {binary}\n"
+                   f"  kafka:\n    brokers: [{broker.addr}]\n    poll_interval_s: 0.05\n"
+                   f"storage:\n  trace:\n    backend: local\n"
+                   f"    backend_path: {tmp_path}/blocks\n    wal_path: {tmp_path}/wal\n")
+    proc = _run_main(["-config.file", str(cfg), "-device", "cpu"])
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            try:
+                with urllib.request.urlopen(url + "/ready", timeout=5) as r:
+                    assert r.read() == b"ready"
+                break
+            except OSError:
+                assert proc.poll() is None and time.monotonic() < deadline, proc.stderr.read()
+                time.sleep(0.2)
+        traces = batch_to_traces(synth.make_graph_batch(4, 2, seed=13))
+        # /ready answers before the receivers bind (the reference's order
+        # too), and UDP drops what reaches no socket: a datagram is sent
+        # again until its spans are found
+        datagrams = []
+        for t, (proto, udp_port) in zip(traces, (("compact", compact), ("binary", binary))):
+            (res, spans), = chip_smoke._resource_groups([t])
+            datagrams.append((jaeger.encode_agent_batch_compact(res["service.name"], spans)
+                              if proto == "compact" else chip_smoke.jaeger_agent_binary(res, spans),
+                              udp_port, t))
+        broker.produce([otlp.encode_traces_request(traces[2:3])])
+        wanted = [(None, 0, traces[2])]
+        if grpc:
+            import grpc as grpc_mod
+
+            with grpc_mod.insecure_channel(f"127.0.0.1:{grpc_port}") as chan:
+                grpc_mod.channel_ready_future(chan).result(timeout=60)
+                chan.unary_unary("/opentelemetry.proto.collector.trace.v1.TraceService/Export")(
+                    otlp.encode_traces_request(traces[3:]), timeout=60)
+            wanted.append((None, 0, traces[3]))
+
+        def found(t) -> bool:
+            req = urllib.request.Request(url + "/api/traces/" + t.trace_id.hex(),
+                                         headers={"Accept": "application/protobuf"})
+            try:
+                with urllib.request.urlopen(req, timeout=10) as r:
+                    got = {x.span_id for tr in otlp.decode_traces_request(r.read())
+                           for x in tr.all_spans()}
+            except urllib.error.HTTPError as e:
+                assert e.code == 404
+                return False
+            return got == {x.span_id for x in t.all_spans()}
+
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sock:
+            for payload, udp_port, t in datagrams + wanted:
+                deadline = time.monotonic() + 60
+                while not found(t):
+                    assert time.monotonic() < deadline and proc.poll() is None, \
+                        f"{t.trace_id.hex()} never arrived"
+                    if payload is not None:
+                        sock.sendto(payload, ("127.0.0.1", udp_port))
+                    time.sleep(0.2)
+        req = urllib.request.Request(url + "/shutdown", data=b"", method="POST")
+        with urllib.request.urlopen(req) as r:
+            assert r.read() == b"shutdown job acknowledged"
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        broker.close()

@@ -127,11 +127,18 @@ def test_refusals_equal():
             jreceivers.decompress_body(b"x", enc)
         with pytest.raises(receivers.UnsupportedPayload):
             receivers.decompress_body(b"x", enc)
-    # non-OTLP paths: no columnar decoder in either package
+    # non-OTLP paths: no columnar decoder in either package; their object
+    # decoders answer alike (an empty Zipkin list, v1's JSON carrier and
+    # an unknown path refused)
     assert jreceivers.decode_http_columnar("/api/v2/spans", "application/json", b"[]") is None
     assert receivers.decode_http_columnar("/api/v2/spans", "application/json", b"[]") is None
-    with pytest.raises(receivers.UnsupportedPayload):
-        receivers.decode_http("/api/v2/spans", "application/json", b"[]")
+    assert receivers.decode_http("/api/v2/spans", "application/json", b"[]") \
+        == jreceivers.decode_http("/api/v2/spans", "application/json", b"[]") == []
+    for path in ("/api/v1/spans", "/api/nope"):
+        with pytest.raises(jreceivers.UnsupportedPayload):
+            jreceivers.decode_http(path, "application/json", b"[]")
+        with pytest.raises(receivers.UnsupportedPayload):
+            receivers.decode_http(path, "application/json", b"[]")
     for bad in (b"\xff\xff\xff", b"\x0a\x05ab"):
         for mod in (jotlp, otlp):
             with pytest.raises(ValueError):
