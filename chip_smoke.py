@@ -74,10 +74,11 @@ Phases, one line each (any failure exits non-zero):
    dispatch), one 2**17-span block is written on the card with the
    device encode and with TEMPO_TPU_DEVICE_ENCODE=0 and on the CPU with
    the host encoders (all three byte-equal), the two blocks are
-   compacted with the merge plan and the sketch plane on the card and on
-   the CPU (byte-equal outputs, one trace per distinct ID; phase 7's
-   compact_once runs the native k-way plan on the card over copies of
-   the same blocks), and the phase-4 queries run
+   compacted with the merge plan and the sketch plane on the card (one
+   trace per distinct ID; phase 7's compact_once runs the native k-way
+   plan on the card over copies of the same blocks), the 2**17-span pair
+   (A's first 2**17 spans and B's) is compacted on the card and on the
+   CPU (byte-equal outputs), and the phase-4 queries run
    through evaluate_block over the compacted block, card accumulator
    against CPU accumulator. Each trace's spans form a parent chain;
 7. db: the storage engine. TempoDB(device="cuda") opens a local backend
@@ -204,8 +205,8 @@ Phases, one line each (any failure exits non-zero):
    queries, five of phase 7's seven tag searches (unbounded; the window
    one minute wide), a critical path
    and the dependency graph: a cold pass, a repeat (no seg_bincount or
-   root_path_sums launch, 0 B inspected), a repeat after 2**17 spans
-   pushed in 32 OTLP requests and /flushed into a third block (only it
+   root_path_sums launch, 0 B inspected), a repeat after 2**16 spans
+   pushed in 16 OTLP requests and /flushed into a third block (only it
    recomputes), and a pass of the query_range and graph requests under
    TEMPO_TPU_FAULTS=corrupt=1.0,seed=7 (every entry damaged, counted and
    recomputed); every answer bit-equal to the cache-off App's, the
@@ -267,7 +268,38 @@ Phases, one line each (any failure exits non-zero):
    at SEED_KEY; a `_self_` search finds distributor/push. Prints spans/s
    a carrier, flush ms, p50 and max ms a request kind and the launches.
    Past SHED15_S of phases 0-14 the forwarder and self-tracing checks are
-   shed.
+   shed;
+16. object storage and the off-cluster readers: (a) TempoDB(device=
+   "cuda") over an S3 mock here (SigV4 checked on every request, XML
+   listings): two 2**17-span vtpu1 blocks of make_graph_batch traces
+   (the second repeats every 8th trace of the first) written to S3 and
+   to a local backend, every object byte-equal; 200 finds (100 present,
+   100 absent), a tag search at limit 20 (against the oracle) and one
+   narrowed to a whole answer, and phase 4's first query through
+   evaluate_block (seg_bincount), each equal to a TempoDB(device="cpu")
+   reading the same mock; compact_once on S3 and on local, the merged
+   blocks byte-equal; one block round trip each over GCS and Azure mocks
+   (the JSON API; Put Block / Put Block List). (b) two 2**15-span vrow1
+   blocks written on the card and on the CPU, byte-equal (one hll_update
+   launch a card write), finds and searches equal, and compact_once on
+   the card (one hll_update launch; every trace once; finds equal the
+   unmerged blocks') (2**15, not 2**17: the vrow1 writer and merge
+   serialize one segment a trace on the host). (c) a card App over the
+   S3 mock whose querier sends its block
+   jobs to a ServerlessServer over the same mock (each search == the
+   querier's own), query_range through the card App == the CPU App's,
+   JaegerQueryServer and the gRPC storage plugin over the card App ==
+   over a CPU App (services, operations, a trace, a find), and `python
+   -m tempo_tpu_torch.cli` over a copy of (a)'s local blocks (list
+   blocks, query trace-id, query search, gen bloom on the card: the bloom
+   objects unchanged; convert of a 2**15-span vtpu1 block to vrow1 and
+   back on the card, beside (b): the final block byte-equal to the
+   source), each in a process of its own. (d)
+   /metrics of the card App: the four device-timing families present,
+   dispatches_total and transfer_bytes_total == STATS for every kernel,
+   and over (c) h2d + d2h == the tenants' transfer_bytes on /status/usage.
+   Past SHED16_S of phases 0-15 the GCS and Azure round trips and the CLI
+   convert are shed.
 
 Phases 3-4 are the main path, phase 5 the scan path, phase 6 the block
 path, phase 7 the storage engine's path, phase 8 the server's path and
@@ -286,7 +318,10 @@ and the compactor's merge, hll_update and cm_update in the generator
 role at each push, root_path_sums at the critical path) and phase 15 the
 receivers' (hll_update and cm_update at the generator tee's pushes,
 rle_change_mask, dbp_pack and hll_update at the flush, seg_bincount at
-query_range;
+query_range) and phase 16 the object store's (rle_change_mask, dbp_pack
+and hll_update at the card's vtpu1 writes and merges, hll_update at the
+vrow1 writes and merge, seg_bincount at query_range over S3 and through
+the App;
 the sketch kernels also run on phases 3 and 6-9: compaction, every card
 block write and every push through the generator):
 each is run with the kernels' launch counts set to 0 just before it,
@@ -305,12 +340,15 @@ one JSON line of per-kernel and per-phase numbers (phase 6's under
 root_path_sums under "launches_cluster_querier_1"; phase 15's under
 "receivers", with every kernel's launches there under
 "launches_receivers_path", and its gRPC transport under
-"grpc_transport"; "shed" names the depth a slow host cut: phase
+"grpc_transport"; phase 16's under "objectstore", with every kernel's
+launches there under "launches_objectstore_path"; "shed" names the
+depth a slow host cut: phase
 8's interpreter runs past 420 s before it, phase 11's generator-off push
 past 750 s before it, phase 13's after-push searches past 800 s before
 it, phase 14's vulture and finds after the kill past SHED14_S before
 it, phase 15's forwarder and self-tracing checks past SHED15_S before
-it; phase 12 sheds nothing), the nvidia-smi
+it, phase 16's GCS and Azure round trips and CLI convert past SHED16_S
+before it; phase 12 sheds nothing), the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Without a CUDA
 device it exits 1 and prints no result. It imports nothing of JAX or of
 tempo_tpu.
@@ -323,12 +361,14 @@ import ctypes
 import gzip
 import json
 import os
+import re
 import shutil
 import statistics
 import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.parse
 import uuid
@@ -463,14 +503,15 @@ def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
 
 def block_objects(root: str, tenant: str, block_id: str, drop_id: bool = False) -> dict:
     """name -> comparable bytes of one stored block: index.json and
-    dict.bin gunzipped (their gzip header holds the clock), meta.json
-    without its block id when drop_id."""
+    dict.bin gunzipped where gzipped (their gzip header holds the clock;
+    vrow1's index.json is plain), meta.json without its block id when
+    drop_id."""
     d = os.path.join(root, tenant, block_id)
     out = {}
     for name in sorted(os.listdir(d)):
         with open(os.path.join(d, name), "rb") as f:
             raw = f.read()
-        if name in ("index.json", "dict.bin"):
+        if name in ("index.json", "dict.bin") and raw[:2] == b"\x1f\x8b":
             raw = gzip.decompress(raw)
         elif name == "meta.json" and drop_id:
             meta = json.loads(raw)
@@ -1099,8 +1140,11 @@ def blocks_phase(seed: int, queries: list, plan_of, db_root: str, encode_batches
             try:
                 sid = block_ids["small"] if env is None else str(uuid.uuid4())
                 t0 = time.perf_counter()
-                write_block([small], tenant, backends["cuda"], cfg, block_id=sid, device="cuda")
+                meta = write_block([small], tenant, backends["cuda"], cfg, block_id=sid,
+                                   device="cuda")
                 arm[label] = (time.perf_counter() - t0, sid)
+                if env is None:
+                    metas["cuda", "small"] = meta
             finally:
                 os.environ.pop("TEMPO_TPU_DEVICE_ENCODE", None)
         check_same_blocks(block_objects(roots["cuda"], tenant, arm["device encode"][1], True),
@@ -1118,9 +1162,6 @@ def blocks_phase(seed: int, queries: list, plan_of, db_root: str, encode_batches
               f"{arm['host encode'][0] * 1e3:.0f} ms with TEMPO_TPU_DEVICE_ENCODE=0: byte-equal",
               flush=True)
         enc = default_encoding()
-        for k in "ab":
-            enc.copy_block(metas["cuda", k], backends["cuda"], backends["cpu"])
-            metas["cpu", k] = metas["cuda", k]
         # phase 7's backend: the card-written objects, copied as files
         db_backend = TypedBackend(LocalBackend(db_root))
         for k in "ab":
@@ -1145,8 +1186,7 @@ def blocks_phase(seed: int, queries: list, plan_of, db_root: str, encode_batches
                 out.append(None if t is None else (t.trace_id, repr(t.batches)))
             return out, (time.perf_counter() - t0) / len(limbs_list) * 1e3
 
-        # (the cpu backend holds copies of the card's blocks: the card's
-        # answers alone are held against the generated traces)
+        # (the card's answers alone are held against the generated traces)
         found, find_ms = {}, {}
         found["cuda", "present"], find_ms["cuda present"] = find_all("cuda", present)
         found["cuda", "absent"], find_ms["cuda absent"] = find_all("cuda", absent)
@@ -1161,24 +1201,42 @@ def blocks_phase(seed: int, queries: list, plan_of, db_root: str, encode_batches
 
         # -------------------------------------------------------- compact
         outs, compact_s = {}, {}
-        # (phase 7's compact_once runs merge_path auto on the card over
-        # copies of the same two blocks)
-        for dev, path in (("cuda", "device"), ("cpu", "device")):
+        # the card merges A and B (phase 7's compact_once runs merge_path
+        # auto on the card over copies of the same two blocks); the card
+        # and the CPU both merge the 2**17-span pair (A's first 2**17
+        # spans and B's, which share B's copies of A's first traces), byte-
+        # equal: the CPU's merge of A and B took 46-54 s of the script's
+        # budget
+        small_b = b.select(np.arange(1 << 17))
+        block_ids["small b"] = str(uuid.uuid4())
+        for dev in devices:
+            metas[dev, "small b"] = write_block([small_b], tenant, backends[dev], cfg,
+                                                block_id=block_ids["small b"], device=dev)
+        pair_traces = {
+            "full": n_distinct,
+            "small": len(np.unique(np.concatenate([small.cols["trace_id"],
+                                                   small_b.cols["trace_id"]]), axis=0))}
+        for dev, pair, (x, y) in (("cuda", "full", ("a", "b")),
+                                  ("cuda", "small", ("small", "small b")),
+                                  ("cpu", "small", ("small", "small b"))):
+            path = "device"
             pages0 = {c: tenc.device_encode_pages_total.value(codec=c) for c in LIGHT}
             k1, k2 = tenc.rle_change_mask.launches, tenc.dbp_pack.launches
             d0 = STATS.dispatches.get("page_encode", 0)
             comp = VtpuCompactor(CompactionOptions(block_config=cfg, merge_path=path), device=dev)
             t0 = time.perf_counter()
-            (outs[dev, path],) = comp.compact([metas[dev, "a"], metas[dev, "b"]], tenant,
+            (outs[dev, pair],) = comp.compact([metas[dev, x], metas[dev, y]], tenant,
                                               backends[dev])
-            compact_s[f"{dev} {path}"] = time.perf_counter() - t0
-            out = outs[dev, path]
-            check(out.total_objects == n_distinct,
-                  f"compaction {dev} {path}: {out.total_objects} traces, {n_distinct} distinct")
+            compact_s[f"{dev} {pair}"] = time.perf_counter() - t0
+            out = outs[dev, pair]
+            check(out.total_objects == pair_traces[pair],
+                  f"compaction {dev} {pair}: {out.total_objects} traces, "
+                  f"{pair_traces[pair]} distinct")
             sk = comp.sketcher
             pads = comp.device_merge_pads
-            print(f"phase 6 compact on {dev}, merge_path {path}: "
-                  f"{compact_s[f'{dev} {path}'] * 1e3:.0f} ms, {out.total_spans} spans, "
+            print(f"phase 6 compact {'A and B' if pair == 'full' else 'the 2^17 pair'} on "
+                  f"{dev}, merge_path {path}: "
+                  f"{compact_s[f'{dev} {pair}'] * 1e3:.0f} ms, {out.total_spans} spans, "
                   f"{out.total_objects} traces, {comp.spans_combined} spans combined | "
                   f"{len(pads)} device merge calls (padded rows: "
                   f"{', '.join(f'{p} x{pads.count(p)}' for p in sorted(set(pads)))}) | "
@@ -1190,24 +1248,23 @@ def blocks_phase(seed: int, queries: list, plan_of, db_root: str, encode_batches
                   f"{STATS.dispatches.get('page_encode', 0) - d0} page-encode dispatches for "
                   f"{out.total_records} row groups written", flush=True)
             check(STATS.dispatches.get("page_encode", 0) - d0 <= out.total_records,
-                  f"compaction {dev} {path}: more page-encode dispatches than row groups")
-            if path == "device":
-                res.setdefault("device_merge_calls", {})[dev] = len(pads)
-                res.setdefault("device_merge_padded_rows", {})[dev] = sum(pads)
-                check(pads, f"compaction on {dev}: the merge plan never ran on the device")
-            res.setdefault("sketch_bytes", {})[f"{dev} {path}"] = {
+                  f"compaction {dev} {pair}: more page-encode dispatches than row groups")
+            res.setdefault("device_merge_calls", {})[f"{dev} {pair}"] = len(pads)
+            res.setdefault("device_merge_padded_rows", {})[f"{dev} {pair}"] = sum(pads)
+            check(pads, f"compaction on {dev}: the merge plan never ran on the device")
+            res.setdefault("sketch_bytes", {})[f"{dev} {pair}"] = {
                 "h2d": sk.h2d_bytes, "d2h": sk.d2h_bytes, "updates": sk.launches}
-        check_same_blocks(block_objects(roots["cuda"], tenant, outs["cuda", "device"].block_id,
+        check_same_blocks(block_objects(roots["cuda"], tenant, outs["cuda", "small"].block_id,
                                         drop_id=True),
-                          block_objects(roots["cpu"], tenant, outs["cpu", "device"].block_id,
+                          block_objects(roots["cpu"], tenant, outs["cpu", "small"].block_id,
                                         drop_id=True),
-                          "compacted block (cuda, device) vs (cpu, device)")
-        print("phase 6 compact: outputs byte-equal between cuda and cpu (merge_path device)",
-              flush=True)
+                          "compacted 2^17 pair (cuda, device) vs (cpu, device)")
+        print("phase 6 compact: the 2^17 pair's outputs byte-equal between cuda and cpu "
+              "(merge_path device)", flush=True)
         res["compact_ms"] = {k: v * 1e3 for k, v in compact_s.items()}
 
         # ---------------------------------------------------------- query
-        out_meta, be = outs["cuda", "device"], backends["cuda"]
+        out_meta, be = outs["cuda", "full"], backends["cuda"]
         res["query"] = []
         for q in queries:
             plan = plan_of(q)
@@ -4281,7 +4338,7 @@ def resultcache_phase(seed: int, root: str, queries: list, plan_of, shed: bool =
     one /api/graph/critical-path and one /api/graph/dependencies, in
     passes: cold (each block recomputed through the card and stored),
     repeat (every block a hit: no seg_bincount or root_path_sums launch,
-    inspectedBytes 0), after 2**17 spans pushed as 32 OTLP requests and
+    inspectedBytes 0), after 2**16 spans pushed as 16 OTLP requests and
     /flushed into a third block (the old blocks hit, the new one
     recomputes), and the query_range and graph requests once more under
     TEMPO_TPU_FAULTS=corrupt=1.0,seed=7 (every fetched entry damaged,
@@ -4506,7 +4563,7 @@ def resultcache_phase(seed: int, root: str, queries: list, plan_of, shed: bool =
         pushed = [chain_parents(synth.make_batch(512, 8, seed=seed * 1000 + 1300 + i,
                                                  base_time_ns=(BASE_S + 60 * (40 + i // 2)) * 10**9,
                                                  n_attrs_per_span=1))
-                  for i in range(32)]
+                  for i in range(16)]
         old_ids = {m.block_id for m in on_app.db.blocklist.metas(smoke)}
         t0 = time.perf_counter()
         for p in pushed:
@@ -4525,7 +4582,8 @@ def resultcache_phase(seed: int, root: str, queries: list, plan_of, shed: bool =
                         os.path.join(root, "off", "blocks", smoke, new_meta.block_id))
         apps["off"][0].db.poll_now()
         check(len(apps["off"][0].db.blocklist.metas(smoke)) == 3, "phase 13: the copied block")
-        print(f"phase 13 push: {n_pushed} spans in 32 OTLP requests, /flush -> a third block "
+        print(f"phase 13 push: {n_pushed} spans in {len(pushed)} OTLP requests, /flush -> a third "
+              "block "
               f"({res['push_s']:.1f} s, {n_pushed / res['push_s']:.0f} spans/s), copied into the "
               "cache-off App's backend", flush=True)
         want2, _, _ = run_pass("off", "after the push", searches=not shed)
@@ -5296,6 +5354,10 @@ def cluster_phase(seed: int, root: str, queries: list, shed: bool = False) -> di
         t0 = time.perf_counter()
         oracle.sweep_all(immediate=True)
         res["stage_s"]["oracle flush"] = time.perf_counter() - t0
+        # the compactor role's own 30-s cycle shares the window widened
+        # below: stopped, it cannot merge the same blocks beside the
+        # explicit compact_once (both then mark the inputs compacted)
+        comp.compactor.stop()
         for db, n_blocks in ((comp.db, 3), (oracle.db, 2)):
             db.poll_now()
             metas = db.blocklist.metas(tenant)
@@ -6474,6 +6536,830 @@ def receivers_phase(seed: int, root: str, queries: list, shed: bool = False) -> 
     return res
 
 
+# ---------------------------------------------------------------- 16
+# object storage: in-process mocks of the three wire dialects the cloud
+# backends speak (S3 path-style with SigV4 and XML listings, the GCS JSON
+# API, Azure blob REST with Put Block / Put Block List). Each records
+# every request it takes (method, path, headers, body), so two clients
+# can be held to the same bytes on the wire.
+
+
+class ObjectStoreMock:
+    """One object store behind a ThreadingHTTPServer on 127.0.0.1.
+    dialect: "s3" (checks each request's SigV4 signature against
+    S3_SECRET and answers 403 on a mismatch), "gcs" or "azure". The
+    objects live in `objects` (key -> bytes); Azure's staged blocks in
+    `staged`. `requests` logs every request; `log=False` stops it (a
+    phase's reads would hold every page twice)."""
+
+    def __init__(self, dialect: str, log: bool = True):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.dialect = dialect
+        self.objects: dict = {}
+        self.staged: dict = {}
+        self.requests: list = []
+        self.log = log
+        self.lock = threading.Lock()
+        store = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, fmt, *args):
+                pass
+
+            def _handle(self):
+                n = int(self.headers.get("Content-Length", 0) or 0)
+                body = self.rfile.read(n) if n else b""
+                if store.log:
+                    with store.lock:
+                        store.requests.append((self.command, self.path,
+                                               sorted(self.headers.items()), body))
+                code, out, ctype = getattr(store, f"_{store.dialect}")(
+                    self.command, self.path, self.headers, body)
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(out)))
+                self.end_headers()
+                self.wfile.write(out)
+
+            do_GET = do_PUT = do_POST = do_DELETE = _handle
+
+        self._srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self._srv.daemon_threads = True
+        self._thread = threading.Thread(target=self._srv.serve_forever, daemon=True)
+        self._thread.start()
+        self.url = f"http://127.0.0.1:{self._srv.server_address[1]}"
+
+    def stop(self) -> None:
+        self._srv.shutdown()
+        self._srv.server_close()
+        self._thread.join(timeout=5)
+
+    def reset(self) -> None:
+        with self.lock:
+            self.objects.clear()
+            self.staged.clear()
+            self.requests.clear()
+
+    # -- shared pieces ----------------------------------------------------
+    def _listing(self, prefix: str, delimiter: str) -> tuple[list, list]:
+        dirs, keys = set(), []
+        with self.lock:
+            names = sorted(self.objects)
+        for k in names:
+            if not k.startswith(prefix):
+                continue
+            rest = k[len(prefix):]
+            if delimiter and delimiter in rest:
+                dirs.add(prefix + rest.split(delimiter, 1)[0] + delimiter)
+            else:
+                keys.append(k)
+        return sorted(dirs), keys
+
+    def _get(self, key: str, headers) -> tuple:
+        with self.lock:
+            data = self.objects.get(key)
+        if data is None:
+            return 404, b"", "application/octet-stream"
+        rng = headers.get("Range") or headers.get("x-ms-range")
+        if rng and rng.startswith("bytes="):
+            lo, hi = (int(x) for x in rng[len("bytes="):].split("-"))
+            return 206, data[lo:hi + 1], "application/octet-stream"
+        return 200, data, "application/octet-stream"
+
+    def _delete(self, key: str, ok: int) -> tuple:
+        with self.lock:
+            existed = self.objects.pop(key, None)
+        return (ok if existed is not None else 404), b"", "application/octet-stream"
+
+    # -- S3 ----------------------------------------------------------------
+    def _sigv4_ok(self, method: str, path: str, query: str, headers, body: bytes) -> bool:
+        """Recompute the request's AWS Signature Version 4 (header form)
+        from what arrived and S3_SECRET."""
+        import hashlib
+        import hmac
+
+        auth = headers.get("Authorization", "")
+        if not auth.startswith(f"AWS4-HMAC-SHA256 Credential={S3_ACCESS}/"):
+            return False
+        fields = dict(p.strip().split("=", 1) for p in auth[len("AWS4-HMAC-SHA256 "):].split(","))
+        scope = fields["Credential"].split("/", 1)[1]
+        payload = hashlib.sha256(body).hexdigest()
+        if headers.get("x-amz-content-sha256") != payload:
+            return False
+
+        def enc(s: str, safe: str) -> str:
+            return urllib.parse.quote(s, safe=safe + "-_.~")
+
+        signed = fields["SignedHeaders"].split(";")
+        canon_q = "&".join(f"{enc(k, '')}={enc(v, '')}"
+                           for k, v in sorted(urllib.parse.parse_qsl(query, keep_blank_values=True)))
+        canon_h = "".join(f"{h}:{headers.get(h, '')}\n" for h in signed)
+        creq = "\n".join([method, enc(path, "/"), canon_q, canon_h, ";".join(signed), payload])
+        date = headers.get("x-amz-date", "")
+        sts = "\n".join(["AWS4-HMAC-SHA256", date, scope,
+                         hashlib.sha256(creq.encode()).hexdigest()])
+        key = ("AWS4" + S3_SECRET).encode()
+        for part in scope.split("/"):
+            key = hmac.new(key, part.encode(), hashlib.sha256).digest()
+        return hmac.compare_digest(hmac.new(key, sts.encode(), hashlib.sha256).hexdigest(),
+                                   fields["Signature"])
+
+    def _s3(self, method, raw_path, headers, body):
+        import xml.sax.saxutils as sx
+
+        u = urllib.parse.urlsplit(raw_path)
+        if not self._sigv4_ok(method, u.path, u.query, headers, body):
+            return 403, b"<Error><Code>SignatureDoesNotMatch</Code></Error>", "application/xml"
+        parts = urllib.parse.unquote(u.path).lstrip("/").split("/", 1)
+        key = parts[1] if len(parts) > 1 else ""
+        qs = dict(urllib.parse.parse_qsl(u.query))
+        if method == "PUT":
+            with self.lock:
+                self.objects[key] = body
+            return 200, b"", "application/xml"
+        if method == "DELETE":
+            return self._delete(key, 204)
+        if "list-type" in qs:
+            dirs, keys = self._listing(qs.get("prefix", ""), qs.get("delimiter", ""))
+            xml = "<?xml version='1.0'?><ListBucketResult><IsTruncated>false</IsTruncated>"
+            xml += "".join(f"<CommonPrefixes><Prefix>{sx.escape(d)}</Prefix></CommonPrefixes>"
+                           for d in dirs)
+            xml += "".join(f"<Contents><Key>{sx.escape(k)}</Key></Contents>" for k in keys)
+            return 200, (xml + "</ListBucketResult>").encode(), "application/xml"
+        return self._get(key, headers)
+
+    # -- GCS ---------------------------------------------------------------
+    def _gcs(self, method, raw_path, headers, body):
+        u = urllib.parse.urlsplit(raw_path)
+        qs = dict(urllib.parse.parse_qsl(u.query))
+        path = urllib.parse.unquote(u.path)
+        if method == "POST":
+            if not u.path.startswith("/upload/storage/v1/b/"):
+                return 404, b"{}", "application/json"
+            with self.lock:
+                self.objects[qs["name"]] = body
+            return 200, json.dumps({"name": qs["name"]}).encode(), "application/json"
+        if method == "GET" and path.rstrip("/").endswith("/o"):
+            dirs, keys = self._listing(qs.get("prefix", ""), qs.get("delimiter", ""))
+            doc = {"prefixes": dirs, "items": [{"name": k} for k in keys]}
+            return 200, json.dumps(doc).encode(), "application/json"
+        key = path.split("/o/", 1)[1]
+        if method == "DELETE":
+            return self._delete(key, 204)
+        return self._get(key, headers)
+
+    # -- Azure -------------------------------------------------------------
+    def _azure(self, method, raw_path, headers, body):
+        import re
+        import xml.sax.saxutils as sx
+
+        u = urllib.parse.urlsplit(raw_path)
+        qs = dict(urllib.parse.parse_qsl(u.query))
+        # /<account>/<container>[/<blob...>]
+        parts = urllib.parse.unquote(u.path).lstrip("/").split("/", 2)
+        key = parts[2] if len(parts) > 2 else ""
+        if method == "PUT":
+            with self.lock:
+                if qs.get("comp") == "block":
+                    self.staged.setdefault(key, {})[qs["blockid"]] = body
+                elif qs.get("comp") == "blocklist":
+                    ids = re.findall(r"<(?:Uncommitted|Latest)>([^<]+)</", body.decode())
+                    staged = self.staged.pop(key, {})
+                    self.objects[key] = b"".join(staged[i] for i in ids)
+                else:
+                    self.objects[key] = body
+            return 201, b"", "application/xml"
+        if method == "DELETE":
+            return self._delete(key, 202)
+        if qs.get("comp") == "list":
+            dirs, keys = self._listing(qs.get("prefix", ""), qs.get("delimiter", ""))
+            xml = "<?xml version='1.0'?><EnumerationResults><Blobs>"
+            xml += "".join(f"<BlobPrefix><Name>{sx.escape(d)}</Name></BlobPrefix>" for d in dirs)
+            xml += "".join(f"<Blob><Name>{sx.escape(k)}</Name></Blob>" for k in keys)
+            return 200, (xml + "</Blobs><NextMarker/></EnumerationResults>").encode(), \
+                "application/xml"
+        return self._get(key, headers)
+
+
+S3_ACCESS, S3_SECRET = "smoke-access", "smoke-secret"
+
+
+def store_options(mock: ObjectStoreMock) -> dict:
+    """backend_options of the port's (and the reference's) cloud backend
+    for one mock: its DBConfig.backend_options."""
+    if mock.dialect == "s3":
+        return dict(bucket="tempo", endpoint=mock.url, access_key=S3_ACCESS,
+                    secret_key=S3_SECRET)
+    if mock.dialect == "gcs":
+        return dict(bucket_name="tempo", endpoint=mock.url, token="smoke-token")
+    return dict(storage_account_name="devstoreaccount1", storage_account_key="a2V5",
+                container_name="tempo", endpoint=mock.url + "/devstoreaccount1")
+
+
+SHED16_S = 960
+DEVICE_FAMILIES = ("tempo_tpu_device_dispatch_seconds", "tempo_tpu_device_dispatches_total",
+                   "tempo_tpu_device_transfer_bytes_total",
+                   "tempo_tpu_device_transfer_bytes_avoided_total")
+
+
+def metric_series(text: str, family: str) -> dict:
+    """{frozenset of (label, value): value} of one counter family in a
+    Prometheus text exposition."""
+    import re
+
+    out = {}
+    for line in text.splitlines():
+        m = re.match(rf"^{family}(?:\{{(.*)\}})? (\S+)$", line)
+        if m:
+            labels = frozenset(re.findall(r'([a-zA-Z_][a-zA-Z0-9_]*)="([^"]*)"', m.group(1) or ""))
+            out[labels] = float(m.group(2))
+    return out
+
+
+def _p50_max(ms: list) -> dict:
+    return {"p50": statistics.median(ms), "max": max(ms), "n": len(ms)}
+
+
+def stored_objects(blocks_root: str, tenant: str, block_id: str, drop_id: bool = False) -> dict:
+    """name -> the bytes of one block's objects under a local backend's
+    root, meta.json without its block id when drop_id."""
+    d = os.path.join(blocks_root, tenant, block_id)
+    out = {}
+    for name in sorted(os.listdir(d)):
+        with open(os.path.join(d, name), "rb") as f:
+            out[name] = f.read()
+    if drop_id:
+        meta = json.loads(out["meta.json"])
+        meta.pop("block_id")
+        out["meta.json"] = json.dumps(meta, sort_keys=True).encode()
+    return out
+
+
+def objectstore_phase(seed: int, root: str, queries: list, plan_of, shed: bool = False) -> dict:
+    """Phase 16, object storage and the off-cluster readers. (a)
+    TempoDB(device="cuda") over the S3 mock (SigV4 checked on every
+    request): two 2**17-span vtpu1 blocks of make_graph_batch traces (the
+    second repeats every 8th trace of the first), each written to S3 and
+    to a local backend on the card (every object byte-equal), 200 finds
+    (100 present, 100 absent), a tag search at limit 20 and phase 4's
+    first query over the S3 blocks (seg_bincount), each equal to a
+    TempoDB(device="cpu") reading the same mock, and compact_once on S3
+    and local (the merged blocks byte-equal); one block round trip each
+    over the GCS and Azure mocks (`shed` drops them). (b) two 2**15-span
+    vrow1 blocks written on the card and on the CPU (byte-equal; one
+    hll_update launch a card write), finds and a search equal, and
+    compact_once on the card (every trace once, finds equal to the
+    unmerged blocks'). (c) a card App over the S3 mock (multitenancy: the
+    blocks' tenant) with its querier's external_endpoints set to a
+    ServerlessServer over the same mock: each search equals the same
+    search with the endpoints unset; JaegerQueryServer and the gRPC
+    storage plugin (where grpcio is installed) over the card App and a
+    CPU App on the same objects answer alike; `python -m
+    tempo_tpu_torch.cli` over a copy of (a)'s local blocks: list blocks,
+    query trace-id, query search, gen bloom on the card (the bloom
+    objects unchanged) and, unless `shed`, convert of a 2**15-span vtpu1
+    block to vrow1 and back, beside (b) (the final block byte-equal to the
+    source).
+    (d) /metrics of the card App: the four device families present, each
+    kernel's dispatches_total == STATS.dispatches, and over (c)'s
+    requests the h2d + d2h delta == the delta of the tenants'
+    transfer_bytes on /status/usage. Returns its numbers."""
+    import http.client
+    import types
+
+    import numpy as np
+
+    from tempo_tpu_torch import metrics_engine as M
+    from tempo_tpu_torch.api.server import TempoServer
+    from tempo_tpu_torch.app import App, AppConfig
+    from tempo_tpu_torch.db import DBConfig, TempoDB
+    from tempo_tpu_torch.encoding.common import BlockConfig, SearchRequest
+    from tempo_tpu_torch.jaeger_query import JaegerQueryBridge, JaegerQueryServer
+    from tempo_tpu_torch.model import synth
+    from tempo_tpu_torch.model.columnar import SpanBatch
+    from tempo_tpu_torch.ops import pallas_kernels as pk
+    from tempo_tpu_torch.ops import sketch
+    from tempo_tpu_torch.receivers import otlp
+    from tempo_tpu_torch.serverless import SearchBlockHandler, ServerlessServer
+    from tempo_tpu_torch.util import devicetiming
+
+    tenant = "smoke"
+    t_phase = time.perf_counter()
+    res: dict = {"write_ms": {}, "ms": {}, "cli_s": {}, "shed": shed}
+    # every record of a vrow1 block gzips the dictionary with the clock:
+    # one instant for the whole phase, so card and CPU writes compare
+    gzip_time = gzip.time
+    gzip.time = types.SimpleNamespace(time=lambda: BASE_S)
+    mocks: list = []
+    closers: list = []
+    try:
+        def two_blocks(n_traces: int, s: int):
+            """(a, b): b repeats every 8th trace of a, both trace-sorted."""
+            a = synth.make_graph_batch(n_traces, 8, seed=s, error_rate=0.1).sorted_by_trace()
+            firsts, seg = a.trace_boundaries()
+            rep = a.select(np.flatnonzero(np.isin(seg, np.arange(0, len(firsts), 8))))
+            b = SpanBatch.concat([synth.make_graph_batch(n_traces - n_traces // 8, 8, seed=s + 1,
+                                                         error_rate=0.1), rep]).sorted_by_trace()
+            return a, b
+
+        def trace_ids(batch) -> np.ndarray:
+            return batch.cols["trace_id"][batch.trace_boundaries()[0]]
+
+        def tid_bytes(row) -> bytes:
+            return np.asarray(row, np.uint32).astype(">u4").tobytes()
+
+        def same_trace(x, y) -> bool:
+            if x is None or y is None:
+                return x is None and y is None
+            return otlp.encode_traces_request([x]) == otlp.encode_traces_request([y])
+
+        def top_duration(batches, k: int, service: str | None = None) -> int:
+            """The k-th longest root span over the batches' distinct traces
+            (those with a span of `service`, when given): a min_duration
+            that leaves a search about k traces, so its answer is whole at
+            any limit above that and compares exactly (a limited search
+            that stops early keeps the traces its threads reached
+            first)."""
+            keep = None if service is None else with_service(batches, service)
+            tids, durs = [], []
+            for bt in batches:
+                root = np.all(bt.cols["parent_span_id"] == 0, axis=1)
+                tids.append(bt.cols["trace_id"][root])
+                durs.append(bt.cols["duration_nano"][root])
+            tids, durs = np.concatenate(tids), np.concatenate(durs)
+            _, first = np.unique(tids, axis=0, return_index=True)
+            if keep is not None:
+                first = np.array([i for i in first if tid_bytes(tids[i]).hex() in keep])
+            return int(np.sort(durs[first])[-k])
+
+        def with_service(batches, service: str) -> set:
+            out = set()
+            for bt in batches:
+                code = bt.dictionary.entries.index(service)
+                out |= {tid_bytes(r).hex() for r in bt.cols["trace_id"][bt.cols["service"] == code]}
+            return out
+
+        def same_hits(x, y) -> bool:
+            return [t.to_dict() for t in x.traces] == [t.to_dict() for t in y.traces]
+
+        def mock_objects(mock, block_id: str) -> dict:
+            pre = f"{tenant}/{block_id}/"
+            with mock.lock:
+                return {k[len(pre):]: v for k, v in mock.objects.items() if k.startswith(pre)}
+
+        cli_runs: dict = {}  # command -> (thread, {"rc", "out", "err", "s"})
+
+        def cli(name: str, *argv, path=os.path.join(root, "cli", "blocks")) -> None:
+            """Start `python -m tempo_tpu_torch.cli --path path *argv` and a
+            thread that waits for it and keeps its exit code, output and
+            seconds from start to exit."""
+            t0 = time.perf_counter()
+            # one intra-op thread: the commands run beside the phase's
+            # host-bound work and need no parallel CPU kernels
+            proc = subprocess.Popen([sys.executable, "-m", "tempo_tpu_torch.cli", "--path", path,
+                                     *argv], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True, cwd=os.path.dirname(os.path.abspath(__file__)),
+                                    env=dict(os.environ, OMP_NUM_THREADS="1"))
+            done: dict = {}
+
+            def wait():
+                done["out"], done["err"] = proc.communicate(timeout=600)
+                done["rc"], done["s"] = proc.returncode, time.perf_counter() - t0
+
+            thread = threading.Thread(target=wait, daemon=True)
+            thread.start()
+            cli_runs[name] = (thread, done)
+
+        def cli_result(name: str) -> str:
+            thread, done = cli_runs[name]
+            thread.join(timeout=600)
+            check(done.get("rc") == 0, f"phase 16 (c): cli {name} exited {done.get('rc')}: "
+                  f"{done.get('err', '')[-2000:]}")
+            res["cli_s"][name] = done["s"]
+            return done["out"]
+
+        # ------------------------------------------------------------ (a)
+        a, b = two_blocks(1 << 14, seed * 1000 + 1600)
+        check(a.num_spans == b.num_spans == 1 << 17, "phase 16: the (a) blocks' size")
+        ids = [f"00000000-0000-4000-8000-0000000016{i:02d}" for i in range(2)]
+        s3 = ObjectStoreMock("s3", log=False)
+        mocks.append(s3)
+        opts = store_options(s3)
+        local_root = os.path.join(root, "local", "blocks")
+        db_s3 = TempoDB(DBConfig(backend="s3", backend_options=opts,
+                                 wal_path=os.path.join(root, "s3wal")), device="cuda")
+        db_loc = TempoDB(DBConfig(backend="local", backend_path=local_root,
+                                  wal_path=os.path.join(root, "local", "wal")), device="cuda")
+        db_cpu = TempoDB(DBConfig(backend="s3", backend_options=opts,
+                                  wal_path=os.path.join(root, "cpuwal")), device="cpu")
+        for label, db in (("s3", db_s3), ("local", db_loc)):
+            res["write_ms"][f"vtpu1 {label}"] = []
+            for bid, batch in zip(ids, (a, b)):
+                t0 = time.perf_counter()
+                db.write_batch(tenant, batch, block_id=bid)
+                res["write_ms"][f"vtpu1 {label}"].append((time.perf_counter() - t0) * 1e3)
+        for bid in ids:
+            got, want = mock_objects(s3, bid), stored_objects(local_root, tenant, bid)
+            check(got == want, f"phase 16 (a): S3 objects of {bid} != the local write's "
+                  f"({sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))})")
+        res["s3_objects"] = len(s3.objects)
+        res["s3_bytes"] = sum(len(v) for v in s3.objects.values())
+        cli_root = os.path.join(root, "cli")
+        shutil.copytree(local_root, os.path.join(cli_root, "blocks"))
+        for db in (db_s3, db_cpu):
+            db.poll_now()
+            check(len(db.blocklist.metas(tenant)) == 2, "phase 16 (a): poll over S3")
+        ta, tb = trace_ids(a), trace_ids(b)
+        rng = np.random.default_rng(seed + 16)
+        present = [tid_bytes(r) for r in ta[rng.choice(len(ta), 50, replace=False)]] + \
+            [tid_bytes(r) for r in tb[rng.choice(len(tb), 50, replace=False)]]
+        absent = [tid_bytes(r) for r in rng.integers(0, 2**32, size=(100, 4), dtype=np.uint32)]
+        find_ms, n_found = [], 0
+        for tid in present + absent:
+            t0 = time.perf_counter()
+            got = db_s3.find(tenant, tid)
+            find_ms.append((time.perf_counter() - t0) * 1e3)
+            check(same_trace(got, db_cpu.find(tenant, tid)),
+                  f"phase 16 (a): find {tid.hex()} over S3, card != cpu")
+            n_found += got is not None
+        check(n_found == 100, f"phase 16 (a): {n_found} of 100 present traces found over S3")
+        res["ms"]["find over S3"] = _p50_max(find_ms)
+        svc = a.dictionary.entries[int(a.cols["service"][0])]
+        req = SearchRequest(tags={"service": svc}, limit=20)
+        t0 = time.perf_counter()
+        got = db_s3.search(tenant, req)
+        res["ms"]["search over S3"] = _p50_max([(time.perf_counter() - t0) * 1e3])
+        check(len(got.traces) == 20 and {t.trace_id_hex.zfill(32) for t in got.traces}
+              <= with_service((a, b), svc), "phase 16 (a): search over S3 != the oracle")
+        whole = SearchRequest(tags={"service": svc},
+                              min_duration_ns=top_duration((a, b), 8, svc), limit=20)
+        got = db_s3.search(tenant, whole)
+        check(got.traces and same_hits(got, db_cpu.search(tenant, whole)),
+              "phase 16 (a): search over S3, card != cpu")
+        plan = plan_of(queries[0])
+        mats = {}
+        for dev, db in (("cuda", db_s3), ("cpu", db_cpu)):
+            before = pk.seg_bincount.launches
+            t0 = time.perf_counter()
+            merged = M.new_wire()
+            for m in db.blocklist.metas(tenant):
+                blk = db.encoding_for(m.version).open_block(m, db.backend, db.cfg.block)
+                M.merge_wire(merged, M.evaluate_block(plan, blk, device=dev).to_wire(), plan)
+            mats[dev] = M.finalize_matrix(plan, merged)
+            res["ms"][f"query_range over S3 {dev}"] = _p50_max([(time.perf_counter() - t0) * 1e3])
+            if dev == "cuda":
+                check(pk.seg_bincount.launches > before,
+                      "phase 16 (a): query_range over S3 launched no seg_bincount")
+        check(mats["cuda"] == mats["cpu"] and mats["cpu"]["result"],
+              "phase 16 (a): query_range over S3, cuda matrix != cpu matrix")
+        merged_ids = {}
+        for label, db in (("s3", db_s3), ("local", db_loc)):
+            t0 = time.perf_counter()
+            check(db.compact_once(tenant), f"phase 16 (a): compact_once on {label} did nothing")
+            res["ms"][f"compact_once {label}"] = _p50_max([(time.perf_counter() - t0) * 1e3])
+            db.poll_now()
+            (m,) = db.blocklist.metas(tenant)
+            check(m.total_objects == len(ta) + len(tb) - len(ta) // 8,
+                  f"phase 16 (a): {label} merge holds {m.total_objects} traces")
+            merged_ids[label] = m.block_id
+        got = mock_objects(s3, merged_ids["s3"])
+        want = stored_objects(local_root, tenant, merged_ids["local"])
+        for objs, bid in ((got, merged_ids["s3"]), (want, merged_ids["local"])):
+            meta = json.loads(objs["meta.json"])
+            check(meta.pop("block_id") == bid, "phase 16 (a): merged meta's id")
+            objs["meta.json"] = json.dumps(meta, sort_keys=True).encode()
+        check(got == want, "phase 16 (a): the S3 merge != the local merge")
+        db_cpu.poll_now()
+        for tid in present[:10]:
+            check(same_trace(db_s3.find(tenant, tid), db_cpu.find(tenant, tid)),
+                  "phase 16 (a): find after the merge, card != cpu")
+        print(f"phase 16 (a) S3: 2 x {a.num_spans} spans written, {res['s3_objects']} objects "
+              f"({res['s3_bytes']} B) == the local writes; 200 finds p50 "
+              f"{res['ms']['find over S3']['p50']:.2f} ms max {res['ms']['find over S3']['max']:.2f}"
+              f" ms; search, query_range and the merge == the CPU / local", flush=True)
+        res["round_trips"] = {}
+        for dialect in () if shed else ("gcs", "azure"):
+            mock = ObjectStoreMock(dialect, log=False)
+            mocks.append(mock)
+            db = TempoDB(DBConfig(backend=dialect, backend_options=store_options(mock),
+                                  wal_path=os.path.join(root, f"{dialect}wal")), device="cuda")
+            t0 = time.perf_counter()
+            db.write_batch(tenant, a, block_id=ids[0])
+            ms = (time.perf_counter() - t0) * 1e3
+            check(mock_objects(mock, ids[0]) == stored_objects(os.path.join(cli_root, "blocks"),
+                                                               tenant, ids[0]),
+                  f"phase 16 (a): {dialect} objects != the local write's")
+            db.poll_now()
+            found = [db.find(tenant, tid) for tid in present[:10] + absent[:10]]
+            want = [db_loc.find(tenant, tid) for tid in present[:10] + absent[:10]]
+            check(all(same_trace(x, y) for x, y in zip(found, want)),
+                  f"phase 16 (a): finds over {dialect} != local")
+            res["round_trips"][dialect] = dict(write_ms=ms, objects=len(mock.objects))
+            if dialect == "azure":
+                check(not mock.staged, "phase 16 (a): azure blocks left uncommitted")
+        print(f"phase 16 (a) GCS and Azure round trips: {res['round_trips'] or 'shed'}", flush=True)
+
+        # ------------------------------------------------------------ (b)
+        c, d = two_blocks(1 << 12, seed * 1000 + 1700)
+        vids = [f"00000000-0000-4000-8000-0000000017{i:02d}" for i in range(2)]
+        if not shed:
+            # the CLI's convert chain runs beside (b): one process at a time
+            conv_root = os.path.join(root, "cli-convert", "blocks")
+            src_id = "00000000-0000-4000-8000-000000001800"
+            conv = TempoDB(DBConfig(backend="local", backend_path=conv_root,
+                                    wal_path=os.path.join(root, "cli-convert", "wal")),
+                           device="cuda")
+            conv.write_batch(tenant, c, block_id=src_id)
+            cli("convert to vrow1", "convert", tenant, src_id, "--to", "vrow1",
+                "--device", "cuda", path=conv_root)
+        vroots, vdbs = {}, {}
+        for side, dev in (("card", "cuda"), ("cpu", "cpu")):
+            vroots[side] = os.path.join(root, f"vrow-{side}", "blocks")
+            vdbs[side] = TempoDB(DBConfig(backend="local", backend_path=vroots[side],
+                                          wal_path=os.path.join(root, f"vrow-{side}", "wal"),
+                                          block=BlockConfig(version="vrow1")), device=dev)
+        hll0 = sketch.hll_update.launches
+        for side in ("card", "cpu"):
+            res["write_ms"][f"vrow1 {side}"] = []
+            for bid, batch in zip(vids, (c, d)):
+                t0 = time.perf_counter()
+                meta = vdbs[side].write_batch(tenant, batch, block_id=bid)
+                res["write_ms"][f"vrow1 {side}"].append((time.perf_counter() - t0) * 1e3)
+                check(meta.version == "vrow1", "phase 16 (b): not a vrow1 block")
+            if side == "card":
+                res["hll_update_vrow_writes"] = sketch.hll_update.launches - hll0
+                check(res["hll_update_vrow_writes"] == 2,
+                      f"phase 16 (b): {res['hll_update_vrow_writes']} hll_update launches for 2 "
+                      "card writes")
+        for bid in vids:
+            check(stored_objects(vroots["card"], tenant, bid)
+                  == stored_objects(vroots["cpu"], tenant, bid),
+                  f"phase 16 (b): vrow1 block {bid} card != cpu")
+        for db in vdbs.values():
+            db.poll_now()
+        tc, td = trace_ids(c), trace_ids(d)
+        vpresent = [tid_bytes(r) for r in tc[rng.choice(len(tc), 50, replace=False)]]
+        vms = []
+        for tid in vpresent + absent[:50]:
+            t0 = time.perf_counter()
+            got = vdbs["card"].find(tenant, tid)
+            vms.append((time.perf_counter() - t0) * 1e3)
+            check(same_trace(got, vdbs["cpu"].find(tenant, tid)) and
+                  (got is not None) == (tid in vpresent), "phase 16 (b): vrow1 find card != cpu")
+        res["ms"]["find vrow1"] = _p50_max(vms)
+        vsvc = c.dictionary.entries[int(c.cols["service"][0])]
+        got = vdbs["card"].search(tenant, SearchRequest(tags={"service": vsvc}, limit=20))
+        check(len(got.traces) == 20 and {t.trace_id_hex.zfill(32) for t in got.traces}
+              <= with_service((c, d), vsvc), "phase 16 (b): vrow1 search != the oracle")
+        vreq = SearchRequest(tags={"service": vsvc},
+                             min_duration_ns=top_duration((c, d), 8, vsvc), limit=20)
+        got = vdbs["card"].search(tenant, vreq)
+        check(got.traces and same_hits(got, vdbs["cpu"].search(tenant, vreq)),
+              "phase 16 (b): vrow1 search card != cpu")
+        # the merge on the card alone: its bytes against the reference's
+        # are the CPU tests' (tests/test_torch_vrow.py); here every trace
+        # once, and finds against the CPU's unmerged blocks
+        hll0 = sketch.hll_update.launches
+        t0 = time.perf_counter()
+        check(vdbs["card"].compact_once(tenant), "phase 16 (b): vrow1 compact_once on the card")
+        res["ms"]["compact_once vrow1 card"] = _p50_max([(time.perf_counter() - t0) * 1e3])
+        check(sketch.hll_update.launches - hll0 == 1, "phase 16 (b): the card's "
+              "vrow1 merge launched hll_update other than once")
+        vdbs["card"].poll_now()
+        (m,) = vdbs["card"].blocklist.metas(tenant)
+        check(m.total_objects == len(tc) + len(td) - len(tc) // 8
+              and m.total_spans == c.num_spans + d.num_spans - (len(tc) // 8) * 8,
+              "phase 16 (b): vrow1 merge trace and span counts")
+        both = tc[::8][:10]  # traces of c that d repeats
+        for tid in [tid_bytes(r) for r in both] + vpresent[:10] + \
+                [tid_bytes(r) for r in td[:10]] + absent[:10]:
+            check(same_trace(vdbs["card"].find(tenant, tid), vdbs["cpu"].find(tenant, tid)),
+                  "phase 16 (b): a find after the vrow1 merge != the unmerged blocks'")
+        print(f"phase 16 (b) vrow1: 2 x {c.num_spans} spans, card writes "
+              f"{res['write_ms']['vrow1 card']} ms, CPU writes {res['write_ms']['vrow1 cpu']} ms, "
+              f"byte-equal; finds p50 {res['ms']['find vrow1']['p50']:.2f} ms; the card's merge "
+              f"{res['ms']['compact_once vrow1 card']['p50']:.0f} ms, every trace once, finds == "
+              "the unmerged blocks'", flush=True)
+        if not shed:
+            vrow_id = re.findall(r"-> (\S+) \(vrow1\)", cli_result("convert to vrow1"))[0]
+            cli("convert to vtpu1", "convert", tenant, vrow_id, "--to", "vtpu1",
+                "--device", "cuda", path=conv_root)
+
+        # ------------------------------------------------------------ (c)
+        bloom_root = os.path.join(root, "cli-bloom", "blocks")
+        shutil.copytree(os.path.join(cli_root, "blocks"), bloom_root)
+        blooms = {k: v for k, v in stored_objects(bloom_root, tenant, ids[1]).items()
+                  if k.startswith("bloom")}
+        one = present[0].hex()
+        cli("list blocks", "list", "blocks", tenant)
+        cli("query trace-id", "query", "trace-id", tenant, one)
+        cli("query search", "query", "search", tenant, "--tags", f"service.name={svc}",
+            "--limit", "20")
+        cli("gen bloom", "gen", "bloom", tenant, ids[1], "--device", "cuda", path=bloom_root)
+
+        def make_app(side: str, dev: str):
+            app = App(AppConfig(multitenancy_enabled=True, generator_enabled=False,
+                                db=DBConfig(backend="s3", backend_options=opts,
+                                            wal_path=os.path.join(root, f"app-{side}", "wal"))),
+                      device=dev)
+            app.db.poll_now()
+            return app
+
+        app, app_cpu = make_app("card", "cuda"), make_app("cpu", "cpu")
+        closers += [app.shutdown, app_cpu.shutdown]
+        server = TempoServer(app, host="127.0.0.1", port=0).start()
+        closers.insert(0, server.stop)
+        conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=600)
+
+        def usage_transfer() -> float:
+            conn.request("GET", "/status/usage")
+            r = conn.getresponse()
+            doc = json.loads(r.read())
+            return sum(v.get("transfer_bytes", 0) for t in doc["tenants"].values()
+                       for v in t["kinds"].values())
+
+        moved0, charged0 = devicetiming.moved_total(), usage_transfer()
+        sls = ServerlessServer(SearchBlockHandler("s3", opts)).start()
+        closers.insert(0, sls.stop)
+        svcs = sorted({a.dictionary.entries[int(x)] for x in np.unique(a.cols["service"])})
+        reqs = [SearchRequest(tags={"service": s}, min_duration_ns=top_duration((a, b), 12, s),
+                              limit=20) for s in svcs[:3]] + \
+            [SearchRequest(min_duration_ns=top_duration((a, b), 6), limit=20)]
+        ext_ms, direct_ms = [], []
+        for r in reqs:
+            app.querier.external_endpoints = [sls.url + "/"]
+            app.querier._ext_clients = None
+            t0 = time.perf_counter()
+            via = app.search(r, org_id=tenant)
+            ext_ms.append((time.perf_counter() - t0) * 1e3)
+            app.querier.external_endpoints = []
+            t0 = time.perf_counter()
+            direct = app.search(r, org_id=tenant)
+            direct_ms.append((time.perf_counter() - t0) * 1e3)
+            check(via.traces and same_hits(via, direct),
+                  f"phase 16 (c): serverless search {r.tags} != the querier's")
+        check(app.querier._ext_rr >= len(reqs), "phase 16 (c): no job went to the endpoint")
+        # a query_range through each App: the card's seg_bincount moves
+        # bytes under the tenant's attribution
+        launches0 = pk.seg_bincount.launches
+        t0 = time.perf_counter()
+        mat = app.query_range(queries[0], BASE_S, BASE_S + 3600, 60, org_id=tenant)
+        res["ms"]["query_range App"] = _p50_max([(time.perf_counter() - t0) * 1e3])
+        want = app_cpu.query_range(queries[0], BASE_S, BASE_S + 3600, 60, org_id=tenant)
+        check(mat["result"] and mat["result"] == want["result"],
+              "phase 16 (c): the card App's query_range != the CPU App's")
+        check(pk.seg_bincount.launches > launches0,
+              "phase 16 (c): the App's query_range launched no seg_bincount")
+        res["ms"]["search serverless"] = _p50_max(ext_ms)
+        res["ms"]["search direct"] = _p50_max(direct_ms)
+        print(f"phase 16 (c) serverless: {len(reqs)} searches == the querier's, p50 "
+              f"{res['ms']['search serverless']['p50']:.1f} ms through the endpoint "
+              f"({app.querier._ext_rr} jobs), {res['ms']['search direct']['p50']:.1f} ms direct",
+              flush=True)
+        # Jaeger over HTTP
+        jsrv = {dev: JaegerQueryServer(JaegerQueryBridge(x, tenant=tenant)).start()
+                for dev, x in (("cuda", app), ("cpu", app_cpu))}
+        closers[:0] = [s.stop for s in jsrv.values()]
+        routes = {"services": "/api/services",
+                  "operations": f"/api/services/{svc}/operations",
+                  "trace": f"/api/traces/{one}",
+                  "find": f"/api/traces?minDuration={top_duration((a, b), 4)}&limit=20"}
+        for name, path in routes.items():
+            bodies = {}
+            for dev, s in jsrv.items():
+                host, port = s.url.rsplit(":", 1)
+                jc = http.client.HTTPConnection("127.0.0.1", int(port), timeout=600)
+                t0 = time.perf_counter()
+                jc.request("GET", path)
+                resp = jc.getresponse()
+                bodies[dev] = (resp.status, json.loads(resp.read()))
+                if dev == "cuda":
+                    res["ms"][f"jaeger {name}"] = _p50_max([(time.perf_counter() - t0) * 1e3])
+                jc.close()
+            check(bodies["cuda"] == bodies["cpu"] and bodies["cuda"][0] == 200
+                  and bodies["cuda"][1]["data"], f"phase 16 (c): Jaeger {name} card != cpu")
+        # Jaeger gRPC storage plugin
+        try:
+            import grpc
+        except ImportError:
+            grpc = None
+        res["jaeger_grpc"] = "absent" if grpc is None else "grpcio"
+        if grpc is not None:
+            from tempo_tpu_torch import jaeger_plugin as jp
+            from tempo_tpu_torch.receivers.protowire import (
+                put_bytes_field,
+                put_str_field,
+                put_varint_field,
+            )
+
+            get = bytearray()
+            put_bytes_field(get, 1, present[0])
+            dur = bytearray()
+            put_varint_field(dur, 1, top_duration((a, b), 4) // 10**9)
+            put_varint_field(dur, 2, top_duration((a, b), 4) % 10**9)
+            q = bytearray()
+            put_bytes_field(q, 6, bytes(dur))  # duration_min
+            put_varint_field(q, 8, 20)  # limit
+            find = bytearray()
+            put_bytes_field(find, 1, bytes(q))
+            ident = lambda x: x  # noqa: E731
+            calls = (("GetServices", jp.GET_SERVICES, b"", False),
+                     ("GetOperations", jp.GET_OPERATIONS, b"", False),
+                     ("GetTrace", jp.GET_TRACE, bytes(get), True),
+                     ("FindTraces", jp.FIND_TRACES, bytes(find), True))
+            answers = {}
+            for dev, x in (("cuda", app), ("cpu", app_cpu)):
+                plug = jp.JaegerStoragePluginServer(JaegerQueryBridge(x, tenant=tenant)).start()
+                ch = grpc.insecure_channel(f"127.0.0.1:{plug.port}")
+                try:
+                    for name, method, body, stream in calls:
+                        t0 = time.perf_counter()
+                        if stream:
+                            out = list(ch.unary_stream(method, request_serializer=ident,
+                                                       response_deserializer=ident)(body,
+                                                                                    timeout=600))
+                        else:
+                            out = ch.unary_unary(method, request_serializer=ident,
+                                                 response_deserializer=ident)(body, timeout=600)
+                        if dev == "cuda":
+                            res["ms"][f"jaeger grpc {name}"] = _p50_max(
+                                [(time.perf_counter() - t0) * 1e3])
+                        answers.setdefault(name, {})[dev] = out
+                finally:
+                    ch.close()
+                    plug.stop()
+            for name, by_dev in answers.items():
+                check(by_dev["cuda"] == by_dev["cpu"] and by_dev["cuda"],
+                      f"phase 16 (c): Jaeger gRPC {name} card != cpu")
+        moved1, charged1 = devicetiming.moved_total(), usage_transfer()
+        print(f"phase 16 (c) Jaeger: HTTP {', '.join(routes)} and gRPC ({res['jaeger_grpc']}) "
+              "== the CPU App's | "
+              + ", ".join(f"{k} {v['p50']:.1f} ms" for k, v in res["ms"].items()
+                          if k.startswith("jaeger")), flush=True)
+
+        # ------------------------------------------------------------ (d)
+        conn.request("GET", "/metrics")
+        r = conn.getresponse()
+        text = r.read().decode()
+        for fam in DEVICE_FAMILIES:
+            check(f"# TYPE {fam} " in text, f"phase 16 (d): {fam} missing from /metrics")
+        dispatches = {dict(k).get("kernel"): v
+                      for k, v in metric_series(text, "tempo_tpu_device_dispatches_total").items()
+                      if k}
+        stats = {k: float(v) for k, v in dict(devicetiming.STATS.dispatches).items()}
+        check(dispatches == stats, f"phase 16 (d): dispatches_total {dispatches} != STATS {stats}")
+        tb = metric_series(text, "tempo_tpu_device_transfer_bytes_total")
+        for direction in ("h2d", "d2h"):
+            exposed = {dict(k)["kernel"]: v for k, v in tb.items()
+                       if dict(k).get("direction") == direction}
+            stats = {k: float(v) for k, v in dict(getattr(devicetiming.STATS, direction)).items()}
+            check(exposed == stats, f"phase 16 (d): transfer_bytes_total {direction} != STATS")
+        res["exactness"] = dict(moved=moved1 - moved0, charged=charged1 - charged0)
+        check(moved1 > moved0, "phase 16 (d): (c) moved no device bytes")
+        check(moved1 - moved0 == charged1 - charged0,
+              f"phase 16 (d): h2d + d2h moved {moved1 - moved0} B over (c) but the tenants' "
+              f"transfer_bytes moved {charged1 - charged0} B")
+        res["device_kernels"] = sorted(dispatches)
+        print(f"phase 16 (d) /metrics: the four device families present, dispatches_total == "
+              f"STATS for {len(dispatches)} kernel labels ({', '.join(sorted(dispatches))}); over "
+              f"(c) h2d + d2h {moved1 - moved0:.0f} B == the tenants' transfer_bytes "
+              f"{charged1 - charged0:.0f} B", flush=True)
+        conn.close()
+
+        # ------------------------------------------------------- (c) CLI
+        outs = {name: cli_result(name) for name in cli_runs if name != "convert to vrow1"}
+        check(all(i in outs["list blocks"] for i in ids), "phase 16 (c): cli list blocks")
+        want = otlp.encode_traces_json([db_loc.find(tenant, present[0])])
+        check(json.loads(outs["query trace-id"]) == json.loads(json.dumps(want)),
+              "phase 16 (c): cli query trace-id != TempoDB.find")
+        hits = [json.loads(x) for x in outs["query search"].splitlines()]
+        check(len(hits) == 20 and all(h["traceID"].zfill(32) in with_service((a, b), svc)
+                                      for h in hits), "phase 16 (c): cli query search")
+        check({k: v for k, v in stored_objects(bloom_root, tenant, ids[1]).items()
+               if k.startswith("bloom")} == blooms,
+              "phase 16 (c): cli gen bloom on the card != the written blooms")
+        if not shed:
+            back_id = re.findall(r"-> (\S+) \(vtpu1\)", outs["convert to vtpu1"])[0]
+            check(block_objects(conv_root, tenant, back_id, drop_id=True)
+                  == block_objects(conv_root, tenant, src_id, drop_id=True),
+                  "phase 16 (c): cli convert vtpu1 -> vrow1 -> vtpu1 != the source block")
+        print("phase 16 (c) cli: " + ", ".join(f"{k} {v:.1f} s" for k, v in res["cli_s"].items())
+              + " (each a process from start to exit; the converts beside (b), the others "
+              "beside (c)'s readers)", flush=True)
+    finally:
+        gzip.time = gzip_time
+        for fn in closers:
+            fn()
+        for m in mocks:
+            m.stop()
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6834,9 +7720,10 @@ def main() -> int:
     rng_hit = pk.u64_range_scan(dur, lo_ns, hi_ns, n_rows).cpu().numpy()
     check(np.array_equal(rng_hit, (cat["duration_nano"] >= lo_ns) & (cat["duration_nano"] <= hi_ns)),
           "scan path: u64_range_scan != numpy oracle")
-    # the device page decode, called here directly (no served path calls it
-    # until the resident dbp range scan, ROADMAP Queue 2 item 5): the first
-    # 2^20 spans' durations as one dbp page (width 31), decoded on the card
+    # the device page decode, called here directly (no served path calls it:
+    # the device tier's resident_dbp_scan decodes in its own launch): the
+    # first 2^20 spans' durations as one dbp page (width 31), decoded on the
+    # card
     n_long = 1 << 20
     long_col = cat["duration_nano"][:n_long]
     long_page = lw.dbp_encode(long_col)
@@ -7237,6 +8124,32 @@ def main() -> int:
           + f" spans/s | flush {receivers['flush_ms']:.0f} ms | launches on the path "
           f"{receivers['launches']}", flush=True)
 
+    # ---------------------------------------------------------------- 16
+    # a slow host sheds phase 16's GCS and Azure round trips and the CLI
+    # convert (SHED16_S); S3, vrow1, the readers and /metrics always run
+    elapsed = time.perf_counter() - t_script
+    shed16 = elapsed > SHED16_S
+    if shed16:
+        sheds.append("phase 16 GCS and Azure round trips and the CLI convert")
+    print(f"phase 16 depth: phases 0-15 took {elapsed:.1f} s -> "
+          + ("the GCS and Azure round trips and the CLI convert shed" if shed16
+             else "nothing shed"), flush=True)
+    reset_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_objectstore_") as store_root:
+        store = objectstore_phase(seed, store_root, queries, plan_of, shed=shed16)
+    store["launches"] = read_launches()
+    # the card's vtpu1 writes (page encode, block sketch), the vrow1 writes
+    # and merges (block sketch), query_range over S3 and through the App
+    for k in ("hll_update", "rle_change_mask", "dbp_pack", "seg_bincount"):
+        check(store["launches"][k] > 0, f"object storage path: {k} never launched")
+    for kind, m in store["ms"].items():
+        print(f"phase 16 {kind}: p50 {m['p50']:.1f} ms, max {m['max']:.1f} ms over {m['n']}",
+              flush=True)
+    print(f"phase 16 object storage and the off-cluster readers: {store['phase_s']:.1f} s | "
+          "write ms a block: " + ", ".join(f"{k} {statistics.median(v):.0f}"
+                                           for k, v in store["write_ms"].items())
+          + f" | launches on the path {store['launches']}", flush=True)
+
     source = {k: "tempo_tpu_torch/csrc/kernels.cu"
               for k in ("seg_bincount", "in_set_scan", "u64_range_scan")}
     source.update({k: "tempo_tpu_torch/csrc/codec_kernels.cu"
@@ -7270,6 +8183,7 @@ def main() -> int:
     for k in kernels:
         kernels[k]["launches_cluster_path"] = cluster["launches_total"][k]
         kernels[k]["launches_receivers_path"] = receivers["launches"][k]
+        kernels[k]["launches_objectstore_path"] = store["launches"][k]
     # the second querier's, from its /status/device: one launch a dispatch
     for k, dispatch in (("seg_bincount", "seg_bincount"), ("root_path_sums", "graph_critical_path")):
         kernels[k]["launches_cluster_querier_1"] = cluster["querier_b_dispatches"].get(dispatch, 0)
@@ -7281,7 +8195,8 @@ def main() -> int:
         "compaction_step_torch_op_sketch_ms": statistics.median(plain_step_s) * 1e3,
         "query_ms": query_ms, "blocks": blocks, "db": db, "app": app, "standing": standing,
         "tier": tier, "graph": graph, "tail": tail, "resultcache": rc, "cluster": cluster,
-        "receivers": receivers, "grpc_transport": receivers["grpc_transport"], "shed": sheds,
+        "receivers": receivers, "grpc_transport": receivers["grpc_transport"],
+        "objectstore": store, "shed": sheds,
         "phases_0_6_s": phases_0_6_s,
         "phase_2_graph_sketch_s": graph_sketch_s,
         "script_s": time.perf_counter() - t_script}

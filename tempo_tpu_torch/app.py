@@ -66,6 +66,9 @@ from tempo_tpu_torch.modules.rpc import (
 )
 from tempo_tpu_torch.modules.worker import JobBroker, LocalWorkerPool, RemoteWorker
 from tempo_tpu_torch.rca import RCAConfig, RCAEngine
+from tempo_tpu_torch.util import devicetiming  # noqa: F401 — registers the
+# device-dispatch histograms so /metrics exposes them from boot, not
+# from the first dispatch
 from tempo_tpu_torch.standing import StandingConfig, StandingEngine
 from tempo_tpu_torch.util import resource, slo, tracing
 from tempo_tpu_torch.util.circuit import CircuitBreaker

@@ -3,7 +3,8 @@ layer over it, the filesystem and in-memory backends, the tenant index,
 the retry taxonomy, seeded fault injection (`FaultInjectingBackend`,
 armed by `TEMPO_TPU_FAULTS`) and the caching decorator
 (`backend/cache.CachedBackend`). Port of tempo_tpu/backend; the cloud
-backends (GCS/S3/Azure) arrive with ROADMAP Queue 1 item 9.
+backends (S3, GCS, Azure) are imported lazily, so the local and mock
+path needs none of them.
 """
 
 import logging
@@ -28,7 +29,7 @@ from tempo_tpu_torch.backend.mock import MockBackend  # noqa: F401
 def make_raw_backend(kind: str, options: dict | None = None) -> RawBackend:
     """Backend factory (reference: tempodb.New backend selection,
     tempodb/tempodb.go:133-170; tempo_tpu/backend/__init__.py:25-80).
-    The cloud backends are not ported yet and raise.
+    `options` are the backend's config kwargs (`DBConfig.backend_options`).
 
     TEMPO_TPU_FAULTS (e.g. "read=0.01,corrupt=0.001,seed=7") wraps the
     result in a FaultInjectingBackend — the operator chaos knob; see
@@ -55,8 +56,16 @@ def _make_raw_backend(kind: str, options: dict | None = None) -> RawBackend:
         return LocalBackend(options.get("path", "blocks"))
     if kind == "mock":
         return MockBackend()
-    if kind in ("s3", "gcs", "azure"):
-        raise NotImplementedError(
-            f"tempo_tpu_torch: the {kind} backend is not ported yet "
-            "(have local|mock; ROADMAP Queue 1 item 9)")
+    if kind == "s3":
+        from tempo_tpu_torch.backend.s3 import S3Backend, S3Config
+
+        return S3Backend(S3Config(**options))
+    if kind == "gcs":
+        from tempo_tpu_torch.backend.gcs import GCSBackend, GCSConfig
+
+        return GCSBackend(GCSConfig(**options))
+    if kind == "azure":
+        from tempo_tpu_torch.backend.azure import AzureBackend, AzureConfig
+
+        return AzureBackend(AzureConfig(**options))
     raise ValueError(f"unknown backend {kind!r} (have local|mock|s3|gcs|azure)")

@@ -1,7 +1,6 @@
 """Port of tempo_tpu/backend/httpclient.py (host code): the pooled,
 retrying, hedging client that every role client of microservices mode
-shares (the cloud backends that also use it wait for ROADMAP Queue 1
-item 9).
+and the cloud backends (S3, GCS, Azure) share.
 
 HTTP plumbing shared by the cloud object-store backends.
 

@@ -1,8 +1,7 @@
 """Block encoding registry.
 
-Port of tempo_tpu/encoding/__init__.py. The registry knows `vtpu1`;
-the `vrow` row-oriented encoding is a later slice of the port (ROADMAP
-Queue 1), and asking for it raises NotImplementedError.
+Port of tempo_tpu/encoding/__init__.py: the registry knows `vtpu1`
+(the default) and `vrow1`, the row-oriented legacy encoding.
 
 Reference: tempodb/encoding/versioned.go:18-68 — a VersionedEncoding
 interface (OpenBlock / CreateBlock / NewCompactor / WAL block ops) keyed
@@ -12,7 +11,7 @@ data plane swaps without touching the control plane.
 
 from __future__ import annotations
 
-from tempo_tpu_torch.encoding import vtpu
+from tempo_tpu_torch.encoding import vrow, vtpu
 from tempo_tpu_torch.encoding.common import BlockConfig, SearchRequest  # noqa: F401
 from tempo_tpu_torch.encoding.vtpu.encoding import Encoding as _VtpuEncoding
 
@@ -20,6 +19,7 @@ DEFAULT_ENCODING = "vtpu1"
 
 _REGISTRY = {
     vtpu.VERSION: _VtpuEncoding(),
+    vrow.VERSION: vrow.Encoding(),
 }
 
 
@@ -27,10 +27,6 @@ def from_version(version: str):
     """version string -> encoding impl (reference: versioned.go:54-62)."""
     enc = _REGISTRY.get(version)
     if enc is None:
-        if version == "vrow1":
-            raise NotImplementedError(
-                "tempo_tpu_torch: the vrow encoding is not ported yet "
-                "(ROADMAP Queue 1)")
         raise ValueError(f"unknown block encoding {version!r} (have {sorted(_REGISTRY)})")
     return enc
 

@@ -384,12 +384,17 @@ def row_group_slices(batch: SpanBatch, target_spans: int) -> list[tuple[int, int
 # ---------------------------------------------------------------------------
 
 
-def serialize_batch(batch: SpanBatch, codec: str = "auto") -> bytes:
+def serialize_batch(batch: SpanBatch, codec: str = "auto",
+                    dict_bytes: bytes | None = None) -> bytes:
     """Self-contained segment: MAGIC | u32 header_len | header json | pages.
 
     The WAL appends one segment per trace-cut flush
     (reference analog: vparquet WAL writes one parquet file per flush,
     tempodb/encoding/vparquet/wal_block.go:309-386).
+
+    dict_bytes: serialize_dictionary(batch.dictionary), when the caller
+    already holds it (the vrow1 writer serializes many slices of one
+    batch, each carrying the whole dictionary).
     """
     codec = codec_mod.resolve_codec(codec)
     pages = []
@@ -407,7 +412,8 @@ def serialize_batch(batch: SpanBatch, codec: str = "auto") -> bytes:
                 "crc": crc,
             }
             pages.append(page)
-    dict_bytes = serialize_dictionary(batch.dictionary)
+    if dict_bytes is None:
+        dict_bytes = serialize_dictionary(batch.dictionary)
     header = json.dumps({"columns": header_cols, "dict_len": len(dict_bytes)}).encode()
     out = bytearray()
     out += MAGIC

@@ -16,10 +16,11 @@ of the device tier's ingest tail (a parked WAL segment's search mask by
 each block's cached partial and recompute only the blocks they miss,
 through the same device path as with the cache off; a query_range
 block's partial comes from a standalone accumulator of its own, and the
-cached tier outranks the compiled tier. Not here yet: the serverless
-external endpoints (ROADMAP Queue 1 item 11), the mesh search and
-metrics (Queue 1 item 12) and the multi-query search seam (its caller
-is the standing tier). The graph jobs (graph_recent,
+cached tier outranks the compiled tier. With `external_endpoints`
+set, each block-search job goes round-robin to a serverless endpoint
+(tempo_tpu_torch/serverless.py), as in the reference. Not here yet: the
+mesh search and metrics (Queue 1 item 12) and the multi-query search
+seam (its caller is the standing tier). The graph jobs (graph_recent,
 graph_blocks) sum their critical paths on the DB's device.
 """
 
@@ -41,12 +42,21 @@ log = logging.getLogger(__name__)
 
 
 class Querier:
-    def __init__(self, db, ring=None, ingester_clients: dict | None = None):
+    def __init__(self, db, ring=None, ingester_clients: dict | None = None,
+                 external_endpoints: list | None = None):
         """ingester_clients: instance_id -> object with
-        find_trace_by_id(tenant, tid) and live_batches(tenant)."""
+        find_trace_by_id(tenant, tid) and live_batches(tenant).
+
+        external_endpoints: serverless search URLs; when set, backend
+        block-search jobs are delegated round-robin (reference:
+        searchExternalEndpoint querier.go:540, config
+        search_external_endpoints)."""
         self.db = db
         self.ring = ring
         self.ingester_clients = ingester_clients or {}
+        self.external_endpoints = list(external_endpoints or [])
+        self._ext_clients = None
+        self._ext_rr = 0
 
     # ------------------------------------------------------------------
     def _replica_clients(self, tenant: str, trace_id: bytes):
@@ -105,17 +115,50 @@ class Querier:
             resp.merge(_search_batch(batch, req), limit=req.limit)
         return resp
 
+    def search_block_job(self, tenant: str, block_id: str, req: SearchRequest,
+                         start_row_group: int = 0, row_groups: int = 0) -> SearchResponse:
+        if self.external_endpoints:
+            return self._search_external(tenant, block_id, req, start_row_group, row_groups)
+        return self.db.search_block(tenant, block_id, req,
+                                    start_row_group=start_row_group, row_groups=row_groups)
+
     def search_block_batch(self, tenant: str, block_ids: list, req: SearchRequest) -> SearchResponse:
         """One frontend job = a batch of blocks, scanned serially like the
-        reference's per-job loop on one device; with the result cache on,
-        each block's response is reused from (and written back to) it."""
+        reference's per-job loop on one device; with the result cache on
+        (and no external endpoints), each block's response is reused from
+        (and written back to) it."""
         rc = self.db.result_cache
-        if rc.enabled():
+        if rc.enabled() and not self.external_endpoints:
             return self._search_block_batch_cached(tenant, block_ids, req, rc)
         resp = SearchResponse()
         for block_id in block_ids:
-            resp.merge(self.db.search_block(tenant, block_id, req), limit=req.limit)
+            resp.merge(self.search_block_job(tenant, block_id, req), limit=req.limit)
         return resp
+
+    def _search_external(self, tenant, block_id, req, start_row_group, row_groups) -> SearchResponse:
+        """Delegate one block-search job to a serverless endpoint."""
+        import json
+        import urllib.parse
+
+        from tempo_tpu_torch.api.params import SearchBlockRequest, build_search_block_params
+        from tempo_tpu_torch.backend.httpclient import PooledHTTPClient
+
+        if self._ext_clients is None:
+            self._ext_clients = []
+            for ep in self.external_endpoints:
+                u = urllib.parse.urlsplit(ep)
+                self._ext_clients.append(
+                    (PooledHTTPClient(f"{u.scheme}://{u.netloc}"), u.path or "/")
+                )
+        client, path = self._ext_clients[self._ext_rr % len(self._ext_clients)]
+        self._ext_rr += 1
+        sbr = SearchBlockRequest(search=req, block_id=block_id,
+                                 start_row_group=start_row_group, row_groups=row_groups)
+        qs = urllib.parse.urlencode(build_search_block_params(sbr))
+        _, body, _ = client.request(
+            "GET", f"{path}?{qs}", headers={"X-Scope-OrgID": tenant}, ok=(200,)
+        )
+        return SearchResponse.from_dict(json.loads(body))
 
     def _search_block_batch_cached(self, tenant: str, block_ids: list,
                                    req: SearchRequest, rc) -> SearchResponse:

@@ -1,8 +1,8 @@
 """Port of tempo_tpu/rca/engine.py (host code). The walks arm calls
 the port's App.graph_walks and graph/walks.rank_suspects; the `_self_`
 critical-path arm reads the spans that `self_tracing` exports under
-`_self_` (none with self-tracing off, its default). `cli rca` is
-ROADMAP Queue 1 item 11.
+`_self_` (none with self-tracing off, its default). `python -m
+tempo_tpu_torch.cli rca replay` re-runs the classifier offline.
 
 Closed-loop auto-RCA: triggers -> evidence bundle -> typed finding.
 

@@ -1034,8 +1034,13 @@ class StandingEngine:
         n_partial = 0
         ok = True
         step = q.step_s
-        # vtpu1 is the port's one encoding (vrow1 is ROADMAP Queue 1 item
-        # 10); the query's own template IS a grid-aligned 1-bin plan (start 0,
+        if getattr(blk.meta, "version", "") != "vtpu1":
+            # non-vtpu encodings: whole-block span iteration (legacy)
+            for batch in blk.iter_trace_batches():
+                ok &= self._rebuild_batch(q, batch, batch.dictionary,
+                                          tmp_counts, tmp_series)
+            return 0, ok
+        # the query's own template IS a grid-aligned 1-bin plan (start 0,
         # the standing step), so rule matching is exactly the read path's
         rule = rules_mod.match_rule(q.template, rules)
         for rg in blk.index().row_groups:

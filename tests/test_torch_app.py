@@ -462,7 +462,7 @@ def test_bad_requests_400(idle_pair, path):
     ("POST", "/api/traces"),
     ("POST", "/api/v1/spans"),
 ])
-def test_unported_routes_404(make_pair, method, path):
+def test_zipkin_and_jaeger_routes_accepted(make_pair, method, path):
     """The Zipkin (v2 JSON, v1 thrift) and Jaeger thrift routes, 404 until
     the port served them: the same bodies (chip_smoke's carrier encoders;
     a Jaeger Batch a service) answer 202 on both servers, every trace is

@@ -225,7 +225,7 @@ UNPORTED = {
 
 
 @pytest.mark.parametrize("yaml_text", sorted(UNPORTED))
-def test_unported_sections_refused(yaml_text, tmp_path):
+def test_tee_sections_served(yaml_text, tmp_path):
     """Each tee section parses as in the reference, gives its
     check_config warnings and passes -config.verify in both packages, and
     the port's App builds what the JAX App builds: the forwarders (and
@@ -396,7 +396,7 @@ def _norm(doc: dict) -> list:
 
 @pytest.mark.parametrize("server", ["grpc_listen_port: 4317", "jaeger_agent_compact_port: 6831",
                                     "kafka:\n    brokers: [k:9092]"])
-def test_unported_receivers_refused(server, tmp_path):
+def test_receiver_sections_served(server, tmp_path):
     """Each receiver section, refused until the port served it, parses as
     in the reference and passes -config.verify in both packages; on a
     free port (the scripted broker for Kafka) `start_receivers` starts

@@ -678,14 +678,21 @@ def test_retry_taxonomy_and_loop_match_jax():
 
 
 def test_unported_paths_raise(tmp_path):
-    with pytest.raises(NotImplementedError):
-        encoding.from_version("vrow1")
+    """Only the multi-GPU paths refuse now: vrow1 and the cloud backends
+    are ported (a cloud backend without its bucket or container raises
+    the reference's ValueError)."""
+    from tempo_tpu.backend import make_raw_backend as jmake_raw_backend
+
+    assert encoding.from_version("vrow1").version == "vrow1"
     with pytest.raises(ValueError):
         encoding.from_version("v9")
     assert encoding.from_version(encoding.DEFAULT_ENCODING).version == "vtpu1"
     for kind in ("s3", "gcs", "azure"):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError) as e:
             make_raw_backend(kind)
+        with pytest.raises(ValueError) as je:
+            jmake_raw_backend(kind)
+        assert str(e.value) == str(je.value)
     cached = TempoDB(DBConfig(backend="mock", cache="memory"), device="cpu")
     assert type(cached.backend.raw).__name__ == "CachedBackend"
     cached.shutdown()

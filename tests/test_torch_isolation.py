@@ -74,7 +74,13 @@ SCRIPT = BLOCK + textwrap.dedent(r"""
                  "tempo_tpu_torch.receivers.zipkin", "tempo_tpu_torch.receivers.udp",
                  "tempo_tpu_torch.receivers.opencensus", "tempo_tpu_torch.receivers.grpc_server",
                  "tempo_tpu_torch.receivers.kafka", "tempo_tpu_torch.modules.forwarder",
-                 "tempo_tpu_torch.usagestats"):
+                 "tempo_tpu_torch.usagestats", "tempo_tpu_torch.backend.cloud",
+                 "tempo_tpu_torch.backend.s3", "tempo_tpu_torch.backend.gcs",
+                 "tempo_tpu_torch.backend.azure", "tempo_tpu_torch.encoding.vrow",
+                 "tempo_tpu_torch.encoding.vrow.format", "tempo_tpu_torch.encoding.vrow.block",
+                 "tempo_tpu_torch.encoding.vrow.encoding", "tempo_tpu_torch.serverless",
+                 "tempo_tpu_torch.jaeger_query", "tempo_tpu_torch.jaeger_plugin",
+                 "tempo_tpu_torch.cli"):
         assert name in names, name
     for name, mod in sys.modules.items():
         assert mod is None or not (name == "tempo_tpu" or name.startswith("tempo_tpu.") or name == "jax"
@@ -384,6 +390,77 @@ def test_microservices_modules_run_with_jax_and_tempo_tpu_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "microservices ok" in proc.stdout
+
+
+OFF_CLUSTER_SCRIPT = BLOCK + textwrap.dedent(r"""
+    import contextlib, io, json, tempfile, urllib.request
+
+    import chip_smoke
+    from tempo_tpu_torch import cli, encoding
+    from tempo_tpu_torch.app import App, AppConfig
+    from tempo_tpu_torch.db import DBConfig, TempoDB
+    from tempo_tpu_torch.encoding.common import BlockConfig, SearchRequest
+    from tempo_tpu_torch.jaeger_query import JaegerQueryBridge
+    from tempo_tpu_torch.model import synth, trace as tr
+    from tempo_tpu_torch.serverless import SearchBlockHandler, ServerlessServer
+    from tempo_tpu_torch.util import devicetiming, metrics
+
+    text = metrics.expose()
+    for fam in ("tempo_tpu_device_dispatch_seconds", "tempo_tpu_device_dispatches_total",
+                "tempo_tpu_device_transfer_bytes_total",
+                "tempo_tpu_device_transfer_bytes_avoided_total"):
+        assert f"# TYPE {fam} " in text, fam
+    traces = synth.make_traces(12, seed=3)
+    batch = tr.traces_to_batch(traces).sorted_by_trace()
+    for dialect in ("s3", "gcs", "azure"):
+        mock = chip_smoke.ObjectStoreMock(dialect, log=False)
+        for version in ("vtpu1", "vrow1"):
+            db = TempoDB(DBConfig(backend=dialect, backend_options=chip_smoke.store_options(mock),
+                                  wal_path=tempfile.mkdtemp(), block=BlockConfig(version=version)),
+                         device="cpu")
+            meta = db.write_batch(dialect, batch)
+            assert meta.version == version
+            assert db.find(dialect, traces[5].trace_id).span_count() == traces[5].span_count()
+        if dialect == "s3":
+            srv = ServerlessServer(SearchBlockHandler("s3", chip_smoke.store_options(mock))).start()
+            url = srv.url + "/?blockID=" + meta.block_id + "&limit=100"
+            req = urllib.request.Request(url, headers={"X-Scope-OrgID": "s3"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                assert json.loads(r.read())["traces"]
+            srv.stop()
+        mock.stop()
+    assert encoding.from_version("vrow1").version == "vrow1"
+    root = tempfile.mkdtemp()
+    app = App(AppConfig(db=DBConfig(backend="local", backend_path=root + "/blocks",
+                                    wal_path=root + "/wal"), generator_enabled=False),
+              device="cpu")
+    app.push_traces(traces)
+    assert JaegerQueryBridge(app).get_trace(traces[1].trace_id.hex())["spans"]
+    app.sweep_all(immediate=True)
+    app.shutdown()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert cli.main(["--path", root + "/blocks", "list", "blocks", "single-tenant"]) == 0
+        assert cli.main(["--path", root + "/blocks", "query", "trace-id", "single-tenant",
+                         traces[2].trace_id.hex()]) == 0
+    assert "traces" in out.getvalue()
+    for name, mod in sys.modules.items():
+        assert mod is None or not (name == "tempo_tpu" or name.startswith("tempo_tpu.")
+                                   or name == "jax" or name.startswith("jax.")), name
+    print("off-cluster ok")
+""")
+
+
+def test_off_cluster_modules_run_with_jax_and_tempo_tpu_blocked():
+    """The device families on /metrics from import, vtpu1 and vrow1 blocks
+    through the S3, GCS and Azure backends (chip_smoke's mocks), the
+    serverless handler over S3, the Jaeger bridge and the CLI, with jax
+    and tempo_tpu blocked."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", OFF_CLUSTER_SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "off-cluster ok" in proc.stdout
 
 
 def test_main_runs_an_ingester_role(tmp_path):
