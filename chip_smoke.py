@@ -17,7 +17,9 @@ Phases, one line each (any failure exits non-zero):
    writer and the generator's service graphs, and root_path_sums, the
    critical path's pointer doubling) and csrc/tail_kernels.cu (tail_fold
    and tail_scan, the ingest tail's standing fold and live-tail search
-   mask), one nvcc a source, in parallel, and ptxas reports each
+   mask) and csrc/rle_kernels.cu (rle_cols_hit, the fused run-length
+   decode + in-set scan of the mesh and batched searches), one nvcc a
+   source, in parallel, and ptxas reports each
    kernel's registers,
    static shared memory and spills;
 2. kernels: each CUDA kernel against its plain PyTorch version on the
@@ -251,8 +253,9 @@ Phases, one line each (any failure exits non-zero):
    payloads through the port's gRPC decoders and App.push_traces; the
    line `grpc_transport: "grpcio"` or `"absent"` says which), a forwarder
    for tenant fwd to a second card App's /v1/traces, usage_report to a
-   loopback sink and self_tracing on (one trace in ten); 2**17 spans of
-   phase 11's make_graph_batch stream (stamped in the last hour) in
+   loopback sink and self_tracing on (one trace in ten); 2**16 spans of
+   phase 11's make_graph_batch stream (stamped in the last hour; 2**17
+   before phase 17 took its share of the budget) in
    512-span units, round robin over twelve carriers: Zipkin v2 JSON and
    v1 thrift and Jaeger thrift over HTTP, the agent's compact and binary
    datagrams (at most 65,000 B each), Kafka OTLP records uncompressed,
@@ -279,12 +282,13 @@ Phases, one line each (any failure exits non-zero):
    evaluate_block (seg_bincount), each equal to a TempoDB(device="cpu")
    reading the same mock; compact_once on S3 and on local, the merged
    blocks byte-equal; one block round trip each over GCS and Azure mocks
-   (the JSON API; Put Block / Put Block List). (b) two 2**15-span vrow1
+   (the JSON API; Put Block / Put Block List). (b) two 2**14-span vrow1
    blocks written on the card and on the CPU, byte-equal (one hll_update
    launch a card write), finds and searches equal, and compact_once on
    the card (one hll_update launch; every trace once; finds equal the
-   unmerged blocks') (2**15, not 2**17: the vrow1 writer and merge
-   serialize one segment a trace on the host). (c) a card App over the
+   unmerged blocks') (2**14, not 2**17: the vrow1 writer and merge
+   serialize one segment a trace on the host; 2**15 before phase 17 took
+   its share of the budget). (c) a card App over the
    S3 mock whose querier sends its block
    jobs to a ServerlessServer over the same mock (each search == the
    querier's own), query_range through the card App == the CPU App's,
@@ -292,14 +296,44 @@ Phases, one line each (any failure exits non-zero):
    over a CPU App (services, operations, a trace, a find), and `python
    -m tempo_tpu_torch.cli` over a copy of (a)'s local blocks (list
    blocks, query trace-id, query search, gen bloom on the card: the bloom
-   objects unchanged; convert of a 2**15-span vtpu1 block to vrow1 and
+   objects unchanged; convert of a 2**14-span vtpu1 block to vrow1 and
    back on the card, beside (b): the final block byte-equal to the
    source), each in a process of its own. (d)
    /metrics of the card App: the four device-timing families present,
    dispatches_total and transfer_bytes_total == STATS for every kernel,
    and over (c) h2d + d2h == the tenants' transfer_bytes on /status/usage.
    Past SHED16_S of phases 0-15 the GCS and Azure round trips and the CLI
-   convert are shed.
+   convert are shed;
+17. the mesh (parallel/mesh: a (W, R) mesh of torch devices driven from
+   this one process), built over four copies of the one card (each
+   shard's launches queue on it; the device list is printed), and again
+   over distinct cards where the host has several: (a) the sharded
+   compaction step over phase 3's 2**22 rows split by
+   partition_by_id_range on a (1, 4) mesh, its bloom, HLL, count-min and
+   totals == the one-device step's, both timed (median of 3, in turns);
+   (b) VtpuCompactor with the compaction mesh, payload on the host and
+   on the device, over a 2**17-span pair (every 8th trace of A and of B,
+   so the pair spans the ID space and every shard takes rows):
+   both blocks byte-equal to the one-device card merge, duplicates
+   collapsed, finds whole, payload_stats; (c) MeshSearcher over phase
+   6's blocks A and B on get_mesh's (2, 2) and on (1, 4): search_blocks
+   and search_blocks_multi at Q 1 and 8, limit 20 and unbounded,
+   shipped, then admitting and resident in a 1,024-MB device tier
+   (admission forced open), every
+   unbounded answer == the one-device DB's, every limited one a whole
+   subset of it and equal across shapes and rounds; (d)
+   MeshMetricsEvaluator over A and B for phase 4's queries and the mesh
+   bincount over phase 4's 2**22 spans, bit-equal to the one-device
+   accumulator; (e) rle_cols_hit against its plain version at a mesh
+   search's shard shape (in-set, live, batched Q = 8, padding,
+   truncation, the NO_MATCH value, several units) and timed there at
+   Q = 1 and 8; (f) TempoDB at the default compaction_device_shards = 0
+   with its mesh from parallel/mesh's seam: search, search_multi, the
+   querier's search_block_batch(_multi) and query_range_blocks == a
+   one-device DB's, compact_once byte-equal to (b)'s one-device merge;
+   the dispatch labels mesh_scan, mesh_rle_scan, batched_rle_scan and
+   mesh_bincount on /metrics. Past SHED17_S of phases 0-16 (c)'s (2, 2)
+   repeat is shed.
 
 Phases 3-4 are the main path, phase 5 the scan path, phase 6 the block
 path, phase 7 the storage engine's path, phase 8 the server's path and
@@ -321,7 +355,9 @@ rle_change_mask, dbp_pack and hll_update at the flush, seg_bincount at
 query_range) and phase 16 the object store's (rle_change_mask, dbp_pack
 and hll_update at the card's vtpu1 writes and merges, hll_update at the
 vrow1 writes and merge, seg_bincount at query_range over S3 and through
-the App;
+the App) and phase 17 the mesh's (rle_cols_hit at every mesh search,
+seg_bincount at the mesh bincount, hll_update and cm_update at the
+sharded step and the mesh compactions;
 the sketch kernels also run on phases 3 and 6-9: compaction, every card
 block write and every push through the generator):
 each is run with the kernels' launch counts set to 0 just before it,
@@ -341,14 +377,17 @@ root_path_sums under "launches_cluster_querier_1"; phase 15's under
 "receivers", with every kernel's launches there under
 "launches_receivers_path", and its gRPC transport under
 "grpc_transport"; phase 16's under "objectstore", with every kernel's
-launches there under "launches_objectstore_path"; "shed" names the
+launches there under "launches_objectstore_path"; phase 17's under
+"mesh", with every kernel's launches there under "launches_mesh_path";
+"shed" names the
 depth a slow host cut: phase
 8's interpreter runs past 420 s before it, phase 11's generator-off push
 past 750 s before it, phase 13's after-push searches past 800 s before
 it, phase 14's vulture and finds after the kill past SHED14_S before
 it, phase 15's forwarder and self-tracing checks past SHED15_S before
 it, phase 16's GCS and Azure round trips and CLI convert past SHED16_S
-before it; phase 12 sheds nothing), the nvidia-smi
+before it, phase 17's (2, 2) search repeat past SHED17_S before it;
+phase 12 sheds nothing), the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Without a CUDA
 device it exits 1 and prints no result. It imports nothing of JAX or of
 tempo_tpu.
@@ -357,6 +396,7 @@ tempo_tpu.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import gzip
 import json
@@ -570,7 +610,8 @@ def launch_counters():
             **{k: getattr(scan, k) for k in RESIDENT_KERNELS},
             "hll_update": sketch.hll_update, "cm_update": sketch.cm_update,
             "root_path_sums": ops_graph.root_path_sums,
-            "tail_fold": ingest_tail.tail_fold, "tail_scan": ingest_tail.tail_scan}
+            "tail_fold": ingest_tail.tail_fold, "tail_scan": ingest_tail.tail_scan,
+            "rle_cols_hit": pk.rle_cols_hit}
 
 
 def reset_launches() -> None:
@@ -6133,8 +6174,8 @@ def receivers_phase(seed: int, root: str, queries: list, shed: bool = False) -> 
     installed (else the same payloads through the port's gRPC decoders and
     App.push_traces), a forwarder for tenant `fwd` to a second App's
     /v1/traces, usage_report to UsageSink and self_tracing on (`shed`
-    drops the forwarder, its App and self-tracing). 32 make_graph_batch
-    batches of 512 traces x 8 spans (2**17 spans of phase 11's stream,
+    drops the forwarder, its App and self-tracing). 16 make_graph_batch
+    batches of 512 traces x 8 spans (2**16 spans of phase 11's stream,
     stamped in the last hour) go as 512-span units,
     round robin over the carriers, one after another (tenant `fwd` on
     the second unit of every four of an HTTP or gRPC carrier, `rx` on the rest); a
@@ -6183,7 +6224,7 @@ def receivers_phase(seed: int, root: str, queries: list, shed: bool = False) -> 
     now_min = int(time.time()) // 60 * 60
     t_data = now_min - 40 * 60
     units, by_id = [], {}
-    for i in range(32):
+    for i in range(16):
         traces = batch_to_traces(synth.make_graph_batch(
             512, 8, seed=seed * 1000 + 1500 + i,
             base_time_ns=(t_data + 60 * (i // 2)) * 10**9, error_rate=0.1))
@@ -6760,7 +6801,7 @@ def store_options(mock: ObjectStoreMock) -> dict:
                 container_name="tempo", endpoint=mock.url + "/devstoreaccount1")
 
 
-SHED16_S = 960
+SHED16_S = 900
 DEVICE_FAMILIES = ("tempo_tpu_device_dispatch_seconds", "tempo_tpu_device_dispatches_total",
                    "tempo_tpu_device_transfer_bytes_total",
                    "tempo_tpu_device_transfer_bytes_avoided_total")
@@ -6809,7 +6850,7 @@ def objectstore_phase(seed: int, root: str, queries: list, plan_of, shed: bool =
     first query over the S3 blocks (seg_bincount), each equal to a
     TempoDB(device="cpu") reading the same mock, and compact_once on S3
     and local (the merged blocks byte-equal); one block round trip each
-    over the GCS and Azure mocks (`shed` drops them). (b) two 2**15-span
+    over the GCS and Azure mocks (`shed` drops them). (b) two 2**14-span
     vrow1 blocks written on the card and on the CPU (byte-equal; one
     hll_update launch a card write), finds and a search equal, and
     compact_once on the card (every trace once, finds equal to the
@@ -6821,7 +6862,7 @@ def objectstore_phase(seed: int, root: str, queries: list, plan_of, shed: bool =
     CPU App on the same objects answer alike; `python -m
     tempo_tpu_torch.cli` over a copy of (a)'s local blocks: list blocks,
     query trace-id, query search, gen bloom on the card (the bloom
-    objects unchanged) and, unless `shed`, convert of a 2**15-span vtpu1
+    objects unchanged) and, unless `shed`, convert of a 2**14-span vtpu1
     block to vrow1 and back, beside (b) (the final block byte-equal to the
     source).
     (d) /metrics of the card App: the four device families present, each
@@ -7064,7 +7105,7 @@ def objectstore_phase(seed: int, root: str, queries: list, plan_of, shed: bool =
         print(f"phase 16 (a) GCS and Azure round trips: {res['round_trips'] or 'shed'}", flush=True)
 
         # ------------------------------------------------------------ (b)
-        c, d = two_blocks(1 << 12, seed * 1000 + 1700)
+        c, d = two_blocks(1 << 11, seed * 1000 + 1700)
         vids = [f"00000000-0000-4000-8000-0000000017{i:02d}" for i in range(2)]
         if not shed:
             # the CLI's convert chain runs beside (b): one process at a time
@@ -7357,6 +7398,571 @@ def objectstore_phase(seed: int, root: str, queries: list, plan_of, shed: bool =
         for m in mocks:
             m.stop()
     res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the mesh
+# ---------------------------------------------------------------------------
+
+SHED17_S = 1040
+MESH_KERNELS = ("rle_cols_hit", "seg_bincount", "hll_update", "cm_update")
+MESH_LABELS = ("mesh_scan", "mesh_rle_scan", "batched_rle_scan", "mesh_bincount")
+# phase 17 (c)'s searches: the service column is rle (the run road), name
+# dct (an expanded column: the tag-scan road); each narrowed by duration
+MESH_SEARCHES = [
+    ("service=cart", dict(tags={"service": "cart"}, min_duration_ns=990_000_000)),
+    ("service=frontend name=db.query", dict(tags={"service": "frontend", "name": "db.query"},
+                                           min_duration_ns=900_000_000)),
+]
+MESH_SERVICES = ("frontend", "cart", "checkout", "currency", "shipping", "payment", "email", "ads")
+
+
+# the kernels each step of phase 17 must launch in its mesh calls: the
+# sharded sketches in (a) and in both mesh compactions of (b), the run road
+# in (c), the per-shard bincount in (d)
+MESH_STEP_KERNELS = {"a": ("hll_update", "cm_update"), "b": ("hll_update", "cm_update"),
+                     "c": ("rle_cols_hit",), "d": ("seg_bincount",)}
+
+
+def check_mesh_launches(res: dict, what: str) -> None:
+    for k in MESH_KERNELS:
+        check(res["launches"][k] > 0, f"{what}: {k} never launched")
+    for step_label, names in MESH_STEP_KERNELS.items():
+        for k in names:
+            check(res["launches_by_step"].get(step_label, {}).get(k, 0) > 0,
+                  f"{what}: {k} never launched in phase 17 ({step_label})'s mesh calls")
+
+
+def _hits(resp) -> list:
+    """A search answer's traces, each with every field, in one order."""
+    import dataclasses
+
+    return sorted(dataclasses.astuple(h) for h in resp.traces)
+
+
+def mesh_phase(seed: int, root: str, a, b, src_blocks: str, queries: list, plan_of,
+               batches: list, step=None, devices=None, dev: str = "cuda",
+               step_rows: int = 1 << 22, pair_spans: int = 1 << 17, shed: bool = False) -> dict:
+    """Phase 17, the mesh. Every mesh is built over `devices` (default four
+    copies of the one card: each shard's launches queue on it; a list of
+    distinct cards meshes them). (a) the sharded compaction step over
+    phase 3's rows split by partition_by_id_range on a (1, 4) mesh: the
+    bloom, HLL, count-min and totals equal the one-device step's (`step`
+    = (fn, inputs, out) of phase 3, or built here), both timed by host
+    clock around a synchronised call, median of 3, in turns. (b)
+    VtpuCompactor with a compaction mesh, payload on the host and on the
+    device, over a 2**17-span pair written here (every 8th trace of A and
+    of B): both blocks byte-equal to the one-device card merge; duplicates
+    collapsed, finds, payload_stats. (c) MeshSearcher over src_blocks (a
+    local backend holding phase 6's card-written A and B): search_blocks
+    and search_blocks_multi at Q 1 and 8, limit 20 and unbounded, on
+    get_mesh's (2, 2) and on (1, 4), shipped, then admitting and resident
+    in a 1,024-MB device tier (admission forced open); every unbounded answer equal to the
+    one-device DB's, every limited one a whole subset of it. (d)
+    MeshMetricsEvaluator over src_blocks for phase 4's queries, counts
+    bit-equal to the one-device accumulator, and the mesh bincount over
+    `batches`' slots (phase 4's spans) against the one-device accumulator.
+    (f) TempoDB over the pair with the mesh from parallel/mesh's seam
+    (local_devices patched to `devices`): search, search_multi, the
+    querier's search_block_batch(_multi) and query_range_blocks equal to
+    a one-device DB's, compact_once byte-equal to (b)'s one-device merge.
+    Past `shed` (2, 2)'s repeat of (c) is shed. The launch counts are set
+    to 0 just before each mesh call and read just after it; the one-device
+    runs the mesh is held against run outside those windows. Returns its
+    numbers, the launches on the mesh path summed (`launches`) and by step
+    (`launches_by_step`)."""
+    import numpy as np
+    import torch
+
+    from tempo_tpu_torch import metrics_engine as M
+    from tempo_tpu_torch.backend import LocalBackend, TypedBackend
+    from tempo_tpu_torch.config_sections import DeviceTierConfig
+    from tempo_tpu_torch.db import DBConfig, TempoDB
+    from tempo_tpu_torch.encoding.common import BlockConfig, CompactionOptions, SearchRequest
+    from tempo_tpu_torch.encoding.vtpu import colcache
+    from tempo_tpu_torch.encoding.vtpu.block import VtpuBackendBlock
+    from tempo_tpu_torch.encoding.vtpu.compactor import VtpuCompactor
+    from tempo_tpu_torch.encoding.vtpu.create import write_block
+    from tempo_tpu_torch.entry import entry
+    from tempo_tpu_torch.modules.querier import Querier
+    from tempo_tpu_torch.ops import pallas_kernels as pk
+    from tempo_tpu_torch.parallel import compaction as pcomp
+    from tempo_tpu_torch.parallel import mesh as pmesh
+    from tempo_tpu_torch.parallel.metrics import MeshMetricsEvaluator, make_sharded_bincount
+    from tempo_tpu_torch.parallel.search import MeshSearcher
+    from tempo_tpu_torch.util import metrics as umetrics
+
+    t_phase = time.perf_counter()
+    card = torch.device(dev, 0) if dev == "cuda" else torch.device(dev)
+    devices = [torch.device(d) for d in (devices or [card] * 4)]
+    tenant = "smoke"
+    cfg = BlockConfig()
+    res: dict = {"devices": [str(d) for d in devices], "ms": {}, "shed": shed}
+    print(f"phase 17 mesh: {torch.cuda.device_count() if dev == 'cuda' else 0} card(s); "
+          f"meshes over {res['devices']}", flush=True)
+
+    def sync():
+        for d in set(devices) | {card}:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    launches: dict = {}
+    by_step: dict = {}
+
+    @contextlib.contextmanager
+    def on_mesh(step_label):
+        """One window of the mesh path: counts from 0 before, read after."""
+        reset_launches()
+        yield
+        for k, v in read_launches().items():
+            launches[k] = launches.get(k, 0) + v
+            if v:
+                step_counts = by_step.setdefault(step_label, {})
+                step_counts[k] = step_counts.get(k, 0) + v
+
+    # ------------------------------------------------------------ (a)
+    t0 = time.perf_counter()
+    if step is None:
+        fn, ex = entry(device=dev, n_rows=step_rows)
+        out = fn(*ex)
+    else:
+        fn, ex, out = step
+    plans = fn.keywords["plans"]
+    valid = ex[2].cpu().numpy()
+    tids = ex[0].cpu().numpy().astype(np.uint32)[valid]
+    sids = ex[1].cpu().numpy().astype(np.uint32)[valid]
+    m14 = pmesh.compaction_mesh(4, devices=devices)
+    t4, s4, v4, _ = pcomp.partition_by_id_range(tids, sids, 4)
+    cap = t4.shape[1]
+    # the shards' rows staged on the mesh's lead device once, as phase 3's
+    # step finds its rows on the card
+    staged = [torch.from_numpy(x.view(np.int32) if x.dtype == np.uint32 else x).to(devices[0])
+              for x in (t4.reshape(1, 4, cap, 4), s4.reshape(1, 4, cap, 2), v4.reshape(1, 4, cap))]
+    mstep = pcomp.make_sharded_compactor(m14, plans)
+
+    def mesh_call():
+        with on_mesh("a"):
+            return mstep(*staged, *pcomp.init_sketch_accumulators(m14, plans))
+
+    _, accs = mesh_call()
+    for key, got in (("bloom", accs["bloom"][0]), ("hll", accs["hll"][0]), ("cm", accs["cm"][0]),
+                     ("n_rows", accs["total_rows"][0]), ("n_traces", accs["total_traces"][0])):
+        check(torch.equal(got.cpu().to(torch.int64), out[key].cpu().to(torch.int64)),
+              f"phase 17 (a): the mesh step's {key} != the one-device step's")
+    times = {"mesh": [], "one": []}
+    for which in "momoom":
+        sync()
+        t1 = time.perf_counter()
+        if which == "m":
+            mesh_call()
+        else:
+            fn(*ex)
+        sync()
+        times["mesh" if which == "m" else "one"].append(time.perf_counter() - t1)
+    res["step"] = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+    res["step_all_ms"] = {k: [x * 1e3 for x in v] for k, v in times.items()}
+    del staged
+    print(f"phase 17 (a) sharded step: {len(tids)} rows over a (1, 4) mesh ({cap} rows a shard): "
+          f"bloom, hll, cm, total_rows {int(accs['total_rows'][0])}, total_traces "
+          f"{int(accs['total_traces'][0])} == the one-device step's | mesh "
+          f"{res['step']['mesh']:.2f} ms, one device {res['step']['one']:.2f} ms (median of 3, "
+          f"in turns) | {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ------------------------------------------------------------ (b)
+    t0 = time.perf_counter()
+    pair_root = os.path.join(root, "pair")
+    be = TypedBackend(LocalBackend(pair_root))
+    # every 8th trace of A and of B: pairs spanning the whole ID space (a
+    # block's first 2**17 spans hold its lowest IDs, which one shard of
+    # partition_by_id_range would take alone); A's every 8th trace is the
+    # set B repeats, so the pair shares traces
+    small, small_b = (x.select(np.flatnonzero(x.trace_boundaries()[1] % 8 == 0)[:pair_spans])
+                      for x in (a, b))
+    metas = [write_block([x], tenant, be, cfg, block_id=str(uuid.uuid4()), device=dev)
+             for x in (small, small_b)]
+    distinct = len(np.unique(np.concatenate([small.cols["trace_id"], small_b.cols["trace_id"]]),
+                             axis=0))
+    outs, comps, cms = {}, {}, {}
+    for label, kw in (("one device", {}),
+                      ("mesh, host payload", {"mesh": m14}),
+                      ("mesh, device payload", {"mesh": m14, "payload_plane": "device"})):
+        comp = comps[label] = VtpuCompactor(CompactionOptions(block_config=cfg, **kw), device=dev)
+        with on_mesh("b") if kw else contextlib.nullcontext():
+            t1 = time.perf_counter()
+            (outs[label],) = comp.compact(metas, tenant, be)
+            cms[label] = (time.perf_counter() - t1) * 1e3
+        check(outs[label].total_objects == distinct,
+              f"phase 17 (b) {label}: {outs[label].total_objects} traces, {distinct} distinct")
+    ref = block_objects(pair_root, tenant, outs["one device"].block_id, drop_id=True)
+    for label in ("mesh, host payload", "mesh, device payload"):
+        check_same_blocks(block_objects(pair_root, tenant, outs[label].block_id, drop_id=True),
+                          ref, f"phase 17 (b) {label} vs one device")
+    st = comps["mesh, device payload"].payload_stats
+    od = outs["mesh, device payload"]
+    check(st["d2h_flushes"] <= od.total_records + 1 and st["kept_rows"] == od.total_spans,
+          f"phase 17 (b): payload_stats {st}")
+    blk = VtpuBackendBlock(od, be, cfg)
+    firsts = small.trace_boundaries()[0]
+    for limbs in small.cols["trace_id"][firsts[:: max(1, len(firsts) // 20)]]:
+        t = blk.find_trace_by_id(limbs.astype(">u4").tobytes())
+        check(t is not None and t.span_count() == 8, "phase 17 (b): a trace not found whole")
+    res["compact_ms"] = cms
+    res["payload_stats"] = {k: (v.tolist() if hasattr(v, "tolist") else v) for k, v in st.items()}
+    res["sharded_stats"] = {k: (v.tolist() if hasattr(v, "tolist") else v)
+                            for k, v in comps["mesh, host payload"].payload_stats.items()}
+    print(f"phase 17 (b) VtpuCompactor: the {pair_spans}-span pair, {distinct} distinct traces: "
+          "mesh host payload and mesh device payload blocks byte-equal to the one-device card "
+          f"merge; finds whole | ms {', '.join(f'{k} {v:.0f}' for k, v in cms.items())} | device "
+          f"plane: {st['d2h_flushes']} flushes, {st['kept_rows']} kept rows, {st['dropped_rows']} "
+          f"dropped, {st['tiles']} tiles | {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ------------------------------------------------------------ (c)
+    t0 = time.perf_counter()
+    src_be = TypedBackend(LocalBackend(src_blocks))
+    one_db = TempoDB(DBConfig(backend="local", backend_path=src_blocks,
+                              compaction_device_shards=1), device=dev)
+    one_db.poll_now()
+    src_metas = one_db.blocklist.metas(tenant)
+    check(len(src_metas) == 2, f"phase 17 (c): {len(src_metas)} source blocks")
+
+    def src_blocks_iter():
+        return (VtpuBackendBlock(m, src_be, cfg) for m in src_metas)
+
+    reqs = [(label, SearchRequest(**kw)) for label, kw in MESH_SEARCHES]
+    multi = [SearchRequest(tags={"service": s}, min_duration_ns=995_000_000)
+             for s in MESH_SERVICES]
+    want = {label: _hits(one_db.search(tenant, SearchRequest(limit=0, **kw)))
+            for label, kw in MESH_SEARCHES}
+    want_multi = [_hits(one_db.search(tenant, SearchRequest(limit=0, tags=r.tags,
+                                                            min_duration_ns=r.min_duration_ns)))
+                  for r in multi]
+    one_db.shutdown()
+    check(all(want.values()) and all(want_multi), "phase 17 (c): an empty one-device answer")
+
+    def held(got, whole, limit, what):
+        hits = _hits(got)
+        if limit:
+            check(len(hits) == min(limit, len(whole)) and set(hits) <= set(whole),
+                  f"phase 17 (c) {what}: not a whole subset of the one-device answer")
+        else:
+            check(hits == whole, f"phase 17 (c) {what}: != the one-device answer")
+        return hits
+
+    shapes = [("(1, 4)", m14)] if shed else [("(2, 2)", pmesh.get_mesh(4, devices=devices)),
+                                             ("(1, 4)", m14)]
+    limited: dict = {}
+    res["search_ms"] = {}
+    tier = None
+    for rnd in ("shipped", "admitting", "resident"):
+        if rnd == "admitting":
+            tier = colcache.configure_device_tier(DeviceTierConfig(budget_mb=1024), device=dev)
+            # admission forced open, as the tier's own tests force it: the
+            # page-heat policy (phase 10's) ranks the searches' decoded
+            # metadata pages above the service runs a stack needs, and a
+            # stack is admitted only when every page of it is
+            tier.should_admit = lambda page_keys: True
+        for shape_label, mesh in shapes:
+            searcher = MeshSearcher(mesh, cfg.bucket_for)
+            for limit in (20, 0):
+                for label, r in reqs:
+                    colcache.shared_cache().clear()
+                    rq = SearchRequest(tags=r.tags, min_duration_ns=r.min_duration_ns, limit=limit)
+                    with on_mesh("c"):
+                        t1 = time.perf_counter()
+                        got = searcher.search_blocks(src_blocks_iter(), rq)
+                        res["search_ms"][f"{rnd} {shape_label} {label} limit {limit}"] = \
+                            (time.perf_counter() - t1) * 1e3
+                    hits = held(got, want[label], limit, f"{rnd} {shape_label} {label}")
+                    if limit:  # the same chunks at every 4-shard shape and round
+                        check(limited.setdefault(label, hits) == hits,
+                              f"phase 17 (c) {label} limit 20: answers differ across runs")
+                for q in (1, 8):
+                    rq = [SearchRequest(tags=r.tags, min_duration_ns=r.min_duration_ns,
+                                        limit=limit) for r in multi[:q]]
+                    colcache.shared_cache().clear()
+                    with on_mesh("c"):
+                        t1 = time.perf_counter()
+                        gots = searcher.search_blocks_multi(src_blocks_iter(), rq)
+                        res["search_ms"][f"{rnd} {shape_label} multi Q={q} limit {limit}"] = \
+                            (time.perf_counter() - t1) * 1e3
+                    for i, got in enumerate(gots):
+                        held(got, want_multi[i], limit, f"{rnd} {shape_label} multi Q={q} #{i}")
+        if tier is not None:
+            res.setdefault("tier", {})[rnd] = tier.stats()
+    check(tier.hits > 0, "phase 17 (c): no stack was served resident")
+    check(any(k[0] == "mesh_stack" for k in tier._lru), "phase 17 (c): no resident mesh stack")
+    res["tier_avoided_bytes"] = tier.avoided_bytes
+    colcache.configure_device_tier(None, device=dev)
+    print(f"phase 17 (c) MeshSearcher over 2 x {src_metas[0].total_spans} spans on "
+          f"{', '.join(s for s, _ in shapes)}: {len(reqs)} searches and multi Q=1/8 at limit 20 "
+          "and unbounded, shipped, admitting and resident == the one-device DB (limited: a whole "
+          f"subset, equal across shapes and rounds) | tier {res['tier']['resident']}, avoided "
+          f"{tier.avoided_bytes} B | {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ------------------------------------------------------------ (d)
+    t0 = time.perf_counter()
+    res["metrics"] = []
+    for q in queries:
+        plan = plan_of(q)
+        one = M.make_accumulator(plan, device=dev)
+        for m in src_metas:
+            M.evaluate_block(plan, VtpuBackendBlock(m, src_be, cfg), one)
+        acc = M.HostAccumulator(plan)
+        ev = MeshMetricsEvaluator(m14, cfg.bucket_for)
+        with on_mesh("d"):
+            t1 = time.perf_counter()
+            ev.evaluate_blocks(src_blocks_iter(), plan, acc)
+            ms = (time.perf_counter() - t1) * 1e3
+        check(np.array_equal(acc.counts, one.merged_counts()),
+              f"phase 17 (d) {q}: mesh counts != the one-device accumulator's")
+        check(acc.to_wire()["series"] == one.to_wire()["series"] and acc.counts.any(),
+              f"phase 17 (d) {q}: wire differs or empty")
+        res["metrics"].append({"query": q, "ms": ms, **ev.last_stats})
+    # the mesh bincount over phase 4's spans, a batch a shard
+    plan = plan_of(queries[-1])
+    one = M.make_accumulator(plan, device=dev)
+    run = make_sharded_bincount(m14, plan.n_slots)
+    total = np.zeros(plan.n_slots, np.int64)
+    for i in range(0, len(batches), 4):
+        group = []
+        for bt in batches[i:i + 4]:
+            r = M.eval_batch(plan, bt, bt.dictionary, one.series)
+            one.add(r)
+            s, w = pk.compress_slot_runs(r.slots[r.slots >= 0])
+            group.append((s, np.ones(len(s), np.int32) if w is None else w))
+        pad = max(len(s) for s, _ in group)
+        sl = np.full((4, pad), -1, np.int32)
+        wl = np.zeros((4, pad), np.int32)
+        for j, (s, w) in enumerate(group):
+            sl[j, :len(s)], wl[j, :len(s)] = s, w
+        with on_mesh("d"):
+            total += run(sl.reshape(1, 4, pad), wl.reshape(1, 4, pad)).sum(axis=0)
+    check(np.array_equal(total, one.merged_counts()) and total.any(),
+          "phase 17 (d): the mesh bincount over phase 4's spans != the one-device accumulator")
+    res["metrics_spans"] = sum(bt.num_spans for bt in batches)
+    eval_ms = ", ".join(f"{r['ms']:.0f}" for r in res["metrics"])
+    print(f"phase 17 (d) MeshMetricsEvaluator: {len(queries)} queries over the 2 blocks == the "
+          f"one-device accumulator ({eval_ms} ms; "
+          f"{[r['dispatches'] for r in res['metrics']]} dispatches); the mesh bincount over "
+          f"{res['metrics_spans']} spans of phase 4 == it | {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # ------------------------------------------------------------ (f)
+    t0 = time.perf_counter()
+    # the default compaction_device_shards = 0 takes every device the seam
+    # reports; here the seam reports the phase's device list
+    seam = pmesh.local_devices
+    pmesh.local_devices = lambda device: list(devices)
+    try:
+        mdb = TempoDB(DBConfig(backend="local", backend_path=pair_root), device=dev)
+        mesh_f = mdb.compaction_mesh()
+    finally:
+        pmesh.local_devices = seam
+    one_db = TempoDB(DBConfig(backend="local", backend_path=pair_root,
+                              compaction_device_shards=1), device=dev)
+    try:
+        check(mesh_f is not None and mesh_f.size == len(devices),
+              "phase 17 (f): the DB built no mesh through the seam")
+        for d in (mdb, one_db):
+            d.blocklist.update(tenant, adds=metas)
+        ids = [m.block_id for m in metas]
+        mq, oq = Querier(mdb), Querier(one_db)
+        f_reqs = [SearchRequest(limit=0, **kw) for _, kw in MESH_SEARCHES] + \
+            [SearchRequest(tags={"service": s}, min_duration_ns=990_000_000, limit=0)
+             for s in MESH_SERVICES[:3]]
+        for r in f_reqs:
+            w = _hits(one_db.search(tenant, r))
+            with on_mesh("f"):
+                got_db = mdb.search(tenant, r)
+                got_q = mq.search_block_batch(tenant, ids, r)
+            check(_hits(got_db) == w, f"phase 17 (f) db.search {r.tags}")
+            check(_hits(got_q) == w, f"phase 17 (f) search_block_batch {r.tags}")
+        with on_mesh("f"):
+            gots_db = mdb.search_multi(tenant, f_reqs)
+            gots_q = mq.search_block_batch_multi(tenant, ids, f_reqs)
+        for got, r in zip(gots_db, f_reqs):
+            check(_hits(got) == _hits(one_db.search(tenant, r)), "phase 17 (f) search_multi")
+        for got, r in zip(gots_q, f_reqs):
+            check(_hits(got) == _hits(oq.search_block_batch(tenant, ids, r)),
+                  "phase 17 (f) search_block_batch_multi")
+        for q in queries[1:]:  # the compiled tier or a step-partial rule takes none of these
+            with on_mesh("f"):
+                t1 = time.perf_counter()
+                got = mq.query_range_blocks(tenant, ids, q, BASE_S, BASE_S + 3600, 60)
+                res["ms"][f"query_range {q}"] = (time.perf_counter() - t1) * 1e3
+            want_w = oq.query_range_blocks(tenant, ids, q, BASE_S, BASE_S + 3600, 60)
+            check(got["series"] == want_w["series"] and got["series"],
+                  f"phase 17 (f) query_range_blocks {q}")
+        with on_mesh("f"):
+            t1 = time.perf_counter()
+            n_compacted = mdb.compact_once(tenant)
+            res["ms"]["compact_once"] = (time.perf_counter() - t1) * 1e3
+        check(n_compacted == 1, "phase 17 (f): compact_once")
+        (merged,) = mdb.blocklist.metas(tenant)
+        check_same_blocks(block_objects(pair_root, tenant, merged.block_id, drop_id=True), ref,
+                          "phase 17 (f) compact_once over the mesh vs (b)'s one-device merge")
+    finally:
+        mdb.shutdown()
+        one_db.shutdown()
+    text = umetrics.expose()
+    series = metric_series(text, "tempo_tpu_device_dispatches_total")
+    labels = {dict(k).get("kernel"): v for k, v in series.items()}
+    for k in MESH_LABELS:
+        check(labels.get(k, 0) > 0, f"phase 17: /metrics has no dispatches of {k}")
+    res["dispatches"] = {k: labels[k] for k in MESH_LABELS}
+    print(f"phase 17 (f) TempoDB through the seam ({mesh_f.shape}): search, "
+          "search_multi, search_block_batch(_multi), query_range_blocks == a one-device DB; "
+          f"compact_once byte-equal to (b) | /metrics dispatches {res['dispatches']} | "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    res["launches"] = launches
+    res["launches_by_step"] = by_step
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def rle_kernel_check(torch, dev, lib, stream, src_blocks: str, rng) -> dict:
+    """Phase 17 (e): rle_cols_hit against its plain version at a mesh
+    search's shard shape (block A's first row group's service runs,
+    padded to a power of two, n = its bucket) in-set, live and batched at
+    Q = 8, and over padding (zero-length NO_MATCH runs; runs short of n)
+    and truncation (runs past n), then timed at Q = 1 and Q = 8."""
+    import numpy as np
+
+    from tempo_tpu_torch.backend import LocalBackend, TypedBackend
+    from tempo_tpu_torch.db import DBConfig, TempoDB
+    from tempo_tpu_torch.encoding.common import BlockConfig
+    from tempo_tpu_torch.encoding.vtpu.block import VtpuBackendBlock
+    from tempo_tpu_torch.ops import _build
+    from tempo_tpu_torch.ops import pallas_kernels as pk
+
+    cfg = BlockConfig()
+    db = TempoDB(DBConfig(backend="local", backend_path=src_blocks, compaction_device_shards=1),
+                 device="cpu")
+    db.poll_now()
+    meta = db.blocklist.metas("smoke")[0]
+    db.shutdown()
+    blk = VtpuBackendBlock(meta, TypedBackend(LocalBackend(src_blocks)), cfg)
+    rg = blk.index().row_groups[0]
+    v_np, l_np = blk.encoded_column(rg, "service").runs()
+    n = cfg.bucket_for(rg.n_spans)
+    rp = 1 << (max(8, len(l_np)) - 1).bit_length()
+    values = np.full((1, 1, rp), 0xFFFFFFFF, np.uint32)
+    lengths = np.zeros((1, 1, rp), np.int32)
+    values[0, 0, :len(v_np)], lengths[0, 0, :len(l_np)] = v_np, l_np
+    K = 64
+    d = blk.dictionary()
+    svc = [d.get(s) for s in MESH_SERVICES]
+    res: dict = {"cases": 0}
+
+    def t(a):
+        return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(dev)
+
+    def case(values_, lengths_, codes_, live_, hit_, n_, label):
+        args = [torch.from_numpy(x.astype(np.int64) if x.dtype == np.uint32 else x)
+                if x is not None else None for x in (values_, lengths_, codes_, live_, hit_)]
+        want = pk.rle_hit_lanes(args[0], args[1], args[2], n_, live=args[3], hit=args[4])
+        got = pk.rle_hit_lanes(*(None if x is None else x.to(dev) for x in args[:3]), n_,
+                               live=None if args[3] is None else args[3].to(dev),
+                               hit=None if args[4] is None else args[4].to(dev))
+        check(torch.equal(got.cpu(), want), f"phase 17 (e) rle_cols_hit {label}: kernel != plain")
+        res["cases"] += 1
+        return got
+
+    codes1 = np.full((1, 1, 1, K), 0xFFFFFFFF, np.uint32)
+    codes1[0, 0, 0, :2] = svc[:2]
+    codes8 = np.full((1, 8, 1, K), 0xFFFFFFFF, np.uint32)
+    for q in range(8):
+        codes8[0, q, 0, : q + 1] = svc[: q + 1]
+    live8 = np.ones((1, 8, 1), bool)
+    live8[0, 7, 0] = False  # a dead column: every row
+    valid = np.zeros((1, n), bool)
+    valid[0, : rg.n_spans] = True
+    case(values, lengths, codes1, None, valid, n, "in-set")
+    case(values, lengths, codes8, live8, valid, n, "batched Q=8 with live")
+    case(values, None, codes1, None, None, rp, "a run a row")
+    short = lengths.copy()
+    short[0, 0, :len(l_np) // 2] = 0  # zero-length runs: rows past the total
+    case(values, short, codes8, live8, None, n, "padding")
+    long_ = lengths.copy()
+    long_[0, 0, 0] = n + 5  # the first run overruns n: every later one is cut
+    case(values, long_, codes8, live8, valid, n, "truncation")
+    sent = values.copy()
+    sent[0, 0, 1] = 0xFFFFFFFF
+    case(sent, lengths, codes8, live8, valid, n, "a NO_MATCH value")
+    for u, q, c in ((3, 2, 2), (2, 8, 3)):
+        vv = rng.integers(0, 8, (u, c, 300)).astype(np.uint32)
+        ll = rng.integers(0, 40, (u, c, 300)).astype(np.int32)
+        cc = np.full((u, q, c, 16), 0xFFFFFFFF, np.uint32)
+        cc[..., :3] = rng.integers(0, 8, (u, q, c, 3))
+        case(vv, ll, cc, rng.random((u, q, c)) < 0.7, rng.random((u, 5000)) < 0.9, 5000,
+             f"units {u} lanes {q} columns {c}")
+
+    # timing at the shard shape: the C entry point in a CUDA graph
+    for q, codes_ in ((1, codes1), (8, codes8)):
+        live_ = None if q == 1 else live8
+        dv, dl, dc = t(values), t(lengths), t(codes_)
+        dlive = None if live_ is None else torch.from_numpy(live_).to(dev)
+        dvalid = torch.from_numpy(valid).to(dev)
+        starts = torch.empty((1, 1, rp), dtype=torch.int64, device=dev)
+        out = torch.empty((1, q, n), dtype=torch.bool, device=dev)
+
+        def go(dv=dv, dl=dl, dc=dc, dlive=dlive, out=out, starts=starts, q=q):
+            _build.check(lib.tt_rle_cols_hit(
+                dv.data_ptr(), dl.data_ptr(), 1, 1, rp, dc.data_ptr(), K, q,
+                None if dlive is None else dlive.data_ptr(), dvalid.data_ptr(), n,
+                starts.data_ptr(), out.data_ptr(), stream()), "rle_cols_hit")
+
+        # its two launches apart: the run starts, then the hit grid over them
+        def go_starts(dl=dl, starts=starts):
+            _build.check(lib.tt_rle_run_starts(dl.data_ptr(), 1, 1, rp, starts.data_ptr(),
+                                               stream()), "rle_cols_hit starts")
+
+        def go_hit(dv=dv, dc=dc, dlive=dlive, out=out, starts=starts, q=q):
+            _build.check(lib.tt_rle_hit(
+                dv.data_ptr(), starts.data_ptr(), 1, 1, rp, dc.data_ptr(), K, q,
+                None if dlive is None else dlive.data_ptr(), dvalid.data_ptr(), n,
+                out.data_ptr(), stream()), "rle_cols_hit hit")
+
+        go()
+        check(torch.equal(out.cpu(), pk.rle_hit_lanes(
+            torch.from_numpy(values.astype(np.int64)), torch.from_numpy(lengths),
+            torch.from_numpy(codes_.astype(np.int64)), n,
+            live=None if live_ is None else torch.from_numpy(live_),
+            hit=torch.from_numpy(valid))), "phase 17 (e): the C entry point != plain")
+        before = pk.rle_cols_hit.launches
+        ms = kernel_ms(torch, [go])
+        starts_ms = kernel_ms(torch, [go_starts])
+        hit_ms = kernel_ms(torch, [go_hit])
+        path = path_ms(torch, lambda: pk.rle_hit_lanes(dv, dl, dc, n, live=dlive, hit=dvalid))
+        plain = path_ms(torch, lambda: pk._rle_hit_plain(dv, dl, dc, dlive, dvalid, n))
+        pk.rle_cols_hit.launches = before  # the comparison's launches are not the path's
+        cs = [dc[0, j, 0][dc[0, j, 0] != -1] for j in range(q)]
+        n_rows = int(lengths.sum())
+
+        def chain():
+            return [torch.repeat_interleave(torch.isin(dv[0, 0], cs[j]), dl[0, 0],
+                                            output_size=n_rows) for j in range(q)]
+
+        libms = path_ms(torch, chain)
+        # values and lengths read once, the lane's codes and the valid mask
+        # once, the masks written once; the function needs one in-set test
+        # a run and lane (a compare per code, over the runs that hold rows)
+        # and one AND a row and lane as the verdicts expand
+        nbytes = rp * 8 + q * K * 4 + n + q * n
+        n_runs = int((lengths > 0).sum())
+        bnd, by = bound_ms(nbytes, q * (n_runs * K + n))
+        res[f"Q={q}"] = dict(shape=f"U=1 C=1 runs={len(l_np)} (run_pad {rp}) K={K} n={n} Q={q}",
+                             max_abs_err=0, ms=ms, starts_ms=starts_ms, hit_ms=hit_ms,
+                             path_ms=path, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                             library_ms=libms)
+        print(f"phase 17 (e) rle_cols_hit Q={q} ({res[f'Q={q}']['shape']}): kernel {ms:.5f} ms "
+              f"({bnd / ms:.1%} of bound; alone: run starts {starts_ms:.5f} ms, hit grid "
+              f"{hit_ms:.5f} ms), path {path:.4f} ms, plain {plain:.4f} ms, torch.isin + "
+              f"repeat_interleave chain {libms:.4f} ms, bound {bnd:.5f} ms ({by})", flush=True)
+    print(f"phase 17 (e) rle_cols_hit: {res['cases']} cases == plain (in-set, batched Q=8 with a "
+          "dead column, a run a row, padding, truncation, a NO_MATCH value, several units)",
+          flush=True)
     return res
 
 
@@ -7853,6 +8459,9 @@ def main() -> int:
     # before phase 7 compacts them
     rc_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_rc_")
     shutil.copytree(os.path.join(db_dir.name, "blocks"), os.path.join(rc_dir.name, "src", "blocks"))
+    # and phase 17's: the same two blocks
+    mesh_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_")
+    shutil.copytree(os.path.join(db_dir.name, "blocks"), os.path.join(mesh_dir.name, "src"))
     for k in block_kernels:
         check(blocks["launches"][k] > 0, f"block path: {k} never launched")
     blocks["phase_s"] = time.perf_counter() - t0
@@ -8150,6 +8759,34 @@ def main() -> int:
                                            for k, v in store["write_ms"].items())
           + f" | launches on the path {store['launches']}", flush=True)
 
+    # ---------------------------------------------------------------- 17
+    # a slow host sheds phase 17 (c)'s repeat on the (2, 2) mesh (SHED17_S)
+    elapsed = time.perf_counter() - t_script
+    shed17 = elapsed > SHED17_S
+    if shed17:
+        sheds.append("phase 17 (c) searches on the (2, 2) mesh")
+    print(f"phase 17 depth: phases 0-16 took {elapsed:.1f} s -> "
+          + ("(c)'s (2, 2) repeat shed" if shed17 else "nothing shed"), flush=True)
+    mesh = mesh_phase(seed, mesh_dir.name, a, b, os.path.join(mesh_dir.name, "src"), queries,
+                      plan_of, batches, step=(fn, ex, out), shed=shed17)
+    check_mesh_launches(mesh, "mesh path")
+    print(f"phase 17 mesh ({smi}): {mesh['phase_s']:.1f} s | step ms {mesh['step']} | merge ms "
+          f"{mesh['compact_ms']} | launches on the mesh path (mesh calls only): "
+          f"{mesh['launches']} | by step {mesh['launches_by_step']}", flush=True)
+    rle_times = rle_kernel_check(torch, dev, lib, stream, os.path.join(mesh_dir.name, "src"), rng)
+    kernels["rle_cols_hit"] = dict(rle_times["Q=1"], launches=mesh["launches"]["rle_cols_hit"],
+                                   q8=rle_times["Q=8"], cases=rle_times["cases"])
+    if torch.cuda.device_count() > 1:
+        n_cards = torch.cuda.device_count()
+        distinct = [torch.device("cuda", i % n_cards) for i in range(4)]
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_cards_") as cards_root:
+            shutil.copytree(os.path.join(mesh_dir.name, "src"), os.path.join(cards_root, "src"))
+            mesh["distinct_cards"] = mesh_phase(
+                seed, cards_root, a, b, os.path.join(cards_root, "src"), queries, plan_of,
+                batches, step=(fn, ex, out), devices=distinct, shed=True)
+        check_mesh_launches(mesh["distinct_cards"], "mesh path over distinct cards")
+    mesh_dir.cleanup()
+
     source = {k: "tempo_tpu_torch/csrc/kernels.cu"
               for k in ("seg_bincount", "in_set_scan", "u64_range_scan")}
     source.update({k: "tempo_tpu_torch/csrc/codec_kernels.cu"
@@ -8157,6 +8794,7 @@ def main() -> int:
     source.update({k: "tempo_tpu_torch/csrc/graph_sketch_kernels.cu"
                    for k in GRAPH_SKETCH_KERNELS})
     source.update({k: "tempo_tpu_torch/csrc/tail_kernels.cu" for k in TAIL_KERNELS})
+    source["rle_cols_hit"] = "tempo_tpu_torch/csrc/rle_kernels.cu"
     replaces = {
         "seg_bincount": "tempo_tpu/ops/pallas_kernels.py:194",
         "in_set_scan": "tempo_tpu/ops/pallas_kernels.py:55",
@@ -8179,24 +8817,26 @@ def main() -> int:
         "root_path_sums": "tempo_tpu/ops/graph.py:106",
         "tail_fold": "tempo_tpu/ops/ingest_tail.py:234",
         "tail_scan": "tempo_tpu/ops/ingest_tail.py:410",
+        "rle_cols_hit": "tempo_tpu/ops/pallas_kernels.py:478",
     }
     for k in kernels:
         kernels[k]["launches_cluster_path"] = cluster["launches_total"][k]
         kernels[k]["launches_receivers_path"] = receivers["launches"][k]
         kernels[k]["launches_objectstore_path"] = store["launches"][k]
+        kernels[k]["launches_mesh_path"] = mesh["launches"][k]
     # the second querier's, from its /status/device: one launch a dispatch
     for k, dispatch in (("seg_bincount", "seg_bincount"), ("root_path_sums", "graph_critical_path")):
         kernels[k]["launches_cluster_querier_1"] = cluster["querier_b_dispatches"].get(dispatch, 0)
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": source[k], "replaces": replaces[k], **kernels[k]}
         for k in ("seg_bincount", "in_set_scan", "u64_range_scan") + CODEC_KERNELS
-        + RESIDENT_KERNELS + GRAPH_SKETCH_KERNELS + TAIL_KERNELS
+        + RESIDENT_KERNELS + GRAPH_SKETCH_KERNELS + TAIL_KERNELS + ("rle_cols_hit",)
     ], "ptxas": ptxas, "compaction_step_ms": statistics.median(step_s) * 1e3,
         "compaction_step_torch_op_sketch_ms": statistics.median(plain_step_s) * 1e3,
         "query_ms": query_ms, "blocks": blocks, "db": db, "app": app, "standing": standing,
         "tier": tier, "graph": graph, "tail": tail, "resultcache": rc, "cluster": cluster,
         "receivers": receivers, "grpc_transport": receivers["grpc_transport"],
-        "objectstore": store, "shed": sheds,
+        "objectstore": store, "mesh": mesh, "shed": sheds,
         "phases_0_6_s": phases_0_6_s,
         "phase_2_graph_sketch_s": graph_sketch_s,
         "script_s": time.perf_counter() - t_script}

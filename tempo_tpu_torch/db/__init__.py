@@ -1,13 +1,17 @@
 """TempoDB — the storage engine façade.
 
-Port of tempo_tpu/db/__init__.py on one device. TempoDB takes `device`
-(CUDA unless "cpu" is passed; raises without CUDA) and hands it to the
-block writer and the compactor, whose sketch plane (bloom + HLL) runs
-there; search, find and TraceQL run on the host, as the reference's do
-on one device. Not ported yet, and refused rather than ignored: the
-mesh paths (`compaction_device_shards` > 1 or several cards, ROADMAP
-Queue 1 item 12). The backend cache (`cache`: none | memory | memcached |
-redis, optionally write-behind) wraps only a backend the DB builds
+Port of tempo_tpu/db/__init__.py. TempoDB takes `device` (CUDA unless
+"cpu" is passed; raises without CUDA) and hands it to the block writer
+and the compactor, whose sketch plane (bloom + HLL) runs there; find
+and TraceQL run on the host. With more than one local device
+(parallel/mesh.local_devices: every card for CUDA) and the default
+`compaction_device_shards` = 0, or with that knob > 1 where the devices
+allow it, the DB builds a mesh as the reference does on a multi-chip
+host: compaction tiles shard over it, multi-block searches and
+search_multi run the mesh scans (MeshSearcher), and the querier's
+query_range jobs the mesh bincount (MeshMetricsEvaluator). The backend
+cache (`cache`: none | memory | memcached | redis, optionally
+write-behind) wraps only a backend the DB builds
 itself, and the shard-partial result cache (`result_cache`,
 tempo_tpu_torch/resultcache) borrows its client as the remote tier.
 
@@ -76,9 +80,10 @@ class DBConfig:
     build_tenant_index: bool = False
     stale_tenant_index_s: float = 0.0
     max_spans_per_trace: int = 0
-    # >1 (or 0 with more than one card attached): the sharded compaction
-    # and search mesh of the multi-GPU slice, which raises
-    # NotImplementedError until then; 0 on one card, or 1: one device
+    # >1: compaction tiles are ID-range-sharded over this many local
+    # devices, block sketches merge over the mesh, and multi-block
+    # searches and query_range jobs run the mesh scans; 0 = all local
+    # devices when more than one is attached, 1 = force one device
     compaction_device_shards: int = 0
     # failure-domain hardening (backend/faults.py taxonomy):
     # consecutive read failures before a block is quarantined (skipped by
@@ -189,7 +194,8 @@ class TempoDB:
     def block_failure_recorder(self, tenant: str):
         """Callback feeding the blocklist quarantine: one failed block
         read, weighted double for checksum failures (definitively the
-        block's fault, where a connection reset may not be)."""
+        block's fault, where a connection reset may not be). Handed to
+        the mesh search/metrics paths, which attribute errors per block."""
         from tempo_tpu_torch.encoding.vtpu.codec import CorruptPage
 
         def record(block_id: str, e: Exception):
@@ -199,6 +205,9 @@ class TempoDB:
             )
 
         return record
+
+    def block_success_recorder(self, tenant: str):
+        return lambda block_id: self.blocklist.record_block_success(tenant, block_id)
 
     def guard_block(self, tenant: str, block_id: str, fn, benign: tuple = ()):
         """Run one block-scoped read job under failure-domain accounting:
@@ -236,31 +245,47 @@ class TempoDB:
         )
 
     def compaction_mesh(self):
-        """Device mesh for sharded compaction: None on one device. The
-        mesh (more than one card, or compaction_device_shards > 1) is the
-        multi-GPU slice and raises NotImplementedError until then."""
+        """Device mesh for sharded compaction, search and metrics, or None:
+        want = every local device (compaction_device_shards = 0) or at
+        most that many, and a mesh only when want > 1."""
         if self._compaction_mesh is False:
             n = self.cfg.compaction_device_shards
+            mesh = None
             if n != 1:
-                avail = torch.cuda.device_count() if self.device.type == "cuda" else 1
-                want = avail if n == 0 else n
+                from tempo_tpu_torch.parallel import mesh as pmesh
+
+                devs = pmesh.local_devices(self.device)
+                avail = len(devs)
+                want = avail if n == 0 else min(n, avail)
                 if want > 1:
-                    raise NotImplementedError(
-                        f"tempo_tpu_torch: a {want}-device compaction mesh is "
-                        "not ported yet (ROADMAP Queue 1 item 12); set "
-                        "compaction_device_shards=1")
-            self._compaction_mesh = None
+                    mesh = pmesh.compaction_mesh(want, devices=devs)
+            self._compaction_mesh = mesh
         return self._compaction_mesh
 
     def mesh_searcher(self):
-        """Sharded multi-block searcher: None on one device (a mesh
-        raises in compaction_mesh)."""
-        return self.compaction_mesh()
+        """Lazy sharded multi-block searcher (None without a mesh)."""
+        if getattr(self, "_mesh_searcher", None) is None:
+            mesh = self.compaction_mesh()
+            if mesh is None:
+                self._mesh_searcher = False
+            else:
+                from tempo_tpu_torch.parallel.search import MeshSearcher
+
+                self._mesh_searcher = MeshSearcher(mesh, self.cfg.block.bucket_for)
+        return self._mesh_searcher or None
 
     def mesh_metrics_evaluator(self):
-        """Sharded query_range evaluator: None on one device (a mesh
-        raises in compaction_mesh)."""
-        return self.compaction_mesh()
+        """Lazy sharded query_range evaluator (None without a mesh) —
+        the metrics analog of mesh_searcher."""
+        if getattr(self, "_mesh_metrics", None) is None:
+            mesh = self.compaction_mesh()
+            if mesh is None:
+                self._mesh_metrics = False
+            else:
+                from tempo_tpu_torch.parallel.metrics import MeshMetricsEvaluator
+
+                self._mesh_metrics = MeshMetricsEvaluator(mesh, self.cfg.block.bucket_for)
+        return self._mesh_metrics or None
 
     # ------------------------------------------------------------------
     # writer
@@ -327,14 +352,28 @@ class TempoDB:
     def search(self, tenant: str, req: SearchRequest) -> SearchResponse:
         """Tag search across blocks overlapping the request window
         (reference: tempodb.Search:357; sharding happens above us in the
-        frontend, P4). On one device the blocks are searched on JobPool
-        threads with the host read path; the reference's sharded mesh
-        scan (parallel/search.MeshSearcher) is the multi-GPU slice."""
+        frontend, P4).
+
+        With a device mesh, multi-block batches route through the
+        sharded scan (parallel/search.MeshSearcher): row groups from
+        many blocks stack over the mesh and each device scans its shard
+        with the fused predicate kernel. Otherwise the blocks are
+        searched on JobPool threads with the host read path."""
         metas = [
             m for m in self.blocklist.metas(tenant)
             if _overlaps(m, req.start_seconds, req.end_seconds)
         ]
-        self.mesh_searcher()  # None on one device; a mesh raises
+        searcher = self.mesh_searcher()
+        if searcher is not None and len(metas) > 1 and all(m.version == "vtpu1" for m in metas):
+            blocks = (
+                self.encoding_for(m.version).open_block(m, self.backend, self.cfg.block)
+                for m in metas
+            )  # lazy: blocks past a satisfied limit are never opened
+            return searcher.search_blocks(
+                blocks, req,
+                on_block_error=self.block_failure_recorder(tenant),
+                on_block_ok=self.block_success_recorder(tenant),
+            )
         out = SearchResponse()
 
         def job(meta):
@@ -370,9 +409,31 @@ class TempoDB:
         return out
 
     def search_multi(self, tenant: str, reqs: list) -> list:
-        """N tag searches, one SearchResponse per request, in order. On
-        one device there is no batched mesh scan, so this is N search()
-        calls — the reference's path without a mesh."""
+        """N concurrent tag searches, coalesced: with a device mesh the
+        batched multi-query scan ships (or finds resident) each row
+        group's run payload once and evaluates every request's
+        predicates in fused launches (parallel/search.MeshSearcher.
+        search_blocks_multi). Without one, N sequential search() calls.
+        Returns one SearchResponse per request, in order."""
+        reqs = list(reqs)
+        if len(reqs) < 2:
+            return [self.search(tenant, r) for r in reqs]
+        metas = [
+            m for m in self.blocklist.metas(tenant)
+            if any(_overlaps(m, r.start_seconds, r.end_seconds) for r in reqs)
+        ]
+        searcher = self.mesh_searcher()
+        if (searcher is not None and len(metas) > 1
+                and all(m.version == "vtpu1" for m in metas)):
+            blocks = (
+                self.encoding_for(m.version).open_block(m, self.backend, self.cfg.block)
+                for m in metas
+            )
+            return searcher.search_blocks_multi(
+                blocks, reqs,
+                on_block_error=self.block_failure_recorder(tenant),
+                on_block_ok=self.block_success_recorder(tenant),
+            )
         return [self.search(tenant, r) for r in reqs]
 
     def search_tags(self, tenant: str) -> set:

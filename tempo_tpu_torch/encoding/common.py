@@ -2,10 +2,9 @@
 
 Port of tempo_tpu/encoding/common.py (BlockConfig, CompactionOptions,
 SearchRequest, TraceSearchMetadata, SearchResponse, with the wire forms
-the frontend<->querier jobs carry). The port compacts on one device:
-CompactionOptions.mesh must stay None and payload_plane "host"
-(VtpuCompactor raises NotImplementedError otherwise) until the
-multi-GPU slice.
+the frontend<->querier jobs carry). CompactionOptions.mesh is a
+parallel/mesh.Mesh (or None: one device), and payload_plane "device"
+needs one.
 
 Reference: tempodb/encoding/common/interfaces.go:58-97 (BackendBlock,
 WALBlock, Compactor, CompactionOptions) and config.go:10 (BlockConfig:
@@ -62,16 +61,17 @@ class CompactionOptions:
     #  are spans)
     max_spans_per_trace: int = 0
     on_spans_dropped: object = None  # callback(n_dropped)
-    # device mesh for sharded compaction (the JAX package's
-    # _ShardedTileMerger). The port compacts on one device: it must stay
-    # None until the multi-GPU slice.
+    # device mesh (parallel/mesh.Mesh) for sharded compaction: tiles are
+    # ID-range-sharded over its devices and block sketches merge over its
+    # range axis (encoding/vtpu/compactor.py); None = one device
     mesh: object = None
     # tile merge planner: auto (native C++ k-way when built, else
     # device), native, device (single-device lexsort on the compactor's
     # device) or numpy (the single-threaded host mirror)
     merge_path: str = "auto"
-    # where payload columns live during a mesh-sharded merge; the port
-    # has only "host" (the device payload plane needs a mesh)
+    # where payload columns live during a mesh-sharded merge: "host"
+    # (perm/keep fetched per tile, columns gathered in numpy) or "device"
+    # (merged rows gathered on the shards' devices, fetched once a flush)
     payload_plane: str = "host"
     # zero-decode fast path (host merge only): row groups whose trace-ID
     # range overlaps no other input block relocate their compressed

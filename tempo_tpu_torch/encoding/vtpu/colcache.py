@@ -366,18 +366,23 @@ class DeviceTier:
                 self.misses += 1
         return res
 
-    def _to_device(self, kernel: str, arrays: dict, nbytes: int) -> dict:
+    def _to_device(self, kernel: str, arrays: dict, nbytes: int,
+                   devices: dict | None = None) -> dict:
         """The one h2d copy of an entry, measured where it happens, so
         the tier can never LOWER apparent transfer by hiding its own
-        warm-up traffic."""
+        warm-up traffic. `devices` sends named arrays to other devices
+        than the tier's (a mesh's run stack: a shard's arrays on its
+        card)."""
         from tempo_tpu_torch.util import devicetiming
 
-        dev = {name: device_tensor(a, self.device) for name, a in arrays.items()}
+        devices = devices or {}
+        dev = {name: device_tensor(a, devices.get(name, self.device))
+               for name, a in arrays.items()}
         devicetiming.count_transfer(kernel, h2d=nbytes)
         return dev
 
     def offer(self, key, codec: str, arrays: dict, meta: dict | None = None,
-              host_bytes: int = 0, page_keys=None) -> bool:
+              host_bytes: int = 0, page_keys=None, devices: dict | None = None) -> bool:
         """Admission path: host numpy arrays of one encoded page form go
         to the device HERE (the one h2d this page pays from now on) iff
         the page is in the admission set and fits the pressure-scaled
@@ -385,7 +390,9 @@ class DeviceTier:
 
         page_keys: the (block_id, column, offset) identities backing
         this entry (defaults to [key] when key has that shape); the
-        admission set is consulted per page."""
+        admission set is consulted per page. devices: array name ->
+        device, for arrays that live elsewhere than the tier's device
+        (their bytes count against the budget all the same)."""
         with self._lock:
             if key in self._lru:
                 self._lru.move_to_end(key)
@@ -398,7 +405,7 @@ class DeviceTier:
         nbytes = sum(int(a.nbytes) for a in arrays.values())
         if nbytes > limit or nbytes <= 0:
             return False
-        dev = self._to_device("device_tier_admit", arrays, nbytes)
+        dev = self._to_device("device_tier_admit", arrays, nbytes, devices)
         res = _Resident(codec, dev, meta or {}, host_bytes or nbytes)
         with self._lock:
             prev = self._lru.get(key)

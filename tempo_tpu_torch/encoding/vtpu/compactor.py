@@ -1,11 +1,12 @@
 """Block compactor: k blocks -> 1 block, streamed through bounded tiles.
 
-Port of tempo_tpu/encoding/vtpu/compactor.py on one device: compact()
-with the zero-decode fast path, the block streams, tile production, the
-emit stage, the three merge planners and the combine semantics. The
-mesh-sharded tile merger and the device payload plane arrive with the
-multi-GPU slice (a mesh or payload_plane="device" raises
-NotImplementedError).
+Port of tempo_tpu/encoding/vtpu/compactor.py: compact() with the
+zero-decode fast path, the block streams, tile production, the emit
+stage, the three merge planners, the combine semantics, and with a mesh
+(CompactionOptions.mesh, parallel/mesh.Mesh) the mesh-sharded tile
+merger (_ShardedTileMerger: payload on the host) and the device payload
+plane (_DevicePayloadTileMerger, payload_plane="device"). Output blocks
+are byte-identical on every path.
 
 Reference analog: tempodb/encoding/vparquet/compactor.go:31-215 — k-way
 bookmark merge of parquet rows that never materializes a whole block
@@ -26,9 +27,14 @@ share an ID with differing payload (compactor.go:76-127).
   (stable lexsort over 128-bit trace-ID + span-ID limbs, first-occurrence
   mask) over the bucket-padded tile on the compactor's device; "numpy"
   is the single-threaded host mirror.
-- **Sketch plane**: every merged batch's trace IDs feed a
-  DeviceSketchAccumulator on the compactor's device (bloom OR, HLL max),
-  fetched once at the end.
+- **Sketch plane**: without a mesh, every merged batch's trace IDs feed
+  a DeviceSketchAccumulator on the compactor's device (bloom OR, HLL
+  max), fetched once at the end. With a mesh, each tile is partitioned
+  into uniform trace-ID ranges (parallel/compaction.py), each shard
+  merges on its device, and the shards' bloom/HLL/count-min partials
+  merge over the range axis into per-window accumulators that stay on
+  the devices across tiles (OR, max and add are associative, so tile
+  partials compose exactly).
 - **Combine**: duplicate (traceID, spanID) runs are not first-wins
   dropped. The survivor is the run member with the richest payload
   (max duration, then attr count), the attrs of all members are
@@ -57,7 +63,8 @@ from tempo_tpu_torch.model.columnar import (
     Dictionary,
     SpanBatch,
 )
-from tempo_tpu_torch.ops import merge
+from tempo_tpu_torch.ops import bloom, merge, sketch
+from tempo_tpu_torch.parallel import compaction as pcomp
 from tempo_tpu_torch.parallel.compaction import plan_disjoint_runs
 from tempo_tpu_torch.util.devicetiming import count_transfer
 from tempo_tpu_torch.util.pipeline import ReadAhead, overlap_enabled, prefetch_iter
@@ -92,20 +99,22 @@ def _sketch_tee(gen, acc):
 
 
 class VtpuCompactor:
-    """Compacts blocks on one device: the sketch plane (and, with
+    """Compacts blocks: without a mesh the sketch plane (and, with
     merge_path="device", the merge plan) runs on `device` — CUDA unless
-    device="cpu" is passed; raises without CUDA. Output blocks are
-    byte-identical whichever device runs them."""
+    device="cpu" is passed; raises without CUDA. With opts.mesh every
+    tile merges over the mesh's devices. Output blocks are byte-identical
+    whichever devices run them."""
 
     def __init__(self, opts: CompactionOptions | None = None, device=None):
         self.opts = opts or CompactionOptions()
-        if self.opts.mesh is not None or self.opts.payload_plane != "host":
-            raise NotImplementedError(
-                "tempo_tpu_torch compacts on one device: mesh must be None and "
-                "payload_plane 'host' until the multi-GPU slice")
+        if self.opts.payload_plane not in ("host", "device"):
+            raise ValueError(f"unknown payload_plane {self.opts.payload_plane!r}")
+        if self.opts.payload_plane == "device" and self.opts.mesh is None:
+            raise ValueError("payload_plane='device' requires a mesh")
         if self.opts.merge_path not in ("auto", "native", "device", "numpy"):
             raise ValueError(f"unknown merge_path {self.opts.merge_path!r}")
-        self.device = _device.resolve(device)
+        self.device = (self.opts.mesh.lead if self.opts.mesh is not None
+                       else _device.resolve(device))
         self.spans_dropped = 0
         self.spans_combined = 0
         # zero-decode accounting (host fast path): pages moved verbatim
@@ -126,6 +135,9 @@ class VtpuCompactor:
         self._pending: list[SpanBatch] = []
         self._pending_rows = 0
         self._stream_resident = 0
+        self._devm = None
+        # transfer accounting of the mesh merger of the last compact()
+        self.payload_stats: dict | None = None
 
     # ------------------------------------------------------------------
     def compact(self, metas: list[BlockMeta], tenant: str, backend: TypedBackend) -> list[BlockMeta]:
@@ -146,14 +158,18 @@ class VtpuCompactor:
         # the fast path needs the remaps before any stream exists
         remaps = [b.dictionary().remap_onto(out_dict) for b in blocks]
         level = max(m.compaction_level for m in metas) + 1
-        # single-device sketch plane: per-batch async device updates
-        # overlap the host's column encode; one small D2H at the end
-        sketcher = self.sketcher = DeviceSketchAccumulator(
-            cfg, sum(m.total_objects for m in metas), device=self.device)
+        mesh = self.opts.mesh
+        sketcher = None
+        if mesh is None:
+            # single-device sketch plane: per-batch async device updates
+            # overlap the host's column encode; one small D2H at the end
+            sketcher = self.sketcher = DeviceSketchAccumulator(
+                cfg, sum(m.total_objects for m in metas), device=self.device)
 
-        # zero-decode fast path; max_spans_per_trace forces the decode
-        # path (a relocated row group can't be capped)
-        if self.opts.zero_decode and not self.opts.max_spans_per_trace:
+        # zero-decode fast path: one device only (the mesh planes stage
+        # rows to devices regardless); max_spans_per_trace forces the
+        # decode path (a relocated row group can't be capped)
+        if mesh is None and self.opts.zero_decode and not self.opts.max_spans_per_trace:
             segments = plan_disjoint_runs(
                 [[(rg.min_id, rg.max_id) for rg in b.index().row_groups]
                  for b in blocks]
@@ -166,21 +182,33 @@ class VtpuCompactor:
         streams = [
             _BlockStream(b, out_dict, remap=r) for b, r in zip(blocks, remaps)
         ]
+        devm = sharded = None
+        self._devm = None
+        if mesh is not None and self.opts.payload_plane == "device":
+            devm = self._devm = _DevicePayloadTileMerger(self.opts, metas)
+            self.payload_stats = devm.stats
+        elif mesh is not None:
+            sharded = _ShardedTileMerger.build(self.opts, metas)
+            self.payload_stats = sharded.stats
         # merge runs on a producer thread, overlapped with the consumer's
         # encode+write (native codec drops the GIL). On a single-core
         # host the overlap is pure overhead (see pipeline.overlap_enabled)
         # and the generator runs inline.
-        inner = self._stream_merge(streams, out_dict)
-        gen = _sketch_tee(inner, sketcher)
+        inner = self._stream_merge(streams, out_dict, sharded, devm)
+        gen = _sketch_tee(inner, sketcher) if sketcher else inner
         batches = prefetch_iter(gen, depth=2) if overlap_enabled() else gen
+        sketches = (devm.finish if devm else
+                    sharded.finish if sharded else sketcher.finish)
         writer = BlockWriter(tenant, backend, cfg, compaction_level=level,
                              device=self.device)
         try:
             for batch in batches:
                 writer.append_batch(batch)
-            out = writer.finish(sketches=sketcher.finish)
+            out = writer.finish(sketches=sketches)
             self.pages_reencoded += writer.pages_reencoded
             self.bytes_reencoded += writer.bytes_reencoded
+            if devm is not None:
+                self.spans_combined += devm.spans_combined
         finally:
             # stop the producer thread + per-stream readahead even when
             # write/encode fails mid-stream (a long-lived compactor daemon
@@ -359,17 +387,25 @@ class VtpuCompactor:
         return None
 
     # ------------------------------------------------------------------
-    def _stream_merge(self, streams, out_dict):
+    def _stream_merge(self, streams, out_dict, sharded=None, devm=None):
         """Generator of merged, trace-complete SpanBatches in ID order.
 
         Three stages: tile production (k-way boundary rounds), tile merge
-        (host/native/device plan), and emit (row-group-sized cuts with
-        trailing-trace holdback).
+        (host/native/device plan, the mesh's sharded plan, or the device
+        payload plane when devm is given — merged rows then surface only
+        at its flushes), and emit (row-group-sized cuts with
+        trailing-trace holdback). The emit stage sees per-tile merged
+        batches in the same order under every mode, so output row-group
+        boundaries are identical whether payload lives on host or device.
         """
         tiles = self._tile_stream(streams, out_dict)
-        merged_iter = (
-            self._merge_tile(tile, run_lengths) for tile, run_lengths in tiles
-        )
+        if devm is not None:
+            merged_iter = devm.merged_stream(tiles)
+        else:
+            merged_iter = (
+                self._merge_tile(tile, run_lengths, sharded)
+                for tile, run_lengths in tiles
+            )
         yield from self._emit_stream(merged_iter, out_dict)
 
     def _tile_stream(self, streams, out_dict):
@@ -431,6 +467,10 @@ class VtpuCompactor:
     def _feed_emit(self, merged, out_dict, final: bool):
         target = self.opts.block_config.row_group_spans
         resident = self._stream_resident + self._pending_rows
+        if self._devm is not None:
+            # tiles the device plane retains host-side for attr
+            # reconstruction count against the bounded-memory contract
+            resident += self._devm.retained_rows
         self.max_resident_rows = max(self.max_resident_rows, resident)
         if merged.num_spans:
             self._pending.append(merged)
@@ -462,11 +502,14 @@ class VtpuCompactor:
                 yield emit
 
     # ------------------------------------------------------------------
-    def _merge_tile(self, tile: SpanBatch, run_lengths: list[int]) -> SpanBatch:
-        order, keep = _plan_order_host(
-            tile, run_lengths, self.opts.block_config.bucket_for,
-            self.opts.merge_path, self.device, self.device_merge_pads,
-        )
+    def _merge_tile(self, tile: SpanBatch, run_lengths: list[int], sharded=None) -> SpanBatch:
+        if sharded is not None:
+            order, keep = sharded.merge(tile)
+        else:
+            order, keep = _plan_order_host(
+                tile, run_lengths, self.opts.block_config.bucket_for,
+                self.opts.merge_path, self.device, self.device_merge_pads,
+            )
         batch, combined = _combine_duplicates(tile, order, keep)
         self.spans_combined += combined
         return batch
@@ -634,6 +677,408 @@ def _plan_order_host(tile: SpanBatch, run_lengths: list[int], bucket_for,
     if device_pads is not None:
         device_pads.append(pad)
     return perm, keep
+
+
+def _mesh_plans(opts: CompactionOptions, metas: list[BlockMeta]) -> pcomp.CompactionPlans:
+    """The mesh mergers' sketch plans: the bloom sized from the bucketed
+    sum of input object counts, as DeviceSketchAccumulator sizes it, so
+    the mesh's block is byte-identical to the one-device block."""
+    cfg = opts.block_config
+    est_traces = cfg.bucket_for(max(1, sum(m.total_objects for m in metas)))
+    return pcomp.CompactionPlans(
+        bloom=bloom.plan(est_traces, cfg.bloom_fp, cfg.bloom_shard_size_bytes),
+        hll=sketch.HLLPlan(cfg.hll_precision),
+        cm=sketch.CMPlan(4, 1 << 12),
+    )
+
+
+def _finish_sketches(accs, plans: pcomp.CompactionPlans, kernel: str) -> dict:
+    """Block-level sketches from the per-window accumulators — the ONLY
+    device-to-host sketch copy of the job; windows merge on the host
+    (OR, max, add), as the JAX package merges them.
+
+    hll_regs/cm_counts ride along for callers beyond write_block
+    (hot-trace detection, bench recall accounting)."""
+    bloom_words, hll_regs, cm_counts, nbytes = pcomp.fetch_accumulators(accs)
+    count_transfer(kernel, d2h=nbytes)
+    est = float(sketch.hll_estimate(torch.from_numpy(hll_regs.astype(np.int64)), plans.hll))
+    return {
+        "bloom_plan": plans.bloom,
+        "bloom_words": bloom_words,
+        "hll_regs": hll_regs,
+        "cm_counts": cm_counts,
+        "est_distinct": int(est),
+    }
+
+
+class _ShardedTileMerger:
+    """Per-tile mesh-sharded merge + tile-accumulated sketches.
+
+    Tiles are partitioned into uniform trace-ID ranges; each shard runs
+    the local merge on its device and the shards' bloom/HLL/CM partials
+    merge over the range axis (parallel/compaction.make_sharded_compactor).
+    Because all spans of a trace land in one shard and tiles partition
+    the key space, concatenating shard outputs in shard order yields the
+    globally sorted order, and OR/max/add of tile sketches equals the
+    sketches of the whole block. perm/keep come back to the host every
+    tile (the payload columns are gathered there).
+    """
+
+    def __init__(self, mesh, plans, bucket_for):
+        self.mesh = mesh
+        self.plans = plans
+        self.r = mesh.shape["range"] * mesh.shape["window"]
+        self.bucket_for = bucket_for
+        self.step = pcomp.make_sharded_compactor(mesh, plans)
+        # sketch accumulators live ON DEVICE across tiles; one D2H in
+        # finish() per block
+        self._accs = pcomp.init_sketch_accumulators(mesh, plans)
+        # dispatch counts, reduction counts, per-shard row balance and
+        # transfer volumes of the job
+        self.stats = {
+            "tiles": 0, "dispatches": 0, "collectives": 0,
+            "h2d_bytes": 0, "d2h_bytes": 0, "d2h_plan_fetches": 0,
+            "per_shard_rows": np.zeros(self.r, np.int64),
+        }
+
+    @staticmethod
+    def build(opts: CompactionOptions, metas: list[BlockMeta]) -> "_ShardedTileMerger":
+        return _ShardedTileMerger(opts.mesh, _mesh_plans(opts, metas),
+                                  opts.block_config.bucket_for)
+
+    def merge(self, tile: SpanBatch):
+        tids = tile.cols["trace_id"]
+        sids = tile.cols["span_id"]
+        t, s, v, ridx = pcomp.partition_by_id_range(tids, sids, self.r, bucket=self.bucket_for)
+        cap = t.shape[1]
+        w = self.mesh.shape["window"]
+        rr = self.mesh.shape["range"]
+        shaped, accs = self.step(
+            t.reshape(w, rr, cap, 4), s.reshape(w, rr, cap, 2), v.reshape(w, rr, cap),
+            *self._accs)
+        # carry the device-resident accumulators into the next tile; no
+        # host transfer happens here (perm/keep ARE needed on host to
+        # reorder the payload columns)
+        self._accs = (accs["bloom"], accs["hll"], accs["cm"])
+        perm = np.stack([p.cpu().numpy() for p in shaped["perm"]])
+        keep = np.stack([k.cpu().numpy() for k in shaped["keep"]])
+        n_valid = v.sum(axis=1)
+        st = self.stats
+        st["tiles"] += 1
+        st["dispatches"] += 1
+        # OR(bloom) + MAX(hll) + SUM(cm) + SUM(rows) + SUM(traces)
+        st["collectives"] += 5
+        st["h2d_bytes"] += t.nbytes + s.nbytes + v.nbytes
+        st["d2h_plan_fetches"] += 1  # the per-tile perm/keep fetch the
+        # device payload plane (payload_plane="device") eliminates
+        st["d2h_bytes"] += perm.nbytes + keep.nbytes
+        st["per_shard_rows"] += n_valid
+        # process-wide transfer plane, at the SAME statements as the
+        # per-job stats (the sketch accumulators stay on the devices)
+        count_transfer("mesh_compaction",
+                       h2d=t.nbytes + s.nbytes + v.nbytes,
+                       d2h=perm.nbytes + keep.nbytes)
+
+        orders, keeps = [], []
+        for shard in range(self.r):
+            k = int(n_valid[shard])
+            if k == 0:
+                continue
+            p = perm[shard, :k].astype(np.int64)  # invalid rows sort last; the prefix is real
+            orders.append(ridx[shard][p])
+            keeps.append(keep[shard, :k])
+        order = np.concatenate(orders) if orders else np.empty(0, np.int64)
+        keepm = np.concatenate(keeps) if keeps else np.empty(0, bool)
+        return order, keepm
+
+    def finish(self) -> dict:
+        """Block-level sketches for write_block (post all tiles)."""
+        return _finish_sketches(self._accs, self.plans, "mesh_compaction")
+
+
+class _DevicePayloadTileMerger:
+    """Mesh merge with the payload plane ON DEVICE.
+
+    Each tile's span columns are packed into u32 lanes and staged to the
+    shards' devices; every shard merges, resolves combine survivors, and
+    gathers its payload rows on its device, appending survivors to a
+    device-resident buffer. The host fetches ONE packed array per flush
+    (~once per output row group: flushes trigger at 2x the row-group
+    span target) and rebuilds span columns from the returned lanes. Only
+    the ragged attr table is gathered host-side, driven by the
+    survivor/dropped ordinals carried in the same fetch. No per-tile plan
+    fetch; the sketch accumulators ride the same step, as in
+    _ShardedTileMerger.
+
+    Byte-parity: merged batches surface to the emit stage per tile in
+    tile order (flush timing never changes emit decisions), and
+    survivors and combine semantics mirror _combine_duplicates exactly,
+    so output blocks are byte-identical to the host-payload path.
+    """
+
+    T_MAX = 64  # max tiles per flush window (the logs' length)
+
+    def __init__(self, opts: CompactionOptions, metas: list[BlockMeta]):
+        cfg = opts.block_config
+        self.plans = _mesh_plans(opts, metas)
+        self.mesh = opts.mesh
+        self.w = self.mesh.shape["window"]
+        self.rr = self.mesh.shape["range"]
+        self.r = self.w * self.rr
+        self.bucket_for = cfg.bucket_for
+        self.target = cfg.row_group_spans
+        self.step = pcomp.make_payload_compactor(self.mesh, self.plans)
+        self._accs = pcomp.init_sketch_accumulators(self.mesh, self.plans)
+        self._bufs = None
+        self._cap_alloc = 0  # largest tile shard cap the buffers accept
+        self.kept_cap = 0
+        self.drop_cap = 0
+        # host-side flush bookkeeping
+        self._tiles: list[tuple[SpanBatch, int]] = []  # (tile, base ordinal)
+        self.retained_rows = 0  # host-resident rows across retained tiles
+        self._ub_k = np.zeros(self.r, np.int64)  # per-shard kept upper bound
+        self._ub_d = np.zeros(self.r, np.int64)
+        self._pushed = 0  # valid rows since last flush
+        self._base = 0  # next job-global row ordinal
+        self._ready: list[SpanBatch] = []
+        self.spans_combined = 0
+        self.stats = {
+            "tiles": 0, "h2d_bytes": 0, "d2h_flushes": 0, "d2h_bytes": 0,
+            "dispatches": 0, "collectives": 0, "kept_rows": 0,
+            "dropped_rows": 0, "per_shard_kept": np.zeros(self.r, np.int64),
+        }
+
+    # ------------------------------------------------------------------
+    def merged_stream(self, tiles):
+        """Drive tiles through the device plane; yield per-tile merged
+        batches in tile order (they surface at flush boundaries)."""
+        for tile, _run_lengths in tiles:
+            self.push(tile)
+            while self._ready:
+                yield self._ready.pop(0)
+        self._flush()
+        while self._ready:
+            yield self._ready.pop(0)
+
+    # ------------------------------------------------------------------
+    def push(self, tile: SpanBatch) -> None:
+        tids = tile.cols["trace_id"]
+        sids = tile.cols["span_id"]
+        t, s, v, ridx = pcomp.partition_by_id_range(tids, sids, self.r, bucket=self.bucket_for)
+        cap = t.shape[1]
+        sizes = v.sum(axis=1)
+
+        # CAPACITY CONTRACT (make_payload_compactor): each append writes
+        # a full cap-row slab at the cursor — flush BEFORE any shard could
+        # overflow, before the tile log fills, and once enough rows for
+        # ~one output row group are buffered (the step refuses a tile
+        # that would not fit)
+        if self._tiles and (
+            len(self._tiles) >= self.T_MAX
+            or (self._ub_k + cap > self.kept_cap).any()
+            or (self._ub_d + cap > self.drop_cap).any()
+            or self._pushed >= 2 * self.target
+        ):
+            self._flush()
+        if self._bufs is None or cap > self._cap_alloc:
+            if self._tiles:
+                self._flush()
+            self._alloc_buffers(cap)
+
+        lanes = self._pack_lanes(tile)
+        lanes_sh = lanes[np.maximum(ridx, 0)]
+        lanes_sh[ridx < 0] = 0
+
+        self._bufs, self._accs = self.step(
+            t.reshape(self.w, self.rr, cap, 4),
+            s.reshape(self.w, self.rr, cap, 2),
+            v.reshape(self.w, self.rr, cap),
+            lanes_sh.reshape(self.w, self.rr, cap, pcomp.PAYLOAD_IN_LANES),
+            self._bufs, self._accs, (self._ub_k, self._ub_d, len(self._tiles)))
+
+        self._tiles.append((tile, self._base))
+        self.retained_rows += tile.num_spans
+        self._base += tile.num_spans
+        self._ub_k += sizes
+        self._ub_d += sizes
+        self._pushed += int(sizes.sum())
+        st = self.stats
+        st["tiles"] += 1
+        st["dispatches"] += 1
+        # OR(bloom) + MAX(hll) + SUM(cm) + SUM(tile_comb) per tile
+        st["collectives"] += 4
+        h2d = sum(int(x.nbytes) for x in (t, s, v, lanes_sh))
+        st["h2d_bytes"] += h2d
+        count_transfer("payload_compaction", h2d=h2d)
+
+    # ------------------------------------------------------------------
+    def _alloc_buffers(self, cap: int) -> None:
+        # room for ~one flush window (2x row-group target spread over R
+        # shards) plus one full slab of the largest tile, rounded to a
+        # bucket
+        per_shard = 2 * max(self.target // self.r, 1)
+        self.kept_cap = self.bucket_for(per_shard + 2 * cap)
+        self.drop_cap = self.kept_cap
+        self._cap_alloc = cap
+        self._bufs = pcomp.init_payload_buffers(self.mesh, self.kept_cap, self.drop_cap,
+                                                self.T_MAX)
+
+    # ------------------------------------------------------------------
+    def _pack_lanes(self, tile: SpanBatch) -> np.ndarray:
+        n = tile.num_spans
+        lanes = np.zeros((n, pcomp.PAYLOAD_IN_LANES), np.uint32)
+        c = tile.cols
+        lanes[:, 0:2] = c["parent_span_id"]
+        start = c["start_unix_nano"]
+        lanes[:, 2] = (start >> np.uint64(32)).astype(np.uint32)
+        lanes[:, 3] = (start & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        dur = c["duration_nano"]
+        lanes[:, 4] = (dur >> np.uint64(32)).astype(np.uint32)
+        lanes[:, 5] = (dur & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        lanes[:, 6] = (
+            c["kind"].astype(np.uint32)
+            | (c["status_code"].astype(np.uint32) << 8)
+            | (c["http_status"].astype(np.uint32) << 16)
+        )
+        lanes[:, 7] = c["name"]
+        lanes[:, 8] = c["service"]
+        lanes[:, 9] = c["http_method"]
+        lanes[:, 10] = c["http_url"]
+        if tile.num_attrs:
+            lanes[:, 11] = np.bincount(
+                tile.attrs["attr_span"], minlength=n).astype(np.uint32)
+            fp = _attr_fingerprint(tile)
+            lanes[:, 12] = (fp >> np.uint64(32)).astype(np.uint32)
+            lanes[:, 13] = (fp & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        lanes[:, 14] = (self._base + np.arange(n)).astype(np.uint32)
+        return lanes
+
+    # ------------------------------------------------------------------
+    def _flush(self) -> None:
+        """ONE packed D2H: kept payload rows, dropped-member pairs, and
+        per-(tile, shard) counts; rebuild per-tile merged batches."""
+        if not self._tiles:
+            return
+        packed = pcomp.pack_payload_flush(self.mesh, self._bufs)
+        self.stats["d2h_flushes"] += 1
+        self.stats["d2h_bytes"] += packed.nbytes
+        count_transfer("payload_compaction", d2h=packed.nbytes)
+
+        r, C, D, T = self.r, self.kept_cap, self.drop_cap, self.T_MAX
+        lanes_out = pcomp.PAYLOAD_OUT_LANES
+        o = 0
+        kept = packed[o : o + r * C * lanes_out].reshape(r, C, lanes_out)
+        o += r * C * lanes_out
+        drop = packed[o : o + r * D * 2].reshape(r, D, 2)
+        o += r * D * 2
+        kept_log = packed[o : o + r * T].reshape(r, T).astype(np.int64)
+        o += r * T
+        drop_log = packed[o : o + r * T].reshape(r, T).astype(np.int64)
+        o += r * T
+        comb_log = packed[o : o + r * T].reshape(r, T).astype(np.int64)
+        o += r * T
+        cnts = packed[o : o + r * 3].reshape(r, 3).astype(np.int64)
+
+        n_tiles = len(self._tiles)
+        # sanity: device cursors must equal the log sums
+        if not (np.array_equal(cnts[:, 0], kept_log[:, :n_tiles].sum(axis=1))
+                and np.array_equal(cnts[:, 1], drop_log[:, :n_tiles].sum(axis=1))
+                and (cnts[:, 2] == n_tiles).all()):
+            raise AssertionError("device payload buffers out of sync with logs")
+
+        offs_k = np.zeros(r, np.int64)
+        offs_d = np.zeros(r, np.int64)
+        for t_i, (tile, tbase) in enumerate(self._tiles):
+            shard_rows = []
+            for sh in range(r):
+                k = int(kept_log[sh, t_i])
+                shard_rows.append(kept[sh, offs_k[sh] : offs_k[sh] + k])
+                offs_k[sh] += k
+            rows = np.concatenate(shard_rows) if shard_rows else np.empty(
+                (0, lanes_out), np.uint32)
+            shard_base = np.concatenate(
+                [[0], np.cumsum([len(x) for x in shard_rows])])[:-1]
+            drop_pairs = []
+            for sh in range(r):
+                dn = int(drop_log[sh, t_i])
+                if dn:
+                    dp = drop[sh, offs_d[sh] : offs_d[sh] + dn]
+                    drop_pairs.append(
+                        (dp[:, 0].astype(np.int64), shard_base[sh] + dp[:, 1].astype(np.int64)))
+                offs_d[sh] += dn
+            comb_t = int(comb_log[:, t_i].sum())
+            self._ready.append(self._reconstruct(tile, tbase, rows, drop_pairs, comb_t))
+            self.stats["kept_rows"] += len(rows)
+            self.stats["per_shard_kept"] += kept_log[:, t_i]
+        self.stats["dropped_rows"] += int(drop_log[:, :n_tiles].sum())
+
+        # reset the flush window (fresh zeroed buffers; accs carry on)
+        self._bufs = pcomp.init_payload_buffers(self.mesh, self.kept_cap, self.drop_cap,
+                                                self.T_MAX)
+        self._tiles = []
+        self.retained_rows = 0
+        self._ub_k[:] = 0
+        self._ub_d[:] = 0
+        self._pushed = 0
+
+    # ------------------------------------------------------------------
+    def _reconstruct(self, tile: SpanBatch, tbase: int, rows: np.ndarray,
+                     drop_pairs, comb_t: int) -> SpanBatch:
+        """Merged batch from device lanes; attrs host-gathered to mirror
+        _combine_duplicates byte-for-byte."""
+        n = len(rows)
+        u64 = np.uint64
+        cols = {
+            "trace_id": np.ascontiguousarray(rows[:, 0:4]),
+            "span_id": np.ascontiguousarray(rows[:, 4:6]),
+            "parent_span_id": np.ascontiguousarray(rows[:, 6:8]),
+            "start_unix_nano": (rows[:, 8].astype(u64) << u64(32)) | rows[:, 9].astype(u64),
+            "duration_nano": (rows[:, 10].astype(u64) << u64(32)) | rows[:, 11].astype(u64),
+            "kind": (rows[:, 12] & 0xFF).astype(np.uint8),
+            "status_code": ((rows[:, 12] >> 8) & 0xFF).astype(np.uint8),
+            "http_status": ((rows[:, 12] >> 16) & 0xFFFF).astype(np.uint16),
+            "name": np.ascontiguousarray(rows[:, 13]),
+            "service": np.ascontiguousarray(rows[:, 14]),
+            "http_method": np.ascontiguousarray(rows[:, 15]),
+            "http_url": np.ascontiguousarray(rows[:, 16]),
+        }
+        survivors = rows[:, 17].astype(np.int64) - tbase  # tile-local rows
+        self.spans_combined += comb_t
+
+        if tile.num_attrs == 0:
+            from tempo_tpu_torch.model.columnar import _empty_cols
+
+            return SpanBatch(cols=cols, attrs=_empty_cols(ATTR_COLUMNS),
+                             dictionary=tile.dictionary)
+
+        # survivor attrs: exact mirror of SpanBatch.select's attr path
+        pos = np.full(tile.num_spans, -1, np.int64)
+        pos[survivors] = np.arange(n)
+        o = tile.attrs["attr_span"]
+        owner = pos[o]
+        keepm = owner >= 0
+        sel = {k: v[keepm] for k, v in tile.attrs.items()}
+        sel["attr_span"] = owner[keepm].astype(np.uint32)
+        order = np.argsort(sel["attr_span"], kind="stable")
+        sel = {k: v[order] for k, v in sel.items()}
+
+        if drop_pairs:
+            m_ord = np.concatenate([p[0] for p in drop_pairs]) - tbase
+            m_run = np.concatenate([p[1] for p in drop_pairs])
+            row_to_run = np.full(tile.num_spans, -1, np.int64)
+            row_to_run[m_ord] = m_run
+            take = row_to_run[o] >= 0
+            if take.any():
+                extra = {k: v[take] for k, v in tile.attrs.items()}
+                extra["attr_span"] = row_to_run[o[take]].astype(np.uint32)
+                attrs = {k: np.concatenate([sel[k], extra[k]]) for k in ATTR_COLUMNS}
+                sel = _dedupe_attrs(attrs)
+        return SpanBatch(cols=cols, attrs=sel, dictionary=tile.dictionary)
+
+    # ------------------------------------------------------------------
+    def finish(self) -> dict:
+        """Block-level sketches — same contract as _ShardedTileMerger."""
+        return _finish_sketches(self._accs, self.plans, "payload_compaction")
 
 
 def _combine_duplicates(batch: SpanBatch, order: np.ndarray, keep_sorted: np.ndarray):

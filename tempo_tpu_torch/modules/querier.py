@@ -18,10 +18,14 @@ through the same device path as with the cache off; a query_range
 block's partial comes from a standalone accumulator of its own, and the
 cached tier outranks the compiled tier. With `external_endpoints`
 set, each block-search job goes round-robin to a serverless endpoint
-(tempo_tpu_torch/serverless.py), as in the reference. Not here yet: the
-mesh search and metrics (Queue 1 item 12) and the multi-query search
-seam (its caller is the standing tier). The graph jobs (graph_recent,
-graph_blocks) sum their critical paths on the DB's device.
+(tempo_tpu_torch/serverless.py), as in the reference. With a device
+mesh (TempoDB.compaction_mesh: more than one local device) a block
+batch's search runs the mesh scan (MeshSearcher.search_blocks), N
+requests over one batch the batched multi-query scan
+(search_block_batch_multi, search_multi), and a query_range job the
+mesh bincount (MeshMetricsEvaluator) once the compiled tier declines.
+The graph jobs (graph_recent, graph_blocks) sum their critical paths on
+the DB's device.
 """
 
 from __future__ import annotations
@@ -123,17 +127,88 @@ class Querier:
                                     start_row_group=start_row_group, row_groups=row_groups)
 
     def search_block_batch(self, tenant: str, block_ids: list, req: SearchRequest) -> SearchResponse:
-        """One frontend job = a batch of blocks, scanned serially like the
-        reference's per-job loop on one device; with the result cache on
-        (and no external endpoints), each block's response is reused from
-        (and written back to) it."""
+        """One frontend job = a batch of blocks. With a device mesh the
+        whole batch goes through the sharded scan in stacked dispatches
+        (parallel/search.MeshSearcher — reference P4,
+        modules/frontend/searchsharding.go:266-314); otherwise blocks
+        scan serially like the reference's per-job loop. With the result
+        cache on (and no external endpoints), each block's response is
+        reused from (and written back to) it instead."""
         rc = self.db.result_cache
         if rc.enabled() and not self.external_endpoints:
             return self._search_block_batch_cached(tenant, block_ids, req, rc)
+        searcher = self.db.mesh_searcher() if not self.external_endpoints else None
+        if searcher is not None and len(block_ids) > 1:
+            metas = self._batch_metas(tenant, block_ids, "search")
+            if metas and all(m.version == "vtpu1" for m in metas):
+                return searcher.search_blocks(
+                    self._open_lazily(metas), req,
+                    on_block_error=self.db.block_failure_recorder(tenant),
+                    on_block_ok=self.db.block_success_recorder(tenant),
+                )
         resp = SearchResponse()
         for block_id in block_ids:
             resp.merge(self.search_block_job(tenant, block_id, req), limit=req.limit)
         return resp
+
+    def _batch_metas(self, tenant: str, block_ids: list, what: str) -> list:
+        """The batch's block metas: only a definitive NotFound (deleted by
+        compaction between shard planning and execution) skips a block; a
+        transient meta-read error raises so the worker retries the job."""
+        metas = []
+        for bid in block_ids:
+            try:
+                metas.append(self.db.backend.block_meta(tenant, bid))
+            except NotFound:
+                log.warning("%s job: block %s deleted mid-query", what, bid)
+        return metas
+
+    def _open_lazily(self, metas):
+        """Blocks opened as a scan reaches them: early exit skips the
+        rest."""
+        return (
+            self.db.encoding_for(m.version).open_block(m, self.db.backend, self.db.cfg.block)
+            for m in metas
+        )
+
+    def search_multi(self, tenant: str, reqs: list) -> list:
+        """N concurrent searches answered together: the recent/live
+        segments scan per request on the host, while the block portion
+        coalesces into the batched multi-query device scan
+        (TempoDB.search_multi) — one fused launch per query batch instead
+        of one per query, served from the device-resident tier when the
+        pages are pinned."""
+        reqs = list(reqs)
+        if not reqs:
+            return []
+        block = self.db.search_multi(tenant, reqs)
+        out = []
+        for req, blocks_resp in zip(reqs, block):
+            r = self.search_recent(tenant, req)
+            r.merge(blocks_resp, limit=req.limit)
+            out.append(r)
+        return out
+
+    def search_block_batch_multi(self, tenant: str, block_ids: list,
+                                 reqs: list) -> list:
+        """The job-level multi-query seam: one frontend job carrying N
+        requests against the same block batch. Same routing rules as
+        search_block_batch; without a mesh (or with fewer than two
+        requests or blocks) the requests run as sequential jobs
+        (bit-identical results, N dispatches)."""
+        reqs = list(reqs)
+        if not reqs:
+            return []
+        searcher = self.db.mesh_searcher() if not self.external_endpoints else None
+        if searcher is not None and len(reqs) > 1 and len(block_ids) > 1:
+            metas = self._batch_metas(tenant, block_ids, "search")
+            if metas and all(m.version == "vtpu1" for m in metas):
+                return searcher.search_blocks_multi(
+                    self._open_lazily(metas), reqs,
+                    on_block_error=self.db.block_failure_recorder(tenant),
+                    on_block_ok=self.db.block_success_recorder(tenant),
+                )
+        return [self.search_block_batch(tenant, block_ids, r) for r in reqs]
 
     def _search_external(self, tenant, block_id, req, start_row_group, row_groups) -> SearchResponse:
         """Delegate one block-search job to a serverless endpoint."""
@@ -232,10 +307,12 @@ class Querier:
     def query_range_blocks(self, tenant: str, block_ids: list, query: str,
                            start_s: int, end_s: int, step_s: int,
                            max_series: int = 64, exemplars: int = 0) -> dict:
-        """One frontend metrics job = a batch of backend blocks. Row
-        groups fold through the accumulator of the DB's device: the CUDA
+        """One frontend metrics job = a batch of backend blocks. With a
+        device mesh the whole batch reduces through the sharded bincount
+        (parallel/metrics.MeshMetricsEvaluator); otherwise row groups
+        fold through the accumulator of the DB's device: the CUDA
         seg_bincount on the card, the host numpy fold on the CPU — the
-        same integer counts either way."""
+        same integer counts on every path."""
         from tempo_tpu_torch.metrics_engine import (
             compile_metrics_plan,
             evaluate_block,
@@ -244,12 +321,7 @@ class Querier:
 
         plan = compile_metrics_plan(query, start_s, end_s, step_s,
                                     max_series=max_series, exemplars=exemplars)
-        metas = []
-        for bid in block_ids:
-            try:
-                metas.append(self.db.backend.block_meta(tenant, bid))
-            except NotFound:  # deleted mid-query: benign; other errors
-                log.warning("metrics job: block %s deleted mid-query", bid)
+        metas = self._batch_metas(tenant, block_ids, "metrics")
         # result cache (tempo_tpu_torch/resultcache): per-block integer-add
         # partials are reusable verbatim because blocks are immutable —
         # this tier outranks the compiled tier below (which fuses blocks
@@ -272,19 +344,49 @@ class Querier:
 
         sp_rule = (sp_rules.match_rule(plan, sp_rules.block_rules(self.db.cfg.block))
                    if all(m.version == "vtpu1" for m in metas) else None)
+        # the mesh gains nothing on partial-bearing blocks (the fold is
+        # integer adds over kilobytes) — but a matched PLAN over an
+        # all-legacy store must not lose the mesh path, so with a mesh
+        # the first block's index is probed for an actual partial before
+        # the tier claims the job
+        evaluator = self.db.mesh_metrics_evaluator()
+        if sp_rule is not None and evaluator is not None and metas:
+            try:
+                probe = self.db.encoding_for(metas[0].version).open_block(
+                    metas[0], self.db.backend, self.db.cfg.block)
+                if not any(sp_rules.rg_has_partial(rg, sp_rule)
+                           for rg in probe.index().row_groups):
+                    sp_rule = None  # legacy store: keep the device path
+            except Exception:
+                log.exception("step-partial probe failed; using span path")
         # compiled tier (tempo_tpu_torch/compiled): a simple-count plan
         # whose filters flatten to per-column predicates runs as ONE
         # fused program over the whole block batch, shape-cached. The
         # step-partial tier outranks it (pre-bucketed pages beat any span
-        # scan); a decline falls through to the interpreter below,
-        # bit-identically. (The mesh evaluator would claim the job next;
-        # it is not ported, see the module docstring.)
+        # scan); a decline falls through to the mesh evaluator or the
+        # interpreter below, bit-identically.
         if sp_rule is None and all(m.version == "vtpu1" for m in metas):
             from tempo_tpu_torch import compiled
 
             wire = compiled.try_query_range(self.db, tenant, plan, metas)
             if wire is not None:
                 return wire
+        if sp_rule is None and evaluator is not None and len(metas) > 1 and all(
+            m.version == "vtpu1" for m in metas
+        ):
+            from tempo_tpu_torch.metrics_engine import HostAccumulator
+
+            acc = HostAccumulator(plan)
+            evaluator.evaluate_blocks(
+                self._open_lazily(metas), plan, acc,
+                on_block_error=self.db.block_failure_recorder(tenant),
+                on_block_ok=self.db.block_success_recorder(tenant),
+            )
+            wire = acc.to_wire()
+            # the compiled tier declined (or is off): the job ran on an
+            # interpreter path — insights aggregate this per query
+            wire["compiledShape"] = "fallback"
+            return wire
         dev = self.db.device
         acc = make_accumulator(plan, device=dev)
         for m in metas:
@@ -461,12 +563,7 @@ class Querier:
                                       exemplars=exemplars)
                  for q in queries]
         out = [None] * len(queries)
-        metas = []
-        for bid in block_ids:
-            try:
-                metas.append(self.db.backend.block_meta(tenant, bid))
-            except NotFound:
-                log.warning("metrics job: block %s deleted mid-query", bid)
+        metas = self._batch_metas(tenant, block_ids, "metrics")
         if len(plans) > 1 and metas and all(m.version == "vtpu1"
                                             for m in metas):
             from tempo_tpu_torch import compiled

@@ -1,8 +1,8 @@
 """Sharded bloom filters, in PyTorch.
 
 Port of tempo_tpu/ops/bloom.py (BloomPlan, plan, build, test,
-test_one_shard, shard bytes, and the host numpy shard_for_ids and
-np_test_one_shard that find-by-ID uses). Bit positions use double hashing
+test_one_shard, psum_merge, shard bytes, and the host numpy
+shard_for_ids and np_test_one_shard that find-by-ID uses). Bit positions use double hashing
 pos_i = (h1 + i*h2) mod bits_per_shard with h2 forced odd; the sum
 wraps mod 2**32 BEFORE the `%`, exactly as the uint32 JAX arithmetic
 does. Words hold 32 bits LSB first. uint32 values ride in int64.
@@ -121,6 +121,18 @@ def test_one_shard(shard_words: torch.Tensor, limbs: torch.Tensor, p: BloomPlan)
 def merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """OR-merge two filters with identical plans."""
     return a | b
+
+
+def psum_merge(partials: list, device=None) -> torch.Tensor:
+    """OR-merge the shards' partial filters (a mesh's range axis) onto
+    `device` (default: the first partial's). The JAX package psums
+    per-bit 0/1 lanes and repacks them (sum > 0 is OR for bits); the
+    bitwise OR of the words is the same filter by construction."""
+    dev = partials[0].device if device is None else torch.device(device)
+    out = partials[0].to(dev)
+    for p in partials[1:]:
+        out = out | p.to(dev)
+    return out
 
 
 def shard_for_ids(limbs: np.ndarray, p: BloomPlan) -> np.ndarray:

@@ -4,14 +4,18 @@ Port of tempo_tpu/ops/pallas_kernels.py: seg_bincount (+ the host
 pre-pass compress_slot_runs), in_set_scan and u64_range_scan, with the
 same arguments and the same results, and the dbp page decode
 (dbp_decode_limbs, dbp_decode_device: a dbp page decoded on the card; the
-compiled query tier fuses the same tile machinery into its own program).
-Each kernel is CUDA C++ in csrc/kernels.cu (csrc/codec_kernels.cu for the
-decode), built with nvcc at first use (ops/_build.py) and launched
+compiled query tier fuses the same tile machinery into its own program),
+and the fused run-length decode + in-set scan of the mesh and batched
+searches (rle_cols_hit, rle_cols_hit_live, fused_rle_in_set,
+batched_rle_in_set, over one body rle_hit_lanes: the JAX package's jnp
+program became the rle_cols_hit kernel). Each kernel is CUDA C++ in
+csrc/kernels.cu (csrc/codec_kernels.cu for the decode,
+csrc/rle_kernels.cu for the fused scan), built with nvcc at first use (ops/_build.py) and launched
 through ctypes on PyTorch's current stream.
 
 Beside each kernel sits its plain PyTorch version (_seg_bincount_plain,
-_in_set_plain, _range_plain, _dbp_decode_plain). A wrapper takes the plain version only
-for tensors that lie on the CPU; for CUDA tensors it launches the
+_in_set_plain, _range_plain, _dbp_decode_plain, _rle_hit_plain). A
+wrapper takes the plain version only for tensors that lie on the CPU; for CUDA tensors it launches the
 kernel or raises. Each wrapper counts its kernel launches in a plain
 integer attribute, `<wrapper>.launches`.
 
@@ -427,3 +431,223 @@ def dbp_decode_device(page: bytes, dtype: str, shape: tuple, device) -> np.ndarr
         vals = timed_dispatch("dbp_decode", run, device=device)
         out[:, c] = vals[0].cpu().numpy().view(np.uint64)
     return np.ascontiguousarray(out.astype(dt, copy=False).reshape(shape))
+
+
+# ---------------------------------------------------------------------------
+# fused RLE decode + in-set scan (the mesh and batched multi-query searches)
+# ---------------------------------------------------------------------------
+
+_RLE_MAX_SMEM = 48 * 1024  # the lane's (C, K) codes and C live flags, in shared memory
+_RLE_MAX_LANES = 65535  # units x lanes of one launch (the grid's y extent)
+
+
+def rle_expand_device(values: torch.Tensor, lengths: torch.Tensor, n: int) -> torch.Tensor:
+    """Run values + lengths -> (n,) rows, as jnp.repeat with
+    total_repeat_length=n expands them: rows past the runs' total repeat
+    the LAST run (a zero-length padding run included) and runs that
+    overrun n are cut. A plain torch op: the JAX package's helper has no
+    caller outside tests."""
+    if values.shape[0] == 0 or n == 0:
+        return values.new_zeros(n)
+    rows = torch.repeat_interleave(values, lengths.to(torch.int64))
+    if rows.shape[0] >= n:
+        return rows[:n]
+    return torch.cat([rows, values[-1:].expand(n - rows.shape[0])])
+
+
+def unshuffle_device(planes: torch.Tensor, itemsize: int) -> torch.Tensor:
+    """Invert the blosc-style byte shuffle: planes (itemsize, N) uint8 —
+    plane j holds byte j of every element — recombined as shifts and ors
+    into (N,) uint32 values (in int64; itemsize <= 4 bytes of each). A
+    plain torch op, as rle_expand_device."""
+    out = torch.zeros(planes.shape[1], dtype=torch.int64, device=planes.device)
+    for j in range(min(itemsize, 4)):
+        out = out | (planes[j].to(torch.int64) << (8 * j))
+    return out
+
+
+def _rle_lane_plain(values: torch.Tensor, lengths: torch.Tensor | None, codes: torch.Tensor,
+                    live: torch.Tensor | None, hit: torch.Tensor | None, n: int) -> torch.Tensor:
+    """Plain version for one (unit, lane): values (C, RP) and codes (C, K)
+    uint32 bits, lengths (C, RP) or None (a run a row), live (C,) or None,
+    hit (n,) or None -> (n,) bool: torch.isin a run, repeat_interleave to
+    rows with jnp.repeat's padding rule, ANDed over the live columns."""
+    dev = values.device
+    out = (torch.ones(n, dtype=torch.bool, device=dev) if hit is None
+           else hit.to(torch.bool).clone())
+    no_match = int(u32_bits(torch.tensor([int(NO_MATCH_CODE)], dtype=torch.int64))[0])
+    for c in range(values.shape[0]):
+        cs = codes[c][codes[c] != no_match]  # the padding code never matches
+        run_hit = torch.isin(values[c], cs)
+        if lengths is None:
+            row_hit = (run_hit[:n] if run_hit.shape[0] >= n
+                       else torch.cat([run_hit, run_hit[-1:].expand(n - run_hit.shape[0])]))
+        else:
+            row_hit = rle_expand_device(run_hit, lengths[c], n)
+        if live is not None:
+            row_hit = row_hit | ~live[c].to(torch.bool)
+        out &= row_hit
+    return out
+
+
+def _rle_hit_plain(values, lengths, codes, live, hit, n) -> torch.Tensor:
+    U, Q = codes.shape[:2]
+    out = torch.empty((U, Q, n), dtype=torch.bool, device=values.device)
+    for u in range(U):
+        for q in range(Q):
+            out[u, q] = _rle_lane_plain(
+                values[u], None if lengths is None else lengths[u], codes[u, q],
+                None if live is None else live[u, q], None if hit is None else hit[u], n)
+    return out
+
+
+def _rle_hit_cuda(values, lengths, codes, live, hit, n) -> torch.Tensor:
+    U, Q, C, K = codes.shape
+    RP = values.shape[2]
+    if C * K * 4 + C > _RLE_MAX_SMEM:
+        raise ValueError(f"rle_cols_hit: code table ({C}, {K}) does not fit")
+    if U * Q > _RLE_MAX_LANES:
+        raise ValueError(f"rle_cols_hit: {U} x {Q} lanes in one launch")
+    ts = [values, codes] + [t for t in (lengths, live, hit) if t is not None]
+    _check_cuda("rle_cols_hit", *ts)
+    out = torch.empty((U, Q, n), dtype=torch.bool, device=values.device)
+    if n == 0 or U * Q == 0:
+        return out
+    starts = (torch.empty((U, C, RP), dtype=torch.int64, device=values.device)
+              if lengths is not None else None)
+    lib = _build.lib()
+    with torch.cuda.device(values.device):
+        err = lib.tt_rle_cols_hit(
+            values.data_ptr(), None if lengths is None else lengths.data_ptr(), U, C, RP,
+            codes.data_ptr(), K, Q, None if live is None else live.data_ptr(),
+            None if hit is None else hit.data_ptr(), n,
+            None if starts is None else starts.data_ptr(), out.data_ptr(), _stream(values))
+    _build.check(err, "rle_cols_hit")
+    rle_cols_hit.launches += 1
+    return out
+
+
+def rle_hit_lanes(values: torch.Tensor, lengths: torch.Tensor | None, codes: torch.Tensor,
+                  n: int, live: torch.Tensor | None = None,
+                  hit: torch.Tensor | None = None) -> torch.Tensor:
+    """The one body behind every fused RLE scan: U units' run payloads,
+    Q lanes of code sets each. values (U, C, RP) integer tensor of uint32
+    values; lengths (U, C, RP) run lengths, or None when every run is one
+    row (an expanded column); codes (U, Q, C, K) padded with NO_MATCH_CODE
+    (K <= 64 in practice: one lane's table sits in shared memory); live
+    (U, Q, C) bool or None (all live: a dead column accepts every row);
+    hit (U, n) bool or None (all True). Returns (U, Q, n) bool: the plain
+    version for CPU tensors, the rle_cols_hit kernel for CUDA tensors (one
+    call, two launches: the run starts, then the rows)."""
+    if values.ndim != 3 or codes.ndim != 4 or codes.shape[0] != values.shape[0] \
+            or codes.shape[2] != values.shape[1]:
+        raise ValueError("rle_cols_hit: values (U, C, RP), codes (U, Q, C, K)")
+    if values.shape[2] == 0 or values.shape[1] == 0:
+        raise ValueError("rle_cols_hit: need at least one column and one run")
+    if lengths is not None and lengths.shape != values.shape:
+        raise ValueError("rle_cols_hit: lengths and values differ in shape")
+    if live is not None and live.shape != codes.shape[:3]:
+        raise ValueError("rle_cols_hit: live must be (U, Q, C)")
+    if hit is not None and hit.shape != (values.shape[0], n):
+        raise ValueError(f"rle_cols_hit: hit must be (U, {n})")
+    values = u32_bits(values).contiguous()
+    codes = u32_bits(codes).contiguous()
+    if lengths is not None:
+        lengths = lengths.to(torch.int32).contiguous()
+    if live is not None:
+        live = live.to(torch.bool).contiguous()
+    if hit is not None:
+        hit = hit.to(torch.bool).contiguous()
+    if _route("rle_cols_hit", values) == "cpu":
+        return _rle_hit_plain(values, lengths, codes, live, hit, n)
+    return _rle_hit_cuda(values, lengths, codes, live, hit, n)
+
+
+def rle_cols_hit(values: torch.Tensor, lengths: torch.Tensor, codes: torch.Tensor,
+                 n: int, hit: torch.Tensor) -> torch.Tensor:
+    """ONE unit's fused RLE decode + predicate: values/lengths (C, R),
+    codes (C, K) — the in-set verdict per RUN, expanded to rows with
+    jnp.repeat's padding rule, AND-folded into `hit` (n,)."""
+    return rle_hit_lanes(values[None], lengths[None], codes[None, None], n,
+                         hit=hit[None])[0, 0]
+
+
+rle_cols_hit.launches = 0
+
+
+def rle_cols_hit_live(values: torch.Tensor, lengths: torch.Tensor, codes: torch.Tensor,
+                      live: torch.Tensor, n: int, hit: torch.Tensor) -> torch.Tensor:
+    """rle_cols_hit with a per-column participation flag: a column whose
+    `live` is False accepts every row. codes (C, K) with live (C,) ->
+    (n,); codes (Q, C, K) with live (Q, C) -> (Q, n): Q query lanes over
+    one run payload in one launch (the JAX package's vmap)."""
+    one = codes.ndim == 2
+    cq = codes[None, None] if one else codes[None]
+    lq = live[None, None] if one else live[None]
+    out = rle_hit_lanes(values[None], lengths[None], cq, n, live=lq, hit=hit[None])[0]
+    return out[0] if one else out
+
+
+def _dispatch_device(values, device) -> torch.device:
+    if isinstance(values, torch.Tensor):
+        return values.device
+    from tempo_tpu_torch import device as _device
+
+    return _device.resolve(device)
+
+
+def _ship(a, dev: torch.device, dtype) -> tuple[torch.Tensor, int]:
+    """(tensor on dev, bytes shipped): host arrays copy once, tensors
+    already on the device ship nothing."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dev), 0
+    a = np.ascontiguousarray(np.asarray(a).astype(dtype, copy=False))
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a).to(dev), a.nbytes
+
+
+def batched_rle_in_set(values, lengths, codes: np.ndarray, live: np.ndarray,
+                       valid: np.ndarray, n: int, device=None) -> np.ndarray:
+    """The single-device batched multi-query scan: values/lengths (C, R)
+    — one unit's run payload, numpy (shipped, counted h2d) or tensors
+    from the resident tier (counted as nothing moved) — codes (Q, C, K),
+    live (Q, C), valid (n,) -> (Q, n) bool numpy, in one
+    `batched_rle_scan` dispatch on `device` (the payload's device when it
+    is a tensor; default CUDA)."""
+    from tempo_tpu_torch.util.devicetiming import count_transfer, timed_dispatch
+
+    dev = _dispatch_device(values, device)
+
+    def run():
+        v, hv = _ship(values, dev, np.uint32)
+        ln, hl = _ship(lengths, dev, np.int32)
+        cd, hc = _ship(codes, dev, np.uint32)
+        lv, hlv = _ship(live, dev, bool)
+        vd, hvd = _ship(valid, dev, bool)
+        out = rle_cols_hit_live(v, ln, cd, lv, n, vd).cpu().numpy()
+        count_transfer("batched_rle_scan", h2d=hv + hl + hc + hlv + hvd, d2h=out.nbytes)
+        return out
+
+    return timed_dispatch("batched_rle_scan", run, device=dev)
+
+
+def fused_rle_in_set(values: np.ndarray, lengths: np.ndarray, codes: np.ndarray,
+                     n: int, device=None) -> np.ndarray:
+    """The fused scan batched over U (block, row-group) units: values /
+    lengths (U, C, R), codes (U, C, K) -> (U, n) bool numpy, one
+    `fused_rle_scan` dispatch on `device` (default CUDA). Rows past a
+    unit's true span count must be masked by the caller."""
+    from tempo_tpu_torch.util.devicetiming import count_transfer, timed_dispatch
+
+    dev = _dispatch_device(values, device)
+
+    def run():
+        v, hv = _ship(values, dev, np.uint32)
+        ln, hl = _ship(lengths, dev, np.int32)
+        cd, hc = _ship(codes, dev, np.uint32)
+        out = rle_hit_lanes(v, ln, cd[:, None], n)[:, 0].cpu().numpy()
+        count_transfer("fused_rle_scan", h2d=hv + hl + hc, d2h=out.nbytes)
+        return out
+
+    return timed_dispatch("fused_rle_scan", run, device=dev)

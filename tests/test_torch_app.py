@@ -13,7 +13,8 @@ with device="cpu".
 
 Both Apps run the metrics-generator and the standing-query engine (the
 defaults), the JAX App with its storage engine pinned to one device (compaction_device_shards=1: the JAX tests run on
-an 8-device CPU mesh whose sharded search is the multi-GPU slice), and
+an 8-device CPU mesh, and the port's CPU App sees one device; the mesh
+arms are held in tests/test_torch_mesh.py), and
 both with their periodic storage analytics scan off (/status/storage
 then scans on demand, in both). ReadAhead prefetch, hedged requests and
 all but one query worker are off in both, so every answer reads the

@@ -120,10 +120,19 @@ def test_compaction_under_dictionary_remap_matches_jax(tmp_path):
 
 
 def test_compactor_refuses_mesh_and_device_payload_plane():
-    with pytest.raises(NotImplementedError):
-        VtpuCompactor(CompactionOptions(mesh=object()), device="cpu")
-    with pytest.raises(NotImplementedError):
+    """The mesh and the device payload plane are ported (their blocks are
+    held in tests/test_torch_mesh_compaction.py): what is still refused
+    is what the reference refuses — the device payload plane without a
+    mesh, and an unknown plane (ValueError)."""
+    from tempo_tpu_torch.parallel import mesh as pmesh
+
+    with pytest.raises(ValueError, match="requires a mesh"):
         VtpuCompactor(CompactionOptions(payload_plane="device"), device="cpu")
+    with pytest.raises(ValueError, match="unknown payload_plane"):
+        VtpuCompactor(CompactionOptions(payload_plane="disk"), device="cpu")
+    m = pmesh.compaction_mesh(2, devices=[torch.device("cpu")] * 2)
+    comp = VtpuCompactor(CompactionOptions(mesh=m, payload_plane="device"))
+    assert comp.device == torch.device("cpu")  # the mesh's lead device
 
 
 def test_compactor_without_device_needs_cuda():

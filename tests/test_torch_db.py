@@ -77,7 +77,8 @@ class DBPair:
         compaction = compaction or {}
         self.jroot, self.troot = str(root / "jax"), str(root / "port")
         # one device on both sides: the JAX package's tests run on an
-        # 8-device CPU mesh, whose sharded search is the multi-GPU slice
+        # 8-device CPU mesh, the port's CPU DB sees one device (the mesh
+        # arms: tests/test_torch_mesh.py)
         self.kw = dict(kw, block=block, compaction=compaction)
         self.kw.setdefault("compaction_device_shards", 1)
         self.j = self.open_jax()
@@ -677,10 +678,12 @@ def test_retry_taxonomy_and_loop_match_jax():
 # ------------------------------------------------------- what is refused
 
 
-def test_unported_paths_raise(tmp_path):
-    """Only the multi-GPU paths refuse now: vrow1 and the cloud backends
-    are ported (a cloud backend without its bucket or container raises
-    the reference's ValueError)."""
+def test_unported_paths_raise(tmp_path, monkeypatch):
+    """Nothing refuses now: vrow1, the cloud backends (a cloud backend
+    without its bucket or container raises the reference's ValueError)
+    and the mesh are ported — compaction_device_shards=2 meshes two of
+    the local devices, and on one device there is no mesh, as in the
+    reference (want = min(n, available))."""
     from tempo_tpu.backend import make_raw_backend as jmake_raw_backend
 
     assert encoding.from_version("vrow1").version == "vrow1"
@@ -698,10 +701,18 @@ def test_unported_paths_raise(tmp_path):
     cached.shutdown()
     db = TempoDB(DBConfig(backend="mock", compaction_device_shards=2), device="cpu")
     for method in (db.compaction_mesh, db.mesh_searcher, db.mesh_metrics_evaluator):
-        with pytest.raises(NotImplementedError):
-            method()
+        assert method() is None
     one = TempoDB(DBConfig(backend="mock"), device="cpu")
     assert one.compaction_mesh() is None and one.compaction_options().mesh is None
+    from tempo_tpu_torch.parallel import mesh as pmesh
+
+    monkeypatch.setattr(pmesh, "local_devices", lambda device: [torch.device("cpu")] * 8)
+    two = TempoDB(DBConfig(backend="mock", compaction_device_shards=2), device="cpu")
+    assert two.compaction_mesh().shape == {"window": 1, "range": 2}
+    assert two.mesh_searcher().mesh is two.compaction_options().mesh
+    assert two.mesh_metrics_evaluator().r == 2
+    for d in (db, one, two):
+        d.shutdown()
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without CUDA")

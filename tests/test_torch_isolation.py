@@ -80,7 +80,8 @@ SCRIPT = BLOCK + textwrap.dedent(r"""
                  "tempo_tpu_torch.encoding.vrow.format", "tempo_tpu_torch.encoding.vrow.block",
                  "tempo_tpu_torch.encoding.vrow.encoding", "tempo_tpu_torch.serverless",
                  "tempo_tpu_torch.jaeger_query", "tempo_tpu_torch.jaeger_plugin",
-                 "tempo_tpu_torch.cli"):
+                 "tempo_tpu_torch.cli", "tempo_tpu_torch.parallel.mesh",
+                 "tempo_tpu_torch.parallel.metrics", "tempo_tpu_torch.parallel.compaction"):
         assert name in names, name
     for name, mod in sys.modules.items():
         assert mod is None or not (name == "tempo_tpu" or name.startswith("tempo_tpu.") or name == "jax"
@@ -90,6 +91,25 @@ SCRIPT = BLOCK + textwrap.dedent(r"""
     fn, args = entry(device="cpu", n_rows=1 << 10)
     out = fn(*args)
     assert int(out["n_rows"]) > 0
+
+    # the mesh: a (1, 4) mesh of CPU devices runs the sharded step, whose
+    # totals equal the one-device step's, and the mesh bincount
+    import numpy as np
+    from tempo_tpu_torch.parallel import compaction as pcomp, mesh as pmesh
+    from tempo_tpu_torch.parallel.metrics import make_sharded_bincount
+    m4 = pmesh.compaction_mesh(4, devices=[torch.device("cpu")] * 4)
+    tids = args[0].numpy().astype(np.uint32)
+    sids = args[1].numpy().astype(np.uint32)
+    t4, s4, v4, _ = pcomp.partition_by_id_range(tids[args[2].numpy()], sids[args[2].numpy()], 4)
+    c4 = t4.shape[1]
+    plans = pcomp.default_plans(1 << 10)
+    sh, accs = pcomp.make_sharded_compactor(m4, plans)(
+        t4.reshape(1, 4, c4, 4), s4.reshape(1, 4, c4, 2), v4.reshape(1, 4, c4),
+        *pcomp.init_sketch_accumulators(m4, plans))
+    assert int(accs["total_rows"][0]) == int(out["n_rows"])
+    counts = make_sharded_bincount(m4, 8)(np.arange(16, dtype=np.int32).reshape(1, 4, 4) % 8,
+                                          np.ones((1, 4, 4), np.int32))
+    assert counts.tolist() == [[2] * 8]
 
     from tempo_tpu_torch import metrics_engine as M
     from tempo_tpu_torch.model import synth

@@ -134,8 +134,8 @@ class Pair:
     def open(self, jax_root=None, port_root=None):
         jr = str(jax_root or self.root / "jax")
         tr = str(port_root or self.root / "port")
-        # one device on the JAX side (its tests run an 8-device CPU mesh
-        # whose sharded search is the multi-GPU slice), analytics off
+        # one device on the JAX side (its tests run an 8-device CPU mesh;
+        # the port's CPU App sees one device), analytics off
         self.j = JApp(JAppConfig(
             db=JDBConfig(backend="local", backend_path=jr + "/blocks", wal_path=jr + "/wal",
                          compaction_device_shards=1, analytics_scan_s=0),
