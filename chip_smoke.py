@@ -17,8 +17,8 @@ Phases, one line each (any failure exits non-zero):
    writer and the generator's service graphs, and root_path_sums, the
    critical path's pointer doubling) and csrc/tail_kernels.cu (tail_fold
    and tail_scan, the ingest tail's standing fold and live-tail search
-   mask) and csrc/rle_kernels.cu (rle_cols_hit, the fused run-length
-   decode + in-set scan of the mesh and batched searches), one nvcc a
+   mask), rle_cols_hit (the fused run-length decode + in-set scan of the
+   mesh and batched searches) in csrc/codec_kernels.cu, one nvcc a
    source, in parallel, and ptxas reports each
    kernel's registers,
    static shared memory and spills;
@@ -326,8 +326,14 @@ Phases, one line each (any failure exits non-zero):
    bincount over phase 4's 2**22 spans, bit-equal to the one-device
    accumulator; (e) rle_cols_hit against its plain version at a mesh
    search's shard shape (in-set, live, batched Q = 8, padding,
-   truncation, the NO_MATCH value, several units) and timed there at
-   Q = 1 and 8; (f) TempoDB at the default compaction_device_shards = 0
+   truncation, the NO_MATCH value, several units), at the one-launch
+   design's edges (more runs than a staged tile, 33 and 64 lanes, three
+   columns, a run a row with run_pad above and below n, several units)
+   and behind a saturated first run of 2^31 - 1 rows; one launch a call
+   (count and profiler trace), its ptxas numbers, and kernel, path, plain,
+   torch chain and host time a call at the shard shape at Q = 1 and 8,
+   over block A's first 16 row groups in one call and at a run a row
+   (run_pad 32,768); (f) TempoDB at the default compaction_device_shards = 0
    with its mesh from parallel/mesh's seam: search, search_multi, the
    querier's search_block_batch(_multi) and query_range_blocks == a
    one-device DB's, compact_once byte-equal to (b)'s one-device merge;
@@ -401,6 +407,7 @@ import ctypes
 import gzip
 import json
 import os
+import pickle
 import re
 import shutil
 import statistics
@@ -7821,20 +7828,80 @@ def mesh_phase(seed: int, root: str, a, b, src_blocks: str, queries: list, plan_
     return res
 
 
-def rle_kernel_check(torch, dev, lib, stream, src_blocks: str, rng) -> dict:
-    """Phase 17 (e): rle_cols_hit against its plain version at a mesh
-    search's shard shape (block A's first row group's service runs,
-    padded to a power of two, n = its bucket) in-set, live and batched at
-    Q = 8, and over padding (zero-length NO_MATCH runs; runs short of n)
-    and truncation (runs past n), then timed at Q = 1 and Q = 8."""
+# (label, U, Q, C, RP, K, n, lengths) of phase 17 (e)'s edge cases, as
+# tests/test_torch_rle_cols_hit.py's EDGES: more runs than one staged run
+# tile, more lanes than one lane word, three columns, a run a row (lengths
+# None) with run_pad above and below n, several units
+RLE_EDGES = [
+    ("one-row runs past a tile", 1, 2, 1, 16384, 8, 16384, "ones"),
+    ("zero-length runs mixed, rows past the total", 1, 1, 1, 32768, 8, 40000, "zero-mixed"),
+    ("zero-length runs mixed, runs cut at n", 1, 3, 1, 32768, 8, 12000, "zero-mixed"),
+    ("33 lanes", 1, 33, 2, 40, 8, 300, "random"),
+    ("64 lanes", 1, 64, 2, 40, 8, 300, "random"),
+    ("three columns", 2, 5, 3, 300, 16, 5000, "random"),
+    ("a run a row, run_pad above n", 1, 4, 2, 700, 8, 500, None),
+    ("a run a row, run_pad below n", 1, 4, 2, 300, 8, 500, None),
+    ("several units", 5, 3, 2, 64, 8, 777, "random"),
+]
+
+
+def rle_lanes_case(rng, U, Q, C, RP, K, n, lengths):
+    """A seeded (values, lengths or None, codes, live, hit) of
+    rle_hit_lanes' shapes: values in 0..7 with some NO_MATCH, three codes a
+    lane and column scattered among NO_MATCH paddings."""
+    import numpy as np
+
+    values = rng.integers(0, 8, (U, C, RP)).astype(np.uint32)
+    values[rng.random((U, C, RP)) < 0.1] = 0xFFFFFFFF
+    if lengths is None:
+        lens = None
+    elif lengths == "ones":
+        lens = np.ones((U, C, RP), np.int32)
+    elif lengths == "zero-mixed":
+        lens = rng.integers(0, 3, (U, C, RP)).astype(np.int32)
+    else:
+        lens = rng.integers(0, max(2, 2 * n // RP), (U, C, RP)).astype(np.int32)
+    codes = np.full((U, Q, C, K), 0xFFFFFFFF, np.uint32)
+    for idx in np.ndindex(U, Q, C):
+        at = rng.choice(K, size=min(3, K), replace=False)
+        codes[idx][at] = rng.integers(0, 8, len(at))
+    return values, lens, codes, rng.random((U, Q, C)) < 0.8, rng.random((U, n)) < 0.9
+
+
+def kernels_in_trace(torch, fn) -> list:
+    """The names of the kernels fn() launches, from a torch.profiler trace
+    of one call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    return [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+
+
+def rle_timed_shapes(src_blocks: str) -> list:
+    """Phase 17 (e)'s four timed shapes of rle_cols_hit, from the first
+    block of tenant smoke under src_blocks (block A): [(key, text, values,
+    lengths or None, codes, live or None, hit or None, n)], uint32 values
+    and codes, 64 codes a lane with the first of MESH_SERVICES' codes real.
+    "Q=1": the first row group's service runs padded to a power of two,
+    n = its bucket, hit its valid rows (a mesh shard's unit); "Q=8": the
+    same unit at 8 lanes of 1-8 services, the last lane's column dead (a
+    batched dispatch); "U=16": the first 16 row groups' service runs in one
+    call, no hit (fused_rle_in_set's batch); "run a row": the first row
+    group's column expanded to 32,768 rows, a run a row (the mesh tag
+    scan)."""
     import numpy as np
 
     from tempo_tpu_torch.backend import LocalBackend, TypedBackend
     from tempo_tpu_torch.db import DBConfig, TempoDB
     from tempo_tpu_torch.encoding.common import BlockConfig
     from tempo_tpu_torch.encoding.vtpu.block import VtpuBackendBlock
-    from tempo_tpu_torch.ops import _build
-    from tempo_tpu_torch.ops import pallas_kernels as pk
 
     cfg = BlockConfig()
     db = TempoDB(DBConfig(backend="local", backend_path=src_blocks, compaction_device_shards=1),
@@ -7843,32 +7910,22 @@ def rle_kernel_check(torch, dev, lib, stream, src_blocks: str, rng) -> dict:
     meta = db.blocklist.metas("smoke")[0]
     db.shutdown()
     blk = VtpuBackendBlock(meta, TypedBackend(LocalBackend(src_blocks)), cfg)
-    rg = blk.index().row_groups[0]
-    v_np, l_np = blk.encoded_column(rg, "service").runs()
-    n = cfg.bucket_for(rg.n_spans)
-    rp = 1 << (max(8, len(l_np)) - 1).bit_length()
-    values = np.full((1, 1, rp), 0xFFFFFFFF, np.uint32)
-    lengths = np.zeros((1, 1, rp), np.int32)
-    values[0, 0, :len(v_np)], lengths[0, 0, :len(l_np)] = v_np, l_np
+    rgs = blk.index().row_groups[:16]
+    runs = [blk.encoded_column(g, "service").runs() for g in rgs]
     K = 64
     d = blk.dictionary()
     svc = [d.get(s) for s in MESH_SERVICES]
-    res: dict = {"cases": 0}
 
-    def t(a):
-        return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(dev)
+    def stack(units):
+        rp = 1 << (max(8, max(len(x[1]) for x in units)) - 1).bit_length()
+        values = np.full((len(units), 1, rp), 0xFFFFFFFF, np.uint32)
+        lengths = np.zeros((len(units), 1, rp), np.int32)
+        for i, (v, ln) in enumerate(units):
+            values[i, 0, :len(v)], lengths[i, 0, :len(ln)] = v, ln
+        return values, lengths, rp
 
-    def case(values_, lengths_, codes_, live_, hit_, n_, label):
-        args = [torch.from_numpy(x.astype(np.int64) if x.dtype == np.uint32 else x)
-                if x is not None else None for x in (values_, lengths_, codes_, live_, hit_)]
-        want = pk.rle_hit_lanes(args[0], args[1], args[2], n_, live=args[3], hit=args[4])
-        got = pk.rle_hit_lanes(*(None if x is None else x.to(dev) for x in args[:3]), n_,
-                               live=None if args[3] is None else args[3].to(dev),
-                               hit=None if args[4] is None else args[4].to(dev))
-        check(torch.equal(got.cpu(), want), f"phase 17 (e) rle_cols_hit {label}: kernel != plain")
-        res["cases"] += 1
-        return got
-
+    values, lengths, rp = stack(runs[:1])
+    n = cfg.bucket_for(rgs[0].n_spans)
     codes1 = np.full((1, 1, 1, K), 0xFFFFFFFF, np.uint32)
     codes1[0, 0, 0, :2] = svc[:2]
     codes8 = np.full((1, 8, 1, K), 0xFFFFFFFF, np.uint32)
@@ -7877,12 +7934,104 @@ def rle_kernel_check(torch, dev, lib, stream, src_blocks: str, rng) -> dict:
     live8 = np.ones((1, 8, 1), bool)
     live8[0, 7, 0] = False  # a dead column: every row
     valid = np.zeros((1, n), bool)
-    valid[0, : rg.n_spans] = True
+    valid[0, : rgs[0].n_spans] = True
+    values16, lengths16, rp16 = stack(runs)
+    n16 = max(cfg.bucket_for(g.n_spans) for g in rgs)
+    v0, l0 = runs[0]
+    rows = np.repeat(np.asarray(v0, np.uint32), np.asarray(l0, np.int64))[:32768]
+    row_vals = np.concatenate([rows, np.full(32768 - len(rows), v0[-1], np.uint32)])
+    row_valid = np.zeros((1, 32768), bool)
+    row_valid[0, : rgs[0].n_spans] = True
+    unit = f"U=1 C=1 runs={len(l0)} (run_pad {rp}) K={K} n={n}"
+    return [
+        ("Q=1", f"{unit} Q=1", values, lengths, codes1, None, valid, n),
+        ("Q=8", f"{unit} Q=8", values, lengths, codes8, live8, valid, n),
+        ("U=16", f"U={len(rgs)} (block A's first row groups) C=1 runs="
+         f"{sum(len(x[1]) for x in runs)} (run_pad {rp16}) K={K} n={n16} Q=1, no hit",
+         values16, lengths16, np.repeat(codes1, len(rgs), axis=0), None, None, n16),
+        ("run a row", f"U=1 C=1 a run a row (run_pad 32768) K={K} n=32768 Q=1",
+         row_vals[None, None], None, codes1, None, row_valid, 32768),
+    ]
+
+
+def rle_trace_child(path: str) -> None:
+    """The kernels one rle_hit_lanes call launches at each of the timed
+    shapes pickled at `path`, each from a torch.profiler trace of one call
+    after a warm one; prints {key: [kernel names]} as JSON. rle_kernel_check
+    runs it in a process of its own: there the profiler sees the card,
+    where a window that an App's thread ran earlier in the smoke's process
+    may leave a later one in the main thread without device events."""
+    import numpy as np
+    import torch
+
+    from tempo_tpu_torch.ops import pallas_kernels as pk
+
+    with open(path, "rb") as f:
+        shapes = pickle.load(f)
+    out = {}
+    for key, _text, values, lengths, codes, live, hit, n in shapes:
+        args = [None if x is None else torch.from_numpy(np.ascontiguousarray(
+            x.view(np.int32) if x.dtype == np.uint32 else x)).cuda()
+            for x in (values, lengths, codes, live, hit)]
+
+        def call(args=args, n=n):
+            return pk.rle_hit_lanes(args[0], args[1], args[2], n, live=args[3], hit=args[4])
+
+        call()
+        torch.cuda.synchronize()
+        out[key] = kernels_in_trace(torch, call)
+    print(json.dumps(out))
+
+
+def rle_kernel_check(torch, dev, lib, stream, src_blocks: str, rng) -> dict:
+    """Phase 17 (e): rle_cols_hit against its plain version at a mesh
+    search's shard shape (block A's first row group's service runs,
+    padded to a power of two, n = its bucket) in-set, live and batched at
+    Q = 8, over padding (zero-length NO_MATCH runs; runs short of n) and
+    truncation (runs past n), at the one-launch design's edges (RLE_EDGES)
+    and, held against run 0's verdict, behind a first run of 2^31 - 1 rows;
+    then, at four shapes (the shard's unit at Q = 1 and Q = 8, block A's
+    first 16 row groups in one call as fused_rle_in_set batches them, and
+    the first row group's column expanded to a run a row at run_pad 32,768
+    as the mesh tag scan takes it), one call is one launch (the wrapper's
+    count and a torch.profiler trace) and kernel, path, plain, the torch
+    chain and the wrapper's host time a call are timed."""
+    import numpy as np
+
+    from tempo_tpu_torch.ops import _build
+    from tempo_tpu_torch.ops import pallas_kernels as pk
+
+    shapes = rle_timed_shapes(src_blocks)
+    _, _, values, lengths, codes1, _, valid, n = shapes[0]
+    codes8, live8 = shapes[1][4], shapes[1][5]
+    rp, K = values.shape[2], codes1.shape[3]
+    n_real = int(np.count_nonzero(lengths))  # the unit's runs before its padding
+    res: dict = {"cases": 0}
+
+    def tt(x):
+        return None if x is None else torch.from_numpy(
+            x.astype(np.int64) if x.dtype == np.uint32 else x)
+
+    def case(values_, lengths_, codes_, live_, hit_, n_, label, want=None):
+        args = [tt(x) for x in (values_, lengths_, codes_, live_, hit_)]
+        if want is None:
+            want = pk.rle_hit_lanes(args[0], args[1], args[2], n_, live=args[3], hit=args[4])
+        before = pk.rle_cols_hit.launches
+        got = pk.rle_hit_lanes(*(None if x is None else x.to(dev) for x in args[:3]), n_,
+                               live=None if args[3] is None else args[3].to(dev),
+                               hit=None if args[4] is None else args[4].to(dev))
+        check(pk.rle_cols_hit.launches == before + 1,
+              f"phase 17 (e) rle_cols_hit {label}: not one launch a call")
+        pk.rle_cols_hit.launches = before  # the comparison's launches are not the path's
+        check(torch.equal(got.cpu(), want), f"phase 17 (e) rle_cols_hit {label}: kernel != plain")
+        res["cases"] += 1
+        return got
+
     case(values, lengths, codes1, None, valid, n, "in-set")
     case(values, lengths, codes8, live8, valid, n, "batched Q=8 with live")
     case(values, None, codes1, None, None, rp, "a run a row")
     short = lengths.copy()
-    short[0, 0, :len(l_np) // 2] = 0  # zero-length runs: rows past the total
+    short[0, 0, :n_real // 2] = 0  # zero-length runs: rows past the total
     case(values, short, codes8, live8, None, n, "padding")
     long_ = lengths.copy()
     long_[0, 0, 0] = n + 5  # the first run overruns n: every later one is cut
@@ -7897,72 +8046,121 @@ def rle_kernel_check(torch, dev, lib, stream, src_blocks: str, rng) -> dict:
         cc[..., :3] = rng.integers(0, 8, (u, q, c, 3))
         case(vv, ll, cc, rng.random((u, q, c)) < 0.7, rng.random((u, 5000)) < 0.9, 5000,
              f"units {u} lanes {q} columns {c}")
+    for label, U, Q, C, RP, KK, nn, kind in RLE_EDGES:
+        vv, ll, cc, lv, ht = rle_lanes_case(np.random.default_rng(RP + 7 * Q + nn), U, Q, C, RP,
+                                            KK, nn, kind)
+        case(vv, ll, cc, lv, ht, nn, label)
+        case(vv, ll, cc, None, None, nn, f"{label}, no live or hit")
+    # a first run of 2^31 - 1 rows covers every row: the later runs' starts
+    # saturate at n; held against run 0's verdict (the plain version would
+    # expand 2^31 rows)
+    sat_v = rng.integers(0, 8, (1, 1, 9000)).astype(np.uint32)
+    sat_v[0, 0, 0] = 6
+    sat_l = rng.integers(0, 1000, (1, 1, 9000)).astype(np.int32)
+    sat_l[0, 0, 0] = 2**31 - 1
+    sat_c = np.full((1, 3, 1, 8), 0xFFFFFFFF, np.uint32)
+    sat_c[0, 0, 0, :2], sat_c[0, 1, 0, :2], sat_c[0, 2, 0, :2] = (6, 1), (1, 2), (1, 2)
+    sat_live = np.array([[[True], [True], [False]]])
+    sat_hit = rng.random((1, 5000)) < 0.7
+    sat_want = torch.from_numpy(np.stack([sat_hit[0], np.zeros(5000, bool), sat_hit[0]])[None])
+    case(sat_v, sat_l, sat_c, sat_live, sat_hit, 5000, "a saturated first run", want=sat_want)
 
-    # timing at the shard shape: the C entry point in a CUDA graph
-    for q, codes_ in ((1, codes1), (8, codes8)):
-        live_ = None if q == 1 else live8
-        dv, dl, dc = t(values), t(lengths), t(codes_)
-        dlive = None if live_ is None else torch.from_numpy(live_).to(dev)
-        dvalid = torch.from_numpy(valid).to(dev)
-        starts = torch.empty((1, 1, rp), dtype=torch.int64, device=dev)
-        out = torch.empty((1, q, n), dtype=torch.bool, device=dev)
+    r = _build.ptxas_report().get("rle_cols_hit_kernel", {})
+    res["ptxas"] = r
+    print(f"phase 17 (e) rle_cols_hit_kernel: {r.get('registers')} registers, "
+          f"{r.get('smem_static')} B static smem, spills {r.get('spill_stores')} B stored / "
+          f"{r.get('spill_loads')} B loaded; dynamic smem 8 B a run of its tile (up to 8,192: "
+          "values and lengths) + 8 B a (lane, code) of its lane group (32 x 64 codes: "
+          "16,384 B); each thread's 16 rows' lane words in registers", flush=True)
 
-        def go(dv=dv, dl=dl, dc=dc, dlive=dlive, out=out, starts=starts, q=q):
+    # one launch a call in a torch.profiler trace, in a process of its own
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rle_") as d:
+        path = os.path.join(d, "shapes.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(shapes, f)
+        got = subprocess.run(
+            [sys.executable, "-c", f"import sys; sys.path.insert(0, {here!r}); import chip_smoke; "
+             f"chip_smoke.rle_trace_child({path!r})"],
+            cwd=here, capture_output=True, text=True, timeout=300)
+    check(got.returncode == 0, f"phase 17 (e) the traced calls failed: {got.stderr[-2000:]}")
+    traced = json.loads(got.stdout.strip().splitlines()[-1])
+    for key, shape, vals_, lens_, codes_, live_, hit_, n_ in shapes:
+        U, q = codes_.shape[:2]
+        rp_ = vals_.shape[2]
+        case(vals_, lens_, codes_, live_, hit_, n_, f"timed shape {key}")
+        # the uint32 inputs as the bits of int32 tensors, as the path holds them
+        dv, dl, dc, dlive, dhit = (
+            None if x is None else torch.from_numpy(
+                np.ascontiguousarray(x.view(np.int32) if x.dtype == np.uint32 else x)).to(dev)
+            for x in (vals_, lens_, codes_, live_, hit_))
+        out = torch.empty((U, q, n_), dtype=torch.bool, device=dev)
+
+        def go(out=out, dv=dv, dl=dl, dc=dc, dlive=dlive, dhit=dhit, U=U, q=q, rp_=rp_, n_=n_):
             _build.check(lib.tt_rle_cols_hit(
-                dv.data_ptr(), dl.data_ptr(), 1, 1, rp, dc.data_ptr(), K, q,
-                None if dlive is None else dlive.data_ptr(), dvalid.data_ptr(), n,
-                starts.data_ptr(), out.data_ptr(), stream()), "rle_cols_hit")
+                dv.data_ptr(), None if dl is None else dl.data_ptr(), U, 1, rp_,
+                dc.data_ptr(), K, q, None if dlive is None else dlive.data_ptr(),
+                None if dhit is None else dhit.data_ptr(), n_, out.data_ptr(), stream()),
+                "rle_cols_hit")
 
-        # its two launches apart: the run starts, then the hit grid over them
-        def go_starts(dl=dl, starts=starts):
-            _build.check(lib.tt_rle_run_starts(dl.data_ptr(), 1, 1, rp, starts.data_ptr(),
-                                               stream()), "rle_cols_hit starts")
-
-        def go_hit(dv=dv, dc=dc, dlive=dlive, out=out, starts=starts, q=q):
-            _build.check(lib.tt_rle_hit(
-                dv.data_ptr(), starts.data_ptr(), 1, 1, rp, dc.data_ptr(), K, q,
-                None if dlive is None else dlive.data_ptr(), dvalid.data_ptr(), n,
-                out.data_ptr(), stream()), "rle_cols_hit hit")
+        def path(dv=dv, dl=dl, dc=dc, dlive=dlive, dhit=dhit, n_=n_):
+            return pk.rle_hit_lanes(dv, dl, dc, n_, live=dlive, hit=dhit)
 
         go()
-        check(torch.equal(out.cpu(), pk.rle_hit_lanes(
-            torch.from_numpy(values.astype(np.int64)), torch.from_numpy(lengths),
-            torch.from_numpy(codes_.astype(np.int64)), n,
-            live=None if live_ is None else torch.from_numpy(live_),
-            hit=torch.from_numpy(valid))), "phase 17 (e): the C entry point != plain")
+        check(torch.equal(out, path()), f"phase 17 (e) {key}: the C entry point != the wrapper")
         before = pk.rle_cols_hit.launches
+        names = traced[key]
+        check(len(names) == 1 and "rle_cols_hit_kernel" in names[0],
+              f"phase 17 (e) {key}: a call's kernels in a torch.profiler trace are {names}")
         ms = kernel_ms(torch, [go])
-        starts_ms = kernel_ms(torch, [go_starts])
-        hit_ms = kernel_ms(torch, [go_hit])
-        path = path_ms(torch, lambda: pk.rle_hit_lanes(dv, dl, dc, n, live=dlive, hit=dvalid))
-        plain = path_ms(torch, lambda: pk._rle_hit_plain(dv, dl, dc, dlive, dvalid, n))
+        path_t = path_ms(torch, path)
+        plain = path_ms(torch, lambda: pk._rle_hit_plain(dv, dl, dc, dlive, dhit, n_))
+        # host time a call, 1,000 calls with no synchronise: the wrapper
+        # call, and the C entry point alone (the ctypes call and the launch)
+        host = {}
+        for label, fn in (("path", path), ("entry", go)):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(1000):
+                fn()
+            host[label] = (time.perf_counter() - t1) * 1e3  # ms for 1,000 calls = us a call
+            torch.cuda.synchronize()
+        host_us = host["path"]
         pk.rle_cols_hit.launches = before  # the comparison's launches are not the path's
-        cs = [dc[0, j, 0][dc[0, j, 0] != -1] for j in range(q)]
-        n_rows = int(lengths.sum())
+        cs = [[dc[u, j, 0][dc[u, j, 0] != -1] for j in range(q)] for u in range(U)]
+        if dl is None:
+            def chain():
+                return [torch.isin(dv[u, 0], cs[u][j]) for u in range(U) for j in range(q)]
+        else:
+            totals = [int(x) for x in lens_[:, 0].sum(1)]
 
-        def chain():
-            return [torch.repeat_interleave(torch.isin(dv[0, 0], cs[j]), dl[0, 0],
-                                            output_size=n_rows) for j in range(q)]
+            def chain():
+                return [torch.repeat_interleave(torch.isin(dv[u, 0], cs[u][j]), dl[u, 0],
+                                                output_size=totals[u])
+                        for u in range(U) for j in range(q)]
 
         libms = path_ms(torch, chain)
-        # values and lengths read once, the lane's codes and the valid mask
-        # once, the masks written once; the function needs one in-set test
-        # a run and lane (a compare per code, over the runs that hold rows)
+        # values and lengths read once, each lane's codes and the valid mask
+        # once, the masks written once; the function needs one in-set test a
+        # run and lane (a compare per code, over the runs that hold rows)
         # and one AND a row and lane as the verdicts expand
-        nbytes = rp * 8 + q * K * 4 + n + q * n
-        n_runs = int((lengths > 0).sum())
-        bnd, by = bound_ms(nbytes, q * (n_runs * K + n))
-        res[f"Q={q}"] = dict(shape=f"U=1 C=1 runs={len(l_np)} (run_pad {rp}) K={K} n={n} Q={q}",
-                             max_abs_err=0, ms=ms, starts_ms=starts_ms, hit_ms=hit_ms,
-                             path_ms=path, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                             library_ms=libms)
-        print(f"phase 17 (e) rle_cols_hit Q={q} ({res[f'Q={q}']['shape']}): kernel {ms:.5f} ms "
-              f"({bnd / ms:.1%} of bound; alone: run starts {starts_ms:.5f} ms, hit grid "
-              f"{hit_ms:.5f} ms), path {path:.4f} ms, plain {plain:.4f} ms, torch.isin + "
-              f"repeat_interleave chain {libms:.4f} ms, bound {bnd:.5f} ms ({by})", flush=True)
+        nbytes = U * (rp_ * (4 if lens_ is None else 8) + q * K * 4 + q * n_)
+        nbytes += 0 if hit_ is None else U * n_
+        n_runs = min(rp_, n_) if lens_ is None else int((lens_ > 0).sum())
+        bnd, by = bound_ms(nbytes, q * (n_runs * K + U * n_))
+        res[key] = dict(shape=shape, max_abs_err=0, ms=ms, path_ms=path_t, plain_ms=plain,
+                        bound_ms=bnd, bound_by=by, library_ms=libms, host_us_a_call=host_us,
+                        entry_host_us_a_call=host["entry"], kernels_a_call=len(names))
+        print(f"phase 17 (e) rle_cols_hit {key} ({shape}): kernel {ms:.5f} ms "
+              f"({bnd / ms:.2%} of bound), one launch a call (count and trace), path "
+              f"{path_t:.4f} ms, host {host_us:.2f} us a call (1,000 calls, no synchronise; "
+              f"the C entry point alone {host['entry']:.2f}), "
+              f"plain {plain:.4f} ms, torch.isin{'' if dl is None else ' + repeat_interleave'} "
+              f"chain {libms:.4f} ms, bound {bnd:.7f} ms ({by})", flush=True)
     print(f"phase 17 (e) rle_cols_hit: {res['cases']} cases == plain (in-set, batched Q=8 with a "
-          "dead column, a run a row, padding, truncation, a NO_MATCH value, several units)",
-          flush=True)
+          "dead column, a run a row, padding, truncation, a NO_MATCH value, several units, "
+          f"{len(RLE_EDGES)} edges with and without live and hit, a saturated first run, the "
+          "four timed shapes)", flush=True)
     return res
 
 
@@ -8019,7 +8217,8 @@ def main() -> int:
           "its tile's staged dbp words, masks and rle runs, and 4 B a bin a query lane where "
           "that fits 227 KB (else none: global atomics); resident_rle_kernel 65,536 B (a "
           "tile of 8,192 runs' values and lengths), resident_dbp_kernel none (its deltas stay "
-          "in registers)", flush=True)
+          "in registers), rle_cols_hit_kernel 8 B a run of its tile (up to 8,192) and 8 B a "
+          "(lane, code) of a lane group", flush=True)
 
     def stream() -> int:
         return torch.cuda.current_stream().cuda_stream
@@ -8775,7 +8974,9 @@ def main() -> int:
           f"{mesh['launches']} | by step {mesh['launches_by_step']}", flush=True)
     rle_times = rle_kernel_check(torch, dev, lib, stream, os.path.join(mesh_dir.name, "src"), rng)
     kernels["rle_cols_hit"] = dict(rle_times["Q=1"], launches=mesh["launches"]["rle_cols_hit"],
-                                   q8=rle_times["Q=8"], cases=rle_times["cases"])
+                                   q8=rle_times["Q=8"], units16=rle_times["U=16"],
+                                   run_a_row=rle_times["run a row"], cases=rle_times["cases"],
+                                   ptxas=rle_times["ptxas"])
     if torch.cuda.device_count() > 1:
         n_cards = torch.cuda.device_count()
         distinct = [torch.device("cuda", i % n_cards) for i in range(4)]
@@ -8794,7 +8995,7 @@ def main() -> int:
     source.update({k: "tempo_tpu_torch/csrc/graph_sketch_kernels.cu"
                    for k in GRAPH_SKETCH_KERNELS})
     source.update({k: "tempo_tpu_torch/csrc/tail_kernels.cu" for k in TAIL_KERNELS})
-    source["rle_cols_hit"] = "tempo_tpu_torch/csrc/rle_kernels.cu"
+    source["rle_cols_hit"] = "tempo_tpu_torch/csrc/codec_kernels.cu"
     replaces = {
         "seg_bincount": "tempo_tpu/ops/pallas_kernels.py:194",
         "in_set_scan": "tempo_tpu/ops/pallas_kernels.py:55",

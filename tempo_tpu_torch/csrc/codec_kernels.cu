@@ -1,12 +1,15 @@
 // Hand-written Hopper (sm_90a) kernels of the vtpu1 codec in tempo_tpu_torch:
 // the device page-encode arm (rle_change_mask, dbp_pack), the compiled
-// query tier (dbp_decode, compiled_metrics) and the device tier's resident
-// scans (resident_rle_scan, resident_dct_scan, resident_dbp_scan).
+// query tier (dbp_decode, compiled_metrics), the device tier's resident
+// scans (resident_rle_scan, resident_dct_scan, resident_dbp_scan) and the
+// fused run-length decode + in-set scan of the mesh and batched searches
+// (rle_cols_hit).
 //
 // These replace jitted device programs of the JAX package, not Pallas
 // kernels: ops/encode.py's _rle_kernel, _dbp_kernel and _pack_kernel,
-// ops/pallas_kernels.py's _dbp_decode_jit, compiled/program.py's
-// build_metrics_program and ops/scan.py's resident scans. Each computes the
+// ops/pallas_kernels.py's _dbp_decode_jit and rle_cols_hit(_live),
+// compiled/program.py's build_metrics_program and ops/scan.py's resident
+// scans. Each computes the
 // same function as its plain PyTorch version beside its wrapper
 // (tempo_tpu_torch/ops/encode.py, ops/pallas_kernels.py,
 // compiled/program.py, ops/scan.py). The interface is plain C,
@@ -1277,14 +1280,13 @@ __device__ __forceinline__ int64_t bulk_words(const Segment& s) {
   return (reinterpret_cast<uintptr_t>(s.src) & 15u) ? 0 : (s.count & ~(int64_t)3);
 }
 
-// Stage the segments with every thread of the block: thread 0 arms the
-// barrier with the bodies' bytes and issues their bulk copies, every thread
-// loads the tails and zeroes the fill, then all wait for the barrier's
-// phase `parity` and meet at a block barrier. A buffer read before must be
+// Start staging the segments with every thread of the block: thread 0 arms
+// the barrier with the bodies' bytes and issues their bulk copies, every
+// thread loads the tails and zeroes the fill. A buffer read before must be
 // released by a block barrier first; the proxy fence orders those reads
-// before the copy's writes.
+// before the copy's writes. stage_wait completes it.
 template <int N>
-__device__ __forceinline__ void stage_bulk(const Segment (&seg)[N], u64* bar, uint32_t parity) {
+__device__ __forceinline__ void stage_issue(const Segment (&seg)[N], u64* bar) {
   if (threadIdx.x == 0) {
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     uint32_t bytes = 0;
@@ -1310,8 +1312,19 @@ __device__ __forceinline__ void stage_bulk(const Segment (&seg)[N], u64* bar, ui
     for (int64_t k = bulk_words(seg[i]) + threadIdx.x; k < seg[i].fill; k += blockDim.x)
       seg[i].dst[k] = k < seg[i].count ? __ldg(seg[i].src + k) : 0u;
   }
+}
+
+// Wait for the barrier's phase `parity` and meet at a block barrier.
+__device__ __forceinline__ void stage_wait(u64* bar, uint32_t parity) {
   mbar_wait(bar, parity);
   __syncthreads();
+}
+
+// Stage the segments: stage_issue, then stage_wait.
+template <int N>
+__device__ __forceinline__ void stage_bulk(const Segment (&seg)[N], u64* bar, uint32_t parity) {
+  stage_issue(seg, bar);
+  stage_wait(bar, parity);
 }
 
 // Rows [a, b) of out (b - a <= 16) from the verdict bytes w (byte k: row
@@ -1328,22 +1341,34 @@ __device__ __forceinline__ void store_rows(uint8_t* __restrict__ out, int64_t ba
   }
 }
 
-// The rows [lo, hi) of one run tile: cnt runs with their starts and
-// verdicts in shared memory.
-__device__ __forceinline__ void rle_expand(const uint32_t* verdict, const int32_t* starts, int cnt,
-                                           int64_t lo, int64_t hi, uint8_t* __restrict__ out) {
-  for (int64_t base = (lo & ~(int64_t)15) + 16 * (int64_t)threadIdx.x; base < hi;
-       base += 16 * (int64_t)blockDim.x) {
+// The run of a tile that covers row a: the last of its cnt starts (in
+// shared memory, ascending, starts[0] <= a) at or before a.
+__device__ __forceinline__ int covering_run(const int32_t* starts, int cnt, int64_t a) {
+  int l = 0, h = cnt - 1;
+  while (l < h) {
+    const int m = (l + h + 1) >> 1;
+    if (starts[m] <= a) l = m;
+    else h = m - 1;
+  }
+  return l;
+}
+
+// The rows [lo, hi) of one run tile (cnt runs with their starts and
+// verdicts in shared memory, starts[0] <= lo) in 16-row chunks from row
+// `first`, blockDim.x chunks apart: each chunk's rows [a, b) in [lo, hi)
+// find their first row's run by covering_run and walk on, calling
+// row(k, v) on each row base + k with that row's verdict v, then
+// chunk(base, a, b).
+template <typename Row, typename Chunk>
+__device__ __forceinline__ void rle_walk(const uint32_t* verdict, const int32_t* starts, int cnt,
+                                         int64_t lo, int64_t hi, int64_t first, Row&& row_fn,
+                                         Chunk&& chunk) {
+  for (int64_t base = first; base < hi; base += 16 * (int64_t)blockDim.x) {
     const int64_t a = base > lo ? base : lo, b = min64(base + 16, hi);
-    int l = 0, h = cnt - 1;  // the last run starting at or before a (starts[0] <= lo <= a)
-    while (l < h) {
-      const int m = (l + h + 1) >> 1;
-      if (starts[m] <= a) l = m;
-      else h = m - 1;
-    }
+    if (a >= b) continue;
+    int l = covering_run(starts, cnt, a);
     int64_t next = l + 1 < cnt ? starts[l + 1] : INT64_MAX;
     uint32_t v = verdict[l];
-    uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
     for (int k = 0; k < 16; ++k) {
       const int64_t row = base + k;
@@ -1353,11 +1378,24 @@ __device__ __forceinline__ void rle_expand(const uint32_t* verdict, const int32_
           v = verdict[l];
           next = l + 1 < cnt ? starts[l + 1] : INT64_MAX;
         }
-        w[k >> 2] |= v << (8 * (k & 3));
+        row_fn(k, v);
       }
     }
-    store_rows(out, base, a, b, w);
+    chunk(base, a, b);
   }
+}
+
+// The rows [lo, hi) of one run tile as mask bytes in out.
+__device__ __forceinline__ void rle_expand(const uint32_t* verdict, const int32_t* starts, int cnt,
+                                           int64_t lo, int64_t hi, uint8_t* __restrict__ out) {
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  rle_walk(
+      verdict, starts, cnt, lo, hi, (lo & ~(int64_t)15) + 16 * (int64_t)threadIdx.x,
+      [&](int k, uint32_t v) { w[k >> 2] |= v << (8 * (k & 3)); },
+      [&](int64_t base, int64_t a, int64_t b) {
+        store_rows(out, base, a, b, w);
+        w[0] = w[1] = w[2] = w[3] = 0u;
+      });
 }
 
 __device__ __forceinline__ ScanPage scan_page(const ScanParams& p, int64_t pi) {
@@ -1369,6 +1407,33 @@ __device__ __forceinline__ void row_share(int64_t n, int ctas, int c, int64_t* l
   const int64_t per = cdiv(cdiv(n, 16), ctas) * 16;
   *lo = min64(n, c * per);
   *hi = min64(n, *lo + per);
+}
+
+// A staged tile's cnt lengths -> their starts in place: the exclusive
+// prefix sum from carry (the lengths of the tiles before), in 64 bits, so
+// no sum wraps, saturated at n. Thread t owns `per` consecutive runs, per
+// odd, so that a warp's threads read and write distinct banks, and calls
+// each(j) on each of its runs once that run's start is written. Returns
+// the tile's total length; ends with a block barrier.
+template <typename Each>
+__device__ __forceinline__ int64_t tile_starts(int32_t* starts, int cnt, int64_t carry, int64_t n,
+                                               int64_t* warp_tot, Each&& each) {
+  const int per = (int)(cdiv(cnt, kThreads) | 1);
+  const int j0 = min(cnt, (int)threadIdx.x * per), j1 = min(cnt, j0 + per);
+  int64_t s = 0;
+#pragma unroll 4
+  for (int j = j0; j < j1; ++j) s += starts[j];
+  int64_t total;
+  int64_t acc = carry + block_exclusive(s, warp_tot, &total);  // ends with a barrier
+#pragma unroll 4
+  for (int j = j0; j < j1; ++j) {
+    const int32_t len = starts[j];
+    starts[j] = (int32_t)min64(acc, n);
+    each(j);
+    acc += len;
+  }
+  __syncthreads();
+  return total;
 }
 
 __global__ void __launch_bounds__(kThreads) resident_rle_kernel(const __grid_constant__ ScanParams p) {
@@ -1403,29 +1468,250 @@ __global__ void __launch_bounds__(kThreads) resident_rle_kernel(const __grid_con
                             {reinterpret_cast<uint32_t*>(starts), pg.b + k0, cnt, cnt}};
     stage_bulk(seg, &bar, parity);
     parity ^= 1u;
-    // starts and verdicts in place: thread t owns `per` consecutive runs,
-    // per odd, so that a warp's threads read and write distinct banks
-    const int per = (int)(cdiv(cnt, kThreads) | 1);
-    const int j0 = min(cnt, (int)threadIdx.x * per), j1 = min(cnt, j0 + per);
-    int64_t s = 0;
-#pragma unroll 4
-    for (int j = j0; j < j1; ++j) s += starts[j];
-    int64_t total;
-    int64_t acc = carry + block_exclusive(s, warp_tot, &total);  // ends with a barrier
-#pragma unroll 4
-    for (int j = j0; j < j1; ++j) {
-      const int32_t len = starts[j];
-      starts[j] = (int32_t)min64(acc, n);
+    const int64_t total = tile_starts(starts, cnt, carry, n, warp_tot, [&](int j) {
       verdict[j] = scan_verdict(p, codes, c8, verdict[j]) ? 1u : 0u;
-      acc += len;
-    }
-    __syncthreads();
+    });
     const int64_t s0 = min64(carry, n);
     const int64_t s1 = k0 + cnt < r ? min64(carry + total, n) : n;
     const int64_t lo = s0 > row_lo ? s0 : row_lo, hi = min64(s1, row_hi);
     if (lo < hi) rle_expand(verdict, starts, cnt, lo, hi, out);
     carry += total;
     __syncthreads();  // the tile is read before the next stage overwrites it
+  }
+}
+
+// ---------------------------------------------------------------------------
+// rle_cols_hit: the fused run-length decode + in-set scan
+//
+// Replaces the jitted programs rle_cols_hit / rle_cols_hit_live
+// (tempo_tpu/ops/pallas_kernels.py:478-515) and the programs built on them:
+// _batched_rle_in_set_jit (:517), _fused_rle_in_set_jit (:551) and the mesh
+// scans make_sharded_rle_scan / make_sharded_batched_rle_scan
+// (tempo_tpu/parallel/search.py:133,175). The wrapper and the plain PyTorch
+// version are rle_hit_lanes and _rle_hit_plain in
+// tempo_tpu_torch/ops/pallas_kernels.py.
+//
+// The function, for unit u (a row group's run payload), lane q (a query's
+// code sets) and row r < n:
+//   out[u][q][r] = hit[u][r] AND over columns c of
+//                  (not live[u][q][c]) OR (values[u][c][j] in codes[u][q][c])
+// where j is the run that covers row r: the LAST run whose exclusive start
+// (the prefix sum of lengths[u][c]) is <= r. That is jnp.repeat's rule with
+// total_repeat_length = n: rows past the runs' total take the last run, even
+// a zero-length padding run, and runs that overrun n are cut. The code
+// 0xFFFFFFFF pads a code set and never matches, even a value 0xFFFFFFFF.
+// Without `lengths` every run covers one row (an expanded column: the mesh
+// tag scan), so j = min(r, run_pad - 1). Without `live` every column is
+// live; without `hit` every row starts true.
+//
+// What bounds it: bytes, 8 a run, 4 a code, a byte a row of `hit` and one a
+// row and lane of out. A mesh shard's unit is tens of KB, far under a
+// microsecond at the card's memory rate, so in practice the launch and the
+// few dependent steps inside it decide the time. Design: one launch a call,
+// no global scratch, on the resident rle scan's run-tile machinery. A unit's
+// rows are cut into shares of at most kHitRows (row_share), a CTA a share,
+// and each CTA serves every lane of its unit, so its runs are staged and
+// scanned once for all lanes. Each thread owns one 16-row chunk of the
+// share and keeps a word a row in registers for a group of up to 32 lanes
+// (bit q for lane q), ANDed over the columns. For each column the CTA
+// - puts in flight together the column's first run tile (values and
+//   lengths, up to kRunTile runs, by bulk copy: stage_issue), the first
+//   round of the group's codes and the live flags (and, before the first
+//   column, each thread's 16 bytes of `hit`), so their latencies overlap;
+// - skips the column where it is dead for every lane of the group, else
+//   gathers the group's code sets into one list of (code, lane bit) pairs
+//   in shared memory, the padding code and dead lanes dropped (a lane with
+//   2 real codes of 64 costs 2 compares a run);
+// - scans the lengths into 32-bit starts saturated at n (tile_starts: 64-bit
+//   sums carried across tiles, so any int32 lengths are exact), and stops at
+//   the first tile that starts past its share;
+// - tests each run that covers its rows once against the list, a verdict
+//   word a run (bit q: the value is in lane q's set, or the column is dead
+//   for lane q), written over the run's value;
+// - expands the verdicts to the rows by rle_walk, each thread walking its
+//   own chunk, and ANDs them into its row words.
+// Without lengths the run is the row: no tile and no scan; each thread
+// loads its rows' values (16-byte loads) with the codes and tests them.
+// Last, each thread writes its chunk of every lane, ANDed with `hit`, as
+// one 16-byte store. More lanes than a group (32, or kHitCodes / K with a
+// code set of more than 64) take further groups, each repeating the column
+// loop.
+// ---------------------------------------------------------------------------
+
+constexpr int kHitRows = 16 * kThreads;  // the most rows a CTA owns: a 16-row chunk a thread
+constexpr int kHitCodes = 2048;  // (code, lane bit) pairs a lane group gathers: 32 lanes at K = 64
+constexpr uint32_t kNoMatch = 0xFFFFFFFFu;
+
+struct HitParams {
+  const uint32_t* values;  // (U, C, RP)
+  const int32_t* lengths;  // (U, C, RP), or null: a run a row
+  const uint32_t* codes;   // (U, Q, C, K)
+  const uint8_t* live;     // (U, Q, C), or null
+  const uint8_t* hit;      // (U, n), or null
+  uint8_t* out;            // (U, Q, n)
+  int64_t n;
+  int32_t cols, run_pad, n_codes, lanes;
+  int32_t ctas;   // CTAs a unit
+  int32_t group;  // lanes a group
+  int32_t tile;   // runs a staged tile (a multiple of 4; 0 without lengths)
+};
+
+// The 16 bytes at p[0, 16) as words, byte k in word k / 4 at bit 8 (k % 4):
+// one 16-byte load when p is 16-byte aligned and the 16 bytes lie before
+// `end`, else the bytes before `end` (the rest 0).
+__device__ __forceinline__ void load16(const uint8_t* p, const uint8_t* end, uint32_t (&w)[4]) {
+  if (p + 16 <= end && (reinterpret_cast<uintptr_t>(p) & 15u) == 0) {
+    const uint4 x = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    if ((k & 3) == 0) w[k >> 2] = 0u;
+    if (p + k < end) w[k >> 2] |= (uint32_t)__ldg(p + k) << (8 * (k & 3));
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) rle_cols_hit_kernel(const __grid_constant__ HitParams p) {
+  extern __shared__ uint4 hit_sm4[];
+  uint32_t* verdict = reinterpret_cast<uint32_t*>(hit_sm4);        // run values, then verdicts
+  int32_t* starts = reinterpret_cast<int32_t*>(verdict + p.tile);  // lengths, then starts
+  uint2* set = reinterpret_cast<uint2*>(starts + p.tile);  // the group's (code, lane bit) pairs
+  __shared__ u64 bar;
+  __shared__ int64_t warp_tot[kWarps];
+  const int64_t u = blockIdx.x / (unsigned)p.ctas;
+  const int64_t n = p.n, rp = p.run_pad;
+  int64_t row_lo, row_hi;
+  row_share(n, p.ctas, (int)(blockIdx.x % (unsigned)p.ctas), &row_lo, &row_hi);
+  if (row_lo >= row_hi) return;
+  // this thread's rows: one 16-row chunk [base, end) of the share (empty
+  // past it), their lane words in registers across the columns
+  const int64_t base = row_lo + 16 * (int64_t)threadIdx.x, end = min64(base + 16, row_hi);
+  const int lane = (int)(threadIdx.x & 31);
+  uint32_t h[4] = {0x01010101u, 0x01010101u, 0x01010101u, 0x01010101u};
+  if (p.hit != nullptr && base < end) load16(p.hit + u * n + base, p.hit + u * n + end, h);
+  if (threadIdx.x == 0) mbar_init(&bar);
+  uint32_t parity = 0;
+  for (int q0 = 0; q0 < p.lanes; q0 += p.group) {
+    const int nl = min(p.group, p.lanes - q0);
+    const uint32_t all = nl == 32 ? 0xFFFFFFFFu : (1u << nl) - 1u;
+    const int64_t lane0 = u * p.lanes + q0;  // the group's first (unit, lane)
+    const int total = nl * p.n_codes;        // the group's codes of a column
+    uint32_t rw[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) rw[k] = 0xFFFFFFFFu;
+    for (int c = 0; c < p.cols; ++c) {
+      const int64_t uc = u * p.cols + c;
+      __syncthreads();  // the column before is read (and the barrier made)
+      // in flight together: the first run tile, the values of this
+      // thread's rows (a run a row), the first round of codes, the flags
+      if (p.lengths != nullptr) {
+        const int first = (int)min64(p.tile, rp);
+        const Segment seg[2] = {
+            {verdict, p.values + uc * rp, first, first},
+            {reinterpret_cast<uint32_t*>(starts),
+             reinterpret_cast<const uint32_t*>(p.lengths) + uc * rp, first, first}};
+        stage_issue(seg, &bar);
+      }
+      uint32_t v16[16];
+      if (p.lengths == nullptr) {
+        const uint32_t* vals = p.values + uc * rp;
+        if (base + 16 <= rp && (reinterpret_cast<uintptr_t>(vals + base) & 15u) == 0) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const uint4 x = __ldg(reinterpret_cast<const uint4*>(vals + base) + i);
+            v16[4 * i] = x.x, v16[4 * i + 1] = x.y, v16[4 * i + 2] = x.z, v16[4 * i + 3] = x.w;
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < 16; ++k)
+            v16[k] = base + k < end ? __ldg(vals + min64(base + k, rp - 1)) : 0u;
+        }
+      }
+      auto code_at = [&](int e) {  // code e of the group's column c (lane e / K)
+        const int q = e / p.n_codes;
+        return __ldg(p.codes + ((lane0 + q) * p.cols + c) * p.n_codes + (e - q * p.n_codes));
+      };
+      uint32_t code = (int)threadIdx.x < total ? code_at((int)threadIdx.x) : kNoMatch;
+      // the group's lanes for which column c is dead, in every warp
+      const uint32_t dead = __ballot_sync(
+          0xffffffffu, p.live != nullptr && lane < nl && p.live[(lane0 + lane) * p.cols + c] == 0);
+      if (dead == all) {  // every row passes for every lane
+        if (p.lengths != nullptr) {
+          stage_wait(&bar, parity);
+          parity ^= 1u;
+        }
+        continue;
+      }
+      int ns = 0;  // the list's pairs
+      for (int e0 = 0; e0 < total; e0 += kThreads) {
+        const int e = e0 + (int)threadIdx.x;
+        if (e0 > 0) code = e < total ? code_at(e) : kNoMatch;
+        const uint32_t bit = e < total ? 1u << (e / p.n_codes) : 0u;
+        const bool keep = code != kNoMatch && !(dead & bit);
+        int64_t part;
+        const int at = ns + (int)block_exclusive<int64_t>(keep, warp_tot, &part);
+        if (keep) set[at] = make_uint2(code, bit);
+        ns += (int)part;
+      }
+      auto word = [&](uint32_t v) {  // a value's verdict word
+        uint32_t w = dead;
+        for (int i = 0; i < ns; ++i) {
+          const uint2 s = set[i];
+          w |= v == s.x ? s.y : 0u;
+        }
+        return w;
+      };
+      if (p.lengths == nullptr) {
+        __syncthreads();  // the list is written
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+          if (base + k < end) rw[k] &= word(v16[k]);
+        }
+        continue;
+      }
+      int64_t carry = 0;  // the lengths of the tiles before
+      for (int64_t k0 = 0; k0 < rp && min64(carry, n) < row_hi; k0 += p.tile) {
+        const int cnt = (int)min64(p.tile, rp - k0);
+        if (k0 == 0) {
+          stage_wait(&bar, parity);  // its barrier also publishes the list
+        } else {
+          const Segment next[2] = {
+              {verdict, p.values + uc * rp + k0, cnt, cnt},
+              {reinterpret_cast<uint32_t*>(starts),
+               reinterpret_cast<const uint32_t*>(p.lengths) + uc * rp + k0, cnt, cnt}};
+          stage_bulk(next, &bar, parity);
+        }
+        parity ^= 1u;
+        const int64_t sum = tile_starts(starts, cnt, carry, n, warp_tot, [](int) {});
+        const int64_t s0 = min64(carry, n);
+        const int64_t s1 = k0 + cnt < rp ? min64(carry + sum, n) : n;
+        const int64_t lo = s0 > row_lo ? s0 : row_lo, hi = min64(s1, row_hi);
+        carry += sum;
+        if (lo < hi) {
+          const int j1 = covering_run(starts, cnt, hi - 1);
+          for (int j = covering_run(starts, cnt, lo) + (int)threadIdx.x; j <= j1; j += kThreads)
+            verdict[j] = word(verdict[j]);
+          __syncthreads();
+          rle_walk(
+              verdict, starts, cnt, lo, hi, base, [&](int k, uint32_t v) { rw[k] &= v; },
+              [](int64_t, int64_t, int64_t) {});
+        }
+        __syncthreads();  // the tile is read before the next stage overwrites it
+      }
+    }
+    if (base < end) {
+      for (int q = 0; q < nl; ++q) {
+        uint32_t w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          w[i] = (((rw[4 * i] >> q) & 1u) | (((rw[4 * i + 1] >> q) & 1u) << 8) |
+                  (((rw[4 * i + 2] >> q) & 1u) << 16) | (((rw[4 * i + 3] >> q) & 1u) << 24)) &
+                 h[i];
+        }
+        store_rows(p.out + (lane0 + q) * n, base, base, end, w);
+      }
+    }
   }
 }
 
@@ -2000,6 +2286,42 @@ int tt_resident_dbp_scan(const int64_t* page, uint64_t lo, uint64_t hi, void* ou
 int tt_resident_dbp_scan_batch(const void* table, int32_t n_pages, int64_t max_n, uint64_t lo,
                                uint64_t hi, void* out, int32_t* launched, void* stream) {
   return dbp_scan(nullptr, table, n_pages, max_n, lo, hi, out, launched, stream);
+}
+
+// values (U, C, RP) uint32; lengths (U, C, RP) int32 >= 0, or null (a run
+// a row); codes (U, Q, C, K) uint32; live (U, Q, C) bool or null; hit (U,
+// n) bool or null; out (U, Q, n) bool. One launch (none when there is no
+// row or lane); n <= INT32_MAX.
+int tt_rle_cols_hit(const uint32_t* values, const int32_t* lengths, int32_t n_units,
+                    int32_t n_cols, int32_t run_pad, const uint32_t* codes, int32_t n_codes,
+                    int32_t n_lanes, const uint8_t* live, const uint8_t* hit, int64_t n,
+                    uint8_t* out, void* stream) {
+  if (n_units <= 0 || n_lanes <= 0 || n <= 0) return 0;
+  if (n_cols <= 0 || run_pad <= 0 || n_codes <= 0 || n > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  HitParams p;
+  p.values = values;
+  p.lengths = lengths;
+  p.codes = codes;
+  p.live = live;
+  p.hit = hit;
+  p.out = out;
+  p.n = n;
+  p.cols = n_cols;
+  p.run_pad = run_pad;
+  p.n_codes = n_codes;
+  p.lanes = n_lanes;
+  p.ctas = (int)cdiv(n, kHitRows);
+  p.group = std::max(1, std::min(32, kHitCodes / n_codes));
+  p.tile = lengths == nullptr ? 0 : (int)((std::min<int64_t>(run_pad, kRunTile) + 3) & ~3);
+  const int64_t grid = (int64_t)n_units * p.ctas;
+  const int64_t smem = (int64_t)p.tile * 8 + (int64_t)p.group * n_codes * 8;
+  if (grid > INT32_MAX || smem > kMaxDynSmem) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      rle_cols_hit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  rle_cols_hit_kernel<<<(unsigned)grid, kThreads, (size_t)smem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,10 +1,10 @@
 """Build and load the port's CUDA kernels (csrc/kernels.cu: the three
 Pallas kernels; csrc/codec_kernels.cu: the codec's page encode, the
-compiled query tier and the device tier's resident scans;
+compiled query tier, the device tier's resident scans and the fused
+run-length decode + in-set scan of the mesh and batched searches;
 csrc/graph_sketch_kernels.cu: the HLL and count-min updates and the
 critical path's pointer doubling; csrc/tail_kernels.cu: the ingest
-tail's standing fold and live-tail search mask; csrc/rle_kernels.cu: the
-fused run-length decode + in-set scan of the mesh and batched searches).
+tail's standing fold and live-tail search mask).
 
 nvcc compiles each source into a shared library with a plain C
 interface, tagged with a hash of the source, under tempo_tpu_torch/_build/
@@ -27,8 +27,7 @@ import subprocess
 import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = ("kernels.cu", "codec_kernels.cu", "graph_sketch_kernels.cu", "tail_kernels.cu",
-           "rle_kernels.cu")
+SOURCES = ("kernels.cu", "codec_kernels.cu", "graph_sketch_kernels.cu", "tail_kernels.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -70,10 +69,7 @@ _SIGNATURES = {
     # a pointer to the host descriptor, then the stream
     "tt_tail_fold": [_P, _P],
     "tt_tail_scan": [_P, _P],
-    "tt_rle_cols_hit": [_P, _P, _I32, _I32, _I32, _P, _I32, _I32, _P, _P, _I64, _P, _P, _P],
-    # its two launches one at a time (timed apart)
-    "tt_rle_run_starts": [_P, _I32, _I32, _I32, _P, _P],
-    "tt_rle_hit": [_P, _P, _I32, _I32, _I32, _P, _I32, _I32, _P, _P, _I64, _P, _P],
+    "tt_rle_cols_hit": [_P, _P, _I32, _I32, _I32, _P, _I32, _I32, _P, _P, _I64, _P, _P],
 }
 
 

@@ -9,8 +9,8 @@ and the fused run-length decode + in-set scan of the mesh and batched
 searches (rle_cols_hit, rle_cols_hit_live, fused_rle_in_set,
 batched_rle_in_set, over one body rle_hit_lanes: the JAX package's jnp
 program became the rle_cols_hit kernel). Each kernel is CUDA C++ in
-csrc/kernels.cu (csrc/codec_kernels.cu for the decode,
-csrc/rle_kernels.cu for the fused scan), built with nvcc at first use (ops/_build.py) and launched
+csrc/kernels.cu (csrc/codec_kernels.cu for the decode and the fused
+scan), built with nvcc at first use (ops/_build.py) and launched
 through ctypes on PyTorch's current stream.
 
 Beside each kernel sits its plain PyTorch version (_seg_bincount_plain,
@@ -437,8 +437,8 @@ def dbp_decode_device(page: bytes, dtype: str, shape: tuple, device) -> np.ndarr
 # fused RLE decode + in-set scan (the mesh and batched multi-query searches)
 # ---------------------------------------------------------------------------
 
-_RLE_MAX_SMEM = 48 * 1024  # the lane's (C, K) codes and C live flags, in shared memory
-_RLE_MAX_LANES = 65535  # units x lanes of one launch (the grid's y extent)
+_RLE_MAX_SMEM = 48 * 1024  # a lane's (C, K) code table and C live flags a call takes
+_RLE_MAX_LANES = 65535  # units x lanes a call takes
 
 
 def rle_expand_device(values: torch.Tensor, lengths: torch.Tensor, n: int) -> torch.Tensor:
@@ -513,15 +513,12 @@ def _rle_hit_cuda(values, lengths, codes, live, hit, n) -> torch.Tensor:
     out = torch.empty((U, Q, n), dtype=torch.bool, device=values.device)
     if n == 0 or U * Q == 0:
         return out
-    starts = (torch.empty((U, C, RP), dtype=torch.int64, device=values.device)
-              if lengths is not None else None)
     lib = _build.lib()
     with torch.cuda.device(values.device):
         err = lib.tt_rle_cols_hit(
             values.data_ptr(), None if lengths is None else lengths.data_ptr(), U, C, RP,
             codes.data_ptr(), K, Q, None if live is None else live.data_ptr(),
-            None if hit is None else hit.data_ptr(), n,
-            None if starts is None else starts.data_ptr(), out.data_ptr(), _stream(values))
+            None if hit is None else hit.data_ptr(), n, out.data_ptr(), _stream(values))
     _build.check(err, "rle_cols_hit")
     rle_cols_hit.launches += 1
     return out
@@ -534,11 +531,12 @@ def rle_hit_lanes(values: torch.Tensor, lengths: torch.Tensor | None, codes: tor
     Q lanes of code sets each. values (U, C, RP) integer tensor of uint32
     values; lengths (U, C, RP) run lengths, or None when every run is one
     row (an expanded column); codes (U, Q, C, K) padded with NO_MATCH_CODE
-    (K <= 64 in practice: one lane's table sits in shared memory); live
-    (U, Q, C) bool or None (all live: a dead column accepts every row);
+    (K <= 64 in practice: 32 lanes' sets of a column sit in shared
+    memory); live (U, Q, C) bool or None (all live: a dead column accepts
+    every row);
     hit (U, n) bool or None (all True). Returns (U, Q, n) bool: the plain
     version for CPU tensors, the rle_cols_hit kernel for CUDA tensors (one
-    call, two launches: the run starts, then the rows)."""
+    launch a call, no scratch)."""
     if values.ndim != 3 or codes.ndim != 4 or codes.shape[0] != values.shape[0] \
             or codes.shape[2] != values.shape[1]:
         raise ValueError("rle_cols_hit: values (U, C, RP), codes (U, Q, C, K)")
