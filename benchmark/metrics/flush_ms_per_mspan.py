@@ -1,0 +1,8 @@
+"""Block-writer time a million spans: the benchmark's spans around each
+TempoDB.write_batch of the window's completed units."""
+
+
+def read(ctx):
+    spans = [s for s in ctx["spans"] if s[0] == "write_batch"]
+    n = sum(s[2] for s in spans)
+    return sum(s[1] for s in spans) * 1e3 / (n / 1e6) if n else None
